@@ -1,0 +1,744 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch / CUDA port (greptimedb_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py [--seed N]
+
+Phases (none of them catches a failure; any failed check exits non-zero):
+
+1. the card (nvidia-smi name and power limit), torch and CUDA versions,
+   and whether pandas, pyarrow and prometheus_client import here;
+2. builds the window-bounds kernel from greptimedb_tpu_torch/csrc with
+   nvcc (sm_90a) into the package's git-ignored build directory;
+3. holds the kernel against its plain PyTorch version (exact int32
+   equality) at the reference's test shapes, unsorted rows, a step grid
+   wider than 48 KB of bins, one wider than a shared-memory tile, and the
+   main-path shape, and times kernel, plain version and the one-call
+   yardstick torch.searchsorted with CUDA events;
+4. serves PromQL range queries through PromqlEngine.query_to_prom_json on
+   the GPU over the TSBS cpu-only devops data set (4000 hosts, 10 s
+   interval, 24 h), checks 64 sampled series at every step against a
+   float64 numpy brute force, and runs the gather-path functions at a
+   reduced size.
+
+The line before the last is a JSON object with the kernel's numbers; the
+last line is {"ok": true, "device": {...}}. Without CUDA, or without the
+package beside this script, it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+#: the card the script drives (a rehearsal on the CPU may swap it)
+DEVICE = "cuda"
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
+#: H100 SXM peak outside the tensor cores (float32; the table gives no
+#: separate int32 rate), for the kernel's integer compare-adds
+SCALAR_OPS_PER_S = 67e12
+U32 = 2.0 ** -24                   # float32 unit roundoff
+U64 = 2.0 ** -53                   # float64 unit roundoff
+QUANT = 1e-5                       # the engine prints 6 significant digits
+
+# TSBS devops: pkg/data/usecases/devops/host.go regions and datacenters
+TSBS_REGIONS = {
+    "us-east-1": ["us-east-1a", "us-east-1b", "us-east-1c", "us-east-1e"],
+    "us-west-1": ["us-west-1a", "us-west-1b"],
+    "us-west-2": ["us-west-2a", "us-west-2b", "us-west-2c"],
+    "eu-west-1": ["eu-west-1a", "eu-west-1b", "eu-west-1c"],
+    "eu-central-1": ["eu-central-1a", "eu-central-1b"],
+    "ap-southeast-1": ["ap-southeast-1a", "ap-southeast-1b"],
+    "ap-southeast-2": ["ap-southeast-2a", "ap-southeast-2b"],
+    "ap-northeast-1": ["ap-northeast-1a", "ap-northeast-1c"],
+    "sa-east-1": ["sa-east-1a", "sa-east-1b", "sa-east-1c"],
+}
+TSBS_START_MS = 1_451_606_400_000          # 2016-01-01T00:00:00Z
+INTERVAL_MS = 10_000
+HOSTS = 4000                               # TSBS --scale
+HOURS = 24
+STEP_MS = 60_000
+RANGE_MS = 300_000
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+# ---------------------------------------------------------------------------
+# phase 1
+# ---------------------------------------------------------------------------
+
+def phase_machine(torch) -> None:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
+        f"{sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
+    for mod in ("pandas", "pyarrow", "prometheus_client"):
+        r = subprocess.run([sys.executable, "-c", f"import {mod}"],
+                           capture_output=True, text=True)
+        log(f"import {mod}: {'ok' if r.returncode == 0 else 'missing'}")
+
+
+# ---------------------------------------------------------------------------
+# phase 2 + 3: the kernel
+# ---------------------------------------------------------------------------
+
+def median_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def phase_kernel_build():
+    from greptimedb_tpu_torch.ops import cuda_build
+    t0 = time.perf_counter()
+    path = cuda_build.build("counts_leq")
+    secs = time.perf_counter() - t0
+    info = cuda_build.build_info["counts_leq"]
+    how = "built" if info["seconds"] else "reused"
+    log(f"build counts_leq: {secs:.2f}s ({how} "
+        f"{os.path.relpath(path, HERE)})")
+    for line in info["log"].splitlines():
+        if "ptxas info" in line:
+            log(f"  {line.strip()}")
+
+
+def phase_kernel_check(torch, main_b: "torch.Tensor", main_T: int) -> dict:
+    from greptimedb_tpu_torch.ops import pallas_window as pw
+    rng = np.random.default_rng(1234)
+    cases = [
+        ("test_pallas (8,512) T=128", (8, 512), 128, True),
+        ("test_pallas (20,300) T=97", (20, 300), 97, True),
+        ("test_pallas (1,1) T=1", (1, 1), 1, True),
+        ("test_pallas (130,1030) T=200", (130, 1030), 200, True),
+        ("unsorted rows (257,1000) T=300", (257, 1000), 300, False),
+        ("T=20000 (78 KB of bins)", (64, 4096), 20_000, True),
+        ("T=70000 (two bin tiles)", (16, 8192), 70_000, False),
+        ("L=65536 (rows past 32768 samples) T=2053", (16, 65_536), 2053,
+         True),
+    ]
+    max_err = 0
+    for name, shape, T, srt in cases:
+        b = rng.integers(-2, T + 2, shape).astype(np.int32)
+        if srt:
+            b = np.sort(b, axis=1)
+        bt = torch.as_tensor(b, device=DEVICE)
+        got = pw.counts_leq(bt, T)
+        want = pw.counts_leq_plain(bt, T)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+        max_err = max(max_err, err)
+        check(torch.equal(got, want), f"counts_leq != plain at {name}")
+        log(f"counts_leq == plain: {name}")
+
+    S, L = main_b.shape
+    got = pw.counts_leq(main_b, main_T)
+    want = pw.counts_leq_plain(main_b, main_T)
+    ks = torch.arange(main_T, dtype=torch.int32, device=DEVICE)[None, :] \
+        .expand(S, -1).contiguous()
+    lib = torch.searchsorted(main_b, ks, right=True)
+    torch.cuda.synchronize()
+    max_err = max(max_err, int((got.long() - want.long()).abs().max()))
+    check(torch.equal(got, want), "counts_leq != plain at the main-path shape")
+    check(torch.equal(got.long(), lib),
+          "counts_leq != searchsorted (sorted rows)")
+    log(f"counts_leq == plain == searchsorted at the main-path shape "
+        f"({S}, {L}) T={main_T}")
+    ms = median_ms(torch, lambda: pw.counts_leq(main_b, main_T))
+    plain_ms = median_ms(torch, lambda: pw.counts_leq_plain(main_b, main_T))
+    library_ms = median_ms(
+        torch, lambda: torch.searchsorted(main_b, ks, right=True))
+    # bound: each input read once, each output written once; one
+    # compare-add per sample and one add per step
+    nbytes = (S * L + S * main_T) * 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = (S * L + S * main_T) / SCALAR_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    log(f"counts_leq main shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"searchsorted {library_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+        f"{bound_by} ({nbytes / 1e6:.1f} MB at 3.35 TB/s; operations "
+        f"{ops_ms:.4f} ms)")
+    return {"name": "counts_leq", "route": "cuda",
+            "source": "greptimedb_tpu_torch/csrc/counts_leq.cu",
+            "replaces": "greptimedb_tpu/ops/pallas_window.py:61",
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the PromQL range path on TSBS cpu-only data
+# ---------------------------------------------------------------------------
+
+def tsbs_cpu_only(seed: int, hosts: int = HOSTS, hours: float = HOURS):
+    """TSBS `--use-case=cpu-only --log-interval=10s`: per host a
+    hostname/region/datacenter, usage_user as TSBS's clamped random walk
+    (steps N(0,1), clamped to [0, 100], start U(0, 100)), and a
+    cumulative counter of usage_user/100 * 10 s with a reset (a restart
+    to 0) in 8 hosts."""
+    rng = np.random.default_rng(seed)
+    n = int(hours * 3600_000 // INTERVAL_MS)
+    ts = TSBS_START_MS + np.arange(n, dtype=np.int64) * INTERVAL_MS
+    regions = list(TSBS_REGIONS)
+    labels = []
+    for h in range(hosts):
+        r = regions[rng.integers(len(regions))]
+        dcs = TSBS_REGIONS[r]
+        labels.append({"hostname": f"host_{h}", "region": r,
+                       "datacenter": dcs[rng.integers(len(dcs))]})
+    usage = np.empty((hosts, n))
+    x = rng.random(hosts) * 100.0
+    steps = rng.standard_normal((n, hosts))
+    for i in range(n):
+        x = np.clip(x + steps[i], 0.0, 100.0)
+        usage[:, i] = x
+    counter = np.cumsum(usage / 100.0 * (INTERVAL_MS / 1000.0), axis=1)
+    for h in rng.choice(hosts, 8, replace=False):
+        r = int(rng.integers(n // 10, n - n // 10))
+        counter[h, r:] -= counter[h, r]
+    return ts, labels, {"cpu_usage_user": usage,
+                        "cpu_seconds_total": counter}
+
+
+def make_engine_class():
+    from greptimedb_tpu_torch.ops.window import TS_PAD, SeriesMatrix
+    from greptimedb_tpu_torch.promql import engine as eng
+
+    class MemoryPromqlEngine(eng.PromqlEngine):
+        """Serves in-memory series through `select`, applying the
+        selector's matchers as the reference's select_series does."""
+
+        def __init__(self, ts, labels, metrics, device=DEVICE):
+            super().__init__(catalog=None, device=device)
+            self.ts, self.labels, self.metrics = ts, labels, metrics
+            self.label_cols = {k: [lb[k] for lb in labels]
+                               for k in labels[0]}
+            self.select_s = 0.0
+
+        def select(self, sel, lo_ms, hi_ms, ctx):
+            t_start = time.perf_counter()
+            metric = sel.metric
+            for m in sel.matchers:
+                if m.name == "__name__" and m.op == "=":
+                    metric = m.value
+            vals = self.metrics.get(metric)
+            if vals is None:
+                return eng._Selection([], None)
+            keep = np.ones(len(self.labels), dtype=bool)
+            for m in sel.matchers:
+                if m.name in ("__name__", "__field__"):
+                    continue
+                if m.name not in self.label_cols:
+                    keep &= eng._matches_empty(m)
+                    continue
+                keep &= eng._matcher_keep(self.label_cols[m.name], m)
+            cols = np.nonzero((self.ts >= lo_ms) & (self.ts <= hi_ms))[0]
+            rows = np.nonzero(keep)[0]
+            if rows.size == 0 or cols.size == 0:
+                return eng._Selection([], None)
+            c0, n = int(cols[0]), int(cols.size)
+            L = 1 << (n - 1).bit_length() if n > 1 else 1
+            ts2d = np.full((rows.size, L), TS_PAD, dtype=np.int64)
+            ts2d[:, :n] = self.ts[c0:c0 + n]
+            val2d = np.zeros((rows.size, L))
+            val2d[:, :n] = vals[rows, c0:c0 + n]
+            sm = SeriesMatrix(ts2d, val2d, np.full(rows.size, n, np.int32))
+            labels = [{"__name__": metric, **self.labels[r]} for r in rows]
+            self.select_s += time.perf_counter() - t_start
+            return eng._Selection(labels, sm, int(self.ts[c0]),
+                                  int(self.ts[c0 + n - 1]))
+
+    return MemoryPromqlEngine
+
+
+class K1Timer:
+    """Wraps the window module's counts_leq to time each launch with
+    CUDA events inside the real query (the wrapper still counts)."""
+
+    def __init__(self, torch, inner):
+        self.torch, self.inner = torch, inner
+        self.events, self.shapes = [], []
+
+    def __call__(self, b, nsteps):
+        e0 = self.torch.cuda.Event(enable_timing=True)
+        e1 = self.torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = self.inner(b, nsteps)
+        e1.record()
+        self.events.append((e0, e1))
+        self.shapes.append((tuple(b.shape), int(nsteps)))
+        return out
+
+    def take_ms(self) -> float:
+        self.torch.cuda.synchronize()
+        ms = sum(a.elapsed_time(b) for a, b in self.events)
+        self.events = []
+        return ms
+
+
+def brute_windows(ts, steps, range_ms):
+    """[T, n] membership of each sample in (t - range, t]."""
+    t = steps[:, None]
+    return (ts[None, :] > t - range_ms) & (ts[None, :] <= t)
+
+
+def ref_rate(ts, C, steps, range_ms):
+    """Prometheus extrapolatedRate (extrapolate_rate.rs) in float64 for
+    every row of counter matrix C [S, n] sharing timestamps ts. Returns
+    rate, ok, the float32-error bound of the port's rate, and the raw
+    reset-corrected increase."""
+    lo = np.searchsorted(ts, steps - range_ms, side="right")
+    hi = np.searchsorted(ts, steps, side="right")
+    count = hi - lo
+    first = np.minimum(lo, len(ts) - 1)
+    last = np.maximum(hi - 1, 0)
+    prev = np.concatenate([C[:, :1], C[:, :-1]], axis=1)
+    contrib = np.where(C < prev, prev, 0.0)
+    contrib[:, 0] = 0.0
+    cc = np.cumsum(contrib, axis=1)
+    raw = C[:, last] - C[:, first] + cc[:, last] - cc[:, first]
+    first_t = ts[first].astype(np.float64)[None, :]
+    last_t = ts[last].astype(np.float64)[None, :]
+    first_v = C[:, first]
+    sampled = last_t - first_t
+    dur_start = first_t - (steps - range_ms)[None, :]
+    dur_end = steps[None, :] - last_t
+    avg = sampled / np.maximum(count - 1, 1)[None, :]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        dz = np.where((raw > 0) & (first_v >= 0),
+                      sampled * (first_v / np.where(raw == 0, 1, raw)),
+                      np.inf)
+    ds = np.minimum(dur_start, dz)
+    thr = avg * 1.1
+    ext_s = np.where(ds < thr, ds, avg / 2)
+    ext_e = np.where(dur_end < thr, dur_end, avg / 2)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        factor = (sampled + ext_s + ext_e) / np.where(sampled == 0, 1,
+                                                      sampled)
+    rate = raw * factor / (range_ms / 1000.0)
+    ok = np.broadcast_to((count >= 2)[None, :] & (sampled > 0), raw.shape)
+    # bound: timestamps are float32 of int32 offsets from the first
+    # sample (error <= et each), values and the reset-adjusted counter
+    # are float32 (error <= U32 * max|adj|), the reset correction is a
+    # float32 prefix sum of k nonzero terms, in any order within
+    # (k - 1) * U32 * their sum
+    tmax = float(ts[-1] - ts[0] + range_ms)
+    et = 2 * U32 * tmax
+    vmax = np.abs(C + cc).max(axis=1, keepdims=True)
+    k = np.count_nonzero(contrib, axis=1)[:, None]
+    err_raw = 4 * U32 * vmax + 2 * np.maximum(k - 1, 0) * U32 * \
+        cc[:, -1:] + U32 * np.abs(raw)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        err_dz = np.where(np.isfinite(dz), dz * (2 * et / sampled + 2 * U32 +
+                                                 err_raw / np.abs(raw)), 0.0)
+        err_start = 2 * et + np.where(dz < 2 * thr, err_dz, 0.0)
+        err_factor = (err_start + 4 * et + factor * 2 * et) / sampled + \
+            6 * U32 * factor
+        bound = (np.abs(raw) * err_factor + factor * err_raw) / \
+            (range_ms / 1000.0) + (3 * U32 + QUANT) * np.abs(rate)
+    return rate, ok, np.where(ok, bound, 0.0), raw
+
+
+def parse_series(result, key_label="hostname"):
+    out = {}
+    for r in result:
+        tv = np.asarray([[float(t), float(v)] for t, v in r["values"]])
+        out[r["metric"].get(key_label)] = tv
+    return out
+
+
+def series_values(name, got_map, keys, steps_s, ok):
+    """[len(keys), T] values the engine printed (got_map[key] = [[t, v]]),
+    NaN where it printed none. The printed steps must be the ok steps."""
+    got = np.full(ok.shape, np.nan)
+    for i, k in enumerate(keys):
+        tv = got_map.get(k)
+        got_t = tv[:, 0] if tv is not None else np.zeros(0)
+        check(np.array_equal(got_t, steps_s[ok[i]]),
+              f"{name}: ok steps differ for {k}")
+        if tv is not None:
+            got[i, ok[i]] = tv[:, 1]
+    return got
+
+
+def outside(got, want, ok, bound):
+    """Mask of the ok points where |got - want| exceeds bound (NaN does)."""
+    with np.errstate(invalid="ignore"):
+        return ok & ~(np.abs(got - want) <= bound)
+
+
+def compare(name, got, want, ok, bound, against="float64 brute force"):
+    """got/want/ok/bound [K, T]: every ok point within its bound."""
+    bad = outside(got, want, ok, bound)
+    check(not bad.any(),
+          f"{name}: {int(bad.sum())} values outside the bound vs {against}, "
+          f"e.g. got {got[bad][:3]} want {want[bad][:3]} bound "
+          f"{bound[bad][:3]}")
+    err = np.abs(got - want)[ok]
+    ratio = err / np.maximum(bound[ok], 1e-300)
+    log(f"  check {name}: {ok.shape[0]} series x {ok.shape[1]} steps vs "
+        f"{against}; ok masks equal; max |err| "
+        f"{err.max() if err.size else 0.0:.3g}, max |err|/bound "
+        f"{ratio.max() if ratio.size else 0.0:.3g}")
+
+
+def moments(P1, P2, lo, hi, c):
+    """Windowed mean, E[x^2] and population variance, in float64, from
+    prefix sums P [K, n + 1] (P[:, i] = sum of the first i samples) over
+    sample ranges [lo, hi) of c = max(hi - lo, 1) samples: the reference's
+    algorithm (ops/window.py _op_from_stack)."""
+    mean = (P1[:, hi] - P1[:, lo]) / c
+    a = (P2[:, hi] - P2[:, lo]) / c
+    return mean, a, np.maximum(a - mean * mean, 0.0)
+
+
+def sqrt_bound(var_err, var):
+    """Bound on |sqrt(x) - sqrt(var)| for |x - var| <= var_err, x >= 0."""
+    return np.minimum(np.sqrt(var_err),
+                      var_err / np.maximum(np.sqrt(var), 1e-300))
+
+
+def phase_promql(torch, seed, k1):
+    from greptimedb_tpu_torch.ops import pallas_window as pw
+    from greptimedb_tpu_torch.ops import window as win
+
+    t_gen = time.perf_counter()
+    ts, labels, metrics = tsbs_cpu_only(seed)
+    S, n = metrics["cpu_usage_user"].shape
+    log(f"TSBS cpu-only: {S} hosts x {n} samples ({S * n / 1e6:.1f} M per "
+        f"metric) in {time.perf_counter() - t_gen:.1f}s (seed {seed})")
+    Engine = make_engine_class()
+    eng = Engine(ts, labels, metrics, device=DEVICE)
+    start = int(ts[0])
+    end = start + HOURS * 3600_000
+    steps = np.arange(start, end + 1, STEP_MS, dtype=np.int64)
+
+    # the main path's window-bounds input: the engine evaluates the
+    # in-range steps (all of them here) padded to a power of two, on the
+    # extended grid that starts one range before the first step
+    from greptimedb_tpu_torch.promql.parser import parse_promql
+    sel = parse_promql("cpu_usage_user[5m]")
+    mat = eng.select(sel, start - RANGE_MS + 1, end, None).matrix
+    rel, _, _, base = mat.device_arrays()
+    n_pad = 1 << (len(steps) - 1).bit_length()
+    main_T = n_pad + RANGE_MS // STEP_MS
+    main_b = win.step_buckets(torch.as_tensor(rel, device=DEVICE),
+                              start - base - RANGE_MS, STEP_MS, main_T)
+    kern = phase_kernel_check(torch, main_b, main_T)
+    del main_b
+
+    queries = [
+        "avg_over_time(cpu_usage_user[5m])",
+        "rate(cpu_seconds_total[5m])",
+        "sum by (region) (rate(cpu_seconds_total[5m]))",
+        "stddev_over_time(cpu_usage_user[5m])",
+    ]
+    win.counts_leq = k1
+    pw.counts_leq.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    results = {}
+    for q in queries:
+        eng.select_s = 0.0
+        t0 = time.perf_counter()
+        res = eng.query_to_prom_json(q, start, end, STEP_MS)
+        wall = time.perf_counter() - t0
+        k1_ms = k1.take_ms()
+        sel_s = eng.select_s
+        eng.select_s = 0.0
+        t1 = time.perf_counter()
+        eng.query_range(q, start, end, STEP_MS)
+        eval_wall = time.perf_counter() - t1
+        k1.take_ms()
+        results[q] = res
+        log(f"query {q}: wall {wall * 1e3:.1f} ms, {len(res['result'])} "
+            f"series; select {sel_s * 1e3:.1f} ms, device eval + fetch "
+            f"{(eval_wall - eng.select_s) * 1e3:.1f} ms, JSON shaping "
+            f"{(wall - eval_wall) * 1e3:.1f} ms; K1 {k1_ms:.4f} ms "
+            f"({k1_ms / (wall * 1e3) * 100:.4f}% of wall)")
+    launches = pw.counts_leq.launches
+    win.counts_leq = k1.inner
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"counts_leq launches during the queries: {launches}; shapes "
+        f"{sorted(set(k1.shapes))}; peak device memory {peak:.2f} GiB")
+    check(launches > 0, "the main path launched no counts_leq kernel")
+    check(((S, mat.max_len), main_T) in set(k1.shapes),
+          "the main path did not run the window-bounds kernel at the "
+          "shape phase 3 checked")
+    kern["launches"] = launches
+
+    # ---- checks on 64 sampled hosts at every step ----
+    rng = np.random.default_rng(seed + 1)
+    idx = np.sort(rng.choice(S, min(64, S), replace=False))
+    keys = [labels[i]["hostname"] for i in idx]
+    steps_s = steps.astype(np.float64) / 1000.0
+    M = brute_windows(ts, steps, RANGE_MS).astype(np.float64)   # [T, n]
+    cnt = M.sum(axis=1)
+    lo = np.searchsorted(ts, steps - RANGE_MS, side="right")
+    hi = np.searchsorted(ts, steps, side="right")
+    check(np.array_equal(hi - lo, cnt),
+          "window index ranges differ from the brute force")
+    ok1 = np.broadcast_to(cnt >= 1, (len(idx), len(steps)))
+    c = np.maximum(cnt, 1)[None, :]
+    check_moments(torch, results[queries[0]], results[queries[3]], mat,
+                  metrics["cpu_usage_user"], idx, keys, steps_s, M, cnt, lo,
+                  hi, ok1, c)
+
+    C = metrics["cpu_seconds_total"]
+    rate, ok2, bound, raw_ref = ref_rate(ts, C[idx], steps, RANGE_MS)
+    # brute-force the sampled rows' counts and reset corrections too
+    first = np.argmax(M > 0, axis=1)
+    last = M.shape[1] - 1 - np.argmax(M[:, ::-1] > 0, axis=1)
+    Ci = C[idx]
+    contrib = np.where(Ci[:, 1:] < Ci[:, :-1], Ci[:, :-1], 0.0)
+    pair = M[:, 1:] * M[:, :-1]
+    raw_bf = Ci[:, last] - Ci[:, first] + contrib @ pair.T
+    check(bool((np.isclose(raw_bf, raw_ref, rtol=1e-9, atol=1e-6) |
+                ~ok2).all()),
+          "the float64 rate reference disagrees with the brute force")
+    got = series_values("rate", parse_series(results[queries[1]]["result"]),
+                        keys, steps_s, ok2)
+    compare("rate", got, rate, ok2, bound)
+
+    # sum by (region): the float64 reference over all hosts
+    rate_all, ok_all, bound_all, _ = ref_rate(ts, C, steps, RANGE_MS)
+    rate_ok = np.where(ok_all, rate_all, 0.0)
+    regions = sorted({lb["region"] for lb in labels})
+    reg_of = np.asarray([lb["region"] for lb in labels])
+    want = np.stack([rate_ok[reg_of == r].sum(axis=0) for r in regions])
+    wok = np.stack([ok_all[reg_of == r].any(axis=0) for r in regions])
+    wb = np.stack([bound_all[reg_of == r].sum(axis=0) +
+                   QUANT * np.abs(rate_ok[reg_of == r]).sum(axis=0)
+                   for r in regions])
+    got = series_values("sum by (region) (rate)", parse_series(
+        results[queries[2]]["result"], "region"), regions, steps_s, wok)
+    compare("sum by (region) (rate)", got, want, wok, wb)
+
+    # the window counts themselves, straight from the kernel's bounds
+    ext = pw.counts_leq(win.step_buckets(
+        torch.as_tensor(rel[idx], device=DEVICE), start - base - RANGE_MS,
+        STEP_MS, main_T), main_T).cpu().numpy()
+    shift = RANGE_MS // STEP_MS
+    kc = ext[:, shift:shift + len(steps)] - ext[:, :len(steps)]
+    check(np.array_equal(kc, np.broadcast_to(cnt, kc.shape)),
+          "window counts differ from the brute force")
+    log(f"  check window counts: {len(idx)} series x {len(steps)} steps "
+        f"equal to the brute force")
+
+    # ---- gather path, reduced size ----
+    region = "us-east-1"
+    red_end = start + 2 * 3600_000
+    rsteps = np.arange(start, red_end + 1, STEP_MS, dtype=np.int64)
+    rows = np.nonzero(reg_of == region)[0]
+    log(f"gather path at a reduced size: cpu_usage_user{{region=\"{region}\"}}"
+        f" ({rows.size} series) over 2 h at 60 s steps (maxw = the "
+        f"selection's padded length: an O(S*T*L) working set)")
+    Mr = brute_windows(ts, rsteps, RANGE_MS)
+    rc = Mr.sum(axis=1)
+    sub = rng.choice(rows, min(32, rows.size), replace=False)
+    G = metrics["cpu_usage_user"][sub]
+    gmax = np.abs(G).max(axis=1, keepdims=True)
+    for q, fn in [
+        (f'max_over_time(cpu_usage_user{{region="{region}"}}[5m])',
+         lambda w: w.max()),
+        (f'quantile_over_time(0.9, cpu_usage_user{{region="{region}"}}[5m])',
+         lambda w: _prom_quantile(np.sort(w), 0.9)),
+    ]:
+        t0 = time.perf_counter()
+        res = eng.query_to_prom_json(q, start, red_end, STEP_MS)
+        log(f"query {q}: wall {(time.perf_counter() - t0) * 1e3:.1f} ms, "
+            f"{len(res['result'])} series")
+        want = np.asarray([[fn(g[Mr[j]]) if rc[j] else np.nan
+                            for j in range(len(rsteps))] for g in G])
+        okr = np.broadcast_to(rc >= 1, want.shape)
+        name = q.split("(")[0]
+        got = series_values(name, parse_series(res["result"]),
+                            [labels[i]["hostname"] for i in sub],
+                            rsteps.astype(np.float64) / 1000.0, okr)
+        compare(name, got, want, okr,
+                4 * U32 * gmax + QUANT * np.abs(np.nan_to_num(want)))
+    return kern
+
+
+def check_moments(torch, res_avg, res_std, mat, X, idx, keys, steps_s, M,
+                  cnt, lo, hi, ok, c):
+    """avg_over_time and stddev_over_time on the sampled hosts, in three
+    steps, none of which assumes a summation depth:
+
+    1. the reference's algorithm (`moments`) on exact float64 prefixes of
+       the float32 values equals the float64 brute force over the window
+       matrix M, within the rounding of the values to float32;
+    2. the witness: the same algorithm on float32 prefixes made on the
+       card by the engine's own torch calls (cumsum of x and of x*x) over
+       the same [S, L] float32 matrix the engine holds. The engine must
+       match it within the rounding of its last float32 operations, since
+       both start from the same prefixes. Planted wrong answers (zero, an
+       n - 1 divisor, 5 % off) must fail this check;
+    3. those card prefixes lie within the worst-case float32 bound of the
+       exact ones, i * u * the sum of the first i terms (i - 1 roundings
+       of the sum, one of the square).
+       How far they put the algorithm from float64 is printed: it is the
+       reference's own float32 error, which the port shares.
+    """
+    T = len(steps_s)
+    X = X[idx]
+    with np.errstate(invalid="ignore", divide="ignore"):
+        mean64 = (X @ M.T) / cnt
+        var64 = np.maximum((X * X) @ M.T / cnt - mean64 ** 2, 0.0)
+
+    # 1. exact prefixes of the float32 values
+    x32 = X.astype(np.float32).astype(np.float64)
+    z = np.zeros((len(idx), 1))
+    Q1 = np.concatenate([z, np.cumsum(x32, axis=1)], axis=1)
+    Q2 = np.concatenate([z, np.cumsum(x32 * x32, axis=1)], axis=1)
+    mean_x, a_x, var_x = moments(Q1, Q2, lo, hi, c)
+    n = X.shape[1]
+    absmean = (np.abs(X) @ M.T) / c
+    f64 = 2 * n * U64 * (np.abs(Q1[:, -1:]) * (1 + absmean) + Q2[:, -1:]) / c
+    bm = U32 * absmean + f64
+    bv = 4 * U32 * (a_x + absmean ** 2) + f64
+    compare("moments on exact prefixes: mean", mean_x, mean64, ok, bm)
+    compare("moments on exact prefixes: variance", var_x, var64, ok, bv)
+    check(outside(var_x * c / np.maximum(c - 1, 1), var64, ok, bv).any(),
+          "an n - 1 divisor passes the exact-prefix variance check")
+
+    # 2. the card's float32 prefixes, as the engine makes them
+    _, val2d, lengths, _ = mat.device_arrays()
+    v = torch.as_tensor(val2d.astype(np.float32), device=DEVICE)
+    L = v.shape[1]
+    valid = torch.arange(L, device=DEVICE)[None, :] < \
+        torch.as_tensor(lengths, device=DEVICE)[:, None]
+    vz = torch.where(valid, v, 0)
+    rows = torch.as_tensor(idx, device=DEVICE)
+    P1 = torch.cumsum(vz, dim=1)[rows, :n].double().cpu().numpy()
+    P2 = torch.cumsum(vz * vz, dim=1)[rows, :n].double().cpu().numpy()
+    del v, valid, vz
+    P1 = np.concatenate([z, P1], axis=1)
+    P2 = np.concatenate([z, P2], axis=1)
+    mean_w, a_w, var_w = moments(P1, P2, lo, hi, c)
+    std_w = np.sqrt(var_w)
+    # the engine's float32 steps after the prefixes: two differences, two
+    # divisions, a square, a subtraction and a square root, each within
+    # U32 (8 * U32 * (a + mean^2) for the variance, doubled for margin),
+    # then printed to 6 significant digits
+    b_mean = (4 * U32 + QUANT) * np.abs(mean_w)
+    b_std = sqrt_bound(16 * U32 * (a_w + mean_w ** 2), var_w) + \
+        (U32 + QUANT) * std_w
+    got_avg = series_values("avg_over_time", parse_series(
+        res_avg["result"]), keys, steps_s, ok)
+    got_std = series_values("stddev_over_time", parse_series(
+        res_std["result"]), keys, steps_s, ok)
+    witness = "the float32-prefix witness"
+    compare("avg_over_time", got_avg, mean_w, ok, b_mean, witness)
+    compare("stddev_over_time", got_std, std_w, ok, b_std, witness)
+    planted = {
+        "avg_over_time with an n - 1 divisor":
+            (got_avg * c / np.maximum(c - 1, 1), mean_w, b_mean),
+        "stddev_over_time of 0": (got_std * 0.0, std_w, b_std),
+        "stddev_over_time with an n - 1 divisor":
+            (got_std * np.sqrt(c / np.maximum(c - 1, 1)), std_w, b_std),
+        "stddev_over_time 5 % high": (got_std * 1.05, std_w, b_std),
+    }
+    for name, (g, w, b) in planted.items():
+        nbad = int(outside(g, w, ok, b).sum())
+        check(nbad > 0, f"the witness check passes a planted {name}")
+        log(f"  planted {name}: fails at {nbad} of {int(ok.sum())} points")
+
+    # 3. the card's prefixes against the worst case, and what they cost
+    i = np.arange(n + 1, dtype=np.float64)[None, :]
+    for name, P, Q in (("x", P1, Q1), ("x*x", P2, Q2)):
+        gamma = i * U32 * 1.01
+        bad = np.abs(P - Q) > gamma * np.abs(Q) + 2 * n * U64 * np.abs(Q)
+        check(not bad.any(), f"float32 prefixes of {name} on the card "
+              f"outside the worst-case summation bound")
+        rel = np.abs(P - Q)[:, 1:] / np.maximum(np.abs(Q[:, 1:]), 1e-300)
+        log(f"  float32 prefixes of {name} on the card: max relative error "
+            f"{rel.max():.3g} (worst case {(n - 1) * U32:.3g})")
+    with np.errstate(invalid="ignore"):
+        d_mean = np.abs(mean_w - mean64)[ok]
+        d_std = np.abs(std_w - np.sqrt(var64))[ok]
+        e_avg = np.abs(got_avg - mean64)[ok]
+        e_std = np.abs(got_std - np.sqrt(var64))[ok]
+    log(f"  float32 prefix error (the reference's algorithm, {T} steps): "
+        f"max |witness - float64| mean {d_mean.max():.3g}, stddev "
+        f"{d_std.max():.3g}; engine max |err| vs float64: avg_over_time "
+        f"{e_avg.max():.3g}, stddev_over_time {e_std.max():.3g}")
+
+
+def _prom_quantile(sorted_vals, q):
+    n = len(sorted_vals)
+    rank = q * (n - 1)
+    lo = int(np.floor(rank))
+    hi = min(lo + 1, n - 1)
+    w = rank - lo
+    return sorted_vals[lo] * (1 - w) + sorted_vals[hi] * w
+
+
+# ---------------------------------------------------------------------------
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    t_all = time.perf_counter()
+    before = set(sys.modules)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; the port runs on the GPU",
+              file=sys.stderr)
+        return 1
+    import greptimedb_tpu_torch
+    pkg_dir = os.path.dirname(os.path.abspath(greptimedb_tpu_torch.__file__))
+    check(pkg_dir == os.path.join(HERE, "greptimedb_tpu_torch"),
+          f"greptimedb_tpu_torch imported from {pkg_dir}, not this checkout")
+
+    log("== phase 1: machine")
+    phase_machine(torch)
+    log("== phase 2: build")
+    phase_kernel_build()
+    log("== phase 3 + 4: kernel checks, then PromQL on TSBS cpu-only")
+    from greptimedb_tpu_torch.ops import pallas_window as pw
+    k1 = K1Timer(torch, pw.counts_leq)
+    kern = phase_promql(torch, args.seed, k1)
+
+    new = set(sys.modules) - before
+    bad = sorted(m for m in new if m.split(".")[0] in
+                 ("jax", "jaxlib", "greptimedb_tpu", "pandas", "pyarrow"))
+    check(not bad, f"the port imported {bad[:5]}")
+    log(f"total {time.perf_counter() - t_all:.1f}s")
+    print(json.dumps({"kernels": [kern]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

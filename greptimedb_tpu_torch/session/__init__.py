@@ -1,0 +1,47 @@
+"""Session state: QueryContext.
+
+Reference behavior: src/session/src/context.rs:28 — current catalog/schema
+plus the protocol channel the query arrived on.
+"""
+
+from __future__ import annotations
+
+import enum
+from typing import Optional
+
+from .. import DEFAULT_CATALOG_NAME, DEFAULT_SCHEMA_NAME
+
+
+class Channel(enum.Enum):
+    HTTP = "http"
+    MYSQL = "mysql"
+    POSTGRES = "postgres"
+    GRPC = "grpc"
+    INFLUX = "influxdb"
+    OPENTSDB = "opentsdb"
+    PROMETHEUS = "prometheus"
+
+
+class QueryContext:
+    def __init__(self, current_catalog: str = DEFAULT_CATALOG_NAME,
+                 current_schema: str = DEFAULT_SCHEMA_NAME,
+                 channel: Channel = Channel.HTTP,
+                 username: Optional[str] = None):
+        self.current_catalog = current_catalog
+        self.current_schema = current_schema
+        self.channel = channel
+        self.username = username
+        self.time_zone = "UTC"
+
+    def set_current_schema(self, schema: str) -> None:
+        self.current_schema = schema
+
+    def resolve(self, name) -> tuple:
+        """Resolve a sql.ast.ObjectName to (catalog, schema, table)."""
+        catalog = name.catalog or self.current_catalog
+        schema = name.schema or self.current_schema
+        return catalog, schema, name.table
+
+    def __repr__(self):  # pragma: no cover
+        return (f"QueryContext({self.current_catalog}."
+                f"{self.current_schema}, {self.channel.value})")
