@@ -8,21 +8,31 @@ Phases (none of them catches a failure; any failed check exits non-zero):
 1. the card (nvidia-smi name and power limit), torch and CUDA versions,
    and whether pandas, pyarrow and prometheus_client import here;
 2. builds the window-bounds kernel from greptimedb_tpu_torch/csrc with
-   nvcc (sm_90a) into the package's git-ignored build directory;
-3. holds the kernel against its plain PyTorch version (exact int32
-   equality) at the reference's test shapes, unsorted rows, a step grid
-   wider than 48 KB of bins, one wider than a shared-memory tile, and the
-   main-path shape, and times kernel, plain version and the one-call
-   yardstick torch.searchsorted with CUDA events;
+   nvcc (sm_90a) into the package's git-ignored build directory and
+   prints ptxas's registers and shared memory;
+3. holds both entries of the kernel, counts_leq (buckets in) and
+   counts_leq_grid (timestamps in, bucketed in its loads), against their
+   plain PyTorch versions (exact int32 equality) at the reference's test
+   shapes, unsorted rows, one-bin and all-pad rows, unaligned and ragged
+   rows, step grids wider than 48 KB of bins and than a shared-memory
+   tile, bucketing edge cases of the fused entry, and the main-path
+   shape; times both entries, the unfused step_buckets + counts_leq path,
+   the plain versions and the one-call yardstick torch.searchsorted with
+   CUDA events around back-to-back calls, and both entries again on a
+   30-day grid at a 1 h step, where the fused entry divides in 64 bits;
 4. serves PromQL range queries through PromqlEngine.query_to_prom_json on
    the GPU over the TSBS cpu-only devops data set (4000 hosts, 10 s
-   interval, 24 h), checks 64 sampled series at every step against a
+   interval, 24 h), with each window-bounds launch's device time, wrapper
+   host time and SM clock; splits one query's device eval + fetch into
+   the engine's stages, checks 64 sampled series at every step against a
    float64 numpy brute force, and runs the gather-path functions at a
    reduced size.
 
-The line before the last is a JSON object with the kernel's numbers; the
-last line is {"ok": true, "device": {...}}. Without CUDA, or without the
-package beside this script, it exits non-zero and prints no result.
+Before the last line come two JSON objects: the numbers of the bucket
+entry, which the main path does not launch, then the kernel table of the
+main path; the last line is {"ok": true, "device": {...}}. Without CUDA,
+or without the package beside this script, it exits non-zero and prints
+no result.
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ SCALAR_OPS_PER_S = 67e12
 U32 = 2.0 ** -24                   # float32 unit roundoff
 U64 = 2.0 ** -53                   # float64 unit roundoff
 QUANT = 1e-5                       # the engine prints 6 significant digits
+PAD32 = np.iinfo(np.int32).max     # the rebased timestamps' pad
 
 # TSBS devops: pkg/data/usecases/devops/host.go regions and datacenters
 TSBS_REGIONS = {
@@ -99,19 +110,22 @@ def phase_machine(torch) -> None:
 # phase 2 + 3: the kernel
 # ---------------------------------------------------------------------------
 
-def median_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
+def median_ms(torch, fn, launches: int = 20, runs: int = 5) -> float:
+    """Device time of one call: CUDA events around `launches` back-to-back
+    calls over their count (the host enqueues ahead of the card, so the
+    wrapper's host time stays out), median of `runs` after a warm-up."""
+    fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(runs):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        fn()
+        for _ in range(launches):
+            fn()
         e1.record()
         e1.synchronize()
-        times.append(e0.elapsed_time(e1))
+        times.append(e0.elapsed_time(e1) / launches)
     return statistics.median(times)
 
 
@@ -129,10 +143,56 @@ def phase_kernel_build():
             log(f"  {line.strip()}")
 
 
-def phase_kernel_check(torch, main_b: "torch.Tensor", main_T: int) -> dict:
+def bound(S: int, L: int, T: int):
+    """The least time the card could take for either entry: each input
+    read once, each output written once (bytes), against one compare-add
+    per sample and one add per step (operations)."""
+    nbytes = (S * L + S * T) * 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = (S * L + S * T) / SCALAR_OPS_PER_S * 1e3
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    return max(bytes_ms, ops_ms), by, nbytes, ops_ms
+
+
+def same(torch, name: str, got, want) -> int:
+    """Exact int32 equality of a kernel's output with its plain version;
+    returns the max |difference| (0)."""
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    check(torch.equal(got, want), f"{name}: kernel != plain (max |err| {err})")
+    log(f"  {name}: kernel == plain")
+    return err
+
+
+def phase_kernel_check(torch, main_ts, main_t0: int, main_T: int):
+    """Both entries of the window-bounds kernel against their plain
+    versions (exact int32 equality), then timed at the main-path shape.
+    Returns the two rows of the kernel table (fused entry first)."""
     from greptimedb_tpu_torch.ops import pallas_window as pw
+
+    def grid_plain(ts, t0, step, T):
+        return pw.counts_leq_plain(pw.step_buckets(ts, t0, step, T), T)
+
+    def dev(a):
+        return torch.as_tensor(a, device=DEVICE)
+
+    err = {"counts_leq": 0, "counts_leq_grid": 0}
+
+    def both(name, b, ts, t0, step, T):
+        err["counts_leq"] = max(err["counts_leq"], same(
+            torch, f"counts_leq {name}", pw.counts_leq(b, T),
+            pw.counts_leq_plain(b, T)))
+        grid(name, ts, t0, step, T)
+
+    def grid(name, ts, t0, step, T):
+        err["counts_leq_grid"] = max(err["counts_leq_grid"], same(
+            torch, f"counts_leq_grid {name}",
+            pw.counts_leq_grid(ts, t0, step, T), grid_plain(ts, t0, step, T)))
+
     rng = np.random.default_rng(1234)
-    cases = [
+    st = 1000
+    log("both entries (timestamps: step 1000 ms from t0 = 0, 10 % pads)")
+    for name, shape, T, srt in [
         ("test_pallas (8,512) T=128", (8, 512), 128, True),
         ("test_pallas (20,300) T=97", (20, 300), 97, True),
         ("test_pallas (1,1) T=1", (1, 1), 1, True),
@@ -142,55 +202,145 @@ def phase_kernel_check(torch, main_b: "torch.Tensor", main_T: int) -> dict:
         ("T=70000 (two bin tiles)", (16, 8192), 70_000, False),
         ("L=65536 (rows past 32768 samples) T=2053", (16, 65_536), 2053,
          True),
-    ]
-    max_err = 0
-    for name, shape, T, srt in cases:
+        ("L=1023 (not a multiple of 4) T=77", (33, 1023), 77, True),
+    ]:
         b = rng.integers(-2, T + 2, shape).astype(np.int32)
+        ts = rng.integers(-2 * st, (T + 2) * st, shape).astype(np.int32)
+        ts[rng.random(shape) < 0.1] = PAD32
         if srt:
-            b = np.sort(b, axis=1)
-        bt = torch.as_tensor(b, device=DEVICE)
-        got = pw.counts_leq(bt, T)
-        want = pw.counts_leq_plain(bt, T)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
-        max_err = max(max_err, err)
-        check(torch.equal(got, want), f"counts_leq != plain at {name}")
-        log(f"counts_leq == plain: {name}")
+            b, ts = np.sort(b, axis=1), np.sort(ts, axis=1)
+        both(name, dev(b), dev(ts), 0, st, T)
+    shape = (257, 4096)
+    both("every sample of a row in one bin (257,4096) T=300",
+         dev(np.full(shape, 5, np.int32)),
+         dev(rng.integers(4 * st + 1, 5 * st + 1, shape).astype(np.int32)),
+         0, st, 300)
+    shape = (64, 2048)
+    both("all-pad rows (64,2048) T=300", dev(np.full(shape, 300, np.int32)),
+         dev(np.full(shape, PAD32, np.int32)), 0, st, 300)
+    # a contiguous view 4 bytes into its buffer: a row start that is not
+    # 16-byte aligned, and L not a multiple of 4
+    S, L, T = 9, 1023, 50
+    bb = dev(rng.integers(-2, T + 2, 1 + S * L).astype(np.int32))
+    tb = dev(rng.integers(-2 * st, (T + 2) * st, 1 + S * L).astype(np.int32))
+    both("unaligned data_ptr (9,1023) T=50", bb[1:].view(S, L),
+         tb[1:].view(S, L), 0, st, T)
 
-    S, L = main_b.shape
-    got = pw.counts_leq(main_b, main_T)
-    want = pw.counts_leq_plain(main_b, main_T)
-    ks = torch.arange(main_T, dtype=torch.int32, device=DEVICE)[None, :] \
+    log("fused entry: bucketing edge cases")
+    T = 64
+    on_grid = 7000 + st * np.arange(-3, T + 3, dtype=np.int32)
+    rows = np.tile(on_grid, (16, 1))
+    rows[8:] = rng.permuted(rows[8:], axis=1)
+    grid("timestamps on grid points, q = 0 at k = 0 (16,70) T=64",
+         dev(rows), 7000, st, T)
+    grid("q = 0 everywhere (8,300) T=97",
+         dev(np.full((8, 300), 123_456, np.int32)), 123_456, 60_000, 97)
+    wide = rng.integers(-2**31, 2**31 - 1, (64, 1000)).astype(np.int32)
+    grid("samples far below t0, negative t0 (64,1000) T=100", dev(wide),
+         -5_000_000, 60_000, 100)
+    big = dev(rng.integers(0, 2**31 - 2, (64, 1000)).astype(np.int32))
+    grid("t0 = -2^40 (the 64-bit division) (64,1000) T=4096", big,
+         -2**40, 2**20, 4096)
+    grid("step near 2^31 (the widest 32-bit division) (64,1000) T=3", big,
+         0, 1_500_000_007, 3)
+    grid("step = 1 (32,1000) T=3000",
+         dev(rng.integers(0, 3200, (32, 1000)).astype(np.int32)), 100, 1,
+         3000)
+    grid("step wider than the span (32,1000) T=5",
+         dev(rng.integers(0, 10**6, (32, 1000)).astype(np.int32)), 0,
+         10**9, 5)
+    mid = np.sort(rng.integers(0, 300 * st, (64, 2048)), axis=1)
+    mid[rng.random(mid.shape) < 0.2] = PAD32
+    grid("pads in the middle of rows (64,2048) T=300",
+         dev(mid.astype(np.int32)), 0, st, 300)
+
+    # ---- the main-path shape ----
+    S, L = main_ts.shape
+    T, t0 = main_T, main_t0
+    main_b = pw.step_buckets(main_ts, t0, STEP_MS, T)
+    want = pw.counts_leq_plain(main_b, T)
+    ks = torch.arange(T, dtype=torch.int32, device=DEVICE)[None, :] \
         .expand(S, -1).contiguous()
-    lib = torch.searchsorted(main_b, ks, right=True)
-    torch.cuda.synchronize()
-    max_err = max(max_err, int((got.long() - want.long()).abs().max()))
-    check(torch.equal(got, want), "counts_leq != plain at the main-path shape")
-    check(torch.equal(got.long(), lib),
-          "counts_leq != searchsorted (sorted rows)")
-    log(f"counts_leq == plain == searchsorted at the main-path shape "
-        f"({S}, {L}) T={main_T}")
-    ms = median_ms(torch, lambda: pw.counts_leq(main_b, main_T))
-    plain_ms = median_ms(torch, lambda: pw.counts_leq_plain(main_b, main_T))
-    library_ms = median_ms(
-        torch, lambda: torch.searchsorted(main_b, ks, right=True))
-    # bound: each input read once, each output written once; one
-    # compare-add per sample and one add per step
-    nbytes = (S * L + S * main_T) * 4
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = (S * L + S * main_T) / SCALAR_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    log(f"counts_leq main shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"searchsorted {library_ms:.4f} ms, bound {bound_ms:.4f} ms by "
-        f"{bound_by} ({nbytes / 1e6:.1f} MB at 3.35 TB/s; operations "
-        f"{ops_ms:.4f} ms)")
-    return {"name": "counts_leq", "route": "cuda",
-            "source": "greptimedb_tpu_torch/csrc/counts_leq.cu",
-            "replaces": "greptimedb_tpu/ops/pallas_window.py:61",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+    ends = (torch.arange(T, dtype=torch.int64, device=DEVICE) * STEP_MS + t0)
+    check(int(ends[-1]) < PAD32, "main-path grid ends exceed int32")
+    ends = ends.to(torch.int32)[None, :].expand(S, -1).contiguous()
+    err["counts_leq"] = max(err["counts_leq"], same(
+        torch, f"counts_leq main-path shape ({S}, {L}) T={T}",
+        pw.counts_leq(main_b, T), want))
+    err["counts_leq_grid"] = max(err["counts_leq_grid"], same(
+        torch, f"counts_leq_grid main-path shape ({S}, {L}) T={T}",
+        pw.counts_leq_grid(main_ts, t0, STEP_MS, T), want))
+    check(torch.equal(want.long(),
+                      torch.searchsorted(main_b, ks, right=True)) and
+          torch.equal(want.long(),
+                      torch.searchsorted(main_ts, ends, right=True)),
+          "window counts != searchsorted at the main-path shape")
+    log("  == torch.searchsorted over the buckets and over the timestamps")
+
+    ms = {
+        "counts_leq_grid": lambda: pw.counts_leq_grid(main_ts, t0, STEP_MS, T),
+        "counts_leq": lambda: pw.counts_leq(main_b, T),
+        "step_buckets + counts_leq (unfused)":
+            lambda: pw.counts_leq(pw.step_buckets(main_ts, t0, STEP_MS, T), T),
+        "counts_leq_grid plain": lambda: grid_plain(main_ts, t0, STEP_MS, T),
+        "counts_leq plain": lambda: pw.counts_leq_plain(main_b, T),
+        "searchsorted over the timestamps":
+            lambda: torch.searchsorted(main_ts, ends, right=True),
+        "searchsorted over the buckets":
+            lambda: torch.searchsorted(main_b, ks, right=True),
+    }
+    ms = {k: median_ms(torch, fn) for k, fn in ms.items()}
+    bound_ms, bound_by, nbytes, ops_ms = bound(S, L, T)
+    log(f"main shape ({S}, {L}) T={T}, CUDA events around 20 back-to-back "
+        f"calls, median of 5:")
+    for k, v in ms.items():
+        log(f"  {k}: {v:.4f} ms ({bound_ms / v * 100:.1f}% of the bound)")
+    log(f"  bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB at "
+        f"3.35 TB/s; operations {ops_ms:.4f} ms)")
+    # the other side of the fused entry's division: a 30-day grid at a 1 h
+    # step ending with the data, whose quotients pass 2^31 (the 64-bit
+    # division), against the bucket entry on the same buckets
+    Tw, stepw = 30 * 24 + 1, 3_600_000
+    t0w = HOURS * 3_600_000 - (Tw - 1) * stepw
+    bw = pw.step_buckets(main_ts, t0w, stepw, Tw)
+    same(torch, f"counts_leq_grid 30-day grid at 1 h ({S}, {L}) T={Tw}",
+         pw.counts_leq_grid(main_ts, t0w, stepw, Tw),
+         pw.counts_leq_plain(bw, Tw))
+    wide = {"counts_leq_grid": lambda: pw.counts_leq_grid(main_ts, t0w,
+                                                          stepw, Tw),
+            "counts_leq on the same buckets": lambda: pw.counts_leq(bw, Tw)}
+    bound_w = bound(S, L, Tw)[0]
+    log(f"30-day grid at 1 h (t0 = {t0w}, the 64-bit division), ({S}, {L}) "
+        f"T={Tw}, bound {bound_w:.4f} ms:")
+    for k, fn in wide.items():
+        v = median_ms(torch, fn)
+        log(f"  {k}: {v:.4f} ms ({bound_w / v * 100:.1f}% of the bound)")
+    del bw
+    # the same bytes with other bucket patterns: no atomics at all (pads),
+    # all lanes of a warp on one bin, rows in no order
+    shuffled = main_b[:, torch.randperm(L, device=DEVICE)].contiguous()
+    for name, b in [("rows of pads only", torch.full_like(main_b, T)),
+                    ("every sample in one bin", torch.full_like(main_b, 5)),
+                    ("the main rows shuffled", shuffled)]:
+        same(torch, f"counts_leq {name}", pw.counts_leq(b, T),
+             pw.counts_leq_plain(b, T))
+        log(f"  counts_leq on {name}: "
+            f"{median_ms(torch, lambda: pw.counts_leq(b, T)):.4f} ms")
+    del main_b, shuffled, ks, ends, want
+
+    def row(name, kernel_ms, plain_ms, library_ms):
+        return {"name": name, "route": "cuda",
+                "source": "greptimedb_tpu_torch/csrc/counts_leq.cu",
+                "replaces": "greptimedb_tpu/ops/pallas_window.py:61",
+                "max_abs_err": err[name], "ms": kernel_ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms}
+
+    return (row("counts_leq_grid", ms["counts_leq_grid"],
+                ms["counts_leq_grid plain"],
+                ms["searchsorted over the timestamps"]),
+            row("counts_leq", ms["counts_leq"], ms["counts_leq plain"],
+                ms["searchsorted over the buckets"]))
 
 
 # ---------------------------------------------------------------------------
@@ -279,28 +429,53 @@ def make_engine_class():
 
 
 class K1Timer:
-    """Wraps the window module's counts_leq to time each launch with
-    CUDA events inside the real query (the wrapper still counts)."""
+    """Wraps the window module's counts_leq_grid inside the real queries
+    (the wrapper still counts each launch). For each launch it reads the
+    SM clock (nvidia-smi), the host time of the wrapper call, and the
+    kernel's device time: a spin kernel queued first keeps the card busy
+    until the wrapper has enqueued its launch, so the events around the
+    call time the kernel and not the host work before it."""
+
+    SPIN_CYCLES = 40_000_000        # ~20 ms at 1980 MHz
 
     def __init__(self, torch, inner):
         self.torch, self.inner = torch, inner
-        self.events, self.shapes = [], []
+        self.pending, self.shapes, self.launches = [], [], []
 
-    def __call__(self, b, nsteps):
-        e0 = self.torch.cuda.Event(enable_timing=True)
-        e1 = self.torch.cuda.Event(enable_timing=True)
+    def __call__(self, ts2d, t0, step, nsteps):
+        cuda = self.torch.cuda
+        clock = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+            capture_output=True, text=True).stdout.strip()
+        e_spin, e0, e1 = (cuda.Event(enable_timing=True) for _ in range(3))
+        h0 = time.perf_counter()
+        e_spin.record()
+        cuda._sleep(self.SPIN_CYCLES)
         e0.record()
-        out = self.inner(b, nsteps)
+        h1 = time.perf_counter()
+        out = self.inner(ts2d, t0, step, nsteps)
+        h2 = time.perf_counter()
         e1.record()
-        self.events.append((e0, e1))
-        self.shapes.append((tuple(b.shape), int(nsteps)))
+        self.pending.append((e_spin, e0, e1, h2 - h0, (h2 - h1) * 1e3, clock))
+        self.shapes.append((tuple(ts2d.shape), int(nsteps)))
         return out
 
-    def take_ms(self) -> float:
+    def take(self):
+        """[(device ms, wrapper host ms, SM clock)] of the launches since
+        the last call. Fails if the host had not enqueued a launch before
+        the spin ahead of it ended (its events would then time host work
+        too)."""
         self.torch.cuda.synchronize()
-        ms = sum(a.elapsed_time(b) for a, b in self.events)
-        self.events = []
-        return ms
+        rows = []
+        for e_spin, e0, e1, enqueue_s, host_ms, clock in self.pending:
+            spin_ms = e_spin.elapsed_time(e0)
+            check(enqueue_s * 1e3 < spin_ms, f"the wrapper took "
+                  f"{enqueue_s * 1e3:.2f} ms to enqueue, longer than the "
+                  f"{spin_ms:.2f} ms spin ahead of it")
+            rows.append((e0.elapsed_time(e1), host_ms, clock))
+        self.pending = []
+        self.launches += rows
+        return rows
 
 
 def brute_windows(ts, steps, range_ms):
@@ -449,10 +624,9 @@ def phase_promql(torch, seed, k1):
     rel, _, _, base = mat.device_arrays()
     n_pad = 1 << (len(steps) - 1).bit_length()
     main_T = n_pad + RANGE_MS // STEP_MS
-    main_b = win.step_buckets(torch.as_tensor(rel, device=DEVICE),
-                              start - base - RANGE_MS, STEP_MS, main_T)
-    kern = phase_kernel_check(torch, main_b, main_T)
-    del main_b
+    main_ts = torch.as_tensor(rel, device=DEVICE)
+    kern = phase_kernel_check(torch, main_ts, start - base - RANGE_MS, main_T)
+    del main_ts
 
     queries = [
         "avg_over_time(cpu_usage_user[5m])",
@@ -460,8 +634,8 @@ def phase_promql(torch, seed, k1):
         "sum by (region) (rate(cpu_seconds_total[5m]))",
         "stddev_over_time(cpu_usage_user[5m])",
     ]
-    win.counts_leq = k1
-    pw.counts_leq.launches = 0
+    win.counts_leq_grid = k1
+    pw.counts_leq.launches = pw.counts_leq_grid.launches = 0
     torch.cuda.reset_peak_memory_stats()
     results = {}
     for q in queries:
@@ -469,29 +643,39 @@ def phase_promql(torch, seed, k1):
         t0 = time.perf_counter()
         res = eng.query_to_prom_json(q, start, end, STEP_MS)
         wall = time.perf_counter() - t0
-        k1_ms = k1.take_ms()
+        k1_rows = k1.take()
         sel_s = eng.select_s
         eng.select_s = 0.0
         t1 = time.perf_counter()
         eng.query_range(q, start, end, STEP_MS)
         eval_wall = time.perf_counter() - t1
-        k1.take_ms()
+        k1_rows += k1.take()
         results[q] = res
         log(f"query {q}: wall {wall * 1e3:.1f} ms, {len(res['result'])} "
             f"series; select {sel_s * 1e3:.1f} ms, device eval + fetch "
             f"{(eval_wall - eng.select_s) * 1e3:.1f} ms, JSON shaping "
-            f"{(wall - eval_wall) * 1e3:.1f} ms; K1 {k1_ms:.4f} ms "
-            f"({k1_ms / (wall * 1e3) * 100:.4f}% of wall)")
-    launches = pw.counts_leq.launches
-    win.counts_leq = k1.inner
+            f"{(wall - eval_wall) * 1e3:.1f} ms; K1 per launch (JSON run, "
+            f"then eval run): device " +
+            " / ".join(f"{d:.4f}" for d, _, _ in k1_rows) + " ms, wrapper "
+            "host " + " / ".join(f"{h:.4f}" for _, h, _ in k1_rows) +
+            " ms, SM clock " + " / ".join(c for _, _, c in k1_rows))
+    launches = pw.counts_leq_grid.launches
+    kern[1]["launches"] = pw.counts_leq.launches
+    win.counts_leq_grid = k1.inner
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"counts_leq launches during the queries: {launches}; shapes "
+    log(f"counts_leq_grid launches during the queries: {launches} "
+        f"(counts_leq: {kern[1]['launches']}); shapes "
         f"{sorted(set(k1.shapes))}; peak device memory {peak:.2f} GiB")
-    check(launches > 0, "the main path launched no counts_leq kernel")
+    dev = [d for d, _, _ in k1.launches]
+    log(f"K1 in the queries: device {min(dev):.4f}-{max(dev):.4f} ms "
+        f"(median {statistics.median(dev):.4f}) against "
+        f"{kern[0]['ms']:.4f} ms alone at the same shape")
+    check(launches > 0, "the main path launched no counts_leq_grid kernel")
     check(((S, mat.max_len), main_T) in set(k1.shapes),
           "the main path did not run the window-bounds kernel at the "
           "shape phase 3 checked")
-    kern["launches"] = launches
+    kern[0]["launches"] = launches
+    phase_breakdown(torch, eng, mat, start, end)
 
     # ---- checks on 64 sampled hosts at every step ----
     rng = np.random.default_rng(seed + 1)
@@ -541,9 +725,9 @@ def phase_promql(torch, seed, k1):
     compare("sum by (region) (rate)", got, want, wok, wb)
 
     # the window counts themselves, straight from the kernel's bounds
-    ext = pw.counts_leq(win.step_buckets(
+    ext = pw.counts_leq_grid(
         torch.as_tensor(rel[idx], device=DEVICE), start - base - RANGE_MS,
-        STEP_MS, main_T), main_T).cpu().numpy()
+        STEP_MS, main_T).cpu().numpy()
     shift = RANGE_MS // STEP_MS
     kc = ext[:, shift:shift + len(steps)] - ext[:, :len(steps)]
     check(np.array_equal(kc, np.broadcast_to(cnt, kc.shape)),
@@ -584,6 +768,65 @@ def phase_promql(torch, seed, k1):
         compare(name, got, want, okr,
                 4 * U32 * gmax + QUANT * np.abs(np.nan_to_num(want)))
     return kern
+
+
+def phase_breakdown(torch, eng, mat, start: int, end: int, reps: int = 3):
+    """Splits "device eval + fetch" of avg_over_time(cpu_usage_user[5m])
+    over the main-path selection into the engine's own stages, each timed
+    on the host clock around work that ends in a synchronize (median of
+    `reps`): the host rebase, the H2D copies (with the float64 -> float32
+    cast the engine makes first), the window-bounds pass, the cumsums and
+    the stacked gather, the op epilogue, and the fetch (D2H, then the
+    float32 quantisation)."""
+    from greptimedb_tpu_torch.ops import window as win
+    from greptimedb_tpu_torch.promql import engine as E
+    from greptimedb_tpu_torch.session import QueryContext
+    n_eval = len(range(start, end + 1, STEP_MS))
+    nsteps = 1 << (n_eval - 1).bit_length()
+    shift = RANGE_MS // STEP_MS
+    times = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    for _ in range(reps):
+        ev = E._Eval(eng, QueryContext(), start, end, STEP_MS,
+                     E.DEFAULT_LOOKBACK_MS)
+        ts_host, val2d, lengths, base = stage(
+            "host rebase (SeriesMatrix.device_arrays)", mat.device_arrays)
+        ts2d, v, lg = stage("H2D copies (float32 cast included)", lambda: (
+            ev._to_device(ts_host), ev._to_device(val2d.astype(np.float32)),
+            ev._to_device(lengths)))
+        t0r = start - base
+        ext = stage("window-bounds pass (counts_leq_grid)",
+                    lambda: win._ext_counts(ts2d, t0r, step=STEP_MS,
+                                            range_ms=RANGE_MS, nsteps=nsteps))
+        ga = stage("cumsums + stacked gather (_stack_prefix)",
+                   lambda: win._stack_prefix(ts2d, v, lg, ext))
+        vals, ok = stage("op epilogue (_op_from_stack)", lambda: (
+            win._op_from_stack(ga, None, None, ext[:, :nsteps], ext[:, shift:],
+                               t0r, STEP_MS, RANGE_MS, op="avg_over_time",
+                               nsteps=nsteps, shift=shift)))
+        vh, okh = stage("fetch: D2H", lambda: (vals.cpu().numpy(),
+                                               ok.cpu().numpy()))
+        stage("fetch: float32 quantisation (_from_device_f32)",
+              lambda: E._from_device_f32(vh))
+        del ts2d, v, lg, ext, ga, vals, ok
+    log(f"device eval + fetch of avg_over_time(cpu_usage_user[5m]) by stage "
+        f"({mat.num_series} x {mat.max_len}, {nsteps} steps; host clock "
+        f"around synchronized work, median of {reps}):")
+    total = 0.0
+    for name, ts in times.items():
+        med = statistics.median(ts)
+        total += med
+        log(f"  {name}: {med:.1f} ms (runs "
+            f"{' / '.join(f'{t:.1f}' for t in ts)})")
+    log(f"  sum of the stages: {total:.1f} ms")
 
 
 def check_moments(torch, res_avg, res_std, mat, X, idx, keys, steps_s, M,
@@ -725,7 +968,7 @@ def main() -> int:
     phase_kernel_build()
     log("== phase 3 + 4: kernel checks, then PromQL on TSBS cpu-only")
     from greptimedb_tpu_torch.ops import pallas_window as pw
-    k1 = K1Timer(torch, pw.counts_leq)
+    k1 = K1Timer(torch, pw.counts_leq_grid)
     kern = phase_promql(torch, args.seed, k1)
 
     new = set(sys.modules) - before
@@ -733,7 +976,10 @@ def main() -> int:
                  ("jax", "jaxlib", "greptimedb_tpu", "pandas", "pyarrow"))
     check(not bad, f"the port imported {bad[:5]}")
     log(f"total {time.perf_counter() - t_all:.1f}s")
-    print(json.dumps({"kernels": [kern]}), flush=True)
+    # the kernels the main path launched; the bucket entry, which is off
+    # that path, gets a line of its own
+    print(json.dumps({"entries_off_main_path": [kern[1]]}), flush=True)
+    print(json.dumps({"kernels": [kern[0]]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

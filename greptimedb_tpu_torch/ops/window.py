@@ -8,8 +8,8 @@ Design (the port of greptimedb_tpu/ops/window.py): series are laid out as
 a dense padded matrix [S, L] sorted by time within each row. For an
 aligned step grid t_j = start + j*step, the window (t_j - range, t_j] of
 every series is located by bucketing every sample onto the step grid
-(elementwise) and counting buckets per step with the hand-written window-
-bounds kernel (ops/pallas_window.py:counts_leq), and:
+and counting buckets per step, both in one pass of the hand-written
+window-bounds kernel (ops/pallas_window.py:counts_leq_grid), and:
 
 - sum/count/avg/stddev/rate/increase/delta/changes/resets/last/first/idelta
   evaluate O(1) per window from per-series prefix sums (cumsum path);
@@ -35,7 +35,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .pallas_window import counts_leq
+from .pallas_window import counts_leq_grid, step_buckets  # noqa: F401
 
 TS_PAD = np.iinfo(np.int64).max
 
@@ -157,31 +157,6 @@ def _zcol(x: torch.Tensor) -> torch.Tensor:
 # window bounds
 # ---------------------------------------------------------------------------
 
-def step_buckets(ts2d: torch.Tensor, t0: int, step: int,
-                 nsteps: int) -> torch.Tensor:
-    """int32 [S, L]: for each sample the smallest k with t0 + k*step >= ts,
-    clipped to [0, nsteps]; the pad sentinel maps to nsteps (no step)."""
-    t0, step, nsteps = int(t0), int(step), int(nsteps)
-    # Pads are routed through t0 and forced to nsteps afterwards; the
-    # difference is taken in int64 so no t0 can overflow it. Floor
-    # division rounds toward -inf, as the reference's floor_divide does.
-    sentinel = torch.iinfo(ts2d.dtype).max
-    is_pad = ts2d == sentinel
-    safe_ts = torch.where(is_pad, t0, ts2d.to(torch.int64))
-    k = torch.div(t0 - safe_ts, step, rounding_mode="floor")
-    b = (-k).clamp_(0, nsteps).to(torch.int32)
-    return b.masked_fill_(is_pad, nsteps)
-
-
-def _counts_leq_grid(ts2d: torch.Tensor, t0: int, step: int,
-                     nsteps: int) -> torch.Tensor:
-    """#samples per row with ts <= t0 + k*step, for k in [0, nsteps) —
-    i.e. side='right' searchsorted against a REGULAR query grid: bucketize
-    every sample (elementwise), then count buckets per step with the
-    window-bounds kernel."""
-    return counts_leq(step_buckets(ts2d, t0, step, nsteps), int(nsteps))
-
-
 def _searchsorted_right(ts2d: torch.Tensor, ends: torch.Tensor
                         ) -> torch.Tensor:
     """Per-row side='right' searchsorted of one query vector → int32."""
@@ -198,8 +173,8 @@ def _bounds_grid(ts2d: torch.Tensor, t0: int, step: int, nsteps: int,
     not ascend falls back to a binary search."""
     T = int(nsteps)
     if step > 0:
-        hi = _counts_leq_grid(ts2d, t0, step, T)
-        lo = _counts_leq_grid(ts2d, t0 - range_ms, step, T)
+        hi = counts_leq_grid(ts2d, t0, step, T)
+        lo = counts_leq_grid(ts2d, t0 - range_ms, step, T)
         return lo, hi
     ends = _grid_ends(t0, step, T, ts2d).to(torch.int64)
     return (_searchsorted_right(ts2d, ends - range_ms),
@@ -655,8 +630,8 @@ def _ext_counts(ts2d, t0, *, step: int, range_ms: int, nsteps: int):
     """Counts at the extended grid [t0 - range, ..., t0 + (nsteps-1)*step]:
     lo = ext[:, :nsteps], hi = ext[:, shift:] for shift = range // step."""
     shift = range_ms // step
-    return _counts_leq_grid(ts2d, int(t0) - int(range_ms), step,
-                            nsteps + shift)
+    return counts_leq_grid(ts2d, int(t0) - int(range_ms), step,
+                           nsteps + shift)
 
 
 def _op_from_stack(ga, gb, gc, lo, hi, t0, step, range_ms, *,

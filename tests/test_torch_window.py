@@ -21,6 +21,7 @@ import torch
 import jax.numpy as jnp
 
 from greptimedb_tpu.ops import window as jw
+from greptimedb_tpu_torch.ops import pallas_window as pw
 from greptimedb_tpu_torch.ops import window as tw
 
 # tiny tensors: one intra-op thread keeps parallel test workers off
@@ -200,6 +201,31 @@ def test_window_bounds_on_rows_longer_than_32768_samples():
     pl_, ph_ = tw.window_bounds(torch.as_tensor(rel), ends, rng_ms)
     np.testing.assert_array_equal(pl_.numpy(), np.asarray(wl))
     np.testing.assert_array_equal(ph_.numpy(), np.asarray(wh))
+
+
+@pytest.mark.parametrize("grid", GRIDS, ids=lambda g: f"{g[1]}s{g[2]}r{g[3]}")
+def test_counts_leq_grid_matches_reference(data, grid, monkeypatch):
+    """The fused window-bounds entry on the extended grid (one range
+    before t0, as the aligned path counts) equals the reference's
+    _counts_leq_grid, and compute_window_bounds goes through it."""
+    rel, _, _, _ = data
+    t0, step, rng_ms, T = grid
+    ext_t0, ext_T = t0 - rng_ms, T + rng_ms // step
+    got = tw.counts_leq_grid(torch.as_tensor(rel), ext_t0, step, ext_T)
+    want = jw._counts_leq_grid(jnp.asarray(rel), ext_t0, step, ext_T)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+    calls = []
+
+    def spy(ts2d, t0_, step_, nsteps):
+        calls.append((int(t0_), int(step_), int(nsteps)))
+        return pw.counts_leq_grid(ts2d, t0_, step_, nsteps)
+
+    monkeypatch.setattr(tw, "counts_leq_grid", spy)
+    tw.compute_window_bounds(torch.as_tensor(rel), t0, step=step,
+                             range_ms=rng_ms, nsteps=T)
+    assert calls and all(c[1] == step for c in calls)
+    assert tw.step_buckets is pw.step_buckets
 
 
 def test_rebase_rejects_span_beyond_int32():
