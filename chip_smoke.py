@@ -7,9 +7,10 @@ Phases (none of them catches a failure; any failed check exits non-zero):
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions,
    and whether pandas, pyarrow and prometheus_client import here;
-2. builds the window-bounds kernel from greptimedb_tpu_torch/csrc with
-   nvcc (sm_90a) into the package's git-ignored build directory and
-   prints ptxas's registers and shared memory;
+2. builds both kernels from greptimedb_tpu_torch/csrc, the window-bounds
+   kernel and the segment-moments kernel, one nvcc (sm_90a) each, started
+   together, into the package's git-ignored build directory, and prints
+   ptxas's registers, shared memory and spills;
 3. holds both entries of the kernel, counts_leq (buckets in) and
    counts_leq_grid (timestamps in, bucketed in its loads), against their
    plain PyTorch versions (exact int32 equality) at the reference's test
@@ -26,11 +27,25 @@ Phases (none of them catches a failure; any failed check exits non-zero):
    host time and SM clock; splits one query's device eval + fetch into
    the engine's stages, checks 64 sampled series at every step against a
    float64 numpy brute force, and runs the gather-path functions at a
-   reduced size.
+   reduced size;
+5. holds the segment-moments kernel against its plain PyTorch version at
+   the reference's test shapes (tests/test_kernels.py) and at the edges
+   of its design (empty, single-row and block-edge runs, all rows masked,
+   one run of 5 M rows, 2.88 M runs of 6 rows), float32 and int32
+   columns, column nulls, unsorted ts with ties; two launches bit-equal;
+6. serves SQL through QueryEngine.execute on the GPU over TSBS cpu-only
+   (4000 hosts, 10 tags, 10 fields, 10 s, 12 h: 17.28 M rows): four TSBS
+   queries and two that reach every op, each cold (scan cache empty) and
+   warm, with the wall, the engine's stages, the kernel's device time and
+   peak device memory (the launch fenced behind a spin kernel), then warm
+   again unfenced for the wall and stages without the spin; checks every group against a float64 brute force
+   (planted wrong answers must fail its bounds); then times the kernel at
+   the Q1, Q4 and Q6 inputs against its plain version and
+   torch.segment_reduce.
 
 Before the last line come two JSON objects: the numbers of the bucket
-entry, which the main path does not launch, then the kernel table of the
-main path; the last line is {"ok": true, "device": {...}}. Without CUDA,
+entry, which the main paths do not launch, then the kernel table of the
+main paths (PromQL's window bounds, SQL's segment moments); the last line is {"ok": true, "device": {...}}. Without CUDA,
 or without the package beside this script, it exits non-zero and prints
 no result.
 """
@@ -130,17 +145,25 @@ def median_ms(torch, fn, launches: int = 20, runs: int = 5) -> float:
 
 
 def phase_kernel_build():
+    """Both kernels' libraries, one nvcc each, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from greptimedb_tpu_torch.ops import cuda_build
+    names = ("counts_leq", "segment_moments")
     t0 = time.perf_counter()
-    path = cuda_build.build("counts_leq")
-    secs = time.perf_counter() - t0
-    info = cuda_build.build_info["counts_leq"]
-    how = "built" if info["seconds"] else "reused"
-    log(f"build counts_leq: {secs:.2f}s ({how} "
-        f"{os.path.relpath(path, HERE)})")
-    for line in info["log"].splitlines():
-        if "ptxas info" in line:
-            log(f"  {line.strip()}")
+    with ThreadPoolExecutor(len(names)) as ex:
+        paths = dict(zip(names, ex.map(cuda_build.build, names)))
+    log(f"build: {time.perf_counter() - t0:.2f}s for {len(names)} kernels "
+        f"in parallel")
+    for name in names:
+        info = cuda_build.build_info[name]
+        how = f"built in {info['seconds']:.2f}s" if info["seconds"] \
+            else "reused"
+        log(f"  {name}: {how} ({os.path.relpath(paths[name], HERE)})")
+        for line in info["log"].splitlines():
+            if "ptxas info" in line and ("Used" in line or "spill" in line
+                                         or "Compiling" in line):
+                log(f"    {line.strip()}")
 
 
 def bound(S: int, L: int, T: int):
@@ -944,6 +967,634 @@ def _prom_quantile(sorted_vals, q):
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the segment-moments kernel against its plain version
+# ---------------------------------------------------------------------------
+
+MOMENT_CASE_OPS = ("count", "sum", "sum_sq", "min", "max", "first", "last")
+
+
+def moments_case(torch, lens, seed, all_masked=False, ts_range=None):
+    """Inputs of one segment_moments check on the card: runs of the given
+    lengths, 15 % of rows masked, 10 % column nulls on the float column,
+    unsorted ts (with ties when ts_range is small), the seven ops over a
+    float32 column and again over an int32 column (sums that wrap)."""
+    rng = np.random.default_rng(seed)
+    lens = np.asarray(lens, dtype=np.int64)
+    n = int(lens.sum())
+    ends = np.cumsum(lens).astype(np.int32)
+    mask = rng.random(n) > 0.15
+    if all_masked:
+        mask[:] = False
+    ts = rng.integers(0, ts_range or max(n, 1), n).astype(np.int32)
+    x = (rng.normal(size=n) * 50).astype(np.float32)
+    xi = rng.integers(-2**31, 2**31 - 1, n).astype(np.int32)
+    cm = rng.random(n) > 0.1
+
+    def dev(a):
+        return torch.as_tensor(a, device=DEVICE)
+
+    vals = [dev(x)] * 7 + [dev(xi)] * 7
+    cms = [dev(cm)] * 7 + [None] * 7
+    return (dev(ends), dev(mask), dev(ts), vals, cms,
+            list(MOMENT_CASE_OPS) * 2)
+
+
+def moments_agree(torch, name, args, quiet=False) -> float:
+    """The kernel against its plain version on the same inputs: counts,
+    min, max, first and last (and int32 sums) exactly; float sums within
+    2 u |plain| + 2 n u64 sum|x| (both accumulate each run in float64 in
+    another order, then round once to float32). Then a second launch:
+    the bits must be equal. Returns the largest |kernel - plain|."""
+    from greptimedb_tpu_torch.ops import kernels as K
+    ends, mask, ts, vals, cms, ops = args
+    got, gc = K.segment_moments(*args)
+    again, gc2 = K.segment_moments(*args)
+    want, wc = K.segment_moments_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(gc, wc), f"{name}: row counts differ from plain")
+    check(torch.equal(gc, gc2), f"{name}: row counts differ run to run")
+    n = mask.shape[0]
+    err = 0.0
+    absum = None
+    for i, (op, g, g2, w) in enumerate(zip(ops, got, again, want)):
+        check(torch.equal(g.view(torch.int32), g2.view(torch.int32)),
+              f"{name}: {op}[{i}] bits differ between two launches")
+        if op in ("sum", "sum_sq") and g.dtype == torch.float32:
+            x = vals[i].double().abs()
+            if op == "sum_sq":
+                x = x * x
+            (absum,), _ = K.segment_moments_plain(
+                ends, mask, ts, [x.float()], [cms[i]], ["sum"],
+                with_counts=False)
+            d = (g.double() - w.double()).abs()
+            tol = 2 * U32 * w.double().abs() + 2 * n * U64 * absum.double()
+            check(bool((d <= tol).all()), f"{name}: {op}[{i}] outside "
+                  f"the bound (max |err| {d.max().item():.3g})")
+            err = max(err, d.max().item() if d.numel() else 0.0)
+        else:
+            check(torch.equal(g.view(torch.int32), w.view(torch.int32)),
+                  f"{name}: {op}[{i}] kernel != plain")
+    if not quiet:
+        log(f"  {name}: kernel == plain (sums within the bound, max |err| "
+            f"{err:.3g}); two launches bit-equal")
+    return err
+
+
+def phase_moments_check(torch) -> float:
+    """The kernel at the reference's test shapes (tests/test_kernels.py)
+    and at the edges of its design, against its plain version."""
+    rng = np.random.default_rng(77)
+    cases = [
+        ("50 000 rows in 97 groups, uniform",
+         rng.multinomial(50_000, [1 / 97] * 97), {}),
+        ("50 000 rows in 97 groups, zipf-skewed",
+         np.bincount(rng.zipf(1.5, 50_000) % 97, minlength=97), {}),
+        ("120 000 rows in 9000 groups, one fat run, ts ties",
+         np.bincount(np.concatenate([rng.integers(0, 9000, 115_000),
+                                     np.full(5000, 1234)]), minlength=9000),
+         {"ts_range": 50}),
+        ("runs at block edges, empty and single-row runs",
+         [1023, 1, 1024, 0, 2046, 3, 0, 2053, 1, 32, 33, 4096, 0, 1], {}),
+        ("unsorted ts with ties inside runs (5 runs of 1000)", [1000] * 5,
+         {"ts_range": 50}),
+        ("all rows masked", [100] * 500, {"all_masked": True}),
+        ("one run of every row (5 M rows)", [5_000_000], {}),
+        ("2.88 M runs of 6 rows", [6] * 2_880_000, {}),
+    ]
+    err = 0.0
+    log("segment_moments: float32 and int32 columns, column nulls, 15 % "
+        "of rows masked")
+    for seed, (name, lens, kw) in enumerate(cases):
+        err = max(err, moments_agree(torch, name,
+                                     moments_case(torch, lens, seed, **kw)))
+    return err
+
+
+# ---------------------------------------------------------------------------
+# phase 6: SQL through QueryEngine on TSBS cpu-only
+# ---------------------------------------------------------------------------
+
+SQL_HOURS = 12                      # TSBS double-groupby span
+CPU_FIELDS = ("usage_user", "usage_system", "usage_idle", "usage_nice",
+              "usage_iowait", "usage_irq", "usage_softirq", "usage_steal",
+              "usage_guest", "usage_guest_nice")
+TSBS_TAGS = ("hostname", "region", "datacenter", "rack", "os", "arch",
+             "team", "service", "service_version", "service_environment")
+
+
+def tsbs_cpu_table(seed: int, hosts: int = HOSTS, hours: int = SQL_HOURS):
+    """TSBS `--use-case=cpu-only --log-interval=10s` as the table `cpu`:
+    the ten host tags of pkg/data/usecases/devops/host.go and the ten
+    usage_* fields of cpu.go, each a random walk clamped to [0, 100]
+    (steps N(0, 1), start U(0, 100)). Returns ts [n], one tag tuple per
+    host and {field: float64 [hosts, n]}."""
+    rng = np.random.default_rng(seed)
+    n = hours * 3600_000 // INTERVAL_MS
+    ts = TSBS_START_MS + np.arange(n, dtype=np.int64) * INTERVAL_MS
+    regions = list(TSBS_REGIONS)
+    tags = []
+    for h in range(hosts):
+        r = regions[rng.integers(len(regions))]
+        dcs = TSBS_REGIONS[r]
+        tags.append((
+            f"host_{h}", r, dcs[rng.integers(len(dcs))],
+            str(rng.integers(100)),
+            ("Ubuntu16.10", "Ubuntu16.04LTS", "Ubuntu15.10")[
+                rng.integers(3)],
+            ("x64", "x86")[rng.integers(2)],
+            ("SF", "NYC", "LON", "CHI")[rng.integers(4)],
+            str(rng.integers(20)), str(rng.integers(2)),
+            ("production", "staging", "test")[rng.integers(3)]))
+    fields = {}
+    for name in CPU_FIELDS:
+        x = rng.random(hosts) * 100.0
+        walk = np.empty((n, hosts))
+        steps = rng.standard_normal((n, hosts))
+        for i in range(n):
+            x = np.clip(x + steps[i], 0.0, 100.0)
+            walk[i] = x
+        fields[name] = np.ascontiguousarray(walk.T)
+    return ts, tags, fields
+
+
+class MemRegion:
+    """A region to the port's data seam (greptimedb_tpu_torch/query/
+    tpu_exec.py) serving one ScanData: the storage engine is not ported
+    yet."""
+
+    def __init__(self, uid, data):
+        import types
+        self.uid, self.name = uid, f"{uid}_0"
+        self.series_dict = data.series_dict
+        self.last_scan_profile = None
+        self._data = data
+        mt = types.SimpleNamespace(num_rows=data.num_rows)
+        self._version = types.SimpleNamespace(
+            schema=data.schema,
+            memtables=types.SimpleNamespace(all_memtables=lambda: [mt]),
+            ssts=types.SimpleNamespace(all_files=lambda: []))
+        self.version_control = types.SimpleNamespace(current=self._version)
+
+    def snapshot(self):
+        import types
+        return types.SimpleNamespace(
+            _version=self._version, scan=lambda: self._data,
+            visible_sequence=int(self._data.num_rows))
+
+
+def sql_catalog(ts, tags, fields):
+    """The catalog with table `cpu` (tags as the primary key, ts the time
+    index, the fields DOUBLE) over one region whose rows arrive
+    time-major, as a TSBS loader writes them; every row a PUT with its
+    own sequence. Returns (catalog, region, host series ids)."""
+    from greptimedb_tpu_torch.catalog import MemoryCatalogManager
+    from greptimedb_tpu_torch.datatypes import data_type as dt
+    from greptimedb_tpu_torch.datatypes.schema import (ColumnSchema, Schema,
+                                                       SemanticType)
+    from greptimedb_tpu_torch.storage import ScanData, SeriesDict
+    from greptimedb_tpu_torch.table import (Table, TableIdent, TableInfo,
+                                            TableMeta)
+    schema = Schema(
+        [ColumnSchema(t, dt.STRING, semantic_type=SemanticType.TAG)
+         for t in TSBS_TAGS] +
+        [ColumnSchema("ts", dt.TIMESTAMP_MILLISECOND, nullable=False,
+                      semantic_type=SemanticType.TIMESTAMP)] +
+        [ColumnSchema(f, dt.FLOAT64) for f in CPU_FIELDS])
+    sd = SeriesDict(list(TSBS_TAGS))
+    host_sids = sd.encode_rows([[t[i] for t in tags]
+                                for i in range(len(TSBS_TAGS))])
+    H, n = fields[CPU_FIELDS[0]].shape
+    N = H * n
+    data = ScanData(schema, sd, np.tile(host_sids, n), np.repeat(ts, H),
+                    np.arange(N, dtype=np.int64), np.zeros(N, np.int8),
+                    {f: (fields[f].T.ravel(), None) for f in CPU_FIELDS})
+    region = MemRegion("cpu-0", data)
+    table = Table(TableInfo(TableIdent(1), "cpu", TableMeta(schema)))
+    table.regions = {0: region}
+    cat = MemoryCatalogManager()
+    cat.register_table("greptime", "public", "cpu", table)
+    return cat, region, host_sids
+
+
+class MomentsTimer:
+    """Wraps sorted_grouped_aggregate as the SQL path calls it: a spin
+    kernel queued first keeps the card busy until the wrapper has queued
+    the segment-moments launch, so CUDA events around the call time the
+    kernel and not the host work before it. Keeps each call's inputs."""
+
+    SPIN_CYCLES = 40_000_000        # ~20 ms at 1980 MHz
+
+    def __init__(self, torch, inner):
+        self.torch, self.inner = torch, inner
+        self.pending, self.calls = [], []
+
+    def __call__(self, gids, mask, ts, values, col_masks=(), **kw):
+        cuda = self.torch.cuda
+        e_spin, e0, e1 = (cuda.Event(enable_timing=True) for _ in range(3))
+        h0 = time.perf_counter()
+        e_spin.record()
+        cuda._sleep(self.SPIN_CYCLES)
+        e0.record()
+        out = self.inner(gids, mask, ts, values, col_masks, **kw)
+        enqueue_s = time.perf_counter() - h0
+        e1.record()
+        self.pending.append((e_spin, e0, e1, enqueue_s))
+        self.calls.append((kw["ends"], mask, ts, list(values),
+                           list(col_masks), list(kw["ops"])))
+        return out
+
+    def take(self):
+        """Device ms of the launches since the last call."""
+        self.torch.cuda.synchronize()
+        rows = []
+        for e_spin, e0, e1, enqueue_s in self.pending:
+            spin_ms = e_spin.elapsed_time(e0)
+            check(enqueue_s * 1e3 < spin_ms, f"the wrapper took "
+                  f"{enqueue_s * 1e3:.2f} ms to enqueue, longer than the "
+                  f"{spin_ms:.2f} ms spin ahead of it")
+            rows.append(e0.elapsed_time(e1))
+        self.pending = []
+        return rows
+
+
+def sql_queries(rng, hosts: int):
+    """Q1-Q6: four TSBS queries and two shapes that reach every op."""
+    t0 = TSBS_START_MS
+    h = 3600_000
+    eight = sorted(rng.choice(hosts, min(8, hosts), replace=False))
+    inl = ", ".join(f"'host_{i}'" for i in eight)
+    avg_all = ", ".join(f"avg({f})" for f in CPU_FIELDS)
+    max_all = ", ".join(f"max({f})" for f in CPU_FIELDS)
+    max5 = ", ".join(f"max({f})" for f in CPU_FIELDS[:5])
+    return eight, {
+        "Q1 double-groupby-all":
+            f"SELECT date_bin(INTERVAL '1 hour', ts) AS hour, hostname, "
+            f"{avg_all} FROM cpu WHERE ts >= {t0} AND ts < "
+            f"{t0 + SQL_HOURS * h} GROUP BY hour, hostname ORDER BY hour, "
+            f"hostname",
+        "Q2 double-groupby-1":
+            f"SELECT date_bin(INTERVAL '1 hour', ts) AS hour, hostname, "
+            f"avg(usage_user) FROM cpu WHERE ts >= {t0} AND ts < "
+            f"{t0 + SQL_HOURS * h} GROUP BY hour, hostname ORDER BY hour, "
+            f"hostname",
+        "Q3 cpu-max-all-8":
+            f"SELECT date_bin(INTERVAL '1 hour', ts) AS hour, hostname, "
+            f"{max_all} FROM cpu WHERE hostname IN ({inl}) AND ts >= {t0} "
+            f"AND ts < {t0 + 8 * h} GROUP BY hour, hostname ORDER BY hour, "
+            f"hostname",
+        "Q4 single-groupby-5-8-1":
+            f"SELECT date_bin(INTERVAL '1 minute', ts) AS minute, hostname, "
+            f"{max5} FROM cpu WHERE hostname IN ({inl}) AND ts >= {t0} AND "
+            f"ts < {t0 + h} GROUP BY minute, hostname ORDER BY minute, "
+            f"hostname",
+        "Q5 per-host moments":
+            "SELECT hostname, count(*), sum(usage_user), min(usage_user), "
+            "max(usage_user), stddev(usage_user), first_value(usage_user), "
+            "last_value(usage_user) FROM cpu GROUP BY hostname ORDER BY "
+            "hostname",
+        "Q6 global aggregate":
+            "SELECT max(usage_user), avg(usage_system), "
+            "first_value(usage_idle), last_value(usage_idle) FROM cpu",
+    }
+
+
+def sum_bound(S, A, c):
+    """Bound on the port's float32 run sum of c float64 values with exact
+    sum S and absolute sum A: each value rounds to float32 (u |x|), the
+    run accumulates in float64 (c u64 A) and rounds once (u |S|)."""
+    return U32 * A + U32 * np.abs(S) + 2 * c * U64 * A
+
+
+def sql_expected(name, ts, fields, host_sids, eight):
+    """The float64 brute force of one query: (frame of keys, exact
+    columns and float columns with their bounds). Hosts sort as strings,
+    as ORDER BY hostname does."""
+    import pandas as pd
+    H, n = fields["usage_user"].shape
+    names = np.asarray([f"host_{i}" for i in range(H)])
+    per_h = 3600_000 // INTERVAL_MS
+    exact, approx = {}, {}
+
+    def bucketed(hosts, nb, width, fns):
+        keys_t = TSBS_START_MS + np.arange(nb, dtype=np.int64) * width * \
+            INTERVAL_MS
+        frame = {"t": np.repeat(keys_t, len(hosts)),
+                 "hostname": np.tile(names[hosts], nb)}
+        for col, (f, op) in fns.items():
+            blk = fields[f][hosts, :nb * width].reshape(len(hosts), nb,
+                                                        width)
+            v = {"max": blk.max(axis=2), "avg": blk.mean(axis=2),
+                 "sum": blk.sum(axis=2)}[op].T.ravel()
+            frame[col] = v
+            if op == "avg":
+                S = blk.sum(axis=2).T.ravel()
+                frame[f"__bound:{col}"] = sum_bound(S, S, width) / width + \
+                    4 * U64 * np.abs(v)
+            else:
+                exact[col] = True
+        return pd.DataFrame(frame)
+
+    if name.startswith(("Q1", "Q2")):
+        fs = CPU_FIELDS if name.startswith("Q1") else CPU_FIELDS[:1]
+        df = bucketed(np.arange(H), SQL_HOURS, per_h,
+                      {f"avg({f})": (f, "avg") for f in fs})
+        df = df.rename(columns={"t": "hour"})
+        keys = ["hour", "hostname"]
+    elif name.startswith("Q3"):
+        df = bucketed(np.asarray(eight), 8, per_h,
+                      {f"max({f})": (f, "max") for f in CPU_FIELDS})
+        df = df.rename(columns={"t": "hour"})
+        keys = ["hour", "hostname"]
+    elif name.startswith("Q4"):
+        df = bucketed(np.asarray(eight), 60, 6,
+                      {f"max({f})": (f, "max") for f in CPU_FIELDS[:5]})
+        df = df.rename(columns={"t": "minute"})
+        keys = ["minute", "hostname"]
+    elif name.startswith("Q5"):
+        X = fields["usage_user"]
+        S = X.sum(axis=1)
+        sq = (X * X).sum(axis=1)
+        c = n
+        var = X.var(axis=1, ddof=1)
+        std = np.sqrt(var)
+        # the fold: var = (sq - s^2/c) / (c - 1) in float64 from the
+        # float32 run sums s and sq
+        es = sum_bound(S, S, c)
+        esq = sum_bound(sq, sq, c) + U32 * sq      # the square's rounding
+        var_err = (esq + (2 * es * np.abs(S) + es * es) / c) / (c - 1) + \
+            8 * U64 * sq / (c - 1)
+        df = pd.DataFrame({
+            "hostname": names, "count(*)": np.full(H, c),
+            "sum(usage_user)": S, "min(usage_user)": X.min(axis=1),
+            "max(usage_user)": X.max(axis=1), "stddev(usage_user)": std,
+            "first_value(usage_user)": X[:, 0],
+            "last_value(usage_user)": X[:, -1]})
+        for col in ("count(*)", "min(usage_user)", "max(usage_user)",
+                    "first_value(usage_user)", "last_value(usage_user)"):
+            exact[col] = True
+        df["__bound:sum(usage_user)"] = es
+        df["__bound:stddev(usage_user)"] = np.minimum(
+            np.sqrt(var_err), var_err / np.maximum(std, 1e-300)) + \
+            4 * U64 * std
+        keys = ["hostname"]
+    else:
+        # one run of every row: ts ties across hosts break by position in
+        # the merged scan, which is series-id order
+        first_h, last_h = int(np.argmin(host_sids)), int(np.argmax(host_sids))
+        S = fields["usage_system"].sum()
+        N = H * n
+        df = pd.DataFrame({
+            "max(usage_user)": [fields["usage_user"].max()],
+            "avg(usage_system)": [S / N],
+            "first_value(usage_idle)": [fields["usage_idle"][first_h, 0]],
+            "last_value(usage_idle)": [fields["usage_idle"][last_h, -1]]})
+        exact.update({c: True for c in df.columns
+                      if c != "avg(usage_system)"})
+        df["__bound:avg(usage_system)"] = \
+            sum_bound(S, S, N) / N + 4 * U64 * S / N
+        keys = []
+    if keys:
+        df = df.sort_values(keys, kind="stable").reset_index(drop=True)
+        for k in keys:
+            exact[k] = True
+    # each bound travels beside its column through the sort
+    for col in [c for c in df.columns if c.startswith("__bound:")]:
+        approx[col.split(":", 1)[1]] = df.pop(col).to_numpy()
+    return df, exact, approx
+
+
+def compare_sql(name, got, want, exact, approx):
+    """Keys and counts exact; min, max, first and last equal to the
+    float32 rounding of the float64 answer; sums, averages and stddev
+    within their bounds. Returns the largest |err|/bound."""
+    check(list(got.columns) == list(want.columns),
+          f"{name}: columns {list(got.columns)} != {list(want.columns)}")
+    check(len(got) == len(want), f"{name}: {len(got)} rows, want "
+          f"{len(want)}")
+    worst = 0.0
+    for col in want.columns:
+        g = got[col].to_numpy()
+        w = want[col].to_numpy()
+        if col in exact:
+            if w.dtype.kind == "f":
+                w = w.astype(np.float32).astype(np.float64)
+            check(bool((g == w).all()), f"{name}: {col} differs at "
+                  f"{int((g != w).sum())} rows (e.g. {g[g != w][:3]} vs "
+                  f"{w[g != w][:3]})")
+            continue
+        b = np.broadcast_to(approx[col], w.shape)
+        d = np.abs(g.astype(np.float64) - w)
+        check(bool((d <= b).all()), f"{name}: {col} outside the bound at "
+              f"{int((d > b).sum())} rows (max |err|/bound "
+              f"{(d / b).max():.3g})")
+        worst = max(worst, float((d / b).max()))
+    return worst
+
+
+def planted(name, got, want, approx, fields):
+    """Wrong answers that the Q5 bounds must refuse: a sum 1 % high, a sum
+    missing its first row, and stddev with divisor n (ddof 0)."""
+    X = fields["usage_user"]
+    n = X.shape[1]
+    s = got["sum(usage_user)"].to_numpy()
+    sd = got["stddev(usage_user)"].to_numpy()
+    for what, col, v in [
+            ("sum 1 % high", "sum(usage_user)", s * 1.01),
+            ("sum without its first row", "sum(usage_user)", s - X[:, 0]),
+            ("stddev with ddof 0", "stddev(usage_user)",
+             sd * np.sqrt((n - 1) / n))]:
+        nbad = int((np.abs(v - want[col].to_numpy()) > approx[col]).sum())
+        check(nbad > 0, f"{name}: the bound passes a planted {what}")
+        log(f"  planted {what}: fails at {nbad} of {len(v)} groups")
+
+
+def sql_frame(out):
+    import pandas as pd
+    frames = [pd.DataFrame(b.to_pydict()) for b in out.batches]
+    return pd.concat(frames, ignore_index=True)
+
+
+def phase_sql(torch, seed):
+    """SQL through QueryEngine.execute on the GPU: each query cold (scan
+    cache empty), then warm, both with the launch fenced, then warm
+    unfenced; per-query wall and stages; results against a float64 brute
+    force. Returns the segment-moments launches of the run,
+    and the kernel's inputs at Q1, Q4 and Q6."""
+    from greptimedb_tpu_torch.ops import kernels as K
+    from greptimedb_tpu_torch.query import QueryEngine, ir, tpu_exec
+    from greptimedb_tpu_torch.session import QueryContext
+    from greptimedb_tpu_torch.sql import parse_sql
+
+    t_gen = time.perf_counter()
+    ts, tags, fields = tsbs_cpu_table(seed + 2)
+    cat, region, host_sids = sql_catalog(ts, tags, fields)
+    H, n = fields["usage_user"].shape
+    log(f"TSBS cpu-only table cpu: {H} hosts x {n} samples = {H * n} rows, "
+        f"10 tags, 10 fields, {SQL_HOURS} h, made in "
+        f"{time.perf_counter() - t_gen:.1f}s (seed {seed + 2})")
+    eng = QueryEngine(cat, device=DEVICE)
+    eight, queries = sql_queries(np.random.default_rng(seed + 3), H)
+
+    timer = MomentsTimer(torch, tpu_exec.sorted_grouped_aggregate)
+    tpu_exec.sorted_grouped_aggregate = timer
+    stage_s = {}
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            stage_s[key] = stage_s.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    finalize, finish = ir._finalize, eng._finish_aggregate_frame
+    ir._finalize = timed("finalize", finalize)
+    eng._finish_aggregate_frame = timed("finish", finish)
+    inputs = {}
+    K.segment_moments.launches = 0
+    try:
+        for name, sql in queries.items():
+            # cold and warm with the launch fenced (its device time), then
+            # warm unfenced: the wall and stages without the spin, which
+            # the fetch would otherwise wait out
+            for run in ("cold", "warm", "warm unfenced"):
+                if run == "cold":
+                    tpu_exec.SCAN_CACHE.clear()
+                fenced = run != "warm unfenced"
+                tpu_exec.sorted_grouped_aggregate = \
+                    timer if fenced else timer.inner
+                stage_s.clear()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                out = eng.execute(parse_sql(sql), QueryContext())
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                kernel = ""
+                if fenced:
+                    dev_ms = timer.take()
+                    check(len(dev_ms) == 1,
+                          f"{name}: {len(dev_ms)} launches")
+                    kernel = f" kernel (device) {dev_ms[0]:.4f} ms;"
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                p = region.last_scan_profile
+                st = dict(p.stages)
+                st.update(stage_s)
+                log(f"{name} [{run}, cache {p.outcome}]: wall "
+                    f"{wall * 1e3:.1f} ms; " + ", ".join(
+                        f"{k} {v * 1e3:.1f}" for k, v in st.items()) +
+                    f" ms;{kernel} {out.num_rows} rows; peak device "
+                    f"memory {peak:.2f} GiB")
+                if run == "warm":
+                    got = sql_frame(out)
+                    want, exact, approx = sql_expected(
+                        name, ts, fields, host_sids, eight)
+                    worst = compare_sql(name, got, want, exact, approx)
+                    log(f"  check {name}: {len(got)} rows vs the float64 "
+                        f"brute force; keys, counts, min/max/first/last "
+                        f"exact; max |err|/bound {worst:.3g}")
+                    if name.startswith("Q5"):
+                        planted(name, got, want, approx, fields)
+            inputs[name.split()[0]] = timer.calls[-1]
+            tpu_exec.sorted_grouped_aggregate = timer
+    finally:
+        tpu_exec.sorted_grouped_aggregate = timer.inner
+        ir._finalize = finalize
+    launches = K.segment_moments.launches
+    check(launches == 3 * len(queries),
+          f"the SQL path launched segment_moments {launches} times")
+    log(f"segment_moments launches during the queries: {launches}")
+    del fields
+    return launches, inputs
+
+
+def moments_bound(args):
+    """Bytes the function must move: the row mask and the run ends read
+    once, each output written once, and each distinct value column,
+    column mask and (for first/last) ts read once at the rows this run's
+    row mask lets through (a masked-out row needs none of them); against
+    one operation per row and moment."""
+    ends, mask, ts, vals, cms, ops = args
+    live = float(mask.float().mean()) if mask.numel() else 0.0
+    full = {ends.data_ptr(): ends.numel() * ends.element_size(),
+            mask.data_ptr(): mask.numel() * mask.element_size()}
+    part = {}
+    cols = list(vals) + [c for c in cms if c is not None]
+    if any(op in ("first", "last") for op in ops):
+        cols.append(ts)
+    for t in cols:
+        if t.data_ptr() not in full:
+            part[t.data_ptr()] = t.numel() * t.element_size()
+    G = ends.shape[0]
+    nbytes = sum(full.values()) + live * sum(part.values()) + \
+        (len(ops) + 1) * G * 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = mask.shape[0] * (len(ops) + 1) / SCALAR_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), \
+        "bytes" if bytes_ms >= ops_ms else "operations", nbytes
+
+
+def library_moments(torch, args):
+    """torch.segment_reduce, one call per moment over the run lengths
+    with masked rows filled beforehand (the fill is not timed); no
+    library call computes first/last, which are left out. Returns the
+    callable that runs them all."""
+    ends, mask, ts, vals, cms, ops = args
+    lens = torch.diff(ends.long(), prepend=ends.new_zeros(1).long())
+    calls = []
+    for op, v, cm in zip(ops + ["count"], vals + [vals[0]],
+                         cms + [None]):
+        m = mask if cm is None else mask & cm
+        if op == "count":
+            data, red = m.float(), "sum"
+        elif op in ("sum", "sum_sq"):
+            x = v.float()
+            data, red = torch.where(m, x * x if op == "sum_sq" else x,
+                                    0.0), "sum"
+        elif op in ("min", "max"):
+            fill = float("inf") if op == "min" else float("-inf")
+            data, red = torch.where(m, v.float(), fill), op
+        else:
+            continue
+        calls.append((data, red))
+
+    def run():
+        for data, red in calls:
+            torch.segment_reduce(data, red, lengths=lens, unsafe=True)
+    return run, len(calls)
+
+
+def phase_moments_time(torch, inputs):
+    """segment_moments at the main path's shapes (Q1, Q4, Q6), against
+    its plain version and the library yardstick; Q1 is the table's row."""
+    from greptimedb_tpu_torch.ops import kernels as K
+    rows = {}
+    for q in ("Q1", "Q4", "Q6"):
+        args = inputs[q]
+        ends, mask = args[0], args[1]
+        err = moments_agree(torch, f"{q} main-path shape", args, quiet=True)
+        lib, nlib = library_moments(torch, args)
+        ms = median_ms(torch, lambda: K.segment_moments(*args))
+        plain_ms = median_ms(torch, lambda: K.segment_moments_plain(*args),
+                             launches=3, runs=3)
+        lib_ms = median_ms(torch, lib, launches=5, runs=3)
+        b_ms, b_by, nbytes = moments_bound(args)
+        log(f"segment_moments at the {q} shape: {mask.shape[0]} rows, "
+            f"{ends.shape[0]} runs, {len(args[5])} moments "
+            f"({', '.join(sorted(set(args[5])))}); kernel == plain, two "
+            f"launches bit-equal, max |err| {err:.3g}; kernel {ms:.4f} ms "
+            f"({b_ms / ms * 100:.1f}% of the bound), plain {plain_ms:.4f} "
+            f"ms, torch.segment_reduce x {nlib} {lib_ms:.4f} ms; bound "
+            f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB)")
+        rows[q] = {"name": "segment_moments", "route": "cuda",
+                   "source": "greptimedb_tpu_torch/csrc/segment_moments.cu",
+                   "replaces": "greptimedb_tpu/ops/kernels.py:730",
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    return rows["Q1"]
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -970,16 +1621,23 @@ def main() -> int:
     from greptimedb_tpu_torch.ops import pallas_window as pw
     k1 = K1Timer(torch, pw.counts_leq_grid)
     kern = phase_promql(torch, args.seed, k1)
+    log("== phase 5: segment_moments against its plain version")
+    phase_moments_check(torch)
+    log("== phase 6: SQL on TSBS cpu-only, then segment_moments at the "
+        "main path's shapes")
+    launches, inputs = phase_sql(torch, args.seed)
+    k2 = phase_moments_time(torch, inputs)
+    k2["launches"] = launches
 
     new = set(sys.modules) - before
     bad = sorted(m for m in new if m.split(".")[0] in
-                 ("jax", "jaxlib", "greptimedb_tpu", "pandas", "pyarrow"))
+                 ("jax", "jaxlib", "greptimedb_tpu"))
     check(not bad, f"the port imported {bad[:5]}")
     log(f"total {time.perf_counter() - t_all:.1f}s")
-    # the kernels the main path launched; the bucket entry, which is off
-    # that path, gets a line of its own
+    # the kernels the main paths launched; the bucket entry, which is off
+    # them, gets a line of its own
     print(json.dumps({"entries_off_main_path": [kern[1]]}), flush=True)
-    print(json.dumps({"kernels": [kern[0]]}), flush=True)
+    print(json.dumps({"kernels": [kern[0], k2]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -7,9 +7,13 @@ from `csrc/` at first use (ops/cuda_build.py).
 
 Ported so far: the PromQL engine (promql/) above its data-access seam
 (`PromqlEngine.select`) and the window evaluation under it (ops/window.py,
-ops/pallas_window.py). The package imports torch and numpy only; it
-never imports jax, greptimedb_tpu, pandas or pyarrow. Entry points run on
-the GPU unless the caller passes `device="cpu"`.
+ops/pallas_window.py); the SQL engine's SELECT path (sql/, query/) down to
+the region-scan seam, with the sorted-segment moments of the aggregate
+fast path in ops/kernels.py and csrc/segment_moments.cu. The package
+never imports jax or greptimedb_tpu; the PromQL path imports torch and
+numpy only, the SQL path's host layer also pandas and pyarrow (as the
+reference's does). Entry points run on the GPU unless the caller passes
+`device="cpu"`.
 """
 
 __version__ = "0.1.0"

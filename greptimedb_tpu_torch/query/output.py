@@ -1,0 +1,47 @@
+"""Query output container.
+
+Reference behavior: src/common/query — `Output::{AffectedRows,
+RecordBatches, Stream}`. Streams collapse to eager batch lists here; the
+protocol servers chunk them on the way out.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+from ..datatypes.record_batch import RecordBatch, pretty_print
+from ..datatypes.schema import Schema
+
+
+@dataclass
+class Output:
+    affected_rows: Optional[int] = None
+    batches: Optional[List[RecordBatch]] = None
+    schema: Optional[Schema] = None
+
+    @staticmethod
+    def rows(n: int) -> "Output":
+        return Output(affected_rows=n)
+
+    @staticmethod
+    def record_batches(batches: List[RecordBatch],
+                       schema: Optional[Schema] = None) -> "Output":
+        if schema is None and batches:
+            schema = batches[0].schema
+        return Output(batches=batches, schema=schema)
+
+    @property
+    def is_batches(self) -> bool:
+        return self.batches is not None
+
+    @property
+    def num_rows(self) -> int:
+        if self.batches is not None:
+            return sum(b.num_rows for b in self.batches)
+        return self.affected_rows or 0
+
+    def pretty(self) -> str:
+        if self.batches is not None:
+            return pretty_print(self.batches)
+        return f"Affected Rows: {self.affected_rows}"

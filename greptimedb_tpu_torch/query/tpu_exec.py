@@ -1,0 +1,966 @@
+"""The aggregate fast path on the GPU.
+
+Executes the canonical time-series shape — scan → filter → group by tags
+and/or time bucket → aggregate — as one kernel launch per region:
+
+1. per-region merged scan (sorted by (series, ts), MVCC-deduped) from a
+   version-keyed cache; its device mirrors stay resident across queries
+   until the region version changes;
+2. groups are contiguous runs over (series [, bucket]), found on the host;
+3. the segment-moments kernel (ops/kernels.py, csrc/segment_moments.cu)
+   computes every decomposable moment of the plan (sum/sum_sq/count/min/
+   max/first+ts/last+ts) per run in one launch; one device-to-host copy
+   brings them back, and runs fold into the final SQL groups on the host
+   (`_finalize`), which also merges partials across regions.
+
+Anything outside this shape returns None and the engine falls back to the
+CPU columnar executor. Reference: greptimedb_tpu/query/tpu_exec.py. This
+port takes the reference's resident dispatch for every region; the
+streamed-cold and indexed-point paths, scan fusion, incremental cache
+maintenance and sketch/expression moments are not ported yet (plans that
+need sketches or expression columns take the CPU path).
+
+The data seam (what is read from a table and its regions): a table's
+`schema`, `name`, `info` and `regions`; a region's `uid`, `name`,
+`series_dict`, `version_control.current` (memtable and SST row counts for
+the dispatch floor) and `snapshot()` with `.scan()` → ScanData,
+`.visible_sequence` and `._version` (`.schema.version`,
+`.ssts.all_files()`).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import pandas as pd
+import torch
+
+from ..errors import UnsupportedError
+from ..ops.kernels import merge_dedup_numpy, sorted_grouped_aggregate
+from ..sql.ast import (
+    Between, BinaryOp, Column, Expr, FunctionCall, Interval, Literal, Query,
+    UnaryOp,
+)
+from .expr import Evaluator, expr_name
+from .functions import TPU_AGGREGATES, parse_interval_ms
+from .planner import Analysis, _group_slot
+
+_CMP_OPS = {"=": "eq", "!=": "ne", "<": "lt", "<=": "le", ">": "gt",
+            ">=": "ge"}
+
+
+# ---------------------------------------------------------------------------
+# merged-scan cache (per region version and device)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class ScanProfile:
+    """Host-clock stages of one region's reduction (seconds), left on
+    `region.last_scan_profile`: scan_prep (cache lookup or MergedScan
+    build), runs (host run ids), masks (tag predicates and row mask),
+    h2d (device mirrors, mask and run ends), launch (the kernel call's
+    host time), fetch (the one device-to-host copy, which waits for the
+    kernel), collect (the per-run moment frame)."""
+    path: str
+    rows: int = 0
+    outcome: str = ""
+    stages: Dict[str, float] = field(default_factory=dict)
+
+    def mark(self, stage: str, seconds: float) -> None:
+        self.stages[stage] = self.stages.get(stage, 0.0) + seconds
+
+
+@dataclass
+class MergedScan:
+    series_ids: np.ndarray            # int32, sorted
+    ts: np.ndarray                    # int64 epoch (region units)
+    fields: Dict[str, Tuple[np.ndarray, Optional[np.ndarray]]]
+    series_dict: object
+    ts_base: int                      # device ts = ts - ts_base (int32)
+    torch_device: torch.device        # where the mirrors live
+    #: device mirrors and host run contexts, built at first use
+    mirrors: Dict[str, object] = field(default_factory=dict)
+
+    @property
+    def num_rows(self) -> int:
+        return len(self.ts)
+
+    def to_device(self, a: np.ndarray) -> torch.Tensor:
+        dev = self.torch_device
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "QueryEngine runs on 'cuda' but CUDA is not available; "
+                "construct it with device='cpu' to run on the CPU")
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    def device_ts(self) -> torch.Tensor:
+        if "__ts" not in self.mirrors:
+            rel = self.ts - self.ts_base
+            if rel.size and (rel.max() >= 2**31 or rel.min() < 0):
+                raise UnsupportedError("region time span exceeds int32")
+            self.mirrors["__ts"] = self.to_device(rel.astype(np.int32))
+        return self.mirrors["__ts"]
+
+    def device_field(self, name: str) -> torch.Tensor:
+        key = f"f:{name}"
+        if key not in self.mirrors:
+            vals, _ = self.fields[name]
+            if vals.dtype == object:
+                raise UnsupportedError(f"field {name} is not numeric")
+            v = vals
+            # 32-bit on the device, as the reference runs with x64 off
+            if v.dtype == np.int64:
+                v = v.astype(np.float64) if abs(v).max(initial=0) >= 2**31 \
+                    else v.astype(np.int32)
+            if v.dtype != np.int32:
+                v = v.astype(np.float32)
+            self.mirrors[key] = self.to_device(v)
+        return self.mirrors[key]
+
+    def device_valid(self, name: str) -> torch.Tensor:
+        key = f"v:{name}"
+        if key not in self.mirrors:
+            _, valid = self.fields[name]
+            if valid is None:
+                return self.device_valid_all()
+            self.mirrors[key] = self.to_device(valid)
+        return self.mirrors[key]
+
+    def device_valid_all(self) -> torch.Tensor:
+        if "__all_valid" not in self.mirrors:
+            self.mirrors["__all_valid"] = self.to_device(
+                np.ones(self.num_rows, dtype=bool))
+        return self.mirrors["__all_valid"]
+
+    @property
+    def nbytes(self) -> int:
+        """Host + device residency of this scan (cache accounting)."""
+        total = self.series_ids.nbytes + self.ts.nbytes
+        for vals, valid in self.fields.values():
+            total += getattr(vals, "nbytes", 8 * len(vals))
+            if valid is not None:
+                total += valid.nbytes
+        for v in self.mirrors.values():
+            for x in (v if isinstance(v, tuple) else (v,)):
+                if isinstance(x, torch.Tensor):
+                    total += x.numel() * x.element_size()
+                else:
+                    total += getattr(x, "nbytes", 0)
+        return total
+
+
+@dataclass
+class _CacheEntry:
+    scan: MergedScan
+    visible: int                      # sequences <= visible are merged in
+    sst_names: frozenset              # SSTs whose content is merged in
+    schema_version: int
+    retraction_epoch: int
+
+
+class _ScanCache:
+    """Per-region merged-scan cache: byte-budget LRU over whole scans.
+
+    An entry is reused while its region's visible sequence, SST set,
+    schema version and retraction epoch are unchanged and its mirrors
+    live on the requested device; anything else rebuilds the scan from a
+    fresh region scan (the reference's incremental merge of a version's
+    delta is not ported yet). The newest entry always stays, even when
+    it alone exceeds the budget."""
+
+    def __init__(self, capacity: int = 16,
+                 budget_bytes: int = 4 << 30):
+        self.capacity = capacity
+        self.budget_bytes = budget_bytes
+        self._lock = threading.Lock()
+        self._entries: Dict[str, _CacheEntry] = {}   # insertion = LRU
+        # per-thread outcome of the most recent get(): "hit" / "full"
+        self._last = threading.local()
+
+    def last_outcome(self) -> Optional[str]:
+        return getattr(self._last, "outcome", None)
+
+    def get(self, region, device) -> MergedScan:
+        device = torch.device(device)
+        snap = region.snapshot()
+        v = snap._version
+        visible = snap.visible_sequence
+        sst_names = frozenset(f.file_name for f in v.ssts.all_files())
+        epoch = getattr(region, "retraction_epoch", 0)
+        with self._lock:
+            entry = self._entries.pop(region.uid, None)
+            if entry is not None:                    # LRU touch
+                self._entries[region.uid] = entry
+        if entry is not None and entry.schema_version == v.schema.version \
+                and entry.retraction_epoch == epoch \
+                and entry.visible == visible \
+                and entry.sst_names == sst_names \
+                and entry.scan.torch_device == device:
+            self._last.outcome = "hit"
+            return entry.scan
+        self._last.outcome = "full"
+        scan = self._full(snap, device)
+        entry = _CacheEntry(scan, visible, sst_names, v.schema.version,
+                            epoch)
+        with self._lock:
+            self._entries.pop(region.uid, None)
+            self._entries[region.uid] = entry
+            self._evict_locked()
+        return scan
+
+    def _evict_locked(self) -> None:
+        """Drop LRU entries until count and byte budgets hold (whole
+        scans only; the most recent entry is never evicted)."""
+        while len(self._entries) > max(self.capacity, 1):
+            self._entries.pop(next(iter(self._entries)))
+        if self.budget_bytes <= 0:
+            return
+        total = {uid: e.scan.nbytes for uid, e in self._entries.items()}
+        used = sum(total.values())
+        for uid in list(self._entries):
+            if used <= self.budget_bytes or len(self._entries) <= 1:
+                break
+            self._entries.pop(uid)
+            used -= total[uid]
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+
+    @staticmethod
+    def _full(snap, device: torch.device) -> MergedScan:
+        data = snap.scan()
+        if data.num_rows:
+            kept = merge_dedup_numpy(data.series_ids, data.ts, data.seq,
+                                     data.op_types)
+            sids = data.series_ids[kept]
+            ts = data.ts[kept]
+            fields = {n: (d[kept], vd[kept] if vd is not None else None)
+                      for n, (d, vd) in data.fields.items()}
+        else:
+            sids, ts = data.series_ids, data.ts
+            fields = data.fields
+        base = int(ts.min()) if ts.size else 0
+        return MergedScan(sids.astype(np.int32), ts, fields,
+                          data.series_dict, base, device)
+
+
+SCAN_CACHE = _ScanCache()
+
+
+# ---------------------------------------------------------------------------
+# plan
+# ---------------------------------------------------------------------------
+
+@dataclass
+class TagGroup:
+    name: str                         # tag column name
+    tag_index: int
+
+
+@dataclass
+class BucketGroup:
+    stride_ms: int
+    origin: int
+    expr_key: str                     # expr_name of the bucket expression
+
+
+@dataclass
+class FieldFilter:
+    column: str
+    op: str                           # eq/ne/lt/le/gt/ge
+    value: float
+
+
+@dataclass
+class Moment:
+    op: str                           # kernel op
+    column: Optional[str]             # field name; None = row count
+    slot: str
+
+
+@dataclass
+class TpuPlan:
+    tag_groups: List[TagGroup]
+    bucket: Optional[BucketGroup]
+    moments: List[Moment]
+    finals: List[Tuple[str, str, List[str]]]  # (slot, final op, moment slots)
+    time_lo: Optional[int]
+    time_hi: Optional[int]
+    tag_predicates: List[Expr]
+    field_filters: List[FieldFilter]
+
+
+def _conjuncts(e: Optional[Expr]) -> List[Expr]:
+    if e is None:
+        return []
+    if isinstance(e, BinaryOp) and e.op == "and":
+        return _conjuncts(e.left) + _conjuncts(e.right)
+    return [e]
+
+
+def _refs(e: Expr) -> set:
+    from .planner import _walk_columns
+    out: set = set()
+    _walk_columns(e, out)
+    return out
+
+
+def _literal_num(e: Expr):
+    if isinstance(e, Literal) and isinstance(e.value, (int, float)) and \
+            not isinstance(e.value, bool):
+        return e.value
+    if isinstance(e, UnaryOp) and e.op == "-":
+        v = _literal_num(e.operand)
+        return -v if v is not None else None
+    return None
+
+
+def standard_final(op: str, col: Optional[str], moment):
+    """(final op, moment slots) for one standard aggregate through the
+    `moment(op, column) -> slot` dedupe closure — the one op→moment
+    mapping SQL planning (plan_for) and explicit specs (ir.plan_from_specs)
+    share. A count moment rides along with sum/min/max so empty groups
+    finalize to NULL, not 0."""
+    if op == "count":
+        return "count", [moment("count", col)]
+    if op in ("sum", "avg"):
+        return op, [moment("sum", col), moment("count", col)]
+    if op in ("min", "max"):
+        return op, [moment(op, col), moment("count", col)]
+    if op in ("stddev", "variance"):
+        return op, [moment("sum", col), moment("sum_sq", col),
+                    moment("count", col)]
+    if op in ("first", "last"):
+        mts = moment("min_ts" if op == "first" else "max_ts", col)
+        return op, [moment(op, col), mts]
+    return None
+
+
+def plan_for(table, a: Analysis, query: Query) -> Optional[TpuPlan]:
+    """Return a TpuPlan if (table, query) fits the fast-path shape."""
+    if table is None or not a.is_aggregate or query.joins:
+        return None
+    if a.window_calls:
+        return None
+    if not hasattr(table, "regions"):
+        return None  # only region-backed tables have the SoA path
+    schema = table.schema
+    tc = schema.timestamp_column
+    tag_names = schema.tag_names()
+    field_names = set(schema.field_names())
+
+    # group exprs: tags and at most one time bucket
+    tag_groups: List[TagGroup] = []
+    bucket: Optional[BucketGroup] = None
+    for g in a.group_exprs:
+        if isinstance(g, Column) and g.name in tag_names:
+            tag_groups.append(TagGroup(g.name, tag_names.index(g.name)))
+            continue
+        b = _match_bucket(g, tc.name if tc else None)
+        if b is not None and bucket is None:
+            bucket = b
+            continue
+        return None
+
+    # aggregates → moments (sketch aggregates, DISTINCT and expression
+    # arguments reduce on the host in the reference; here they take the
+    # CPU path until those moments are ported)
+    moments: List[Moment] = []
+    finals: List[Tuple[str, str, List[str]]] = []
+    seen: Dict[tuple, str] = {}
+
+    def moment(op: str, column: Optional[str]) -> str:
+        k = (op, column)
+        if k in seen:
+            return seen[k]
+        slot = f"__m{len(moments)}"
+        moments.append(Moment(op, column, slot))
+        seen[k] = slot
+        return slot
+
+    for call in a.agg_calls:
+        op = call.op
+        if op not in TPU_AGGREGATES or call.distinct:
+            return None
+        if call.arg is None:
+            if op != "count":
+                return None
+            finals.append((call.slot, "count", [moment("count", None)]))
+            continue
+        if not isinstance(call.arg, Column):
+            return None
+        col = call.arg.name
+        if col in field_names:
+            cs = schema.column_schema(col)
+            if (cs.dtype.is_string or cs.dtype.is_binary) and op != "count":
+                return None
+        else:
+            return None
+        std = standard_final(op, col, moment)
+        if std is None:
+            return None
+        finals.append((call.slot, std[0], std[1]))
+
+    # WHERE decomposition
+    time_lo = time_hi = None
+    tag_predicates: List[Expr] = []
+    field_filters: List[FieldFilter] = []
+    for c in _conjuncts(query.where):
+        refs = _refs(c)
+        if refs and refs <= set(tag_names):
+            tag_predicates.append(c)
+            continue
+        if tc is not None and refs == {tc.name}:
+            rng = _match_time_pred(c, tc.name)
+            if rng is None:
+                return None
+            lo, hi = rng
+            if lo is not None:
+                time_lo = lo if time_lo is None else max(time_lo, lo)
+            if hi is not None:
+                time_hi = hi if time_hi is None else min(time_hi, hi)
+            continue
+        ff = _match_field_pred(c, field_names)
+        if ff is None:
+            return None
+        field_filters.append(ff)
+
+    return TpuPlan(tag_groups, bucket, moments, finals, time_lo, time_hi,
+                   tag_predicates, field_filters)
+
+
+def _match_bucket(e: Expr, ts_name: Optional[str]) -> Optional[BucketGroup]:
+    """date_bin(INTERVAL, ts [, origin]) / date_trunc('unit', ts)."""
+    if ts_name is None or not isinstance(e, FunctionCall):
+        return None
+    if e.name == "date_bin" and len(e.args) >= 2:
+        stride = None
+        if isinstance(e.args[0], Interval):
+            stride = parse_interval_ms(e.args[0].text)
+        elif _literal_num(e.args[0]) is not None:
+            stride = int(_literal_num(e.args[0]))
+        if stride is None or stride <= 0:
+            return None
+        if not (isinstance(e.args[1], Column) and e.args[1].name == ts_name):
+            return None
+        origin = 0
+        if len(e.args) >= 3:
+            o = _literal_num(e.args[2])
+            if o is None:
+                return None
+            origin = int(o)
+        return BucketGroup(stride, origin, expr_name(e))
+    if e.name == "date_trunc" and len(e.args) == 2:
+        from .functions import _TRUNC_MS, _WEEK_ORIGIN_MS
+        if not isinstance(e.args[0], Literal):
+            return None
+        unit = str(e.args[0].value).lower()
+        if unit not in _TRUNC_MS:
+            return None
+        if not (isinstance(e.args[1], Column) and e.args[1].name == ts_name):
+            return None
+        origin = _WEEK_ORIGIN_MS if unit == "week" else 0
+        return BucketGroup(_TRUNC_MS[unit], origin, expr_name(e))
+    return None
+
+
+def _match_time_pred(e: Expr, ts_name: str):
+    import math as _math
+    if isinstance(e, Between):
+        lo, hi = _literal_num(e.low), _literal_num(e.high)
+        if e.negated or lo is None or hi is None:
+            return None
+        # inclusive range: directional rounding for fractional bounds
+        return _math.ceil(lo), _math.floor(hi) + 1
+    if not isinstance(e, BinaryOp):
+        return None
+    op = e.op
+    if isinstance(e.left, Column) and e.left.name == ts_name:
+        v = _literal_num(e.right)
+    elif isinstance(e.right, Column) and e.right.name == ts_name:
+        v = _literal_num(e.left)
+        op = {"<": ">", "<=": ">=", ">": "<", ">=": "<="}.get(op, op)
+    else:
+        return None
+    if v is None:
+        return None
+    # timestamps are integral: round fractional bounds toward the predicate
+    if op == "<":
+        return None, _math.ceil(v)          # ts < 10.5 ≡ ts < 11
+    if op == "<=":
+        return None, _math.floor(v) + 1
+    if op == ">":
+        return _math.floor(v) + 1, None     # ts > 10.5 ≡ ts >= 11
+    if op == ">=":
+        return _math.ceil(v), None
+    if op == "=":
+        if v != int(v):
+            return 0, 0                     # fractional equality: empty
+        return int(v), int(v) + 1
+    return None
+
+
+def _match_field_pred(e: Expr, field_names: set) -> Optional[FieldFilter]:
+    if not isinstance(e, BinaryOp) or e.op not in _CMP_OPS:
+        return None
+    if isinstance(e.left, Column) and e.left.name in field_names:
+        v = _literal_num(e.right)
+        if v is None:
+            return None
+        return FieldFilter(e.left.name, _CMP_OPS[e.op], float(v))
+    if isinstance(e.right, Column) and e.right.name in field_names:
+        v = _literal_num(e.left)
+        if v is None:
+            return None
+        op = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le"}.get(
+            _CMP_OPS[e.op], _CMP_OPS[e.op])
+        return FieldFilter(e.right.name, op, float(v))
+    return None
+
+
+# ---------------------------------------------------------------------------
+# execution
+# ---------------------------------------------------------------------------
+
+#: Below this many estimated rows the CPU columnar path wins: a device
+#: query's fixed cost dominates, and the host path keeps float64 precision
+#: for DOUBLE columns, which the float32 device mirrors cannot.
+TPU_DISPATCH_MIN_ROWS = 131072
+
+#: assumed CPU columnar throughput for break-even estimation
+_CPU_ROWS_PER_SEC = 15e6
+#: fastest observed device-path query (seconds) — a lower bound on the
+#: per-query fixed cost (dispatch chain + transfers + result fetch)
+_observed_min_dt = [None]
+
+
+def _dispatch_min_rows() -> int:
+    """Latency-adaptive dispatch floor: the static floor, raised to the
+    rows the CPU path would handle in the fastest device-path query seen
+    in this process."""
+    dt = _observed_min_dt[0]
+    if dt is None:
+        return TPU_DISPATCH_MIN_ROWS
+    return max(TPU_DISPATCH_MIN_ROWS, int(dt * _CPU_ROWS_PER_SEC))
+
+
+def _note_device_query_time(dt: float) -> None:
+    # cap what one observation may contribute: a cold query includes the
+    # kernel build and the scan build, and an uncapped floor would route
+    # every later mid-size query to the CPU path
+    dt = min(dt, 0.5)
+    cur = _observed_min_dt[0]
+    if cur is None or dt < cur:
+        _observed_min_dt[0] = dt
+
+
+def _estimated_table_rows(table) -> Optional[int]:
+    """Cheap upper-bound row estimate from memtable counters + SST metas —
+    no SST reads, no merged-scan build."""
+    regions = getattr(table, "regions", None)
+    if not regions:
+        return None
+    total = 0
+    for region in regions.values():
+        vc = getattr(region, "version_control", None)
+        if vc is None:
+            return None
+        v = vc.current
+        for mt in v.memtables.all_memtables():
+            total += mt.num_rows
+        for meta in v.ssts.all_files():
+            total += meta.num_rows
+    return total
+
+
+def cached_table_frame(table, device) -> Optional[pd.DataFrame]:
+    """Columnar pandas frame for the CPU fallback, memoized per region
+    version on the merged-scan cache. Nulls follow the fallback's frame
+    conventions: NaN for numerics, None for objects."""
+    regions = getattr(table, "regions", None)
+    if not regions:
+        return None
+    schema = table.schema
+    ts_name = schema.timestamp_column.name \
+        if schema.timestamp_column is not None else None
+    frames = []
+    for region in regions.values():
+        scan = SCAN_CACHE.get(region, device)
+        df = scan.mirrors.get("__host_df")
+        if df is None:
+            cols = {}
+            sd = scan.series_dict
+            for i, tag in enumerate(sd.tag_names):
+                cols[tag] = sd.decode_tag_column(scan.series_ids, i)
+            if ts_name is not None:
+                cols[ts_name] = scan.ts
+            for name, (vals, valid) in scan.fields.items():
+                if valid is None:
+                    cols[name] = vals
+                elif vals.dtype == object:
+                    arr = vals.copy()
+                    arr[~valid] = None
+                    cols[name] = arr
+                else:
+                    arr = vals.astype(np.float64)
+                    arr[~valid] = np.nan
+                    cols[name] = arr
+            df = pd.DataFrame({n: cols[n] for n in schema.names()
+                               if n in cols})
+            scan.mirrors["__host_df"] = df
+        frames.append(df)
+    if not frames:
+        return pd.DataFrame()
+    return frames[0] if len(frames) == 1 else \
+        pd.concat(frames, ignore_index=True)
+
+
+def try_execute(table, a: Analysis, query: Query,
+                device) -> Optional[pd.DataFrame]:
+    plan = plan_for(table, a, query)
+    if plan is None:
+        return None
+    # small scans take the CPU columnar path, which is faster and
+    # float64-exact
+    est = _estimated_table_rows(table)
+    if est is not None and est < _dispatch_min_rows():
+        return None
+    from .ir import execute_agg_plan
+    try:
+        return execute_agg_plan(table, plan, device)
+    except UnsupportedError:
+        return None
+
+
+def region_moment_frames(table, plan: TpuPlan,
+                         device) -> List[pd.DataFrame]:
+    """Per-region moment frames of a table's regions, each from the
+    device-resident scan cache."""
+    frames = []
+    for region in table.regions.values():
+        part = _execute_region(region, table, plan, device)
+        if part is not None and len(part):
+            frames.append(part)
+    return frames
+
+
+def _execute_region(region, table, plan: TpuPlan,
+                    device) -> Optional[pd.DataFrame]:
+    prof = ScanProfile(path="resident")
+    t0 = time.perf_counter()
+    scan = SCAN_CACHE.get(region, device)
+    prof.mark("scan_prep", time.perf_counter() - t0)
+    prof.outcome = SCAN_CACHE.last_outcome() or "full"
+    prof.rows = scan.num_rows
+    region.last_scan_profile = prof
+    if scan.num_rows == 0:
+        return None
+    return _moment_frame_for_scan(scan, table.schema, plan, prof)
+
+
+@dataclass
+class _Launched:
+    """An in-flight device reduction: device results + host fold context."""
+    results: tuple                    # device tensors, one per moment
+    counts: torch.Tensor              # device int32 [nruns]
+    nruns: int
+    run_sids: np.ndarray              # per-run series id [nruns]
+    run_buckets: Optional[np.ndarray]
+    series_dict: object
+    ts_base: int
+
+
+def _moment_frame_for_scan(scan: MergedScan, schema, plan: TpuPlan,
+                           prof: ScanProfile) -> Optional[pd.DataFrame]:
+    launched = _launch_scan_kernel(scan, schema, plan, prof)
+    if launched is None:
+        return None
+    t0 = time.perf_counter()
+    # one device-to-host copy: every moment and the counts are 4-byte
+    # values, stacked as int32 words on the device
+    words = torch.stack([r.view(torch.int32) for r in launched.results] +
+                        [launched.counts]).cpu().numpy()
+    res_np = [w.view(np.dtype(str(r.dtype).replace("torch.", "")))
+              for w, r in zip(words[:-1], launched.results)]
+    counts = words[-1]
+    prof.mark("fetch", time.perf_counter() - t0)
+    t1 = time.perf_counter()
+    out = _collect_moment_frame(launched, plan, counts, res_np)
+    prof.mark("collect", time.perf_counter() - t1)
+    return out
+
+
+def _run_context(scan: MergedScan, plan: TpuPlan):
+    """(nruns, run_starts, buckets, device run ends) for the plan's
+    grouping, cached per scan: dashboards repeat the same grouping over a
+    warm region, and the flags/nonzero sweep is O(n) host work."""
+    n = scan.num_rows
+    sids = scan.series_ids
+    if plan.bucket is not None:
+        b = plan.bucket
+        run_key = f"__runs:{b.stride_ms}:{b.origin}"
+    elif plan.tag_groups:
+        run_key = "__runs:series"
+    else:
+        run_key = "__runs:all"
+    ctx = scan.mirrors.get(run_key)
+    if ctx is not None:
+        return ctx
+    if plan.bucket is not None:
+        b = plan.bucket
+        buckets = ((scan.ts - b.origin) // b.stride_ms).astype(np.int64)
+        flags = np.empty(n, dtype=bool)
+        flags[0] = True
+        np.not_equal(sids[1:], sids[:-1], out=flags[1:])
+        flags[1:] |= buckets[1:] != buckets[:-1]
+    else:
+        buckets = None
+        flags = np.zeros(n, dtype=bool)
+        flags[0] = True
+        if plan.tag_groups:
+            np.not_equal(sids[1:], sids[:-1], out=flags[1:])
+    run_starts = np.nonzero(flags)[0]
+    nruns = len(run_starts)
+    run_ends = np.empty(nruns, dtype=np.int32)
+    run_ends[:-1] = run_starts[1:]
+    run_ends[-1] = n
+    ctx = (nruns, run_starts, buckets, scan.to_device(run_ends))
+    scan.mirrors[run_key] = ctx
+    # bound the per-scan run-context cache: each distinct bucket spec
+    # holds O(n) host arrays
+    stale = [k for k in scan.mirrors if k.startswith("__runs:")][:-4]
+    for k in stale:
+        scan.mirrors.pop(k, None)
+    return ctx
+
+
+def _launch_scan_kernel(scan: MergedScan, schema, plan: TpuPlan,
+                        prof: ScanProfile) -> Optional[_Launched]:
+    n = scan.num_rows
+    if n == 0:
+        return None
+    tag_names = schema.tag_names()
+    sids = scan.series_ids
+
+    # ---- host: runs over (series [, bucket]) ----
+    t0 = time.perf_counter()
+    nruns, run_starts, buckets, d_ends = _run_context(scan, plan)
+    prof.mark("runs", time.perf_counter() - t0)
+
+    # ---- host: per-series tag predicate → row mask ----
+    t1 = time.perf_counter()
+    base_mask = None
+    if plan.tag_predicates:
+        sd = scan.series_dict
+        S = sd.num_series
+        tag_cols = {}
+        for i, tname in enumerate(tag_names):
+            tag_cols[tname] = sd.decode_tag_column(
+                np.arange(S, dtype=np.int32), i)
+        ev = Evaluator(pd.DataFrame(tag_cols))
+        smask = np.ones(S, dtype=bool)
+        for p in plan.tag_predicates:
+            m = ev.eval(p)
+            m = m.fillna(False).astype(bool).to_numpy() \
+                if isinstance(m, pd.Series) else np.full(S, bool(m))
+            smask &= m
+        if not smask.any():
+            return None
+        base_mask = smask[sids]
+
+    # ---- row mask (host; skipped for the unfiltered case, which reuses
+    # the resident all-true mask) ----
+    mask = None
+    if base_mask is not None or plan.time_lo is not None or \
+            plan.time_hi is not None or plan.field_filters:
+        mask = base_mask if base_mask is not None \
+            else np.ones(n, dtype=bool)
+        if plan.time_lo is not None:
+            mask &= scan.ts >= plan.time_lo
+        if plan.time_hi is not None:
+            mask &= scan.ts < plan.time_hi
+        for ff in plan.field_filters:
+            vals, valid = scan.fields[ff.column]
+            if vals.dtype == object:
+                raise UnsupportedError(
+                    f"filter on non-numeric {ff.column}")
+            v = vals.astype(np.float64)
+            cmp = {"eq": v == ff.value, "ne": v != ff.value,
+                   "lt": v < ff.value, "le": v <= ff.value,
+                   "gt": v > ff.value, "ge": v >= ff.value}[ff.op]
+            if valid is not None:
+                cmp &= valid
+            mask &= cmp
+        if not mask.any():
+            return None
+    prof.mark("masks", time.perf_counter() - t1)
+
+    # ---- device inputs: resident mirrors, this query's mask ----
+    t2 = time.perf_counter()
+    d_ts = scan.device_ts()
+    d_mask = scan.device_valid_all() if mask is None \
+        else scan.to_device(mask)
+    values = []
+    col_masks = []
+    ops = []
+    for m in plan.moments:
+        if m.op in ("min_ts", "max_ts"):
+            values.append(d_ts)
+            col_masks.append(scan.device_valid(m.column))
+            ops.append("min" if m.op == "min_ts" else "max")
+        elif m.column is None:
+            values.append(d_ts)   # dummy; count reads only the masks
+            col_masks.append(scan.device_valid_all())
+            ops.append("count")
+        else:
+            cs = schema.column_schema(m.column)
+            if cs.dtype.is_string or cs.dtype.is_binary:
+                values.append(d_ts)
+            else:
+                values.append(scan.device_field(m.column))
+            col_masks.append(scan.device_valid(m.column))
+            ops.append(m.op)
+    prof.mark("h2d", time.perf_counter() - t2)
+
+    # ---- the kernel: every moment in one launch over the host run ends
+    # (no shape-bucket padding: the port compiles nothing per shape) ----
+    t3 = time.perf_counter()
+    results, counts = sorted_grouped_aggregate(
+        None, d_mask, d_ts, tuple(values), tuple(col_masks),
+        num_groups=nruns, ops=tuple(ops), has_col_masks=True, ends=d_ends)
+    prof.mark("launch", time.perf_counter() - t3)
+    return _Launched(tuple(results), counts, nruns, sids[run_starts],
+                     buckets[run_starts] if buckets is not None else None,
+                     scan.series_dict, scan.ts_base)
+
+
+def _collect_moment_frame(launched: _Launched, plan: TpuPlan,
+                          counts: np.ndarray,
+                          res_np: List[np.ndarray]) -> Optional[pd.DataFrame]:
+    # ---- host: fold runs into final groups ----
+    live = counts > 0
+    if not live.any():
+        return None
+    frame: Dict[str, Any] = {}
+    run_sids = launched.run_sids
+    sd = launched.series_dict
+    for tg in plan.tag_groups:
+        frame[_group_slot(tg.name)] = sd.decode_tag_column(
+            run_sids, tg.tag_index)
+    if plan.bucket is not None:
+        frame[_group_slot(plan.bucket.expr_key)] = \
+            launched.run_buckets * plan.bucket.stride_ms + \
+            plan.bucket.origin
+    for m, r in zip(plan.moments, res_np):
+        if m.op in ("min_ts", "max_ts"):
+            # device ts is region-relative (ts - ts_base, base differs per
+            # region); rebase to absolute so cross-region first/last merge
+            # in _finalize compares comparable timestamps
+            r = r.astype(np.int64) + launched.ts_base
+        frame[m.slot] = r
+    frame["__rowcount"] = counts
+    return pd.DataFrame(frame)[live]
+
+
+def _finalize(df: pd.DataFrame, plan: TpuPlan) -> pd.DataFrame:
+    key_cols = [_group_slot(t.name) for t in plan.tag_groups]
+    if plan.bucket is not None:
+        key_cols.append(_group_slot(plan.bucket.expr_key))
+
+    moment_cols = {m.slot: m for m in plan.moments}
+
+    def _ts_slot_for(m: Moment, kind: str) -> str:
+        return next(s for s, mm in moment_cols.items()
+                    if mm.op == kind and mm.column == m.column)
+
+    def merge(group: pd.DataFrame) -> pd.Series:
+        out = {}
+        for slot, m in moment_cols.items():
+            v = group[slot]
+            if m.op in ("sum", "sum_sq", "count"):
+                out[slot] = v.sum()
+            elif m.op in ("min", "min_ts"):
+                out[slot] = v.min()
+            elif m.op in ("max", "max_ts"):
+                out[slot] = v.max()
+            elif m.op in ("first", "last"):
+                # partial with a valid value whose ts is extreme wins
+                kind = "min_ts" if m.op == "first" else "max_ts"
+                ts_slot = _ts_slot_for(m, kind)
+                nn = group[group[slot].notna()]
+                if not len(nn):
+                    out[slot] = None
+                elif m.op == "first":
+                    out[slot] = nn.loc[nn[ts_slot].idxmin(), slot]
+                else:
+                    out[slot] = nn.loc[nn[ts_slot].idxmax(), slot]
+        return pd.Series(out)
+
+    if key_cols:
+        if df[key_cols + list(moment_cols)].duplicated(key_cols).any():
+            # vectorized fold: one groupby.agg for the decomposable
+            # moments, plus a sort+first/last pass for ts-extremes
+            gb = df.groupby(key_cols, dropna=False, sort=False)
+            aggs = {}
+            extremes = []
+            for slot, m in moment_cols.items():
+                if m.op in ("sum", "sum_sq", "count"):
+                    aggs[slot] = "sum"
+                elif m.op in ("min", "min_ts"):
+                    aggs[slot] = "min"
+                elif m.op in ("max", "max_ts"):
+                    aggs[slot] = "max"
+                else:
+                    extremes.append((slot, m))
+            aggs["__rowcount"] = "sum"
+            merged = gb.agg(aggs)
+            for slot, m in extremes:
+                # groupby.first()/.last() take the first/last NON-NULL
+                # value in frame order; sorting by the companion ts makes
+                # that "valid partial with extreme ts" exactly
+                kind = "min_ts" if m.op == "first" else "max_ts"
+                ts_slot = _ts_slot_for(m, kind)
+                srt = df.sort_values(ts_slot, kind="stable")
+                gs = srt.groupby(key_cols, dropna=False, sort=False)[slot]
+                merged[slot] = gs.first() if m.op == "first" else gs.last()
+            merged = merged.reset_index()
+        else:
+            merged = df
+    else:
+        merged = merge(df).to_frame().T
+
+    # finalize ops from moments
+    out = merged[key_cols].copy() if key_cols else pd.DataFrame(
+        index=merged.index)
+    for slot, op, mslots in plan.finals:
+        if op in ("sum", "min", "max", "first", "last", "moment"):
+            # "moment": raw merged-moment passthrough
+            out[slot] = merged[mslots[0]]
+        elif op == "count":
+            out[slot] = merged[mslots[0]].astype(np.int64)
+        elif op == "avg":
+            s, c = merged[mslots[0]], merged[mslots[1]]
+            out[slot] = np.where(c > 0, s / np.maximum(c, 1), np.nan)
+        elif op in ("stddev", "variance"):
+            s, sq, c = (merged[m] for m in mslots)
+            cc = np.maximum(c, 1)
+            # sample variance (ddof=1) to match DataFusion; <2 rows → NULL;
+            # s/cc promotes to float BEFORE the square — s*s wraps int cols
+            var = np.maximum(sq - (s / cc) * s, 0.0) / np.maximum(c - 1, 1)
+            var = np.where(c >= 2, var, np.nan)
+            out[slot] = np.sqrt(var) if op == "stddev" else var
+    # null out empty-count aggregates (the kernel yields NaN for floats)
+    for slot, op, mslots in plan.finals:
+        if op in ("sum", "min", "max", "first", "last", "avg"):
+            cnt = None
+            for ms in mslots:
+                if moment_cols[ms].op == "count":
+                    cnt = merged[ms]
+            if cnt is not None:
+                out.loc[cnt == 0, slot] = np.nan
+    return out.reset_index(drop=True)

@@ -1,11 +1,14 @@
 """Guards on the port's boundaries.
 
 - Importing the port's slice modules (and running queries through them on
-  the CPU) adds no jax, greptimedb_tpu, pandas or pyarrow module to
-  sys.modules. The check compares sys.modules before and after, in a
-  subprocess, because the interpreter's site setup may import JAX first.
-- No source file of the port imports any of them, and imports inside the
-  package stay relative.
+  the CPU) adds no jax or greptimedb_tpu module to sys.modules, and the
+  PromQL path adds no pandas or pyarrow either (the SQL path's host layer
+  is pandas, as the reference's is). The check compares sys.modules
+  before and after, in a subprocess, because the interpreter's site setup
+  may import JAX first.
+- No source file of the port imports jax, jaxlib or greptimedb_tpu; the
+  modules of the PromQL path import no pandas or pyarrow; imports inside
+  the package stay relative.
 - An engine left on its default device ("cuda") raises on a machine
   without CUDA rather than running on the CPU; chip_smoke.py exits
   non-zero there and prints no result.
@@ -22,7 +25,13 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "greptimedb_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "greptimedb_tpu", "pandas", "pyarrow")
+FORBIDDEN = ("jax", "jaxlib", "greptimedb_tpu")
+#: forbidden on the PromQL path only
+HOST_STACK = ("pandas", "pyarrow")
+#: the port's files the PromQL path imports (package-relative prefixes)
+PROMQL_PATH = ("__init__.py", "common/", "errors.py", "ops/__init__.py",
+               "ops/cuda_build.py", "ops/pallas_window.py", "ops/window.py",
+               "promql/", "session/", "sql/", "tools/")
 # one intra-op thread: the subprocesses share cores with parallel workers
 _ENV = dict(os.environ, OMP_NUM_THREADS="1")
 
@@ -65,9 +74,69 @@ def test_port_imports_no_reference_or_storage_stack():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     new = json.loads(out.stdout.strip().splitlines()[-1])
-    bad = [m for m in new if m.split(".")[0] in FORBIDDEN]
+    bad = [m for m in new if m.split(".")[0] in FORBIDDEN + HOST_STACK]
     assert not bad, bad
     assert "greptimedb_tpu_torch.promql.engine" in new
+
+
+_SQL_PROBE = r"""
+import json, sys, types
+before = set(sys.modules)
+import numpy as np
+from greptimedb_tpu_torch.catalog import MemoryCatalogManager
+from greptimedb_tpu_torch.datatypes import data_type as dt
+from greptimedb_tpu_torch.datatypes.schema import (ColumnSchema, Schema,
+                                                   SemanticType)
+from greptimedb_tpu_torch.query import QueryEngine, tpu_exec
+from greptimedb_tpu_torch.session import QueryContext
+from greptimedb_tpu_torch.sql import parse_sql
+from greptimedb_tpu_torch.storage import ScanData, SeriesDict
+from greptimedb_tpu_torch.table import Table, TableIdent, TableInfo, TableMeta
+
+schema = Schema([
+    ColumnSchema("host", dt.STRING, semantic_type=SemanticType.TAG),
+    ColumnSchema("ts", dt.TIMESTAMP_MILLISECOND, nullable=False,
+                 semantic_type=SemanticType.TIMESTAMP),
+    ColumnSchema("v", dt.FLOAT64, semantic_type=SemanticType.FIELD)])
+n = 600
+sd = SeriesDict(["host"])
+sids = sd.encode_rows([[f"h{i % 3}" for i in range(n)]])
+data = ScanData(schema, sd, sids, 1_700_000_000_000 + np.arange(n) * 1000,
+                np.arange(n, dtype=np.int64), np.zeros(n, np.int8),
+                {"v": (np.arange(n, dtype=np.float64), None)})
+mt = types.SimpleNamespace(num_rows=n)
+ver = types.SimpleNamespace(
+    schema=schema, memtables=types.SimpleNamespace(all_memtables=lambda: [mt]),
+    ssts=types.SimpleNamespace(all_files=lambda: []))
+region = types.SimpleNamespace(
+    uid="t-0", name="t_0", series_dict=sd,
+    version_control=types.SimpleNamespace(current=ver),
+    snapshot=lambda: types.SimpleNamespace(
+        _version=ver, scan=lambda: data, visible_sequence=n))
+table = Table(TableInfo(TableIdent(1), "t", TableMeta(schema)))
+table.regions = {0: region}
+cat = MemoryCatalogManager()
+cat.register_table("greptime", "public", "t", table)
+tpu_exec.TPU_DISPATCH_MIN_ROWS = 0
+out = QueryEngine(cat, device="cpu").execute(parse_sql(
+    "SELECT host, avg(v), count(*) FROM t GROUP BY host ORDER BY host"),
+    QueryContext())
+assert region.last_scan_profile.path == "resident"
+assert out.num_rows == 3
+new = sorted(set(sys.modules) - before)
+print(json.dumps(new))
+"""
+
+
+def test_sql_path_imports_no_reference():
+    out = subprocess.run([sys.executable, "-c", _SQL_PROBE], cwd=REPO,
+                         env=_ENV, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    new = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in new if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+    assert "greptimedb_tpu_torch.query.tpu_exec" in new
 
 
 def _port_sources():
@@ -80,6 +149,9 @@ def _port_sources():
 def test_port_sources_import_nothing_forbidden():
     seen = 0
     for path in _port_sources():
+        rel = os.path.relpath(path, PORT).replace(os.sep, "/")
+        forbidden = FORBIDDEN + (HOST_STACK if rel.startswith(PROMQL_PATH)
+                                 else ())
         tree = ast.parse(open(path).read(), path)
         for node in ast.walk(tree):
             names = []
@@ -89,16 +161,20 @@ def test_port_sources_import_nothing_forbidden():
                 names = [node.module or ""]
             for name in names:
                 top = name.split(".")[0]
-                assert top not in FORBIDDEN, f"{path}: imports {name}"
+                assert top not in forbidden, f"{path}: imports {name}"
                 assert top != "greptimedb_tpu_torch", \
                     f"{path}: absolute import of {name}; keep it relative"
         seen += 1
     assert seen >= 10
 
 
-def test_default_device_raises_without_cuda():
+@pytest.mark.parametrize("engine", ["promql", "sql"])
+def test_default_device_raises_without_cuda(engine):
     if torch.cuda.is_available():
         pytest.skip("CUDA is available: the default device is usable")
+    if engine == "sql":
+        _sql_default_device_raises()
+        return
     from greptimedb_tpu_torch.ops import window as win
     from greptimedb_tpu_torch.promql import engine as eng
     import numpy as np
@@ -116,6 +192,28 @@ def test_default_device_raises_without_cuda():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         e.query_to_prom_json("rate(x[5m])", int(ts[0]), int(ts[-1]),
                              60_000)
+
+
+def _sql_default_device_raises():
+    """A QueryEngine left on "cuda" raises at its first device transfer
+    (the floor pinned so the statement takes the device path)."""
+    ns = {}
+    probe = _SQL_PROBE.split("tpu_exec.TPU_DISPATCH_MIN_ROWS = 0")[0]
+    exec(probe, ns)
+    from greptimedb_tpu_torch.query import QueryEngine, tpu_exec
+    from greptimedb_tpu_torch.session import QueryContext
+    from greptimedb_tpu_torch.sql import parse_sql
+    e = QueryEngine(ns["cat"])
+    assert e.device.type == "cuda"
+    saved = tpu_exec.TPU_DISPATCH_MIN_ROWS, tpu_exec._observed_min_dt[0]
+    tpu_exec.TPU_DISPATCH_MIN_ROWS, tpu_exec._observed_min_dt[0] = 0, None
+    try:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            e.execute(parse_sql("SELECT host, max(v) FROM t GROUP BY host"),
+                      QueryContext())
+    finally:
+        tpu_exec.TPU_DISPATCH_MIN_ROWS, tpu_exec._observed_min_dt[0] = saved
+        tpu_exec.SCAN_CACHE.clear()
 
 
 def test_counts_leq_refuses_devices_it_has_no_kernel_for():

@@ -1,0 +1,335 @@
+"""SQL differential tests: the same statements through the JAX package's
+QueryEngine and through the port's, on the CPU, over the same rows.
+
+The reference gets its rows through its own write path (CREATE TABLE,
+bulk load, an INSERT that overwrites one key with a later sequence, a
+DELETE). The port has no storage yet: it reads a stand-in region built
+from the reference region's own scan (the same series dictionary, rows,
+sequences and op types), through the data seam that
+greptimedb_tpu_torch/query/tpu_exec.py names.
+
+Both packages pin the dispatch floor to 0 before every device-path
+statement, so each takes its device path (checked through the region's
+`last_scan_profile`); the CPU-path cases say which path each takes.
+
+Tolerances: rows, their order, keys, counts, min, max, first and last
+exact (float32 device mirrors on both sides). Sums and averages: the
+reference's float32 prefix-difference sums err by about eps32 times the
+global prefix (see tests/test_torch_kernels.py), so
+|port - ref| <= 1e-5 |ref| + 8 eps32 P / c, P the sum of |x| over the
+table and c the group's row count (1 for sums); standard deviations
+within 1e-3 relative (their fold runs in float32 from those sums).
+"""
+
+import types
+
+import numpy as np
+import pandas as pd
+import pytest
+
+from greptimedb_tpu.query import tpu_exec as ref_exec
+from greptimedb_tpu.query.engine import QueryEngine as RefEngine
+from greptimedb_tpu.session import QueryContext as RefCtx
+from greptimedb_tpu.sql import parse_sql as ref_parse
+from greptimedb_tpu_torch.catalog import MemoryCatalogManager
+from greptimedb_tpu_torch.datatypes import Schema
+from greptimedb_tpu_torch.errors import UnsupportedError
+from greptimedb_tpu_torch.query import QueryEngine, tpu_exec
+from greptimedb_tpu_torch.session import QueryContext
+from greptimedb_tpu_torch.sql import parse_sql
+from greptimedb_tpu_torch.storage import ScanData, SeriesDict
+from greptimedb_tpu_torch.table import Table, TableIdent, TableInfo, TableMeta
+
+EPS32 = 2.0 ** -24
+T0 = 1_700_000_000_000
+HOSTS, SAMPLES, STEP = 24, 360, 10_000          # 8640 rows over 1 h
+
+
+class StandInRegion:
+    """A region to the port's data seam, serving one fixed ScanData."""
+
+    def __init__(self, uid, data: ScanData):
+        self.uid = uid
+        self.name = f"{uid}_0"
+        self.series_dict = data.series_dict
+        self.last_scan_profile = None
+        self._data = data
+        mt = types.SimpleNamespace(num_rows=data.num_rows)
+        self._version = types.SimpleNamespace(
+            schema=data.schema,
+            memtables=types.SimpleNamespace(all_memtables=lambda: [mt]),
+            ssts=types.SimpleNamespace(all_files=lambda: []))
+        self.version_control = types.SimpleNamespace(current=self._version)
+
+    def snapshot(self):
+        return types.SimpleNamespace(
+            _version=self._version, scan=lambda: self._data,
+            visible_sequence=int(self._data.seq.max(initial=0)))
+
+
+class StandInTable(Table):
+    def __init__(self, name, schema, regions):
+        super().__init__(TableInfo(TableIdent(1), name, TableMeta(schema)))
+        self.regions = regions
+
+
+def _load_reference(fe):
+    ctx = RefCtx()
+    fe.do_query("CREATE TABLE cpu (hostname STRING, region STRING, ts "
+                "TIMESTAMP TIME INDEX, usage_user DOUBLE, usage_system "
+                "DOUBLE, req BIGINT, PRIMARY KEY(hostname, region))", ctx)
+    rng = np.random.default_rng(42)
+    n = HOSTS * SAMPLES
+    host = np.repeat([f"host_{i}" for i in range(HOSTS)], SAMPLES)
+    region = np.repeat([f"r{i % 3}" for i in range(HOSTS)], SAMPLES)
+    ts = np.tile(T0 + np.arange(SAMPLES, dtype=np.int64) * STEP, HOSTS)
+    walk = np.clip(50 + np.cumsum(rng.normal(size=(HOSTS, SAMPLES)),
+                                  axis=1), 0, 100).ravel()
+    user = [None if rng.random() < 0.03 else float(v) for v in walk]
+    table = fe.catalog.table("greptime", "public", "cpu")
+    table.bulk_load({
+        "hostname": host.astype(object), "region": region.astype(object),
+        "ts": ts, "usage_user": user,
+        "usage_system": rng.random(n) * 100,
+        "req": rng.integers(0, 1000, n).astype(np.int64)})
+    # a later sequence overwrites one key; a DELETE drops another
+    fe.do_query(f"INSERT INTO cpu VALUES ('host_3', 'r0', {T0 + 5 * STEP}, "
+                f"99.5, 1.5, 7)", ctx)
+    fe.do_query(f"DELETE FROM cpu WHERE hostname = 'host_4' AND "
+                f"region = 'r1' AND ts = {T0 + 7 * STEP}", ctx)
+    return table
+
+
+def _port_scan(ref_table) -> ScanData:
+    (ref_region,) = ref_table.regions.values()
+    d = ref_region.snapshot().scan()
+    return ScanData(Schema.from_dict(d.schema.to_dict()),
+                    SeriesDict.from_dict(d.series_dict.to_dict()),
+                    d.series_ids.copy(), d.ts.copy(), d.seq.copy(),
+                    d.op_types.copy(),
+                    {k: (v.copy(), None if m is None else m.copy())
+                     for k, (v, m) in d.fields.items()})
+
+
+@pytest.fixture(scope="module")
+def engines(tmp_path_factory):
+    from greptimedb_tpu.datanode.instance import (DatanodeInstance,
+                                                  DatanodeOptions)
+    from greptimedb_tpu.frontend.instance import FrontendInstance
+    from greptimedb_tpu.storage import index as ref_index
+    dn = DatanodeInstance(DatanodeOptions(
+        data_home=str(tmp_path_factory.mktemp("ref")),
+        register_numbers_table=False))
+    dn.start()
+    fe = FrontendInstance(dn)
+    fe.start()
+    ref_table = _load_reference(fe)
+    data = _port_scan(ref_table)
+    catalog = MemoryCatalogManager()
+    table = StandInTable("cpu", data.schema,
+                         {0: StandInRegion("cpu-0", data)})
+    catalog.register_table("greptime", "public", "cpu", table)
+    # the resident device path on both sides (the reference would route
+    # selective tag predicates through its SST index on a cold cache)
+    saved_index = ref_index.sst_index_enabled()
+    fe.do_query("SET sst_index = 0", RefCtx())
+    yield (RefEngine(fe.catalog), ref_table, QueryEngine(catalog,
+                                                         device="cpu"),
+           table, data)
+    fe.do_query(f"SET sst_index = {int(saved_index)}", RefCtx())
+    fe.shutdown()
+
+
+def _frame(out) -> pd.DataFrame:
+    frames = [pd.DataFrame(b.to_pydict()) for b in out.batches]
+    return pd.concat(frames, ignore_index=True) if frames else \
+        pd.DataFrame()
+
+
+def _run(engines, sql, floor):
+    ref, ref_table, port, table, _ = engines
+    (rr,) = ref_table.regions.values()
+    (pr,) = table.regions.values()
+    rr.last_scan_profile = pr.last_scan_profile = None
+    saved = (ref_exec.TPU_DISPATCH_MIN_ROWS, tpu_exec.TPU_DISPATCH_MIN_ROWS)
+    ref_exec.TPU_DISPATCH_MIN_ROWS = tpu_exec.TPU_DISPATCH_MIN_ROWS = floor
+    try:
+        ref_exec._observed_min_dt[0] = tpu_exec._observed_min_dt[0] = None
+        want = _frame(ref.execute(ref_parse(sql), RefCtx()))
+        ref_exec._observed_min_dt[0] = tpu_exec._observed_min_dt[0] = None
+        got = _frame(port.execute(parse_sql(sql), QueryContext()))
+    finally:
+        ref_exec.TPU_DISPATCH_MIN_ROWS, tpu_exec.TPU_DISPATCH_MIN_ROWS = \
+            saved
+        ref_exec._observed_min_dt[0] = tpu_exec._observed_min_dt[0] = None
+    return want, got, rr.last_scan_profile, pr.last_scan_profile
+
+
+def _compare(want, got, data, sql):
+    assert list(got.columns) == list(want.columns), sql
+    assert len(got) == len(want), sql
+    P = {k: float(np.abs(v[m] if m is not None else v).sum())
+         for k, (v, m) in data.fields.items()}
+    for col in want.columns:
+        w, g = want[col].to_numpy(), got[col].to_numpy()
+        lc = ALIASES.get(col, col).lower()
+        if not any(lc.startswith(f) for f in ("sum(", "avg(", "stddev(")):
+            np.testing.assert_array_equal(
+                g.astype(object), w.astype(object), err_msg=f"{col}: {sql}")
+            continue
+        w64 = w.astype(np.float64)
+        g64 = g.astype(np.float64)
+        np.testing.assert_array_equal(np.isnan(g64), np.isnan(w64),
+                                      err_msg=f"{col} NULLs: {sql}")
+        ok = ~np.isnan(w64)
+        if lc.startswith("stddev("):
+            tol = 1e-3 * np.abs(w64) + 1e-4
+        else:
+            field = lc[lc.index("(") + 1:lc.index(")")]
+            c = 1.0
+            if lc.startswith("avg("):
+                cc = [k for k in want.columns if k.lower().startswith(
+                    f"count({field})")]
+                c = want[cc[0]].to_numpy(np.float64) if cc else 1.0
+            tol = 1e-5 * np.abs(w64) + 8 * EPS32 * P[field] / np.maximum(
+                c, 1)
+        err = np.abs(g64 - w64)
+        assert (err[ok] <= np.broadcast_to(tol, err.shape)[ok]).all(), \
+            f"{col}: max err {err[ok].max()} over the bound: {sql}"
+
+
+#: result columns named by an alias, and the aggregate each one is
+ALIASES = {"a": "avg(usage_user)", "s2": "sum(usage_user)"}
+H = 3_600_000
+Q = {
+    "double-groupby-all":
+        f"SELECT date_bin(INTERVAL '10 minutes', ts) AS b, hostname, "
+        f"avg(usage_user), count(usage_user), avg(usage_system), "
+        f"avg(req), count(req) FROM cpu WHERE ts >= {T0} AND "
+        f"ts < {T0 + H} GROUP BY b, hostname ORDER BY b, hostname",
+    "double-groupby-1":
+        f"SELECT date_bin(INTERVAL '10 minutes', ts) AS b, hostname, "
+        f"avg(usage_user), count(usage_user) FROM cpu WHERE ts >= {T0} "
+        f"AND ts < {T0 + H} GROUP BY b, hostname ORDER BY b, hostname",
+    "cpu-max-all":
+        f"SELECT date_bin(INTERVAL '10 minutes', ts) AS b, hostname, "
+        f"max(usage_user), max(usage_system), max(req) FROM cpu WHERE "
+        f"hostname IN ('host_1', 'host_5', 'host_9') AND ts >= {T0} AND "
+        f"ts < {T0 + H // 2} GROUP BY b, hostname ORDER BY b, hostname",
+    "single-groupby-1-minute":
+        f"SELECT date_bin(INTERVAL '1 minute', ts) AS m, hostname, "
+        f"max(usage_user), max(usage_system) FROM cpu WHERE hostname IN "
+        f"('host_2', 'host_3') AND ts >= {T0} AND ts < {T0 + H // 4} "
+        f"GROUP BY m, hostname ORDER BY m, hostname",
+    "per-host-moments":
+        "SELECT hostname, count(*), sum(usage_user), min(usage_user), "
+        "max(usage_user), stddev(usage_user), first_value(usage_user), "
+        "last_value(usage_user), sum(req), min(req) FROM cpu GROUP BY "
+        "hostname ORDER BY hostname",
+    "global":
+        "SELECT max(usage_user), avg(usage_system), "
+        "first_value(usage_system), last_value(usage_system), count(*) "
+        "FROM cpu",
+    "field-filter":
+        "SELECT region, count(*), avg(usage_system) FROM cpu WHERE "
+        "usage_user > 50 GROUP BY region ORDER BY region",
+    "tag-not-equal":
+        "SELECT region, hostname, min(usage_system), last_value(req) FROM "
+        "cpu WHERE region != 'r1' GROUP BY region, hostname ORDER BY "
+        "hostname",
+    "having-order-limit":
+        "SELECT hostname, avg(usage_user) AS a, count(*) AS c FROM cpu "
+        "GROUP BY hostname HAVING avg(usage_user) > 40 ORDER BY a DESC "
+        "LIMIT 5",
+    "region-first-last":
+        "SELECT region, first_value(usage_user), last_value(usage_user), "
+        "count(usage_user) FROM cpu GROUP BY region ORDER BY region",
+}
+
+
+@pytest.mark.parametrize("name", list(Q))
+def test_device_path_matches_reference(engines, name):
+    want, got, ref_prof, port_prof = _run(engines, Q[name], floor=0)
+    assert ref_prof is not None and ref_prof.path == "resident", name
+    assert port_prof is not None and port_prof.path == "resident", name
+    _compare(want, got, engines[4], Q[name])
+
+
+@pytest.mark.parametrize("sql,floor,ref_path", [
+    # below the (unpinned) dispatch floor: the CPU columnar path in both
+    ("SELECT hostname, avg(usage_user), max(req) FROM cpu GROUP BY "
+     "hostname ORDER BY hostname", 131072, None),
+    # an expression over a field: the port does not lower it (the
+    # reference reduces it on the host beside its resident scan)
+    ("SELECT hostname, sum(usage_user * 2) AS s2 FROM cpu WHERE ts < "
+     f"{T0 + 600_000} GROUP BY hostname ORDER BY hostname", 0, "resident"),
+    # no aggregate: rows through the CPU path, MVCC applied
+    (f"SELECT hostname, ts, usage_user FROM cpu WHERE hostname = 'host_3' "
+     f"AND ts <= {T0 + 6 * STEP} ORDER BY ts", 0, None),
+], ids=["small-table", "expression-arg", "raw-rows"])
+def test_cpu_path_matches_reference(engines, sql, floor, ref_path):
+    want, got, ref_prof, port_prof = _run(engines, sql, floor=floor)
+    assert port_prof is None
+    assert (ref_prof.path if ref_prof is not None else None) == ref_path
+    _compare(want, got, engines[4], sql)
+
+
+def test_mvcc_overwrite_and_delete_visible(engines):
+    """The later INSERT's value wins and the deleted key is gone, on the
+    device path."""
+    sql = (f"SELECT hostname, count(*), max(usage_user) FROM cpu WHERE "
+           f"ts >= {T0 + 5 * STEP} AND ts <= {T0 + 7 * STEP} AND hostname "
+           f"IN ('host_3', 'host_4') GROUP BY hostname ORDER BY hostname")
+    want, got, _, port_prof = _run(engines, sql, floor=0)
+    assert port_prof is not None and port_prof.path == "resident"
+    _compare(want, got, engines[4], sql)
+    assert got["count(*)"].tolist() == [3, 2]
+    assert got["max(usage_user)"].iloc[0] >= 99.5
+
+
+def test_unsupported_statements_raise(engines):
+    port = engines[2]
+    for sql in ("SHOW TABLES", "SELECT hostname, row_number() OVER "
+                "(ORDER BY ts) FROM cpu"):
+        with pytest.raises(UnsupportedError):
+            port.execute(parse_sql(sql), QueryContext())
+
+
+def test_scan_cache_keeps_devices_apart(engines):
+    """A scan mirrored for one device is rebuilt, not reused, for an
+    engine on another."""
+    _, _, _, table, _ = engines
+    (region,) = table.regions.values()
+    cpu = tpu_exec.SCAN_CACHE.get(region, "cpu")
+    assert tpu_exec.SCAN_CACHE.get(region, "cpu") is cpu
+    meta = tpu_exec.SCAN_CACHE.get(region, "meta")
+    assert meta is not cpu and str(meta.torch_device) == "meta"
+    assert tpu_exec.SCAN_CACHE.last_outcome() == "full"
+
+
+def test_plan_from_specs_matches_reference(engines):
+    """The IR's explicit-spec entry (the non-SQL front ends' way in) and
+    its executor, on both packages over the same table: the same frame,
+    rows in run order, keys and counts exact, floats as above."""
+    from greptimedb_tpu.query import ir as ref_ir
+    from greptimedb_tpu_torch.query import ir
+
+    _, ref_table, _, table, data = engines
+    kw = dict(group_tags=["hostname"], time_lo=T0 + 60_000,
+              time_hi=T0 + 1_800_000,
+              moment_specs=[("last_ts", "max_ts", "usage_user")])
+    aggs = [("avg(usage_user)", "avg", "usage_user"),
+            ("count(usage_user)", "count", "usage_user"),
+            ("max(req)", "max", "req"),
+            ("first(usage_system)", "first", "usage_system"),
+            ("stddev(usage_system)", "stddev", "usage_system")]
+    want = ref_ir.execute_agg_plan(ref_table, ref_ir.plan_from_specs(
+        ref_table.schema, aggs, bucket=ref_ir.BucketGroup(300_000, 0, "b"),
+        **kw))
+    got = ir.execute_agg_plan(table, ir.plan_from_specs(
+        table.schema, aggs, bucket=ir.BucketGroup(300_000, 0, "b"), **kw),
+        "cpu")
+    assert ir.group_key_columns(ir.plan_from_specs(
+        table.schema, aggs, **kw)) == ["__key__hostname"]
+    _compare(want.rename(columns={"__key__b": "b"}),
+             got.rename(columns={"__key__b": "b"}), data, "plan_from_specs")
