@@ -31,8 +31,12 @@ Phases (none of them catches a failure; any failed check exits non-zero):
 5. holds the segment-moments kernel against its plain PyTorch version at
    the reference's test shapes (tests/test_kernels.py) and at the edges
    of its design (empty, single-row and block-edge runs, all rows masked,
-   one run of 5 M rows, 2.88 M runs of 6 rows), float32 and int32
-   columns, column nulls, unsorted ts with ties; two launches bit-equal;
+   one run of 5 M rows, 2.88 M runs of 6 rows, columns and masks that are
+   not 16-byte aligned, dead row tiles beside live ones, runs ending on
+   tile edges and one row past the one-run-per-lane limit, 10 and 11
+   distinct column masks, 33 moments and none), float32 and int32 columns, column nulls, unsorted ts with ties;
+   two launches bit-equal (the cases are
+   greptimedb_tpu_torch/tools/segment_moments_bench.py's `edge_cases`);
 6. serves SQL through QueryEngine.execute on the GPU over TSBS cpu-only
    (4000 hosts, 10 tags, 10 fields, 10 s, 12 h: 17.28 M rows): four TSBS
    queries and two that reach every op, each cold (scan cache empty) and
@@ -41,7 +45,8 @@ Phases (none of them catches a failure; any failed check exits non-zero):
    again unfenced for the wall and stages without the spin; checks every group against a float64 brute force
    (planted wrong answers must fail its bounds); then times the kernel at
    the Q1, Q4 and Q6 inputs against its plain version and
-   torch.segment_reduce.
+   torch.segment_reduce (bound and yardstick from the timing tool, whose
+   own Q1/Q4/Q6 inputs must match these).
 
 Before the last line come two JSON objects: the numbers of the bucket
 entry, which the main paths do not launch, then the kernel table of the
@@ -970,103 +975,16 @@ def _prom_quantile(sorted_vals, q):
 # phase 5: the segment-moments kernel against its plain version
 # ---------------------------------------------------------------------------
 
-MOMENT_CASE_OPS = ("count", "sum", "sum_sq", "min", "max", "first", "last")
-
-
-def moments_case(torch, lens, seed, all_masked=False, ts_range=None):
-    """Inputs of one segment_moments check on the card: runs of the given
-    lengths, 15 % of rows masked, 10 % column nulls on the float column,
-    unsorted ts (with ties when ts_range is small), the seven ops over a
-    float32 column and again over an int32 column (sums that wrap)."""
-    rng = np.random.default_rng(seed)
-    lens = np.asarray(lens, dtype=np.int64)
-    n = int(lens.sum())
-    ends = np.cumsum(lens).astype(np.int32)
-    mask = rng.random(n) > 0.15
-    if all_masked:
-        mask[:] = False
-    ts = rng.integers(0, ts_range or max(n, 1), n).astype(np.int32)
-    x = (rng.normal(size=n) * 50).astype(np.float32)
-    xi = rng.integers(-2**31, 2**31 - 1, n).astype(np.int32)
-    cm = rng.random(n) > 0.1
-
-    def dev(a):
-        return torch.as_tensor(a, device=DEVICE)
-
-    vals = [dev(x)] * 7 + [dev(xi)] * 7
-    cms = [dev(cm)] * 7 + [None] * 7
-    return (dev(ends), dev(mask), dev(ts), vals, cms,
-            list(MOMENT_CASE_OPS) * 2)
-
-
-def moments_agree(torch, name, args, quiet=False) -> float:
-    """The kernel against its plain version on the same inputs: counts,
-    min, max, first and last (and int32 sums) exactly; float sums within
-    2 u |plain| + 2 n u64 sum|x| (both accumulate each run in float64 in
-    another order, then round once to float32). Then a second launch:
-    the bits must be equal. Returns the largest |kernel - plain|."""
-    from greptimedb_tpu_torch.ops import kernels as K
-    ends, mask, ts, vals, cms, ops = args
-    got, gc = K.segment_moments(*args)
-    again, gc2 = K.segment_moments(*args)
-    want, wc = K.segment_moments_plain(*args)
-    torch.cuda.synchronize()
-    check(torch.equal(gc, wc), f"{name}: row counts differ from plain")
-    check(torch.equal(gc, gc2), f"{name}: row counts differ run to run")
-    n = mask.shape[0]
-    err = 0.0
-    absum = None
-    for i, (op, g, g2, w) in enumerate(zip(ops, got, again, want)):
-        check(torch.equal(g.view(torch.int32), g2.view(torch.int32)),
-              f"{name}: {op}[{i}] bits differ between two launches")
-        if op in ("sum", "sum_sq") and g.dtype == torch.float32:
-            x = vals[i].double().abs()
-            if op == "sum_sq":
-                x = x * x
-            (absum,), _ = K.segment_moments_plain(
-                ends, mask, ts, [x.float()], [cms[i]], ["sum"],
-                with_counts=False)
-            d = (g.double() - w.double()).abs()
-            tol = 2 * U32 * w.double().abs() + 2 * n * U64 * absum.double()
-            check(bool((d <= tol).all()), f"{name}: {op}[{i}] outside "
-                  f"the bound (max |err| {d.max().item():.3g})")
-            err = max(err, d.max().item() if d.numel() else 0.0)
-        else:
-            check(torch.equal(g.view(torch.int32), w.view(torch.int32)),
-                  f"{name}: {op}[{i}] kernel != plain")
-    if not quiet:
-        log(f"  {name}: kernel == plain (sums within the bound, max |err| "
-            f"{err:.3g}); two launches bit-equal")
-    return err
-
-
-def phase_moments_check(torch) -> float:
+def phase_moments_check() -> float:
     """The kernel at the reference's test shapes (tests/test_kernels.py)
-    and at the edges of its design, against its plain version."""
-    rng = np.random.default_rng(77)
-    cases = [
-        ("50 000 rows in 97 groups, uniform",
-         rng.multinomial(50_000, [1 / 97] * 97), {}),
-        ("50 000 rows in 97 groups, zipf-skewed",
-         np.bincount(rng.zipf(1.5, 50_000) % 97, minlength=97), {}),
-        ("120 000 rows in 9000 groups, one fat run, ts ties",
-         np.bincount(np.concatenate([rng.integers(0, 9000, 115_000),
-                                     np.full(5000, 1234)]), minlength=9000),
-         {"ts_range": 50}),
-        ("runs at block edges, empty and single-row runs",
-         [1023, 1, 1024, 0, 2046, 3, 0, 2053, 1, 32, 33, 4096, 0, 1], {}),
-        ("unsorted ts with ties inside runs (5 runs of 1000)", [1000] * 5,
-         {"ts_range": 50}),
-        ("all rows masked", [100] * 500, {"all_masked": True}),
-        ("one run of every row (5 M rows)", [5_000_000], {}),
-        ("2.88 M runs of 6 rows", [6] * 2_880_000, {}),
-    ]
+    and at the edges of its design (the timing tool's list), against its
+    plain version."""
+    from greptimedb_tpu_torch.tools import segment_moments_bench as smb
     err = 0.0
     log("segment_moments: float32 and int32 columns, column nulls, 15 % "
         "of rows masked")
-    for seed, (name, lens, kw) in enumerate(cases):
-        err = max(err, moments_agree(torch, name,
-                                     moments_case(torch, lens, seed, **kw)))
+    for name, build in smb.edge_cases():
+        err = max(err, smb.moments_agree(name, build(DEVICE)))
     return err
 
 
@@ -1508,77 +1426,31 @@ def phase_sql(torch, seed):
     return launches, inputs
 
 
-def moments_bound(args):
-    """Bytes the function must move: the row mask and the run ends read
-    once, each output written once, and each distinct value column,
-    column mask and (for first/last) ts read once at the rows this run's
-    row mask lets through (a masked-out row needs none of them); against
-    one operation per row and moment."""
-    ends, mask, ts, vals, cms, ops = args
-    live = float(mask.float().mean()) if mask.numel() else 0.0
-    full = {ends.data_ptr(): ends.numel() * ends.element_size(),
-            mask.data_ptr(): mask.numel() * mask.element_size()}
-    part = {}
-    cols = list(vals) + [c for c in cms if c is not None]
-    if any(op in ("first", "last") for op in ops):
-        cols.append(ts)
-    for t in cols:
-        if t.data_ptr() not in full:
-            part[t.data_ptr()] = t.numel() * t.element_size()
-    G = ends.shape[0]
-    nbytes = sum(full.values()) + live * sum(part.values()) + \
-        (len(ops) + 1) * G * 4
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = mask.shape[0] * (len(ops) + 1) / SCALAR_OPS_PER_S * 1e3
-    return max(bytes_ms, ops_ms), \
-        "bytes" if bytes_ms >= ops_ms else "operations", nbytes
-
-
-def library_moments(torch, args):
-    """torch.segment_reduce, one call per moment over the run lengths
-    with masked rows filled beforehand (the fill is not timed); no
-    library call computes first/last, which are left out. Returns the
-    callable that runs them all."""
-    ends, mask, ts, vals, cms, ops = args
-    lens = torch.diff(ends.long(), prepend=ends.new_zeros(1).long())
-    calls = []
-    for op, v, cm in zip(ops + ["count"], vals + [vals[0]],
-                         cms + [None]):
-        m = mask if cm is None else mask & cm
-        if op == "count":
-            data, red = m.float(), "sum"
-        elif op in ("sum", "sum_sq"):
-            x = v.float()
-            data, red = torch.where(m, x * x if op == "sum_sq" else x,
-                                    0.0), "sum"
-        elif op in ("min", "max"):
-            fill = float("inf") if op == "min" else float("-inf")
-            data, red = torch.where(m, v.float(), fill), op
-        else:
-            continue
-        calls.append((data, red))
-
-    def run():
-        for data, red in calls:
-            torch.segment_reduce(data, red, lengths=lens, unsafe=True)
-    return run, len(calls)
-
-
 def phase_moments_time(torch, inputs):
     """segment_moments at the main path's shapes (Q1, Q4, Q6), against
-    its plain version and the library yardstick; Q1 is the table's row."""
+    its plain version and the library yardstick; Q1 is the table's row.
+    The timing tool's own Q1/Q4/Q6 inputs must match these in every
+    property the kernel's work depends on."""
     from greptimedb_tpu_torch.ops import kernels as K
+    from greptimedb_tpu_torch.tools import segment_moments_bench as smb
     rows = {}
-    for q in ("Q1", "Q4", "Q6"):
+    for q in smb.QUERIES:
         args = inputs[q]
         ends, mask = args[0], args[1]
-        err = moments_agree(torch, f"{q} main-path shape", args, quiet=True)
-        lib, nlib = library_moments(torch, args)
-        ms = median_ms(torch, lambda: K.segment_moments(*args))
+        want = smb.signature(args)
+        got = smb.signature(smb.main_path_inputs(q, DEVICE))
+        check(got == want, f"the timing tool's {q} inputs differ from the "
+              f"main path's: {got} != {want}")
+        err = smb.moments_agree(f"{q} main-path shape", args, quiet=True)
+        lib, nlib = smb.library_moments(args)
+        # the kernel and the library calls queued behind a spin kernel
+        # (the wrapper's host time exceeds the kernel's at Q4); the plain
+        # version synchronises, so it is timed back to back
+        ms = smb.median_fenced_ms(lambda: K.segment_moments(*args))
         plain_ms = median_ms(torch, lambda: K.segment_moments_plain(*args),
                              launches=3, runs=3)
-        lib_ms = median_ms(torch, lib, launches=5, runs=3)
-        b_ms, b_by, nbytes = moments_bound(args)
+        lib_ms = smb.median_fenced_ms(lib, launches=5, runs=3)
+        b_ms, b_by, nbytes = smb.moments_bound(args)
         log(f"segment_moments at the {q} shape: {mask.shape[0]} rows, "
             f"{ends.shape[0]} runs, {len(args[5])} moments "
             f"({', '.join(sorted(set(args[5])))}); kernel == plain, two "
@@ -1622,7 +1494,7 @@ def main() -> int:
     k1 = K1Timer(torch, pw.counts_leq_grid)
     kern = phase_promql(torch, args.seed, k1)
     log("== phase 5: segment_moments against its plain version")
-    phase_moments_check(torch)
+    phase_moments_check()
     log("== phase 6: SQL on TSBS cpu-only, then segment_moments at the "
         "main path's shapes")
     launches, inputs = phase_sql(torch, args.seed)
