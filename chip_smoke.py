@@ -37,16 +37,30 @@ Phases (none of them catches a failure; any failed check exits non-zero):
    distinct column masks, 33 moments and none), float32 and int32 columns, column nulls, unsorted ts with ties;
    two launches bit-equal (the cases are
    greptimedb_tpu_torch/tools/segment_moments_bench.py's `edge_cases`);
-6. serves SQL through QueryEngine.execute on the GPU over TSBS cpu-only
-   (4000 hosts, 10 tags, 10 fields, 10 s, 12 h: 17.28 M rows): four TSBS
-   queries and two that reach every op, each cold (scan cache empty) and
-   warm, with the wall, the engine's stages, the kernel's device time and
-   peak device memory (the launch fenced behind a spin kernel), then warm
-   again unfenced for the wall and stages without the spin; checks every group against a float64 brute force
-   (planted wrong answers must fail its bounds); then times the kernel at
-   the Q1, Q4 and Q6 inputs against its plain version and
-   torch.segment_reduce (bound and yardstick from the timing tool, whose
-   own Q1/Q4/Q6 inputs must match these).
+6. loads TSBS cpu-only (4000 hosts, 10 tags, 10 fields, 10 s, 12 h:
+   17.28 M rows) into a region of the port's StorageEngine, in a
+   temporary data home removed at the end: one Region.bulk_ingest
+   (Parquet SSTs + manifest; its background compaction waited out), then
+   the write path: a WriteBatch of overwrites and a new key through the
+   WAL and the memtable, flushed to an L0 SST and compacted, and a second
+   one (an overwrite, a DELETE of that new key) left in the memtable;
+   prints the ingest profile and the SSTs. Then serves SQL through
+   QueryEngine.execute on the GPU over that region: four TSBS queries
+   and two that reach every op, each cold (scan cache empty: the SSTs
+   decoded and merged with the memtable) and warm, with the wall, the
+   engine's stages, the kernel's device time and peak device memory (the
+   launch fenced behind a spin kernel), then warm again unfenced for the
+   wall and stages without the spin; checks every group against a
+   float64 brute force with the same edits (planted wrong answers must
+   fail its bounds). Closes the engine with the second batch unflushed,
+   reopens it (manifest, series dictionary, WAL replay) and runs Q5
+   again, which must equal the frame before the close bit for bit. Then
+   a table of TINYINT / SMALLINT / INT UNSIGNED / SMALLINT UNSIGNED
+   fields: count, sum, min, max, first_value and last_value by host and
+   over the whole table, exactly against numpy with sums wrapped to each
+   type. Then times the kernel at the Q1, Q4 and Q6 inputs against its
+   plain version and torch.segment_reduce (bound and yardstick from the
+   timing tool, whose own Q1/Q4/Q6 inputs must match these).
 
 Before the last line come two JSON objects: the numbers of the bucket
 entry, which the main paths do not launch, then the kernel table of the
@@ -1035,63 +1049,142 @@ def tsbs_cpu_table(seed: int, hosts: int = HOSTS, hours: int = SQL_HOURS):
     return ts, tags, fields
 
 
-class MemRegion:
-    """A region to the port's data seam (greptimedb_tpu_torch/query/
-    tpu_exec.py) serving one ScanData: the storage engine is not ported
-    yet."""
-
-    def __init__(self, uid, data):
-        import types
-        self.uid, self.name = uid, f"{uid}_0"
-        self.series_dict = data.series_dict
-        self.last_scan_profile = None
-        self._data = data
-        mt = types.SimpleNamespace(num_rows=data.num_rows)
-        self._version = types.SimpleNamespace(
-            schema=data.schema,
-            memtables=types.SimpleNamespace(all_memtables=lambda: [mt]),
-            ssts=types.SimpleNamespace(all_files=lambda: []))
-        self.version_control = types.SimpleNamespace(current=self._version)
-
-    def snapshot(self):
-        import types
-        return types.SimpleNamespace(
-            _version=self._version, scan=lambda: self._data,
-            visible_sequence=int(self._data.num_rows))
-
-
-def sql_catalog(ts, tags, fields):
-    """The catalog with table `cpu` (tags as the primary key, ts the time
-    index, the fields DOUBLE) over one region whose rows arrive
-    time-major, as a TSBS loader writes them; every row a PUT with its
-    own sequence. Returns (catalog, region, host series ids)."""
-    from greptimedb_tpu_torch.catalog import MemoryCatalogManager
+def sql_schema(fields):
+    """Table `cpu`: the ten TSBS tags as the primary key, ts the time
+    index, then `fields` ({name: port data type}) as fields."""
     from greptimedb_tpu_torch.datatypes import data_type as dt
     from greptimedb_tpu_torch.datatypes.schema import (ColumnSchema, Schema,
                                                        SemanticType)
-    from greptimedb_tpu_torch.storage import ScanData, SeriesDict
-    from greptimedb_tpu_torch.table import (Table, TableIdent, TableInfo,
-                                            TableMeta)
-    schema = Schema(
+    return Schema(
         [ColumnSchema(t, dt.STRING, semantic_type=SemanticType.TAG)
          for t in TSBS_TAGS] +
         [ColumnSchema("ts", dt.TIMESTAMP_MILLISECOND, nullable=False,
                       semantic_type=SemanticType.TIMESTAMP)] +
-        [ColumnSchema(f, dt.FLOAT64) for f in CPU_FIELDS])
-    sd = SeriesDict(list(TSBS_TAGS))
-    host_sids = sd.encode_rows([[t[i] for t in tags]
-                                for i in range(len(TSBS_TAGS))])
-    H, n = fields[CPU_FIELDS[0]].shape
-    N = H * n
-    data = ScanData(schema, sd, np.tile(host_sids, n), np.repeat(ts, H),
-                    np.arange(N, dtype=np.int64), np.zeros(N, np.int8),
-                    {f: (fields[f].T.ravel(), None) for f in CPU_FIELDS})
-    region = MemRegion("cpu-0", data)
-    table = Table(TableInfo(TableIdent(1), "cpu", TableMeta(schema)))
+        [ColumnSchema(f, t) for f, t in fields.items()])
+
+
+def sql_register(cat, name, region):
+    """A port Table named `name` over one region, in the catalog."""
+    from greptimedb_tpu_torch.table import (Table, TableIdent, TableInfo,
+                                            TableMeta)
+    table = Table(TableInfo(TableIdent(len(cat.table_names(
+        "greptime", "public")) + 1), name, TableMeta(region.schema)))
     table.regions = {0: region}
-    cat = MemoryCatalogManager()
-    cat.register_table("greptime", "public", "cpu", table)
-    return cat, region, host_sids
+    cat.register_table("greptime", "public", name, table)
+    return table
+
+
+def sql_ingest(region, ts, tags, fields):
+    """One Region.bulk_ingest of the table's rows as a TSBS loader sends
+    them, time-major (every host at one instant, then the next); returns
+    the seconds it took."""
+    H, n = next(iter(fields.values())).shape
+    cols = {t: np.tile(np.array([tg[i] for tg in tags], dtype=object), n)
+            for i, t in enumerate(TSBS_TAGS)}
+    cols["ts"] = np.repeat(ts, H)
+    for f, x in fields.items():
+        cols[f] = x.T.ravel()
+    t0 = time.perf_counter()
+    region.bulk_ingest(cols)
+    return time.perf_counter() - t0
+
+
+def sst_summary(region):
+    files = region.version_control.current.ssts.all_files()
+    per = [sum(f.level == lv for f in files) for lv in (0, 1)]
+    return (f"{len(files)} SSTs (L0 {per[0]}, L1 {per[1]}), "
+            f"{sum(f.file_size for f in files) / 1e6:.1f} MB, "
+            f"{sum(f.num_rows for f in files)} rows")
+
+
+def sql_load(storage, ts, tags, fields):
+    """Table `cpu` in the port's StorageEngine: one bulk_ingest (Parquet
+    SSTs + manifest edit), then any compaction it set off waited out, so
+    that no later query races a version change. Returns (region, the
+    series id of each host)."""
+    from greptimedb_tpu_torch.datatypes import data_type as dt
+    region = storage.create_region(
+        "cpu_0", sql_schema({f: dt.FLOAT64 for f in CPU_FIELDS}))
+    log(f"storage engine at {storage.config.data_home}, WAL "
+        f"{type(region.wal).__name__}")
+    ingest_s = sql_ingest(region, ts, tags, fields)
+    t0 = time.perf_counter()
+    storage.scheduler.wait_idle(timeout=600)
+    wait_s = time.perf_counter() - t0
+    H, n = fields[CPU_FIELDS[0]].shape
+    log(f"ingest: bulk_ingest of {H * n} rows in {ingest_s:.2f}s "
+        f"({H * n / ingest_s / 1e6:.2f} Mrows/s), then {wait_s:.2f}s "
+        f"waiting out background compaction; "
+        f"{region.last_ingest_profile.describe()}")
+    log(f"  after the load: {sst_summary(region)}")
+    sd = region.series_dict
+    names = sd.decode_tag_column(np.arange(sd.num_series, dtype=np.int32), 0)
+    sid_of = {str(h): s for s, h in enumerate(names)}
+    host_sids = np.array([sid_of[f"host_{h}"] for h in range(H)],
+                         dtype=np.int32)
+    return region, host_sids
+
+
+def sql_edits(region, ts, tags, fields, host_sids, eight, seed):
+    """The write path after the load, WriteBatches through the WAL and the
+    memtable. Batch 1 overwrites three existing keys (the first host's
+    first sample, two of Q3/Q4's hosts in the first hour) and puts one new
+    key one interval past a spare host's last sample; it is flushed to an
+    L0 SST and compacted into L1. Batch 2 overwrites one more key and
+    DELETEs batch 1's new key: it stays in the memtable, through the
+    queries and the reopen (WAL replay). Every overwrite sets all ten
+    fields; `fields`, the brute force's copy, takes the same values, and
+    the deleted key was never in it, so the row count and every run's
+    length stay the load's. Returns batch 2's row count."""
+    from greptimedb_tpu_torch.storage import WriteBatch
+    H, n = fields[CPU_FIELDS[0]].shape
+    rng = np.random.default_rng(seed)
+    first_h = int(np.argmin(host_sids))
+    spare = [h for h in range(H) if h not in eight and h != first_h]
+    extra = (spare[1], n)
+
+    def key(h, j):
+        k = {t: [tags[h][i]] for i, t in enumerate(TSBS_TAGS)}
+        k["ts"] = [int(ts[j]) if j < n else int(ts[-1]) + INTERVAL_MS]
+        return k
+
+    def put(wb, keys):
+        for h, j in keys:
+            row = key(h, j)
+            new = rng.random(len(CPU_FIELDS)) * 100.0
+            for f, v in zip(CPU_FIELDS, new):
+                row[f] = [float(v)]
+                if j < n:
+                    fields[f][h, j] = v
+            wb.put(row)
+
+    t0 = time.perf_counter()
+    wb1 = WriteBatch(region.schema)
+    put(wb1, [(first_h, 0), (int(eight[0]), 3), (int(eight[1]), 100),
+              extra])
+    region.write(wb1)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flushed = region.flush()
+    flush_s = time.perf_counter() - t0
+    check(len(flushed) == 1 and flushed[0].num_rows == wb1.num_rows,
+          f"the flush wrote {flushed}")
+    t0 = time.perf_counter()
+    compacted = region.compact()
+    compact_s = time.perf_counter() - t0
+    check(len(compacted) == 1 and
+          not region.version_control.current.ssts.levels[0],
+          f"the compaction left L0 files: {compacted}")
+    wb2 = WriteBatch(region.schema)
+    put(wb2, [(spare[0], 2000)])
+    wb2.delete(key(*extra))
+    region.write(wb2)
+    log(f"write path: batch 1 ({wb1.num_rows} puts) through the WAL in "
+        f"{write_s * 1e3:.1f} ms, flushed to L0 in {flush_s * 1e3:.1f} ms, "
+        f"compacted to L1 in {compact_s * 1e3:.1f} ms; batch 2 "
+        f"({wb2.num_rows} rows: 1 overwrite, 1 DELETE) left in the "
+        f"memtable; {sst_summary(region)}")
+    return wb2.num_rows
 
 
 class MomentsTimer:
@@ -1333,97 +1426,230 @@ def sql_frame(out):
 
 
 def phase_sql(torch, seed):
-    """SQL through QueryEngine.execute on the GPU: each query cold (scan
-    cache empty), then warm, both with the launch fenced, then warm
-    unfenced; per-query wall and stages; results against a float64 brute
-    force. Returns the segment-moments launches of the run,
-    and the kernel's inputs at Q1, Q4 and Q6."""
+    """SQL through QueryEngine.execute on the GPU over regions of the
+    port's own StorageEngine, in a temporary data home removed at the
+    end: the load, the write path, each query cold (scan cache empty),
+    then warm, both with the launch fenced, then warm unfenced, with the
+    wall and stages; results against a float64 brute force; then the
+    engine closed with batch 2 unflushed and reopened (manifest + WAL
+    replay), Q5 again; then the narrow-integer table. Returns the
+    segment-moments launches of the run, and the kernel's inputs at Q1,
+    Q4 and Q6."""
+    import shutil
+    import tempfile
+
+    from greptimedb_tpu_torch.catalog import MemoryCatalogManager
     from greptimedb_tpu_torch.ops import kernels as K
     from greptimedb_tpu_torch.query import QueryEngine, ir, tpu_exec
     from greptimedb_tpu_torch.session import QueryContext
     from greptimedb_tpu_torch.sql import parse_sql
+    from greptimedb_tpu_torch.storage import EngineConfig, StorageEngine
 
     t_gen = time.perf_counter()
     ts, tags, fields = tsbs_cpu_table(seed + 2)
-    cat, region, host_sids = sql_catalog(ts, tags, fields)
     H, n = fields["usage_user"].shape
     log(f"TSBS cpu-only table cpu: {H} hosts x {n} samples = {H * n} rows, "
         f"10 tags, 10 fields, {SQL_HOURS} h, made in "
         f"{time.perf_counter() - t_gen:.1f}s (seed {seed + 2})")
-    eng = QueryEngine(cat, device=DEVICE)
-    eight, queries = sql_queries(np.random.default_rng(seed + 3), H)
-
-    timer = MomentsTimer(torch, tpu_exec.sorted_grouped_aggregate)
-    tpu_exec.sorted_grouped_aggregate = timer
-    stage_s = {}
-
-    def timed(key, fn):
-        def run(*a, **kw):
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            stage_s[key] = stage_s.get(key, 0.0) + time.perf_counter() - t0
-            return out
-        return run
-
-    finalize, finish = ir._finalize, eng._finish_aggregate_frame
-    ir._finalize = timed("finalize", finalize)
-    eng._finish_aggregate_frame = timed("finish", finish)
-    inputs = {}
-    K.segment_moments.launches = 0
+    data_home = tempfile.mkdtemp(prefix="chip_smoke_sql_")
+    storage = StorageEngine(EngineConfig(data_home=data_home))
     try:
-        for name, sql in queries.items():
-            # cold and warm with the launch fenced (its device time), then
-            # warm unfenced: the wall and stages without the spin, which
-            # the fetch would otherwise wait out
-            for run in ("cold", "warm", "warm unfenced"):
-                if run == "cold":
-                    tpu_exec.SCAN_CACHE.clear()
-                fenced = run != "warm unfenced"
-                tpu_exec.sorted_grouped_aggregate = \
-                    timer if fenced else timer.inner
-                stage_s.clear()
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
+        region, host_sids = sql_load(storage, ts, tags, fields)
+        cat = MemoryCatalogManager()
+        table = sql_register(cat, "cpu", region)
+        eng = QueryEngine(cat, device=DEVICE)
+        eight, queries = sql_queries(np.random.default_rng(seed + 3), H)
+        unflushed = sql_edits(region, ts, tags, fields, host_sids, eight,
+                              seed + 4)
+        del tags
+
+        timer = MomentsTimer(torch, tpu_exec.sorted_grouped_aggregate)
+        stage_s = {}
+
+        def timed(key, fn):
+            def run(*a, **kw):
                 t0 = time.perf_counter()
-                out = eng.execute(parse_sql(sql), QueryContext())
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-                kernel = ""
-                if fenced:
-                    dev_ms = timer.take()
-                    check(len(dev_ms) == 1,
-                          f"{name}: {len(dev_ms)} launches")
-                    kernel = f" kernel (device) {dev_ms[0]:.4f} ms;"
-                peak = torch.cuda.max_memory_allocated() / 2**30
-                p = region.last_scan_profile
-                st = dict(p.stages)
-                st.update(stage_s)
-                log(f"{name} [{run}, cache {p.outcome}]: wall "
-                    f"{wall * 1e3:.1f} ms; " + ", ".join(
-                        f"{k} {v * 1e3:.1f}" for k, v in st.items()) +
-                    f" ms;{kernel} {out.num_rows} rows; peak device "
-                    f"memory {peak:.2f} GiB")
-                if run == "warm":
-                    got = sql_frame(out)
-                    want, exact, approx = sql_expected(
-                        name, ts, fields, host_sids, eight)
-                    worst = compare_sql(name, got, want, exact, approx)
-                    log(f"  check {name}: {len(got)} rows vs the float64 "
-                        f"brute force; keys, counts, min/max/first/last "
-                        f"exact; max |err|/bound {worst:.3g}")
-                    if name.startswith("Q5"):
-                        planted(name, got, want, approx, fields)
-            inputs[name.split()[0]] = timer.calls[-1]
-            tpu_exec.sorted_grouped_aggregate = timer
+                out = fn(*a, **kw)
+                stage_s[key] = stage_s.get(key, 0.0) + \
+                    time.perf_counter() - t0
+                return out
+            return run
+
+        def execute(name, sql, run, reg):
+            """One statement; its wall, stages and profile logged."""
+            if run.startswith("cold"):
+                tpu_exec.SCAN_CACHE.clear()
+            fenced = "unfenced" not in run
+            tpu_exec.sorted_grouped_aggregate = \
+                timer if fenced else timer.inner
+            stage_s.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = eng.execute(parse_sql(sql), QueryContext())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            kernel = ""
+            if fenced:
+                dev_ms = timer.take()
+                check(len(dev_ms) == 1, f"{name}: {len(dev_ms)} launches")
+                kernel = f" kernel (device) {dev_ms[0]:.4f} ms;"
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            p = reg.last_scan_profile
+            check(p is not None and p.path == "resident",
+                  f"{name}: not on the device path")
+            st = dict(p.stages)
+            st.update(stage_s)
+            cache = ",".join(k[6:] for k in p.counters
+                             if k.startswith("cache_"))
+            log(f"{name} [{run}, cache {cache}]: wall {wall * 1e3:.1f} ms; "
+                + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in st.items()) +
+                f" ms;{kernel} {out.num_rows} rows; peak device memory "
+                f"{peak:.2f} GiB")
+            return out
+
+        finalize, finish = ir._finalize, eng._finish_aggregate_frame
+        ir._finalize = timed("finalize", finalize)
+        eng._finish_aggregate_frame = timed("finish", finish)
+        inputs, frames = {}, {}
+        K.segment_moments.launches = 0
+        try:
+            for name, sql in queries.items():
+                # cold and warm with the launch fenced (its device time),
+                # then warm unfenced: the wall and stages without the spin,
+                # which the fetch would otherwise wait out
+                for run in ("cold", "warm", "warm unfenced"):
+                    out = execute(name, sql, run, region)
+                    if run == "warm":
+                        got = frames[name] = sql_frame(out)
+                        want, exact, approx = sql_expected(
+                            name, ts, fields, host_sids, eight)
+                        worst = compare_sql(name, got, want, exact, approx)
+                        log(f"  check {name}: {len(got)} rows vs the "
+                            f"float64 brute force (write-path edits "
+                            f"applied); keys, counts, min/max/first/last "
+                            f"exact; max |err|/bound {worst:.3g}")
+                        if name.startswith("Q5"):
+                            planted(name, got, want, approx, fields)
+                inputs[name.split()[0]] = timer.calls[-1]
+            del fields
+
+            # recovery: batch 2 is only in the WAL and the memtable
+            storage.close()
+            t0 = time.perf_counter()
+            storage = StorageEngine(EngineConfig(data_home=data_home))
+            region = storage.open_region("cpu_0")
+            open_s = time.perf_counter() - t0
+            replayed = region.version_control.current.memtables.mutable \
+                .num_rows
+            check(replayed == unflushed, f"the reopened memtable holds "
+                  f"{replayed} rows, batch 2 had {unflushed}")
+            table.regions = {0: region}
+            log(f"reopen: StorageEngine + open_region (manifest, series "
+                f"dictionary, WAL replay of {replayed} rows) in "
+                f"{open_s * 1e3:.1f} ms; {sst_summary(region)}")
+            q5 = next(q for q in queries if q.startswith("Q5"))
+            got = sql_frame(execute(q5, queries[q5], "cold, reopened",
+                                    region))
+            check(got.equals(frames[q5]), "Q5 after the reopen differs from "
+                  "Q5 before it")
+            log(f"  check {q5} after the reopen: {len(got)} rows, every "
+                f"value bit-equal to the frame before the close")
+            sql_narrow(torch, storage, cat, eng, execute, seed + 5)
+        finally:
+            tpu_exec.sorted_grouped_aggregate = timer.inner
+            ir._finalize = finalize
     finally:
-        tpu_exec.sorted_grouped_aggregate = timer.inner
-        ir._finalize = finalize
+        storage.close()
+        shutil.rmtree(data_home, ignore_errors=True)
     launches = K.segment_moments.launches
-    check(launches == 3 * len(queries),
+    check(launches == 3 * len(queries) + 1 + len(NARROW_QUERIES),
           f"the SQL path launched segment_moments {launches} times")
-    log(f"segment_moments launches during the queries: {launches}")
-    del fields
+    log(f"segment_moments launches during the SQL phase: {launches} "
+        f"({len(queries)} queries x 3, Q5 after the reopen, "
+        f"{len(NARROW_QUERIES)} narrow-integer queries)")
     return launches, inputs
+
+
+#: the narrow-integer table's fields: SQL type and the range each draws
+#: from (SMALLINT near its top and INT UNSIGNED above 2^31 reach the wrap
+#: of a sum and the float32 rounding of a value)
+NARROW_FIELDS = {"i8": ("INT8", -128, 128), "i16": ("INT16", 20000, 30000),
+                 "u32": ("UINT32", 2**31, 2**32),
+                 "u16": ("UINT16", 0, 2**16)}
+NARROW_OPS = ("count", "sum", "min", "max", "first_value", "last_value")
+NARROW_QUERIES = {
+    "by host": ("hostname, ", "GROUP BY hostname ORDER BY hostname"),
+    "global": ("", ""),
+}
+
+
+def sql_narrow(torch, storage, cat, eng, execute, seed, hosts=64,
+               samples=4096):
+    """Table `nt` (TINYINT, SMALLINT, INT UNSIGNED, SMALLINT UNSIGNED
+    fields) in the same StorageEngine, count/sum/min/max/first_value/
+    last_value of each, by host and over the whole table, held exactly
+    against numpy with the reference's semantics: a sum wraps to the
+    column's type within each run (a host here; every row in the global
+    statement); first/last take the earliest/latest ts, ties by series
+    id."""
+    from greptimedb_tpu_torch.datatypes import data_type as dt
+    from greptimedb_tpu_torch.query import tpu_exec
+    rng = np.random.default_rng(seed)
+    ts = TSBS_START_MS + np.arange(samples, dtype=np.int64) * INTERVAL_MS
+    tags = [(f"host_{h}",) + ("x",) * (len(TSBS_TAGS) - 1)
+            for h in range(hosts)]
+    vals = {f: rng.integers(lo, hi, (hosts, samples)).astype(
+        getattr(dt, t).np_dtype) for f, (t, lo, hi) in NARROW_FIELDS.items()}
+    region = storage.create_region("nt_0", sql_schema(
+        {f: getattr(dt, t) for f, (t, _, _) in NARROW_FIELDS.items()}))
+    ingest_s = sql_ingest(region, ts, tags, vals)
+    storage.scheduler.wait_idle(timeout=600)
+    sql_register(cat, "nt", region)
+    log(f"narrow-integer table nt: {hosts} hosts x {samples} samples, "
+        f"ingested in {ingest_s:.2f}s; {sst_summary(region)}")
+    sd = region.series_dict
+    names = sd.decode_tag_column(np.arange(sd.num_series, dtype=np.int32), 0)
+    order = np.argsort(np.array([f"host_{h}" for h in range(hosts)]))
+    by_sid = np.array([int(str(h).split("_")[1]) for h in names])
+    saved = tpu_exec.TPU_DISPATCH_MIN_ROWS, tpu_exec._observed_min_dt[0]
+    try:
+        for q, (sel, group) in NARROW_QUERIES.items():
+            aggs = ", ".join(f"{op}({f})" for op in NARROW_OPS
+                             for f in NARROW_FIELDS)
+            sql = f"SELECT {sel}{aggs} FROM nt {group}"
+            # the table is below the dispatch floor: pin it, as the
+            # differential tests do, so the statement runs on the card
+            tpu_exec.TPU_DISPATCH_MIN_ROWS = 0
+            tpu_exec._observed_min_dt[0] = None
+            got = sql_frame(execute(f"narrow {q}", sql, "cold", region))
+            wrapped = 0
+            for f, x in vals.items():
+                rows = x[order] if q == "by host" else x.reshape(1, -1)
+                w = rows.astype(np.int64).sum(axis=1)
+                want = {
+                    "count": np.full(len(rows), rows.shape[1]),
+                    "sum": w.astype(x.dtype),      # wraps to the type
+                    "min": rows.min(axis=1), "max": rows.max(axis=1),
+                    "first_value": x[order, 0] if q == "by host"
+                    else [x[by_sid[0], 0]],
+                    "last_value": x[order, -1] if q == "by host"
+                    else [x[by_sid[-1], -1]]}
+                for op in NARROW_OPS:
+                    g = got[f"{op}({f})"].to_numpy().astype(np.float64)
+                    e = np.asarray(want[op]).astype(np.float64)
+                    check(g.shape == e.shape and bool((g == e).all()),
+                          f"narrow {q}: {op}({f}) differs at "
+                          f"{int((g != e).sum())} groups (e.g. "
+                          f"{g[g != e][:2]} vs {e[g != e][:2]})")
+                wrapped = max(wrapped, int((w != want["sum"]).sum()))
+            check(wrapped > 0, f"narrow {q}: no sum wrapped")
+            log(f"  check narrow {q}: {len(got)} rows x "
+                f"{len(NARROW_OPS) * len(NARROW_FIELDS)} aggregates exact "
+                f"against numpy (sums wrapped to their type in up to "
+                f"{wrapped} groups of a column)")
+    finally:
+        tpu_exec.TPU_DISPATCH_MIN_ROWS, tpu_exec._observed_min_dt[0] = saved
 
 
 def phase_moments_time(torch, inputs):

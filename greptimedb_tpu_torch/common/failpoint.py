@@ -1,0 +1,279 @@
+"""Process-wide failpoint registry for fault injection.
+
+Reference behavior: the reference hardens its LSM write path with
+`fail`-crate failpoints (src/storage/src/flush.rs `fail_point!` macros,
+tests-integration fail-point tests). This is the Python twin: hot
+mutation paths call :func:`fail_point` with a stable name; an operator
+(or the torture harness, tests/torture.py) arms a point with an action
+and the next evaluation fires it.
+
+Activation surfaces (all feed :func:`configure`):
+
+- env: ``GREPTIME_FAILPOINTS="wal_append=err;flush_commit=crash"``
+  (parsed at import; ``refresh_from_env()`` re-reads it)
+- SQL: ``SET failpoint_<name> = 'action'`` (``'off'`` clears)
+- HTTP: ``POST /v1/admin/failpoints?name=<name>&action=<action>``
+
+Action grammar (``parse_action``)::
+
+    spec   := [ N 'x' M '*' ] kind [ '(' arg ')' ]
+    kind   := 'err' | 'crash' | 'delay' | 'off'
+
+- ``err`` / ``err(msg)`` — raise :class:`FailpointError`;
+  ``err(transient)`` marks it retryable (RetryingObjectStore retries it).
+- ``crash`` — raise :class:`SimulatedCrash`, a BaseException standing in
+  for ``kill -9``: no ``except Exception`` recovery path may swallow it;
+  only the torture harness catches it and then reopens from disk.
+- ``delay(ms)`` — sleep that many milliseconds, then continue.
+- ``NxM*`` prefix — fire on N of every M evaluations (``1x3*err`` =
+  one-in-three failure rate). Without it every evaluation fires.
+
+Zero overhead when inactive: every entry point checks the module-level
+``_ACTIVE`` bool first — one global load + branch per instrumented call,
+no dict lookup, no lock (BASELINE.md publishes the bench delta).
+Evaluation while armed takes a lock; failpoints are a test/debug surface,
+never a production hot path.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import os
+import re
+import threading
+import time
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
+
+from ..errors import GreptimeError
+
+logger = logging.getLogger(__name__)
+
+
+class FailpointError(GreptimeError):
+    """Error injected by an armed failpoint (action ``err``)."""
+
+    def __init__(self, msg: str, transient: bool = False):
+        super().__init__(msg)
+        self.transient = transient
+
+
+class SimulatedCrash(BaseException):
+    """Simulated process kill (action ``crash``).
+
+    Derives from BaseException so generic ``except Exception`` recovery
+    code cannot swallow it — exactly like a real SIGKILL, the only thing
+    the process gets to rely on afterwards is what already hit disk."""
+
+
+_NAME_RE = re.compile(r"^[a-z][a-z0-9_]*$")
+_SPEC_RE = re.compile(r"^(?:(\d+)x(\d+)\*)?([a-z]+)(?:\((.*)\))?$")
+
+_lock = threading.Lock()
+#: every point the codebase registered (import time) or that was ever
+#: configured — the information_schema.failpoints view lists these
+_points: "Dict[str, _Point]" = {}
+#: module-level fast-path guard: False ⇔ no failpoint is armed anywhere
+_ACTIVE = False
+#: optional observer invoked with the site name on EVERY evaluation
+#: (armed or not) — common/locks.py installs its blocking-I/O-under-lock
+#: check here when the lock-order detector is enabled. None in
+#: production: the inactive fast path stays one extra is-None branch.
+_IO_HOOK = None
+
+
+def set_io_site_hook(hook: "Optional[Callable[[str], None]]") -> None:
+    """Install (or with None remove) the per-evaluation site observer."""
+    global _IO_HOOK
+    _IO_HOOK = hook
+
+
+class _Point:
+    __slots__ = ("name", "spec", "kind", "arg", "fire_n", "window_m",
+                 "hits", "fires", "_count")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.spec: Optional[str] = None   # raw action string, None = off
+        self.kind: Optional[str] = None
+        self.arg: Optional[str] = None
+        self.fire_n = 1
+        self.window_m = 1
+        self.hits = 0                     # evaluations while armed
+        self.fires = 0                    # actions actually triggered
+        self._count = 0                   # rolling NxM window position
+
+
+def parse_action(spec: str) -> "Tuple[str, Optional[str], int, int]":
+    """Parse an action spec; returns (kind, arg, fire_n, window_m).
+    Raises ValueError on malformed input (the SET/HTTP surfaces turn
+    that into a user error instead of arming garbage)."""
+    m = _SPEC_RE.match(spec.strip())
+    if not m:
+        raise ValueError(f"malformed failpoint action {spec!r}")
+    n_s, m_s, kind, arg = m.groups()
+    if kind not in ("err", "crash", "delay", "off"):
+        raise ValueError(f"unknown failpoint action {kind!r}")
+    fire_n = int(n_s) if n_s else 1
+    window_m = int(m_s) if m_s else 1
+    if window_m < 1 or fire_n < 1 or fire_n > window_m:
+        raise ValueError(f"bad NxM prefix in {spec!r} (need 1<=N<=M)")
+    if kind == "delay":
+        try:
+            float(arg)
+        except (TypeError, ValueError):
+            raise ValueError(f"delay needs a millisecond arg: {spec!r}")
+    return kind, arg, fire_n, window_m
+
+
+def register(name: str) -> None:
+    """Declare a failpoint name at import time so the
+    information_schema.failpoints view lists it before it is ever armed."""
+    if not _NAME_RE.match(name):
+        raise ValueError(f"bad failpoint name {name!r}")
+    with _lock:
+        _points.setdefault(name, _Point(name))
+
+
+def configure(name: str, spec: Optional[str]) -> None:
+    """Arm (or with None/''/'off' disarm) a failpoint."""
+    global _ACTIVE
+    if not _NAME_RE.match(name):
+        raise ValueError(f"bad failpoint name {name!r}")
+    parsed = None
+    if spec and spec.strip().lower() != "off":
+        parsed = parse_action(spec)   # raises BEFORE any state change
+        if parsed[0] == "off":
+            parsed = None
+    with _lock:
+        unknown = name not in _points
+        p = _points.setdefault(name, _Point(name))
+        if parsed is None:
+            p.spec = p.kind = p.arg = None
+            p.fire_n = p.window_m = 1
+        else:
+            p.spec = spec.strip()
+            p.kind, p.arg, p.fire_n, p.window_m = parsed
+        p._count = 0
+        _ACTIVE = any(q.kind is not None for q in _points.values())
+    if parsed is not None:
+        if unknown:
+            # arming before the instrumented module imports and registers
+            # is legal (GREPTIME_FAILPOINTS parses at first import), but a
+            # typo'd name would otherwise fail silently forever — say so
+            logger.warning(
+                "failpoint %s is not registered by any instrumented site "
+                "(yet); if this is a typo the experiment will never fire",
+                name)
+        logger.info("failpoint %s armed: %s", name, p.spec)
+
+
+def clear_all() -> None:
+    """Disarm everything (test teardown); registrations and counters stay."""
+    global _ACTIVE
+    with _lock:
+        for p in _points.values():
+            p.spec = p.kind = p.arg = None
+            p.fire_n = p.window_m = 1
+            p._count = 0
+        _ACTIVE = False
+
+
+def reset() -> None:
+    """Disarm everything AND zero hit/fire counters (test isolation)."""
+    clear_all()
+    with _lock:
+        for p in _points.values():
+            p.hits = p.fires = 0
+
+
+def active_count() -> int:
+    with _lock:
+        return sum(1 for p in _points.values() if p.kind is not None)
+
+
+def list_points() -> List[dict]:
+    """Snapshot for information_schema.failpoints and the admin API."""
+    with _lock:
+        return [{"name": p.name, "action": p.spec, "hits": p.hits,
+                 "fires": p.fires}
+                for p in sorted(_points.values(), key=lambda q: q.name)]
+
+
+def refresh_from_env() -> None:
+    """(Re)apply GREPTIME_FAILPOINTS=name=action[;name=action...]."""
+    raw = os.environ.get("GREPTIME_FAILPOINTS", "")
+    for pair in re.split(r"[;,]", raw):
+        pair = pair.strip()
+        if not pair:
+            continue
+        name, _, spec = pair.partition("=")
+        try:
+            configure(name.strip(), spec.strip())
+        except ValueError as e:
+            logger.error("GREPTIME_FAILPOINTS: %s", e)
+
+
+def _should_fire(name: str) -> Optional[_Point]:
+    """Count a hit and decide whether the armed action fires (locked)."""
+    with _lock:
+        p = _points.get(name)
+        if p is None or p.kind is None:
+            return None
+        p.hits += 1
+        idx = p._count
+        p._count = (p._count + 1) % p.window_m
+        if idx >= p.fire_n:
+            return None
+        p.fires += 1
+        # snapshot the action under the lock: a concurrent disarm must
+        # not turn a decided fire into an AttributeError
+        snap = _Point(name)
+        snap.kind, snap.arg = p.kind, p.arg
+        return snap
+
+
+def fires(name: str) -> bool:
+    """True when the armed action fires NOW — for sites that implement a
+    bespoke fault (e.g. the WAL writing a deliberately torn record before
+    crashing) instead of the standard raise/delay behaviors. The armed
+    action's kind is ignored; the call only consumes one firing slot."""
+    if _IO_HOOK is not None:
+        _IO_HOOK(name)
+    if not _ACTIVE:
+        return False
+    return _should_fire(name) is not None
+
+
+def fail_point(name: str) -> None:
+    """Evaluate a failpoint: no-op unless armed, else run its action."""
+    if _IO_HOOK is not None:
+        _IO_HOOK(name)
+    if not _ACTIVE:
+        return
+    p = _should_fire(name)
+    if p is None:
+        return
+    if p.kind == "delay":
+        time.sleep(float(p.arg) / 1e3)
+        return
+    if p.kind == "crash":
+        logger.warning("failpoint %s: simulating process crash", name)
+        raise SimulatedCrash(name)
+    # err
+    transient = p.arg == "transient"
+    msg = p.arg if p.arg and not transient else f"injected by failpoint {name}"
+    raise FailpointError(msg, transient=transient)
+
+
+@contextlib.contextmanager
+def cfg(name: str, spec: str) -> "Iterator[None]":
+    """Arm a failpoint for a with-block (tests), disarming on exit."""
+    configure(name, spec)
+    try:
+        yield
+    finally:
+        configure(name, "off")
+
+
+refresh_from_env()

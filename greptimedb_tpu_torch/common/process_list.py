@@ -1,0 +1,237 @@
+"""Active-statement registry: `information_schema.processes`, `SHOW
+PROCESSLIST`, and cooperative `KILL <id>`.
+
+Reference behavior: GreptimeDB's process-list manager (the
+`PROCESS_LIST` information-schema table fed by a per-frontend catalog
+of running statements, each carrying its query text, start time and a
+cancellation handle that `KILL` trips). Here the registry is
+process-global — one per Python process, shared by the standalone and
+distributed frontends and by every protocol server, since they all
+funnel through `do_query`.
+
+Mechanics:
+
+- both frontends wrap each statement in :func:`track`, which registers
+  an entry (id, statement text, protocol, trace id, start time) and
+  installs it on a thread-local; ``telemetry.propagate()`` carries the
+  entry into pool workers, so cancellation checks deep in the streamed
+  scan fire even on prefetch threads.
+- the entry holds a live reference to the statement's ExecStats
+  collector (``common/exec_stats.collect`` publishes it the moment the
+  query installs one), so ``processes`` reports rows-scanned /
+  bytes-read / RPCs *while the query runs*, not just at the end.
+- ``KILL <id>`` sets the entry's cancel event; the scan / scatter
+  loops call :func:`check_cancelled` at batch boundaries and raise
+  :class:`~..errors.QueryCancelledError`. Aborted gathers cancel their
+  queued futures (common/runtime._bounded_ordered's finally), so a
+  killed fan-out releases its dist-pool slots instead of orphaning
+  work.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import itertools
+import threading
+import time
+from typing import Dict, Iterator, List, Optional
+
+from ..errors import InvalidArgumentsError, QueryCancelledError
+
+_tls = threading.local()
+
+#: thread ident -> the entry currently installed on that thread. The
+#: thread-local answers "what is MY statement" (cancellation checks);
+#: this map answers the profiler's inverse question — "whose statement
+#: is THAT thread running" — for stacks sampled from outside.
+from .locks import TrackedLock as _TrackedLock
+from .tracking import tracked_state as _tracked_state
+
+_threads_lock = _TrackedLock("common.process_list_threads")
+_BY_THREAD: Dict[int, "ProcessEntry"] = _tracked_state(
+    {}, "process_list.by_thread")
+
+
+def _bind_thread(entry: Optional["ProcessEntry"]) -> None:
+    tid = threading.get_ident()
+    with _threads_lock:
+        if entry is not None:
+            _BY_THREAD[tid] = entry
+        else:
+            _BY_THREAD.pop(tid, None)
+
+
+def entries_by_thread() -> Dict[int, "ProcessEntry"]:
+    """Snapshot for the stack sampler: which thread runs which
+    statement right now (frontend threads via track(), pool workers via
+    telemetry.propagate -> install())."""
+    with _threads_lock:
+        return dict(_BY_THREAD)
+
+
+class ProcessEntry:
+    """One running statement."""
+
+    __slots__ = ("id", "query", "protocol", "catalog", "schema", "node",
+                 "trace_id", "start", "start_unix_ms", "_cancel", "stats")
+
+    def __init__(self, pid: int, query: str, protocol: str, catalog: str,
+                 schema: str, node: str, trace_id: Optional[str]):
+        self.id = pid
+        self.query = query
+        self.protocol = protocol
+        self.catalog = catalog
+        self.schema = schema
+        self.node = node
+        self.trace_id = trace_id
+        self.start = time.perf_counter()
+        self.start_unix_ms = int(time.time() * 1000)
+        self._cancel = threading.Event()
+        #: the statement's live ExecStats collector (set by
+        #: exec_stats.collect when the query installs one); running
+        #: resource totals for the processes view read off it
+        self.stats = None
+
+    def cancelled(self) -> bool:
+        return self._cancel.is_set()
+
+    def kill(self) -> None:
+        self._cancel.set()
+
+    def elapsed_ms(self) -> float:
+        return (time.perf_counter() - self.start) * 1e3
+
+    def state(self) -> str:
+        return "cancelling" if self.cancelled() else "running"
+
+    def totals(self) -> Dict[str, int]:
+        stats = self.stats
+        if stats is None:
+            return {"rows_scanned": 0, "bytes_read": 0, "rpcs": 0,
+                    "partial_bytes": 0}
+        return stats.totals()
+
+    def row(self) -> Dict[str, object]:
+        t = self.totals()
+        return {
+            "id": self.id, "node": self.node, "catalog": self.catalog,
+            "schema": self.schema, "query": self.query,
+            "protocol": self.protocol, "state": self.state(),
+            "trace_id": self.trace_id or "",
+            "elapsed_ms": self.elapsed_ms(),
+            "rows_scanned": t["rows_scanned"],
+            "bytes_read": t["bytes_read"], "rpcs": t["rpcs"],
+            "partial_bytes": t.get("partial_bytes", 0),
+        }
+
+
+class ProcessRegistry:
+    """All running statements of this process, keyed by id."""
+
+    def __init__(self, node: str = "standalone"):
+        from .tracking import tracked_state
+        from .locks import TrackedLock
+        self._lock = TrackedLock("common.process_registry")
+        self._entries: Dict[int, ProcessEntry] = tracked_state(
+            {}, "process_list.entries")
+        self._ids = itertools.count(1)
+        self.node = node
+
+    def register(self, query: str, protocol: str, catalog: str,
+                 schema: str, trace_id: Optional[str]) -> ProcessEntry:
+        entry = ProcessEntry(next(self._ids), query, protocol, catalog,
+                             schema, self.node, trace_id)
+        with self._lock:
+            self._entries[entry.id] = entry
+        return entry
+
+    def deregister(self, entry: ProcessEntry) -> None:
+        with self._lock:
+            self._entries.pop(entry.id, None)
+
+    def kill(self, pid: int) -> None:
+        """Trip a statement's cancel event. Unknown (or already
+        finished) ids are a clean user error, never a crash. The kill
+        counter lives HERE so every path — SQL KILL, mysql
+        COM_PROCESS_KILL — counts alike."""
+        with self._lock:
+            entry = self._entries.get(pid)
+        if entry is None:
+            raise InvalidArgumentsError(
+                f"KILL {pid}: no such running query (it may have "
+                f"already finished)")
+        entry.kill()
+        from .telemetry import increment_counter
+        increment_counter("kill")
+
+    def rows(self) -> List[Dict[str, object]]:
+        """One snapshot dict per running statement, id-ordered — the
+        builder behind information_schema.processes and SHOW
+        PROCESSLIST."""
+        with self._lock:
+            entries = sorted(self._entries.values(), key=lambda e: e.id)
+        return [e.row() for e in entries]
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+
+#: the process-wide registry every frontend + protocol server shares
+REGISTRY = ProcessRegistry()
+
+
+def configure_node(label: str) -> None:
+    """Name this process in the `node` column of the processes view —
+    the frontends call it at construction ("standalone" / "frontend"),
+    so a cluster operator can tell which frontend owns a statement
+    before issuing KILL (the registry, and therefore KILL, is
+    per-process)."""
+    REGISTRY.node = label
+
+
+def current() -> Optional[ProcessEntry]:
+    return getattr(_tls, "entry", None)
+
+
+@contextlib.contextmanager
+def install(entry: Optional[ProcessEntry]) -> Iterator[None]:
+    """Install an EXISTING entry (possibly None) on this thread — what
+    telemetry.propagate uses to carry the statement's handle into pool
+    workers."""
+    prev = getattr(_tls, "entry", None)
+    _tls.entry = entry
+    _bind_thread(entry)
+    try:
+        yield
+    finally:
+        _tls.entry = prev
+        _bind_thread(prev)
+
+
+@contextlib.contextmanager
+def track(query: str, *, protocol: str = "http",
+          catalog: str = "", schema: str = "",
+          trace_id: Optional[str] = None) -> Iterator[ProcessEntry]:
+    """Register one statement for its execution window and expose it on
+    this thread for cancellation checks."""
+    entry = REGISTRY.register(query, protocol, catalog, schema, trace_id)
+    prev = getattr(_tls, "entry", None)
+    _tls.entry = entry
+    _bind_thread(entry)
+    try:
+        yield entry
+    finally:
+        _tls.entry = prev
+        _bind_thread(prev)
+        REGISTRY.deregister(entry)
+
+
+def check_cancelled() -> None:
+    """Cooperative cancellation point: raise when the current statement
+    was killed. A no-op (one thread-local read) outside any tracked
+    statement — safe on hot paths."""
+    entry = getattr(_tls, "entry", None)
+    if entry is not None and entry.cancelled():
+        raise QueryCancelledError(
+            f"query {entry.id} was killed (KILL {entry.id})")

@@ -20,12 +20,19 @@ streamed-cold and indexed-point paths, scan fusion, incremental cache
 maintenance and sketch/expression moments are not ported yet (plans that
 need sketches or expression columns take the CPU path).
 
-The data seam (what is read from a table and its regions): a table's
-`schema`, `name`, `info` and `regions`; a region's `uid`, `name`,
+What is read from a table and its regions (storage/region.py): a
+table's `schema`, `name`, `info` and `regions`; a region's `uid`, `name`,
 `series_dict`, `version_control.current` (memtable and SST row counts for
 the dispatch floor) and `snapshot()` with `.scan()` → ScanData,
 `.visible_sequence` and `._version` (`.schema.version`,
 `.ssts.all_files()`).
+
+Field mirrors follow the reference's 32-bit device types: DOUBLE/FLOAT
+as float32, BIGINT as int32 when it fits (else float32), and the narrow
+integers exactly — int8/int16/uint8/uint16 as int32, uint32 as int32
+biased by -2^31 (order-preserving). After the fetch, `_narrow_results`
+gives each moment the column's own dtype as the reference does: sums
+wrap to it, and uint32 values are un-biased on the host.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from ..sql.ast import (
     Between, BinaryOp, Column, Expr, FunctionCall, Interval, Literal, Query,
     UnaryOp,
 )
+from ..storage.region import ScanProfile
 from .expr import Evaluator, expr_name
 from .functions import TPU_AGGREGATES, parse_interval_ms
 from .planner import Analysis, _group_slot
@@ -57,21 +65,11 @@ _CMP_OPS = {"=": "eq", "!=": "ne", "<": "lt", "<=": "le", ">": "gt",
 # merged-scan cache (per region version and device)
 # ---------------------------------------------------------------------------
 
-@dataclass
-class ScanProfile:
-    """Host-clock stages of one region's reduction (seconds), left on
-    `region.last_scan_profile`: scan_prep (cache lookup or MergedScan
-    build), runs (host run ids), masks (tag predicates and row mask),
-    h2d (device mirrors, mask and run ends), launch (the kernel call's
-    host time), fetch (the one device-to-host copy, which waits for the
-    kernel), collect (the per-run moment frame)."""
-    path: str
-    rows: int = 0
-    outcome: str = ""
-    stages: Dict[str, float] = field(default_factory=dict)
-
-    def mark(self, stage: str, seconds: float) -> None:
-        self.stages[stage] = self.stages.get(stage, 0.0) + seconds
+#: integer field dtypes carried exactly as int32 device mirrors
+_NARROW_INTS = (np.dtype(np.int8), np.dtype(np.int16), np.dtype(np.uint8),
+                np.dtype(np.uint16))
+#: uint32 fields ride as int32 values v - 2^31
+_U32_BIAS = 1 << 31
 
 
 @dataclass
@@ -113,12 +111,25 @@ class MergedScan:
                 raise UnsupportedError(f"field {name} is not numeric")
             v = vals
             # 32-bit on the device, as the reference runs with x64 off
-            if v.dtype == np.int64:
+            if v.dtype in _NARROW_INTS:
+                v = v.astype(np.int32)
+            elif v.dtype == np.uint32:
+                v = (v.astype(np.int64) - _U32_BIAS).astype(np.int32)
+            elif v.dtype == np.int64:
                 v = v.astype(np.float64) if abs(v).max(initial=0) >= 2**31 \
                     else v.astype(np.int32)
             if v.dtype != np.int32:
                 v = v.astype(np.float32)
             self.mirrors[key] = self.to_device(v)
+        return self.mirrors[key]
+
+    def device_field_f32(self, name: str) -> torch.Tensor:
+        """float32 mirror of a field's values (a uint32 column's squares
+        need its un-biased values)."""
+        key = f"f32:{name}"
+        if key not in self.mirrors:
+            self.mirrors[key] = self.to_device(
+                self.fields[name][0].astype(np.float32))
         return self.mirrors[key]
 
     def device_valid(self, name: str) -> torch.Tensor:
@@ -184,7 +195,11 @@ class _ScanCache:
     def last_outcome(self) -> Optional[str]:
         return getattr(self._last, "outcome", None)
 
-    def get(self, region, device) -> MergedScan:
+    def get(self, region, device,
+            prof: Optional[ScanProfile] = None) -> MergedScan:
+        """The region's merged scan on `device`; a miss marks its
+        `region_scan` (memtables + SST decode) and `merge` stages on
+        `prof`."""
         device = torch.device(device)
         snap = region.snapshot()
         v = snap._version
@@ -203,7 +218,7 @@ class _ScanCache:
             self._last.outcome = "hit"
             return entry.scan
         self._last.outcome = "full"
-        scan = self._full(snap, device)
+        scan = self._full(snap, device, prof)
         entry = _CacheEntry(scan, visible, sst_names, v.schema.version,
                             epoch)
         with self._lock:
@@ -232,21 +247,40 @@ class _ScanCache:
             self._entries.clear()
 
     @staticmethod
-    def _full(snap, device: torch.device) -> MergedScan:
+    def _full(snap, device: torch.device,
+              prof: Optional[ScanProfile] = None) -> MergedScan:
+        t0 = time.perf_counter()
         data = snap.scan()
+        t1 = time.perf_counter()
         if data.num_rows:
             kept = merge_dedup_numpy(data.series_ids, data.ts, data.seq,
                                      data.op_types)
             sids = data.series_ids[kept]
             ts = data.ts[kept]
-            fields = {n: (d[kept], vd[kept] if vd is not None else None)
+            fields = {n: (d[kept], _some_null(vd, kept))
                       for n, (d, vd) in data.fields.items()}
         else:
             sids, ts = data.series_ids, data.ts
             fields = data.fields
         base = int(ts.min()) if ts.size else 0
+        if prof is not None:
+            prof.mark("region_scan", t1 - t0)
+            prof.mark("merge", time.perf_counter() - t1)
         return MergedScan(sids.astype(np.int32), ts, fields,
                           data.series_dict, base, device)
+
+
+def _some_null(valid: Optional[np.ndarray],
+               kept: np.ndarray) -> Optional[np.ndarray]:
+    """A field's validity over the kept rows, or None when every kept row
+    is valid: a scan that takes in memtable rows carries a validity
+    array for every field (write batches build one even without nulls),
+    and a None column shares the one all-valid device mask instead of a
+    mirror and a kernel mask read of its own."""
+    if valid is None:
+        return None
+    v = valid[kept]
+    return None if v.all() else v
 
 
 SCAN_CACHE = _ScanCache()
@@ -653,9 +687,9 @@ def _execute_region(region, table, plan: TpuPlan,
                     device) -> Optional[pd.DataFrame]:
     prof = ScanProfile(path="resident")
     t0 = time.perf_counter()
-    scan = SCAN_CACHE.get(region, device)
+    scan = SCAN_CACHE.get(region, device, prof)
     prof.mark("scan_prep", time.perf_counter() - t0)
-    prof.outcome = SCAN_CACHE.last_outcome() or "full"
+    prof.bump(f"cache_{SCAN_CACHE.last_outcome() or 'full'}")
     prof.rows = scan.num_rows
     region.last_scan_profile = prof
     if scan.num_rows == 0:
@@ -666,13 +700,17 @@ def _execute_region(region, table, plan: TpuPlan,
 @dataclass
 class _Launched:
     """An in-flight device reduction: device results + host fold context."""
-    results: tuple                    # device tensors, one per moment
+    results: tuple                    # device tensors, one per moment,
+    #                                   then the extra column counts
     counts: torch.Tensor              # device int32 [nruns]
     nruns: int
     run_sids: np.ndarray              # per-run series id [nruns]
     run_buckets: Optional[np.ndarray]
     series_dict: object
     ts_base: int
+    #: per plan moment: None, or (the column's narrow dtype, the index in
+    #: `results` of the column's count, or None)
+    narrow: list
 
 
 def _moment_frame_for_scan(scan: MergedScan, schema, plan: TpuPlan,
@@ -688,6 +726,7 @@ def _moment_frame_for_scan(scan: MergedScan, schema, plan: TpuPlan,
     res_np = [w.view(np.dtype(str(r.dtype).replace("torch.", "")))
               for w, r in zip(words[:-1], launched.results)]
     counts = words[-1]
+    res_np = _narrow_results(res_np, plan, launched.narrow)
     prof.mark("fetch", time.perf_counter() - t0)
     t1 = time.perf_counter()
     out = _collect_moment_frame(launched, plan, counts, res_np)
@@ -808,7 +847,9 @@ def _launch_scan_kernel(scan: MergedScan, schema, plan: TpuPlan,
     values = []
     col_masks = []
     ops = []
+    narrow: list = []
     for m in plan.moments:
+        fix = None
         if m.op in ("min_ts", "max_ts"):
             values.append(d_ts)
             col_masks.append(scan.device_valid(m.column))
@@ -819,12 +860,35 @@ def _launch_scan_kernel(scan: MergedScan, schema, plan: TpuPlan,
             ops.append("count")
         else:
             cs = schema.column_schema(m.column)
+            dt = scan.fields[m.column][0].dtype
             if cs.dtype.is_string or cs.dtype.is_binary:
                 values.append(d_ts)
+            elif m.op == "sum_sq" and dt == np.uint32:
+                values.append(scan.device_field_f32(m.column))
             else:
                 values.append(scan.device_field(m.column))
+                if m.op not in ("count", "sum_sq") and (
+                        dt in _NARROW_INTS or dt == np.uint32):
+                    fix = (dt, None)
             col_masks.append(scan.device_valid(m.column))
             ops.append(m.op)
+        narrow.append(fix)
+    # a uint32 sum is recovered from its biased sum and the column's
+    # count, and an empty first/last from the count too: launch the
+    # count when the plan does not ask for it
+    count_at = {m.column: i for i, m in enumerate(plan.moments)
+                if m.op == "count"}
+    for i, m in enumerate(plan.moments):
+        fix = narrow[i]
+        if fix is None or fix[0] != np.uint32 or \
+                m.op not in ("sum", "first", "last"):
+            continue
+        if m.column not in count_at:
+            count_at[m.column] = len(ops)
+            values.append(d_ts)
+            col_masks.append(scan.device_valid(m.column))
+            ops.append("count")
+        narrow[i] = (fix[0], count_at[m.column])
     prof.mark("h2d", time.perf_counter() - t2)
 
     # ---- the kernel: every moment in one launch over the host run ends
@@ -836,7 +900,42 @@ def _launch_scan_kernel(scan: MergedScan, schema, plan: TpuPlan,
     prof.mark("launch", time.perf_counter() - t3)
     return _Launched(tuple(results), counts, nruns, sids[run_starts],
                      buckets[run_starts] if buckets is not None else None,
-                     scan.series_dict, scan.ts_base)
+                     scan.series_dict, scan.ts_base, narrow)
+
+
+def _narrow_results(res_np: List[np.ndarray], plan: TpuPlan,
+                    narrow: list) -> List[np.ndarray]:
+    """Each plan moment's fetched result in the reference's dtype.
+
+    int8/int16/uint8/uint16 columns: sums narrow to the column's dtype
+    (the kernel's int32 sum wraps mod 2^32, the cast mod 2^8 / 2^16, as
+    the reference's `.astype(fdt)`); min/max clip the int32 identities to
+    the dtype's. uint32 columns: values are un-biased (+2^31), so the
+    int32 identities become uint32 max/min; a sum is (biased sum +
+    count * 2^31) mod 2^32; a first/last with no valid row is 0, as the
+    reference's. The extra counts behind the plan's moments are
+    dropped."""
+    out = []
+    for r, m, fix in zip(res_np, plan.moments, narrow):
+        if fix is None:
+            out.append(r)
+            continue
+        dt, ci = fix
+        if dt == np.uint32:
+            r64 = r.astype(np.int64)
+            if m.op == "sum":
+                u = r64 + res_np[ci].astype(np.int64) * _U32_BIAS
+            elif m.op in ("first", "last"):
+                u = np.where(res_np[ci] > 0, r64 + _U32_BIAS, 0)
+            else:
+                u = r64 + _U32_BIAS
+            out.append((u % (1 << 32)).astype(np.uint32))
+        elif m.op == "sum":
+            out.append(r.astype(dt))
+        else:
+            info = np.iinfo(dt)
+            out.append(np.clip(r, info.min, info.max).astype(dt))
+    return out
 
 
 def _collect_moment_frame(launched: _Launched, plan: TpuPlan,

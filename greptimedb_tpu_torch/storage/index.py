@@ -1,0 +1,337 @@
+"""Per-SST secondary index: bloom + inverted sid pruning for point reads.
+
+The missing pruning tier between region-level partition pruning
+(frontend scatter, PR 5) and per-row-group footer stats (PR 1): a
+compact sidecar written next to every SST at flush/compaction time,
+holding
+
+- a **bloom filter over the file's ``__series_id`` set** — point and
+  ``IN`` tag predicates resolve to series-id sets through the region's
+  SeriesDict (the inverted tag→sid mapping that already exists), and a
+  negative bloom answer drops the *whole file* before its parquet
+  footer is ever opened;
+- a **per-row-group sid-membership summary** — per-group ``[lo, hi]``
+  sid bounds plus (when the file's distinct-sid count is modest) the
+  exact sorted sid set per group, so the groups of a kept file are
+  selected without a footer read either.
+
+Both are built from arrays already in hand during encode: SSTs sort by
+``(series, ts)``, so the per-group sid sets fall out of one pass.
+
+Why a bloom when ``FileMeta.sid_range`` exists: after compaction (and
+for any flush of a scattered active-series subset) the min/max range
+spans nearly the whole keyspace while the file holds a small fraction
+of the series — the range keeps everything, the bloom keeps ~nothing.
+The win *grows* with series cardinality, unlike every row-count-shaped
+optimization before it.
+
+Degrade semantics (the PR 4 read-cache pattern): a missing or corrupt
+sidecar — torn write, failpoint ``sst_index_read``, version skew —
+never fails a query. The file silently falls back to stats-only
+pruning (footer row-group stats), ``greptime_sst_index_degrade_total``
+counts it, and the verdict is cached per access layer so a poisoned
+sidecar is not re-read per query. Sidecar reads go through the
+region's ObjectStore, so they ride the LRU disk read cache like any
+SST page.
+
+Knobs: ``SET sst_index = 0|1`` (env twin ``GREPTIME_SST_INDEX``)
+gates both sidecar writes and every index consult; off reproduces the
+pre-index read path exactly — the bench differential's kill switch.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import struct
+import zlib
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..common import failpoint as _fp
+from ..errors import StorageError
+from ..utils import env_flag
+
+logger = logging.getLogger(__name__)
+
+_fp.register("sst_index_read")
+_fp.register("sst_index_write")
+
+#: sidecar magic + format version (bump on incompatible layout changes;
+#: unknown versions degrade to stats-only, never error)
+_MAGIC = b"GTSIDX1\n"
+#: bloom sizing: ~10 bits/key => ~1% false-positive rate at k=7
+_BITS_PER_KEY = 10
+_NUM_HASHES = 7
+#: store exact per-row-group sid sets while the file's total distinct
+#: sid count stays under this (400KB of int32 at the cap); larger files
+#: keep the per-group [lo, hi] bounds only
+_RG_EXACT_MAX_SIDS = 131072
+
+#: SET sst_index / GREPTIME_SST_INDEX: single-slot swap, read lock-free
+#: on the hot path (the scan_fusion knob pattern)
+_INDEX_ENABLED = [env_flag("GREPTIME_SST_INDEX", True)]
+
+
+def sst_index_enabled() -> bool:
+    return _INDEX_ENABLED[0]
+
+
+def configure_sst_index(*, enabled: Optional[bool] = None) -> None:
+    if enabled is not None:
+        _INDEX_ENABLED[0] = bool(enabled)
+
+
+def index_file_name(sst_file_name: str) -> str:
+    """The sidecar key for an SST, in the same sst/ directory (so the
+    orphan sweep, DROP and the read cache all see one namespace)."""
+    return f"{sst_file_name}.idx"
+
+
+class SstIndexCorrupt(StorageError):
+    """Sidecar failed validation (magic/crc/shape) — every consumer
+    catches it and degrades to stats-only pruning, never a failed
+    query; typed so it carries a real status if it ever crosses a
+    wire surface."""
+
+
+def _mix64(h: np.ndarray) -> np.ndarray:
+    """splitmix64 finalizer, vectorized (uint64 wraparound intended)."""
+    h = (h ^ (h >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    h = (h ^ (h >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return h ^ (h >> np.uint64(31))
+
+
+def _bloom_hashes(sids: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    u = sids.astype(np.uint64)
+    h1 = _mix64(u)
+    h2 = _mix64(u ^ np.uint64(0x9E3779B97F4A7C15)) | np.uint64(1)
+    return h1, h2
+
+
+class SstIndex:
+    """Decoded sidecar: file-level bloom + per-row-group sid summaries.
+
+    Immutable after build/parse; safe to share across reader threads.
+    """
+
+    __slots__ = ("num_rows", "nbits", "nhashes", "words",
+                 "rg_lo", "rg_hi", "rg_sids")
+
+    def __init__(self, num_rows: int, nbits: int, nhashes: int,
+                 words: np.ndarray, rg_lo: np.ndarray, rg_hi: np.ndarray,
+                 rg_sids: Optional[List[np.ndarray]]):
+        self.num_rows = num_rows
+        self.nbits = nbits                  # power of two
+        self.nhashes = nhashes
+        self.words = words                  # uint64 [nbits // 64]
+        self.rg_lo = rg_lo                  # int64 [ngroups]
+        self.rg_hi = rg_hi                  # int64 [ngroups], inclusive
+        self.rg_sids = rg_sids              # sorted int32 per group, or None
+
+    # ---- build ----
+    @staticmethod
+    def build(series_ids: np.ndarray, row_group_size: int) -> "SstIndex":
+        """From the (sid, ts)-sorted sid column of one SST, pre-encode —
+        the per-group slices are contiguous, so this is one pass."""
+        n = len(series_ids)
+        sids = np.asarray(series_ids, dtype=np.int64)
+        uniq = np.unique(sids)
+        nkeys = max(len(uniq), 1)
+        nbits = 64
+        while nbits < nkeys * _BITS_PER_KEY:
+            nbits <<= 1
+        words = np.zeros(nbits // 64, dtype=np.uint64)
+        h1, h2 = _bloom_hashes(uniq)
+        mask = np.uint64(nbits - 1)
+        for i in range(_NUM_HASHES):
+            pos = (h1 + np.uint64(i) * h2) & mask
+            np.bitwise_or.at(words, (pos >> np.uint64(6)).astype(np.int64),
+                             np.uint64(1) << (pos & np.uint64(63)))
+        ngroups = max(1, -(-n // row_group_size)) if n else 0
+        rg_lo = np.empty(ngroups, dtype=np.int64)
+        rg_hi = np.empty(ngroups, dtype=np.int64)
+        rg_sids: Optional[List[np.ndarray]] = \
+            [] if len(uniq) <= _RG_EXACT_MAX_SIDS else None
+        for g in range(ngroups):
+            a, b = g * row_group_size, min((g + 1) * row_group_size, n)
+            chunk = sids[a:b]
+            rg_lo[g] = chunk[0]
+            rg_hi[g] = chunk[-1]
+            if rg_sids is not None:
+                rg_sids.append(np.unique(chunk).astype(np.int32))
+        return SstIndex(n, nbits, _NUM_HASHES, words, rg_lo, rg_hi,
+                        rg_sids)
+
+    # ---- queries ----
+    def may_contain(self, sids: np.ndarray) -> np.ndarray:
+        """Per-sid bloom membership (True = maybe present)."""
+        if not len(sids):
+            return np.zeros(0, dtype=bool)
+        h1, h2 = _bloom_hashes(np.asarray(sids, dtype=np.int64))
+        mask = np.uint64(self.nbits - 1)
+        out = np.ones(len(sids), dtype=bool)
+        one = np.uint64(1)
+        for i in range(self.nhashes):
+            pos = (h1 + np.uint64(i) * h2) & mask
+            bit = self.words[(pos >> np.uint64(6)).astype(np.int64)] \
+                & (one << (pos & np.uint64(63)))
+            out &= bit != 0
+        return out
+
+    def may_contain_any(self, sids: np.ndarray) -> bool:
+        return bool(self.may_contain(sids).any())
+
+    def row_groups_for(self, sids: np.ndarray) -> np.ndarray:
+        """Boolean keep-mask over the file's row groups for a sorted
+        candidate sid set — [lo, hi] bound intersect, tightened to exact
+        membership when the per-group sid sets were stored."""
+        ngroups = len(self.rg_lo)
+        if not len(sids):
+            return np.zeros(ngroups, dtype=bool)
+        s = np.asarray(sids, dtype=np.int64)
+        keep = np.empty(ngroups, dtype=bool)
+        for g in range(ngroups):
+            i = int(np.searchsorted(s, self.rg_lo[g], side="left"))
+            keep[g] = i < len(s) and s[i] <= self.rg_hi[g]
+            if keep[g] and self.rg_sids is not None:
+                keep[g] = bool(np.isin(
+                    s[i:int(np.searchsorted(s, self.rg_hi[g],
+                                            side="right"))],
+                    self.rg_sids[g], assume_unique=True).any())
+        return keep
+
+    # ---- codec ----
+    def to_bytes(self) -> bytes:
+        rg_counts = [len(a) for a in self.rg_sids] \
+            if self.rg_sids is not None else None
+        payload = self.words.tobytes() + self.rg_lo.tobytes() + \
+            self.rg_hi.tobytes()
+        if self.rg_sids is not None:
+            for a in self.rg_sids:
+                payload += a.tobytes()
+        header = json.dumps({
+            "version": 1, "num_rows": int(self.num_rows),
+            "nbits": int(self.nbits), "nhashes": int(self.nhashes),
+            "ngroups": int(len(self.rg_lo)), "rg_counts": rg_counts,
+            "crc": zlib.crc32(payload) & 0xFFFFFFFF,
+        }).encode()
+        return _MAGIC + struct.pack("<I", len(header)) + header + payload
+
+    @staticmethod
+    def from_bytes(data: bytes) -> "SstIndex":
+        if len(data) < len(_MAGIC) + 4 or not data.startswith(_MAGIC):
+            raise SstIndexCorrupt("bad sidecar magic")
+        off = len(_MAGIC)
+        (hlen,) = struct.unpack_from("<I", data, off)
+        off += 4
+        if off + hlen > len(data):
+            raise SstIndexCorrupt("truncated sidecar header")
+        try:
+            hdr = json.loads(data[off:off + hlen])
+        except ValueError as e:
+            raise SstIndexCorrupt(f"unparseable sidecar header: {e}")
+        if hdr.get("version") != 1:
+            raise SstIndexCorrupt(
+                f"unknown sidecar version {hdr.get('version')!r}")
+        off += hlen
+        payload = data[off:]
+        if (zlib.crc32(payload) & 0xFFFFFFFF) != hdr.get("crc"):
+            raise SstIndexCorrupt("sidecar payload crc mismatch")
+        nbits = int(hdr["nbits"])
+        ngroups = int(hdr["ngroups"])
+        rg_counts = hdr.get("rg_counts")
+        want = nbits // 64 * 8 + ngroups * 16 + \
+            (sum(rg_counts) * 4 if rg_counts is not None else 0)
+        if nbits < 64 or nbits & (nbits - 1) or len(payload) != want or \
+                (rg_counts is not None and len(rg_counts) != ngroups):
+            raise SstIndexCorrupt("sidecar shape mismatch")
+        pos = 0
+        words = np.frombuffer(payload, dtype=np.uint64,
+                              count=nbits // 64, offset=pos)
+        pos += nbits // 64 * 8
+        rg_lo = np.frombuffer(payload, dtype=np.int64, count=ngroups,
+                              offset=pos)
+        pos += ngroups * 8
+        rg_hi = np.frombuffer(payload, dtype=np.int64, count=ngroups,
+                              offset=pos)
+        pos += ngroups * 8
+        rg_sids: Optional[List[np.ndarray]] = None
+        if rg_counts is not None:
+            rg_sids = []
+            for c in rg_counts:
+                rg_sids.append(np.frombuffer(payload, dtype=np.int32,
+                                             count=int(c), offset=pos))
+                pos += int(c) * 4
+        return SstIndex(int(hdr["num_rows"]), nbits,
+                        int(hdr["nhashes"]), words, rg_lo, rg_hi,
+                        rg_sids)
+
+
+def load_sst_index(read: Callable[[str], bytes], key: str,
+                   expect_rows: int) -> Optional[SstIndex]:
+    """Read + validate one sidecar; None (degrade to stats-only) on any
+    failure. `read` is the region store's read (rides the LRU disk
+    cache); `expect_rows` cross-checks the sidecar against the FileMeta
+    it claims to describe."""
+    from ..common.telemetry import increment_counter
+    try:
+        _fp.fail_point("sst_index_read")
+        idx = SstIndex.from_bytes(read(key))
+        if idx.num_rows != expect_rows:
+            raise SstIndexCorrupt(
+                f"sidecar covers {idx.num_rows} rows, SST has "
+                f"{expect_rows}")
+        return idx
+    except Exception as e:  # noqa: BLE001 — degrade, don't fail the read
+        increment_counter("sst_index_degrade")
+        logger.warning("SST index sidecar %s unusable (%s); degrading "
+                       "to stats-only pruning", key, e)
+        return None
+
+
+def _any_in_range(sids: np.ndarray, lo: int, hi: int) -> bool:
+    """Whether the sorted sid set intersects [lo, hi] (inclusive)."""
+    i = int(np.searchsorted(sids, lo, side="left"))
+    return i < len(sids) and int(sids[i]) <= hi
+
+
+def prune_files(load_index: Callable[[object], Optional[SstIndex]],
+                files: Sequence, sids: np.ndarray
+                ) -> Tuple[list, int, int]:
+    """Index tier of the scan planner: drop whole SSTs that cannot hold
+    any candidate series, without touching a parquet footer.
+
+    Per file: the FileMeta's coarse sid_range first (free), then the
+    sidecar bloom; files with no usable index are kept (stats-only
+    degrade). Returns (kept, pruned, checked) and records the counts on
+    the EXPLAIN ANALYZE prune stage — `files pruned by index a/b` reads
+    as index_files_pruned=a / index_files_checked=b.
+    """
+    from ..common import exec_stats
+    from ..common.telemetry import increment_counter
+    s = np.asarray(sids, dtype=np.int64)
+    kept: list = []
+    pruned = hits = 0
+    for f in files:
+        r = f.sid_range
+        if r is not None and not _any_in_range(s, int(r[0]), int(r[1])):
+            pruned += 1
+            continue
+        idx = load_index(f)
+        if idx is None:
+            kept.append(f)
+            continue
+        if idx.may_contain_any(s):
+            hits += 1
+            kept.append(f)
+        else:
+            pruned += 1
+    if pruned:
+        increment_counter("sst_index_prune", pruned)
+    if hits:
+        increment_counter("sst_index_hit", hits)
+    exec_stats.record("prune", index_files_pruned=pruned,
+                      index_files_checked=len(files))
+    return kept, pruned, len(files)

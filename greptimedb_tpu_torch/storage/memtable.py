@@ -1,0 +1,197 @@
+"""Memtables: append-only SoA column buffers.
+
+Reference behavior: src/storage/src/memtable/ — the reference keeps a BTree
+ordered by (row key, sequence, op). Here, as in the JAX package
+(greptimedb_tpu/storage/memtable.py): writes append to unordered
+structure-of-arrays numpy buffers (series_id, ts, seq, op, fields);
+ordering/dedup happens at read or flush time by one sort
+(ops.kernels.merge_dedup_numpy / _merge_order, on the host). Snapshots
+are trivially consistent: buffers are append-only, so a snapshot is just
+a row count.
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..common.locks import TrackedLock
+from ..datatypes import RecordBatch, Schema
+from .series import SeriesDict
+from .write_batch import OP_DELETE, OP_PUT, WriteBatch
+
+
+class _GrowBuf:
+    """Amortized-growth numpy append buffer."""
+
+    __slots__ = ("arr", "len")
+
+    def __init__(self, dtype, capacity: int = 1024):
+        self.arr = np.empty(capacity, dtype=dtype)
+        self.len = 0
+
+    def append(self, values: np.ndarray) -> None:
+        n = len(values)
+        need = self.len + n
+        if need > len(self.arr):
+            cap = max(len(self.arr) * 2, need)
+            new = np.empty(cap, dtype=self.arr.dtype)
+            new[:self.len] = self.arr[:self.len]
+            self.arr = new
+        self.arr[self.len:need] = values
+        self.len = need
+
+    def view(self, n: Optional[int] = None) -> np.ndarray:
+        return self.arr[:self.len if n is None else n]
+
+
+@dataclass
+class MemtableSnapshot:
+    """A consistent view: first `num_rows` rows of each buffer."""
+    num_rows: int
+    series_ids: np.ndarray
+    ts: np.ndarray
+    seq: np.ndarray
+    op_types: np.ndarray
+    fields: Dict[str, Tuple[np.ndarray, Optional[np.ndarray]]]  # name -> (data, validity)
+    min_ts: int
+    max_ts: int
+
+
+class Memtable:
+    _next_id = 0
+
+    def __init__(self, schema: Schema, series_dict: SeriesDict):
+        self.schema = schema
+        self.series_dict = series_dict
+        Memtable._next_id += 1
+        self.id = Memtable._next_id
+        self._lock = TrackedLock("storage.memtable", io_ok=False)
+        self._series = _GrowBuf(np.int32)
+        self._ts = _GrowBuf(np.int64)
+        self._seq = _GrowBuf(np.int64)
+        self._op = _GrowBuf(np.int8)
+        self._fields: Dict[str, Tuple[_GrowBuf, _GrowBuf]] = {}
+        for c in schema.field_columns():
+            self._fields[c.name] = (
+                _GrowBuf(c.dtype.np_dtype if c.dtype.np_dtype is not None else object),
+                _GrowBuf(np.bool_),
+            )
+        self._min_ts: Optional[int] = None
+        self._max_ts: Optional[int] = None
+        self._bytes = 0
+
+    @property
+    def num_rows(self) -> int:
+        return self._ts.len
+
+    @property
+    def estimated_bytes(self) -> int:
+        return self._bytes
+
+    def time_range(self) -> Optional[Tuple[int, int]]:
+        if self._min_ts is None:
+            return None
+        return (self._min_ts, self._max_ts)
+
+    # ---- write path ----
+    def write(self, seq: int, batch: WriteBatch) -> None:
+        """Apply all mutations of a WriteBatch at the given sequence."""
+        with self._lock:
+            for m in batch.mutations:
+                if m.op_type == OP_PUT:
+                    self._insert(seq, m.data, OP_PUT)
+                else:
+                    self._insert(seq, m.data, OP_DELETE)
+
+    def _insert(self, seq: int, rb: RecordBatch, op: int) -> None:
+        n = rb.num_rows
+        if n == 0:
+            return
+        schema = self.schema
+        tag_names = schema.tag_names()
+        if tag_names:
+            tag_cols = []
+            for t in tag_names:
+                vec = rb.column(t)
+                # object ndarray feeds Dictionary.encode directly; only
+                # null-bearing tag columns pay the to_pylist walk
+                tag_cols.append(vec.data if vec.validity is None
+                                else vec.to_pylist())
+            sids = self.series_dict.encode_rows(tag_cols)
+        else:
+            sids = self.series_dict.encode_zero_tags(n)
+        ts_col = rb.column(schema.timestamp_column.name)
+        ts = np.asarray(ts_col.data, dtype=np.int64)
+        self._series.append(sids)
+        self._ts.append(ts)
+        self._seq.append(np.full(n, seq, dtype=np.int64))
+        self._op.append(np.full(n, op, dtype=np.int8))
+        for name, (dataf, validf) in self._fields.items():
+            if op == OP_PUT and rb.schema.contains(name):
+                vec = rb.column(name)
+                dataf.append(np.asarray(vec.data, dtype=dataf.arr.dtype))
+                validf.append(vec.validity if vec.validity is not None
+                              else np.ones(n, dtype=bool))
+            else:
+                # delete rows / missing column: nulls
+                fill = np.zeros(n, dtype=dataf.arr.dtype) \
+                    if dataf.arr.dtype != object else np.full(n, None, dtype=object)
+                dataf.append(fill)
+                validf.append(np.zeros(n, dtype=bool))
+        tmin, tmax = int(ts.min()), int(ts.max())
+        self._min_ts = tmin if self._min_ts is None else min(self._min_ts, tmin)
+        self._max_ts = tmax if self._max_ts is None else max(self._max_ts, tmax)
+        self._bytes += n * (8 + 8 + 4 + 1) + sum(
+            n * (8 if f.arr.dtype != object else 32) + n
+            for f, _ in self._fields.values())
+
+    # ---- read path ----
+    def snapshot(self) -> MemtableSnapshot:
+        n = self._ts.len  # append-only ⇒ first n rows are immutable
+        return MemtableSnapshot(
+            num_rows=n,
+            series_ids=self._series.view(n),
+            ts=self._ts.view(n),
+            seq=self._seq.view(n),
+            op_types=self._op.view(n),
+            fields={name: (d.view(n), v.view(n))
+                    for name, (d, v) in self._fields.items()},
+            min_ts=self._min_ts if self._min_ts is not None else 0,
+            max_ts=self._max_ts if self._max_ts is not None else -1,
+        )
+
+
+class MemtableVersion:
+    """Current mutable memtable + frozen immutables awaiting flush
+    (reference: src/storage/src/memtable/version.rs)."""
+
+    def __init__(self, mutable: Memtable):
+        self.mutable = mutable
+        self.immutables: List[Memtable] = []
+
+    def freeze(self, new_mutable: Memtable) -> "MemtableVersion":
+        v = MemtableVersion(new_mutable)
+        v.immutables = self.immutables + ([self.mutable]
+                                          if self.mutable.num_rows else [])
+        return v
+
+    def remove_immutables(self, ids: Sequence[int]) -> "MemtableVersion":
+        v = MemtableVersion(self.mutable)
+        v.immutables = [m for m in self.immutables if m.id not in set(ids)]
+        return v
+
+    def all_memtables(self) -> List[Memtable]:
+        return self.immutables + [self.mutable]
+
+    @property
+    def mutable_bytes(self) -> int:
+        return self.mutable.estimated_bytes
+
+    @property
+    def total_bytes(self) -> int:
+        return self.mutable.estimated_bytes + sum(
+            m.estimated_bytes for m in self.immutables)

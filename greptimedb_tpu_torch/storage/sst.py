@@ -1,0 +1,619 @@
+"""SST files: Parquet on object storage with stats-based pruning.
+
+Reference behavior: src/storage/src/sst.rs + sst/parquet.rs — two LSM levels,
+`FileMeta` with per-file time ranges, ParquetWriter with row-group stats,
+reader with row-group pruning + time-range row filtering.
+
+File layout: tag columns (dictionary-encoded), the time index, field columns,
+plus internal columns `__series_id` (int32, stable via the region's persisted
+SeriesDict), `__sequence` (int64), `__op_type` (int8). Rows are stored sorted
+by (series_id, ts, seq), so scans feed the merge directly and
+row groups cover disjoint-ish series/time ranges for pruning.
+"""
+
+from __future__ import annotations
+
+import io
+import os
+import uuid
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import pyarrow as pa
+import pyarrow.parquet as pq
+
+from ..common import failpoint as _fp
+from ..common.time import TimestampRange
+from ..datatypes import RecordBatch, Schema, Vector
+from ..datatypes.vector import compat_column, null_column
+from .index import (SstIndex, index_file_name, load_sst_index,
+                    sst_index_enabled)
+from .object_store import ObjectStore
+
+_fp.register("sst_write")
+_fp.register("sst_write_after")
+
+SERIES_COL = "__series_id"
+SEQ_COL = "__sequence"
+OP_COL = "__op_type"
+MAX_LEVEL = 2
+#: rows per parquet row group. Large groups encode ~3x faster (fewer
+#: page/stat boundaries) and slice planning only needs row-group stats at
+#: slice granularity (millions of rows); the reference uses 4Mi-row
+#: groups for the same reason (src/storage/src/sst/parquet.rs
+#: DEFAULT_ROW_GROUP_SIZE).
+DEFAULT_ROW_GROUP_SIZE = 1 << 20
+
+
+@dataclass(frozen=True)
+class FileMeta:
+    file_name: str
+    level: int
+    time_range: Tuple[int, int]       # inclusive min/max ts
+    num_rows: int
+    file_size: int
+    max_sequence: int = 0
+    #: delete tombstones in the file; None = unknown (pre-upgrade files)
+    num_deletes: Optional[int] = None
+    #: inclusive min/max __series_id; None = unknown (pre-upgrade files).
+    #: With time_range it bounds the file's key rectangle — two files
+    #: disjoint on either axis cannot hold competing versions of a key
+    #: (compaction's trivial move and scan planning rely on this).
+    sid_range: Optional[Tuple[int, int]] = None
+    #: adjacent rows sharing a (series_id, ts) key (MVCC versions inside
+    #: this file); None = unknown (pre-upgrade files). A slice covering
+    #: only dup-free, delete-free, key-disjoint files needs no merge
+    #: dedup at all — the streamed cold scan skips the per-row key
+    #: comparison pass (and the ts decode, when the query never reads
+    #: time) on that proof.
+    num_dup_keys: Optional[int] = None
+    #: secondary-index sidecar (storage/index.py: sid bloom + per-row-
+    #: group sid summaries) in the same sst/ dir; None = pre-upgrade
+    #: file or index disabled at write time — stats-only pruning then.
+    #: Set only AFTER the sidecar is durable, so the manifest can never
+    #: reference a sidecar that was not written (torture point 16).
+    index_file: Optional[str] = None
+
+    def to_dict(self) -> dict:
+        return {
+            "file_name": self.file_name, "level": self.level,
+            "time_range": list(self.time_range), "num_rows": self.num_rows,
+            "file_size": self.file_size, "max_sequence": self.max_sequence,
+            "num_deletes": self.num_deletes,
+            "sid_range": list(self.sid_range)
+            if self.sid_range is not None else None,
+            "num_dup_keys": self.num_dup_keys,
+            "index_file": self.index_file,
+        }
+
+    @staticmethod
+    def from_dict(d: dict) -> "FileMeta":
+        return FileMeta(d["file_name"], d["level"], tuple(d["time_range"]),
+                        d["num_rows"], d["file_size"],
+                        d.get("max_sequence", 0), d.get("num_deletes"),
+                        tuple(d["sid_range"])
+                        if d.get("sid_range") is not None else None,
+                        d.get("num_dup_keys"),
+                        d.get("index_file"))
+
+    def keys_overlap(self, other: "FileMeta") -> bool:
+        """Whether the two files' key rectangles intersect — i.e. some
+        (series, ts) key could live in both."""
+        if self.time_range[1] < other.time_range[0] or \
+                other.time_range[1] < self.time_range[0]:
+            return False
+        a, b = self.sid_range, other.sid_range
+        if a is not None and b is not None and (a[1] < b[0] or b[1] < a[0]):
+            return False
+        return True
+
+
+class LevelMetas:
+    """Files per level (0 = fresh flushes, 1 = compacted)."""
+
+    def __init__(self, levels: Optional[List[List[FileMeta]]] = None):
+        self.levels: List[List[FileMeta]] = levels or [[] for _ in range(MAX_LEVEL)]
+
+    def add_files(self, files: Sequence[FileMeta]) -> "LevelMetas":
+        new = [list(l) for l in self.levels]
+        for f in files:
+            new[f.level].append(f)
+        return LevelMetas(new)
+
+    def remove_files(self, names: Sequence[str]) -> "LevelMetas":
+        drop = set(names)
+        return LevelMetas([[f for f in l if f.file_name not in drop]
+                           for l in self.levels])
+
+    def all_files(self) -> List[FileMeta]:
+        return [f for l in self.levels for f in l]
+
+    def files_in_range(self, rng: Optional[TimestampRange]) -> List[FileMeta]:
+        files = self.all_files()
+        if rng is None:
+            return files
+        out = []
+        for f in files:
+            lo, hi = f.time_range
+            if rng.intersects(TimestampRange(lo, hi + 1, rng.unit)):
+                out.append(f)
+        return out
+
+    def to_dict(self) -> dict:
+        return {"levels": [[f.to_dict() for f in l] for l in self.levels]}
+
+    @staticmethod
+    def from_dict(d: dict) -> "LevelMetas":
+        return LevelMetas([[FileMeta.from_dict(f) for f in l]
+                           for l in d["levels"]])
+
+
+@dataclass
+class SstData:
+    """Decoded SST contents (SoA, ready for the merge)."""
+    series_ids: np.ndarray
+    ts: np.ndarray
+    seq: np.ndarray
+    op_types: np.ndarray
+    fields: Dict[str, Tuple[np.ndarray, Optional[np.ndarray]]]
+    num_rows: int
+
+
+def new_sst_name() -> str:
+    return f"{uuid.uuid4().hex}.parquet"
+
+
+class AccessLayer:
+    """Writes/reads SSTs for one region directory on an object store
+    (reference: src/storage/src/sst.rs AccessLayer/FsAccessLayer)."""
+
+    def __init__(self, store: ObjectStore, sst_dir: str, schema: Schema,
+                 row_group_size: int = DEFAULT_ROW_GROUP_SIZE,
+                 compression: str = "lz4",
+                 field_encoding: str = "dictionary"):
+        self.store = store
+        self.sst_dir = sst_dir.rstrip("/")
+        self.schema = schema
+        self.row_group_size = row_group_size
+        #: metric-column encoding: "dictionary" (parquet-adaptive, decodes
+        #: fastest when values repeat — e.g. fixed-precision telemetry) or
+        #: "byte_stream_split" (uniform encode cost on full-entropy floats)
+        self.field_encoding = field_encoding
+        #: parquet codec. lz4 decodes ~1.7x faster than zstd on mostly-
+        #: incompressible float telemetry at near-identical file size —
+        #: and single-core decode rate bounds the cold streamed scan.
+        #: (The reference defaults to zstd, src/storage/src/sst/parquet.rs;
+        #: we trade a few % of ratio for scan throughput.)
+        self.compression = compression
+        #: per-file row-group time stats, keyed by (immutable) file name
+        self._rg_stats: Dict[str, List[Tuple[int, int, int]]] = {}
+        #: parsed index sidecars, keyed by file name; the None sentinel
+        #: pins a missing/corrupt verdict so a poisoned sidecar is not
+        #: re-read (and re-logged) on every query — reopening the region
+        #: (a fresh layer) retries
+        self._sst_index: Dict[str, Optional[SstIndex]] = {}
+
+    def _key(self, file_name: str) -> str:
+        return f"{self.sst_dir}/{file_name}"
+
+    # ---- secondary index sidecars ----
+    def _cache_index(self, file_name: str, idx: Optional[SstIndex]) -> None:
+        if len(self._sst_index) > 4096:      # bound like the footer cache
+            self._sst_index.clear()
+        self._sst_index[file_name] = idx
+
+    def load_index(self, meta: FileMeta) -> Optional[SstIndex]:
+        """The file's parsed index sidecar, or None (stats-only pruning:
+        pre-upgrade file, index disabled, or corrupt/missing sidecar —
+        the degrade path, counted by greptime_sst_index_degrade_total)."""
+        if meta.index_file is None or not sst_index_enabled():
+            return None
+        if meta.file_name in self._sst_index:
+            return self._sst_index[meta.file_name]
+        idx = load_sst_index(self.store.read, self._key(meta.index_file),
+                             meta.num_rows)
+        self._cache_index(meta.file_name, idx)
+        return idx
+
+    # ---- write ----
+    def write_sst(self, *, level: int, series_ids: np.ndarray, ts: np.ndarray,
+                  seq: np.ndarray, op_types: np.ndarray,
+                  fields: Dict[str, Tuple[np.ndarray, Optional[np.ndarray]]],
+                  tag_columns: Dict[str, list],
+                  schema: Optional[Schema] = None) -> Optional[FileMeta]:
+        """Write one SST from sorted SoA arrays. Returns None for empty
+        input. `schema` overrides the layer's current schema (background
+        flush of a memtable frozen before an ALTER)."""
+        n = len(ts)
+        if n == 0:
+            return None
+        from ..common.telemetry import timer as _timer
+        with _timer("sst_write"):
+            return self._write_sst_inner(
+                level=level, series_ids=series_ids, ts=ts, seq=seq,
+                op_types=op_types, fields=fields, tag_columns=tag_columns,
+                schema=schema)
+
+    def _write_sst_inner(self, *, level, series_ids, ts, seq, op_types,
+                         fields, tag_columns, schema) -> Optional[FileMeta]:
+        _fp.fail_point("sst_write")
+        n = len(ts)
+        schema = schema if schema is not None else self.schema
+        arrays: List[pa.Array] = []
+        names: List[str] = []
+        for c in schema.column_schemas:
+            if c.is_tag:
+                tc = tag_columns[c.name]
+                if isinstance(tc, tuple):
+                    # (per-row value ids, dictionary values) from the
+                    # SeriesDict: build the DictionaryArray directly
+                    idx, vals = tc
+                    arr = pa.DictionaryArray.from_arrays(
+                        pa.array(np.asarray(idx, dtype=np.int32)),
+                        pa.array(list(vals), type=c.dtype.pa_type))
+                else:
+                    arr = pa.array(tc, type=c.dtype.pa_type) \
+                        .dictionary_encode()
+                arrays.append(arr)
+                names.append(c.name)
+            elif c.is_time_index:
+                arrays.append(pa.array(ts, type=pa.int64()).cast(c.dtype.pa_type))
+                names.append(c.name)
+            else:
+                data, validity = fields[c.name]
+                vec = Vector(c.dtype, data, validity)
+                arrays.append(vec.to_arrow())
+                names.append(c.name)
+        arrays.append(pa.array(series_ids, type=pa.int32()))
+        names.append(SERIES_COL)
+        arrays.append(pa.array(seq, type=pa.int64()))
+        names.append(SEQ_COL)
+        arrays.append(pa.array(op_types, type=pa.int8()))
+        names.append(OP_COL)
+        table = pa.table(dict(zip(names, arrays)))
+        ts_name = schema.timestamp_column.name
+        # Encode/stat choices are ingest-rate critical (profiled in
+        # BASELINE.md): stats only on the two pruning columns (ts, sid) —
+        # per-page min/max on the metric columns bought nothing and cost
+        # ~35% of encode; dictionary encoding stays OFF for ts/sid (mostly
+        # unique / already dense — hashing them is pure waste) and ON
+        # elsewhere, where parquet's adaptive fallback bounds the cost on
+        # incompressible metrics. byte_stream_split is the configurable
+        # alternative for float metrics (field_encoding knob): it encodes
+        # fast on any distribution but decodes ~20% slower than dict-hit
+        # columns, and the cold scan is decode-bound.
+        no_dict = {ts_name, SERIES_COL}
+        bss_cols = []
+        if self.field_encoding == "byte_stream_split":
+            for c in schema.field_columns():
+                if c.dtype.np_dtype is not None and \
+                        np.issubdtype(c.dtype.np_dtype, np.floating):
+                    no_dict.add(c.name)
+                    bss_cols.append(c.name)
+        opts = dict(
+            row_group_size=self.row_group_size,
+            compression=self.compression,
+            write_statistics=[ts_name, SERIES_COL],
+            use_dictionary=[nm for nm in names if nm not in no_dict],
+        )
+        if bss_cols:
+            opts["use_byte_stream_split"] = bss_cols
+        file_name = new_sst_name()
+        key = self._key(file_name)
+        put = getattr(self.store, "put_path", None)
+        if put is not None:
+            # stream pages straight to the destination file — the
+            # BytesIO spool + getvalue + write() round trip copied the
+            # whole file twice
+            with put(key) as tmp:
+                pq.write_table(table, tmp, **opts)
+                size = os.path.getsize(tmp)
+        else:
+            sink = io.BytesIO()
+            pq.write_table(table, sink, **opts)
+            data = sink.getvalue()
+            size = len(data)
+            self.store.write(key, data)
+        # the parquet file is durable but unreferenced: a crash HERE
+        # leaves an orphan SST for the reopen sweep to collect
+        _fp.fail_point("sst_write_after")
+        index_file = None
+        if sst_index_enabled():
+            try:
+                # crash HERE = SST data durable, index sidecar not:
+                # neither is referenced yet (the manifest edit commits
+                # later), so the reopen sweep collects both — a committed
+                # FileMeta can never name a sidecar that is not on disk
+                # (torture point 16). A SimulatedCrash is a BaseException
+                # and propagates; an injected err degrades below.
+                _fp.fail_point("sst_index_write")
+                sidx = SstIndex.build(series_ids, self.row_group_size)
+                candidate = index_file_name(file_name)
+                self.store.write(self._key(candidate), sidx.to_bytes())
+                index_file = candidate
+                # the freshly built object serves reads until evicted —
+                # no reason to re-parse our own bytes on first consult
+                self._cache_index(file_name, sidx)
+            except Exception as e:  # noqa: BLE001 — the index is an
+                # optimization: a failed sidecar write degrades this
+                # file to stats-only pruning, it must not fail the flush
+                from ..common.telemetry import increment_counter
+                increment_counter("sst_index_degrade")
+                import logging
+                logging.getLogger(__name__).warning(
+                    "SST %s: index sidecar write failed (%s); file "
+                    "stays stats-only", file_name, e)
+        dups = 0
+        if n > 1:
+            # rows are (sid, ts, seq)-sorted: duplicate keys are adjacent
+            dups = int(np.count_nonzero(
+                (series_ids[1:] == series_ids[:-1]) & (ts[1:] == ts[:-1])))
+        return FileMeta(
+            file_name=file_name, level=level,
+            time_range=(int(ts.min()), int(ts.max())),
+            num_rows=n, file_size=size,
+            max_sequence=int(seq.max()) if n else 0,
+            num_deletes=int(np.count_nonzero(op_types)),
+            sid_range=(int(series_ids.min()), int(series_ids.max())),
+            num_dup_keys=dups, index_file=index_file)
+
+    # ---- read ----
+    def read_sst(self, meta: FileMeta, *,
+                 projection: Optional[Sequence[str]] = None,
+                 time_range: Optional[TimestampRange] = None,
+                 series_range: Optional[Tuple[int, int]] = None,
+                 sid_set: Optional[np.ndarray] = None,
+                 synthetic_seq: bool = False,
+                 need_ts: bool = True) -> SstData:
+        """Read an SST with column projection and row-group pruning on
+        the time index and/or the series id (`series_range` is a
+        half-open [lo, hi) over __series_id — the storage sort order,
+        so series pruning is tight on every file layout).
+
+        `sid_set` is a SORTED array of candidate series ids (a resolved
+        point/IN tag predicate): row groups are selected through the
+        index sidecar's per-group sid summary when present — exact
+        membership, no footer stats consulted — and through footer
+        min/max otherwise. Row-level filtering stays with the caller
+        (RegionSnapshot.scan masks by membership).
+
+        synthetic_seq=True skips decoding the 8-byte __sequence column
+        and fills meta.max_sequence instead: per-file sequence ranges
+        are disjoint (flushes cover consecutive windows; compaction
+        replaces its inputs), so the file rank orders cross-file MVCC
+        versions exactly, and within-file versions are already stored
+        seq-ascending (stable sort keeps them). Only valid for readers
+        that never filter by sequence value (the streamed scan); the
+        incremental cache needs real sequences. When the file records
+        zero deletes the __op_type column is skipped too.
+
+        need_ts=False additionally skips decoding the time index (the
+        widest internal column) and returns a 0-stride zero ts. Only
+        valid when the caller proved it will never consult row times:
+        no time filter/bucket in the query and no merge dedup needed
+        (dup-free, delete-free, key-disjoint files — see
+        FileMeta.num_dup_keys). Row-group pruning still works — it
+        reads footer stats, not the column."""
+        key = self._key(meta.file_name)
+        path = self.store.local_path(key)
+        src = path if path is not None else pa.BufferReader(self.store.read(key))
+        pf = pq.ParquetFile(src)
+        ts_name = self.schema.timestamp_column.name
+        ts_idx = pf.schema_arrow.get_field_index(ts_name)
+        groups = self._prune_row_groups(pf, ts_idx, time_range)
+        if series_range is not None and groups:
+            sid_idx = pf.schema_arrow.get_field_index(SERIES_COL)
+            s0, s1 = series_range
+            kept = []
+            for g in groups:
+                stats = pf.metadata.row_group(g).column(sid_idx).statistics
+                if stats is None or not stats.has_min_max:
+                    kept.append(g)
+                    continue
+                if int(stats.max) >= s0 and int(stats.min) < s1:
+                    kept.append(g)
+            groups = kept
+        if sid_set is not None and groups:
+            idx = self.load_index(meta)
+            if idx is not None and \
+                    len(idx.rg_lo) == pf.metadata.num_row_groups:
+                gk = idx.row_groups_for(sid_set)
+                groups = [g for g in groups if gk[g]]
+            else:
+                # stats-only degrade: footer min/max per group
+                sid_idx = pf.schema_arrow.get_field_index(SERIES_COL)
+                s = np.asarray(sid_set, dtype=np.int64)
+                kept = []
+                for g in groups:
+                    stats = pf.metadata.row_group(g).column(
+                        sid_idx).statistics
+                    if stats is None or not stats.has_min_max:
+                        kept.append(g)
+                        continue
+                    i = int(np.searchsorted(s, int(stats.min)))
+                    if i < len(s) and int(s[i]) <= int(stats.max):
+                        kept.append(g)
+                groups = kept
+        from ..common import exec_stats
+        exec_stats.record("prune", files=1,
+                          row_groups=pf.metadata.num_row_groups,
+                          row_groups_kept=len(groups))
+        field_names = [c.name for c in self.schema.field_columns()
+                       if projection is None or c.name in projection]
+        # schema-compat: an SST written before an ALTER may lack new columns —
+        # absent columns read as nulls (reference: src/storage/src/schema/compat.rs)
+        present = set(pf.schema_arrow.names)
+        missing = [n for n in field_names if n not in present]
+        skip_seq = synthetic_seq
+        skip_op = synthetic_seq and meta.num_deletes == 0
+        cols = [n for n in field_names if n in present] + [SERIES_COL]
+        if need_ts:
+            cols.append(ts_name)
+        if not skip_seq:
+            cols.append(SEQ_COL)
+        if not skip_op:
+            cols.append(OP_COL)
+        if not groups:
+            empty_fields = {
+                name: null_column(self.schema.column_schema(name).dtype, 0)
+                for name in field_names}
+            z64 = np.zeros(0, np.int64)
+            return SstData(np.zeros(0, np.int32), z64, z64,
+                           np.zeros(0, np.int8), empty_fields, 0)
+        import time as _time
+        _t0 = _time.perf_counter()
+        table = pf.read_row_groups(groups, columns=cols, use_threads=True)
+        _dt = _time.perf_counter() - _t0
+        exec_stats.record("decode", rows=table.num_rows, elapsed_s=_dt)
+        from ..common.telemetry import _observe
+        _observe("sst_read", _dt)
+        if need_ts:
+            tcol = table.column(ts_name)
+            if pa.types.is_timestamp(tcol.type):
+                # reinterpret, don't cast: the compute cast pays arrow's
+                # kernel-registry init on first use and a copy after
+                tcol = pa.chunked_array([c.view(pa.int64())
+                                         for c in tcol.chunks])
+            elif tcol.type != pa.int64():
+                tcol = tcol.cast(pa.int64())
+            ts = np.asarray(tcol)
+        else:
+            ts = np.broadcast_to(np.int64(0), (table.num_rows,))
+        sids = np.asarray(table.column(SERIES_COL))
+        # synthetic columns are constant: 0-stride broadcast views cost
+        # no allocation or fill (8 MB+ per million rows otherwise)
+        seq = np.broadcast_to(np.int64(meta.max_sequence),
+                              (table.num_rows,)) \
+            if skip_seq else np.asarray(table.column(SEQ_COL))
+        op = np.broadcast_to(np.int8(0), (table.num_rows,)) \
+            if skip_op else np.asarray(table.column(OP_COL))
+        # copy=False: arrow hands back correctly-typed arrays already —
+        # the astype calls below are layout/dtype *assertions*, and an
+        # unconditional copy costs ~0.25s per 8M-row cold slice
+        fields = {}
+        for name in field_names:
+            cs = self.schema.column_schema(name)
+            if name in missing:
+                # added after this SST was written: default-fill
+                fields[name] = compat_column(cs, table.num_rows)
+                continue
+            col = table.column(name)
+            want = cs.dtype.pa_type
+            if want is not None and col.type != want:
+                # dropped + re-added under a different type (the reference
+                # disambiguates by column id, compat.rs): cast when the
+                # values convert, otherwise treat as a fresh column
+                try:
+                    col = col.cast(want)
+                except pa.ArrowInvalid:
+                    fields[name] = compat_column(cs, table.num_rows)
+                    continue
+            vec = Vector.from_arrow(col)
+            fields[name] = (vec.data, vec.validity)
+        return SstData(sids.astype(np.int32, copy=False),
+                       ts.astype(np.int64, copy=False),
+                       seq.astype(np.int64, copy=False),
+                       op.astype(np.int8, copy=False),
+                       fields, table.num_rows)
+
+    def read_tag_columns(self, meta: FileMeta,
+                         tag_names: Sequence[str]) -> Dict[str, list]:
+        key = self._key(meta.file_name)
+        path = self.store.local_path(key)
+        src = path if path is not None else pa.BufferReader(self.store.read(key))
+        table = pq.read_table(src, columns=list(tag_names) + [SERIES_COL])
+        return {n: table.column(n).to_pylist() for n in tag_names} | {
+            SERIES_COL: np.asarray(table.column(SERIES_COL)).astype(np.int32)}
+
+    def _np_dtype(self, field_name: str):
+        dt = self.schema.column_schema(field_name).dtype
+        return dt.np_dtype if dt.np_dtype is not None else object
+
+    def _prune_row_groups(self, pf: pq.ParquetFile, ts_idx: int,
+                          time_range: Optional[TimestampRange]) -> List[int]:
+        ngroups = pf.metadata.num_row_groups
+        if time_range is None:
+            return list(range(ngroups))
+        unit = self.schema.timestamp_column.dtype.time_unit
+        out = []
+        for g in range(ngroups):
+            col = pf.metadata.row_group(g).column(ts_idx)
+            stats = col.statistics
+            if stats is None or not stats.has_min_max:
+                out.append(g)
+                continue
+            lo = _ts_stat_to_int(stats.min, unit)
+            hi = _ts_stat_to_int(stats.max, unit)
+            if time_range.intersects(TimestampRange(lo, hi + 1, time_range.unit)):
+                out.append(g)
+        return out
+
+    def row_group_stats(self, meta: FileMeta
+                        ) -> List[Tuple[int, int, int, int, int]]:
+        """(min_ts, max_ts, min_sid, max_sid, num_rows) per row group,
+        from parquet footer statistics — the density profiles the
+        streamed cold scan uses to cut slices (reference: sst/parquet.rs
+        row-group readers). SSTs sort by (series, ts), so series stats
+        are tight on files that span long time ranges (compaction
+        output) while time stats are tight on short-window flush files;
+        the slice planner picks whichever dimension prunes better.
+        Cached per file name (SSTs are immutable)."""
+        cached = self._rg_stats.get(meta.file_name)
+        if cached is not None:
+            return cached
+        key = self._key(meta.file_name)
+        path = self.store.local_path(key)
+        src = path if path is not None \
+            else pa.BufferReader(self.store.read(key))
+        pf = pq.ParquetFile(src)
+        ts_name = self.schema.timestamp_column.name
+        ts_idx = pf.schema_arrow.get_field_index(ts_name)
+        sid_idx = pf.schema_arrow.get_field_index(SERIES_COL)
+        unit = self.schema.timestamp_column.dtype.time_unit
+        out: List[Tuple[int, int, int, int, int]] = []
+        for g in range(pf.metadata.num_row_groups):
+            rg = pf.metadata.row_group(g)
+            tstats = rg.column(ts_idx).statistics
+            if tstats is None or not tstats.has_min_max:
+                tlo, thi = meta.time_range
+            else:
+                tlo = _ts_stat_to_int(tstats.min, unit)
+                thi = _ts_stat_to_int(tstats.max, unit)
+            sstats = rg.column(sid_idx).statistics \
+                if sid_idx >= 0 else None
+            if sstats is None or not sstats.has_min_max:
+                slo, shi = 0, 1 << 30
+            else:
+                slo, shi = int(sstats.min), int(sstats.max)
+            out.append((tlo, thi, slo, shi, rg.num_rows))
+        if len(self._rg_stats) > 4096:     # bound the footer cache
+            self._rg_stats.clear()
+        self._rg_stats[meta.file_name] = out
+        return out
+
+    def delete_sst(self, file_name: str) -> None:
+        self.store.delete(self._key(file_name))
+        # the sidecar lives and dies with its SST (best-effort: an
+        # index orphaned by a crash mid-delete is swept at reopen)
+        self._sst_index.pop(file_name, None)
+        try:
+            self.store.delete(self._key(index_file_name(file_name)))
+        except FileNotFoundError:
+            pass                             # stats-only file: no sidecar
+        except Exception as e:  # noqa: BLE001 — the data file is gone; a
+            # stale sidecar is harmless garbage the reopen sweep collects
+            import logging
+            logging.getLogger(__name__).warning(
+                "could not delete index sidecar of %s: %s", file_name, e)
+
+
+def _ts_stat_to_int(v, unit) -> int:
+    if isinstance(v, (int, np.integer)):
+        return int(v)
+    # pyarrow returns datetime for timestamp logical-typed stats
+    import datetime as _dt
+    from ..common.time import Timestamp
+    if isinstance(v, _dt.datetime):
+        return Timestamp.from_datetime(v, unit).value
+    return int(v)

@@ -12,11 +12,17 @@
 - An engine left on its default device ("cuda") raises on a machine
   without CUDA rather than running on the CPU; chip_smoke.py exits
   non-zero there and prints no result.
+- The storage engine (WAL, memtable, SSTs, manifest, compaction) runs
+  without the reference; the port's host substrate (`common/`) imports
+  no pandas or pyarrow; the port's metrics live in a registry of their
+  own, so both packages count under the same names in one process; the
+  port's native WAL builds from its own `native/wal.cpp`.
 """
 
 import ast
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -231,3 +237,91 @@ def test_chip_smoke_refuses_to_run_without_cuda():
                          timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout and "CUDA is not available" in out.stderr
+
+
+_STORAGE_PROBE = r"""
+import json, sys, tempfile
+before = set(sys.modules)
+import numpy as np
+from greptimedb_tpu_torch.common import (background_jobs, exec_stats,
+                                         failpoint, locks, process_list,
+                                         telemetry, tracking)
+host_only = sorted(set(sys.modules) - before)
+from greptimedb_tpu_torch.datatypes import data_type as dt
+from greptimedb_tpu_torch.datatypes.schema import (ColumnSchema, Schema,
+                                                   SemanticType)
+from greptimedb_tpu_torch.storage import (EngineConfig, StorageEngine,
+                                          WriteBatch)
+
+schema = Schema([
+    ColumnSchema("host", dt.STRING, semantic_type=SemanticType.TAG),
+    ColumnSchema("ts", dt.TIMESTAMP_MILLISECOND, nullable=False,
+                 semantic_type=SemanticType.TIMESTAMP),
+    ColumnSchema("v", dt.FLOAT64, semantic_type=SemanticType.FIELD)])
+with tempfile.TemporaryDirectory() as home:
+    eng = StorageEngine(EngineConfig(data_home=home, wal_backend="python"))
+    region = eng.create_region("t_0", schema)
+    region.bulk_ingest({"host": np.array(["a", "b"] * 50, dtype=object),
+                        "ts": np.arange(100, dtype=np.int64),
+                        "v": np.arange(100.0)})
+    wb = WriteBatch(schema)
+    wb.put({"host": ["a"], "ts": [200], "v": [1.0]})
+    region.write(wb)
+    region.flush()
+    region.compact()
+    assert region.snapshot().read_merged().num_rows == 101
+    eng.close()
+    eng = StorageEngine(EngineConfig(data_home=home, wal_backend="python"))
+    assert eng.open_region("t_0").snapshot().scan().num_rows == 101
+    eng.close()
+new = sorted(set(sys.modules) - before)
+print(json.dumps({"new": new, "host_only": host_only}))
+"""
+
+
+def test_storage_engine_runs_without_reference():
+    out = subprocess.run([sys.executable, "-c", _STORAGE_PROBE], cwd=REPO,
+                         env=_ENV, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in got["new"] if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+    assert "greptimedb_tpu_torch.storage.region" in got["new"]
+    heavy = [m for m in got["host_only"]
+             if m.split(".")[0] in FORBIDDEN + HOST_STACK]
+    assert not heavy, heavy
+    assert "greptimedb_tpu_torch.common.telemetry" in got["host_only"]
+
+
+def test_telemetry_names_shared_without_registry_clash():
+    """The same counter and timer names through both packages in one
+    process: the port's go to its own registry, not prometheus_client's
+    default one, where the reference's live."""
+    from prometheus_client import REGISTRY
+    from greptimedb_tpu.common import telemetry as ref_tel
+    from greptimedb_tpu_torch.common import telemetry as port_tel
+    name = "torch_guard_shared_name"
+    for tel in (ref_tel, port_tel, ref_tel, port_tel):
+        tel.increment_counter(name, 2)
+        tel._observe(name, 0.001)
+    total = f"greptime_{name}_total"
+    assert REGISTRY.get_sample_value(total) == 4
+    assert port_tel.registry() is not REGISTRY
+    assert port_tel.registry().get_sample_value(total) == 4
+    assert any(f.name == f"greptime_{name}" for f in
+               port_tel.collect_families())
+
+
+def test_native_wal_builds_from_port_source():
+    from greptimedb_tpu.storage import native_wal as ref_nw
+    from greptimedb_tpu_torch.storage import native_wal as nw
+    assert nw._SRC == os.path.join(PORT, "native", "wal.cpp")
+    assert os.path.dirname(nw._LIB) == os.path.join(PORT, "native", "build")
+    assert nw._LIB != ref_nw._LIB
+    if shutil.which("g++") is None:
+        pytest.skip("the native WAL builds with g++, which this machine "
+                    "lacks")
+    lib = nw.load_library()
+    assert lib is not None and lib._name == nw._LIB
+    assert os.path.getmtime(nw._LIB) >= os.path.getmtime(nw._SRC)

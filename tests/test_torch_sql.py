@@ -1,12 +1,12 @@
 """SQL differential tests: the same statements through the JAX package's
 QueryEngine and through the port's, on the CPU, over the same rows.
 
-The reference gets its rows through its own write path (CREATE TABLE,
-bulk load, an INSERT that overwrites one key with a later sequence, a
-DELETE). The port has no storage yet: it reads a stand-in region built
-from the reference region's own scan (the same series dictionary, rows,
-sequences and op types), through the data seam that
-greptimedb_tpu_torch/query/tpu_exec.py names.
+Each package gets its rows through its own write path. The reference:
+CREATE TABLE, a bulk load, an INSERT that overwrites one key with a later
+sequence, a DELETE, through its frontend. The port: a region of its own
+StorageEngine (storage/engine.py), loaded with the same columns by
+`Region.bulk_ingest` and given the same overwrite and DELETE as
+`WriteBatch`es (WAL + memtable), under a port `Table`.
 
 Both packages pin the dispatch floor to 0 before every device-path
 statement, so each takes its device path (checked through the region's
@@ -18,7 +18,9 @@ reference's float32 prefix-difference sums err by about eps32 times the
 global prefix (see tests/test_torch_kernels.py), so
 |port - ref| <= 1e-5 |ref| + 8 eps32 P / c, P the sum of |x| over the
 table and c the group's row count (1 for sums); standard deviations
-within 1e-3 relative (their fold runs in float32 from those sums).
+within 1e-3 relative (their fold runs in float32 from those sums). The
+narrow and unsigned integer table is exact throughout: integer sums wrap
+to the column's type on both sides.
 """
 
 import types
@@ -37,47 +39,20 @@ from greptimedb_tpu_torch.errors import UnsupportedError
 from greptimedb_tpu_torch.query import QueryEngine, tpu_exec
 from greptimedb_tpu_torch.session import QueryContext
 from greptimedb_tpu_torch.sql import parse_sql
-from greptimedb_tpu_torch.storage import ScanData, SeriesDict
+from greptimedb_tpu_torch.storage import (EngineConfig, StorageEngine,
+                                          WriteBatch)
 from greptimedb_tpu_torch.table import Table, TableIdent, TableInfo, TableMeta
 
 EPS32 = 2.0 ** -24
 T0 = 1_700_000_000_000
 HOSTS, SAMPLES, STEP = 24, 360, 10_000          # 8640 rows over 1 h
+#: the overwrite and the DELETE both packages receive after the load
+OVERWRITE = {"hostname": ["host_3"], "region": ["r0"], "ts": [T0 + 5 * STEP],
+             "usage_user": [99.5], "usage_system": [1.5], "req": [7]}
+DELETE = {"hostname": ["host_4"], "region": ["r1"], "ts": [T0 + 7 * STEP]}
 
 
-class StandInRegion:
-    """A region to the port's data seam, serving one fixed ScanData."""
-
-    def __init__(self, uid, data: ScanData):
-        self.uid = uid
-        self.name = f"{uid}_0"
-        self.series_dict = data.series_dict
-        self.last_scan_profile = None
-        self._data = data
-        mt = types.SimpleNamespace(num_rows=data.num_rows)
-        self._version = types.SimpleNamespace(
-            schema=data.schema,
-            memtables=types.SimpleNamespace(all_memtables=lambda: [mt]),
-            ssts=types.SimpleNamespace(all_files=lambda: []))
-        self.version_control = types.SimpleNamespace(current=self._version)
-
-    def snapshot(self):
-        return types.SimpleNamespace(
-            _version=self._version, scan=lambda: self._data,
-            visible_sequence=int(self._data.seq.max(initial=0)))
-
-
-class StandInTable(Table):
-    def __init__(self, name, schema, regions):
-        super().__init__(TableInfo(TableIdent(1), name, TableMeta(schema)))
-        self.regions = regions
-
-
-def _load_reference(fe):
-    ctx = RefCtx()
-    fe.do_query("CREATE TABLE cpu (hostname STRING, region STRING, ts "
-                "TIMESTAMP TIME INDEX, usage_user DOUBLE, usage_system "
-                "DOUBLE, req BIGINT, PRIMARY KEY(hostname, region))", ctx)
+def _cpu_columns():
     rng = np.random.default_rng(42)
     n = HOSTS * SAMPLES
     host = np.repeat([f"host_{i}" for i in range(HOSTS)], SAMPLES)
@@ -86,33 +61,54 @@ def _load_reference(fe):
     walk = np.clip(50 + np.cumsum(rng.normal(size=(HOSTS, SAMPLES)),
                                   axis=1), 0, 100).ravel()
     user = [None if rng.random() < 0.03 else float(v) for v in walk]
-    table = fe.catalog.table("greptime", "public", "cpu")
-    table.bulk_load({
+    return {
         "hostname": host.astype(object), "region": region.astype(object),
         "ts": ts, "usage_user": user,
         "usage_system": rng.random(n) * 100,
-        "req": rng.integers(0, 1000, n).astype(np.int64)})
+        "req": rng.integers(0, 1000, n).astype(np.int64)}
+
+
+def _load_reference(fe, columns):
+    ctx = RefCtx()
+    fe.do_query("CREATE TABLE cpu (hostname STRING, region STRING, ts "
+                "TIMESTAMP TIME INDEX, usage_user DOUBLE, usage_system "
+                "DOUBLE, req BIGINT, PRIMARY KEY(hostname, region))", ctx)
+    table = fe.catalog.table("greptime", "public", "cpu")
+    table.bulk_load(columns)
     # a later sequence overwrites one key; a DELETE drops another
-    fe.do_query(f"INSERT INTO cpu VALUES ('host_3', 'r0', {T0 + 5 * STEP}, "
-                f"99.5, 1.5, 7)", ctx)
-    fe.do_query(f"DELETE FROM cpu WHERE hostname = 'host_4' AND "
-                f"region = 'r1' AND ts = {T0 + 7 * STEP}", ctx)
+    o = OVERWRITE
+    fe.do_query(f"INSERT INTO cpu VALUES ('{o['hostname'][0]}', "
+                f"'{o['region'][0]}', {o['ts'][0]}, {o['usage_user'][0]}, "
+                f"{o['usage_system'][0]}, {o['req'][0]})", ctx)
+    fe.do_query(f"DELETE FROM cpu WHERE hostname = '{DELETE['hostname'][0]}'"
+                f" AND region = '{DELETE['region'][0]}' AND ts = "
+                f"{DELETE['ts'][0]}", ctx)
     return table
 
 
-def _port_scan(ref_table) -> ScanData:
-    (ref_region,) = ref_table.regions.values()
-    d = ref_region.snapshot().scan()
-    return ScanData(Schema.from_dict(d.schema.to_dict()),
-                    SeriesDict.from_dict(d.series_dict.to_dict()),
-                    d.series_ids.copy(), d.ts.copy(), d.seq.copy(),
-                    d.op_types.copy(),
-                    {k: (v.copy(), None if m is None else m.copy())
-                     for k, (v, m) in d.fields.items()})
+def _port_table(storage, catalog, name, ref_table, columns, batches=()):
+    """A port table over one region of the port's own StorageEngine, with
+    the reference table's schema: `columns` through bulk_ingest, then each
+    of `batches` ((op, columns), op "put" or "delete") as one WriteBatch
+    through the WAL and the memtable."""
+    schema = Schema.from_dict(ref_table.schema.to_dict())
+    region = storage.create_region(f"{name}_0", schema)
+    region.bulk_ingest(columns)
+    for op, cols in batches:
+        wb = WriteBatch(region.schema)
+        getattr(wb, op)(cols)
+        region.write(wb)
+    table = Table(TableInfo(TableIdent(ref_table.info.ident.table_id), name,
+                            TableMeta(schema)))
+    table.regions = {0: region}
+    catalog.register_table("greptime", "public", name, table)
+    return table
 
 
 @pytest.fixture(scope="module")
-def engines(tmp_path_factory):
+def stack(tmp_path_factory):
+    """The reference's datanode and frontend, and the port's catalog over
+    its own StorageEngine; `cpu` loaded into both."""
     from greptimedb_tpu.datanode.instance import (DatanodeInstance,
                                                   DatanodeOptions)
     from greptimedb_tpu.frontend.instance import FrontendInstance
@@ -123,21 +119,31 @@ def engines(tmp_path_factory):
     dn.start()
     fe = FrontendInstance(dn)
     fe.start()
-    ref_table = _load_reference(fe)
-    data = _port_scan(ref_table)
+    storage = StorageEngine(EngineConfig(
+        data_home=str(tmp_path_factory.mktemp("port"))))
+    columns = _cpu_columns()
+    ref_table = _load_reference(fe, columns)
     catalog = MemoryCatalogManager()
-    table = StandInTable("cpu", data.schema,
-                         {0: StandInRegion("cpu-0", data)})
-    catalog.register_table("greptime", "public", "cpu", table)
+    table = _port_table(storage, catalog, "cpu", ref_table, columns,
+                        [("put", OVERWRITE), ("delete", DELETE)])
     # the resident device path on both sides (the reference would route
     # selective tag predicates through its SST index on a cold cache)
     saved_index = ref_index.sst_index_enabled()
     fe.do_query("SET sst_index = 0", RefCtx())
-    yield (RefEngine(fe.catalog), ref_table, QueryEngine(catalog,
-                                                         device="cpu"),
-           table, data)
+    yield types.SimpleNamespace(
+        fe=fe, storage=storage, catalog=catalog,
+        ref=RefEngine(fe.catalog), port=QueryEngine(catalog, device="cpu"),
+        ref_table=ref_table, table=table)
     fe.do_query(f"SET sst_index = {int(saved_index)}", RefCtx())
+    storage.close()
     fe.shutdown()
+
+
+@pytest.fixture(scope="module")
+def engines(stack):
+    (region,) = stack.table.regions.values()
+    return (stack.ref, stack.ref_table, stack.port, stack.table,
+            region.snapshot().scan())
 
 
 def _frame(out) -> pd.DataFrame:
@@ -148,6 +154,10 @@ def _frame(out) -> pd.DataFrame:
 
 def _run(engines, sql, floor):
     ref, ref_table, port, table, _ = engines
+    return _run_tables(ref, ref_table, port, table, sql, floor)
+
+
+def _run_tables(ref, ref_table, port, table, sql, floor):
     (rr,) = ref_table.regions.values()
     (pr,) = table.regions.values()
     rr.last_scan_profile = pr.last_scan_profile = None
@@ -295,6 +305,20 @@ def test_unsupported_statements_raise(engines):
             port.execute(parse_sql(sql), QueryContext())
 
 
+def test_all_valid_fields_share_the_valid_mask(engines):
+    """The port's region merges SSTs with memtable rows, whose write
+    batches carry a validity array for every field: a field with no null
+    among the merged rows mirrors as the one all-valid mask, a field
+    with nulls keeps its own."""
+    _, _, _, table, _ = engines
+    (region,) = table.regions.values()
+    assert region.version_control.current.memtables.mutable.num_rows == 2
+    scan = tpu_exec.SCAN_CACHE.get(region, "cpu")
+    assert scan.fields["usage_system"][1] is None
+    assert scan.device_valid("usage_system") is scan.device_valid_all()
+    assert not scan.fields["usage_user"][1].all()
+
+
 def test_scan_cache_keeps_devices_apart(engines):
     """A scan mirrored for one device is rebuilt, not reused, for an
     engine on another."""
@@ -333,3 +357,86 @@ def test_plan_from_specs_matches_reference(engines):
         table.schema, aggs, **kw)) == ["__key__hostname"]
     _compare(want.rename(columns={"__key__b": "b"}),
              got.rename(columns={"__key__b": "b"}), data, "plan_from_specs")
+
+
+#: the narrow and unsigned integer columns, with the range each draws
+#: from: SMALLINT near its top and INT UNSIGNED above 2^31 reach the
+#: wrap of the column's sum and the float32 rounding of a value
+NARROW = {"i8": ("TINYINT", -128, 128), "i16": ("SMALLINT", 20000, 30000),
+          "u32": ("INT UNSIGNED", 2**31, 2**32),
+          "u16": ("SMALLINT UNSIGNED", 0, 2**16),
+          "u8": ("TINYINT UNSIGNED", 0, 2**8)}
+NARROW_OPS = ["count", "sum", "min", "max", "avg", "first_value",
+              "last_value", "stddev"]
+NARROW_GROUPS = {
+    "tag": ("hostname", "hostname"),
+    "date_bin": ("date_bin(INTERVAL '10 minutes', ts) AS b", "b")}
+
+
+def _narrow_columns():
+    """6 hosts x 240 rows at 10 s; ~5 % nulls, and host_5's INT UNSIGNED
+    column all null (an empty first/last)."""
+    rng = np.random.default_rng(7)
+    hosts, samples = 6, 240
+    n = hosts * samples
+    cols = {"hostname": np.repeat([f"host_{i}" for i in range(hosts)],
+                                  samples).astype(object),
+            "ts": np.tile(T0 + np.arange(samples, dtype=np.int64) * STEP,
+                          hosts)}
+    for name, (_, lo, hi) in NARROW.items():
+        v = [int(x) for x in rng.integers(lo, hi, n)]
+        for i in np.nonzero(rng.random(n) < 0.05)[0]:
+            v[i] = None
+        cols[name] = v
+    cols["u32"][5 * samples:] = [None] * samples
+    return cols
+
+
+@pytest.fixture(scope="module")
+def narrow(stack):
+    """Table `nt` with the NARROW columns in both packages, and each
+    grouping's statement (every op over every column) run once through
+    both, so the reference compiles one program per grouping."""
+    cols = _narrow_columns()
+    stack.fe.do_query(
+        "CREATE TABLE nt (hostname STRING, ts TIMESTAMP TIME INDEX, " +
+        ", ".join(f"{k} {t}" for k, (t, _, _) in NARROW.items()) +
+        ", PRIMARY KEY(hostname))", RefCtx())
+    ref_table = stack.fe.catalog.table("greptime", "public", "nt")
+    ref_table.bulk_load(cols)
+    table = _port_table(stack.storage, stack.catalog, "nt", ref_table, cols)
+    out = {}
+    for g, (sel, key) in NARROW_GROUPS.items():
+        aggs = ", ".join(f"{op}({c})" for op in NARROW_OPS for c in NARROW)
+        sql = f"SELECT {sel}, {aggs} FROM nt GROUP BY {key} ORDER BY {key}"
+        out[g] = _run_tables(stack.ref, ref_table, stack.port, table, sql,
+                             floor=0)
+    return out
+
+
+@pytest.mark.parametrize("op", NARROW_OPS)
+@pytest.mark.parametrize("group", list(NARROW_GROUPS))
+def test_narrow_int_fields_match_reference(narrow, group, op):
+    """TINYINT / SMALLINT / INT UNSIGNED / SMALLINT UNSIGNED / TINYINT
+    UNSIGNED on the device path: every result exactly the reference's
+    (sums wrap to the column's type, INT UNSIGNED values above 2^31 are
+    not rounded, an all-null first/last is the reference's 0); standard
+    deviations, folded from those sums and float32 squares, within 1e-3
+    relative as in `_compare`."""
+    want, got, ref_prof, port_prof = narrow[group]
+    assert ref_prof is not None and ref_prof.path == "resident"
+    assert port_prof is not None and port_prof.path == "resident"
+    assert list(got.columns) == list(want.columns)
+    assert len(got) == len(want) > 1
+    for c in NARROW:
+        col = f"{op}({c})"
+        w, g = want[col].to_numpy(), got[col].to_numpy()
+        np.testing.assert_array_equal(pd.isna(g), pd.isna(w), err_msg=col)
+        ok = ~pd.isna(w)
+        if op == "stddev":
+            w64, g64 = w[ok].astype(np.float64), g[ok].astype(np.float64)
+            assert (np.abs(g64 - w64) <= 1e-3 * np.abs(w64) + 1e-4).all(), \
+                col
+            continue
+        np.testing.assert_array_equal(g[ok].astype(object),
+                                      w[ok].astype(object), err_msg=col)
