@@ -37,25 +37,31 @@ Phases (none of them catches a failure; any failed check exits non-zero):
    distinct column masks, 33 moments and none), float32 and int32 columns, column nulls, unsorted ts with ties;
    two launches bit-equal (the cases are
    greptimedb_tpu_torch/tools/segment_moments_bench.py's `edge_cases`);
-6. loads TSBS cpu-only (4000 hosts, 10 tags, 10 fields, 10 s, 12 h:
-   17.28 M rows) into a region of the port's StorageEngine, in a
-   temporary data home removed at the end: one Region.bulk_ingest
-   (Parquet SSTs + manifest; its background compaction waited out), then
-   the write path: a WriteBatch of overwrites and a new key through the
-   WAL and the memtable, flushed to an L0 SST and compacted, and a second
-   one (an overwrite, a DELETE of that new key) left in the memtable;
-   prints the ingest profile and the SSTs. Then serves SQL through
-   QueryEngine.execute on the GPU over that region: four TSBS queries
-   and two that reach every op, each cold (scan cache empty: the SSTs
-   decoded and merged with the memtable) and warm, with the wall, the
+6. serves SQL on the GPU through the port's standalone frontend:
+   build_standalone(DatanodeOptions(data_home=<temporary>, device="cuda"))
+   and FrontendInstance.do_query. CREATE TABLE cpu (TSBS cpu-only: 4000
+   hosts, 10 tags, 10 fields, 10 s, 12 h: 17.28 M rows), the load by
+   handle_bulk_load (MitoTable.bulk_load → Region.bulk_ingest: Parquet
+   SSTs + manifest; its background compaction waited out), then the
+   write path: overwrites and a new key by handle_row_insert, ADMIN FLUSH
+   TABLE and ADMIN COMPACT TABLE, an overwrite by INSERT and a delete of
+   that new key by MitoTable.delete (where a SQL DELETE ends), left in
+   the memtable; prints the ingest profile and the SSTs. Four TSBS queries and two that reach every op, each cold (scan
+   cache empty: the SSTs decoded and merged with the memtable) and warm,
+   with the wall, what do_query adds beyond QueryEngine.execute, the
    engine's stages, the kernel's device time and peak device memory (the
-   launch fenced behind a spin kernel), then warm again unfenced for the
-   wall and stages without the spin; checks every group against a
-   float64 brute force with the same edits (planted wrong answers must
-   fail its bounds). Closes the engine with the second batch unflushed,
-   reopens it (manifest, series dictionary, WAL replay) and runs Q5
-   again, which must equal the frame before the close bit for bit. Then
-   a table of TINYINT / SMALLINT / INT UNSIGNED / SMALLINT UNSIGNED
+   launch fenced behind a spin kernel), then warm again unfenced; checks
+   every group against a float64 brute force with the same edits
+   (planted wrong answers must fail its bounds). Then shutdown() with
+   the last batch unflushed, build_standalone on the same data home
+   (catalog replay, table open, WAL replay) timed, and Q5 again, which
+   must equal the frame before the shutdown bit for bit. Then a table
+   range-partitioned on hostname into 4 regions (400 hosts, 1.728 M rows),
+   a SQL INSERT and DELETE on it, and Q1, Q5, Q6 and Q5's moments per
+   hour with one launch per region, merged across regions (Q6 and the
+   hourly moments fold every group from all four regions) and checked
+   against the brute force.
+   Then a table of TINYINT / SMALLINT / INT UNSIGNED / SMALLINT UNSIGNED
    fields: count, sum, min, max, first_value and last_value by host and
    over the whole table, exactly against numpy with sums wrapped to each
    type. Then times the kernel at the Q1, Q4 and Q6 inputs against its
@@ -72,8 +78,10 @@ no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1049,94 +1057,85 @@ def tsbs_cpu_table(seed: int, hosts: int = HOSTS, hours: int = SQL_HOURS):
     return ts, tags, fields
 
 
-def sql_schema(fields):
-    """Table `cpu`: the ten TSBS tags as the primary key, ts the time
-    index, then `fields` ({name: port data type}) as fields."""
-    from greptimedb_tpu_torch.datatypes import data_type as dt
-    from greptimedb_tpu_torch.datatypes.schema import (ColumnSchema, Schema,
-                                                       SemanticType)
-    return Schema(
-        [ColumnSchema(t, dt.STRING, semantic_type=SemanticType.TAG)
-         for t in TSBS_TAGS] +
-        [ColumnSchema("ts", dt.TIMESTAMP_MILLISECOND, nullable=False,
-                      semantic_type=SemanticType.TIMESTAMP)] +
-        [ColumnSchema(f, t) for f, t in fields.items()])
+def sql_ddl(name, fields, partition=""):
+    """CREATE TABLE `name`: the ten TSBS tags as the primary key, ts the
+    time index, then `fields` ({name: SQL type}) as fields; `partition`
+    is an optional PARTITION BY clause."""
+    cols = [f"{t} STRING" for t in TSBS_TAGS] + ["ts TIMESTAMP TIME INDEX"] + \
+        [f"{f} {t}" for f, t in fields.items()]
+    return (f"CREATE TABLE {name} ({', '.join(cols)}, PRIMARY KEY("
+            f"{', '.join(TSBS_TAGS)})){partition}")
 
 
-def sql_register(cat, name, region):
-    """A port Table named `name` over one region, in the catalog."""
-    from greptimedb_tpu_torch.table import (Table, TableIdent, TableInfo,
-                                            TableMeta)
-    table = Table(TableInfo(TableIdent(len(cat.table_names(
-        "greptime", "public")) + 1), name, TableMeta(region.schema)))
-    table.regions = {0: region}
-    cat.register_table("greptime", "public", name, table)
-    return table
-
-
-def sql_ingest(region, ts, tags, fields):
-    """One Region.bulk_ingest of the table's rows as a TSBS loader sends
-    them, time-major (every host at one instant, then the next); returns
-    the seconds it took."""
+def sql_columns(ts, tags, fields):
+    """The table's rows as a TSBS loader sends them, time-major (every
+    host at one instant, then the next)."""
     H, n = next(iter(fields.values())).shape
     cols = {t: np.tile(np.array([tg[i] for tg in tags], dtype=object), n)
             for i, t in enumerate(TSBS_TAGS)}
     cols["ts"] = np.repeat(ts, H)
     for f, x in fields.items():
         cols[f] = x.T.ravel()
-    t0 = time.perf_counter()
-    region.bulk_ingest(cols)
-    return time.perf_counter() - t0
+    return cols
 
 
-def sst_summary(region):
-    files = region.version_control.current.ssts.all_files()
+def sst_summary(table):
+    files = [f for r in table.regions.values()
+             for f in r.version_control.current.ssts.all_files()]
     per = [sum(f.level == lv for f in files) for lv in (0, 1)]
     return (f"{len(files)} SSTs (L0 {per[0]}, L1 {per[1]}), "
             f"{sum(f.file_size for f in files) / 1e6:.1f} MB, "
             f"{sum(f.num_rows for f in files)} rows")
 
 
-def sql_load(storage, ts, tags, fields):
-    """Table `cpu` in the port's StorageEngine: one bulk_ingest (Parquet
-    SSTs + manifest edit), then any compaction it set off waited out, so
-    that no later query races a version change. Returns (region, the
-    series id of each host)."""
-    from greptimedb_tpu_torch.datatypes import data_type as dt
-    region = storage.create_region(
-        "cpu_0", sql_schema({f: dt.FLOAT64 for f in CPU_FIELDS}))
-    log(f"storage engine at {storage.config.data_home}, WAL "
-        f"{type(region.wal).__name__}")
-    ingest_s = sql_ingest(region, ts, tags, fields)
+def sql_bulk_load(fe, name, ts, tags, fields):
+    """The rows through FrontendInstance.handle_bulk_load (MitoTable.
+    bulk_load → Region.bulk_ingest in each region the partition rule
+    routes rows to: Parquet SSTs + one manifest edit), then any compaction
+    it set off waited out, so that no later query races a version change.
+    Returns the table."""
+    cols = sql_columns(ts, tags, fields)
     t0 = time.perf_counter()
-    storage.scheduler.wait_idle(timeout=600)
+    written = fe.handle_bulk_load(name, cols, tag_columns=TSBS_TAGS,
+                                  timestamp_column="ts")
+    ingest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fe.datanode.storage.scheduler.wait_idle(timeout=600)
     wait_s = time.perf_counter() - t0
-    H, n = fields[CPU_FIELDS[0]].shape
-    log(f"ingest: bulk_ingest of {H * n} rows in {ingest_s:.2f}s "
-        f"({H * n / ingest_s / 1e6:.2f} Mrows/s), then {wait_s:.2f}s "
-        f"waiting out background compaction; "
-        f"{region.last_ingest_profile.describe()}")
-    log(f"  after the load: {sst_summary(region)}")
-    sd = region.series_dict
-    names = sd.decode_tag_column(np.arange(sd.num_series, dtype=np.int32), 0)
-    sid_of = {str(h): s for s, h in enumerate(names)}
-    host_sids = np.array([sid_of[f"host_{h}"] for h in range(H)],
-                         dtype=np.int32)
-    return region, host_sids
+    table = fe.catalog.table("greptime", "public", name)
+    profiles = [r.last_ingest_profile for r in table.regions.values()]
+    N = len(cols["ts"])
+    check(type(table).__name__ == "MitoTable" and written == N and
+          sum(p.rows for p in profiles) == N,
+          f"{name}: handle_bulk_load wrote {written} rows through "
+          f"{type(table).__name__}, the regions' bulk_ingest "
+          f"{[p.rows for p in profiles]}, of {N}")
+    log(f"{name}: handle_bulk_load of {N} rows into {len(profiles)} "
+        f"region(s) in {ingest_s:.2f}s ({N / ingest_s / 1e6:.2f} Mrows/s), "
+        f"then {wait_s:.2f}s waiting out background compaction; "
+        f"{sst_summary(table)}")
+    for rn, p in zip(table.regions, profiles):
+        log(f"  region {rn} bulk_ingest: {p.describe()}")
+    return table
 
 
-def sql_edits(region, ts, tags, fields, host_sids, eight, seed):
-    """The write path after the load, WriteBatches through the WAL and the
-    memtable. Batch 1 overwrites three existing keys (the first host's
-    first sample, two of Q3/Q4's hosts in the first hour) and puts one new
-    key one interval past a spare host's last sample; it is flushed to an
-    L0 SST and compacted into L1. Batch 2 overwrites one more key and
-    DELETEs batch 1's new key: it stays in the memtable, through the
-    queries and the reopen (WAL replay). Every overwrite sets all ten
-    fields; `fields`, the brute force's copy, takes the same values, and
-    the deleted key was never in it, so the row count and every run's
-    length stay the load's. Returns batch 2's row count."""
-    from greptimedb_tpu_torch.storage import WriteBatch
+def sql_edits(fe, table, ts, tags, fields, host_sids, eight, seed):
+    """The write path after the load, through the frontend. Batch 1, by
+    handle_row_insert (the protocol ingest path: WAL and memtable),
+    overwrites three existing keys (the first host's first sample, two of
+    Q3/Q4's hosts in the first hour) and puts one new key one interval
+    past a spare host's last sample; ADMIN FLUSH TABLE writes it to an L0
+    SST and ADMIN COMPACT TABLE compacts it into L1. Batch 2: one more
+    overwrite by INSERT INTO ... VALUES, and a delete of batch 1's new key
+    by MitoTable.delete, the call a SQL DELETE ends in (the SQL DELETE's
+    key scan turns the key columns of every row into Python lists, about
+    a minute at this size; the partitioned table runs it through SQL);
+    both stay in the memtable, through the queries and the restart (WAL
+    replay). Every overwrite
+    sets all ten fields; `fields`, the brute force's copy, takes the same
+    values, and the deleted key was never in it, so the row count and
+    every run's length stay the load's. Returns the memtable's rows."""
+    (region,) = table.regions.values()
     H, n = fields[CPU_FIELDS[0]].shape
     rng = np.random.default_rng(seed)
     first_h = int(np.argmin(host_sids))
@@ -1148,7 +1147,8 @@ def sql_edits(region, ts, tags, fields, host_sids, eight, seed):
         k["ts"] = [int(ts[j]) if j < n else int(ts[-1]) + INTERVAL_MS]
         return k
 
-    def put(wb, keys):
+    def rows(keys):
+        cols = {}
         for h, j in keys:
             row = key(h, j)
             new = rng.random(len(CPU_FIELDS)) * 100.0
@@ -1156,35 +1156,49 @@ def sql_edits(region, ts, tags, fields, host_sids, eight, seed):
                 row[f] = [float(v)]
                 if j < n:
                     fields[f][h, j] = v
-            wb.put(row)
+            for c, v in row.items():
+                cols.setdefault(c, []).extend(v)
+        return cols
 
-    t0 = time.perf_counter()
-    wb1 = WriteBatch(region.schema)
-    put(wb1, [(first_h, 0), (int(eight[0]), 3), (int(eight[1]), 100),
-              extra])
-    region.write(wb1)
-    write_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    flushed = region.flush()
-    flush_s = time.perf_counter() - t0
-    check(len(flushed) == 1 and flushed[0].num_rows == wb1.num_rows,
-          f"the flush wrote {flushed}")
-    t0 = time.perf_counter()
-    compacted = region.compact()
-    compact_s = time.perf_counter() - t0
-    check(len(compacted) == 1 and
-          not region.version_control.current.ssts.levels[0],
-          f"the compaction left L0 files: {compacted}")
-    wb2 = WriteBatch(region.schema)
-    put(wb2, [(spare[0], 2000)])
-    wb2.delete(key(*extra))
-    region.write(wb2)
-    log(f"write path: batch 1 ({wb1.num_rows} puts) through the WAL in "
-        f"{write_s * 1e3:.1f} ms, flushed to L0 in {flush_s * 1e3:.1f} ms, "
-        f"compacted to L1 in {compact_s * 1e3:.1f} ms; batch 2 "
-        f"({wb2.num_rows} rows: 1 overwrite, 1 DELETE) left in the "
-        f"memtable; {sst_summary(region)}")
-    return wb2.num_rows
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    batch1 = rows([(first_h, 0), (int(eight[0]), 3), (int(eight[1]), 100),
+                   extra])
+    written, write_ms = timed(lambda: fe.handle_row_insert(
+        table.info.name, batch1, tag_columns=TSBS_TAGS,
+        timestamp_column="ts"))
+    check(written == 4, f"handle_row_insert wrote {written} rows")
+    def files():
+        return {f.file_name: f for f in
+                region.version_control.current.ssts.all_files()}
+
+    before = files()
+    _, flush_ms = timed(lambda: fe.do_query("ADMIN FLUSH TABLE cpu"))
+    flushed = [f for k, f in files().items() if k not in before]
+    check(len(flushed) == 1 and flushed[0].level == 0 and
+          flushed[0].num_rows == written, f"the flush wrote {flushed}")
+    _, compact_ms = timed(lambda: fe.do_query("ADMIN COMPACT TABLE cpu"))
+    check(not region.version_control.current.ssts.levels[0],
+          "the compaction left L0 files")
+    batch2 = rows([(spare[0], 2000)])
+    insert = (f"INSERT INTO cpu ({', '.join(batch2)}) VALUES "
+              f"({', '.join(repr(v[0]) for v in batch2.values())})")
+    (out,), insert_ms = timed(lambda: fe.do_query(insert))
+    check(out.affected_rows == 1, f"INSERT affected {out.affected_rows}")
+    deleted, delete_ms = timed(lambda: table.delete(key(*extra)))
+    check(deleted == 1, f"MitoTable.delete deleted {deleted} rows")
+    mem = region.version_control.current.memtables.mutable.num_rows
+    check(mem == 2, f"the memtable holds {mem} rows after batch 2")
+    log(f"write path: batch 1 ({written} rows: 3 overwrites, 1 new key) "
+        f"through handle_row_insert in {write_ms:.1f} ms, ADMIN FLUSH "
+        f"TABLE {flush_ms:.1f} ms, ADMIN COMPACT TABLE {compact_ms:.1f} ms; "
+        f"batch 2: INSERT INTO cpu (1 overwrite) {insert_ms:.1f} ms, "
+        f"MitoTable.delete of batch 1's new key {delete_ms:.1f} ms, both "
+        f"left in the memtable; {sst_summary(table)}")
+    return mem
 
 
 class MomentsTimer:
@@ -1276,10 +1290,34 @@ def sum_bound(S, A, c):
     return U32 * A + U32 * np.abs(S) + 2 * c * U64 * A
 
 
-def sql_expected(name, ts, fields, host_sids, eight):
+def tie_hosts(table):
+    """The hosts whose rows win the ts ties of first_value and last_value
+    over all hosts: (first, last of the global fold, last of a grouped
+    fold). Within a region rows tie in merged-scan order, which is
+    series-id order. Across regions the fold of grouped partials sorts
+    them by ts stably and keeps the first region's first and the last
+    region's last, while the fold of one global row keeps the first
+    region's partial for both (so does the reference's). Every host of a
+    TSBS table has a sample at every ts, so these are the first region's
+    lowest series id and the highest of the first and of the last
+    region."""
+    def ends(region):
+        sd = region.series_dict
+        names = sd.decode_tag_column(
+            np.arange(sd.num_series, dtype=np.int32),
+            TSBS_TAGS.index("hostname"))
+        return int(str(names[0])[5:]), int(str(names[-1])[5:])
+
+    regions = list(table.regions.values())
+    (first, last_global), (_, last_grouped) = ends(regions[0]), \
+        ends(regions[-1])
+    return first, last_global, last_grouped
+
+
+def sql_expected(name, ts, fields, ties, eight):
     """The float64 brute force of one query: (frame of keys, exact
     columns and float columns with their bounds). Hosts sort as strings,
-    as ORDER BY hostname does."""
+    as ORDER BY hostname does; `ties` is tie_hosts of the table."""
     import pandas as pd
     H, n = fields["usage_user"].shape
     names = np.asarray([f"host_{i}" for i in range(H)])
@@ -1321,25 +1359,37 @@ def sql_expected(name, ts, fields, host_sids, eight):
                       {f"max({f})": (f, "max") for f in CPU_FIELDS[:5]})
         df = df.rename(columns={"t": "minute"})
         keys = ["minute", "hostname"]
-    elif name.startswith("Q5"):
+    elif name.startswith(("Q5", "Q7")):
         X = fields["usage_user"]
+        if name.startswith("Q5"):
+            key = {"hostname": names}
+            first, last = X[:, 0], X[:, -1]
+        else:
+            # one group per hour over every host: its first and last ts
+            # tie across hosts
+            key = {"hour": TSBS_START_MS + np.arange(SQL_HOURS) * 3600_000}
+            first, last = X[ties[0], ::per_h], X[ties[2], per_h - 1::per_h]
+            X = X.reshape(H, SQL_HOURS, per_h).transpose(1, 0, 2).reshape(
+                SQL_HOURS, H * per_h)
         S = X.sum(axis=1)
         sq = (X * X).sum(axis=1)
-        c = n
+        c = X.shape[1]
         var = X.var(axis=1, ddof=1)
         std = np.sqrt(var)
         # the fold: var = (sq - s^2/c) / (c - 1) in float64 from the
-        # float32 run sums s and sq
+        # float32 run sums s and sq (on several regions, the float64 sum
+        # of each region's float32 partial: the bounds hold, the values
+        # being non-negative)
         es = sum_bound(S, S, c)
         esq = sum_bound(sq, sq, c) + U32 * sq      # the square's rounding
         var_err = (esq + (2 * es * np.abs(S) + es * es) / c) / (c - 1) + \
             8 * U64 * sq / (c - 1)
         df = pd.DataFrame({
-            "hostname": names, "count(*)": np.full(H, c),
+            **key, "count(*)": np.full(len(S), c),
             "sum(usage_user)": S, "min(usage_user)": X.min(axis=1),
             "max(usage_user)": X.max(axis=1), "stddev(usage_user)": std,
-            "first_value(usage_user)": X[:, 0],
-            "last_value(usage_user)": X[:, -1]})
+            "first_value(usage_user)": first,
+            "last_value(usage_user)": last})
         for col in ("count(*)", "min(usage_user)", "max(usage_user)",
                     "first_value(usage_user)", "last_value(usage_user)"):
             exact[col] = True
@@ -1347,11 +1397,10 @@ def sql_expected(name, ts, fields, host_sids, eight):
         df["__bound:stddev(usage_user)"] = np.minimum(
             np.sqrt(var_err), var_err / np.maximum(std, 1e-300)) + \
             4 * U64 * std
-        keys = ["hostname"]
+        keys = list(key)
     else:
-        # one run of every row: ts ties across hosts break by position in
-        # the merged scan, which is series-id order
-        first_h, last_h = int(np.argmin(host_sids)), int(np.argmax(host_sids))
+        # one run of every row: its first and last ts tie across hosts
+        first_h, last_h = ties[:2]
         S = fields["usage_system"].sum()
         N = H * n
         df = pd.DataFrame({
@@ -1425,25 +1474,146 @@ def sql_frame(out):
     return pd.concat(frames, ignore_index=True)
 
 
+class SqlFrontend:
+    """The port's standalone frontend (build_standalone) over one data
+    home, with the hooks phase 6 reads: each segment-moments launch fenced
+    behind a spin kernel (MomentsTimer), the engine's fold and projection
+    stages, and the wall of QueryEngine.execute inside each do_query (the
+    frontend's own cost is the difference)."""
+
+    def __init__(self, torch, data_home):
+        from greptimedb_tpu_torch.query import ir, tpu_exec
+        self.torch, self.data_home = torch, data_home
+        self.timer = MomentsTimer(torch, tpu_exec.sorted_grouped_aggregate)
+        self.stage_s = {}
+        self._finalize = ir._finalize
+        ir._finalize = self._timed("finalize", ir._finalize)
+        self.fe = None
+        self.open()
+
+    def _timed(self, key, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            self.stage_s[key] = self.stage_s.get(key, 0.0) + \
+                time.perf_counter() - t0
+            return out
+        return run
+
+    def open(self):
+        """build_standalone on the data home; returns its seconds."""
+        from greptimedb_tpu_torch.datanode import DatanodeOptions
+        from greptimedb_tpu_torch.frontend import build_standalone
+        t0 = time.perf_counter()
+        self.fe = build_standalone(DatanodeOptions(data_home=self.data_home,
+                                                   device=DEVICE))
+        seconds = time.perf_counter() - t0
+        qe = self.fe.query_engine
+        qe._finish_aggregate_frame = self._timed(
+            "finish", qe._finish_aggregate_frame)
+        qe.execute = self._timed("execute", qe.execute)
+        return seconds
+
+    def restart(self):
+        """shutdown(), then build_standalone on the same data home."""
+        self.fe.shutdown()
+        self.fe = None
+        return self.open()
+
+    def close(self):
+        from greptimedb_tpu_torch.query import ir, tpu_exec
+        tpu_exec.sorted_grouped_aggregate = self.timer.inner
+        ir._finalize = self._finalize
+        if self.fe is not None:
+            self.fe.shutdown()
+
+    def table(self, name):
+        return self.fe.catalog.table("greptime", "public", name)
+
+    def do(self, sql):
+        (out,) = self.fe.do_query(sql)
+        return out
+
+    def execute(self, name, sql, run, table):
+        """One statement through do_query on `table`; its wall, the
+        frontend's share, stages and profile logged, one fenced launch per
+        region checked. Returns the Output."""
+        from greptimedb_tpu_torch.query import tpu_exec
+        torch = self.torch
+        if run.startswith("cold"):
+            tpu_exec.SCAN_CACHE.clear()
+        fenced = "unfenced" not in run
+        tpu_exec.sorted_grouped_aggregate = \
+            self.timer if fenced else self.timer.inner
+        regions = list(self.table(table).regions.values())
+        for r in regions:
+            r.last_scan_profile = None
+        self.stage_s.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = self.do(sql)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        kernel = ""
+        if fenced:
+            dev_ms = self.timer.take()
+            check(len(dev_ms) == len(regions), f"{name}: {len(dev_ms)} "
+                  f"launches over {len(regions)} regions")
+            kernel = " kernel (device) " + " / ".join(
+                f"{x:.4f}" for x in dev_ms) + " ms;"
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        st, cache = {}, set()
+        for r in regions:
+            p = r.last_scan_profile
+            check(p is not None and p.path == "resident",
+                  f"{name}: region {r.name} not on the device path")
+            for k, v in p.stages.items():
+                st[k] = st.get(k, 0.0) + v
+            cache |= {k[6:] for k in p.counters if k.startswith("cache_")}
+        frontend_ms = (wall - self.stage_s.pop("execute")) * 1e3
+        st.update(self.stage_s)
+        log(f"{name} [{run}, cache {','.join(sorted(cache))}]: wall "
+            f"{wall * 1e3:.1f} ms (do_query beyond QueryEngine.execute "
+            f"{frontend_ms:.2f} ms); "
+            + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in st.items()) +
+            f" ms;{kernel} {out.num_rows} rows; peak device memory "
+            f"{peak:.2f} GiB")
+        return out
+
+    @contextlib.contextmanager
+    def floor_pinned(self):
+        """SET tpu_dispatch_min_rows = 0 through the frontend for one
+        statement on a table below the adaptive dispatch floor, which each
+        device query raises again (as the differential tests pin it), so
+        that it runs on the card; the floor restored after."""
+        from greptimedb_tpu_torch.query import tpu_exec
+        saved = tpu_exec.TPU_DISPATCH_MIN_ROWS, tpu_exec._observed_min_dt[0]
+        self.do("SET tpu_dispatch_min_rows = 0")
+        try:
+            yield
+        finally:
+            tpu_exec.TPU_DISPATCH_MIN_ROWS, tpu_exec._observed_min_dt[0] = \
+                saved
+
+
 def phase_sql(torch, seed):
-    """SQL through QueryEngine.execute on the GPU over regions of the
-    port's own StorageEngine, in a temporary data home removed at the
-    end: the load, the write path, each query cold (scan cache empty),
-    then warm, both with the launch fenced, then warm unfenced, with the
-    wall and stages; results against a float64 brute force; then the
-    engine closed with batch 2 unflushed and reopened (manifest + WAL
-    replay), Q5 again; then the narrow-integer table. Returns the
-    segment-moments launches of the run, and the kernel's inputs at Q1,
-    Q4 and Q6."""
+    """SQL on the GPU through the port's standalone frontend
+    (build_standalone → FrontendInstance.do_query) over a temporary data
+    home removed at the end: CREATE TABLE, the load by handle_bulk_load,
+    the write path (handle_row_insert, ADMIN FLUSH / COMPACT TABLE,
+    INSERT, a DELETE), each query cold (scan cache empty), then warm, both
+    with the launch fenced, then warm unfenced, with the wall, the
+    frontend's share and the stages; results against a float64 brute
+    force; then shutdown() with batch 2 unflushed and build_standalone on
+    the same data home (catalog replay, table open, WAL replay), Q5
+    again; then the partitioned table and the narrow-integer table.
+    Returns the segment-moments launches of the run, and the kernel's
+    inputs at Q1, Q4 and Q6."""
     import shutil
     import tempfile
 
-    from greptimedb_tpu_torch.catalog import MemoryCatalogManager
     from greptimedb_tpu_torch.ops import kernels as K
-    from greptimedb_tpu_torch.query import QueryEngine, ir, tpu_exec
-    from greptimedb_tpu_torch.session import QueryContext
-    from greptimedb_tpu_torch.sql import parse_sql
-    from greptimedb_tpu_torch.storage import EngineConfig, StorageEngine
 
     t_gen = time.perf_counter()
     ts, tags, fields = tsbs_cpu_table(seed + 2)
@@ -1452,131 +1622,171 @@ def phase_sql(torch, seed):
         f"10 tags, 10 fields, {SQL_HOURS} h, made in "
         f"{time.perf_counter() - t_gen:.1f}s (seed {seed + 2})")
     data_home = tempfile.mkdtemp(prefix="chip_smoke_sql_")
-    storage = StorageEngine(EngineConfig(data_home=data_home))
+    sql = None
     try:
-        region, host_sids = sql_load(storage, ts, tags, fields)
-        cat = MemoryCatalogManager()
-        table = sql_register(cat, "cpu", region)
-        eng = QueryEngine(cat, device=DEVICE)
+        sql = SqlFrontend(torch, data_home)
+        log(f"build_standalone(DatanodeOptions(data_home={data_home!r}, "
+            f"device={DEVICE!r})); WAL backend of new regions: "
+            f"{sql.fe.datanode.storage.config.wal_backend}")
+        sql.do(sql_ddl("cpu", {f: "DOUBLE" for f in CPU_FIELDS}))
+        table = sql_bulk_load(sql.fe, "cpu", ts, tags, fields)
+        (region,) = table.regions.values()
+        sd = region.series_dict
+        names = sd.decode_tag_column(np.arange(sd.num_series,
+                                               dtype=np.int32), 0)
+        sid_of = {str(h): s for s, h in enumerate(names)}
+        host_sids = np.array([sid_of[f"host_{h}"] for h in range(H)],
+                             dtype=np.int32)
         eight, queries = sql_queries(np.random.default_rng(seed + 3), H)
-        unflushed = sql_edits(region, ts, tags, fields, host_sids, eight,
-                              seed + 4)
+        ties = tie_hosts(table)
+        unflushed = sql_edits(sql.fe, table, ts, tags, fields, host_sids,
+                              eight, seed + 4)
         del tags
 
-        timer = MomentsTimer(torch, tpu_exec.sorted_grouped_aggregate)
-        stage_s = {}
-
-        def timed(key, fn):
-            def run(*a, **kw):
-                t0 = time.perf_counter()
-                out = fn(*a, **kw)
-                stage_s[key] = stage_s.get(key, 0.0) + \
-                    time.perf_counter() - t0
-                return out
-            return run
-
-        def execute(name, sql, run, reg):
-            """One statement; its wall, stages and profile logged."""
-            if run.startswith("cold"):
-                tpu_exec.SCAN_CACHE.clear()
-            fenced = "unfenced" not in run
-            tpu_exec.sorted_grouped_aggregate = \
-                timer if fenced else timer.inner
-            stage_s.clear()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            out = eng.execute(parse_sql(sql), QueryContext())
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            kernel = ""
-            if fenced:
-                dev_ms = timer.take()
-                check(len(dev_ms) == 1, f"{name}: {len(dev_ms)} launches")
-                kernel = f" kernel (device) {dev_ms[0]:.4f} ms;"
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            p = reg.last_scan_profile
-            check(p is not None and p.path == "resident",
-                  f"{name}: not on the device path")
-            st = dict(p.stages)
-            st.update(stage_s)
-            cache = ",".join(k[6:] for k in p.counters
-                             if k.startswith("cache_"))
-            log(f"{name} [{run}, cache {cache}]: wall {wall * 1e3:.1f} ms; "
-                + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in st.items()) +
-                f" ms;{kernel} {out.num_rows} rows; peak device memory "
-                f"{peak:.2f} GiB")
-            return out
-
-        finalize, finish = ir._finalize, eng._finish_aggregate_frame
-        ir._finalize = timed("finalize", finalize)
-        eng._finish_aggregate_frame = timed("finish", finish)
         inputs, frames = {}, {}
         K.segment_moments.launches = 0
-        try:
-            for name, sql in queries.items():
-                # cold and warm with the launch fenced (its device time),
-                # then warm unfenced: the wall and stages without the spin,
-                # which the fetch would otherwise wait out
-                for run in ("cold", "warm", "warm unfenced"):
-                    out = execute(name, sql, run, region)
-                    if run == "warm":
-                        got = frames[name] = sql_frame(out)
-                        want, exact, approx = sql_expected(
-                            name, ts, fields, host_sids, eight)
-                        worst = compare_sql(name, got, want, exact, approx)
-                        log(f"  check {name}: {len(got)} rows vs the "
-                            f"float64 brute force (write-path edits "
-                            f"applied); keys, counts, min/max/first/last "
-                            f"exact; max |err|/bound {worst:.3g}")
-                        if name.startswith("Q5"):
-                            planted(name, got, want, approx, fields)
-                inputs[name.split()[0]] = timer.calls[-1]
-            del fields
+        for name, q in queries.items():
+            # cold and warm with the launch fenced (its device time), then
+            # warm unfenced: the wall and stages without the spin, which
+            # the fetch would otherwise wait out
+            for run in ("cold", "warm", "warm unfenced"):
+                out = sql.execute(name, q, run, "cpu")
+                if run == "warm":
+                    got = frames[name] = sql_frame(out)
+                    want, exact, approx = sql_expected(
+                        name, ts, fields, ties, eight)
+                    worst = compare_sql(name, got, want, exact, approx)
+                    log(f"  check {name}: {len(got)} rows vs the float64 "
+                        f"brute force (write-path edits applied); keys, "
+                        f"counts, min/max/first/last exact; max "
+                        f"|err|/bound {worst:.3g}")
+                    if name.startswith("Q5"):
+                        planted(name, got, want, approx, fields)
+            inputs[name.split()[0]] = sql.timer.calls[-1]
+        del fields
 
-            # recovery: batch 2 is only in the WAL and the memtable
-            storage.close()
-            t0 = time.perf_counter()
-            storage = StorageEngine(EngineConfig(data_home=data_home))
-            region = storage.open_region("cpu_0")
-            open_s = time.perf_counter() - t0
-            replayed = region.version_control.current.memtables.mutable \
-                .num_rows
-            check(replayed == unflushed, f"the reopened memtable holds "
-                  f"{replayed} rows, batch 2 had {unflushed}")
-            table.regions = {0: region}
-            log(f"reopen: StorageEngine + open_region (manifest, series "
-                f"dictionary, WAL replay of {replayed} rows) in "
-                f"{open_s * 1e3:.1f} ms; {sst_summary(region)}")
-            q5 = next(q for q in queries if q.startswith("Q5"))
-            got = sql_frame(execute(q5, queries[q5], "cold, reopened",
-                                    region))
-            check(got.equals(frames[q5]), "Q5 after the reopen differs from "
-                  "Q5 before it")
-            log(f"  check {q5} after the reopen: {len(got)} rows, every "
-                f"value bit-equal to the frame before the close")
-            sql_narrow(torch, storage, cat, eng, execute, seed + 5)
-        finally:
-            tpu_exec.sorted_grouped_aggregate = timer.inner
-            ir._finalize = finalize
+        # recovery: batch 2 is only in the WAL and the memtable
+        open_s = sql.restart()
+        (region,) = sql.table("cpu").regions.values()
+        replayed = region.version_control.current.memtables.mutable.num_rows
+        check(replayed == unflushed, f"the reopened memtable holds "
+              f"{replayed} rows, batch 2 had {unflushed}")
+        log(f"restart: shutdown(), then build_standalone on the same data "
+            f"home (catalog replay, table open: manifest, series "
+            f"dictionary, WAL replay of {replayed} rows) in "
+            f"{open_s * 1e3:.1f} ms; {sst_summary(sql.table('cpu'))}")
+        q5 = next(q for q in queries if q.startswith("Q5"))
+        got = sql_frame(sql.execute(q5, queries[q5], "cold, restarted",
+                                    "cpu"))
+        check(got.equals(frames[q5]), "Q5 after the restart differs from "
+              "Q5 before it")
+        log(f"  check {q5} after the restart: {len(got)} rows, every value "
+            f"bit-equal to the frame before the shutdown")
+        sql_partitioned(sql, seed + 6)
+        sql_narrow(sql, seed + 5)
     finally:
-        storage.close()
+        if sql is not None:
+            sql.close()
         shutil.rmtree(data_home, ignore_errors=True)
     launches = K.segment_moments.launches
-    check(launches == 3 * len(queries) + 1 + len(NARROW_QUERIES),
-          f"the SQL path launched segment_moments {launches} times")
+    want = 3 * len(queries) + 1 + \
+        len(PART_QUERIES) * len(PART_RUNS) * PART_REGIONS + \
+        len(NARROW_QUERIES)
+    check(launches == want,
+          f"the SQL path launched segment_moments {launches} times, not "
+          f"{want}")
     log(f"segment_moments launches during the SQL phase: {launches} "
-        f"({len(queries)} queries x 3, Q5 after the reopen, "
-        f"{len(NARROW_QUERIES)} narrow-integer queries)")
+        f"({len(queries)} queries x 3, Q5 after the restart, "
+        f"{len(PART_QUERIES)} queries x {len(PART_RUNS)} runs x "
+        f"{PART_REGIONS} regions on cpu_p, {len(NARROW_QUERIES)} "
+        f"narrow-integer queries)")
     return launches, inputs
+
+
+#: the partitioned table: TSBS cpu-only at 400 hosts (its only difference
+#: from the main table that matters here is its region count)
+PART_HOSTS = 400
+PART_REGIONS = 4
+PART_QUERIES = ("Q1 double-groupby-all", "Q5 per-host moments",
+                "Q6 global aggregate", "Q7 hourly moments")
+#: Q5's moments per hour over every host: each group folds the partials
+#: of all the regions
+HOURLY_MOMENTS = (
+    "SELECT date_bin(INTERVAL '1 hour', ts) AS hour, count(*), "
+    "sum(usage_user), min(usage_user), max(usage_user), stddev(usage_user), "
+    "first_value(usage_user), last_value(usage_user) FROM cpu GROUP BY hour "
+    "ORDER BY hour")
+PART_RUNS = ("cold", "warm", "warm unfenced")
+
+
+def sql_partitioned(sql, seed):
+    """Table cpu_p: TSBS cpu-only at PART_HOSTS hosts x 12 h,
+    PARTITION BY RANGE COLUMNS (hostname) into PART_REGIONS regions of
+    about equal host counts, loaded by handle_bulk_load; one key past the
+    load put by INSERT and removed by DELETE ... WHERE, both SQL (the
+    DELETE's key scan timed); PART_QUERIES cold and warm with the
+    launches fenced, then warm unfenced, one segment-moments launch per
+    region, the partial moments merged across regions on the host, every
+    group against the float64 brute force. Q1 and Q5 group by host, so
+    each group lies in one region; Q6 and Q7 fold every group from the
+    partials of all the regions, first_value and last_value breaking ts
+    ties across them."""
+    ts, tags, fields = tsbs_cpu_table(seed, hosts=PART_HOSTS)
+    H, n = fields["usage_user"].shape
+    names = sorted(f"host_{h}" for h in range(H))
+    bounds = [f"'{names[k * H // PART_REGIONS]}'"
+              for k in range(1, PART_REGIONS)] + ["MAXVALUE"]
+    partition = " PARTITION BY RANGE COLUMNS (hostname) (" + ", ".join(
+        f"PARTITION r{i} VALUES LESS THAN ({b})"
+        for i, b in enumerate(bounds)) + ")"
+    log(f"partitioned table cpu_p: {H} hosts x {n} samples = {H * n} rows "
+        f"(seed {seed}), {partition.strip()}")
+    sql.do(sql_ddl("cpu_p", {f: "DOUBLE" for f in CPU_FIELDS}, partition))
+    table = sql_bulk_load(sql.fe, "cpu_p", ts, tags, fields)
+    check(len(table.regions) == PART_REGIONS,
+          f"cpu_p has {len(table.regions)} regions")
+    for rn, r in table.regions.items():
+        log(f"  region {rn}: {r.series_dict.num_series} hosts, "
+            f"{sum(f.num_rows for f in r.version_control.current.ssts.all_files())}"
+            f" rows")
+    k = {t: tags[1][i] for i, t in enumerate(TSBS_TAGS)}
+    k["ts"] = int(ts[-1]) + INTERVAL_MS
+    out = sql.do(f"INSERT INTO cpu_p ({', '.join(k)}, usage_user) VALUES "
+                 f"({', '.join(repr(v) for v in k.values())}, 50.0)")
+    check(out.affected_rows == 1, f"INSERT affected {out.affected_rows}")
+    t0 = time.perf_counter()
+    out = sql.do(f"DELETE FROM cpu_p WHERE hostname = '{k['hostname']}' "
+                 f"AND ts = {k['ts']}")
+    delete_s = time.perf_counter() - t0
+    check(out.affected_rows == 1, f"DELETE affected {out.affected_rows}")
+    log(f"cpu_p: INSERT of one key past the load, then DELETE ... WHERE "
+        f"through SQL in {delete_s:.2f}s (delete_matching_rows scans the "
+        f"key columns of all {H * n + 1} rows into Python lists); "
+        f"{out.affected_rows} row deleted")
+    eight, queries = sql_queries(np.random.default_rng(seed + 1), H)
+    queries["Q7 hourly moments"] = HOURLY_MOMENTS
+    ties = tie_hosts(table)
+    for name in PART_QUERIES:
+        q = re.sub(r"\bFROM cpu\b", "FROM cpu_p", queries[name])
+        for run in PART_RUNS:
+            with sql.floor_pinned():
+                out = sql.execute(f"{name} on cpu_p", q, run, "cpu_p")
+        got = sql_frame(out)
+        want, exact, approx = sql_expected(name, ts, fields, ties, eight)
+        worst = compare_sql(f"{name} on cpu_p", got, want, exact, approx)
+        log(f"  check {name} on cpu_p: {len(got)} rows merged from "
+            f"{PART_REGIONS} regions' moments (one launch each) vs the "
+            f"float64 brute force; keys, counts, min/max/first/last exact; "
+            f"max |err|/bound {worst:.3g}")
 
 
 #: the narrow-integer table's fields: SQL type and the range each draws
 #: from (SMALLINT near its top and INT UNSIGNED above 2^31 reach the wrap
 #: of a sum and the float32 rounding of a value)
-NARROW_FIELDS = {"i8": ("INT8", -128, 128), "i16": ("INT16", 20000, 30000),
-                 "u32": ("UINT32", 2**31, 2**32),
-                 "u16": ("UINT16", 0, 2**16)}
+NARROW_FIELDS = {"i8": ("TINYINT", -128, 128),
+                 "i16": ("SMALLINT", 20000, 30000),
+                 "u32": ("INT UNSIGNED", 2**31, 2**32),
+                 "u16": ("SMALLINT UNSIGNED", 0, 2**16)}
 NARROW_OPS = ("count", "sum", "min", "max", "first_value", "last_value")
 NARROW_QUERIES = {
     "by host": ("hostname, ", "GROUP BY hostname ORDER BY hostname"),
@@ -1584,72 +1794,60 @@ NARROW_QUERIES = {
 }
 
 
-def sql_narrow(torch, storage, cat, eng, execute, seed, hosts=64,
-               samples=4096):
+def sql_narrow(sql, seed, hosts=64, samples=4096):
     """Table `nt` (TINYINT, SMALLINT, INT UNSIGNED, SMALLINT UNSIGNED
-    fields) in the same StorageEngine, count/sum/min/max/first_value/
-    last_value of each, by host and over the whole table, held exactly
-    against numpy with the reference's semantics: a sum wraps to the
-    column's type within each run (a host here; every row in the global
-    statement); first/last take the earliest/latest ts, ties by series
-    id."""
-    from greptimedb_tpu_torch.datatypes import data_type as dt
-    from greptimedb_tpu_torch.query import tpu_exec
+    fields) by CREATE TABLE and handle_bulk_load, count/sum/min/max/
+    first_value/last_value of each, by host and over the whole table,
+    held exactly against numpy with the reference's semantics: a sum wraps
+    to the column's type within each run (a host here; every row in the
+    global statement); first/last take the earliest/latest ts, ties by
+    series id."""
+    from greptimedb_tpu_torch.datatypes.data_type import parse_type_name
     rng = np.random.default_rng(seed)
     ts = TSBS_START_MS + np.arange(samples, dtype=np.int64) * INTERVAL_MS
     tags = [(f"host_{h}",) + ("x",) * (len(TSBS_TAGS) - 1)
             for h in range(hosts)]
     vals = {f: rng.integers(lo, hi, (hosts, samples)).astype(
-        getattr(dt, t).np_dtype) for f, (t, lo, hi) in NARROW_FIELDS.items()}
-    region = storage.create_region("nt_0", sql_schema(
-        {f: getattr(dt, t) for f, (t, _, _) in NARROW_FIELDS.items()}))
-    ingest_s = sql_ingest(region, ts, tags, vals)
-    storage.scheduler.wait_idle(timeout=600)
-    sql_register(cat, "nt", region)
-    log(f"narrow-integer table nt: {hosts} hosts x {samples} samples, "
-        f"ingested in {ingest_s:.2f}s; {sst_summary(region)}")
+        parse_type_name(t).np_dtype) for f, (t, lo, hi) in NARROW_FIELDS.items()}
+    sql.do(sql_ddl("nt", {f: t for f, (t, _, _) in NARROW_FIELDS.items()}))
+    table = sql_bulk_load(sql.fe, "nt", ts, tags, vals)
+    (region,) = table.regions.values()
     sd = region.series_dict
     names = sd.decode_tag_column(np.arange(sd.num_series, dtype=np.int32), 0)
     order = np.argsort(np.array([f"host_{h}" for h in range(hosts)]))
     by_sid = np.array([int(str(h).split("_")[1]) for h in names])
-    saved = tpu_exec.TPU_DISPATCH_MIN_ROWS, tpu_exec._observed_min_dt[0]
-    try:
-        for q, (sel, group) in NARROW_QUERIES.items():
-            aggs = ", ".join(f"{op}({f})" for op in NARROW_OPS
-                             for f in NARROW_FIELDS)
-            sql = f"SELECT {sel}{aggs} FROM nt {group}"
-            # the table is below the dispatch floor: pin it, as the
-            # differential tests do, so the statement runs on the card
-            tpu_exec.TPU_DISPATCH_MIN_ROWS = 0
-            tpu_exec._observed_min_dt[0] = None
-            got = sql_frame(execute(f"narrow {q}", sql, "cold", region))
-            wrapped = 0
-            for f, x in vals.items():
-                rows = x[order] if q == "by host" else x.reshape(1, -1)
-                w = rows.astype(np.int64).sum(axis=1)
-                want = {
-                    "count": np.full(len(rows), rows.shape[1]),
-                    "sum": w.astype(x.dtype),      # wraps to the type
-                    "min": rows.min(axis=1), "max": rows.max(axis=1),
-                    "first_value": x[order, 0] if q == "by host"
-                    else [x[by_sid[0], 0]],
-                    "last_value": x[order, -1] if q == "by host"
-                    else [x[by_sid[-1], -1]]}
-                for op in NARROW_OPS:
-                    g = got[f"{op}({f})"].to_numpy().astype(np.float64)
-                    e = np.asarray(want[op]).astype(np.float64)
-                    check(g.shape == e.shape and bool((g == e).all()),
-                          f"narrow {q}: {op}({f}) differs at "
-                          f"{int((g != e).sum())} groups (e.g. "
-                          f"{g[g != e][:2]} vs {e[g != e][:2]})")
-                wrapped = max(wrapped, int((w != want["sum"]).sum()))
-            check(wrapped > 0, f"narrow {q}: no sum wrapped")
-            log(f"  check narrow {q}: {len(got)} rows x "
-                f"{len(NARROW_OPS) * len(NARROW_FIELDS)} aggregates exact "
-                f"against numpy (sums wrapped to their type in up to "
-                f"{wrapped} groups of a column)")
-    finally:
-        tpu_exec.TPU_DISPATCH_MIN_ROWS, tpu_exec._observed_min_dt[0] = saved
+    for q, (sel, group) in NARROW_QUERIES.items():
+        aggs = ", ".join(f"{op}({f})" for op in NARROW_OPS
+                         for f in NARROW_FIELDS)
+        with sql.floor_pinned():
+            got = sql_frame(sql.execute(
+                f"narrow {q}", f"SELECT {sel}{aggs} FROM nt {group}", "cold",
+                "nt"))
+        wrapped = 0
+        for f, x in vals.items():
+            rows = x[order] if q == "by host" else x.reshape(1, -1)
+            w = rows.astype(np.int64).sum(axis=1)
+            want = {
+                "count": np.full(len(rows), rows.shape[1]),
+                "sum": w.astype(x.dtype),      # wraps to the type
+                "min": rows.min(axis=1), "max": rows.max(axis=1),
+                "first_value": x[order, 0] if q == "by host"
+                else [x[by_sid[0], 0]],
+                "last_value": x[order, -1] if q == "by host"
+                else [x[by_sid[-1], -1]]}
+            for op in NARROW_OPS:
+                g = got[f"{op}({f})"].to_numpy().astype(np.float64)
+                e = np.asarray(want[op]).astype(np.float64)
+                check(g.shape == e.shape and bool((g == e).all()),
+                      f"narrow {q}: {op}({f}) differs at "
+                      f"{int((g != e).sum())} groups (e.g. "
+                      f"{g[g != e][:2]} vs {e[g != e][:2]})")
+            wrapped = max(wrapped, int((w != want["sum"]).sum()))
+        check(wrapped > 0, f"narrow {q}: no sum wrapped")
+        log(f"  check narrow {q}: {len(got)} rows x "
+            f"{len(NARROW_OPS) * len(NARROW_FIELDS)} aggregates exact "
+            f"against numpy (sums wrapped to their type in up to "
+            f"{wrapped} groups of a column)")
 
 
 def phase_moments_time(torch, inputs):

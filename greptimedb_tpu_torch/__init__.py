@@ -9,13 +9,15 @@ Ported so far: the PromQL engine (promql/) above its data-access seam
 (`PromqlEngine.select`) and the window evaluation under it (ops/window.py,
 ops/pallas_window.py); the SQL engine's SELECT path (sql/, query/), with
 the sorted-segment moments of the aggregate fast path in ops/kernels.py
-and csrc/segment_moments.cu; and the single-region storage engine under
-it (storage/: WAL, memtables, Parquet SSTs, manifest, compaction, with
-the host substrate in utils/ and common/). The package never imports jax
-or greptimedb_tpu; the PromQL path imports torch and numpy only, the SQL
-path and the storage engine also pandas and pyarrow (as the reference's
-do). Entry points run on the GPU unless the caller passes
-`device="cpu"`.
+and csrc/segment_moments.cu; the single-region storage engine under it
+(storage/: WAL, memtables, Parquet SSTs, manifest, compaction, with the
+host substrate in utils/ and common/); and the standalone frontend over
+it (frontend/, datanode/, the mito table engine in mito/, DDL procedures
+in procedure/, partition rules in partition/, the durable catalog in
+catalog/). The package never imports jax or greptimedb_tpu; the PromQL
+path imports torch and numpy only, the SQL path and the storage engine
+also pandas and pyarrow (as the reference's do). Entry points run on the
+GPU unless the caller passes `device="cpu"`.
 """
 
 __version__ = "0.1.0"

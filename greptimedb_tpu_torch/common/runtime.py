@@ -4,14 +4,9 @@ Reference behavior: src/common/runtime — named tokio runtimes with
 `spawn_bg/spawn_read/spawn_write` globals (global.rs) and `RepeatedTask`
 (repeated_task.rs). Python twin: shared ThreadPoolExecutors sized for
 their roles; background storage jobs, scan fan-out, protocol write
-handling, and the distributed scatter-gather each land on their own pool
-so a flood of one cannot starve the others.
-
-The ``dist`` pool is the long-lived executor behind the frontend's
-datanode fan-out (frontend/distributed.py): RPCs to N datanodes overlap
-instead of summing, and the per-query in-flight window is bounded by the
-``dist_fanout`` knob (``SET dist_fanout`` / ``GREPTIME_DIST_FANOUT``)
-so one wide query cannot monopolize every connection.
+handling each land on their own pool so a flood of one cannot starve
+the others. The distributed scatter-gather's pool and its ``dist_fanout``
+knob come with the distributed frontend, which is not ported yet.
 """
 
 from __future__ import annotations
@@ -24,36 +19,19 @@ from typing import Callable, Iterable, Iterator, Optional
 from ..storage.scheduler import RepeatedTask  # canonical impl, re-export
 
 __all__ = ["RepeatedTask", "spawn_bg", "spawn_read", "spawn_write",
-           "bg_runtime", "read_runtime", "write_runtime", "dist_runtime",
-           "dist_fanout", "configure_dist_fanout", "env_int",
+           "bg_runtime", "read_runtime", "write_runtime", "env_int",
            "shutdown_runtimes", "new_thread", "transient_executor",
            "spawn_on"]
 
 _lock = threading.Lock()
 _pools = {}
 
-_SIZES = {"bg": 4, "read": 8, "write": 8, "dist": 16}
+_SIZES = {"bg": 4, "read": 8, "write": 8}
 
 
 from ..utils import env_flag, env_float, env_int  # noqa: F401 — canonical
 # impl in the utils leaf module (storage/ imports it too); re-exported
 # here because runtime is where knob readers historically find env_int
-
-
-#: per-query bound on concurrently in-flight datanode RPCs (the pool
-#: above bounds the process; this bounds one statement's share)
-_DIST_FANOUT = [max(1, env_int("GREPTIME_DIST_FANOUT", 8))]
-
-
-def dist_fanout() -> int:
-    return _DIST_FANOUT[0]
-
-
-def configure_dist_fanout(n: int) -> None:
-    """SET dist_fanout — 1 serializes the scatter (the pre-parallel
-    behavior, kept for differential benchmarks and debugging)."""
-    with _lock:
-        _DIST_FANOUT[0] = max(1, int(n))
 
 
 def _pool(name: str) -> concurrent.futures.ThreadPoolExecutor:
@@ -77,10 +55,6 @@ def read_runtime() -> concurrent.futures.ThreadPoolExecutor:
 
 def write_runtime() -> concurrent.futures.ThreadPoolExecutor:
     return _pool("write")
-
-
-def dist_runtime() -> concurrent.futures.ThreadPoolExecutor:
-    return _pool("dist")
 
 
 def spawn_bg(fn: Callable, *args: object,
@@ -149,7 +123,7 @@ def parallel_map(fn: Callable, items: "Iterable", *, max_workers: int = 8,
 
     The storage IO fan-outs (SST read/decode, per-bucket SST encode/write)
     share this: parquet + zstd drop the GIL, so concurrent workers overlap
-    IO and (de)compression. Pass ``pool`` (e.g. ``dist_runtime()``) to run
+    IO and (de)compression. Pass ``pool`` (e.g. ``read_runtime()``) to run
     on a shared long-lived executor instead of a transient one —
     ``max_workers`` then bounds this call's in-flight window, not the
     pool."""

@@ -12,6 +12,11 @@
 - An engine left on its default device ("cuda") raises on a machine
   without CUDA rather than running on the CPU; chip_smoke.py exits
   non-zero there and prints no result.
+- The standalone frontend (frontend/, datanode/, mito/, procedure/,
+  partition/ and the durable catalog) runs DDL, writes, a device-path
+  query, a partitioned table and a restart without adding jax or
+  greptimedb_tpu to sys.modules, and each of those packages is there
+  with relative imports only.
 - The storage engine (WAL, memtable, SSTs, manifest, compaction) runs
   without the reference; the port's host substrate (`common/`) imports
   no pandas or pyarrow; the port's metrics live in a registry of their
@@ -145,6 +150,54 @@ def test_sql_path_imports_no_reference():
     assert "greptimedb_tpu_torch.query.tpu_exec" in new
 
 
+_FRONTEND_PROBE = r"""
+import json, sys, tempfile
+before = set(sys.modules)
+from greptimedb_tpu_torch.datanode import DatanodeOptions
+from greptimedb_tpu_torch.frontend import build_standalone
+
+with tempfile.TemporaryDirectory() as home:
+    opts = DatanodeOptions(data_home=home, device="cpu")
+    fe = build_standalone(opts)
+    fe.do_query("CREATE TABLE t (host STRING, ts TIMESTAMP TIME INDEX, "
+                "v DOUBLE, PRIMARY KEY(host)) PARTITION BY RANGE COLUMNS "
+                "(host) (PARTITION r0 VALUES LESS THAN ('h1'), PARTITION r1 "
+                "VALUES LESS THAN (MAXVALUE))")
+    fe.do_query("INSERT INTO t VALUES ('h0', 1, 1.5), ('h2', 2, 2.5)")
+    fe.handle_row_insert("m", {"host": ["a"], "greptime_timestamp": [3],
+                               "greptime_value": [0.5]},
+                         tag_columns=["host"])
+    fe.do_query("ADMIN FLUSH TABLE t")
+    fe.do_query("SET tpu_dispatch_min_rows = 0")
+    out = fe.do_query("SELECT host, avg(v) FROM t GROUP BY host "
+                      "ORDER BY host")[0]
+    assert {r.last_scan_profile.path for r in
+            fe.catalog.table("greptime", "public", "t").regions.values()} \
+        == {"resident"}
+    assert out.num_rows == 2
+    fe.shutdown()
+    fe = build_standalone(opts)
+    assert fe.do_query("SELECT count(*) FROM m")[0].num_rows == 1
+    fe.shutdown()
+new = sorted(set(sys.modules) - before)
+print(json.dumps(new))
+"""
+
+
+def test_frontend_path_imports_no_reference():
+    out = subprocess.run([sys.executable, "-c", _FRONTEND_PROBE], cwd=REPO,
+                         env=_ENV, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    new = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in new if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+    for m in ("frontend.instance", "frontend.statement", "datanode.instance",
+              "mito.engine", "mito.procedure", "procedure.framework",
+              "partition.rule", "partition.splitter", "catalog.manager"):
+        assert f"greptimedb_tpu_torch.{m}" in new, m
+
+
 def _port_sources():
     for root, _, files in os.walk(PORT):
         for f in files:
@@ -174,12 +227,39 @@ def test_port_sources_import_nothing_forbidden():
     assert seen >= 10
 
 
-@pytest.mark.parametrize("engine", ["promql", "sql"])
-def test_default_device_raises_without_cuda(engine):
+@pytest.mark.parametrize("package", ["mito", "procedure", "partition",
+                                     "datanode", "frontend"])
+def test_frontend_packages_are_the_ports_own(package):
+    """Each package of the standalone frontend exists in the port, imports
+    nothing forbidden and keeps its imports relative (the walk over every
+    source above covers them; this pins that they are there to walk)."""
+    files = [p for p in _port_sources()
+             if os.path.relpath(p, PORT).startswith(package + os.sep)]
+    assert any(p.endswith("__init__.py") for p in files), package
+    for path in files:
+        for node in ast.walk(ast.parse(open(path).read(), path)):
+            if isinstance(node, ast.ImportFrom) and node.level == 0:
+                assert node.module.split(".")[0] not in \
+                    FORBIDDEN + ("greptimedb_tpu_torch",), path
+            elif isinstance(node, ast.Import):
+                assert all(a.name.split(".")[0] not in FORBIDDEN
+                           for a in node.names), path
+
+
+@pytest.mark.parametrize("engine", ["promql", "sql", "frontend"])
+def test_default_device_raises_without_cuda(engine, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("CUDA is available: the default device is usable")
     if engine == "sql":
         _sql_default_device_raises()
+        return
+    if engine == "frontend":
+        from greptimedb_tpu_torch.datanode import DatanodeOptions
+        from greptimedb_tpu_torch.frontend import build_standalone
+        assert DatanodeOptions().device == "cuda"
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build_standalone(DatanodeOptions(data_home=str(tmp_path)))
+        assert not os.listdir(tmp_path)      # nothing was opened
         return
     from greptimedb_tpu_torch.ops import window as win
     from greptimedb_tpu_torch.promql import engine as eng

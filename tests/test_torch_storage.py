@@ -10,7 +10,12 @@ sequences, op types, field values and validity, and the series
 dictionary. Then both engines close and reopen, and the WAL replay of the
 unflushed rows plus the manifest recovery must again give equal scans.
 Both WAL backends run (the Python one and the native group-commit one
-built with g++).
+built with g++). The reference builds its native library into one
+temporary path from every process, so test processes that start together
+can collide in that build; `_load_reference_native_wal` loads it under a
+lock shared by all processes and recovers from a build that lost such a
+race, while a library that really does not build or load still fails the
+native cases.
 
 The cross-read case holds the on-disk format: the port opens a region
 directory the reference wrote (Parquet SSTs, manifest, series
@@ -18,12 +23,17 @@ dictionary, WAL records, `.parquet.idx` sidecars) and must scan exactly
 what the reference scans. No tolerance anywhere: storage is exact.
 """
 
+import fcntl
+import os
 import shutil
+import tempfile
+import time
 
 import numpy as np
 import pytest
 
 from greptimedb_tpu import storage as ref_storage
+from greptimedb_tpu.storage import native_wal as ref_native_wal
 from greptimedb_tpu.datatypes import data_type as ref_dt
 from greptimedb_tpu.datatypes import schema as ref_schema
 from greptimedb_tpu_torch import storage as port_storage
@@ -56,6 +66,36 @@ def _schema(side):
         sch.ColumnSchema("u", dt.UINT32, semantic_type=fld)])
 
 
+def _load_reference_native_wal():
+    """Load the reference's native WAL library under an exclusive lock
+    that every test process shares.
+
+    The reference's first build in each process compiles into one shared
+    temporary file and renames it into place, so builds that overlap can
+    collide: a process whose rename finds the file gone latches
+    `_lib_failed` and falls back for its whole life, and one that loads
+    while another build still writes the library gets an OSError ("file
+    too short"). Under the lock the latch is cleared and the library
+    loaded, built again if it must be, a few times over. A library that
+    never builds or loads leaves the latch set, and the native case fails
+    in `make_wal`, as it must when the native WAL is really broken."""
+    lock = os.path.join(tempfile.gettempdir(),
+                        "greptimedb_tpu-libgdbwal.lock")
+    with open(lock, "a") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            for _ in range(5):
+                ref_native_wal._lib_failed = False
+                try:
+                    if ref_native_wal.load_library() is not None:
+                        return
+                except OSError:
+                    pass        # another process is still writing it
+                time.sleep(0.5)
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
 @pytest.fixture
 def engines():
     """open(side, data_home, backend) → a StorageEngine; every engine
@@ -63,6 +103,8 @@ def engines():
     opened = []
 
     def open_engine(side, data_home, backend="python"):
+        if side == "ref" and backend == "native":
+            _load_reference_native_wal()
         st = SIDES[side][0]
         eng = st.StorageEngine(st.EngineConfig(data_home=str(data_home),
                                                wal_backend=backend))
