@@ -49,24 +49,41 @@ Phases (none of them catches a failure; any failed check exits non-zero):
    the memtable; prints the ingest profile and the SSTs. Four TSBS queries and two that reach every op, each cold (scan
    cache empty: the SSTs decoded and merged with the memtable) and warm,
    with the wall, what do_query adds beyond QueryEngine.execute, the
-   engine's stages, the kernel's device time and peak device memory (the
-   launch fenced behind a spin kernel), then warm again unfenced; checks
-   every group against a float64 brute force with the same edits
-   (planted wrong answers must fail its bounds). Then shutdown() with
+   dispatch decision, the engine's stages, the kernel's device time and
+   peak device memory (the launch fenced behind a spin kernel), then warm
+   again unfenced; Q3 and Q4 (8 hosts) take the SST index cold
+   (indexed-point, no launch), and a whole-table query fills the cache
+   before their warm runs; checks every group against a float64 brute
+   force with the same edits (planted wrong answers must fail its
+   bounds). Then `SET stream_threshold_rows` streams the table: Q1 and Q5
+   with the streamed path's device reduction (one launch per slice),
+   equal to the resident frames. Then shutdown() with
    the last batch unflushed, build_standalone on the same data home
    (catalog replay, table open, WAL replay) timed, and Q5 again, which
-   must equal the frame before the shutdown bit for bit. Then a table
+   must equal the frame before the shutdown bit for bit; a small
+   handle_row_insert and Q5 again over the scan cache's incremental
+   merge, bit-equal to Q5 over a full rebuild. Then a table
    range-partitioned on hostname into 4 regions (400 hosts, 1.728 M rows),
    a SQL INSERT and DELETE on it, and Q1, Q5, Q6 and Q5's moments per
    hour with one launch per region, merged across regions (Q6 and the
    hourly moments fold every group from all four regions) and checked
-   against the brute force.
+   against the brute force; 8 threads then run the same cold Q5 on it at
+   once, fused into one pass per region (4 launches, equal frames).
    Then a table of TINYINT / SMALLINT / INT UNSIGNED / SMALLINT UNSIGNED
    fields: count, sum, min, max, first_value and last_value by host and
    over the whole table, exactly against numpy with sums wrapped to each
    type. Then times the kernel at the Q1, Q4 and Q6 inputs against its
    plain version and torch.segment_reduce (bound and yardstick from the
    timing tool, whose own Q1/Q4/Q6 inputs must match these).
+7. the streamed cold path: table cpu_24h, TSBS cpu-only at 24 h (4000
+   hosts x 8640 samples = 34.56 M rows) by one handle_bulk_load; its
+   estimated decoded size is over half the scan-cache budget, so it
+   streams (the byte rule) and never enters the cache. Q1-Q6 with TSBS's
+   spans, each cold in the default "host" mode (Q3 and Q4: indexed-point),
+   Q1, Q5 and Q6 again in "device" mode, one segment_moments launch per
+   non-empty slice: the dispatch decision, stages, slice counters,
+   launches and peak device memory of each, every answer against the
+   float64 brute force; stream_device_stage_errors must read 0.
 
 Before the last line come two JSON objects: the numbers of the bucket
 entry, which the main paths do not launch, then the kernel table of the
@@ -86,6 +103,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -1015,6 +1033,7 @@ def phase_moments_check() -> float:
 # ---------------------------------------------------------------------------
 
 SQL_HOURS = 12                      # TSBS double-groupby span
+STREAM_HOURS = 24                   # the streamed table's span
 CPU_FIELDS = ("usage_user", "usage_system", "usage_idle", "usage_nice",
               "usage_iowait", "usage_irq", "usage_softirq", "usage_steal",
               "usage_guest", "usage_guest_nice")
@@ -1208,17 +1227,21 @@ class MomentsTimer:
     kernel and not the host work before it. Keeps each call's inputs."""
 
     SPIN_CYCLES = 40_000_000        # ~20 ms at 1980 MHz
+    #: a streamed slice's launch competes for the GIL with the prefetch
+    #: workers' decode, so its enqueue takes longer (33 ms seen at Q1)
+    STREAM_SPIN_CYCLES = 240_000_000    # ~120 ms
 
     def __init__(self, torch, inner):
         self.torch, self.inner = torch, inner
         self.pending, self.calls = [], []
+        self.spin_cycles = self.SPIN_CYCLES
 
     def __call__(self, gids, mask, ts, values, col_masks=(), **kw):
         cuda = self.torch.cuda
         e_spin, e0, e1 = (cuda.Event(enable_timing=True) for _ in range(3))
         h0 = time.perf_counter()
         e_spin.record()
-        cuda._sleep(self.SPIN_CYCLES)
+        cuda._sleep(self.spin_cycles)
         e0.record()
         out = self.inner(gids, mask, ts, values, col_masks, **kw)
         enqueue_s = time.perf_counter() - h0
@@ -1229,17 +1252,19 @@ class MomentsTimer:
         return out
 
     def take(self):
-        """Device ms of the launches since the last call."""
+        """(device ms of each launch since the last call, ms of the spins
+        ahead of them)."""
         self.torch.cuda.synchronize()
-        rows = []
+        rows, spins = [], 0.0
         for e_spin, e0, e1, enqueue_s in self.pending:
             spin_ms = e_spin.elapsed_time(e0)
             check(enqueue_s * 1e3 < spin_ms, f"the wrapper took "
                   f"{enqueue_s * 1e3:.2f} ms to enqueue, longer than the "
                   f"{spin_ms:.2f} ms spin ahead of it")
             rows.append(e0.elapsed_time(e1))
+            spins += spin_ms
         self.pending = []
-        return rows
+        return rows, spins
 
 
 def sql_queries(rng, hosts: int):
@@ -1314,10 +1339,14 @@ def tie_hosts(table):
     return first, last_global, last_grouped
 
 
-def sql_expected(name, ts, fields, ties, eight):
+def sql_expected(name, ts, fields, ties, eight, partials=False):
     """The float64 brute force of one query: (frame of keys, exact
     columns and float columns with their bounds). Hosts sort as strings,
-    as ORDER BY hostname does; `ties` is tie_hosts of the table."""
+    as ORDER BY hostname does; `ties` is tie_hosts of the table.
+    `partials`: the sums fold float32 partial sums of several streamed
+    slices of a run, each rounded once more (at most u |x| summed over
+    the run: one more U32 * A in each sum's bound)."""
+    extra = U32 if partials else 0.0
     import pandas as pd
     H, n = fields["usage_user"].shape
     names = np.asarray([f"host_{i}" for i in range(H)])
@@ -1337,7 +1366,8 @@ def sql_expected(name, ts, fields, ties, eight):
             frame[col] = v
             if op == "avg":
                 S = blk.sum(axis=2).T.ravel()
-                frame[f"__bound:{col}"] = sum_bound(S, S, width) / width + \
+                frame[f"__bound:{col}"] = (sum_bound(S, S, width) +
+                                           extra * S) / width + \
                     4 * U64 * np.abs(v)
             else:
                 exact[col] = True
@@ -1380,8 +1410,9 @@ def sql_expected(name, ts, fields, ties, eight):
         # float32 run sums s and sq (on several regions, the float64 sum
         # of each region's float32 partial: the bounds hold, the values
         # being non-negative)
-        es = sum_bound(S, S, c)
-        esq = sum_bound(sq, sq, c) + U32 * sq      # the square's rounding
+        es = sum_bound(S, S, c) + extra * S
+        # the square's rounding
+        esq = sum_bound(sq, sq, c) + U32 * sq + extra * sq
         var_err = (esq + (2 * es * np.abs(S) + es * es) / c) / (c - 1) + \
             8 * U64 * sq / (c - 1)
         df = pd.DataFrame({
@@ -1411,7 +1442,7 @@ def sql_expected(name, ts, fields, ties, eight):
         exact.update({c: True for c in df.columns
                       if c != "avg(usage_system)"})
         df["__bound:avg(usage_system)"] = \
-            sum_bound(S, S, N) / N + 4 * U64 * S / N
+            (sum_bound(S, S, N) + extra * S) / N + 4 * U64 * S / N
         keys = []
     if keys:
         df = df.sort_values(keys, kind="stable").reset_index(drop=True)
@@ -1423,10 +1454,12 @@ def sql_expected(name, ts, fields, ties, eight):
     return df, exact, approx
 
 
-def compare_sql(name, got, want, exact, approx):
+def compare_sql(name, got, want, exact, approx, f32=True):
     """Keys and counts exact; min, max, first and last equal to the
-    float32 rounding of the float64 answer; sums, averages and stddev
-    within their bounds. Returns the largest |err|/bound."""
+    float32 rounding of the float64 answer (to the answer itself when not
+    `f32`: the streamed path's host reduction reads the stored float64
+    values); sums, averages and stddev within their bounds. Returns the
+    largest |err|/bound."""
     check(list(got.columns) == list(want.columns),
           f"{name}: columns {list(got.columns)} != {list(want.columns)}")
     check(len(got) == len(want), f"{name}: {len(got)} rows, want "
@@ -1436,7 +1469,7 @@ def compare_sql(name, got, want, exact, approx):
         g = got[col].to_numpy()
         w = want[col].to_numpy()
         if col in exact:
-            if w.dtype.kind == "f":
+            if w.dtype.kind == "f" and f32:
                 w = w.astype(np.float32).astype(np.float64)
             check(bool((g == w).all()), f"{name}: {col} differs at "
                   f"{int((g != w).sum())} rows (e.g. {g[g != w][:3]} vs "
@@ -1534,10 +1567,16 @@ class SqlFrontend:
         (out,) = self.fe.do_query(sql)
         return out
 
-    def execute(self, name, sql, run, table):
+    def execute(self, name, sql, run, table, path="resident"):
         """One statement through do_query on `table`; its wall, the
-        frontend's share, stages and profile logged, one fenced launch per
-        region checked. Returns the Output."""
+        frontend's share, dispatch decision, stages, counters and profile
+        logged; every region checked to have taken `path` ("resident",
+        "streamed" or "indexed-point") with its launches: one per region
+        on the resident path, one per device slice on the streamed path,
+        none on the indexed one. Returns the Output; `self.last` keeps
+        the dispatch, profiles, launches, device ms, wall and peak."""
+        from greptimedb_tpu_torch.common import exec_stats
+        from greptimedb_tpu_torch.ops import kernels as K
         from greptimedb_tpu_torch.query import tpu_exec
         torch = self.torch
         if run.startswith("cold"):
@@ -1545,40 +1584,69 @@ class SqlFrontend:
         fenced = "unfenced" not in run
         tpu_exec.sorted_grouped_aggregate = \
             self.timer if fenced else self.timer.inner
+        self.timer.spin_cycles = MomentsTimer.STREAM_SPIN_CYCLES \
+            if path == "streamed" else MomentsTimer.SPIN_CYCLES
         regions = list(self.table(table).regions.values())
         for r in regions:
             r.last_scan_profile = None
         self.stage_s.clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2**30
+        launched0 = K.segment_moments.launches
         t0 = time.perf_counter()
-        out = self.do(sql)
+        with exec_stats.collect() as stats:
+            out = self.do(sql)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        kernel = ""
-        if fenced:
-            dev_ms = self.timer.take()
-            check(len(dev_ms) == len(regions), f"{name}: {len(dev_ms)} "
-                  f"launches over {len(regions)} regions")
-            kernel = " kernel (device) " + " / ".join(
-                f"{x:.4f}" for x in dev_ms) + " ms;"
+        launches = K.segment_moments.launches - launched0
         peak = torch.cuda.max_memory_allocated() / 2**30
-        st, cache = {}, set()
+        st, cache, counters, profiles = {}, set(), {}, []
         for r in regions:
             p = r.last_scan_profile
-            check(p is not None and p.path == "resident",
-                  f"{name}: region {r.name} not on the device path")
+            check(p is not None and p.path == path,
+                  f"{name}: region {r.name} took "
+                  f"{p.path if p is not None else 'no device path'}, "
+                  f"not {path}")
+            profiles.append(p)
             for k, v in p.stages.items():
                 st[k] = st.get(k, 0.0) + v
-            cache |= {k[6:] for k in p.counters if k.startswith("cache_")}
+            for k, v in p.counters.items():
+                if k.startswith("cache_"):
+                    cache.add(k[6:])
+                else:
+                    counters[k] = counters.get(k, 0) + v
+        want = {"resident": len(regions),
+                "streamed": counters.get("device_slices", 0),
+                "indexed-point": 0}[path]
+        check(launches == want, f"{name}: {launches} segment_moments "
+              f"launches on the {path} path, not {want}")
+        kernel, dev_ms = "", []
+        if fenced:
+            dev_ms, spins = self.timer.take()
+            check(len(dev_ms) == launches, f"{name}: {len(dev_ms)} fenced "
+                  f"launches timed, {launches} counted")
+            if dev_ms:
+                kernel = " kernel (device) " + (
+                    " / ".join(f"{x:.4f}" for x in dev_ms) if
+                    len(dev_ms) <= 4 else
+                    f"{len(dev_ms)} launches, {min(dev_ms):.4f}-"
+                    f"{max(dev_ms):.4f} each, {sum(dev_ms):.4f} in all") + \
+                    f" ms behind {spins:.1f} ms of spins;"
         frontend_ms = (wall - self.stage_s.pop("execute")) * 1e3
         st.update(self.stage_s)
-        log(f"{name} [{run}, cache {','.join(sorted(cache))}]: wall "
-            f"{wall * 1e3:.1f} ms (do_query beyond QueryEngine.execute "
-            f"{frontend_ms:.2f} ms); "
+        tail = f" counters {counters};" if counters else ""
+        log(f"{name} [{run}, {path}" +
+            (f", cache {','.join(sorted(cache))}" if cache else "") +
+            f"]: dispatch {stats.dispatch!r}; wall {wall * 1e3:.1f} ms "
+            f"(do_query beyond QueryEngine.execute {frontend_ms:.2f} ms); "
             + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in st.items()) +
-            f" ms;{kernel} {out.num_rows} rows; peak device memory "
-            f"{peak:.2f} GiB")
+            f" ms;{kernel}{tail} {out.num_rows} rows; peak device memory "
+            f"{peak:.2f} GiB ({peak - held:.2f} above the {held:.2f} held "
+            f"before)")
+        self.last = types.SimpleNamespace(
+            dispatch=stats.dispatch, profiles=profiles, launches=launches,
+            dev_ms=dev_ms, wall=wall, peak=peak - held, cache=cache)
         return out
 
     @contextlib.contextmanager
@@ -1641,6 +1709,7 @@ def phase_sql(torch, seed):
         ties = tie_hosts(table)
         unflushed = sql_edits(sql.fe, table, ts, tags, fields, host_sids,
                               eight, seed + 4)
+        host_tags = tags[:2]
         del tags
 
         inputs, frames = {}, {}
@@ -1648,21 +1717,42 @@ def phase_sql(torch, seed):
         for name, q in queries.items():
             # cold and warm with the launch fenced (its device time), then
             # warm unfenced: the wall and stages without the spin, which
-            # the fetch would otherwise wait out
-            for run in ("cold", "warm", "warm unfenced"):
-                out = sql.execute(name, q, run, "cpu")
-                if run == "warm":
-                    got = frames[name] = sql_frame(out)
+            # the fetch would otherwise wait out. Q3 and Q4 filter 8 hosts:
+            # cold (the cache empty) they take the SST index and launch
+            # nothing; a whole-table query then fills the cache, as a
+            # refreshing dashboard does, and their warm runs go resident
+            point = name.startswith(("Q3", "Q4"))
+            for run in (("cold", "fill", "warm", "warm unfenced") if point
+                        else ("cold", "warm", "warm unfenced")):
+                if run == "fill":
+                    sql.execute(f"fill the cache before {name.split()[0]}",
+                                FILL_CACHE, run, "cpu")
+                    continue
+                path = "indexed-point" if point and run == "cold" \
+                    else "resident"
+                out = sql.execute(name, q, run, "cpu", path=path)
+                if run == "warm" or path == "indexed-point":
+                    got = sql_frame(out)
+                    if run == "warm":
+                        frames[name] = got
                     want, exact, approx = sql_expected(
                         name, ts, fields, ties, eight)
-                    worst = compare_sql(name, got, want, exact, approx)
-                    log(f"  check {name}: {len(got)} rows vs the float64 "
-                        f"brute force (write-path edits applied); keys, "
-                        f"counts, min/max/first/last exact; max "
+                    # the indexed path reduces the stored float64 values
+                    worst = compare_sql(name, got, want, exact, approx,
+                                        f32=path == "resident")
+                    log(f"  check {name} ({path}): {len(got)} rows vs the "
+                        f"float64 brute force (write-path edits applied); "
+                        f"keys, counts, min/max/first/last exact; max "
                         f"|err|/bound {worst:.3g}")
+                    if path == "indexed-point":
+                        check(sql.last.dispatch.startswith(
+                            "indexed-point (sst index, 8 candidate series"),
+                            f"{name}: dispatch {sql.last.dispatch!r}")
                     if name.startswith("Q5"):
                         planted(name, got, want, approx, fields)
             inputs[name.split()[0]] = sql.timer.calls[-1]
+        streamed = sql_streamed_vs_resident(sql, queries, frames, ts, fields,
+                                            ties, eight)
         del fields
 
         # recovery: batch 2 is only in the WAL and the memtable
@@ -1682,25 +1772,117 @@ def phase_sql(torch, seed):
               "Q5 before it")
         log(f"  check {q5} after the restart: {len(got)} rows, every value "
             f"bit-equal to the frame before the shutdown")
+        sql_incremental(sql, q5, queries[q5], host_tags, int(ts[-1]))
         sql_partitioned(sql, seed + 6)
+        fused = sql_fusion(sql, queries[q5])
         sql_narrow(sql, seed + 5)
+        launches_24h = sql_streamed_24h(sql, seed + 7)
     finally:
         if sql is not None:
             sql.close()
         shutil.rmtree(data_home, ignore_errors=True)
     launches = K.segment_moments.launches
-    want = 3 * len(queries) + 1 + \
-        len(PART_QUERIES) * len(PART_RUNS) * PART_REGIONS + \
-        len(NARROW_QUERIES)
+    want = 3 * len(queries) + streamed + 1 + 2 + \
+        len(PART_QUERIES) * len(PART_RUNS) * PART_REGIONS + fused + \
+        len(NARROW_QUERIES) + launches_24h
     check(launches == want,
           f"the SQL path launched segment_moments {launches} times, not "
           f"{want}")
     log(f"segment_moments launches during the SQL phase: {launches} "
-        f"({len(queries)} queries x 3, Q5 after the restart, "
-        f"{len(PART_QUERIES)} queries x {len(PART_RUNS)} runs x "
-        f"{PART_REGIONS} regions on cpu_p, {len(NARROW_QUERIES)} "
-        f"narrow-integer queries)")
+        f"({len(queries)} queries x 3 (Q3 and Q4: 2 warm and a fill), "
+        f"{streamed} streamed device slices on cpu, Q5 after the restart, "
+        f"Q5 incremental and full, {len(PART_QUERIES)} queries x "
+        f"{len(PART_RUNS)} runs x {PART_REGIONS} regions on cpu_p, "
+        f"{fused} for 8 fused statements, {len(NARROW_QUERIES)} "
+        f"narrow-integer queries, {launches_24h} streamed device slices on "
+        f"cpu_24h)")
     return launches, inputs
+
+
+#: the whole-table query that warms the scan cache before Q3's and Q4's
+#: warm runs
+FILL_CACHE = "SELECT count(*) FROM cpu"
+#: the queries run streamed on `cpu` and held against its resident
+#: frames, with the streaming threshold set below its rows
+STREAM_CHECKS = ("Q1 double-groupby-all", "Q5 per-host moments")
+STREAM_CHECK_ROWS = 1_000_000
+
+
+def sql_streamed_vs_resident(sql, queries, frames, ts, fields, ties, eight):
+    """On `cpu` (12 h, batch 2 in the memtable): SET stream_threshold_rows
+    = 1000000 streams it; Q1 and Q5 run streamed with the device
+    reduction, each slice one segment_moments launch. Keys, counts,
+    min/max/first/last equal to the resident frames; sums and the rest
+    within the float64 brute force's bounds, widened by one float32
+    rounding of each slice's partial sum. The threshold goes back to
+    64000000. Returns the launches."""
+    from greptimedb_tpu_torch.query import stream_exec
+    launches = 0
+    sql.do(f"SET stream_threshold_rows = {STREAM_CHECK_ROWS}")
+    stream_exec.configure_streaming(cold_reduce="device")
+    try:
+        for name in STREAM_CHECKS:
+            got = sql_frame(sql.execute(f"{name}, streamed", queries[name],
+                                        "cold, device", "cpu",
+                                        path="streamed"))
+            check(sql.last.dispatch.startswith("streamed-cold (est_rows=")
+                  and sql.last.launches > 0,
+                  f"{name}: {sql.last.dispatch!r}, {sql.last.launches} "
+                  f"launches")
+            launches += sql.last.launches
+            want, exact, approx = sql_expected(name, ts, fields, ties, eight,
+                                               partials=True)
+            worst = compare_sql(f"{name}, streamed", got, want, exact,
+                                approx)
+            res = frames[name]
+            for col in exact:
+                check(bool((got[col].to_numpy() == res[col].to_numpy())
+                           .all()), f"{name}: streamed {col} differs from "
+                      f"the resident frame")
+            log(f"  check {name} streamed: {len(got)} rows, keys, counts, "
+                f"min/max/first/last equal to the resident frame; max "
+                f"|err|/bound {worst:.3g} against the brute force")
+    finally:
+        sql.do("SET stream_threshold_rows = 64000000")
+        stream_exec.configure_streaming(cold_reduce="host")
+    return launches
+
+
+def sql_incremental(sql, name, q5, host_tags, t_last):
+    """The scan cache's incremental merge on the resident `cpu`: one
+    handle_row_insert (an overwrite of two hosts' first samples, one new
+    sample past the end), then Q5, whose cache entry takes in only the
+    delta (outcome "incremental"); then SCAN_CACHE.clear() and Q5 again
+    (outcome "full"). The two frames must be bit-equal."""
+    from greptimedb_tpu_torch.query import tpu_exec
+    rng = np.random.default_rng(len(host_tags))
+    keys = [(host_tags[0], TSBS_START_MS), (host_tags[1], TSBS_START_MS),
+            (host_tags[1], t_last + INTERVAL_MS)]
+    cols = {}
+    for tg, t in keys:
+        for i, tag in enumerate(TSBS_TAGS):
+            cols.setdefault(tag, []).append(tg[i])
+        cols.setdefault("ts", []).append(t)
+        for f in CPU_FIELDS:
+            cols.setdefault(f, []).append(float(rng.random() * 100.0))
+    check(tpu_exec.SCAN_CACHE.cached(sql.table("cpu").regions[0]),
+          "cpu is not in the scan cache before the insert")
+    written = sql.fe.handle_row_insert("cpu", cols, tag_columns=TSBS_TAGS,
+                                       timestamp_column="ts")
+    check(written == len(keys), f"handle_row_insert wrote {written} rows")
+    inc = sql_frame(sql.execute(f"{name}, incremental", q5, "warm", "cpu"))
+    inc_ms = sql.last.profiles[0].stages["scan_prep"] * 1e3
+    check(sql.last.cache == {"incremental"},
+          f"the scan cache's outcome was {sql.last.cache}")
+    full = sql_frame(sql.execute(f"{name}, full rebuild", q5, "cold", "cpu"))
+    full_ms = sql.last.profiles[0].stages["scan_prep"] * 1e3
+    check(sql.last.cache == {"full"},
+          f"the scan cache's outcome was {sql.last.cache}")
+    check(inc.equals(full), "Q5 over the incremental merge differs from "
+          "Q5 over the full rebuild")
+    log(f"  check {name} after handle_row_insert of {written} rows: the "
+        f"incremental merge (scan_prep {inc_ms:.1f} ms) and the full "
+        f"rebuild (scan_prep {full_ms:.1f} ms) give bit-equal frames")
 
 
 #: the partitioned table: TSBS cpu-only at 400 hosts (its only difference
@@ -1778,6 +1960,165 @@ def sql_partitioned(sql, seed):
             f"{PART_REGIONS} regions' moments (one launch each) vs the "
             f"float64 brute force; keys, counts, min/max/first/last exact; "
             f"max |err|/bound {worst:.3g}")
+
+
+#: statements that run Q5 together on cpu_p for the fusion check
+FUSED = 8
+
+
+def _counter(name):
+    """A port Prometheus counter's value (0 before its first bump)."""
+    from greptimedb_tpu_torch.common import telemetry
+    return sum(v for n, _, v, _ in telemetry.registry_snapshot()
+               if n == f"greptime_{name}_total")
+
+
+def sql_fusion(sql, q5):
+    """FUSED threads start the same cold Q5 on cpu_p through do_query at
+    once: each region's pass runs once (its leader's), the others adopt
+    its moment frame; every frame equal. Returns the launches (one per
+    region)."""
+    import threading
+
+    from greptimedb_tpu_torch.ops import kernels as K
+    from greptimedb_tpu_torch.query import tpu_exec
+    q = re.sub(r"\bFROM cpu\b", "FROM cpu_p", q5)
+    tpu_exec.SCAN_CACHE.clear()
+    tpu_exec.sorted_grouped_aggregate = sql.timer.inner
+    leaders, followers = _counter("scan_fusion_leader"), \
+        _counter("scan_fusion_follower")
+    launched0 = K.segment_moments.launches
+    barrier = threading.Barrier(FUSED)
+    frames, errors = [None] * FUSED, []
+
+    def run(i):
+        try:
+            barrier.wait()
+            frames[i] = sql_frame(sql.do(q))
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    with sql.floor_pinned():
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(FUSED)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+    check(not errors and all(not t.is_alive() for t in threads),
+          f"fused statements failed: {errors[:2]}")
+    launches = K.segment_moments.launches - launched0
+    leaders = _counter("scan_fusion_leader") - leaders
+    followers = _counter("scan_fusion_follower") - followers
+    check(launches == PART_REGIONS and leaders == PART_REGIONS and
+          followers == (FUSED - 1) * PART_REGIONS,
+          f"{FUSED} fused Q5 on cpu_p: {launches} launches, {leaders} "
+          f"leaders, {followers} followers")
+    check(all(f.equals(frames[0]) for f in frames),
+          "the fused statements' frames differ")
+    log(f"scan fusion: {FUSED} threads ran Q5 on cpu_p cold at once in "
+        f"{wall * 1e3:.1f} ms: {launches} segment_moments launches, "
+        f"scan_fusion_leader +{leaders}, scan_fusion_follower "
+        f"+{followers}; {FUSED} frames of {len(frames[0])} rows equal")
+    return launches
+
+
+#: the 24 h table's queries run again with the streamed device reduction
+DEVICE_QUERIES = ("Q1", "Q5", "Q6")
+
+
+def sql_streamed_24h(sql, seed):
+    """Table cpu_24h: TSBS cpu-only at 4000 hosts x 24 h (34.56 M rows),
+    `cpu`'s DDL and generator, loaded by one handle_bulk_load. Its
+    estimated decoded size is over half the scan-cache budget, so every
+    aggregate streams (the byte rule; its rows are under the row
+    threshold) and the region never enters the cache. Q1-Q6 with TSBS's
+    spans each run cold in the default "host" mode (Q3 and Q4 take the
+    SST index), then Q1, Q5 and Q6 in "device" mode (one segment_moments
+    launch per non-empty slice); every answer against the float64 brute
+    force. Returns the launches."""
+    from greptimedb_tpu_torch.query import stream_exec, tpu_exec
+    log("== phase 7: the streamed cold path on TSBS cpu-only at 24 h")
+    # the earlier tables' scans and launch inputs (the timing keeps its
+    # three in phase_sql's `inputs`)
+    tpu_exec.SCAN_CACHE.clear()
+    sql.timer.calls.clear()
+    t_gen = time.perf_counter()
+    ts, tags, fields = tsbs_cpu_table(seed, hours=STREAM_HOURS)
+    H, n = fields["usage_user"].shape
+    log(f"TSBS cpu-only table cpu_24h: {H} hosts x {n} samples = {H * n} "
+        f"rows, {STREAM_HOURS} h, made in "
+        f"{time.perf_counter() - t_gen:.1f}s (seed {seed})")
+    sql.do(sql_ddl("cpu_24h", {f: "DOUBLE" for f in CPU_FIELDS}))
+    table = sql_bulk_load(sql.fe, "cpu_24h", ts, tags, fields)
+    del tags
+    (region,) = table.regions.values()
+    rows = stream_exec.region_estimated_rows(region)
+    nbytes = stream_exec.region_estimated_bytes(region)
+    half = tpu_exec.SCAN_CACHE.budget_bytes // 2
+    thr = stream_exec.stream_threshold_rows()
+    check(rows == H * n and rows <= thr and nbytes > half and
+          tpu_exec.region_streams_cold(region),
+          f"cpu_24h: {rows} rows, {nbytes} bytes against {thr} rows and "
+          f"{half} bytes")
+    log(f"cpu_24h streams by the byte rule: estimated decoded size "
+        f"{nbytes / 1e9:.3f} GB > half the scan-cache budget "
+        f"{half / 1e9:.3f} GB (rows {rows} <= stream_threshold_rows {thr})")
+    eight, queries = sql_queries(np.random.default_rng(seed + 1), H)
+    ties = tie_hosts(table)
+    launches = 0
+    runs = [(name, "host") for name in queries] + \
+        [(name, "device") for name in queries
+         if name.split()[0] in DEVICE_QUERIES]
+    for name, mode in runs:
+        point = name.startswith(("Q3", "Q4"))
+        q = re.sub(r"\bFROM cpu\b", "FROM cpu_24h", queries[name])
+        stream_exec.configure_streaming(cold_reduce=mode)
+        try:
+            got = sql_frame(sql.execute(
+                f"{name} on cpu_24h", q, f"cold, {mode}", "cpu_24h",
+                path="indexed-point" if point else "streamed"))
+        finally:
+            stream_exec.configure_streaming(cold_reduce="host")
+        d = sql.last.dispatch
+        check(d.startswith("indexed-point (sst index, 8 candidate series")
+              if point else d == f"streamed-cold (est_rows={rows}, "
+              f"stream_threshold_rows={thr})", f"{name}: dispatch {d!r}")
+        if mode == "device":
+            check(sql.last.launches > 0, f"{name}: no device slice")
+        launches += sql.last.launches
+        want, exact, approx = sql_expected(name, ts, fields, ties, eight,
+                                           partials=mode == "device")
+        ties_note = ""
+        if name.startswith("Q6"):
+            # every host samples the first and the last ts: the fold of
+            # slice partials keeps one of them (the first partial in
+            # slice order with the extreme ts), which must be a sample
+            # of that ts
+            X = fields["usage_idle"]
+            for col, cand in (("first_value(usage_idle)", X[:, 0]),
+                              ("last_value(usage_idle)", X[:, -1])):
+                if mode == "device":
+                    cand = cand.astype(np.float32).astype(np.float64)
+                g = float(got[col].iloc[0])
+                check(bool((cand == g).any()), f"{name}: {col} {g} is no "
+                      f"host's sample at that ts")
+                want[col] = g
+                ties_note += f"; {col}: host_{int(np.argmax(cand == g))}"
+        worst = compare_sql(f"{name} on cpu_24h", got, want, exact, approx,
+                            f32=mode == "device")
+        log(f"  check {name} on cpu_24h ({mode}): {len(got)} rows vs the "
+            f"float64 brute force; keys, counts, min/max/first/last exact; "
+            f"max |err|/bound {worst:.3g}{ties_note}")
+    check(not tpu_exec.SCAN_CACHE.cached(region),
+          "cpu_24h entered the scan cache")
+    errors = _counter("stream_device_stage_errors")
+    check(errors == 0, f"stream_device_stage_errors {errors}")
+    log(f"cpu_24h never entered the scan cache; stream_device_stage_errors "
+        f"{errors:.0f}; {launches} segment_moments launches")
+    return launches
 
 
 #: the narrow-integer table's fields: SQL type and the range each draws

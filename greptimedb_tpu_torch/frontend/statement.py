@@ -219,6 +219,16 @@ def apply_set_variable(stmt: ast.SetVariable, ctx: QueryContext) -> Output:
             configure_retry(max_retries=value)
         else:
             configure_retry(base_ms=value)
+    elif name == "stream_threshold_rows":
+        # the cold-scan streaming threshold, so operators can pin the
+        # dispatch decision without a config reload
+        from ..query.stream_exec import configure_streaming
+        configure_streaming(threshold_rows=_int_setting(stmt))
+    elif name == "scan_fusion":
+        # single-flight fusion of concurrent identical scans of one
+        # region (query/tpu_exec.py); 0 = every scan solo
+        from ..query import tpu_exec
+        tpu_exec.configure_scan_fusion(enabled=bool(_int_setting(stmt)))
     elif name == "tpu_dispatch_min_rows":
         # static device-dispatch floor (the latency-adaptive floor never
         # goes below it). Pinning it also resets the adaptive
@@ -277,9 +287,6 @@ _KNOBS_NOT_PORTED = {
     **dict.fromkeys(("dist_fanout", "dist_rpc_max_retries",
                      "dist_rpc_retry_base_ms", "dist_partial_agg"),
                     "the distributed frontend"),
-    **dict.fromkeys(("stream_threshold_rows",),
-                    "the streamed cold path (query/stream_exec.py)"),
-    **dict.fromkeys(("scan_fusion",), "scan fusion (_ScanFlightMap)"),
     **dict.fromkeys(("ingest_coalesce", "ingest_coalesce_window_ms"),
                     "the ingest coalescer (servers/coalesce.py)"),
     **dict.fromkeys(("exact_distinct", "approx_error_target"),

@@ -140,8 +140,9 @@ def plan_from_specs(schema, aggs: Sequence[Tuple[str, str, Optional[str]]],
 def execute_agg_plan(table, plan: TpuPlan, device) -> pd.DataFrame:
     """Execute the IR aggregate node on `device` and return the finalized
     frame (group key columns + final slots): each region of the table
-    reduces its resident scan in one kernel launch, and `_finalize` folds
-    the per-run moment frames."""
+    reduces through the resident, streamed or indexed-point path
+    (tpu_exec.region_moment_frames), and `_finalize` folds the moment
+    frames."""
     t0 = time.perf_counter()
     frames = region_moment_frames(table, plan, device)
     _note_device_query_time(time.perf_counter() - t0)

@@ -14,18 +14,26 @@ and/or time bucket → aggregate — as one kernel launch per region:
    (`_finalize`), which also merges partials across regions.
 
 Anything outside this shape returns None and the engine falls back to the
-CPU columnar executor. Reference: greptimedb_tpu/query/tpu_exec.py. This
-port takes the reference's resident dispatch for every region; the
-streamed-cold and indexed-point paths, scan fusion, incremental cache
-maintenance and sketch/expression moments are not ported yet (plans that
-need sketches or expression columns take the CPU path).
+CPU columnar executor. Reference: greptimedb_tpu/query/tpu_exec.py.
+`region_moment_frames` routes each region as the reference does: a point
+or IN tag query on an uncached region takes the SST index
+(`_indexed_point_frames`, reduced on the host), a region too big for the
+cache streams in slices (`query/stream_exec.py`), and the rest go through
+the cache, whose entries take in a new version's delta incrementally
+(`_ScanCache._incremental`), with concurrent identical scans of a region
+fused into one pass (`SCAN_FLIGHTS`). Sketch and expression moments are
+not ported yet (plans that need them take the CPU path).
 
-What is read from a table and its regions (storage/region.py): a
-table's `schema`, `name`, `info` and `regions`; a region's `uid`, `name`,
-`series_dict`, `version_control.current` (memtable and SST row counts for
-the dispatch floor) and `snapshot()` with `.scan()` → ScanData,
-`.visible_sequence` and `._version` (`.schema.version`,
-`.ssts.all_files()`).
+What the resident path reads from a table and its regions
+(storage/region.py): a table's `schema`, `name`, `info` and `regions`; a
+region's `uid`, `name`, `series_dict`, `version_control.current`
+(memtable and SST row counts for the dispatch floor and the streaming
+bounds) and `.committed_sequence` (scan fusion's key), its
+`retraction_epoch` when it has one, and `snapshot()` with `.scan()` →
+ScanData, `.visible_sequence` and `._version` (`.schema.version`,
+`.ssts.all_files()`). The incremental merge, the streamed and the
+indexed-point paths read the region's memtables, SSTs
+(`access_layer`) and index sidecars as well.
 
 Field mirrors follow the reference's 32-bit device types: DOUBLE/FLOAT
 as float32, BIGINT as int32 when it fits (else float32), and the narrow
@@ -37,6 +45,8 @@ wrap to it, and uint32 values are un-biased on the host.
 
 from __future__ import annotations
 
+import json
+import logging
 import threading
 import time
 from dataclasses import dataclass, field
@@ -46,6 +56,8 @@ import numpy as np
 import pandas as pd
 import torch
 
+from ..common import exec_stats, failpoint, process_list
+from ..common.telemetry import increment_counter, span
 from ..errors import UnsupportedError
 from ..ops.kernels import merge_dedup_numpy, sorted_grouped_aggregate
 from ..sql.ast import (
@@ -53,9 +65,12 @@ from ..sql.ast import (
     UnaryOp,
 )
 from ..storage.region import ScanProfile
+from ..utils import env_flag
 from .expr import Evaluator, expr_name
 from .functions import TPU_AGGREGATES, parse_interval_ms
 from .planner import Analysis, _group_slot
+
+failpoint.register("scan_cache_incremental")
 
 _CMP_OPS = {"=": "eq", "!=": "ne", "<": "lt", "<=": "le", ">": "gt",
             ">=": "ge"}
@@ -72,6 +87,24 @@ _NARROW_INTS = (np.dtype(np.int8), np.dtype(np.int16), np.dtype(np.uint8),
 _U32_BIAS = 1 << 31
 
 
+def mirror_values(vals: np.ndarray) -> np.ndarray:
+    """A numeric field's host values in its device mirror's dtype, as the
+    reference runs with x64 off: float32, int32 for BIGINT that fits,
+    the narrow integers exactly as int32 and uint32 as int32 biased by
+    -2^31 (the resident mirrors and the streamed slices share this)."""
+    v = vals
+    if v.dtype in _NARROW_INTS:
+        v = v.astype(np.int32)
+    elif v.dtype == np.uint32:
+        v = (v.astype(np.int64) - _U32_BIAS).astype(np.int32)
+    elif v.dtype == np.int64:
+        v = v.astype(np.float64) if abs(v).max(initial=0) >= 2**31 \
+            else v.astype(np.int32)
+    if v.dtype != np.int32:
+        v = v.astype(np.float32)
+    return v
+
+
 @dataclass
 class MergedScan:
     series_ids: np.ndarray            # int32, sorted
@@ -80,7 +113,9 @@ class MergedScan:
     series_dict: object
     ts_base: int                      # device ts = ts - ts_base (int32)
     torch_device: torch.device        # where the mirrors live
-    #: device mirrors and host run contexts, built at first use
+    seq: Optional[np.ndarray] = None  # per-row sequence (incremental merge)
+    #: device mirrors and host run contexts, built at first use (a
+    #: streamed slice's arrive staged, query/stream_exec.py)
     mirrors: Dict[str, object] = field(default_factory=dict)
 
     @property
@@ -95,12 +130,16 @@ class MergedScan:
                 "construct it with device='cpu' to run on the CPU")
         return torch.as_tensor(np.ascontiguousarray(a), device=dev)
 
+    def host_ts(self) -> np.ndarray:
+        """The device ts mirror's values: int32 offsets from ts_base."""
+        rel = self.ts - self.ts_base
+        if rel.size and (rel.max() >= 2**31 or rel.min() < 0):
+            raise UnsupportedError("region time span exceeds int32")
+        return rel.astype(np.int32)
+
     def device_ts(self) -> torch.Tensor:
         if "__ts" not in self.mirrors:
-            rel = self.ts - self.ts_base
-            if rel.size and (rel.max() >= 2**31 or rel.min() < 0):
-                raise UnsupportedError("region time span exceeds int32")
-            self.mirrors["__ts"] = self.to_device(rel.astype(np.int32))
+            self.mirrors["__ts"] = self.to_device(self.host_ts())
         return self.mirrors["__ts"]
 
     def device_field(self, name: str) -> torch.Tensor:
@@ -109,18 +148,7 @@ class MergedScan:
             vals, _ = self.fields[name]
             if vals.dtype == object:
                 raise UnsupportedError(f"field {name} is not numeric")
-            v = vals
-            # 32-bit on the device, as the reference runs with x64 off
-            if v.dtype in _NARROW_INTS:
-                v = v.astype(np.int32)
-            elif v.dtype == np.uint32:
-                v = (v.astype(np.int64) - _U32_BIAS).astype(np.int32)
-            elif v.dtype == np.int64:
-                v = v.astype(np.float64) if abs(v).max(initial=0) >= 2**31 \
-                    else v.astype(np.int32)
-            if v.dtype != np.int32:
-                v = v.astype(np.float32)
-            self.mirrors[key] = self.to_device(v)
+            self.mirrors[key] = self.to_device(mirror_values(vals))
         return self.mirrors[key]
 
     def device_field_f32(self, name: str) -> torch.Tensor:
@@ -151,6 +179,8 @@ class MergedScan:
     def nbytes(self) -> int:
         """Host + device residency of this scan (cache accounting)."""
         total = self.series_ids.nbytes + self.ts.nbytes
+        if self.seq is not None:
+            total += self.seq.nbytes
         for vals, valid in self.fields.values():
             total += getattr(vals, "nbytes", 8 * len(vals))
             if valid is not None:
@@ -174,22 +204,31 @@ class _CacheEntry:
 
 
 class _ScanCache:
-    """Per-region merged-scan cache: byte-budget LRU over whole scans.
+    """Per-region merged-scan cache: byte-budget LRU + incremental
+    maintenance.
 
-    An entry is reused while its region's visible sequence, SST set,
-    schema version and retraction epoch are unchanged and its mirrors
-    live on the requested device; anything else rebuilds the scan from a
-    fresh region scan (the reference's incremental merge of a version's
-    delta is not ported yet). The newest entry always stays, even when
-    it alone exceeds the budget."""
+    On a version bump the cache merges only the delta — memtable rows
+    with sequences beyond the cached watermark plus SSTs that carry such
+    rows — into the cached sorted arrays, instead of re-reading and
+    re-sorting the whole region; flushes and compactions whose files
+    only hold covered sequences reuse the entry as it is. TTL retraction
+    (region.retraction_epoch), a schema change and another device force
+    a full rebuild. Whole scans evict LRU-first under a byte budget
+    (host arrays + device mirrors); the newest entry always stays, even
+    when it alone exceeds the budget (regions that large stream instead:
+    region_streams_cold)."""
 
     def __init__(self, capacity: int = 16,
                  budget_bytes: int = 4 << 30):
+        from ..common.locks import TrackedLock
+        from ..common.tracking import tracked_state
         self.capacity = capacity
         self.budget_bytes = budget_bytes
-        self._lock = threading.Lock()
-        self._entries: Dict[str, _CacheEntry] = {}   # insertion = LRU
-        # per-thread outcome of the most recent get(): "hit" / "full"
+        self._lock = TrackedLock("query.scan_cache")
+        self._entries: Dict[str, _CacheEntry] = tracked_state(
+            {}, "query.scan_cache.entries")          # insertion = LRU order
+        # per-thread outcome of the most recent get(): "hit" /
+        # "incremental" / "full"
         self._last = threading.local()
 
     def last_outcome(self) -> Optional[str]:
@@ -197,9 +236,9 @@ class _ScanCache:
 
     def get(self, region, device,
             prof: Optional[ScanProfile] = None) -> MergedScan:
-        """The region's merged scan on `device`; a miss marks its
-        `region_scan` (memtables + SST decode) and `merge` stages on
-        `prof`."""
+        """The region's merged scan on `device`; the reads and the merge
+        behind a miss or an incremental merge are marked on `prof`
+        (`region_scan`: memtables + SST decode, `merge`)."""
         device = torch.device(device)
         snap = region.snapshot()
         v = snap._version
@@ -212,13 +251,33 @@ class _ScanCache:
                 self._entries[region.uid] = entry
         if entry is not None and entry.schema_version == v.schema.version \
                 and entry.retraction_epoch == epoch \
-                and entry.visible == visible \
-                and entry.sst_names == sst_names \
-                and entry.scan.torch_device == device:
-            self._last.outcome = "hit"
-            return entry.scan
-        self._last.outcome = "full"
-        scan = self._full(snap, device, prof)
+                and entry.scan.torch_device == device \
+                and entry.visible <= visible:
+            if entry.visible == visible and entry.sst_names == sst_names:
+                self._last.outcome = "hit"
+                increment_counter("scan_cache_hit")
+                return entry.scan
+            try:
+                failpoint.fail_point("scan_cache_incremental")
+                scan = self._incremental(region, v, entry, visible, prof)
+                self._last.outcome = "incremental"
+                increment_counter("scan_cache_incremental")
+            except Exception as e:  # noqa: BLE001 — degrade, don't fail
+                # an unusable cached scan must never fail the query: drop
+                # the entry and rebuild from storage, counted as a miss
+                logging.getLogger(__name__).warning(
+                    "scan cache entry for region %s unusable (%s); "
+                    "rebuilding cold", region.name, e)
+                increment_counter("scan_cache_recovered")
+                increment_counter("scan_cache_miss")
+                with self._lock:
+                    self._entries.pop(region.uid, None)
+                self._last.outcome = "full"
+                scan = self._full(snap, device, prof)
+        else:
+            self._last.outcome = "full"
+            increment_counter("scan_cache_miss")
+            scan = self._full(snap, device, prof)
         entry = _CacheEntry(scan, visible, sst_names, v.schema.version,
                             epoch)
         with self._lock:
@@ -242,6 +301,26 @@ class _ScanCache:
             self._entries.pop(uid)
             used -= total[uid]
 
+    def cached(self, region) -> bool:
+        """Whether this region has a resident entry (any freshness): the
+        indexed-point planner prefers a warm cache, and only routes
+        around it when the region would be scanned cold."""
+        with self._lock:
+            return region.uid in self._entries
+
+    def resident_bytes(self) -> int:
+        with self._lock:
+            return sum(e.scan.nbytes for e in self._entries.values())
+
+    def configure(self, *, budget_bytes: Optional[int] = None,
+                  capacity: Optional[int] = None) -> None:
+        with self._lock:
+            if budget_bytes is not None:
+                self.budget_bytes = int(budget_bytes)
+            if capacity is not None:
+                self.capacity = int(capacity)
+            self._evict_locked()
+
     def clear(self) -> None:
         with self._lock:
             self._entries.clear()
@@ -257,17 +336,148 @@ class _ScanCache:
                                      data.op_types)
             sids = data.series_ids[kept]
             ts = data.ts[kept]
+            seq = data.seq[kept]
             fields = {n: (d[kept], _some_null(vd, kept))
                       for n, (d, vd) in data.fields.items()}
         else:
-            sids, ts = data.series_ids, data.ts
+            sids, ts, seq = data.series_ids, data.ts, data.seq
             fields = data.fields
         base = int(ts.min()) if ts.size else 0
         if prof is not None:
             prof.mark("region_scan", t1 - t0)
             prof.mark("merge", time.perf_counter() - t1)
         return MergedScan(sids.astype(np.int32), ts, fields,
-                          data.series_dict, base, device)
+                          data.series_dict, base, device, seq=seq)
+
+    @staticmethod
+    def _incremental(region, v, entry: _CacheEntry, visible: int,
+                     prof: Optional[ScanProfile] = None) -> MergedScan:
+        from ..datatypes.vector import null_column
+        t0 = time.perf_counter()
+        schema = v.schema
+        field_names = [c.name for c in schema.field_columns()]
+        lo = entry.visible
+        runs = []
+        # memtable rows beyond the cached watermark
+        for mt in v.memtables.all_memtables():
+            ms = mt.snapshot()
+            if ms.num_rows == 0:
+                continue
+            sel = (ms.seq > lo) & (ms.seq <= visible)
+            if not sel.any():
+                continue
+            fields = {}
+            for name in field_names:
+                if name in ms.fields:
+                    d, vd = ms.fields[name]
+                    fields[name] = (d[sel],
+                                    vd[sel] if vd is not None else None)
+                else:
+                    fields[name] = null_column(
+                        schema.column_schema(name).dtype, int(sel.sum()))
+            runs.append((ms.series_ids[sel], ms.ts[sel], ms.seq[sel],
+                         ms.op_types[sel], fields))
+        # SSTs not yet covered that carry rows beyond the watermark (a
+        # fresh flush whose max_sequence <= lo is already in the cache
+        # through the memtable: never read)
+        for meta in v.ssts.all_files():
+            if meta.file_name in entry.sst_names or meta.max_sequence <= lo:
+                continue
+            sst = region.access_layer.read_sst(meta,
+                                               projection=field_names)
+            if sst.num_rows == 0:
+                continue
+            sel = (sst.seq > lo) & (sst.seq <= visible)
+            if not sel.any():
+                continue
+            fields = {n: (d[sel], vd[sel] if vd is not None else None)
+                      for n, (d, vd) in sst.fields.items()}
+            runs.append((sst.series_ids[sel], sst.ts[sel], sst.seq[sel],
+                         sst.op_types[sel], fields))
+        t1 = time.perf_counter()
+        if prof is not None:
+            prof.mark("region_scan", t1 - t0)
+
+        cached = entry.scan
+        if not runs:
+            return cached
+        # sort + dedup the delta alone (small), then splice it into the
+        # sorted cached arrays by searchsorted + np.insert: O(delta log +
+        # n) copies, no sort over the region
+        dsid = np.concatenate([r[0] for r in runs])
+        dts = np.concatenate([r[1] for r in runs])
+        dseq = np.concatenate([r[2] for r in runs])
+        dop = np.concatenate([r[3] for r in runs])
+        dorder = np.lexsort((dseq, dts, dsid))
+        dsid, dts, dseq, dop = (a[dorder] for a in (dsid, dts, dseq, dop))
+        # within-delta dedup: the newest version of each (sid, ts)
+        nxt_same = np.concatenate([(dsid[1:] == dsid[:-1]) &
+                                   (dts[1:] == dts[:-1]), [False]])
+        dkeep0 = ~nxt_same
+        dsel = dorder[dkeep0]
+        dsid, dts, dseq, dop = (a[dkeep0] for a in (dsid, dts, dseq, dop))
+
+        csid, cts = cached.series_ids, cached.ts
+        n_cached = cached.num_rows
+        # two-level searchsorted: sid bounds, then ts inside each sid run
+        pos = np.empty(len(dsid), dtype=np.int64)
+        for s in np.unique(dsid):
+            m = dsid == s
+            slo = int(np.searchsorted(csid, s, side="left"))
+            shi = int(np.searchsorted(csid, s, side="right"))
+            pos[m] = slo + np.searchsorted(cts[slo:shi], dts[m], side="left")
+        # a delta key that already exists replaces (a put) or deletes the
+        # cached row; every delta sequence is newer by construction
+        collide = pos < n_cached
+        if collide.any():
+            pc = np.minimum(pos, n_cached - 1)
+            collide &= (csid[pc] == dsid) & (cts[pc] == dts)
+        dlive = dop == 0                      # delete tombstones vanish
+        ckeep = np.ones(n_cached, dtype=bool)
+        ckeep[pos[collide & ~dlive]] = False
+        # positions in the kept cached rows: new keys are inserted there,
+        # overwritten keys written in place, after the inserts before them
+        # (one pass over each column where the reference's splice made two)
+        dropped_prefix = np.concatenate([[0], np.cumsum(~ckeep)])
+        adj = pos - dropped_prefix[pos]
+        ins = dlive & ~collide
+        rep = dlive & collide
+        ipos = adj[ins]
+        rpos = adj[rep] + np.searchsorted(ipos, adj[rep], side="right")
+        all_kept = bool(ckeep.all())
+
+        def splice(c: np.ndarray, d: np.ndarray) -> np.ndarray:
+            out = np.insert(c if all_kept else c[ckeep], ipos, d[ins])
+            out[rpos] = d[rep]
+            return out
+
+        sids = splice(csid, dsid).astype(np.int32)
+        ts = splice(cts, dts)
+        seq = splice(cached.seq if cached.seq is not None
+                     else np.zeros(n_cached, np.int64), dseq)
+        fields = {}
+        for name in field_names:
+            cd, cv = cached.fields[name]
+            dd = np.concatenate([r[4][name][0] for r in runs])[dsel]
+            dvs = [r[4][name][1] for r in runs]
+            valid = None
+            if cv is not None or any(x is not None for x in dvs):
+                dv = np.concatenate([
+                    x if x is not None else np.ones(len(r[4][name][0]),
+                                                    dtype=bool)
+                    for x, r in zip(dvs, runs)])[dsel]
+                # an all-valid field shares the one all-valid device mask
+                if cv is not None or not dv[dlive].all():
+                    valid = splice(cv if cv is not None
+                                   else np.ones(n_cached, bool), dv)
+                    if valid.all():
+                        valid = None
+            fields[name] = (splice(cd, dd), valid)
+        if prof is not None:
+            prof.mark("merge", time.perf_counter() - t1)
+        base = int(ts.min()) if ts.size else 0
+        return MergedScan(sids, ts, fields, cached.series_dict, base,
+                          cached.torch_device, seq=seq)
 
 
 def _some_null(valid: Optional[np.ndarray],
@@ -284,6 +494,119 @@ def _some_null(valid: Optional[np.ndarray],
 
 
 SCAN_CACHE = _ScanCache()
+
+
+# ---------------------------------------------------------------------------
+# concurrent scan fusion: single-flight over identical resident scans
+# ---------------------------------------------------------------------------
+
+#: SET scan_fusion toggles; single-slot swap (no lock needed for a read)
+_FUSION_ENABLED = [env_flag("GREPTIME_SCAN_FUSION", True)]
+#: bounded park for a follower on the leader's pass: a dead leader
+#: degrades to a solo scan, never a hang
+_FUSION_WAIT_TIMEOUT_S = 30.0
+
+
+def configure_scan_fusion(*, enabled: Optional[bool] = None) -> None:
+    if enabled is not None:
+        _FUSION_ENABLED[0] = bool(enabled)
+
+
+class _FlightEntry:
+    """One in-flight region reduction shared by its cohort."""
+
+    __slots__ = ("done", "frame", "failed")
+
+    def __init__(self) -> None:
+        self.done = threading.Event()
+        self.frame: Optional[pd.DataFrame] = None
+        self.failed = False
+
+
+class _ScanFlightMap:
+    """Single-flight map keyed on (region identity, visible data state,
+    plan fingerprint): concurrent identical-shape scans of the same
+    region fuse into one shared pass — the leader reduces, the cohort
+    adopts its moment frame. The data-state part of the key (committed
+    sequence + retraction epoch, sampled at request start) keeps
+    read-your-writes: a scan that begins after a write is acked never
+    fuses onto a pass that predates the write."""
+
+    def __init__(self) -> None:
+        from ..common.locks import TrackedLock
+        from ..common.tracking import tracked_state
+        self._lock = TrackedLock("query.scan_fusion")
+        self._inflight: Dict[tuple, _FlightEntry] = tracked_state(
+            {}, "query.scan_fusion.inflight")
+
+    def execute(self, region, table, plan: "TpuPlan", device):
+        if not _FUSION_ENABLED[0]:
+            # checked BEFORE fingerprinting: the opt-out must not pay the
+            # plan serialization on every region of every scan
+            return _execute_region(region, table, plan, device)
+        key = self._key(region, plan)
+        if key is None:
+            return _execute_region(region, table, plan, device)
+        with self._lock:
+            entry = self._inflight.get(key)
+            leader = entry is None
+            if leader:
+                entry = _FlightEntry()
+                self._inflight[key] = entry
+        if leader:
+            try:
+                entry.frame = _execute_region(region, table, plan, device)
+            except BaseException:
+                # the cohort falls back to solo scans: the leader's
+                # failure may be its own (a KILL on its statement)
+                entry.failed = True
+                raise
+            finally:
+                entry.done.set()
+                with self._lock:
+                    self._inflight.pop(key, None)
+            increment_counter("scan_fusion_leader")
+            return entry.frame
+        # follower: bounded park on the leader's shared pass
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + _FUSION_WAIT_TIMEOUT_S
+        while not entry.done.wait(timeout=0.05):
+            process_list.check_cancelled()    # killed mid-wait: bail out
+            if time.monotonic() > deadline:
+                break
+        if not entry.done.is_set() or entry.failed:
+            return _execute_region(region, table, plan, device)
+        increment_counter("scan_fusion_follower")
+        exec_stats.record(
+            "fused-follower",
+            rows=0 if entry.frame is None else len(entry.frame),
+            elapsed_s=time.perf_counter() - t0, region=region.name)
+        # a copy: the cohort's downstream folds never share mutable frames
+        return None if entry.frame is None else entry.frame.copy()
+
+    @staticmethod
+    def _key(region, plan: "TpuPlan") -> Optional[tuple]:
+        vc = getattr(region, "version_control", None)
+        if vc is None:
+            return None
+        # fingerprint once per plan object, not once per region
+        fp = getattr(plan, "_fusion_fp", None)
+        if fp is None:
+            try:
+                from .plan_codec import plan_to_dict
+                fp = json.dumps(plan_to_dict(plan), sort_keys=True,
+                                default=str)
+            except Exception:  # noqa: BLE001 — unshippable: no fusion
+                increment_counter("scan_fusion_unfingerprintable")
+                fp = False
+            plan._fusion_fp = fp
+        if fp is False:
+            return None
+        return (region.uid, vc.committed_sequence,
+                getattr(region, "retraction_epoch", 0), fp)
+
+
+SCAN_FLIGHTS = _ScanFlightMap()
 
 
 # ---------------------------------------------------------------------------
@@ -327,6 +650,52 @@ class TpuPlan:
     time_hi: Optional[int]
     tag_predicates: List[Expr]
     field_filters: List[FieldFilter]
+
+
+#: moment ops whose per-run partial is a sketch (query/sketches.py) or
+#: that only a host reducer implements; the port plans none of them yet
+SKETCH_MOMENT_OPS = frozenset({"distinct", "tdigest"})
+HOST_ONLY_MOMENT_OPS = frozenset({"reset_corr"})
+
+
+def plan_needs_host(plan: TpuPlan) -> bool:
+    """Whether this plan's moments must reduce on the host (sketch
+    partials and host-only ops have no device kernel). The port's
+    planner emits none of them yet, so this is False for its plans."""
+    return any(m.op in SKETCH_MOMENT_OPS or m.op in HOST_ONLY_MOMENT_OPS
+               for m in plan.moments)
+
+
+def plan_scan_columns(plan: TpuPlan, schema) -> List[str]:
+    """The stored field columns a region scan must project for this
+    plan: moment columns and filter columns (tags ride the series ids,
+    never the projection)."""
+    tag_names = set(schema.tag_names())
+    cols = {m.column for m in plan.moments
+            if m.column is not None and m.column not in tag_names}
+    cols |= {ff.column for ff in plan.field_filters}
+    return sorted(cols)
+
+
+def moment_input(m: Moment, fields: Dict, sids, ts, sd,
+                 cache: Optional[dict] = None):
+    """(values, validity) of one moment's input: a stored field, a tag
+    column (decoded per row) or the time index — the one resolution the
+    host reducers share."""
+    col = m.column
+    if cache is not None and col in cache:
+        return cache[col]
+    if col in fields:
+        out = fields[col]
+    elif sd is not None and col in tuple(getattr(sd, "tag_names", ())):
+        idx = tuple(sd.tag_names).index(col)
+        out = (sd.decode_tag_column(np.asarray(sids, dtype=np.int32),
+                                    idx), None)
+    else:
+        out = (ts, None)                 # the time index
+    if cache is not None:
+        cache[col] = out
+    return out
 
 
 def _conjuncts(e: Optional[Expr]) -> List[Expr]:
@@ -663,6 +1032,9 @@ def try_execute(table, a: Analysis, query: Query,
     # float64-exact
     est = _estimated_table_rows(table)
     if est is not None and est < _dispatch_min_rows():
+        exec_stats.set_dispatch(
+            f"cpu-small-scan (est_rows={est} < "
+            f"dispatch_floor={_dispatch_min_rows()})")
         return None
     from .ir import execute_agg_plan
     try:
@@ -671,13 +1043,146 @@ def try_execute(table, a: Analysis, query: Query,
         return None
 
 
+def local_dispatch_decision(table, regions, cold, point_sids) -> str:
+    """The resident / streamed / indexed-point / mixed decision string for
+    a local region-backed table (what region_moment_frames hands to
+    ExecStats): per region of `regions`, whether it streams (`cold`) and
+    its indexed-point candidate series (`point_sids`, None when the
+    index does not apply)."""
+    from . import stream_exec
+    n_idx = sum(1 for s in point_sids if s is not None)
+    if regions and n_idx == len(regions):
+        k = max((len(s) for s in point_sids if s is not None), default=0)
+        return (f"indexed-point (sst index, {k} candidate series; "
+                f"bloom/sid-summary file pruning)")
+    n_stream = sum(1 for c, s in zip(cold, point_sids)
+                   if c and s is None)
+    if n_idx:
+        return (f"mixed ({n_idx}/{len(regions)} regions indexed-point, "
+                f"{n_stream} streamed-cold)")
+    if n_stream == 0:
+        return "device-resident (scan cache)"
+    if n_stream == len(regions):
+        return (f"streamed-cold (est_rows={_estimated_table_rows(table)}, "
+                f"stream_threshold_rows="
+                f"{stream_exec.stream_threshold_rows()})")
+    return f"mixed ({n_stream}/{len(regions)} regions streamed-cold)"
+
+
+def region_point_sids(region, plan) -> Optional[np.ndarray]:
+    """Sorted candidate series ids for an indexed point/IN scan of this
+    region, or None when the resident/streamed paths win.
+
+    Eligible when the plan carries a point (`tag = lit`) or `IN` tag
+    conjunct, the sid set is selective (at most max(64, S/16) of the
+    region's S series), the index tier is enabled, and the region is not
+    already in the scan cache (a warm cache beats any IO). The set is a
+    superset: the host reduction re-applies every tag predicate."""
+    from ..storage.index import sst_index_enabled
+    if plan is None or not plan.tag_predicates or not sst_index_enabled():
+        return None
+    sd = getattr(region, "series_dict", None)
+    if sd is None or not sd.tag_names:
+        return None
+    from ..mito.engine import sid_candidates_for_filters
+    sids = sid_candidates_for_filters(sd, sd.tag_names,
+                                      plan.tag_predicates)
+    if sids is None:
+        return None
+    S = sd.num_series
+    if S and len(sids) > max(64, S // 16):
+        return None                       # not selective: scan normally
+    if SCAN_CACHE.cached(region):
+        return None
+    return sids
+
+
+def _indexed_point_frames(region, plan: TpuPlan,
+                          sids: np.ndarray) -> List[pd.DataFrame]:
+    """Partial moment frames of one region through the SST index: scan
+    only the files and row groups that may hold the candidate series
+    (RegionSnapshot.scan's sid_set), merge-dedup the surviving rows
+    (exact MVCC) and reduce them on the host with the streamed path's
+    segment arithmetic, so _finalize folds them like any others. Never
+    touches the scan cache: a point query on a cold region neither pays
+    for nor pins the whole region."""
+    from ..common.time import TimestampRange
+    from . import stream_exec
+
+    prof = ScanProfile(path="indexed-point")
+    t0 = time.perf_counter()
+    snap = region.snapshot()
+    schema = snap.schema
+    tc = schema.timestamp_column
+    trange = None
+    if tc is not None and (plan.time_lo is not None or
+                           plan.time_hi is not None):
+        trange = TimestampRange(plan.time_lo, plan.time_hi,
+                                tc.dtype.time_unit)
+    data = snap.scan(projection=plan_scan_columns(plan, schema),
+                     time_range=trange, sid_set=sids)
+    prof.rows = data.num_rows
+    prof.bump("candidate_sids", len(sids))
+    prof.mark("scan", time.perf_counter() - t0)
+    frames: List[pd.DataFrame] = []
+    if data.num_rows:
+        t1 = time.perf_counter()
+        kept = stream_exec._slice_dedup(data)
+        frame = stream_exec._host_partial_frame(data, kept, plan,
+                                                region.series_dict)
+        prof.mark("reduce", time.perf_counter() - t1)
+        exec_stats.record("reduce", rows=data.num_rows,
+                          elapsed_s=prof.stages["reduce"])
+        if frame is not None and len(frame):
+            frames.append(frame)
+    prof.total_s = time.perf_counter() - t0
+    region.last_scan_profile = prof
+    return frames
+
+
+def region_streams_cold(region) -> bool:
+    """Whether a region takes the streamed-cold path instead of the
+    scan cache: more rows than the streaming threshold, or more
+    estimated decoded bytes than half the cache budget (a wide region
+    busts residency long before the row threshold; the budget never
+    evicts the newest entry, so admission is the only guard)."""
+    from . import stream_exec
+    return stream_exec.region_estimated_rows(region) > \
+        stream_exec.stream_threshold_rows() or \
+        (SCAN_CACHE.budget_bytes > 0 and
+         stream_exec.region_estimated_bytes(region) >
+         SCAN_CACHE.budget_bytes // 2)
+
+
 def region_moment_frames(table, plan: TpuPlan,
                          device) -> List[pd.DataFrame]:
-    """Per-region moment frames of a table's regions, each from the
-    device-resident scan cache."""
+    """Per-region moment frames of a table's regions. Each region takes
+    one path: a selective
+    point/IN query on an uncached region the SST index
+    (_indexed_point_frames), a region above the streaming bounds the
+    sliced cold scan (query/stream_exec.py; it never enters the cache),
+    any other the device-resident scan cache, with identical concurrent
+    scans fused (SCAN_FLIGHTS). KILL is checked between regions."""
+    from . import stream_exec
+    regions = list(table.regions.values())
+    if not regions:
+        return []
+    point_sids = [region_point_sids(r, plan) for r in regions]
+    cold = [False if s is not None else region_streams_cold(r)
+            for r, s in zip(regions, point_sids)]
+    exec_stats.set_dispatch(local_dispatch_decision(
+        table, regions, cold, point_sids))
     frames = []
-    for region in table.regions.values():
-        part = _execute_region(region, table, plan, device)
+    for region, streams, sids in zip(regions, cold, point_sids):
+        process_list.check_cancelled()     # per-region batch boundary
+        if sids is not None:
+            frames.extend(_indexed_point_frames(region, plan, sids))
+            continue
+        if streams:
+            frames.extend(stream_exec.stream_region_moment_frames(
+                region, plan, device))
+            continue
+        part = SCAN_FLIGHTS.execute(region, table, plan, device)
         if part is not None and len(part):
             frames.append(part)
     return frames
@@ -687,14 +1192,21 @@ def _execute_region(region, table, plan: TpuPlan,
                     device) -> Optional[pd.DataFrame]:
     prof = ScanProfile(path="resident")
     t0 = time.perf_counter()
-    scan = SCAN_CACHE.get(region, device, prof)
-    prof.mark("scan_prep", time.perf_counter() - t0)
-    prof.bump(f"cache_{SCAN_CACHE.last_outcome() or 'full'}")
-    prof.rows = scan.num_rows
-    region.last_scan_profile = prof
-    if scan.num_rows == 0:
-        return None
-    return _moment_frame_for_scan(scan, table.schema, plan, prof)
+    with span("region_scan", region=region.name, path="resident"):
+        scan = SCAN_CACHE.get(region, device, prof)
+        prep = time.perf_counter() - t0
+        prof.mark("scan_prep", prep)
+        outcome = SCAN_CACHE.last_outcome() or "full"
+        prof.bump(f"cache_{outcome}")
+        prof.rows = scan.num_rows
+        exec_stats.record("scan_prep", rows=scan.num_rows, elapsed_s=prep,
+                          cache=outcome)
+        out = None
+        if scan.num_rows:
+            out = _moment_frame_for_scan(scan, table.schema, plan, prof)
+        prof.total_s = time.perf_counter() - t0
+        region.last_scan_profile = prof
+    return out
 
 
 @dataclass
@@ -719,18 +1231,42 @@ def _moment_frame_for_scan(scan: MergedScan, schema, plan: TpuPlan,
     if launched is None:
         return None
     t0 = time.perf_counter()
-    # one device-to-host copy: every moment and the counts are 4-byte
-    # values, stacked as int32 words on the device
-    words = torch.stack([r.view(torch.int32) for r in launched.results] +
-                        [launched.counts]).cpu().numpy()
-    res_np = [w.view(np.dtype(str(r.dtype).replace("torch.", "")))
-              for w, r in zip(words[:-1], launched.results)]
-    counts = words[-1]
-    res_np = _narrow_results(res_np, plan, launched.narrow)
+    ((counts, res_np),) = _fetch_launched([launched], plan, pinned=False)
     prof.mark("fetch", time.perf_counter() - t0)
     t1 = time.perf_counter()
     out = _collect_moment_frame(launched, plan, counts, res_np)
     prof.mark("collect", time.perf_counter() - t1)
+    return out
+
+
+def _fetch_launched(launched: List["_Launched"], plan: TpuPlan,
+                    pinned: bool = True
+                    ) -> List[Tuple[np.ndarray, List[np.ndarray]]]:
+    """(counts, per-moment results in the reference's dtypes) of each
+    launch, in one device-to-host copy: every moment and count is a
+    4-byte value, so all of them are flattened as int32 words into one
+    device buffer, copied once (into pinned memory when `pinned`: the
+    streamed path's many small launches) and split on the host."""
+    words = torch.cat([w for ln in launched for w in
+                       [r.view(torch.int32) for r in ln.results] +
+                       [ln.counts]])
+    if words.device.type != "cuda":
+        host = words.numpy()
+    elif pinned:
+        buf = torch.empty(words.shape, dtype=words.dtype, pin_memory=True)
+        buf.copy_(words, non_blocking=True)
+        torch.cuda.current_stream(words.device).synchronize()
+        host = buf.numpy()
+    else:
+        host = words.cpu().numpy()
+    out, pos = [], 0
+    for ln in launched:
+        k = len(ln.results) + 1
+        w = host[pos:pos + k * ln.nruns].reshape(k, ln.nruns)
+        pos += k * ln.nruns
+        res_np = [x.view(np.dtype(str(r.dtype).replace("torch.", "")))
+                  for x, r in zip(w[:-1], ln.results)]
+        out.append((w[-1], _narrow_results(res_np, plan, ln.narrow)))
     return out
 
 

@@ -97,16 +97,21 @@ class IngestProfile:
 class ScanProfile:
     """Stage-by-stage breakdown of the last aggregate scan over this
     region (`last_scan_profile`) — the scan twin of IngestProfile. `path`
-    names the route taken: "resident" (scan cache + device kernel; the
-    port's only route so far). Host-clock stages (seconds) of the
-    resident path (query/tpu_exec.py): scan_prep (cache lookup or merged
-    scan build; on a miss, its parts region_scan — memtables and SST
-    decode — and merge), runs (host run ids), masks (tag predicates and
-    row mask), h2d (device mirrors, mask and run ends), launch (the
-    kernel call's host time), fetch (the one device-to-host copy, which
-    waits for the kernel), collect (the per-run moment frame).
-    `counters` carries path facts: `cache_hit` / `cache_full` (scan
-    cache)."""
+    names the route taken: "resident" (scan cache + device kernel),
+    "streamed" (cold slice streaming, query/stream_exec.py) or
+    "indexed-point" (the SST index, then a host reduction). Host-clock
+    stages (seconds) of the resident path (query/tpu_exec.py): scan_prep
+    (cache lookup or merged scan build; on a miss or an incremental
+    merge, its parts region_scan — memtables and SST decode — and
+    merge), runs (host run ids), masks (tag predicates and row mask),
+    h2d (device mirrors, mask and run ends), launch (the kernel call's
+    host time), fetch (the one device-to-host copy, which waits for the
+    kernel), collect (the per-run moment frame). The streamed path
+    marks slice_plan, decode_reduce, fold and device_fetch, the
+    indexed-point path scan and reduce. `counters` carries path facts:
+    `cache_hit` / `cache_incremental` / `cache_full` (scan cache),
+    slices / lean_slices / merged_slices / dedup_skip_slices /
+    device_slices (streamed), candidate_sids (indexed-point)."""
     path: str = ""
     rows: int = 0
     total_s: float = 0.0

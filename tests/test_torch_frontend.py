@@ -453,3 +453,76 @@ def test_port_raises_for_what_it_has_not_ported(tmp_path, sql):
             fe.do_query(sql)
     finally:
         fe.shutdown()
+
+
+def test_streaming_and_fusion_knobs_match_reference(tmp_path):
+    """SET stream_threshold_rows and SET scan_fusion work in the port as
+    in the reference: a threshold under the table's rows moves an
+    aggregate from the scan cache to the streamed cold path, and back,
+    with the reference's decision strings and answers; a point query on
+    the uncached table takes the SST index; fusion off or on leaves the
+    answer as it was."""
+    from greptimedb_tpu.common import exec_stats as ref_stats
+    from greptimedb_tpu.query import stream_exec as ref_stream
+    from greptimedb_tpu_torch.common import exec_stats
+    from greptimedb_tpu_torch.query import stream_exec
+
+    sqls = {"avg": "SELECT host, avg(cpu) FROM monitor GROUP BY host "
+                   "ORDER BY host",
+            "point": "SELECT host, avg(cpu) FROM monitor WHERE host = 'h1' "
+                     "GROUP BY host ORDER BY host"}
+    rows = [(f"h{i % 4}", T0 + i * STEP, float(i % 7), float(i)) for i in
+            range(40)]
+    saved = ref_stream.stream_threshold_rows(), \
+        stream_exec.stream_threshold_rows()
+    seen = {}
+    try:
+        for side in SIDES:
+            fe, ctx = _open(side, tmp_path / side), _ctx(side)
+            mod = ref_exec if side == "ref" else tpu_exec
+            stats = ref_stats if side == "ref" else exec_stats
+            try:
+                fe.do_query("CREATE TABLE monitor (host STRING, ts TIMESTAMP "
+                            "TIME INDEX, cpu DOUBLE, memory DOUBLE, PRIMARY "
+                            "KEY(host))", ctx)
+                fe.do_query("INSERT INTO monitor VALUES " +
+                            _values(rows[:30]), ctx)
+                fe.do_query("ADMIN FLUSH TABLE monitor", ctx)
+                fe.do_query("INSERT INTO monitor VALUES " +
+                            _values(rows[30:]), ctx)
+                (region,) = _regions(fe, "monitor")
+                for step, knobs, sql in [
+                        ("streamed", ["stream_threshold_rows = 10"], "avg"),
+                        ("point", [], "point"),
+                        ("resident", ["stream_threshold_rows = 64000000"],
+                         "avg"),
+                        ("fusion off", ["scan_fusion = 0"], "avg"),
+                        ("fusion on", ["scan_fusion = 1"], "avg")]:
+                    for k in knobs + ["tpu_dispatch_min_rows = 0"]:
+                        fe.do_query(f"SET {k}", ctx)
+                    region.last_scan_profile = None
+                    with stats.collect() as st:
+                        out = fe.do_query(sqls[sql], ctx)[-1]
+                    mod.TPU_DISPATCH_MIN_ROWS = 131072
+                    mod._observed_min_dt[0] = None
+                    seen[side, step] = (st.dispatch,
+                                        region.last_scan_profile.path, out)
+            finally:
+                fe.shutdown()
+    finally:
+        ref_stream.configure_streaming(threshold_rows=saved[0])
+        stream_exec.configure_streaming(threshold_rows=saved[1])
+        ref_exec.configure_scan_fusion(enabled=True)
+        tpu_exec.configure_scan_fusion(enabled=True)
+    paths = {"streamed": "streamed", "point": "indexed-point",
+             "resident": "resident", "fusion off": "resident",
+             "fusion on": "resident"}
+    for step, path in paths.items():
+        ref_d, ref_path, ref_out = seen["ref", step]
+        d, p, out = seen["port", step]
+        assert (d, p) == (ref_d, ref_path), step
+        assert p == path, step
+        _assert_same(ref_out, out, step)
+    assert seen["port", "streamed"][0] == \
+        "streamed-cold (est_rows=40, stream_threshold_rows=10)"
+    assert seen["port", "resident"][0] == "device-resident (scan cache)"

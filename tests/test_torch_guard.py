@@ -121,7 +121,7 @@ ver = types.SimpleNamespace(
     ssts=types.SimpleNamespace(all_files=lambda: []))
 region = types.SimpleNamespace(
     uid="t-0", name="t_0", series_dict=sd,
-    version_control=types.SimpleNamespace(current=ver),
+    version_control=types.SimpleNamespace(current=ver, committed_sequence=n),
     snapshot=lambda: types.SimpleNamespace(
         _version=ver, scan=lambda: data, visible_sequence=n))
 table = Table(TableInfo(TableIdent(1), "t", TableMeta(schema)))
@@ -196,6 +196,72 @@ def test_frontend_path_imports_no_reference():
               "mito.engine", "mito.procedure", "procedure.framework",
               "partition.rule", "partition.splitter", "catalog.manager"):
         assert f"greptimedb_tpu_torch.{m}" in new, m
+
+
+_STREAM_PROBE = r"""
+import json, sys, tempfile
+before = set(sys.modules)
+from greptimedb_tpu_torch.datanode import DatanodeOptions
+from greptimedb_tpu_torch.frontend import build_standalone
+from greptimedb_tpu_torch.query import stream_exec
+
+with tempfile.TemporaryDirectory() as home:
+    fe = build_standalone(DatanodeOptions(data_home=home, device="cpu"))
+    fe.do_query("CREATE TABLE t (host STRING, ts TIMESTAMP TIME INDEX, "
+                "v DOUBLE, PRIMARY KEY(host))")
+    fe.do_query("INSERT INTO t VALUES ('h0', 1, 1.5), ('h2', 2, 2.5)")
+    fe.do_query("ADMIN FLUSH TABLE t")
+    fe.do_query("INSERT INTO t VALUES ('h1', 3, 0.5)")
+    (region,) = fe.catalog.table("greptime", "public", "t").regions.values()
+    fe.do_query("SET stream_threshold_rows = 0")
+    paths = []
+    for mode, sql in (("host", "SELECT host, avg(v) FROM t GROUP BY host"),
+                      ("device", "SELECT host, avg(v) FROM t GROUP BY host"),
+                      ("host", "SELECT count(*) FROM t WHERE host = 'h2'")):
+        stream_exec.configure_streaming(cold_reduce=mode)
+        fe.do_query("SET tpu_dispatch_min_rows = 0")
+        assert fe.do_query(sql)[0].num_rows >= 1
+        paths.append(region.last_scan_profile.path)
+    fe.do_query("SET stream_threshold_rows = 64000000")
+    fe.do_query("SET tpu_dispatch_min_rows = 0")
+    fe.do_query("SELECT host, avg(v) FROM t GROUP BY host")
+    paths.append(region.last_scan_profile.path)
+    assert paths == ["streamed", "streamed", "indexed-point", "resident"], \
+        paths
+    fe.shutdown()
+new = sorted(set(sys.modules) - before)
+print(json.dumps(new))
+"""
+
+
+def test_streamed_path_imports_no_reference():
+    """The streamed cold path (both reductions), the indexed-point path
+    and the plan codec behind scan fusion run on the CPU without adding
+    jax or greptimedb_tpu to sys.modules."""
+    out = subprocess.run([sys.executable, "-c", _STREAM_PROBE], cwd=REPO,
+                         env=_ENV, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    new = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in new if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+    for m in ("query.stream_exec", "query.plan_codec", "query.tpu_exec"):
+        assert f"greptimedb_tpu_torch.{m}" in new, m
+
+
+@pytest.mark.parametrize("module", ["query/stream_exec.py",
+                                    "query/plan_codec.py"])
+def test_scan_path_modules_are_the_ports_own(module):
+    """The cold scan paths' modules exist in the port, import nothing
+    forbidden and keep their imports relative."""
+    path = os.path.join(PORT, module)
+    for node in ast.walk(ast.parse(open(path).read(), path)):
+        if isinstance(node, ast.ImportFrom) and node.level == 0:
+            assert node.module.split(".")[0] not in \
+                FORBIDDEN + ("greptimedb_tpu_torch",), path
+        elif isinstance(node, ast.Import):
+            assert all(a.name.split(".")[0] not in FORBIDDEN
+                       for a in node.names), path
 
 
 def _port_sources():

@@ -126,15 +126,19 @@ def stack(tmp_path_factory):
     catalog = MemoryCatalogManager()
     table = _port_table(storage, catalog, "cpu", ref_table, columns,
                         [("put", OVERWRITE), ("delete", DELETE)])
-    # the resident device path on both sides (the reference would route
-    # selective tag predicates through its SST index on a cold cache)
+    # the resident device path on both sides (both packages would route
+    # selective tag predicates through their SST index on a cold cache)
+    from greptimedb_tpu_torch.storage import index as port_index
     saved_index = ref_index.sst_index_enabled()
+    saved_port_index = port_index.sst_index_enabled()
     fe.do_query("SET sst_index = 0", RefCtx())
+    port_index.configure_sst_index(enabled=False)
     yield types.SimpleNamespace(
         fe=fe, storage=storage, catalog=catalog,
         ref=RefEngine(fe.catalog), port=QueryEngine(catalog, device="cpu"),
         ref_table=ref_table, table=table)
     fe.do_query(f"SET sst_index = {int(saved_index)}", RefCtx())
+    port_index.configure_sst_index(enabled=saved_port_index)
     storage.close()
     fe.shutdown()
 
@@ -426,6 +430,66 @@ def test_narrow_int_fields_match_reference(narrow, group, op):
     want, got, ref_prof, port_prof = narrow[group]
     assert ref_prof is not None and ref_prof.path == "resident"
     assert port_prof is not None and port_prof.path == "resident"
+    assert list(got.columns) == list(want.columns)
+    assert len(got) == len(want) > 1
+    for c in NARROW:
+        col = f"{op}({c})"
+        w, g = want[col].to_numpy(), got[col].to_numpy()
+        np.testing.assert_array_equal(pd.isna(g), pd.isna(w), err_msg=col)
+        ok = ~pd.isna(w)
+        if op == "stddev":
+            w64, g64 = w[ok].astype(np.float64), g[ok].astype(np.float64)
+            assert (np.abs(g64 - w64) <= 1e-3 * np.abs(w64) + 1e-4).all(), \
+                col
+            continue
+        np.testing.assert_array_equal(g[ok].astype(object),
+                                      w[ok].astype(object), err_msg=col)
+
+
+@pytest.fixture(scope="module")
+def narrow_streamed(stack, narrow):
+    """Each grouping's statement through the port's streamed cold path in
+    its "device" mode (the streaming threshold at 0, the slices launched
+    on the CPU through the kernel's plain version)."""
+    from greptimedb_tpu_torch.query import stream_exec
+    table = stack.catalog.table("greptime", "public", "nt")
+    (region,) = table.regions.values()
+    saved = stream_exec.stream_threshold_rows(), stream_exec._COLD_REDUCE[0]
+    stream_exec.configure_streaming(threshold_rows=0, cold_reduce="device")
+    out = {}
+    try:
+        for g, (sel, key) in NARROW_GROUPS.items():
+            aggs = ", ".join(f"{op}({c})" for op in NARROW_OPS
+                             for c in NARROW)
+            sql = f"SELECT {sel}, {aggs} FROM nt GROUP BY {key} ORDER BY {key}"
+            saved_floor = tpu_exec.TPU_DISPATCH_MIN_ROWS
+            tpu_exec.TPU_DISPATCH_MIN_ROWS = 0
+            tpu_exec._observed_min_dt[0] = None
+            try:
+                got = _frame(stack.port.execute(parse_sql(sql),
+                                                QueryContext()))
+            finally:
+                tpu_exec.TPU_DISPATCH_MIN_ROWS = saved_floor
+                tpu_exec._observed_min_dt[0] = None
+            out[g] = (got, region.last_scan_profile)
+    finally:
+        stream_exec.configure_streaming(threshold_rows=saved[0],
+                                        cold_reduce=saved[1])
+    return out
+
+
+@pytest.mark.parametrize("op", NARROW_OPS)
+@pytest.mark.parametrize("group", list(NARROW_GROUPS))
+def test_narrow_int_fields_streamed_match_reference(narrow, narrow_streamed,
+                                                    group, op):
+    """The narrow and unsigned integer table through the streamed path's
+    device reduction: its slices mirror each column as the resident scan
+    does, so every result is exactly the reference's, as on the resident
+    path (standard deviations within 1e-3 relative)."""
+    want = narrow[group][0]
+    got, prof = narrow_streamed[group]
+    assert prof is not None and prof.path == "streamed"
+    assert prof.counters.get("device_slices", 0) > 0
     assert list(got.columns) == list(want.columns)
     assert len(got) == len(want) > 1
     for c in NARROW:
