@@ -1,0 +1,421 @@
+"""information_schema virtual tables.
+
+Reference behavior: the reference serves `information_schema` through
+the catalog's schema provider (exercised by
+tests/cases/standalone/common/system/information_schema.sql). Virtual
+tables are materialized from live catalog state at scan time:
+
+- information_schema.tables  — one row per registered table
+- information_schema.columns — one row per column of every table
+- information_schema.runtime_metrics — every sample the prometheus
+  registry would export on /metrics (same counters, same values), plus
+  live engine gauges (region/memtable/SST state, scan-cache residency,
+  object-store read-cache hit ratio) — so metrics are queryable over
+  SQL exactly like the /metrics endpoint.
+
+Ported from greptimedb_tpu/catalog/information_schema.py. The port serves
+tables, columns, failpoints, cluster_info, region_peers, processes,
+background_jobs and runtime_metrics (from the port's own Prometheus
+registry, common/telemetry.registry()); a standalone port has no meta
+service, so cluster_info and region_peers are synthesized from the local
+regions. flows, self_monitor, trace_spans and profile_samples read
+modules the port does not have yet and raise UnsupportedError naming
+them.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+from ..datatypes import data_type as dt
+from ..datatypes.record_batch import RecordBatch
+from ..datatypes.schema import ColumnSchema, Schema
+from ..errors import UnsupportedError
+from ..table.metadata import TableIdent, TableInfo, TableMeta, TableType
+from ..table.table import Table
+
+INFORMATION_SCHEMA_NAME = "information_schema"
+
+_TABLES_SCHEMA = Schema([
+    ColumnSchema("table_catalog", dt.STRING),
+    ColumnSchema("table_schema", dt.STRING),
+    ColumnSchema("table_name", dt.STRING),
+    ColumnSchema("table_type", dt.STRING),
+    ColumnSchema("table_id", dt.INT64),
+    ColumnSchema("engine", dt.STRING),
+])
+
+_COLUMNS_SCHEMA = Schema([
+    ColumnSchema("table_catalog", dt.STRING),
+    ColumnSchema("table_schema", dt.STRING),
+    ColumnSchema("table_name", dt.STRING),
+    ColumnSchema("column_name", dt.STRING),
+    ColumnSchema("data_type", dt.STRING),
+    ColumnSchema("semantic_type", dt.STRING),
+    ColumnSchema("is_nullable", dt.STRING),
+])
+
+_RUNTIME_METRICS_SCHEMA = Schema([
+    ColumnSchema("metric_name", dt.STRING),
+    ColumnSchema("labels", dt.STRING),
+    ColumnSchema("value", dt.FLOAT64),
+    ColumnSchema("kind", dt.STRING),
+])
+
+_FAILPOINTS_SCHEMA = Schema([
+    ColumnSchema("name", dt.STRING),
+    ColumnSchema("action", dt.STRING, nullable=True),
+    ColumnSchema("hits", dt.INT64),
+    ColumnSchema("fires", dt.INT64),
+])
+
+_CLUSTER_INFO_SCHEMA = Schema([
+    ColumnSchema("peer_id", dt.INT64),
+    ColumnSchema("peer_type", dt.STRING),
+    ColumnSchema("peer_addr", dt.STRING),
+    ColumnSchema("lease_state", dt.STRING),
+    ColumnSchema("last_seen_ms", dt.INT64, nullable=True),
+    ColumnSchema("region_count", dt.INT64),
+    ColumnSchema("approximate_rows", dt.INT64),
+    ColumnSchema("ingest_rate_rps", dt.FLOAT64),
+    ColumnSchema("region_stats", dt.STRING),
+])
+
+_REGION_PEERS_SCHEMA = Schema([
+    ColumnSchema("table_name", dt.STRING),
+    ColumnSchema("region_number", dt.INT64),
+    ColumnSchema("peer_id", dt.INT64),
+    ColumnSchema("peer_addr", dt.STRING),
+    ColumnSchema("is_leader", dt.STRING),
+    ColumnSchema("status", dt.STRING),
+    # read replicas: the leader row's replicated_seq is its
+    # committed sequence; a follower row's is its applied position, and
+    # lag_ms bounds its staleness (0 = caught up, NULL = no beat yet)
+    ColumnSchema("replicated_seq", dt.INT64, nullable=True),
+    ColumnSchema("lag_ms", dt.INT64, nullable=True),
+    ColumnSchema("route_version", dt.INT64),
+    ColumnSchema("operation", dt.STRING, nullable=True),
+    ColumnSchema("op_id", dt.STRING, nullable=True),
+])
+
+_PROCESSES_SCHEMA = Schema([
+    ColumnSchema("id", dt.INT64),
+    ColumnSchema("node", dt.STRING),
+    ColumnSchema("catalog", dt.STRING),
+    ColumnSchema("schema", dt.STRING),
+    ColumnSchema("query", dt.STRING),
+    ColumnSchema("protocol", dt.STRING),
+    ColumnSchema("state", dt.STRING),
+    ColumnSchema("trace_id", dt.STRING),
+    ColumnSchema("elapsed_ms", dt.FLOAT64),
+    ColumnSchema("rows_scanned", dt.INT64),
+    ColumnSchema("bytes_read", dt.INT64),
+    ColumnSchema("rpcs", dt.INT64),
+    ColumnSchema("partial_bytes", dt.INT64),
+])
+
+
+
+
+_BACKGROUND_JOBS_SCHEMA = Schema([
+    ColumnSchema("job_id", dt.INT64),
+    ColumnSchema("kind", dt.STRING),
+    ColumnSchema("table_name", dt.STRING, nullable=True),
+    ColumnSchema("region", dt.STRING, nullable=True),
+    ColumnSchema("node", dt.STRING),
+    ColumnSchema("state", dt.STRING),
+    ColumnSchema("trace_id", dt.STRING),
+    ColumnSchema("start_ms", dt.INT64),
+    ColumnSchema("duration_ms", dt.FLOAT64, nullable=True),
+    ColumnSchema("error", dt.STRING, nullable=True),
+    ColumnSchema("detail", dt.STRING, nullable=True),
+])
+
+
+
+def _engine_gauges(catalog_manager, catalog_name: str):
+    """Live engine state as gauge samples: per-region storage facts plus
+    process-wide cache gauges. These exist even before any metric has
+    been observed, so `SELECT ... WHERE metric_name = 'greptime_...'`
+    over a fresh server is deterministic (the sqlness golden relies on
+    that)."""
+    rows = []          # (name, labels, value, kind)
+    region_count = 0
+    for schema_name in catalog_manager.schema_names(catalog_name):
+        for tname in catalog_manager.table_names(catalog_name,
+                                                 schema_name):
+            t = catalog_manager.table(catalog_name, schema_name, tname)
+            regions = getattr(t, "regions", None)
+            if not regions:
+                continue
+            for rnum, region in sorted(regions.items()):
+                region_count += 1
+                vc = getattr(region, "version_control", None)
+                if vc is None:
+                    continue
+                v = vc.current
+                labels = (f'{{region="{rnum}", schema="{schema_name}", '
+                          f'table="{tname}"}}')
+                mt_rows = sum(m.num_rows
+                              for m in v.memtables.all_memtables())
+                files = list(v.ssts.all_files())
+                rows.append(("greptime_region_memtable_rows", labels,
+                             float(mt_rows), "gauge"))
+                rows.append(("greptime_region_sst_files", labels,
+                             float(len(files)), "gauge"))
+                rows.append(("greptime_region_sst_rows", labels,
+                             float(sum(f.num_rows for f in files)),
+                             "gauge"))
+    rows.append(("greptime_region_count", "", float(region_count),
+                 "gauge"))
+    from ..query.tpu_exec import SCAN_CACHE
+    rows.append(("greptime_scan_cache_resident_bytes", "",
+                 float(SCAN_CACHE.resident_bytes()), "gauge"))
+    store = getattr(catalog_manager, "store", None)
+    hit_ratio = getattr(store, "hit_ratio", None)
+    if callable(hit_ratio):
+        rows.append(("greptime_read_cache_hit_ratio", "",
+                     float(hit_ratio()), "gauge"))
+    return rows
+
+
+def _collect_families():
+    """One walk of the port's Prometheus registry, shared by the raw
+    sample rows and the pXX summaries (the registry grows with statement
+    kinds × protocols × routes — don't materialize it twice per query).
+    Delegates to the telemetry helper so this view, /metrics and the
+    self-monitoring scraper read the SAME walk and label formatting —
+    greptime_private.node_metrics can never diverge from
+    runtime_metrics."""
+    from ..common.telemetry import collect_families
+    return collect_families()
+
+
+def _prometheus_samples(families=None):
+    """Every sample of the port's Prometheus registry, as /metrics would
+    render it."""
+    from ..common.telemetry import registry_snapshot
+    return registry_snapshot(families)
+
+
+def _latency_summary_rows(families=None):
+    """p50/p95/p99 gauge rows interpolated from every histogram in the
+    registry (telemetry.latency_summaries) — the summarized view of the
+    log-bucketed latency distributions next to their raw samples."""
+    from ..common.telemetry import latency_summaries
+    return [(name, labels, float(value), "summary")
+            for name, labels, value in latency_summaries(
+                families=families)]
+
+
+def _cluster_nodes(catalog_manager, catalog_name: str):
+    """cluster_info rows: one synthesized row for the standalone process
+    (the reference reads the meta service on a clustered frontend; the
+    port has no meta service yet)."""
+    import json as _json
+    import time as _time
+    from ..query.stream_exec import region_stat_entries
+    regions = []
+    for schema_name in catalog_manager.schema_names(catalog_name):
+        for tname in catalog_manager.table_names(catalog_name,
+                                                 schema_name):
+            t = catalog_manager.table(catalog_name, schema_name, tname)
+            regions.extend((getattr(t, "regions", None) or {}).values())
+    region_stats, total_rows, _ = region_stat_entries(regions)
+    return [{
+        "peer_id": 0, "peer_type": "standalone", "peer_addr": "",
+        "lease_state": "alive", "last_seen_ms": int(_time.time() * 1000),
+        "region_count": len(region_stats),
+        "approximate_rows": total_rows, "ingest_rate_rps": 0.0,
+        "region_stats": _json.dumps(region_stats,
+                                    separators=(",", ":")),
+    }]
+
+
+def _region_peer_rows(catalog_manager, catalog_name: str):
+    """region_peers rows: placement + lease state per (table, region),
+    synthesized from the local regions (the reference reads the meta
+    service on a clustered frontend)."""
+    rows = []
+    for schema_name in catalog_manager.schema_names(catalog_name):
+        for tname in catalog_manager.table_names(catalog_name,
+                                                 schema_name):
+            t = catalog_manager.table(catalog_name, schema_name, tname)
+            regions = getattr(t, "regions", None)
+            if not regions:
+                continue
+            for rn in sorted(regions):
+                vc = getattr(regions[rn], "version_control", None)
+                rows.append({
+                    "table_name":
+                        f"{catalog_name}.{schema_name}.{tname}",
+                    "region_number": rn, "peer_id": 0, "peer_addr": "",
+                    "is_leader": "Yes", "status": "ALIVE",
+                    "replicated_seq": int(vc.committed_sequence)
+                    if vc is not None else None,
+                    "lag_ms": 0,
+                    "route_version": 0, "operation": None,
+                    "op_id": None,
+                })
+    return rows
+
+
+class _VirtualTable(Table):
+    """Read-only table whose rows come from a builder at scan time."""
+
+    def __init__(self, name: str, schema: Schema, builder):
+        info = TableInfo(
+            ident=TableIdent(3),
+            name=name,
+            meta=TableMeta(schema=schema, engine="system"),
+            schema_name=INFORMATION_SCHEMA_NAME,
+            table_type=TableType.TEMPORARY)
+        super().__init__(info)
+        self._builder = builder
+
+    def scan_batches(self, projection: Optional[Sequence[str]] = None,
+                     time_range=None, limit: Optional[int] = None
+                     ) -> List[RecordBatch]:
+        data = self._builder()
+        if limit is not None:
+            data = {k: v[:limit] for k, v in data.items()}
+        batch = RecordBatch.from_pydict(self.schema, data)
+        if projection is not None:
+            batch = batch.project(list(projection))
+        return [batch]
+
+
+#: the reference's information_schema tables whose modules the port does
+#: not have yet: table name → what is missing
+_NOT_PORTED = {
+    "flows": "flows (flow/)",
+    "self_monitor": "the self-monitor (monitor/)",
+    "trace_spans": "the trace store (common/trace_store.py)",
+    "profile_samples": "the profiler (common/profiler.py)",
+}
+
+
+def information_schema_table(catalog_manager, catalog_name: str,
+                             table_name: str) -> Optional[Table]:
+    """Resolve `information_schema.<table>` against live catalog state."""
+    name = table_name.lower()
+    if name == "tables":
+        def build_tables():
+            rows = {k: [] for k in _TABLES_SCHEMA.names()}
+            for schema_name in catalog_manager.schema_names(catalog_name):
+                for tname in catalog_manager.table_names(catalog_name,
+                                                         schema_name):
+                    t = catalog_manager.table(catalog_name, schema_name,
+                                              tname)
+                    if t is None:
+                        continue
+                    rows["table_catalog"].append(catalog_name)
+                    rows["table_schema"].append(schema_name)
+                    rows["table_name"].append(tname)
+                    rows["table_type"].append(
+                        getattr(t.info.table_type, "value", "BASE TABLE"))
+                    rows["table_id"].append(t.info.ident.table_id)
+                    rows["engine"].append(t.info.meta.engine)
+            return rows
+        return _VirtualTable("tables", _TABLES_SCHEMA, build_tables)
+    if name == "columns":
+        def build_columns():
+            rows = {k: [] for k in _COLUMNS_SCHEMA.names()}
+            for schema_name in catalog_manager.schema_names(catalog_name):
+                for tname in catalog_manager.table_names(catalog_name,
+                                                         schema_name):
+                    t = catalog_manager.table(catalog_name, schema_name,
+                                              tname)
+                    if t is None:
+                        continue
+                    for cs in t.schema.column_schemas:
+                        rows["table_catalog"].append(catalog_name)
+                        rows["table_schema"].append(schema_name)
+                        rows["table_name"].append(tname)
+                        rows["column_name"].append(cs.name)
+                        rows["data_type"].append(cs.dtype.name)
+                        rows["semantic_type"].append(
+                            cs.semantic_type.value
+                            if hasattr(cs.semantic_type, "value")
+                            else str(cs.semantic_type))
+                        rows["is_nullable"].append(
+                            "YES" if cs.nullable else "NO")
+            return rows
+        return _VirtualTable("columns", _COLUMNS_SCHEMA, build_columns)
+    if name in _NOT_PORTED:
+        raise UnsupportedError(
+            f"information_schema.{name}: {_NOT_PORTED[name]} is not "
+            f"ported yet")
+    if name == "failpoints":
+        def build_failpoints():
+            from ..common import failpoint
+            points = failpoint.list_points()
+            return {
+                "name": [p["name"] for p in points],
+                "action": [p["action"] for p in points],
+                "hits": [p["hits"] for p in points],
+                "fires": [p["fires"] for p in points],
+            }
+        return _VirtualTable("failpoints", _FAILPOINTS_SCHEMA,
+                             build_failpoints)
+    if name == "cluster_info":
+        def build_cluster_info():
+            rows = {k: [] for k in _CLUSTER_INFO_SCHEMA.names()}
+            for node in _cluster_nodes(catalog_manager, catalog_name):
+                for k in rows:
+                    rows[k].append(node.get(k))
+            return rows
+        return _VirtualTable("cluster_info", _CLUSTER_INFO_SCHEMA,
+                             build_cluster_info)
+    if name == "region_peers":
+        def build_region_peers():
+            rows = {k: [] for k in _REGION_PEERS_SCHEMA.names()}
+            for peer in _region_peer_rows(catalog_manager, catalog_name):
+                for k in rows:
+                    rows[k].append(peer.get(k))
+            return rows
+        return _VirtualTable("region_peers", _REGION_PEERS_SCHEMA,
+                             build_region_peers)
+    if name == "processes":
+        def build_processes():
+            from ..common import process_list
+            rows = {k: [] for k in _PROCESSES_SCHEMA.names()}
+            for r in process_list.REGISTRY.rows():
+                for k in rows:
+                    rows[k].append(r.get(k))
+            return rows
+        return _VirtualTable("processes", _PROCESSES_SCHEMA,
+                             build_processes)
+    if name == "background_jobs":
+        def build_background_jobs():
+            from ..common import background_jobs
+            # the local registry (the reference also reads every
+            # reachable datanode's on a clustered frontend)
+            ordered = sorted(
+                background_jobs.rows(),
+                key=lambda r: (r.get("state") != "running",
+                               str(r.get("node")),
+                               -(r.get("job_id") or 0)))
+            rows = {k: [] for k in _BACKGROUND_JOBS_SCHEMA.names()}
+            for r in ordered:
+                for k in rows:
+                    rows[k].append(r.get(k))
+            return rows
+        return _VirtualTable("background_jobs", _BACKGROUND_JOBS_SCHEMA,
+                             build_background_jobs)
+    if name == "runtime_metrics":
+        def build_metrics():
+            families = _collect_families()
+            samples = _prometheus_samples(families) + \
+                _engine_gauges(catalog_manager, catalog_name) + \
+                _latency_summary_rows(families)
+            samples.sort(key=lambda r: (r[0], r[1]))
+            return {
+                "metric_name": [r[0] for r in samples],
+                "labels": [r[1] for r in samples],
+                "value": [r[2] for r in samples],
+                "kind": [r[3] for r in samples],
+            }
+        return _VirtualTable("runtime_metrics", _RUNTIME_METRICS_SCHEMA,
+                             build_metrics)
+    return None

@@ -224,6 +224,16 @@ def apply_set_variable(stmt: ast.SetVariable, ctx: QueryContext) -> Output:
         # dispatch decision without a config reload
         from ..query.stream_exec import configure_streaming
         configure_streaming(threshold_rows=_int_setting(stmt))
+    elif name == "approx_error_target":
+        # target relative error for the approx aggregates: drives the
+        # HLL precision and the t-digest compression together
+        from ..query import sketches
+        try:
+            sketches.configure(error_target=float(stmt.value))
+        except (TypeError, ValueError):
+            raise InvalidArgumentsError(
+                f"SET {stmt.name}: expected a number in [0.001, 0.25], "
+                f"got {stmt.value!r}")
     elif name == "scan_fusion":
         # single-flight fusion of concurrent identical scans of one
         # region (query/tpu_exec.py); 0 = every scan solo
@@ -285,12 +295,11 @@ def apply_set_variable(stmt: ast.SetVariable, ctx: QueryContext) -> Output:
 _KNOBS_NOT_PORTED = {
     **dict.fromkeys(("rollup_rewrite",), "the flow rollup rewrite (flow/)"),
     **dict.fromkeys(("dist_fanout", "dist_rpc_max_retries",
-                     "dist_rpc_retry_base_ms", "dist_partial_agg"),
+                     "dist_rpc_retry_base_ms", "dist_partial_agg",
+                     "exact_distinct"),
                     "the distributed frontend"),
     **dict.fromkeys(("ingest_coalesce", "ingest_coalesce_window_ms"),
                     "the ingest coalescer (servers/coalesce.py)"),
-    **dict.fromkeys(("exact_distinct", "approx_error_target"),
-                    "sketch aggregates (query/sketches.py)"),
     **dict.fromkeys(("admission_max_inflight", "admission_max_queued_bytes",
                      "admission_retry_after_s"),
                     "the admission gate (common/admission.py)"),

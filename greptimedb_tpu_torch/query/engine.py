@@ -6,9 +6,10 @@ greptimedb_tpu/query/engine.py) `execute` dispatches on statement type;
 SELECTs try the device aggregate path first (tpu_exec.try_execute, on the
 engine's device) and otherwise run the pandas columnar fallback.
 
-Ported so far: SELECT (with joins, UNION and uncorrelated subqueries, which
-run in pandas). EXPLAIN, SHOW, DESCRIBE, window functions and the flow
-rollup rewrite are not ported yet and raise UnsupportedError.
+Ported: SELECT (with joins, UNION, uncorrelated subqueries and window
+functions, which run in pandas), EXPLAIN / EXPLAIN ANALYZE, SHOW,
+DESCRIBE and information_schema. Not ported yet: the flow rollup rewrite
+(flow/), so no statement is re-targeted at a rollup sink.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import pandas as pd
 import torch
 
 from ..catalog import CatalogManager
+from ..common import exec_stats
 from ..common.time import TimeUnit
 from ..datatypes import data_type as dt
 from ..datatypes.data_type import parse_type_name
@@ -29,14 +31,16 @@ from ..errors import (
     ColumnNotFoundError, PlanError, TableNotFoundError, UnsupportedError)
 from ..session import QueryContext
 from ..sql.ast import (
-    Column, Expr, FunctionCall, InList, Literal, Query, SetQuery, Star,
-    Statement, TableRef, WindowSpec)
+    Column, DescribeTable, Explain, Expr, FunctionCall, InList, Literal,
+    Query, SetQuery, ShowCreateTable, ShowDatabases, ShowProcessList,
+    ShowTables, ShowVariable, Star, Statement, TableRef, WindowSpec)
 from ..table.table import Table
 from .expr import Evaluator, expr_name
 from .functions import AGGREGATE_FUNCTIONS
 from .output import Output
 from .planner import (Analysis, analyze, convert_time_literals,
                       _group_slot)
+from . import show as show_impl
 from . import tpu_exec
 
 
@@ -47,6 +51,10 @@ class QueryEngine:
     def __init__(self, catalog: CatalogManager, device="cuda"):
         self.catalog = catalog
         self.device = torch.device(device)
+        #: ExecStats of the most recent top-level query this thread ran —
+        #: the slow-query log and EXPLAIN ANALYZE read it (diagnostic only;
+        #: a concurrent server sees the latest finished query's stats)
+        self.last_exec_stats: Optional[exec_stats.ExecStats] = None
 
     # ---- dispatch ----
     def execute(self, stmt: Statement, ctx: Optional[QueryContext] = None
@@ -56,6 +64,20 @@ class QueryEngine:
             return self.execute_query(stmt, ctx)
         if isinstance(stmt, SetQuery):
             return self.execute_set_query(stmt, ctx)
+        if isinstance(stmt, ShowDatabases):
+            return show_impl.show_databases(self, stmt, ctx)
+        if isinstance(stmt, ShowTables):
+            return show_impl.show_tables(self, stmt, ctx)
+        if isinstance(stmt, ShowCreateTable):
+            return show_impl.show_create_table(self, stmt, ctx)
+        if isinstance(stmt, ShowVariable):
+            return show_impl.show_variable(self, stmt, ctx)
+        if isinstance(stmt, ShowProcessList):
+            return show_impl.show_processlist(self, stmt, ctx)
+        if isinstance(stmt, DescribeTable):
+            return show_impl.describe_table(self, stmt, ctx)
+        if isinstance(stmt, Explain):
+            return self.explain(stmt, ctx)
         raise UnsupportedError(
             f"query engine cannot execute {type(stmt).__name__}")
 
@@ -63,14 +85,124 @@ class QueryEngine:
         if isinstance(ref, TableRef):
             ref = ref.name
         catalog, schema, name = ctx.resolve(ref)
+        if schema.lower() == "information_schema":
+            from ..catalog.information_schema import (
+                information_schema_table)
+            virtual = information_schema_table(self.catalog, catalog, name)
+            if virtual is not None:
+                return virtual
         table = self.catalog.table(catalog, schema, name)
         if table is None:
             raise TableNotFoundError(
                 f"table {catalog}.{schema}.{name} not found")
         return table
 
+    # ---- EXPLAIN ----
+    def explain(self, stmt: Explain, ctx: QueryContext) -> Output:
+        inner = stmt.statement
+        lines: List[str] = []
+        if isinstance(inner, Query):
+            a = analyze(inner)
+            table = None
+            if inner.from_ is not None and inner.from_.name is not None:
+                table = self.resolve_table(inner.from_, ctx)
+            if table is not None:
+                # same literal→timestamp coercion the execution path
+                # applies, so the explained dispatch matches the executed
+                # one
+                inner.where = convert_time_literals(inner.where,
+                                                    table.schema)
+            plan = tpu_exec.plan_for(table, a, inner) if table else None
+            if plan is not None:
+                # pin the dispatch decision (sqlness explain goldens):
+                # pushdown / cpu-small-scan / streamed-cold / resident.
+                # Uses the STATIC dispatch floor, not the latency-adaptive
+                # one (_dispatch_min_rows), so the plan text is
+                # deterministic across processes and runs.
+                est = tpu_exec._estimated_table_rows(table)
+                if est is not None and \
+                        est < tpu_exec.TPU_DISPATCH_MIN_ROWS:
+                    lines.append("CpuAggregateExec: " + plan.describe())
+                    lines.append(
+                        f"  Dispatch: cpu-small-scan (est_rows={est} < "
+                        f"dispatch_floor={tpu_exec.TPU_DISPATCH_MIN_ROWS})")
+                else:
+                    # mirror execution exactly: the decision string is
+                    # built by the same helper region_moment_frames
+                    # records into ExecStats (per-REGION decision, on
+                    # rows OR decoded-bytes vs the scan-cache budget)
+                    lines.append("TpuAggregateExec: " + plan.describe())
+                    lines.append("  Dispatch: " +
+                                 tpu_exec.local_dispatch_decision(
+                                     table, plan=plan))
+            elif a.is_aggregate:
+                lines.append("CpuAggregateExec: groups=" + ", ".join(
+                    expr_name(g) for g in a.group_exprs))
+            else:
+                lines.append("CpuProjectionExec")
+            if inner.where is not None:
+                lines.append("  Filter: " + expr_name(inner.where))
+            if table is not None:
+                lines.append(f"  TableScan: {table.name}")
+        else:
+            lines.append(type(inner).__name__)
+        if stmt.analyze:
+            return self._explain_analyze(inner, lines, ctx)
+        schema = Schema([ColumnSchema("plan_type", dt.STRING),
+                         ColumnSchema("plan", dt.STRING)])
+        rb = RecordBatch.from_pydict(schema, {
+            "plan_type": ["logical_plan"], "plan": ["\n".join(lines)]})
+        return Output.record_batches([rb])
+
+    def _explain_analyze(self, inner, plan_lines: List[str],
+                         ctx: QueryContext) -> Output:
+        """EXPLAIN ANALYZE: actually execute the statement under an
+        ExecStats collector and render the per-stage breakdown — stage,
+        rows, files, elapsed ms, and the path facts (dispatch decision,
+        lean/dedup-skip vs merged slices, cache hit) under the same
+        stage names the storage profilers use, so this table, the
+        tracing spans and Region.last_scan_profile agree (reference:
+        DataFusion's EXPLAIN ANALYZE over operator metrics)."""
+        stats = exec_stats.ExecStats()
+        out_rows = 0
+        with exec_stats.collect(stats):
+            if isinstance(inner, Query):
+                out = self._execute_query_inner(inner, ctx)
+                out_rows = out.num_rows or 0
+        self.last_exec_stats = stats
+        cols = stats.rows_table()
+        # lead with the plan so the dispatch line stays next to the plan
+        # shape it annotates
+        cols["stage"].insert(0, "plan")
+        cols["rows"].insert(0, out_rows)
+        cols["files"].insert(0, 0)
+        cols["elapsed_ms"].insert(0, 0.0)
+        cols["detail"].insert(0, "\n".join(plan_lines))
+        schema = Schema([ColumnSchema("stage", dt.STRING),
+                         ColumnSchema("rows", dt.INT64),
+                         ColumnSchema("files", dt.INT64),
+                         ColumnSchema("elapsed_ms", dt.FLOAT64),
+                         ColumnSchema("detail", dt.STRING)])
+        rb = RecordBatch.from_pydict(schema, cols)
+        return Output.record_batches([rb], schema)
+
     # ---- SELECT ----
     def execute_query(self, query: Query, ctx: QueryContext) -> Output:
+        """Top-level entry installs an ExecStats collector (nested calls —
+        subqueries, UNION arms, join sides — record into the active one),
+        so every statement leaves a per-stage breakdown behind for the
+        slow-query log and EXPLAIN ANALYZE."""
+        if exec_stats.current() is not None:
+            return self._execute_query_inner(query, ctx)
+        with exec_stats.collect() as st:
+            out = self._execute_query_inner(query, ctx)
+        self.last_exec_stats = st
+        return out
+
+    def _execute_query_inner(self, query: Query, ctx: QueryContext
+                             ) -> Output:
+        from ..common import process_list
+        process_list.check_cancelled()     # KILL between sub-statements
         if isinstance(query, SetQuery):     # e.g. a UNION-bodied CTE /
             return self.execute_set_query(query, ctx)  # derived table
         self._rewrite_query_subqueries(query, ctx)
@@ -102,24 +234,44 @@ class QueryEngine:
         # CPU fallback: the per-version cached frame when the table is
         # region-backed (repeat queries skip scan+convert entirely),
         # else scan the needed columns
-        df = tpu_exec.cached_table_frame(table, self.device)
-        if df is None:
-            needed = None
-            if a.column_refs and not self._needs_all(a, query):
-                refs = set(a.column_refs)
-                if any(c.op in ("first", "last") for c in a.agg_calls):
-                    # _aggregate sorts by the time index so first/last
-                    # are time-ordered — keep it in the projection even
-                    # when the query doesn't reference it
-                    tc = table.schema.timestamp_column
-                    if tc is not None:
-                        refs.add(tc.name)
-                needed = [c for c in table.schema.names() if c in refs]
-            df = _batches_to_df(table.scan_batches(projection=needed))
+        exec_stats.set_dispatch("cpu-fallback")
+        cached = True
+        with exec_stats.stage("scan"):
+            df = tpu_exec.cached_table_frame(table, self.device)
+            if df is None:
+                cached = False
+                needed = None
+                if a.column_refs and not self._needs_all(a, query):
+                    refs = set(a.column_refs)
+                    if any(c.op in ("first", "last")
+                           for c in a.agg_calls):
+                        # _aggregate sorts by the time index so
+                        # first/last are time-ordered — keep it in the
+                        # projection even when the query doesn't
+                        # reference it
+                        tc = table.schema.timestamp_column
+                        if tc is not None:
+                            refs.add(tc.name)
+                    needed = [c for c in table.schema.names()
+                              if c in refs]
+                df = _batches_to_df(table.scan_batches(projection=needed))
+        exec_stats.record("scan", rows=len(df), cached=cached)
         return self._run_on_frame(df, a, query, table)
 
     # ---- UNION [ALL] ----
     def execute_set_query(self, sq: SetQuery, ctx: QueryContext) -> Output:
+        """Same collector discipline as execute_query: a top-level UNION
+        installs one ExecStats for the whole statement so both arms
+        record into it."""
+        if exec_stats.current() is not None:
+            return self._execute_set_query_inner(sq, ctx)
+        with exec_stats.collect() as st:
+            out = self._execute_set_query_inner(sq, ctx)
+        self.last_exec_stats = st
+        return out
+
+    def _execute_set_query_inner(self, sq: SetQuery, ctx: QueryContext
+                                 ) -> Output:
         left = self.execute(sq.left, ctx)
         right = self.execute(sq.right, ctx)
         if not (left.is_batches and right.is_batches):
@@ -468,14 +620,19 @@ class QueryEngine:
     def _run_on_frame(self, df: pd.DataFrame, a: Analysis, query: Query,
                       table: Optional[Table]) -> Output:
         if query.where is not None:
-            ev = Evaluator(df)
-            mask = ev.eval(query.where)
-            if not isinstance(mask, pd.Series):
-                mask = pd.Series([bool(mask)] * len(df), index=df.index)
-            df = df[mask.fillna(False).astype(bool)]
+            with exec_stats.stage("filter", rows_in=len(df)):
+                ev = Evaluator(df)
+                mask = ev.eval(query.where)
+                if not isinstance(mask, pd.Series):
+                    mask = pd.Series([bool(mask)] * len(df),
+                                     index=df.index)
+                df = df[mask.fillna(False).astype(bool)]
+            exec_stats.record("filter", rows=len(df))
 
         if a.is_aggregate:
-            grouped = self._aggregate(df, a, table)
+            with exec_stats.stage("aggregate", rows_in=len(df)):
+                grouped = self._aggregate(df, a, table)
+            exec_stats.record("aggregate", rows=len(grouped))
             return self._finish_aggregate_frame(grouped, a, query, table)
 
         return self._project_and_finish(df, a, query, table)
@@ -616,7 +773,17 @@ class QueryEngine:
                             table: Optional[Table], aggregated: bool = False
                             ) -> Output:
         if a.window_calls:
-            raise UnsupportedError("window functions are not ported yet")
+            from .window import compute_windows
+            # windows over non-aggregate queries follow the time index so
+            # unordered specs still see rows in scan order
+            ts_col = None
+            if not aggregated and table is not None:
+                tc = table.schema.timestamp_column
+                if tc is not None and tc.name in df.columns:
+                    ts_col = tc.name
+            if ts_col is not None:
+                df = df.sort_values(ts_col, kind="stable")
+            df = compute_windows(df, a)
         ev = Evaluator(df)
         out_cols: Dict[str, Any] = {}
         out_names: List[str] = []
@@ -719,6 +886,7 @@ class QueryEngine:
             proj = proj.iloc[:query.limit]
 
         schema = _infer_schema(proj, table, source_cols, dtype_overrides)
+        exec_stats.record("project", rows=len(proj))
         return Output.record_batches([_df_to_batch(proj, schema)], schema)
 
 

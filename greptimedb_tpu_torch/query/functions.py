@@ -21,7 +21,7 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 
-from ..errors import InvalidArgumentsError, UnsupportedError
+from ..errors import InvalidArgumentsError
 
 
 # ---------------------------------------------------------------------------
@@ -250,15 +250,30 @@ def _agg_norm_pdf(a, x=0.0):
 
 
 def _agg_approx_distinct(a):
-    """Sketch-backed distinct count (HLL): waits for the sketch module."""
-    raise UnsupportedError("approx_distinct needs the sketch module, which "
-                           "the port does not have yet")
+    """Sketch-backed distinct count — the standalone twin of the
+    distributed HLL pushdown (query/sketches.py): exact below the
+    bounded set size, HLL past it, so both engines answer within the
+    same documented bound."""
+    from .sketches import DistinctSketch
+    v = _valid(a)
+    if not v.size:
+        return 0
+    return DistinctSketch.from_values(v).result()
 
 
 def _agg_approx_percentile(a, p=None):
-    """t-digest percentile: waits for the sketch module."""
-    raise UnsupportedError("approx_percentile needs the sketch module, "
-                           "which the port does not have yet")
+    if p is None:
+        raise InvalidArgumentsError(
+            "approx_percentile(x, p) needs a percentile argument")
+    p = float(p)
+    if not (0.0 <= p <= 100.0):
+        raise InvalidArgumentsError(
+            f"approx_percentile: p must be in [0, 100], got {p}")
+    from .sketches import TDigest
+    v = _valid(a)
+    if not v.size:
+        return None
+    return TDigest.from_values(v.astype(np.float64)).quantile(p)
 
 
 def _agg_median(a):
@@ -299,8 +314,8 @@ TPU_AGGREGATES = {"count", "sum", "avg", "min", "max", "stddev", "variance",
                   "first", "last"}
 
 # aggregates served by sketch partials in the partial-pushdown algebra
-# (query/sketches.py in the JAX package; not ported yet, so they raise
-# UnsupportedError here and plans with them take the CPU path)
+# (query/sketches.py): datanodes build per-group sketches, the frontend
+# merges — plus count(DISTINCT x), which rides the same distinct sketch
 SKETCH_AGGREGATES = {"approx_distinct", "approx_percentile", "median"}
 
 

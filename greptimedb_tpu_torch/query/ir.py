@@ -18,6 +18,7 @@ yet.
 
 from __future__ import annotations
 
+import logging
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -25,14 +26,18 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import pandas as pd
 
-from ..errors import UnsupportedError
+from ..common import exec_stats
+from ..common.telemetry import increment_counter
+from ..errors import SketchCodecError, UnsupportedError
 from .tpu_exec import (
     BucketGroup,
     Moment,
     TagGroup,
     TpuPlan,
+    _aggs_desc,
     _finalize,
     _note_device_query_time,
+    frames_nbytes,
     region_moment_frames,
     standard_final,
 )
@@ -130,7 +135,7 @@ def plan_from_specs(schema, aggs: Sequence[Tuple[str, str, Optional[str]]],
     for dest, mop, col in moment_specs:
         finals.append((dest, "moment", [moment(mop, col)]))
     return TpuPlan(tag_groups, bucket, moments, finals, time_lo, time_hi,
-                   list(tag_predicates), [])
+                   list(tag_predicates), [], {}, {})
 
 
 # ---------------------------------------------------------------------------
@@ -142,7 +147,9 @@ def execute_agg_plan(table, plan: TpuPlan, device) -> pd.DataFrame:
     frame (group key columns + final slots): each region of the table
     reduces through the resident, streamed or indexed-point path
     (tpu_exec.region_moment_frames), and `_finalize` folds the moment
-    frames."""
+    frames. Raises UnsupportedError when the statement should degrade to
+    the raw-row path — a sketch partial that fails to decode — never a
+    wrong answer."""
     t0 = time.perf_counter()
     frames = region_moment_frames(table, plan, device)
     _note_device_query_time(time.perf_counter() - t0)
@@ -152,8 +159,26 @@ def execute_agg_plan(table, plan: TpuPlan, device) -> pd.DataFrame:
             return pd.DataFrame(columns=cols +
                                 [slot for slot, _, _ in plan.finals])
         # global aggregate over zero rows still yields one row
-        row = {slot: (0 if op == "count" else np.nan)
+        row = {slot: (0 if op in ("count", "approx_distinct") else np.nan)
                for slot, op, _ in plan.finals}
         return pd.DataFrame([row])
-    merged = pd.concat(frames, ignore_index=True)
-    return _finalize(merged, plan)
+    with exec_stats.stage("finalize", partial_frames=len(frames),
+                          partial_bytes=frames_nbytes(frames),
+                          aggs=_aggs_desc(plan)):
+        merged = pd.concat(frames, ignore_index=True)
+        try:
+            out = _finalize(merged, plan)
+        except SketchCodecError as e:
+            # a corrupt/truncated sketch partial must never become a
+            # wrong answer: count the degrade and fall back to the
+            # raw-row path (the caller re-runs this statement as a
+            # plain scan + CPU aggregate)
+            increment_counter("sketch_degrade")
+            exec_stats.record("sketch_degrade", error=str(e)[:120])
+            logging.getLogger(__name__).warning(
+                "sketch partial failed to decode (%s); retrying %s via "
+                "the raw-row path", e, table.name)
+            raise UnsupportedError(
+                f"sketch partial failed to decode: {e}") from e
+    exec_stats.record("finalize", rows=len(out))
+    return out

@@ -2,14 +2,13 @@
 carry) as JSON-safe dicts.
 
 Reference: greptimedb_tpu/query/plan_codec.py, whose output this matches
-byte for byte for the plans the port makes. The port's `TpuPlan` has no
-expression columns and no sketch parameters yet, so `plan_to_dict`
-writes both as empty and `plan_from_dict` refuses a plan that carries
-either. Decoding validates every moment and final op against what this
-build's reducers implement and fails closed: an op this build predates
-raises UnsupportedError (with WIRE_UNSUPPORTED_MARKER), never a
-half-understood fold. Scan fusion fingerprints plans through
-`plan_to_dict` (tpu_exec._ScanFlightMap).
+byte for byte, expression columns (`field_exprs`) and sketch parameters
+(`agg_params`) included. Decoding validates every moment and final op
+against what this build's reducers implement and fails closed: an op
+this build predates raises UnsupportedError (with
+WIRE_UNSUPPORTED_MARKER), never a half-understood fold. Scan fusion
+fingerprints plans through `plan_to_dict` (tpu_exec._ScanFlightMap), so
+two plans that differ only in an expression or a percentile never fuse.
 """
 
 from __future__ import annotations
@@ -24,14 +23,14 @@ from ..sql.ast import (
 from .tpu_exec import BucketGroup, FieldFilter, Moment, TagGroup, TpuPlan
 
 #: every moment op this build's reducers implement, and every final op
-#: _finalize renders (the reference's sketch and PromQL ops are not
-#: ported: query/sketches.py, promql/lowering.py)
+#: _finalize renders
 KNOWN_MOMENT_OPS = frozenset({
     "sum", "sum_sq", "count", "min", "max", "first", "last",
-    "min_ts", "max_ts"})
+    "min_ts", "max_ts", "distinct", "tdigest"})
 KNOWN_FINAL_OPS = frozenset({
     "sum", "avg", "count", "min", "max", "first", "last", "stddev",
-    "variance", "moment"})
+    "variance", "approx_distinct", "approx_percentile",
+    "moment"})
 
 #: substring marker that survives a wire's string-flattened errors
 WIRE_UNSUPPORTED_MARKER = "unsupported shipped plan"
@@ -113,10 +112,12 @@ def plan_to_dict(plan: TpuPlan) -> dict:
         "field_filters": [{"column": f.column, "op": f.op,
                            "value": f.value}
                           for f in plan.field_filters],
-        # the reference's expression-argument moments and sketch
-        # parameters: the port plans neither yet
-        "field_exprs": {},
-        "agg_params": {},
+        # expression-argument moments and sketch finals: virtual moment
+        # columns each region evaluates from its stored fields, and
+        # per-final literal params (approx_percentile's p)
+        "field_exprs": {k: expr_to_dict(e)
+                        for k, e in plan.field_exprs.items()},
+        "agg_params": {k: list(v) for k, v in plan.agg_params.items()},
     }
 
 
@@ -131,10 +132,6 @@ def plan_from_dict(d: dict) -> TpuPlan:
             raise UnsupportedError(
                 f"{WIRE_UNSUPPORTED_MARKER}: final op {op!r} "
                 f"(this build predates it)")
-    if d.get("field_exprs") or d.get("agg_params"):
-        raise UnsupportedError(
-            f"{WIRE_UNSUPPORTED_MARKER}: expression or sketch aggregates "
-            f"(query/sketches.py is not ported yet)")
     return TpuPlan(
         tag_groups=[TagGroup(t["name"], t["tag_index"])
                     for t in d["tag_groups"]],
@@ -150,4 +147,8 @@ def plan_from_dict(d: dict) -> TpuPlan:
         tag_predicates=[expr_from_dict(p) for p in d["tag_predicates"]],
         field_filters=[FieldFilter(f["column"], f["op"], f["value"])
                        for f in d["field_filters"]],
+        field_exprs={k: expr_from_dict(e)
+                     for k, e in (d.get("field_exprs") or {}).items()},
+        agg_params={k: tuple(v)
+                    for k, v in (d.get("agg_params") or {}).items()},
     )

@@ -617,7 +617,7 @@ def _host_partial_frame(data, kept: Optional[np.ndarray], plan, sd,
     moment, masks folded into the identity. Runs are (sid, ts)-sorted,
     so first/last are the min/max valid row index per run."""
     from .planner import _group_slot
-    from .tpu_exec import SKETCH_MOMENT_OPS, moment_input
+    from .tpu_exec import SKETCH_MOMENT_OPS, moment_input, sketch_run_column
 
     sids, ts = data.series_ids, data.ts
     fields = data.fields
@@ -725,13 +725,15 @@ def _host_partial_frame(data, kept: Optional[np.ndarray], plan, sd,
         if m.column is None:             # plain row count
             frame[m.slot] = counts
             continue
-        if m.op in SKETCH_MOMENT_OPS:
-            raise UnsupportedError(
-                f"sketch moment {m.op!r}: query/sketches.py is not "
-                f"ported yet")
-        d, vd = moment_input(m, fields, sids, ts, sd, cache=mcache)
+        d, vd = moment_input(m, plan, fields, sids, ts, sd, cache=mcache)
         valid = vd if mask is None else (
             mask if vd is None else (vd & mask))
+        if m.op in SKETCH_MOMENT_OPS:
+            # per-run encoded sketch partials (distinct set / t-digest):
+            # the bytes fold downstream through the codec exactly like
+            # numeric moments fold through sums
+            frame[m.slot] = sketch_run_column(m.op, d, valid, starts, n)
+            continue
         if m.op in ("min_ts", "max_ts"):
             tsv = ts if valid is None else np.where(valid, ts, i64max
                                                     if m.op == "min_ts"

@@ -21,8 +21,11 @@ or IN tag query on an uncached region takes the SST index
 cache streams in slices (`query/stream_exec.py`), and the rest go through
 the cache, whose entries take in a new version's delta incrementally
 (`_ScanCache._incremental`), with concurrent identical scans of a region
-fused into one pass (`SCAN_FLIGHTS`). Sketch and expression moments are
-not ported yet (plans that need them take the CPU path).
+fused into one pass (`SCAN_FLIGHTS`). Sketch moments (count(DISTINCT),
+approx_distinct, approx_percentile, median: query/sketches.py) and
+expression moments (`sum(a*b)`) reduce on the host on every path
+(`plan_needs_host`), as in the reference; their partials fold in
+`_finalize` like the device's.
 
 What the resident path reads from a table and its regions
 (storage/region.py): a table's `schema`, `name`, `info` and `regions`; a
@@ -67,7 +70,7 @@ from ..sql.ast import (
 from ..storage.region import ScanProfile
 from ..utils import env_flag
 from .expr import Evaluator, expr_name
-from .functions import TPU_AGGREGATES, parse_interval_ms
+from .functions import SKETCH_AGGREGATES, TPU_AGGREGATES, parse_interval_ms
 from .planner import Analysis, _group_slot
 
 failpoint.register("scan_cache_incremental")
@@ -640,6 +643,11 @@ class Moment:
     slot: str
 
 
+#: moment ops whose per-run partial is an encoded sketch (bytes), not a
+#: number — built on the host, merged by _finalize through the codec
+SKETCH_MOMENT_OPS = frozenset({"distinct", "tdigest"})
+
+
 @dataclass
 class TpuPlan:
     tag_groups: List[TagGroup]
@@ -650,42 +658,77 @@ class TpuPlan:
     time_hi: Optional[int]
     tag_predicates: List[Expr]
     field_filters: List[FieldFilter]
+    #: arithmetic agg-arg expressions keyed by their moment "column"
+    #: name (expr_name): `sum(a*b)` moments over a virtual column that
+    #: each region evaluates from its stored fields before momenting
+    field_exprs: Dict[str, Expr] = field(default_factory=dict)
+    #: literal extras per final slot (approx_percentile's p)
+    agg_params: Dict[str, tuple] = field(default_factory=dict)
+
+    def describe(self) -> str:
+        gs = [t.name for t in self.tag_groups]
+        if self.bucket:
+            gs.append(f"time_bucket({self.bucket.stride_ms}ms)")
+        ops = [f"{op}" for _, op, _ in self.finals]
+        return f"groups=[{', '.join(gs)}] aggs=[{', '.join(ops)}]"
 
 
-#: moment ops whose per-run partial is a sketch (query/sketches.py) or
-#: that only a host reducer implements; the port plans none of them yet
-SKETCH_MOMENT_OPS = frozenset({"distinct", "tdigest"})
-HOST_ONLY_MOMENT_OPS = frozenset({"reset_corr"})
+def plan_needs_host(plan: "TpuPlan") -> bool:
+    """Whether this plan's moments must reduce on the host: sketch
+    partials (distinct/t-digest have no device kernel) and virtual
+    expression columns both do. The partial-frame ALGEBRA is unchanged —
+    host partials fold exactly like device partials."""
+    return bool(plan.field_exprs) or \
+        any(m.op in SKETCH_MOMENT_OPS for m in plan.moments)
 
 
-def plan_needs_host(plan: TpuPlan) -> bool:
-    """Whether this plan's moments must reduce on the host (sketch
-    partials and host-only ops have no device kernel). The port's
-    planner emits none of them yet, so this is False for its plans."""
-    return any(m.op in SKETCH_MOMENT_OPS or m.op in HOST_ONLY_MOMENT_OPS
-               for m in plan.moments)
-
-
-def plan_scan_columns(plan: TpuPlan, schema) -> List[str]:
-    """The stored field columns a region scan must project for this
-    plan: moment columns and filter columns (tags ride the series ids,
-    never the projection)."""
+def plan_scan_columns(plan: "TpuPlan", schema) -> List[str]:
+    """Base STORED columns a region scan must project for this plan:
+    plain moment columns plus every field a virtual expression column
+    references (tags ride the series ids, never the projection)."""
     tag_names = set(schema.tag_names())
-    cols = {m.column for m in plan.moments
-            if m.column is not None and m.column not in tag_names}
+    cols: set = set()
+    for m in plan.moments:
+        if m.column is None:
+            continue
+        if m.column in plan.field_exprs:
+            cols |= _refs(plan.field_exprs[m.column])
+        elif m.column not in tag_names:
+            cols.add(m.column)
     cols |= {ff.column for ff in plan.field_filters}
     return sorted(cols)
 
 
-def moment_input(m: Moment, fields: Dict, sids, ts, sd,
+def moment_input(m: Moment, plan: TpuPlan, fields: Dict, sids, ts, sd,
                  cache: Optional[dict] = None):
-    """(values, validity) of one moment's input: a stored field, a tag
-    column (decoded per row) or the time index — the one resolution the
-    host reducers share."""
+    """(values, validity) for one moment's input: a stored field, the
+    time index, a tag column (decoded per row), or a registered
+    arithmetic expression evaluated over the stored fields — the ONE
+    resolution both host reducers share, so streamed, resident and
+    indexed partials cannot disagree about what `sum(a*b)` means."""
     col = m.column
     if cache is not None and col in cache:
         return cache[col]
-    if col in fields:
+    if col in plan.field_exprs:
+        base = {}
+        for name in sorted(_refs(plan.field_exprs[col])):
+            d, vd = fields[name]
+            if d.dtype == object:
+                raise UnsupportedError(
+                    f"expression aggregate over non-numeric {name!r}")
+            arr = d.astype(np.float64, copy=vd is not None)
+            if vd is not None:
+                arr[~vd] = np.nan        # pandas null convention, so the
+            base[name] = arr             # expr semantics == the fallback
+        ev = Evaluator(pd.DataFrame(base))
+        v = ev.eval(plan.field_exprs[col])
+        vals = v.to_numpy(dtype=np.float64) if isinstance(v, pd.Series) \
+            else np.asarray(v, dtype=np.float64)
+        if vals.ndim == 0:
+            vals = np.full(len(ts), float(vals))
+        valid = ~np.isnan(vals)
+        out = (vals, None if valid.all() else valid)
+    elif col in fields:
         out = fields[col]
     elif sd is not None and col in tuple(getattr(sd, "tag_names", ())):
         idx = tuple(sd.tag_names).index(col)
@@ -695,6 +738,29 @@ def moment_input(m: Moment, fields: Dict, sids, ts, sd,
         out = (ts, None)                 # the time index
     if cache is not None:
         cache[col] = out
+    return out
+
+
+def sketch_run_column(op: str, vals: np.ndarray,
+                      valid: Optional[np.ndarray],
+                      starts: np.ndarray, n: int) -> np.ndarray:
+    """Encoded sketch partial per run: object column of codec frames,
+    one per (sid [, bucket]) run — the sketch twin of a reduceat."""
+    from .sketches import DistinctSketch, TDigest, encode_sketch
+    ends = np.append(starts[1:], n)
+    out = np.empty(len(starts), dtype=object)
+    for i in range(len(starts)):
+        seg = slice(int(starts[i]), int(ends[i]))
+        v = vals[seg]
+        if valid is not None:
+            v = v[valid[seg]]
+        if op == "distinct":
+            sk = DistinctSketch.from_values(v)
+        else:
+            sk = TDigest.from_values(np.asarray(v, dtype=np.float64)) \
+                if v.dtype != object else TDigest.from_values(
+                    np.asarray(list(v), dtype=np.float64))
+        out[i] = encode_sketch(sk)
     return out
 
 
@@ -723,6 +789,34 @@ def _literal_num(e: Expr):
     return None
 
 
+_ARITH_OPS = frozenset({"+", "-", "*", "/"})
+
+
+def _is_expr_arg(e: Expr, field_names: set, schema) -> bool:
+    """Arithmetic over numeric FIELD columns and numeric literals, with
+    at least one operator — the agg-argument shapes each region can
+    evaluate into a virtual moment column (`sum(a*b)`, `avg(a/b)`)."""
+    if not isinstance(e, (BinaryOp, UnaryOp)):
+        return False
+
+    def ok(x: Expr) -> bool:
+        if isinstance(x, Column):
+            if x.name not in field_names:
+                return False
+            cs = schema.column_schema(x.name)
+            return not (cs.dtype.is_string or cs.dtype.is_binary)
+        if isinstance(x, Literal):
+            return isinstance(x.value, (int, float)) and \
+                not isinstance(x.value, bool)
+        if isinstance(x, UnaryOp):
+            return x.op == "-" and ok(x.operand)
+        if isinstance(x, BinaryOp):
+            return x.op in _ARITH_OPS and ok(x.left) and ok(x.right)
+        return False
+
+    return ok(e)
+
+
 def standard_final(op: str, col: Optional[str], moment):
     """(final op, moment slots) for one standard aggregate through the
     `moment(op, column) -> slot` dedupe closure — the one op→moment
@@ -749,6 +843,9 @@ def plan_for(table, a: Analysis, query: Query) -> Optional[TpuPlan]:
     if table is None or not a.is_aggregate or query.joins:
         return None
     if a.window_calls:
+        # window slots evaluate on the post-aggregate frame in the
+        # fallback engine (query/window.py); the device plan has no
+        # WindowAggExec analogue
         return None
     if not hasattr(table, "regions"):
         return None  # only region-backed tables have the SoA path
@@ -770,11 +867,11 @@ def plan_for(table, a: Analysis, query: Query) -> Optional[TpuPlan]:
             continue
         return None
 
-    # aggregates → moments (sketch aggregates, DISTINCT and expression
-    # arguments reduce on the host in the reference; here they take the
-    # CPU path until those moments are ported)
+    # aggregates → moments
     moments: List[Moment] = []
     finals: List[Tuple[str, str, List[str]]] = []
+    field_exprs: Dict[str, Expr] = {}
+    agg_params: Dict[str, tuple] = {}
     seen: Dict[tuple, str] = {}
 
     def moment(op: str, column: Optional[str]) -> str:
@@ -788,22 +885,57 @@ def plan_for(table, a: Analysis, query: Query) -> Optional[TpuPlan]:
 
     for call in a.agg_calls:
         op = call.op
-        if op not in TPU_AGGREGATES or call.distinct:
+        if op not in TPU_AGGREGATES and op not in SKETCH_AGGREGATES:
+            return None
+        if call.distinct:
+            # count(DISTINCT) rides a sketch partial only in the
+            # distributed pushdown (not ported): a standalone table keeps
+            # the exact raw-row path
             return None
         if call.arg is None:
             if op != "count":
                 return None
             finals.append((call.slot, "count", [moment("count", None)]))
             continue
-        if not isinstance(call.arg, Column):
-            return None
-        col = call.arg.name
-        if col in field_names:
-            cs = schema.column_schema(col)
-            if (cs.dtype.is_string or cs.dtype.is_binary) and op != "count":
+        # distinct sketches take any value type (sets of strings are
+        # sets); everything else needs numbers
+        sketchy = op == "approx_distinct"
+        if isinstance(call.arg, Column):
+            col = call.arg.name
+            if col == (tc.name if tc else None):
+                pass                            # the time index
+            elif col in field_names:
+                cs = schema.column_schema(col)
+                if (cs.dtype.is_string or cs.dtype.is_binary) and \
+                        op != "count" and not sketchy:
+                    return None
+            elif col in tag_names and sketchy:
+                pass          # distinct over a tag: decoded per series
+            else:
                 return None
         else:
-            return None
+            if not _is_expr_arg(call.arg, field_names, schema):
+                return None
+            col = expr_name(call.arg)
+            field_exprs[col] = call.arg
+        if op == "approx_distinct":
+            finals.append((call.slot, "approx_distinct",
+                           [moment("distinct", col)]))
+            continue
+        if op in ("approx_percentile", "median"):
+            if op == "approx_percentile":
+                if len(call.params) != 1 or \
+                        not isinstance(call.params[0], (int, float)) or \
+                        isinstance(call.params[0], bool) or \
+                        not 0 <= float(call.params[0]) <= 100:
+                    return None     # the fallback raises the typed error
+                p = float(call.params[0])
+            else:
+                p = 50.0
+            finals.append((call.slot, "approx_percentile",
+                           [moment("tdigest", col)]))
+            agg_params[call.slot] = (p,)
+            continue
         std = standard_final(op, col, moment)
         if std is None:
             return None
@@ -834,7 +966,7 @@ def plan_for(table, a: Analysis, query: Query) -> Optional[TpuPlan]:
         field_filters.append(ff)
 
     return TpuPlan(tag_groups, bucket, moments, finals, time_lo, time_hi,
-                   tag_predicates, field_filters)
+                   tag_predicates, field_filters, field_exprs, agg_params)
 
 
 def _match_bucket(e: Expr, ts_name: Optional[str]) -> Optional[BucketGroup]:
@@ -1043,30 +1175,74 @@ def try_execute(table, a: Analysis, query: Query,
         return None
 
 
-def local_dispatch_decision(table, regions, cold, point_sids) -> str:
-    """The resident / streamed / indexed-point / mixed decision string for
-    a local region-backed table (what region_moment_frames hands to
-    ExecStats): per region of `regions`, whether it streams (`cold`) and
-    its indexed-point candidate series (`point_sids`, None when the
-    index does not apply)."""
+#: finals whose result comes out of a sketch partial, not a numeric fold
+_SKETCH_FINAL_OPS = frozenset({"approx_distinct", "approx_percentile"})
+
+
+def _aggs_desc(plan: TpuPlan) -> str:
+    """sketch-vs-exact per aggregate, for the finalize stage detail."""
+    return ",".join(
+        f"{op}:{'sketch' if op in _SKETCH_FINAL_OPS else 'exact'}"
+        for _, op, _ in plan.finals)
+
+
+def frames_nbytes(frames) -> int:
+    """Byte size of partial moment frames — numeric columns by their
+    array width, sketch columns by their encoded frame lengths (EXPLAIN
+    ANALYZE's partial_bytes; what a datanode would ship)."""
+    total = 0
+    for f in frames:
+        for col in f.columns:
+            s = f[col]
+            if s.dtype == object:
+                total += int(sum(
+                    len(v) if isinstance(v, (bytes, bytearray, str))
+                    else 8 for v in s))
+            else:
+                total += int(s.to_numpy().nbytes)
+    return total
+
+
+def local_dispatch_decision(table, regions=None, cold=None,
+                            point_sids=None, plan=None) -> str:
+    """The resident / streamed / indexed-point / mixed decision string
+    for a local region-backed table — the ONE source both EXPLAIN
+    (query/engine.py) and execution (region_moment_frames → ExecStats)
+    print, so the two views cannot drift. `cold` lets a caller that
+    already evaluated region_streams_cold per region pass the answers
+    in; `regions` the (possibly pruned) region list those answers
+    correspond to; `plan` (or a pre-computed `point_sids` vector) routes
+    point/IN tag queries through the SST secondary index."""
     from . import stream_exec
+    if regions is None:
+        regions = list(table.regions.values())
+    if point_sids is None:
+        point_sids = [region_point_sids(r, plan) for r in regions] \
+            if plan is not None else [None] * len(regions)
+    # sketch / expression moments reduce on the host wherever the rows
+    # come from — the suffix keeps EXPLAIN honest about the kernel
+    suffix = "; host-partial moments (sketch/expr)" \
+        if plan is not None and plan_needs_host(plan) else ""
     n_idx = sum(1 for s in point_sids if s is not None)
     if regions and n_idx == len(regions):
         k = max((len(s) for s in point_sids if s is not None), default=0)
         return (f"indexed-point (sst index, {k} candidate series; "
-                f"bloom/sid-summary file pruning)")
+                f"bloom/sid-summary file pruning{suffix})")
+    if cold is None:
+        cold = [region_streams_cold(r) for r in regions]
     n_stream = sum(1 for c, s in zip(cold, point_sids)
                    if c and s is None)
     if n_idx:
         return (f"mixed ({n_idx}/{len(regions)} regions indexed-point, "
-                f"{n_stream} streamed-cold)")
+                f"{n_stream} streamed-cold{suffix})")
     if n_stream == 0:
-        return "device-resident (scan cache)"
+        return f"device-resident (scan cache{suffix})"
     if n_stream == len(regions):
         return (f"streamed-cold (est_rows={_estimated_table_rows(table)}, "
                 f"stream_threshold_rows="
-                f"{stream_exec.stream_threshold_rows()})")
-    return f"mixed ({n_stream}/{len(regions)} regions streamed-cold)"
+                f"{stream_exec.stream_threshold_rows()}{suffix})")
+    return (f"mixed ({n_stream}/{len(regions)} regions "
+            f"streamed-cold{suffix})")
 
 
 def region_point_sids(region, plan) -> Optional[np.ndarray]:
@@ -1171,7 +1347,7 @@ def region_moment_frames(table, plan: TpuPlan,
     cold = [False if s is not None else region_streams_cold(r)
             for r, s in zip(regions, point_sids)]
     exec_stats.set_dispatch(local_dispatch_decision(
-        table, regions, cold, point_sids))
+        table, regions, cold, point_sids, plan))
     frames = []
     for region, streams, sids in zip(regions, cold, point_sids):
         process_list.check_cancelled()     # per-region batch boundary
@@ -1203,7 +1379,10 @@ def _execute_region(region, table, plan: TpuPlan,
                           cache=outcome)
         out = None
         if scan.num_rows:
+            t1 = time.perf_counter()
             out = _moment_frame_for_scan(scan, table.schema, plan, prof)
+            exec_stats.record("reduce", rows=scan.num_rows,
+                              elapsed_s=time.perf_counter() - t1)
         prof.total_s = time.perf_counter() - t0
         region.last_scan_profile = prof
     return out
@@ -1227,6 +1406,16 @@ class _Launched:
 
 def _moment_frame_for_scan(scan: MergedScan, schema, plan: TpuPlan,
                            prof: ScanProfile) -> Optional[pd.DataFrame]:
+    if plan_needs_host(plan):
+        # sketch / expression moments: reduce the resident merged scan
+        # on the host with the streamed path's segment arithmetic (its
+        # rows are already sorted and MVCC-deduped), so the partial
+        # frame folds like any other
+        from .stream_exec import _host_partial_frame
+        t0 = time.perf_counter()
+        out = _host_partial_frame(scan, None, plan, scan.series_dict)
+        prof.mark("host_reduce", time.perf_counter() - t0)
+        return out
     launched = _launch_scan_kernel(scan, schema, plan, prof)
     if launched is None:
         return None
@@ -1502,6 +1691,24 @@ def _collect_moment_frame(launched: _Launched, plan: TpuPlan,
     return pd.DataFrame(frame)[live]
 
 
+def _nan_if_none(v):
+    return np.nan if v is None else v
+
+
+def _merge_sketch_cells(cells) -> Optional[bytes]:
+    """Fold encoded sketch partials (bytes) into ONE re-encoded partial.
+    Decode errors raise SketchCodecError — try_execute degrades the
+    statement to the raw-row path rather than answer wrong."""
+    from .sketches import decode_sketch, encode_sketch
+    merged = None
+    for c in cells:
+        if c is None or (isinstance(c, float) and np.isnan(c)):
+            continue
+        sk = decode_sketch(c)
+        merged = sk if merged is None else merged.merge(sk)
+    return None if merged is None else encode_sketch(merged)
+
+
 def _finalize(df: pd.DataFrame, plan: TpuPlan) -> pd.DataFrame:
     key_cols = [_group_slot(t.name) for t in plan.tag_groups]
     if plan.bucket is not None:
@@ -1517,7 +1724,9 @@ def _finalize(df: pd.DataFrame, plan: TpuPlan) -> pd.DataFrame:
         out = {}
         for slot, m in moment_cols.items():
             v = group[slot]
-            if m.op in ("sum", "sum_sq", "count"):
+            if m.op in SKETCH_MOMENT_OPS:
+                out[slot] = _merge_sketch_cells(v)
+            elif m.op in ("sum", "sum_sq", "count"):
                 out[slot] = v.sum()
             elif m.op in ("min", "min_ts"):
                 out[slot] = v.min()
@@ -1539,12 +1748,17 @@ def _finalize(df: pd.DataFrame, plan: TpuPlan) -> pd.DataFrame:
     if key_cols:
         if df[key_cols + list(moment_cols)].duplicated(key_cols).any():
             # vectorized fold: one groupby.agg for the decomposable
-            # moments, plus a sort+first/last pass for ts-extremes
+            # moments (a per-group Python merge costs seconds at 10k+
+            # groups — slice streaming produces one partial per group
+            # per slice), plus a sort+first/last pass for ts-extremes
             gb = df.groupby(key_cols, dropna=False, sort=False)
             aggs = {}
             extremes = []
+            sketches = []
             for slot, m in moment_cols.items():
-                if m.op in ("sum", "sum_sq", "count"):
+                if m.op in SKETCH_MOMENT_OPS:
+                    sketches.append(slot)
+                elif m.op in ("sum", "sum_sq", "count"):
                     aggs[slot] = "sum"
                 elif m.op in ("min", "min_ts"):
                     aggs[slot] = "min"
@@ -1552,8 +1766,8 @@ def _finalize(df: pd.DataFrame, plan: TpuPlan) -> pd.DataFrame:
                     aggs[slot] = "max"
                 else:
                     extremes.append((slot, m))
-            aggs["__rowcount"] = "sum"
-            merged = gb.agg(aggs)
+            aggs["__rowcount"] = "sum"      # a plan of only sketch
+            merged = gb.agg(aggs)           # moments still needs keys
             for slot, m in extremes:
                 # groupby.first()/.last() take the first/last NON-NULL
                 # value in frame order; sorting by the companion ts makes
@@ -1563,6 +1777,10 @@ def _finalize(df: pd.DataFrame, plan: TpuPlan) -> pd.DataFrame:
                 srt = df.sort_values(ts_slot, kind="stable")
                 gs = srt.groupby(key_cols, dropna=False, sort=False)[slot]
                 merged[slot] = gs.first() if m.op == "first" else gs.last()
+            for slot in sketches:
+                # fold encoded partials per group through the codec
+                # (bytes in, bytes out — pandas treats bytes as scalars)
+                merged[slot] = gb[slot].agg(_merge_sketch_cells)
             merged = merged.reset_index()
         else:
             merged = df
@@ -1578,6 +1796,18 @@ def _finalize(df: pd.DataFrame, plan: TpuPlan) -> pd.DataFrame:
             out[slot] = merged[mslots[0]]
         elif op == "count":
             out[slot] = merged[mslots[0]].astype(np.int64)
+        elif op == "approx_distinct":
+            from .sketches import decode_sketch
+            out[slot] = merged[mslots[0]].map(
+                lambda b: 0 if b is None
+                else decode_sketch(b).result()).astype(np.int64)
+        elif op == "approx_percentile":
+            from .sketches import decode_sketch
+            p = plan.agg_params.get(slot, (50.0,))[0]
+            out[slot] = merged[mslots[0]].map(
+                lambda b: np.nan if b is None
+                else _nan_if_none(decode_sketch(b).quantile(p))
+            ).astype(np.float64)
         elif op == "avg":
             s, c = merged[mslots[0]], merged[mslots[1]]
             out[slot] = np.where(c > 0, s / np.maximum(c, 1), np.nan)
@@ -1589,7 +1819,7 @@ def _finalize(df: pd.DataFrame, plan: TpuPlan) -> pd.DataFrame:
             var = np.maximum(sq - (s / cc) * s, 0.0) / np.maximum(c - 1, 1)
             var = np.where(c >= 2, var, np.nan)
             out[slot] = np.sqrt(var) if op == "stddev" else var
-    # null out empty-count aggregates (the kernel yields NaN for floats)
+    # null out empty-count aggregates (kernel yields NaN already for floats)
     for slot, op, mslots in plan.finals:
         if op in ("sum", "min", "max", "first", "last", "avg"):
             cnt = None

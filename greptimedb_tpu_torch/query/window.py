@@ -1,0 +1,330 @@
+"""SQL window function execution over pandas frames (CPU fallback path).
+
+Plays the role DataFusion's WindowAggExec plays for the reference
+(src/query/src/datafusion.rs:61-232 delegates OVER (...) to DataFusion).
+Each WindowCall is evaluated on the post-WHERE (and, for grouped queries,
+post-aggregate) frame: rows are ordered by the spec inside each partition,
+the function runs positionally, and results land back on the original row
+order via index alignment, filling the call's `__win{i}` slot column.
+
+Semantics notes:
+- Default frame with ORDER BY is RANGE UNBOUNDED PRECEDING..CURRENT ROW:
+  peer rows (ties on the order key) share the frame, so running aggregates
+  are adjusted to the value at the last peer of each tie group.
+- ROWS frames use exact row offsets (rolling windows).
+- NULL order keys sort as the largest value (Postgres default: NULLS LAST
+  for ASC, NULLS FIRST for DESC) and are peers of each other.
+
+Ported from greptimedb_tpu/query/window.py.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import pandas as pd
+
+from ..errors import PlanError, UnsupportedError
+from .expr import Evaluator
+from .planner import Analysis, WindowCall
+
+_NEEDS_ORDER = {"rank", "dense_rank", "percent_rank", "cume_dist",
+                "lag", "lead", "ntile"}
+
+
+def compute_windows(df: pd.DataFrame, a: Analysis) -> pd.DataFrame:
+    """Return df with one extra column per WindowCall (its slot name)."""
+    if not a.window_calls:
+        return df
+    df = df.copy()
+    if len(df) == 0:
+        for wc in a.window_calls:
+            df[wc.slot] = pd.Series(dtype=float)
+        return df
+    ev = Evaluator(df)
+    for wc in a.window_calls:
+        df[wc.slot] = _one_window(df, ev, wc)
+        ev = Evaluator(df)
+    return df
+
+
+def _one_window(df: pd.DataFrame, ev: Evaluator, wc: WindowCall) -> pd.Series:
+    spec = wc.spec
+    if wc.op in _NEEDS_ORDER and not spec.order_by:
+        raise PlanError(f"{wc.op}() requires ORDER BY in its OVER clause")
+
+    work = pd.DataFrame(index=df.index)
+    pkeys: List[str] = []
+    for j, pe in enumerate(spec.partition_by):
+        work[f"__p{j}"] = ev.series(ev.eval(pe))
+        pkeys.append(f"__p{j}")
+    okeys: List[str] = []
+    asc: List[bool] = []
+    for j, (oe, up) in enumerate(spec.order_by):
+        work[f"__o{j}"] = ev.series(ev.eval(oe))
+        okeys.append(f"__o{j}")
+        asc.append(up)
+    for j, arg in enumerate(wc.args):
+        work[f"__a{j}"] = ev.series(ev.eval(arg))
+
+    # order within partitions: stable sort by (partition, order) so rows of
+    # one partition are contiguous and ordered. NULL order keys follow the
+    # Postgres default (NULLS LAST for ASC, NULLS FIRST for DESC): pandas
+    # has one global na_position, so each order key gets an isna flag key
+    # sorted in the key's own direction (nulls sort as the "largest" value).
+    if pkeys or okeys:
+        sort_cols = pkeys[:]
+        sort_asc = [True] * len(pkeys)
+        for j, up in enumerate(asc):
+            work[f"__on{j}"] = work[f"__o{j}"].isna()
+            sort_cols += [f"__on{j}", f"__o{j}"]
+            sort_asc += [up, up]
+        work = work.sort_values(sort_cols, ascending=sort_asc,
+                                kind="stable", na_position="last")
+    n = len(work)
+    pos = np.arange(n)
+
+    # partition starts / tie-group starts as boolean flags over sorted rows
+    if pkeys:
+        pvals = work[pkeys]
+        pstart = _neq_prev(pvals)
+    else:
+        pstart = np.zeros(n, dtype=bool)
+    pstart[0] = True
+    if okeys:
+        tie_start = _neq_prev(work[okeys]) | pstart
+    else:
+        tie_start = pstart.copy()
+
+    # per-row partition id (for grouped ops) and row number
+    pid = np.cumsum(pstart) - 1
+    pid_s = pd.Series(pid, index=work.index)
+    rn = pos - _ffill_at(pos, pstart) + 1          # 1-based row_number
+
+    out = _eval_fn(wc, work, pid_s, pstart, tie_start, rn, pos)
+    if not isinstance(out, pd.Series):
+        out = pd.Series(out, index=work.index)
+    else:
+        out.index = work.index
+    return out.reindex(df.index)
+
+
+def _neq_prev(frame: pd.DataFrame) -> np.ndarray:
+    """Row differs from the previous row on any column (NaNs are equal)."""
+    cur, prev = frame, frame.shift()
+    eq = (cur == prev) | (cur.isna() & prev.isna())
+    return np.array((~eq.all(axis=1)).to_numpy())
+
+
+def _ffill_at(vals: np.ndarray, flags: np.ndarray) -> np.ndarray:
+    """vals where flags, carried forward (flags[0] must be True)."""
+    idx = np.where(flags, np.arange(len(vals)), 0)
+    idx = np.maximum.accumulate(idx)
+    return vals[idx]
+
+
+def _bfill_at(vals: np.ndarray, flags: np.ndarray) -> np.ndarray:
+    """vals where flags, carried backward (flags[-1] must be True)."""
+    n = len(vals)
+    idx = np.where(flags, np.arange(n), n - 1)
+    idx = np.minimum.accumulate(idx[::-1])[::-1]
+    return vals[idx]
+
+
+def _eval_fn(wc: WindowCall, work: pd.DataFrame, pid: pd.Series,
+             pstart: np.ndarray, tie_start: np.ndarray, rn: np.ndarray,
+             pos: np.ndarray):
+    op = wc.op
+    n = len(work)
+    pend = np.empty(n, dtype=bool)        # last row of each partition
+    pend[:-1] = pstart[1:]
+    pend[-1] = True
+    tie_end = np.empty(n, dtype=bool)     # last peer of each tie group
+    tie_end[:-1] = tie_start[1:]
+    tie_end[-1] = True
+    psize = _bfill_at(rn, pend)           # partition row count, per row
+
+    if op == "row_number":
+        return rn.astype(np.int64)
+    if op in ("rank", "dense_rank", "percent_rank", "cume_dist"):
+        if op == "dense_rank":
+            dr = np.cumsum(tie_start) - _ffill_at(np.cumsum(tie_start),
+                                                  pstart) + 1
+            return dr.astype(np.int64)
+        rank = _ffill_at(rn, tie_start)
+        if op == "rank":
+            return rank.astype(np.int64)
+        if op == "percent_rank":
+            denom = np.maximum(psize - 1, 1)
+            return np.where(psize > 1, (rank - 1) / denom, 0.0)
+        # cume_dist: rows <= last peer / partition size
+        peers_end = _bfill_at(rn, tie_end)
+        return peers_end / psize
+    if op == "ntile":
+        if not wc.args:
+            raise PlanError("ntile() needs a bucket count")
+        k = int(work["__a0"].iloc[0])
+        if k <= 0:
+            raise PlanError("ntile() bucket count must be positive")
+        return ((rn - 1) * k // psize + 1).astype(np.int64)
+    if op in ("lag", "lead"):
+        ser = work["__a0"]
+        off = 1
+        if len(wc.args) >= 2:
+            off = int(work["__a1"].iloc[0])
+        default = None
+        if len(wc.args) >= 3:
+            default = work["__a2"].iloc[0]
+        shift = off if op == "lag" else -off
+        shifted = ser.shift(shift)
+        # mask rows whose source crossed a partition boundary
+        src_pid = pid.shift(shift)
+        bad = src_pid.isna() | (src_pid != pid)
+        shifted = shifted.where(~bad, default)
+        return shifted
+    if op in ("first_value", "last_value"):
+        ser = work["__a0"]
+        vals = ser.to_numpy()
+        lo, hi = wc.spec.frame if wc.spec.frame is not None else (
+            (None, 0) if wc.spec.order_by else (None, None))
+        start = _ffill_at(pos, pstart)
+        end = _bfill_at(pos, pend)
+        s = start if lo is None else np.maximum(pos + lo, start)
+        e = end if hi is None else np.minimum(pos + hi, end)
+        if wc.spec.frame is None and wc.spec.order_by:
+            # default RANGE frame ends at the last peer, not the row
+            e = _bfill_at(pos, tie_end)
+        src = s if op == "first_value" else e
+        out = pd.Series(vals[np.clip(src, 0, n - 1)], index=work.index)
+        return out.mask(s > e)     # empty frame → NULL
+
+    # ---- aggregates over the window frame ----
+    if op in ("sum", "avg", "min", "max", "count", "stddev", "variance"):
+        return _window_aggregate(wc, work, pid, pstart, tie_end)
+    raise UnsupportedError(f"window function {op!r}")
+
+
+def _window_aggregate(wc: WindowCall, work: pd.DataFrame, pid: pd.Series,
+                      pstart: np.ndarray, tie_end: np.ndarray) -> pd.Series:
+    """Aggregate over each row's frame, exact at partition edges.
+
+    Every frame shape reduces to per-row [s, e] index bounds inside the
+    partition; sum/avg/count/stddev/variance read prefix-sum differences,
+    min/max combine a backward and a forward windowed extreme."""
+    op = wc.op
+    n = len(work)
+    count_star = op == "count" and "__a0" not in work
+    ser = work["__a0"] if "__a0" in work else pd.Series(1.0,
+                                                       index=work.index)
+    frame = wc.spec.frame
+    ordered = bool(wc.spec.order_by)
+    if frame is None:
+        lo, hi = (None, 0) if ordered else (None, None)
+    else:
+        lo, hi = frame
+
+    pos = np.arange(n)
+    start = _ffill_at(pos, pstart)
+    pend = np.empty(n, dtype=bool)
+    pend[:-1] = pstart[1:]
+    pend[-1] = True
+    end = _bfill_at(pos, pend)
+
+    # frame bounds per row, clamped to the partition
+    s = start if lo is None else np.maximum(pos + lo, start)
+    e = end if hi is None else np.minimum(pos + hi, end)
+    if frame is None and ordered:
+        # default RANGE frame ends at the last peer of the row's tie group
+        e = _bfill_at(pos, tie_end)
+    empty = s > e
+
+    if not count_star and ser.dtype == object and op != "count":
+        raise UnsupportedError(f"window {op} over non-numeric values")
+
+    if count_star:
+        out = (e - s + 1).astype(np.int64)
+        out[empty] = 0
+        return pd.Series(out, index=work.index)
+
+    valid = ser.notna().to_numpy()
+    if op in ("min", "max"):
+        return _window_extreme(op, ser, pid, lo, hi, s, e, empty,
+                               frame is None and ordered, work.index)
+
+    x = pd.to_numeric(ser, errors="coerce").to_numpy(dtype=np.float64)
+    filled = np.where(valid, x, 0.0)
+    # per-partition inclusive prefix sums via global cumsum minus the
+    # value accumulated before each partition start
+    def prefix(vals):
+        g = np.cumsum(vals)
+        base = g[start] - vals[start]
+        lo_excl = np.where(s > start, g[np.maximum(s - 1, 0)], base)
+        return g[e] - lo_excl
+
+    cnt = prefix(valid.astype(np.float64))
+    if op == "count":
+        out = np.where(empty, 0, cnt).astype(np.int64)
+        return pd.Series(out, index=work.index)
+    total = prefix(filled)
+    if op == "sum":
+        out = np.where(empty | (cnt == 0), np.nan, total)
+        return pd.Series(out, index=work.index)
+    if op == "avg":
+        out = np.where(empty | (cnt == 0), np.nan,
+                       total / np.maximum(cnt, 1))
+        return pd.Series(out, index=work.index)
+    if op in ("stddev", "variance"):
+        sq = prefix(filled * filled)
+        mean = total / np.maximum(cnt, 1)
+        var = (sq - cnt * mean * mean) / np.maximum(cnt - 1, 1)
+        out = np.where(empty | (cnt < 2), np.nan, var)
+        if op == "stddev":
+            out = np.sqrt(np.maximum(out, 0.0))
+            out = np.where(empty | (cnt < 2), np.nan, out)
+        return pd.Series(out, index=work.index)
+    raise UnsupportedError(f"window aggregate {op!r}")
+
+
+def _window_extreme(op: str, ser: pd.Series, pid: pd.Series, lo, hi,
+                    s: np.ndarray, e: np.ndarray, empty: np.ndarray,
+                    range_default: bool, index) -> pd.Series:
+    """min/max over per-row frames [s, e] (already partition-clamped)."""
+    n = len(ser)
+    x = pd.to_numeric(ser, errors="coerce")
+    if lo is None:
+        # frame starts at the partition start: running extreme indexed at e
+        cum = (x.groupby(pid, sort=False).cummin() if op == "min"
+               else x.groupby(pid, sort=False).cummax())
+        cum = cum.groupby(pid, sort=False).ffill().to_numpy()
+        out = np.where(empty, np.nan, cum[np.maximum(e, 0)])
+        return pd.Series(out, index=index)
+    if lo > 0 or (hi is not None and hi < 0):
+        raise UnsupportedError(
+            "min/max over a frame that excludes the current row")
+    # backward part [s, pos]: rolling extreme of width -lo+1 per partition
+    roll = x.groupby(pid, sort=False).rolling(-lo + 1, min_periods=1)
+    back = (roll.min() if op == "min" else roll.max()) \
+        .reset_index(level=0, drop=True).reindex(ser.index).to_numpy()
+    if hi == 0:
+        out = np.where(empty, np.nan, back)
+        return pd.Series(out, index=index)
+    # forward part [pos, e]: extreme over the reversed series
+    xr = x.iloc[::-1]
+    pr = pid.iloc[::-1]
+    if hi is None and not range_default:
+        fwd = (xr.groupby(pr, sort=False).cummin() if op == "min"
+               else xr.groupby(pr, sort=False).cummax())
+        fwd = fwd.groupby(pr, sort=False).ffill()
+    else:
+        width = int(hi) + 1 if hi is not None else None
+        if width is None:
+            # range_default with hi None cannot happen (e set to tie end)
+            raise UnsupportedError("unsupported window frame")
+        rollr = xr.groupby(pr, sort=False).rolling(width, min_periods=1)
+        fwd = (rollr.min() if op == "min" else rollr.max()) \
+            .reset_index(level=0, drop=True)
+    fwd = fwd.iloc[::-1].reindex(ser.index).to_numpy()
+    comb = np.fmin(back, fwd) if op == "min" else np.fmax(back, fwd)
+    out = np.where(empty, np.nan, comb)
+    return pd.Series(out, index=index)

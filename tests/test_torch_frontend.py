@@ -441,6 +441,7 @@ def test_packages_open_each_others_data_home(run, label):
     "TQL EVAL (0, 10, '5s') cpu",
     "SET profiling = 1",
     "SET dist_fanout = 4",
+    "SET exact_distinct = 1",
 ])
 def test_port_raises_for_what_it_has_not_ported(tmp_path, sql):
     ref_parse(sql)                        # the reference's grammar has it

@@ -17,6 +17,11 @@
   query, a partitioned table and a restart without adding jax or
   greptimedb_tpu to sys.modules, and each of those packages is there
   with relative imports only.
+- The rest of the SQL surface (SHOW, DESCRIBE, information_schema,
+  EXPLAIN / EXPLAIN ANALYZE, sketch and expression aggregates, window
+  functions) and the port's golden runner run without the reference, and
+  their modules are the port's own; chip_smoke.py imports neither jax
+  nor the JAX package.
 - The storage engine (WAL, memtable, SSTs, manifest, compaction) runs
   without the reference; the port's host substrate (`common/`) imports
   no pandas or pyarrow; the port's metrics live in a registry of their
@@ -262,6 +267,84 @@ def test_scan_path_modules_are_the_ports_own(module):
         elif isinstance(node, ast.Import):
             assert all(a.name.split(".")[0] not in FORBIDDEN
                        for a in node.names), path
+
+
+_SURFACE_PROBE = r"""
+import json, sys, tempfile
+before = set(sys.modules)
+from greptimedb_tpu_torch.datanode import DatanodeOptions
+from greptimedb_tpu_torch.frontend import build_standalone
+from greptimedb_tpu_torch.tools import sqlness
+
+with tempfile.TemporaryDirectory() as home:
+    fe = build_standalone(DatanodeOptions(data_home=home, device="cpu"))
+    fe.do_query("CREATE TABLE t (host STRING, ts TIMESTAMP TIME INDEX, "
+                "v DOUBLE, PRIMARY KEY(host))")
+    fe.do_query("INSERT INTO t VALUES ('h0', 1, 1.5), ('h2', 2, 2.5), "
+                "('h2', 3, 0.5)")
+    fe.do_query("SET tpu_dispatch_min_rows = 0")
+    for sql in ("SHOW TABLES", "SHOW DATABASES", "DESCRIBE TABLE t",
+                "SHOW CREATE TABLE t",
+                "SELECT * FROM information_schema.columns",
+                "SELECT * FROM information_schema.runtime_metrics",
+                "EXPLAIN SELECT host, median(v) FROM t GROUP BY host",
+                "EXPLAIN ANALYZE SELECT host, approx_distinct(v), "
+                "sum(v * 2) FROM t GROUP BY host",
+                "SELECT host, rank() OVER (ORDER BY avg(v)) FROM t "
+                "GROUP BY host"):
+        assert fe.do_query(sql)[0].num_rows >= 1, sql
+    fe.shutdown()
+assert sqlness.run_one(sqlness.CASES_DIR / "show" / "show.sql") is None
+new = sorted(set(sys.modules) - before)
+print(json.dumps(new))
+"""
+
+
+def test_sql_surface_imports_no_reference():
+    """SHOW, DESCRIBE, information_schema, EXPLAIN (ANALYZE), sketch and
+    expression aggregates, window functions and the golden runner run on
+    the CPU without adding jax or greptimedb_tpu to sys.modules."""
+    out = subprocess.run([sys.executable, "-c", _SURFACE_PROBE], cwd=REPO,
+                         env=_ENV, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    new = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in new if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+    for m in ("query.sketches", "query.show", "query.window",
+              "catalog.information_schema", "tools.sqlness"):
+        assert f"greptimedb_tpu_torch.{m}" in new, m
+
+
+@pytest.mark.parametrize("module", ["query/sketches.py", "query/show.py",
+                                    "query/window.py",
+                                    "catalog/information_schema.py",
+                                    "tools/sqlness.py"])
+def test_surface_modules_are_the_ports_own(module):
+    """The SQL surface's modules exist in the port, import nothing
+    forbidden and keep their imports relative."""
+    path = os.path.join(PORT, module)
+    for node in ast.walk(ast.parse(open(path).read(), path)):
+        if isinstance(node, ast.ImportFrom) and node.level == 0:
+            assert node.module.split(".")[0] not in \
+                FORBIDDEN + ("greptimedb_tpu_torch",), path
+        elif isinstance(node, ast.Import):
+            assert all(a.name.split(".")[0] not in FORBIDDEN
+                       for a in node.names), path
+
+
+def test_chip_smoke_imports_nothing_forbidden():
+    """chip_smoke.py imports neither jax nor the JAX package, at module
+    level or inside a function."""
+    path = os.path.join(REPO, "chip_smoke.py")
+    names = []
+    for node in ast.walk(ast.parse(open(path).read(), path)):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    assert "greptimedb_tpu_torch.tools" in names    # the golden runner
+    assert not [n for n in names if n.split(".")[0] in FORBIDDEN], names
 
 
 def _port_sources():

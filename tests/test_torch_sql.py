@@ -273,8 +273,8 @@ def test_device_path_matches_reference(engines, name):
     # below the (unpinned) dispatch floor: the CPU columnar path in both
     ("SELECT hostname, avg(usage_user), max(req) FROM cpu GROUP BY "
      "hostname ORDER BY hostname", 131072, None),
-    # an expression over a field: the port does not lower it (the
-    # reference reduces it on the host beside its resident scan)
+    # an expression over a field: both packages reduce it on the host
+    # beside their resident scans (host-partial moments)
     ("SELECT hostname, sum(usage_user * 2) AS s2 FROM cpu WHERE ts < "
      f"{T0 + 600_000} GROUP BY hostname ORDER BY hostname", 0, "resident"),
     # no aggregate: rows through the CPU path, MVCC applied
@@ -283,7 +283,7 @@ def test_device_path_matches_reference(engines, name):
 ], ids=["small-table", "expression-arg", "raw-rows"])
 def test_cpu_path_matches_reference(engines, sql, floor, ref_path):
     want, got, ref_prof, port_prof = _run(engines, sql, floor=floor)
-    assert port_prof is None
+    assert (port_prof.path if port_prof is not None else None) == ref_path
     assert (ref_prof.path if ref_prof is not None else None) == ref_path
     _compare(want, got, engines[4], sql)
 
@@ -302,9 +302,14 @@ def test_mvcc_overwrite_and_delete_visible(engines):
 
 
 def test_unsupported_statements_raise(engines):
+    """information_schema tables over modules the port does not have
+    yet (flows, the trace store, the profiler, the self-monitor) raise
+    UnsupportedError naming them."""
     port = engines[2]
-    for sql in ("SHOW TABLES", "SELECT hostname, row_number() OVER "
-                "(ORDER BY ts) FROM cpu"):
+    for sql in ("SELECT * FROM information_schema.flows",
+                "SELECT * FROM information_schema.trace_spans",
+                "SELECT * FROM information_schema.profile_samples",
+                "SELECT * FROM information_schema.self_monitor"):
         with pytest.raises(UnsupportedError):
             port.execute(parse_sql(sql), QueryContext())
 
