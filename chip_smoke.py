@@ -100,15 +100,42 @@ Phases (none of them catches a failure; any failed check exits non-zero):
    TABLES, DESCRIBE TABLE, SHOW CREATE TABLE and information_schema.columns
    against the TSBS DDL; the 27 in-scope standalone sqlness goldens through
    greptimedb_tpu_torch/tools/sqlness.py on the card, byte-equal to their
-   .result files and launching no kernel. The phase launches
-   segment_moments exactly once (EXPLAIN ANALYZE). Each statement's wall is
-   printed.
+   .result files and launching no kernel (the 4 tql/* cases run in phase
+   9). The phase launches segment_moments exactly once (EXPLAIN ANALYZE).
+   Each statement's wall is printed.
+9. PromQL over the port's own regions: phase 6-8's frontend shut down,
+   build_standalone(DatanodeOptions(data_home=<temporary>, device="cuda"))
+   again, tables cpu_usage_user and cpu_seconds_total in GreptimeDB's
+   Prometheus remote-write layout (hostname, region, datacenter as the
+   primary key, greptime_timestamp, greptime_value), each loaded with
+   phase 4's series (4000 hosts x 8640 samples = 34.56 M rows, 24 h) by
+   handle_bulk_load, then ADMIN FLUSH TABLE. Through
+   promql_engine().query_to_prom_json: phase 4's rate (cold) and sum by
+   (region) of rate (cold and warm) on the row path (the region-backed
+   select, K1 on the window bounds), equal to phase 4's answers to one
+   unit in the 6th significant digit and inside its float64 bound; the
+   lowered shapes (range == step == 60 s: sum of rate, with the host-only
+   reset_corr moment; avg of avg_over_time and max of max_over_time, one
+   segment_moments launch each; avg of the instant selector), cold and
+   warm, within rtol 2e-5 of a float64 brute force, and again on the row
+   path (the dispatch floor above the table's rows: rate at 24 h within
+   the row path's float32 bound, the gauge queries over 1 h within rtol
+   2e-5, the instant one at 24 h); a select through the streamed cold read
+   (its samples the loaded values exactly) and a query over it; an
+   equality matcher through the SST index; TQL EVAL of the avg query over
+   the first hour on both routes, equal to the JSON answers, TQL EXPLAIN
+   (TpuAggregateExec, device-resident), TQL ANALYZE with its stages, and
+   the tql/* goldens on the card. Each
+   statement prints its wall, its stages (select / device eval + fetch /
+   JSON shaping, or lowered frame / finalize / rebuild), the dispatch,
+   each launch's device time and the peak device memory.
 
 Before the last line come two JSON objects: the numbers of the bucket
 entry, which the main paths do not launch, then the kernel table of the
-main paths (PromQL's window bounds, SQL's segment moments); the last line is {"ok": true, "device": {...}}. Without CUDA,
-or without the package beside this script, it exits non-zero and prints
-no result.
+main paths (PromQL's window bounds, SQL's segment moments), each with
+its launches by phase; the last line is {"ok": true, "device": {...}}.
+Without CUDA, or without the package beside this script, it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -473,7 +500,10 @@ def make_engine_class():
         selector's matchers as the reference's select_series does."""
 
         def __init__(self, ts, labels, metrics, device=DEVICE):
-            super().__init__(catalog=None, device=device)
+            # a catalog without tables: the lowering finds none, and
+            # every query keeps the row path through `select`
+            super().__init__(catalog=types.SimpleNamespace(
+                table=lambda *a: None), device=device)
             self.ts, self.labels, self.metrics = ts, labels, metrics
             self.label_cols = {k: [lb[k] for lb in labels]
                                for k in labels[0]}
@@ -854,7 +884,11 @@ def phase_promql(torch, seed, k1):
                             rsteps.astype(np.float64) / 1000.0, okr)
         compare(name, got, want, okr,
                 4 * U32 * gmax + QUANT * np.abs(np.nan_to_num(want)))
-    return kern
+    # what phase 9 holds the same queries over the tables to
+    answers = {q: parse_series(results[q]["result"], key) for q, key in
+               ((queries[1], "hostname"), (queries[2], "region"))}
+    return kern, types.SimpleNamespace(ts=ts, labels=labels,
+                                       metrics=metrics, answers=answers)
 
 
 def phase_breakdown(torch, eng, mat, start: int, end: int, reps: int = 3):
@@ -1240,35 +1274,67 @@ def sql_edits(fe, table, ts, tags, fields, host_sids, eight, seed):
 
 
 class MomentsTimer:
-    """Wraps sorted_grouped_aggregate as the SQL path calls it: a spin
-    kernel queued first keeps the card busy until the wrapper has queued
-    the segment-moments launch, so CUDA events around the call time the
-    kernel and not the host work before it. Keeps each call's inputs."""
+    """Times each segment-moments launch inside the real statements and
+    keeps each call's inputs. It hooks tpu_exec's sorted_grouped_aggregate,
+    whose arguments (the kernel's own) it keeps in `calls`, and the
+    kernel's C launch entry (a function of the ctypes library that
+    ops/cuda_build.py loads), which it fences behind a spin kernel queued
+    after everything the Python wrapper does first: the wrapper's first
+    allocations at a new size may synchronise the device (they did at
+    34.56 M rows), so a spin queued before the wrapper could end before
+    the launch. The CUDA events around the C call time the kernel alone.
+    With `fenced` off the launches run as they are, untimed and unkept."""
 
-    SPIN_CYCLES = 40_000_000        # ~20 ms at 1980 MHz
+    #: ~20 ms at 1980 MHz: covers one call. The first launch in a process
+    #: loads the kernel's module and waits for the device, which no spin
+    #: covers; phase 5 launches segment_moments before the SQL phases
+    SPIN_CYCLES = 40_000_000
     #: a streamed slice's launch competes for the GIL with the prefetch
-    #: workers' decode, so its enqueue takes longer (33 ms seen at Q1)
+    #: workers' decode (33 ms seen at Q1 with the fence ahead of the
+    #: Python wrapper)
     STREAM_SPIN_CYCLES = 240_000_000    # ~120 ms
 
-    def __init__(self, torch, inner):
-        self.torch, self.inner = torch, inner
+    def __init__(self, torch):
+        from greptimedb_tpu_torch.ops import kernels as K
+        from greptimedb_tpu_torch.query import tpu_exec
+        self.torch, self.lib = torch, K._lib()
+        self.aggregate = tpu_exec.sorted_grouped_aggregate
+        self.entry = self.lib.segment_moments_launch
         self.pending, self.calls = [], []
-        self.spin_cycles = self.SPIN_CYCLES
+        self.spin_cycles, self.fenced = self.SPIN_CYCLES, True
 
-    def __call__(self, gids, mask, ts, values, col_masks=(), **kw):
-        cuda = self.torch.cuda
-        e_spin, e0, e1 = (cuda.Event(enable_timing=True) for _ in range(3))
-        h0 = time.perf_counter()
-        e_spin.record()
-        cuda._sleep(self.spin_cycles)
-        e0.record()
-        out = self.inner(gids, mask, ts, values, col_masks, **kw)
-        enqueue_s = time.perf_counter() - h0
-        e1.record()
-        self.pending.append((e_spin, e0, e1, enqueue_s))
-        self.calls.append((kw["ends"], mask, ts, list(values),
-                           list(col_masks), list(kw["ops"])))
-        return out
+        def keep(gids, mask, ts, values, col_masks=(), **kw):
+            if self.fenced:
+                self.calls.append((kw["ends"], mask, ts, list(values),
+                                   list(col_masks), list(kw["ops"])))
+            return self.aggregate(gids, mask, ts, values, col_masks, **kw)
+
+        def fence(*args):
+            if not self.fenced:
+                return self.entry(*args)
+            cuda = self.torch.cuda
+            e_spin, e0, e1 = (cuda.Event(enable_timing=True)
+                              for _ in range(3))
+            h0 = time.perf_counter()
+            e_spin.record()
+            cuda._sleep(self.spin_cycles)
+            e0.record()
+            out = self.entry(*args)
+            e1.record()
+            self.pending.append((e_spin, e0, e1, time.perf_counter() - h0))
+            return out
+
+        # the wrapper reads its entry's types (set by K._lib()) to know
+        # they are set
+        fence.argtypes, fence.restype = self.entry.argtypes, \
+            self.entry.restype
+        tpu_exec.sorted_grouped_aggregate = keep
+        self.lib.segment_moments_launch = fence
+
+    def close(self):
+        from greptimedb_tpu_torch.query import tpu_exec
+        tpu_exec.sorted_grouped_aggregate = self.aggregate
+        self.lib.segment_moments_launch = self.entry
 
     def take(self):
         """(device ms of each launch since the last call, ms of the spins
@@ -1277,7 +1343,7 @@ class MomentsTimer:
         rows, spins = [], 0.0
         for e_spin, e0, e1, enqueue_s in self.pending:
             spin_ms = e_spin.elapsed_time(e0)
-            check(enqueue_s * 1e3 < spin_ms, f"the wrapper took "
+            check(enqueue_s * 1e3 < spin_ms, f"the launch took "
                   f"{enqueue_s * 1e3:.2f} ms to enqueue, longer than the "
                   f"{spin_ms:.2f} ms spin ahead of it")
             rows.append(e0.elapsed_time(e1))
@@ -1534,9 +1600,9 @@ class SqlFrontend:
     frontend's own cost is the difference)."""
 
     def __init__(self, torch, data_home):
-        from greptimedb_tpu_torch.query import ir, tpu_exec
+        from greptimedb_tpu_torch.query import ir
         self.torch, self.data_home = torch, data_home
-        self.timer = MomentsTimer(torch, tpu_exec.sorted_grouped_aggregate)
+        self.timer = MomentsTimer(torch)
         self.stage_s = {}
         self._finalize = ir._finalize
         ir._finalize = self._timed("finalize", ir._finalize)
@@ -1573,8 +1639,8 @@ class SqlFrontend:
         return self.open()
 
     def close(self):
-        from greptimedb_tpu_torch.query import ir, tpu_exec
-        tpu_exec.sorted_grouped_aggregate = self.timer.inner
+        from greptimedb_tpu_torch.query import ir
+        self.timer.close()
         ir._finalize = self._finalize
         if self.fe is not None:
             self.fe.shutdown()
@@ -1601,8 +1667,7 @@ class SqlFrontend:
         if run.startswith("cold"):
             tpu_exec.SCAN_CACHE.clear()
         fenced = "unfenced" not in run
-        tpu_exec.sorted_grouped_aggregate = \
-            self.timer if fenced else self.timer.inner
+        self.timer.fenced = fenced
         self.timer.spin_cycles = MomentsTimer.STREAM_SPIN_CYCLES \
             if path == "streamed" else MomentsTimer.SPIN_CYCLES
         regions = list(self.table(table).regions.values())
@@ -1848,9 +1913,10 @@ def sql_streamed_vs_resident(sql, queries, frames, ts, fields, ties, eight):
     min/max/first/last equal to the resident frames; sums and the rest
     within the float64 brute force's bounds, widened by one float32
     rounding of each slice's partial sum. The threshold goes back to
-    64000000. Returns the launches."""
+    what it was. Returns the launches."""
     from greptimedb_tpu_torch.query import stream_exec
     launches = 0
+    threshold = stream_exec.stream_threshold_rows()
     sql.do(f"SET stream_threshold_rows = {STREAM_CHECK_ROWS}")
     stream_exec.configure_streaming(cold_reduce="device")
     try:
@@ -1876,7 +1942,7 @@ def sql_streamed_vs_resident(sql, queries, frames, ts, fields, ties, eight):
                 f"min/max/first/last equal to the resident frame; max "
                 f"|err|/bound {worst:.3g} against the brute force")
     finally:
-        sql.do("SET stream_threshold_rows = 64000000")
+        sql.do(f"SET stream_threshold_rows = {threshold}")
         stream_exec.configure_streaming(cold_reduce="host")
     return launches
 
@@ -2024,7 +2090,7 @@ def sql_fusion(sql, q5):
     from greptimedb_tpu_torch.query import tpu_exec
     q = re.sub(r"\bFROM cpu\b", "FROM cpu_p", q5)
     tpu_exec.SCAN_CACHE.clear()
-    tpu_exec.sorted_grouped_aggregate = sql.timer.inner
+    sql.timer.fenced = False
     leaders, followers = _counter("scan_fusion_leader"), \
         _counter("scan_fusion_follower")
     launched0 = K.segment_moments.launches
@@ -2376,6 +2442,19 @@ def check_expressions(label, got, t):
     return worst
 
 
+def goldens(cases):
+    """The sqlness cases through tools/sqlness.py on the card, each on a
+    fresh frontend; the diffs of those that differ from their .result."""
+    from greptimedb_tpu_torch.tools import sqlness
+    failed = []
+    for case in cases:
+        err = sqlness.run_one(sqlness.CASES_DIR / f"{case}.sql",
+                              device=DEVICE)
+        if err is not None:
+            failed.append(err)
+    return failed
+
+
 def phase_surface(sql, cpu, cpu_24h, cpu_p):
     """Phase 8 on the tables phases 6 and 7 loaded, through the same
     frontend: EXPLAIN and EXPLAIN ANALYZE of Q1 on cpu; the sketch
@@ -2391,13 +2470,12 @@ def phase_surface(sql, cpu, cpu_24h, cpu_p):
     import pandas as pd
 
     from greptimedb_tpu_torch.ops import kernels as K
-    from greptimedb_tpu_torch.query import tpu_exec
     from greptimedb_tpu_torch.tools import sqlness
     log("== phase 8: the rest of the SQL surface")
     s = Surface(sql)
     t_phase = time.perf_counter()
     K.segment_moments.launches = 0
-    tpu_exec.sorted_grouped_aggregate = sql.timer.inner
+    sql.timer.fenced = False
 
     # EXPLAIN / EXPLAIN ANALYZE of Q1
     H = cpu.usage_user.shape[0]
@@ -2537,19 +2615,16 @@ def phase_surface(sql, cpu, cpu_24h, cpu_p):
     # floor, so none of them launches a kernel
     n0 = K.segment_moments.launches
     t0 = time.perf_counter()
-    failed = []
-    for case in sqlness.IN_SCOPE:
-        err = sqlness.run_one(sqlness.CASES_DIR / f"{case}.sql",
-                              device=DEVICE)
-        if err is not None:
-            failed.append(err)
+    cases = [c for c in sqlness.IN_SCOPE if not c.startswith("tql/")]
+    failed = goldens(cases)
     s.walls["goldens"] = time.perf_counter() - t0
     check(not failed, "goldens differ on the card:\n" + "\n".join(failed))
     n = K.segment_moments.launches - n0
     check(n == 0, f"the goldens launched segment_moments {n} times, not 0")
-    log(f"goldens: {len(sqlness.IN_SCOPE)} standalone sqlness cases through "
-        f"tools/sqlness.py on {DEVICE!r} byte-equal to their .result in "
-        f"{s.walls['goldens']:.2f}s (0 launches)")
+    log(f"goldens: {len(cases)} standalone sqlness cases (the tql/* ones "
+        f"run in phase 9) through tools/sqlness.py on {DEVICE!r} "
+        f"byte-equal to their .result in {s.walls['goldens']:.2f}s "
+        f"(0 launches)")
     launches = K.segment_moments.launches
     check(launches == 1, f"phase 8 launched segment_moments {launches} "
           f"times, not once (EXPLAIN ANALYZE Q1)")
@@ -2559,21 +2634,668 @@ def phase_surface(sql, cpu, cpu_24h, cpu_p):
     return launches, s.walls
 
 
-def phase_moments_time(torch, inputs):
-    """segment_moments at the main path's shapes (Q1, Q4, Q6), against
-    its plain version and the library yardstick; Q1 is the table's row.
-    The timing tool's own Q1/Q4/Q6 inputs must match these in every
-    property the kernel's work depends on."""
+# ---------------------------------------------------------------------------
+# phase 9: PromQL over the port's own regions
+# ---------------------------------------------------------------------------
+
+#: GreptimeDB's Prometheus remote-write layout (greptimedb_tpu/servers/
+#: prometheus.py): the labels as the primary key, one timestamp, one value
+PROM_TAGS = ("hostname", "region", "datacenter")
+PROM_TS, PROM_VALUE = "greptime_timestamp", "greptime_value"
+#: phase 4's per-series and grouped queries, now over the tables, and the
+#: label each answer is keyed by
+ROW_QUERIES = {"rate(cpu_seconds_total[5m])": "hostname",
+               "sum by (region) (rate(cpu_seconds_total[5m]))": "region"}
+#: range == step: the shapes the lowering takes, each answer's key label,
+#: and the segment_moments launches each makes (rate's reset_corr moment
+#: is host-only, so its plan reduces on the host)
+LOWERED_QUERIES = {
+    "sum by (region) (rate(cpu_seconds_total[1m]))": ("region", 0),
+    "avg by (region) (avg_over_time(cpu_usage_user[1m]))": ("region", 1),
+    "max by (datacenter) (max_over_time(cpu_usage_user[1m]))":
+        ("datacenter", 1),
+    "avg(cpu_usage_user)": (None, 1),
+}
+#: the rtol of a lowered answer against the float64 brute force and
+#: against the row path (the reference's lowered-vs-row tolerance)
+LOWERED_RTOL = 2e-5
+#: the span (hours) over which the lowered gauge queries also run on the
+#: row path: max_over_time's gather path holds an O(S*T*L) window tensor,
+#: and avg_over_time's float32 prefix sums grow with the span
+ROW_CHECK_HOURS = 1
+#: the streamed and SST-index reads: the threshold they run under, the
+#: streamed query's region and span, the indexed host
+COLD_THRESHOLD_ROWS = 1_000_000
+STREAM_REGION = "eu-west-1"
+STREAM_SPAN_HOURS = 2
+INDEX_HOST = "host_7"
+
+
+def prom_ddl(name):
+    tags = ", ".join(f"{t} STRING" for t in PROM_TAGS)
+    return (f"CREATE TABLE {name} ({tags}, {PROM_TS} TIMESTAMP TIME INDEX, "
+            f"{PROM_VALUE} DOUBLE, PRIMARY KEY({', '.join(PROM_TAGS)}))")
+
+
+def prom_load(fe, name, ts, labels, values):
+    """One metric's series into its table through handle_bulk_load,
+    time-major as a remote-write client sends them, then ADMIN FLUSH
+    TABLE. Returns the table."""
+    H, n = values.shape
+    cols = {t: np.tile(np.array([lb[t] for lb in labels], dtype=object), n)
+            for t in PROM_TAGS}
+    cols[PROM_TS] = np.repeat(ts, H)
+    cols[PROM_VALUE] = values.T.ravel()
+    t0 = time.perf_counter()
+    written = fe.handle_bulk_load(name, cols, tag_columns=PROM_TAGS,
+                                  timestamp_column=PROM_TS)
+    load_s = time.perf_counter() - t0
+    del cols
+    fe.datanode.storage.scheduler.wait_idle(timeout=600)
+    t1 = time.perf_counter()
+    fe.do_query(f"ADMIN FLUSH TABLE {name}")
+    flush_ms = (time.perf_counter() - t1) * 1e3
+    from greptimedb_tpu_torch.query import stream_exec, tpu_exec
+    table = fe.catalog.table("greptime", "public", name)
+    check(written == H * n, f"{name}: handle_bulk_load wrote {written} rows "
+          f"of {H * n}")
+    (region,) = table.regions.values()
+    log(f"{name}: handle_bulk_load of {written} rows ({H} series x {n} "
+        f"samples, 3 tags) in {load_s:.2f}s ({written / load_s / 1e6:.2f} "
+        f"Mrows/s), ADMIN FLUSH TABLE {flush_ms:.1f} ms; "
+        f"{sst_summary(table)}; estimated decoded "
+        f"{stream_exec.region_estimated_bytes(region) / 1e9:.3f} GB "
+        f"(cache budget {tpu_exec.SCAN_CACHE.budget_bytes / 2**30:.0f} "
+        f"GiB): "
+        f"{'streams' if tpu_exec.region_streams_cold(region) else 'resident'}")
+    return table
+
+
+class PromFrontend:
+    """The port's standalone frontend for phase 9 and the hooks its
+    statements read where ExecStats has no stage: the engine's select and
+    the JSON shaping on the row path; the lowered moment frame (kept in
+    `frame`) and the rebuild of the inner vector on the lowered path; each
+    window-bounds and segment-moments launch fenced behind a spin kernel
+    (K1Timer, MomentsTimer)."""
+
+    def __init__(self, torch, data_home):
+        from greptimedb_tpu_torch.datanode import DatanodeOptions
+        from greptimedb_tpu_torch.frontend import build_standalone
+        from greptimedb_tpu_torch.ops import pallas_window as pw
+        from greptimedb_tpu_torch.ops import window as win
+        from greptimedb_tpu_torch.promql import engine as E
+        from greptimedb_tpu_torch.promql import lowering
+        from greptimedb_tpu_torch.query import ir, tpu_exec
+        self.torch = torch
+        self.fe = build_standalone(DatanodeOptions(data_home=data_home,
+                                                   device=DEVICE))
+        self.eng = self.fe.promql_engine()
+        self.t, self.frame = {}, None
+        #: the port's dispatch floor, which each lowered statement sets
+        #: again (the latency-adaptive floor re-raises after device queries)
+        self.floor = tpu_exec.TPU_DISPATCH_MIN_ROWS
+        self.k1 = K1Timer(torch, pw.counts_leq_grid)
+        self.moments = MomentsTimer(torch)
+        hooks = [(win, "counts_leq_grid", self.k1),
+                 (E, "_to_prom_json", self._timed("json", E._to_prom_json)),
+                 (lowering, "eval_lowered",
+                  self._timed("lowered", lowering.eval_lowered)),
+                 (ir, "execute_agg_plan",
+                  self._timed("frame", ir.execute_agg_plan, keep=True))]
+        self._saved = []
+        for mod, attr, repl in hooks:
+            self._saved.append((mod, attr, getattr(mod, attr)))
+            setattr(mod, attr, repl)
+        self.eng.select = self._timed("select", self.eng.select)
+
+    def _timed(self, key, fn, keep=False):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                out = fn(*a, **kw)
+                if keep:
+                    self.frame = out
+                return out
+            finally:
+                self.t[key] = self.t.get(key, 0.0) + \
+                    time.perf_counter() - t0
+        return run
+
+    def close(self):
+        for mod, attr, inner in self._saved:
+            setattr(mod, attr, inner)
+        self.moments.close()
+        self.fe.shutdown()
+
+    def do(self, sql):
+        (out,) = self.fe.do_query(sql)
+        return out
+
+    def query(self, name, q, run, start, end, *, lowered, moments=0,
+              window=True, instant=False):
+        """One query through promql_engine().query_to_prom_json, cold (the
+        scan cache emptied first) or warm; checks the route it took
+        (`lowered`, or the row path, whose range functions find their
+        window bounds with K1: `window`) and the segment_moments
+        launches; logs the wall, the stages, the
+        dispatch, the reads, each launch's device time and the peak
+        device memory. Returns the JSON answer."""
+        from greptimedb_tpu_torch.common import exec_stats
+        from greptimedb_tpu_torch.ops import kernels as K
+        from greptimedb_tpu_torch.ops import pallas_window as pw
+        from greptimedb_tpu_torch.query import tpu_exec
+        torch = self.torch
+        if run.startswith("cold"):
+            tpu_exec.SCAN_CACHE.clear()
+        self.t.clear()
+        self.frame = None
+        self.moments.calls.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2**30
+        k0, m0 = pw.counts_leq_grid.launches, K.segment_moments.launches
+        reads0 = {c: _counter(f"promql_select_{c}")
+                  for c in ("resident", "streamed")}
+        step = 1 if instant else STEP_MS
+        t0 = time.perf_counter()
+        with exec_stats.collect() as stats:
+            res = self.eng.query_to_prom_json(q, start, end, step,
+                                              instant=instant)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        nk = pw.counts_leq_grid.launches - k0
+        nm = K.segment_moments.launches - m0
+        k1_rows = self.k1.take()
+        m_ms, spins = self.moments.take()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        reads = {c: int(_counter(f"promql_select_{c}") - v)
+                 for c, v in reads0.items()}
+        t = dict(self.t)
+        check(("lowered" in t) == lowered, f"{name} [{run}]: took the "
+              f"{'lowered' if 'lowered' in t else 'row'} path")
+        check(nm == moments, f"{name} [{run}]: {nm} segment_moments "
+              f"launches, not {moments}")
+        check((nk > 0) == (window and not lowered), f"{name} [{run}]: "
+              f"{nk} counts_leq_grid launches on the "
+              f"{'lowered' if lowered else 'row'} path")
+        if lowered:
+            st = {k: v.elapsed_s * 1e3 for k, v in stats.stages.items()}
+            stages = (f"lowered frame {t['frame'] * 1e3:.1f} ms: "
+                      f"scan_prep {st.get('scan_prep', 0.0):.1f}, reduce "
+                      f"{st.get('reduce', 0.0):.1f}, finalize "
+                      f"{st.get('finalize', 0.0):.1f} ms; rebuild of "
+                      f"the inner vector "
+                      f"{(t['lowered'] - t['frame']) * 1e3:.1f} ms, outer "
+                      f"aggregate "
+                      f"{(wall - t['lowered'] - t['json']) * 1e3:.1f} ms, "
+                      f"JSON shaping {t['json'] * 1e3:.1f} ms")
+        else:
+            stages = (f"select {t['select'] * 1e3:.1f} ms, device eval + "
+                      f"fetch {(wall - t['select'] - t['json']) * 1e3:.1f} "
+                      f"ms, JSON shaping {t['json'] * 1e3:.1f} ms")
+        kern = ""
+        if k1_rows:
+            kern += (f"; K1 {nk} launch(es), device " +
+                     " / ".join(f"{d:.4f}" for d, _, _ in k1_rows) + " ms")
+        if m_ms:
+            kern += (f"; segment_moments {nm} launch(es), device " +
+                     " / ".join(f"{x:.4f}" for x in m_ms) +
+                     f" ms behind {spins:.1f} ms of spins")
+        n = len(res["result"])
+        log(f"{name} [{run}]: wall {wall * 1e3:.1f} ms ({stages}); dispatch "
+            f"{stats.dispatch or 'promql-row-path'!r}; select reads "
+            f"{reads}{kern}; {n} series; peak device memory {peak:.2f} GiB "
+            f"({peak - held:.2f} above the {held:.2f} held before)")
+        self.last = types.SimpleNamespace(wall=wall, dispatch=stats.dispatch,
+                                          reads=reads, stages=t, stats=stats)
+        return res
+
+
+def series_keys_check(frame):
+    """The lowered frame's series keys (eval_lowered's first step on the
+    host), rendered as greptimedb_tpu/promql/lowering.py's eval_lowered
+    renders them (every row's key values, then the distinct tuples
+    sorted) and by the port's _series_keys (each column factorised, each
+    distinct value rendered once): the same keys and row indices, each
+    timed."""
+    from greptimedb_tpu_torch.promql import lowering
+    from greptimedb_tpu_torch.query.planner import _group_slot
+    df = frame[frame["__n"].to_numpy() > 0]
+    cols = [_group_slot(t) for t in PROM_TAGS]
+    t0 = time.perf_counter()
+    rendered = [[lowering._key_str(v) for v in df[c]] for c in cols]
+    keys = list(zip(*rendered))
+    uniq = sorted(set(keys))
+    sid_of = {k: i for i, k in enumerate(uniq)}
+    sids = np.fromiter((sid_of[k] for k in keys), dtype=np.int64,
+                       count=len(df))
+    t1 = time.perf_counter()
+    got_uniq, got_sids = lowering._series_keys(df, cols)
+    t2 = time.perf_counter()
+    check(got_uniq == uniq and np.array_equal(got_sids, sids),
+          "_series_keys differs from the reference's rendering")
+    log(f"  series keys of the lowered frame ({len(df)} rows, {len(uniq)} "
+        f"series): the reference's per-row rendering {(t1 - t0) * 1e3:.1f} "
+        f"ms, the port's _series_keys {(t2 - t1) * 1e3:.1f} ms, equal")
+
+
+def sig_unit(a, b):
+    """One unit in the 6th significant digit of the larger magnitude."""
+    m = np.maximum(np.abs(a), np.abs(b))
+    return np.where(m > 0, 10.0 ** (np.floor(np.log10(np.where(
+        m > 0, m, 1.0))) - 5), 0.0) * (1 + 1e-9)
+
+
+def same_as_phase4(name, got, want):
+    """got / want: {key: [[t, v]]} of the same query. The same series at
+    the same steps, every value within one unit in the 6th significant
+    digit."""
+    check(sorted(got) == sorted(want), f"{name}: {len(got)} series, "
+          f"phase 4 had {len(want)}")
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k]
+        check(np.array_equal(g[:, 0], w[:, 0]), f"{name}: steps of {k} "
+              f"differ from phase 4's")
+        d = np.abs(g[:, 1] - w[:, 1])
+        u = sig_unit(g[:, 1], w[:, 1])
+        bad = d > u
+        check(not bad.any(), f"{name}: {k} differs from phase 4 by more "
+              f"than one unit in the 6th digit: {g[bad][:3]} vs "
+              f"{w[bad][:3]}")
+        worst = max(worst, float(np.max(d / np.maximum(u, 1e-300),
+                                        initial=0.0)))
+    log(f"  check {name}: {len(want)} series, every step equal to phase "
+        f"4's answer over the in-memory series (max |diff| / unit of the "
+        f"6th digit {worst:.3g})")
+
+
+def window_index(ts, steps, range_ms):
+    """[lo, hi) sample indices of each window (t - range, t]."""
+    return (np.searchsorted(ts, steps - range_ms, side="right"),
+            np.searchsorted(ts, steps, side="right"))
+
+
+def grouped(x, ok, keys_of, keys, how):
+    """Reduce [S, T] host rows into [len(keys), T] by their key label
+    (`how`: sum / avg / max over the ok rows; ok where any row is)."""
+    out, wok = [], []
+    for k in keys:
+        rows = keys_of == k
+        v = np.where(ok[rows], x[rows], {"sum": 0.0, "avg": 0.0,
+                                         "max": -np.inf}[how])
+        c = ok[rows].sum(axis=0)
+        r = v.max(axis=0) if how == "max" else v.sum(axis=0)
+        if how == "avg":
+            r = r / np.maximum(c, 1)
+        out.append(r)
+        wok.append(c > 0)
+    return np.stack(out), np.stack(wok)
+
+
+def lowered_brute(q, ts, labels, metrics, steps):
+    """The float64 numpy answer of a lowered query from the arrays the
+    tables were loaded from: (keys, values [K, T], ok [K, T])."""
+    key = LOWERED_QUERIES[q][0]
+    keys_of = np.asarray([lb[key] for lb in labels]) if key \
+        else np.zeros(len(labels), dtype=object)
+    keys = sorted(set(keys_of.tolist())) if key else [0]
+    U = metrics["cpu_usage_user"]
+    if q.startswith("sum by (region) (rate"):
+        r, ok, _, _ = ref_rate(ts, metrics["cpu_seconds_total"], steps,
+                               STEP_MS)
+        return keys, *grouped(r, ok, keys_of, keys, "sum")
+    lo, hi = window_index(ts, steps, STEP_MS)
+    if "avg_over_time" in q:
+        P = np.concatenate([np.zeros((len(U), 1)), np.cumsum(U, axis=1)],
+                           axis=1)
+        c = hi - lo
+        x = (P[:, hi] - P[:, lo]) / np.maximum(c, 1)
+        ok = np.broadcast_to(c > 0, x.shape)
+        return keys, *grouped(x, ok, keys_of, keys, "avg")
+    if "max_over_time" in q:
+        check(np.array_equal(hi[:-1], lo[1:]) and (hi > lo).all(),
+              "the 1 m windows do not tile the samples")
+        x = np.maximum.reduceat(U[:, :hi[-1]], lo, axis=1)
+        ok = np.ones(x.shape, dtype=bool)
+        return keys, *grouped(x, ok, keys_of, keys, "max")
+    # avg(instant selector): each series' last sample at or before the
+    # step, if it is within the 5 m lookback
+    last = hi - 1
+    ok1 = (last >= 0) & (ts[np.maximum(last, 0)] >= steps - RANGE_MS)
+    x = U[:, np.maximum(last, 0)]
+    return keys, *grouped(x, np.broadcast_to(ok1, x.shape), keys_of, keys,
+                          "avg")
+
+
+def json_matrix(name, res, key, keys, steps_s, ok):
+    return series_values(name, parse_series(res["result"], key)
+                         if key else {0: parse_series(res["result"],
+                                                      key)[None]},
+                         keys, steps_s, ok)
+
+
+def prom_reads(pf, p4, start):
+    """The streamed cold read and the SST-index read: the threshold set
+    below the tables' rows, then restored."""
+    from greptimedb_tpu_torch.common import exec_stats
+    from greptimedb_tpu_torch.promql import lowering
+    from greptimedb_tpu_torch.promql.parser import parse_promql
+    from greptimedb_tpu_torch.query import stream_exec, tpu_exec
+    from greptimedb_tpu_torch.session import QueryContext
+    ts, labels, U = p4.ts, p4.labels, p4.metrics["cpu_usage_user"]
+    host_of = {lb["hostname"]: i for i, lb in enumerate(labels)}
+    threshold = stream_exec.stream_threshold_rows()
+    pf.do(f"SET stream_threshold_rows = {COLD_THRESHOLD_ROWS}")
+    (region,) = pf.fe.catalog.table("greptime", "public",
+                                    "cpu_usage_user").regions.values()
+    try:
+        check(tpu_exec.region_streams_cold(region),
+              "cpu_usage_user does not stream under the lowered threshold")
+        # the selection itself: the window-bounded cold read's samples
+        # are the loaded float64 values, exactly
+        end = start + STREAM_SPAN_HOURS * 3600_000
+        text = f'cpu_usage_user{{region="{STREAM_REGION}"}}'
+        tpu_exec.SCAN_CACHE.clear()
+        n0 = _counter("promql_select_streamed")
+        t0 = time.perf_counter()
+        with exec_stats.collect() as stats:
+            sel = pf.eng.select(parse_promql(text), start - RANGE_MS + 1,
+                                end, QueryContext())
+        sel_ms = (time.perf_counter() - t0) * 1e3
+        check(_counter("promql_select_streamed") > n0 and
+              not tpu_exec.SCAN_CACHE.cached(region),
+              "the streamed select did not take the cold read, or left the "
+              "region in the scan cache")
+        cols = np.nonzero((ts >= start - RANGE_MS + 1) & (ts <= end))[0]
+        want_rows = [i for i, lb in enumerate(labels)
+                     if lb["region"] == STREAM_REGION]
+        got_rows = [host_of[lb["hostname"]] for lb in sel.labels]
+        check(sorted(got_rows) == want_rows, f"streamed select: "
+              f"{len(got_rows)} series, want {len(want_rows)}")
+        m = sel.matrix
+        n = len(cols)
+        check(bool((m.lengths == n).all()) and
+              bool((m.ts[:, :n] == ts[cols]).all()) and
+              bool((m.values[:, :n] == U[got_rows][:, cols]).all()),
+              "streamed select: samples differ from the loaded values")
+        rows = {k: st.rows for k, st in stats.stages.items()}
+        log(f"streamed select {text} over {STREAM_SPAN_HOURS} h: "
+            f"{len(got_rows)} series x {n} samples in {sel_ms:.1f} ms "
+            f"(promql_cold_scan rows {rows.get('promql_cold_scan')}); "
+            f"timestamps and values equal to the loaded arrays")
+        # and a query over it
+        q = f'max_over_time({text}[5m])'
+        res = pf.query("streamed max_over_time", q, "cold", start, end,
+                       lowered=False)
+        check(pf.last.reads["streamed"] > 0, "the query read no streamed "
+              "region")
+        steps = np.arange(start, end + 1, STEP_MS, dtype=np.int64)
+        lo, hi = window_index(ts, steps, RANGE_MS)
+        G = U[want_rows]
+        want = np.stack([G[:, a:b].max(axis=1) for a, b in zip(lo, hi)],
+                        axis=1)
+        ok = np.broadcast_to(hi > lo, want.shape)
+        got = series_values(q, parse_series(res["result"]),
+                            [labels[i]["hostname"] for i in want_rows],
+                            steps.astype(np.float64) / 1000.0, ok)
+        compare(q, got, want, ok, (U32 + QUANT) * np.abs(want))
+
+        # an equality matcher through the SST index
+        t = start + HOURS * 1800_000
+        text = f'cpu_usage_user{{hostname="{INDEX_HOST}"}}[5m]'
+        sel = parse_promql(text)
+        tags = region.series_dict.tag_names
+        sids = lowering.matcher_sids(region, tags, [
+            mt for mt in sel.matchers if mt.op == "=" and mt.name in tags])
+        check(sids is not None and len(sids) == 1,
+              f"matcher_sids: {sids}")
+        res = pf.query("indexed select", text, "cold", t, t,
+                       lowered=False, window=False, instant=True)
+        rows = {k: st.rows for k, st in pf.last.stats.stages.items()}
+        h = host_of[INDEX_HOST]
+        idx = np.nonzero((ts > t - RANGE_MS) & (ts <= t))[0]
+        (series,) = res["result"]
+        tv = np.asarray([[float(a), float(b)] for a, b in series["values"]])
+        check(series["metric"]["hostname"] == INDEX_HOST and
+              np.array_equal(tv[:, 0], ts[idx] / 1000.0) and
+              np.array_equal(tv[:, 1], U[h, idx]) and
+              rows.get("promql_cold_scan", 0) == len(idx),
+              f"indexed select: {series['metric']}, {len(tv)} samples, "
+              f"cold read rows {rows}")
+        log(f"  check indexed select {text} at one instant: one candidate "
+            f"series from the SST index, the cold read kept "
+            f"{rows['promql_cold_scan']} rows, the {len(idx)} samples equal "
+            f"to the loaded values")
+    finally:
+        pf.do(f"SET stream_threshold_rows = {threshold}")
+
+
+def tql_frame(out):
+    import pandas as pd
+    return pd.concat([pd.DataFrame(b.to_pydict()) for b in out.batches],
+                     ignore_index=True)
+
+
+#: the query TQL runs through do_query in phase 9, on both routes
+TQL_QUERY = "avg by (region) (avg_over_time(cpu_usage_user[1m]))"
+
+
+def prom_tql(pf, start_s, end_s, span_end_s, answers):
+    """TQL through do_query: TQL_QUERY's EVAL over the first
+    ROW_CHECK_HOURS (`start_s` .. `span_end_s`) on each route, equal to
+    the JSON answer of the same query on that route (`answers`: route ->
+    query_to_prom_json's answer); EXPLAIN over the whole span; ANALYZE
+    over the first hours with its stages; then the tql/* goldens."""
+    q = TQL_QUERY
+    step = f"'{STEP_MS // 1000}s'"
+    for route, floor in (("lowered", pf.floor), ("row", 10 ** 9)):
+        pf.do(f"SET tpu_dispatch_min_rows = {floor}")
+        pf.t.clear()
+        t0 = time.perf_counter()
+        df = tql_frame(pf.do(f"TQL EVAL ({start_s}, {span_end_s}, {step}) "
+                             f"{q}"))
+        wall = time.perf_counter() - t0
+        pf.k1.take()
+        pf.moments.take()
+        check(("lowered" in pf.t) == (route == "lowered"),
+              f"TQL EVAL {q}: not on the {route} path")
+        want = parse_series(answers[route]["result"], "region")
+        check(sorted(set(df["region"])) == sorted(want),
+              f"TQL EVAL {q} ({route}): regions differ from the JSON answer")
+        for r, g in df.groupby("region"):
+            tv = np.stack([g["ts"].to_numpy(np.int64) / 1000.0,
+                           g["value"].to_numpy(np.float64)], axis=1)
+            check(np.array_equal(tv, want[r]), f"TQL EVAL {q} ({route}): "
+                  f"{r} differs from the JSON answer")
+        log(f"TQL EVAL {q} over {ROW_CHECK_HOURS} h, {route} path: "
+            f"{len(df)} rows in {wall * 1e3:.1f} ms, equal to the "
+            f"query_to_prom_json answer")
+    pf.do(f"SET tpu_dispatch_min_rows = {pf.floor}")
+    plan = tql_frame(pf.do(f"TQL EXPLAIN ({start_s}, {end_s}, {step}) "
+                           f"{q}"))["plan"].iloc[0]
+    lines = plan.splitlines()
+    check("TpuAggregateExec: groups=[hostname, region, datacenter, "
+          f"time_bucket({STEP_MS}ms)]" in plan and
+          "  Dispatch: device-resident (scan cache)" in lines,
+          f"TQL EXPLAIN {q}: {plan!r}")
+    log(f"TQL EXPLAIN {q}:\n  " + "\n  ".join(lines))
+    pf.do(f"SET tpu_dispatch_min_rows = {pf.floor}")
+    t0 = time.perf_counter()
+    ana = tql_frame(pf.do(f"TQL ANALYZE ({start_s}, {span_end_s}, {step}) "
+                          f"{q}"))
+    wall = time.perf_counter() - t0
+    pf.moments.take()
+    text = ana["plan"].iloc[1]
+    stages = [ln.split(":")[0] for ln in text.splitlines()[1:]]
+    check(list(ana["plan_type"]) == ["logical_plan", "analyze"] and
+          "TpuAggregateExec" in ana["plan"].iloc[0] and
+          {"dispatch", "scan_prep", "reduce"} <= set(stages),
+          f"TQL ANALYZE {q}: {ana.to_dict('list')}")
+    log(f"TQL ANALYZE {q} in {wall * 1e3:.1f} ms:\n  " +
+        "\n  ".join(text.splitlines()))
+    from greptimedb_tpu_torch.tools import sqlness
+    cases = [c for c in sqlness.IN_SCOPE if c.startswith("tql/")]
+    t0 = time.perf_counter()
+    failed = goldens(cases)
+    check(not failed, "tql goldens differ on the card:\n" +
+          "\n".join(failed))
+    pf.k1.take()
+    log(f"goldens: {len(cases)} tql/* sqlness cases on {DEVICE!r} "
+        f"byte-equal to their .result in {time.perf_counter() - t0:.2f}s "
+        f"(with phase 8's, {len(sqlness.IN_SCOPE)} in-scope cases)")
+
+
+def phase_promql_tables(torch, p4):
+    """Phase 9: PromQL over the port's own regions through its standalone
+    frontend on the card. `p4` carries phase 4's series and answers.
+    Returns the phase's K1 launches, its segment_moments launches, and
+    each device-lowered query's segment_moments inputs (24 h, warm)."""
+    import shutil
+    import tempfile
+
+    from greptimedb_tpu_torch.ops import kernels as K
+    from greptimedb_tpu_torch.ops import pallas_window as pw
+    from greptimedb_tpu_torch.query import tpu_exec
+    log("== phase 9: PromQL over the port's own regions")
+    t_phase = time.perf_counter()
+    tpu_exec.SCAN_CACHE.clear()
+    torch.cuda.empty_cache()
+    ts, labels, metrics = p4.ts, p4.labels, p4.metrics
+    start, end = int(ts[0]), int(ts[0]) + HOURS * 3600_000
+    steps = np.arange(start, end + 1, STEP_MS, dtype=np.int64)
+    steps_s = steps.astype(np.float64) / 1000.0
+    data_home = tempfile.mkdtemp(prefix="chip_smoke_prom_")
+    pf, moment_inputs = None, {}
+    try:
+        pf = PromFrontend(torch, data_home)
+        log(f"build_standalone(DatanodeOptions(data_home={data_home!r}, "
+            f"device={DEVICE!r})); the tables in GreptimeDB's Prometheus "
+            f"remote-write layout, phase 4's series (seed as phase 4)")
+        for name in ("cpu_usage_user", "cpu_seconds_total"):
+            pf.do(prom_ddl(name))
+            prom_load(pf.fe, name, ts, labels, metrics[name])
+        pw.counts_leq_grid.launches = K.segment_moments.launches = 0
+
+        # ---- the row path at phase 4's grid ----
+        pf.do(f"SET tpu_dispatch_min_rows = {pf.floor}")
+        json_answers = {}
+        for q, key in ROW_QUERIES.items():
+            # the per-series query runs cold only: its warm repeat (21 s
+            # on an H100 machine, most of it host JSON shaping) would take
+            # the script past 600 s
+            runs = ("cold",) if key == "hostname" else ("cold", "warm")
+            for run in runs:
+                res = pf.query(q, q, run, start, end, lowered=False)
+                same_as_phase4(f"{q} [{run}]", parse_series(
+                    res["result"], key), p4.answers[q])
+            json_answers[q] = res
+        rate5, ok5, b5, _ = ref_rate(ts, metrics["cpu_seconds_total"], steps,
+                                     RANGE_MS)
+        hosts = [lb["hostname"] for lb in labels]
+        q = "rate(cpu_seconds_total[5m])"
+        compare(q, series_values(q, parse_series(json_answers[q]["result"]),
+                                 hosts, steps_s, ok5), rate5, ok5, b5)
+        q = "sum by (region) (rate(cpu_seconds_total[5m]))"
+        reg_of = np.asarray([lb["region"] for lb in labels])
+        regions = sorted(set(reg_of.tolist()))
+        want, wok = grouped(rate5, ok5, reg_of, regions, "sum")
+        wb, _ = grouped(b5 + QUANT * np.abs(np.where(ok5, rate5, 0.0)), ok5,
+                        reg_of, regions, "sum")
+        compare(q, series_values(q, parse_series(
+            json_answers[q]["result"], "region"), regions, steps_s, wok),
+            want, wok, wb)
+        del rate5, ok5, b5
+
+        # ---- the lowered path: range == step ----
+        for q, (key, nm) in LOWERED_QUERIES.items():
+            instant = "[" not in q
+            keys, want, wok = lowered_brute(q, ts, labels, metrics, steps)
+            for run in ("cold", "warm"):
+                pf.do(f"SET tpu_dispatch_min_rows = {pf.floor}")
+                res = pf.query(q, q, run, start, end, lowered=True,
+                               moments=nm)
+                check(pf.last.dispatch == "device-resident (scan cache" +
+                      ("; host-partial moments (sketch/expr))" if nm == 0
+                       else ")"), f"{q}: dispatch {pf.last.dispatch!r}")
+                got = json_matrix(q, res, key, keys, steps_s, wok)
+                compare(f"{q} [{run}]", got, want, wok,
+                        LOWERED_RTOL * np.abs(want) + 1e-12)
+            if nm:
+                # the warm launch's inputs, for the kernel's check and
+                # times at this shape after the phase
+                moment_inputs[q] = pf.moments.calls[-1]
+            if q == TQL_QUERY:
+                series_keys_check(pf.frame)
+            # the same query on the row path, above the table's rows
+            span_end = end if not q.endswith("_over_time(cpu_usage_user"
+                                             "[1m]))") \
+                else start + ROW_CHECK_HOURS * 3600_000
+            if span_end != end:
+                low = pf.query(f"{q} over {ROW_CHECK_HOURS} h", q, "warm",
+                               start, span_end, lowered=True, moments=nm)
+            else:
+                low = res
+            pf.do("SET tpu_dispatch_min_rows = 1000000000")
+            row = pf.query(f"{q} on the row path", q, "warm", start,
+                           span_end, lowered=False, window=not instant)
+            pf.do(f"SET tpu_dispatch_min_rows = {pf.floor}")
+            T = (span_end - start) // STEP_MS + 1
+            ok = wok[:, :T]
+            g_low = json_matrix(q, low, key, keys, steps_s[:T], ok)
+            g_row = json_matrix(q, row, key, keys, steps_s[:T], ok)
+            if "rate" in q:
+                # the row path's float32 rate against the float64 one:
+                # phase 4's bound, summed over each region's hosts
+                _, ok1, b1, r1 = ref_rate(ts, metrics["cpu_seconds_total"],
+                                          steps, STEP_MS)
+                reg = np.asarray([lb["region"] for lb in labels])
+                bnd, _ = grouped(b1 + QUANT * np.abs(np.where(ok1, r1, 0)),
+                                 ok1, reg, keys, "sum")
+                bnd = bnd + LOWERED_RTOL * np.abs(g_low)
+                what = "the lowered answer (the row path's float32 bound)"
+            else:
+                bnd = LOWERED_RTOL * np.abs(g_low) + 1e-12
+                what = "the lowered answer"
+            compare(f"{q} on the row path", g_row, g_low, ok, bnd, what)
+            if q == TQL_QUERY:
+                tql_answers = {"lowered": low, "row": row}
+                tql_end = span_end
+
+        prom_reads(pf, p4, start)
+        prom_tql(pf, start // 1000, end // 1000, tql_end // 1000,
+                 tql_answers)
+        nk, nm = pw.counts_leq_grid.launches, K.segment_moments.launches
+        check(nk > 0 and nm > 0, f"phase 9 launched counts_leq_grid {nk} "
+              f"and segment_moments {nm} times")
+        log(f"phase 9: {nk} counts_leq_grid and {nm} segment_moments "
+            f"launches; {time.perf_counter() - t_phase:.1f}s")
+    finally:
+        if pf is not None:
+            pf.close()
+        tpu_exec.SCAN_CACHE.clear()
+        shutil.rmtree(data_home, ignore_errors=True)
+    return nk, nm, moment_inputs
+
+
+def phase_moments_time(torch, inputs, tool=True):
+    """segment_moments on the inputs the main path gave it (`inputs`:
+    label -> the kernel's arguments), against its plain version and the
+    library yardstick. With `tool`, the labels are the timing tool's
+    queries (Q1, Q4, Q6), whose inputs must match these in every property
+    the kernel's work depends on. Returns label -> the kernel line's
+    numbers."""
     from greptimedb_tpu_torch.ops import kernels as K
     from greptimedb_tpu_torch.tools import segment_moments_bench as smb
     rows = {}
-    for q in smb.QUERIES:
-        args = inputs[q]
+    for q, args in inputs.items():
         ends, mask = args[0], args[1]
-        want = smb.signature(args)
-        got = smb.signature(smb.main_path_inputs(q, DEVICE))
-        check(got == want, f"the timing tool's {q} inputs differ from the "
-              f"main path's: {got} != {want}")
+        if tool:
+            want = smb.signature(args)
+            got = smb.signature(smb.main_path_inputs(q, DEVICE))
+            check(got == want, f"the timing tool's {q} inputs differ from "
+                  f"the main path's: {got} != {want}")
         err = smb.moments_agree(f"{q} main-path shape", args, quiet=True)
         lib, nlib = smb.library_moments(args)
         # the kernel and the library calls queued behind a spin kernel
@@ -2591,12 +3313,9 @@ def phase_moments_time(torch, inputs):
             f"({b_ms / ms * 100:.1f}% of the bound), plain {plain_ms:.4f} "
             f"ms, torch.segment_reduce x {nlib} {lib_ms:.4f} ms; bound "
             f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB)")
-        rows[q] = {"name": "segment_moments", "route": "cuda",
-                   "source": "greptimedb_tpu_torch/csrc/segment_moments.cu",
-                   "replaces": "greptimedb_tpu/ops/kernels.py:730",
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        rows[q] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
-    return rows["Q1"]
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2625,18 +3344,33 @@ def main() -> int:
     log("== phase 3 + 4: kernel checks, then PromQL on TSBS cpu-only")
     from greptimedb_tpu_torch.ops import pallas_window as pw
     k1 = K1Timer(torch, pw.counts_leq_grid)
-    kern = phase_promql(torch, args.seed, k1)
+    kern, p4 = phase_promql(torch, args.seed, k1)
     log("== phase 5: segment_moments against its plain version")
     phase_moments_check()
     log("== phase 6: SQL on TSBS cpu-only, then segment_moments at the "
         "main path's shapes")
     launches, (surface, walls), inputs = phase_sql(torch, args.seed)
-    k2 = phase_moments_time(torch, inputs)
-    k2["launches"] = launches + surface
-    k2["launches_by_phase"] = {"6-7": launches, "8": surface}
-
+    from greptimedb_tpu_torch.tools import segment_moments_bench as smb
+    shapes = phase_moments_time(torch, {q: inputs[q] for q in smb.QUERIES})
+    del inputs
     log(f"phase 8 took {walls['phase']:.1f}s of the script's "
         f"{time.perf_counter() - t_all:.1f}s so far")
+    k1_9, moments_9, inputs = phase_promql_tables(torch, p4)
+    del p4
+    log("== phase 9's segment_moments shapes against the plain version")
+    shapes.update(phase_moments_time(
+        torch, {f"phase 9 {q}": a for q, a in inputs.items()}, tool=False))
+    del inputs
+    # Q1 is the kernel's row; every shape's numbers beside it
+    k2 = {"name": "segment_moments", "route": "cuda",
+          "source": "greptimedb_tpu_torch/csrc/segment_moments.cu",
+          "replaces": "greptimedb_tpu/ops/kernels.py:730", **shapes["Q1"],
+          "by_shape": shapes}
+    kern[0]["launches_by_phase"] = {"4": kern[0]["launches"], "9": k1_9}
+    kern[0]["launches"] += k1_9
+    k2["launches"] = launches + surface + moments_9
+    k2["launches_by_phase"] = {"6-7": launches, "8": surface,
+                               "9": moments_9}
     new = set(sys.modules) - before
     bad = sorted(m for m in new if m.split(".")[0] in
                  ("jax", "jaxlib", "greptimedb_tpu"))

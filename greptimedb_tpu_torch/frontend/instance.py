@@ -9,8 +9,8 @@ engine. In standalone mode it sits directly on an in-process datanode
 Ported from greptimedb_tpu/frontend/instance.py for the standalone
 deployment; queries run on the datanode's device. Not ported yet: the
 admission gate, the plugin interceptor, the self-monitor, the trace store,
-the profiler, the script engine, and TQL (the PromQL engine's
-region-backed selection).
+the profiler and the script engine. TQL and the Prometheus API's
+queries go to `promql_engine()`, over the same catalog.
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ class FrontendInstance:
         self.datanode = datanode
         self.catalog = datanode.catalog
         self.query_engine = datanode.query_engine
+        self._tql_engine = None
         self.statement_executor = StatementExecutor(
             self.catalog, datanode.engines, self.query_engine,
             procedure_manager=datanode.procedure_manager)
@@ -150,9 +151,13 @@ class FrontendInstance:
         return self.query_engine.execute(stmt, ctx)
 
     def promql_engine(self):
-        raise UnsupportedError(
-            "PromQL over tables: the engine's region-backed selection "
-            "(promql/lowering.py) is not ported yet")
+        """Lazily-built, shared PromQL engine (TQL and the Prometheus
+        API), on the datanode's device."""
+        if self._tql_engine is None:
+            from ..promql.engine import PromqlEngine
+            self._tql_engine = PromqlEngine(self.catalog,
+                                            device=self.query_engine.device)
+        return self._tql_engine
 
     def execute_tql(self, stmt: ast.Tql, ctx: QueryContext) -> Output:
         return self.promql_engine().execute_tql(stmt, ctx)

@@ -14,10 +14,11 @@ stay on the host where cardinality is small. Steps outside the data span
 are masked on host so rebased int32 device timestamps never overflow.
 
 The engine runs on `device` ("cuda" unless the caller asks for "cpu");
-there is no fallback to the CPU. Region-backed selection (the reference's
-promql/lowering.py) and the TQL / record-batch surface (`execute_tql`,
-EXPLAIN) come with the storage slice of the port; until then `select`
-raises and callers serve series from memory by overriding it.
+there is no fallback to the CPU. Data access lives in promql/lowering.py:
+`select` reads the catalog table's regions (the scan cache, the
+window-bounded cold read or the SST index), and aggregate-over-selector
+shapes lower onto the SQL aggregate path (`_aggregate`). TQL EVAL /
+EXPLAIN / ANALYZE (`execute_tql`) shape results as record batches.
 """
 
 from __future__ import annotations
@@ -209,6 +210,124 @@ class PromqlEngine:
         val = ev.eval(expr)
         return _to_prom_json(val, ev.steps, instant=instant)
 
+    def execute_tql(self, stmt, ctx: QueryContext):
+        """TQL EVAL / EXPLAIN / ANALYZE (a `sql.ast.Tql`) as an Output."""
+        from ..common.time import parse_prom_duration, parse_prom_time
+        if stmt.kind not in ("eval", "evaluate", "explain", "analyze"):
+            raise UnsupportedError(f"TQL {stmt.kind.upper()} not supported")
+        start_ms = parse_prom_time(stmt.start)
+        end_ms = parse_prom_time(stmt.end)
+        step_ms = parse_prom_duration(stmt.step)
+        lookback = parse_prom_duration(stmt.lookback) if stmt.lookback \
+            else DEFAULT_LOOKBACK_MS
+        expr = parse_promql(stmt.query)
+        ev = _Eval(self, ctx, start_ms, end_ms, step_ms, lookback)
+        if stmt.kind == "explain":
+            return self._explain_output(expr, None, ev=ev)
+        if stmt.kind == "analyze":
+            import time as _time
+
+            from ..common import exec_stats
+            stats = exec_stats.ExecStats()
+            t0 = _time.perf_counter()
+            with exec_stats.collect(stats):
+                val = ev.eval(expr)
+            elapsed_ms = (_time.perf_counter() - t0) * 1e3
+            nseries = len(getattr(val, "labels", [])) or 1
+            return self._explain_output(expr, {
+                "elapsed_ms": round(elapsed_ms, 2),
+                "series": nseries, "steps": len(ev.steps),
+                "stats": stats}, ev=ev)
+        val = ev.eval(expr)
+        return _to_record_batches(val, ev.steps)
+
+    def explain_lines(self, query: str, start_ms: int, end_ms: int,
+                      step_ms: int, ctx: Optional[QueryContext] = None,
+                      lookback_ms: int = DEFAULT_LOOKBACK_MS) -> List[str]:
+        """The plan/dispatch lines TQL EXPLAIN renders, as a list (the
+        Prometheus HTTP API's ?explain=1 surface)."""
+        ctx = ctx or QueryContext()
+        expr = parse_promql(query)
+        ev = _Eval(self, ctx, start_ms, end_ms, step_ms, lookback_ms)
+        return self._plan_lines(expr, ev)
+
+    def _plan_lines(self, expr, ev: Optional["_Eval"]) -> List[str]:
+        """The EXPLAIN text: the evaluation plan tree, one node per
+        line, then the same dispatch stages SQL's EXPLAIN prints for
+        the statement's lowered (or row-path) scan."""
+        lines: List[str] = []
+
+        def walk(e, depth):
+            pad = "  " * depth
+            name = type(e).__name__
+            if isinstance(e, VectorSelector):
+                sel = ", ".join(f"{m.name}{m.op}{m.value!r}"
+                                for m in e.matchers)
+                rng = f"[{e.range_ms}ms]" if getattr(e, "range_ms", None) \
+                    else ""
+                lines.append(f"{pad}PromSeriesScan: {e.metric}{rng}"
+                             f" {{{sel}}}")
+            elif isinstance(e, Call):
+                lines.append(f"{pad}PromCall: {e.func}")
+            elif isinstance(e, Aggregate):
+                mod = ""
+                if e.by:
+                    mod = f" by ({', '.join(e.by)})"
+                elif e.without:
+                    mod = f" without ({', '.join(e.without)})"
+                lines.append(f"{pad}PromAggregate: {e.op}{mod}")
+            elif isinstance(e, Binary):
+                lines.append(f"{pad}PromBinary: {e.op}")
+            elif isinstance(e, NumberLiteral):
+                lines.append(f"{pad}Literal: {e.value}")
+            else:
+                lines.append(f"{pad}{name}")
+            for child in list(getattr(e, "args", []) or []):
+                if isinstance(child, PromExpr):
+                    walk(child, depth + 1)
+            for attr in ("expr", "lhs", "rhs"):
+                child = getattr(e, attr, None)
+                if isinstance(child, PromExpr):
+                    walk(child, depth + 1)
+
+        walk(expr, 0)
+        if ev is not None:
+            from . import lowering
+            lines.extend(lowering.explain_lines(ev, expr))
+        return lines
+
+    def _explain_output(self, expr, analyze: Optional[dict],
+                        ev: Optional["_Eval"] = None):
+        """TQL EXPLAIN / ANALYZE (reference: tql_parser.rs parses all
+        three verbs; EXPLAIN shows the plan the planner built)."""
+        from ..datatypes import data_type as dt
+        from ..datatypes.record_batch import RecordBatch
+        from ..datatypes.schema import ColumnSchema, Schema
+        from ..query.output import Output
+        lines = self._plan_lines(expr, ev)
+        rows = {"plan_type": ["logical_plan"], "plan": ["\n".join(lines)]}
+        if analyze is not None:
+            analyzed = (f"elapsed: {analyze['elapsed_ms']}ms, series: "
+                        f"{analyze['series']}, steps: {analyze['steps']}")
+            stats = analyze.get("stats")
+            if stats is not None:
+                # the executed dispatch + per-stage breakdown, same
+                # collector SQL's EXPLAIN ANALYZE renders
+                tbl = stats.rows_table()
+                for st, rows_, ms, detail in zip(
+                        tbl.get("stage", []), tbl.get("rows", []),
+                        tbl.get("elapsed_ms", []),
+                        tbl.get("detail", [])):
+                    analyzed += (f"\n{st}: rows={rows_}, "
+                                 f"elapsed: {ms}ms"
+                                 f"{', ' + detail if detail else ''}")
+            rows["plan_type"].append("analyze")
+            rows["plan"].append(analyzed)
+        schema = Schema([ColumnSchema("plan_type", dt.STRING),
+                         ColumnSchema("plan", dt.STRING)])
+        return Output.record_batches(
+            [RecordBatch.from_pydict(schema, rows)], schema)
+
     # ------------------------------------------------------------------
     # data access
     # ------------------------------------------------------------------
@@ -217,11 +336,10 @@ class PromqlEngine:
         """Fetch samples for a selector in the closed window [lo_ms, hi_ms]
         as a dense SeriesMatrix sorted by time within each series.
 
-        Region-backed selection is ported with the storage slice; until
-        then a subclass serves series by overriding this method."""
-        raise UnsupportedError(
-            "region-backed selection is not ported yet: it comes with the "
-            "storage slice; override PromqlEngine.select to serve series")
+        All data access lives in promql/lowering.py — the one module
+        under promql/ that touches regions and the scan cache."""
+        from . import lowering
+        return lowering.select_series(self, sel, lo_ms, hi_ms, ctx)
 
 
 def _label_str(v) -> str:
@@ -832,9 +950,14 @@ class _Eval:
 
     # -- aggregation --
     def _aggregate(self, e: Aggregate):
-        # the reference's lowered fast path (promql/lowering.py) comes
-        # with the storage slice; this is its row path
-        v = self.eval(e.expr)
+        # lowered fast path: aggregate-over-selector shapes rebuild the
+        # inner instant vector from the plan IR's moment fold (per-group
+        # frames instead of raw samples); anything the lowering declines
+        # — or that the executor degrades — evaluates on the row path
+        from . import lowering
+        v = lowering.try_lowered_inner(self, e)
+        if v is None:
+            v = self.eval(e.expr)
         if not isinstance(v, VectorVal):
             raise PromqlParseError(f"{e.op} expects an instant vector")
         param = None
@@ -1234,3 +1357,51 @@ def _to_prom_json(val, steps: np.ndarray, *, instant: bool) -> dict:
                        for j in oksteps],
         })
     return {"resultType": "matrix", "result": result}
+
+
+def _to_record_batches(val, steps: np.ndarray):
+    """Shape an evaluation result as record batches for TQL EVAL (the
+    reference returns tags + ts + value columns)."""
+    from ..datatypes import data_type as dt
+    from ..datatypes.record_batch import RecordBatch
+    from ..datatypes.schema import ColumnSchema, Schema, SemanticType
+    from ..query.output import Output
+
+    def ts_value_schema(label_keys):
+        return Schema(
+            [ColumnSchema(k, dt.STRING) for k in label_keys] +
+            [ColumnSchema("ts", dt.TIMESTAMP_MILLISECOND, nullable=False,
+                          semantic_type=SemanticType.TIMESTAMP),
+             ColumnSchema("value", dt.FLOAT64)])
+
+    if isinstance(val, ScalarVal):
+        rb = RecordBatch.from_pydict(ts_value_schema([]), {
+            "ts": steps.tolist(), "value": val.v.tolist()})
+        return Output.record_batches([rb])
+    if isinstance(val, MatrixVal):
+        label_keys = sorted({k for lbl in val.labels for k in lbl})
+        cols: Dict[str, list] = {k: [] for k in label_keys}
+        ts_out, v_out = [], []
+        for lbl, sts, svs in zip(val.labels, val.sample_ts, val.sample_vals):
+            for t, v in zip(sts, svs):
+                for k in label_keys:
+                    cols[k].append(lbl.get(k, ""))
+                ts_out.append(int(t))
+                v_out.append(float(v))
+    elif isinstance(val, VectorVal):
+        label_keys = sorted({k for lbl in val.labels for k in lbl})
+        cols = {k: [] for k in label_keys}
+        ts_out, v_out = [], []
+        for i, lbl in enumerate(val.labels):
+            for j in np.nonzero(val.ok[i])[0]:
+                for k in label_keys:
+                    cols[k].append(lbl.get(k, ""))
+                ts_out.append(int(steps[j]))
+                v_out.append(float(val.values[i, j]))
+    else:
+        raise UnsupportedError("TQL result must be a vector or scalar")
+    data = dict(cols)
+    data["ts"] = ts_out
+    data["value"] = v_out
+    return Output.record_batches([RecordBatch.from_pydict(
+        ts_value_schema(label_keys), data)])

@@ -26,7 +26,7 @@ from .tpu_exec import BucketGroup, FieldFilter, Moment, TagGroup, TpuPlan
 #: _finalize renders
 KNOWN_MOMENT_OPS = frozenset({
     "sum", "sum_sq", "count", "min", "max", "first", "last",
-    "min_ts", "max_ts", "distinct", "tdigest"})
+    "min_ts", "max_ts", "distinct", "tdigest", "reset_corr"})
 KNOWN_FINAL_OPS = frozenset({
     "sum", "avg", "count", "min", "max", "first", "last", "stddev",
     "variance", "approx_distinct", "approx_percentile",

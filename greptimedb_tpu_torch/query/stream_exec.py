@@ -761,7 +761,7 @@ def _host_partial_frame(data, kept: Optional[np.ndarray], plan, sd,
                 vals = vals.copy()
                 vals[empty] = np.nan
             r = vals
-        elif m.op in ("sum", "sum_sq", "min", "max"):
+        elif m.op in ("sum", "sum_sq", "min", "max", "reset_corr"):
             dv = d.astype(np.float64, copy=False)
             if m.op == "sum":
                 r = np.add.reduceat(
@@ -776,10 +776,27 @@ def _host_partial_frame(data, kept: Optional[np.ndarray], plan, sd,
                 r = np.minimum.reduceat(
                     dv if valid is None else np.where(valid, dv, f64max),
                     starts)
-            else:
+            elif m.op == "max":
                 r = np.maximum.reduceat(
                     dv if valid is None else np.where(valid, dv, -f64max),
                     starts)
+            else:
+                # PromQL counter-reset correction: for each adjacent
+                # VALID sample pair within a run where the later value
+                # is smaller, the pre-reset value contributes
+                # (ops/window.py: `where(pair_ok & (v < prev), prev, 0)`)
+                if arange is None:
+                    arange = np.arange(n, dtype=np.int64)
+                runid = np.repeat(np.arange(len(starts), dtype=np.int64),
+                                  np.diff(starts, append=n))
+                idx = arange if valid is None else np.nonzero(valid)[0]
+                drop = np.zeros(n, dtype=np.float64)
+                if len(idx) > 1:
+                    prev_i, cur_i = idx[:-1], idx[1:]
+                    hit = (runid[cur_i] == runid[prev_i]) & \
+                        (dv[cur_i] < dv[prev_i])
+                    drop[cur_i] = np.where(hit, dv[prev_i], 0.0)
+                r = np.add.reduceat(drop, starts)
         else:  # pragma: no cover — the planner emits only the ops above
             raise UnsupportedError(f"host moment op {m.op!r}")
         frame[m.slot] = r

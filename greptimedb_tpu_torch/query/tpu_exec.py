@@ -647,6 +647,14 @@ class Moment:
 #: number — built on the host, merged by _finalize through the codec
 SKETCH_MOMENT_OPS = frozenset({"distinct", "tdigest"})
 
+#: numeric moment ops only the host reducer implements (no device
+#: kernel): `reset_corr` is PromQL's counter-reset correction — the sum
+#: of the pre-reset value over adjacent valid sample pairs within a run
+#: where the later sample is smaller (ops/window.py rate kernel:
+#: `where(pair_ok & (val < prev), prev, 0)`), so
+#: increase = last - first + reset_corr folds like any other moment
+HOST_ONLY_MOMENT_OPS = frozenset({"reset_corr"})
+
 
 @dataclass
 class TpuPlan:
@@ -679,7 +687,8 @@ def plan_needs_host(plan: "TpuPlan") -> bool:
     expression columns both do. The partial-frame ALGEBRA is unchanged —
     host partials fold exactly like device partials."""
     return bool(plan.field_exprs) or \
-        any(m.op in SKETCH_MOMENT_OPS for m in plan.moments)
+        any(m.op in SKETCH_MOMENT_OPS or m.op in HOST_ONLY_MOMENT_OPS
+            for m in plan.moments)
 
 
 def plan_scan_columns(plan: "TpuPlan", schema) -> List[str]:
@@ -1743,6 +1752,18 @@ def _finalize(df: pd.DataFrame, plan: TpuPlan) -> pd.DataFrame:
                     out[slot] = nn.loc[nn[ts_slot].idxmin(), slot]
                 else:
                     out[slot] = nn.loc[nn[ts_slot].idxmax(), slot]
+            elif m.op == "reset_corr":
+                # partials are time-disjoint slices of one series run:
+                # total correction = per-slice corrections + each slice
+                # boundary that itself crosses a counter reset
+                # (first-of-next < last-of-prev contributes the prev)
+                g = group.sort_values(_ts_slot_for(m, "min_ts"),
+                                      kind="stable")
+                prev = g[_ts_slot_for(m, "last")].shift()
+                cur = g[_ts_slot_for(m, "first")]
+                cross = (cur < prev) & cur.notna() & prev.notna()
+                out[slot] = g[slot].sum() + \
+                    prev.where(cross, 0.0).fillna(0.0).sum()
         return pd.Series(out)
 
     if key_cols:
@@ -1755,9 +1776,12 @@ def _finalize(df: pd.DataFrame, plan: TpuPlan) -> pd.DataFrame:
             aggs = {}
             extremes = []
             sketches = []
+            resets = []
             for slot, m in moment_cols.items():
                 if m.op in SKETCH_MOMENT_OPS:
                     sketches.append(slot)
+                elif m.op == "reset_corr":
+                    resets.append((slot, m))
                 elif m.op in ("sum", "sum_sq", "count"):
                     aggs[slot] = "sum"
                 elif m.op in ("min", "min_ts"):
@@ -1781,6 +1805,20 @@ def _finalize(df: pd.DataFrame, plan: TpuPlan) -> pd.DataFrame:
                 # fold encoded partials per group through the codec
                 # (bytes in, bytes out — pandas treats bytes as scalars)
                 merged[slot] = gb[slot].agg(_merge_sketch_cells)
+            for slot, m in resets:
+                # per-group partials sorted by slice start: corrections
+                # add, plus the prev-last where a slice boundary itself
+                # crosses a reset (first-of-next < last-of-prev)
+                srt = df.sort_values(_ts_slot_for(m, "min_ts"),
+                                     kind="stable")
+                gs = srt.groupby(key_cols, dropna=False, sort=False)
+                prev = gs[_ts_slot_for(m, "last")].shift()
+                cur = srt[_ts_slot_for(m, "first")]
+                cross = (cur < prev) & cur.notna() & prev.notna()
+                bonus = prev.where(cross, 0.0).fillna(0.0)
+                merged[slot] = gs[slot].sum() + bonus.groupby(
+                    [srt[k] for k in key_cols], dropna=False,
+                    sort=False).sum()
             merged = merged.reset_index()
         else:
             merged = df
@@ -1792,7 +1830,8 @@ def _finalize(df: pd.DataFrame, plan: TpuPlan) -> pd.DataFrame:
         index=merged.index)
     for slot, op, mslots in plan.finals:
         if op in ("sum", "min", "max", "first", "last", "moment"):
-            # "moment": raw merged-moment passthrough
+            # "moment": raw merged-moment passthrough — PromQL's rate
+            # finalization reads min_ts/max_ts/reset_corr directly
             out[slot] = merged[mslots[0]]
         elif op == "count":
             out[slot] = merged[mslots[0]].astype(np.int64)

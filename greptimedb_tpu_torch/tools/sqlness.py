@@ -1,7 +1,7 @@
 """The port's sqlness golden runner: `.sql` cases through the port's
 standalone frontend, each output byte-compared with its `.result` golden.
 
-    python3 -m greptimedb_tpu_torch.tools.sqlness [--device cpu|cuda]
+    python3 -m greptimedb_tpu_torch.tools.sqlness [--device cuda|cpu]
         [--cases DIR] [filter ...]
 
 Reference behavior: tests/runner/src/{main,env,util}.rs — a case file's
@@ -15,9 +15,11 @@ own `RecordBatch` and `pretty_print`; it reads the cases by path
 of the JAX package. Each case gets a fresh data home and a fresh
 `build_standalone(DatanodeOptions(device=...))`; the failpoint registry
 and the background-job registry are reset first, as a fresh server's
-would be. `filter` keeps the cases whose path (relative to the cases
-directory) contains one of the substrings. Exit code 0 when every case
-matched, 1 otherwise (the diffs are printed), 2 when nothing matched.
+would be. The device is "cuda" unless `--device cpu` asks for the CPU;
+without CUDA a run on "cuda" raises instead of answering. `filter` keeps
+the cases whose path (relative to the cases directory) contains one of
+the substrings. Exit code 0 when every case matched, 1 otherwise (the
+diffs are printed), 2 when nothing matched.
 """
 
 from __future__ import annotations
@@ -45,7 +47,8 @@ IN_SCOPE = (
     "schema/schema", "show/show", "subquery/subquery",
     "system/cluster_info", "system/information_schema",
     "system/runtime_metrics", "timestamp/time_units",
-    "timestamp/timestamp", "union/union", "window/window",
+    "timestamp/timestamp", "tql/explain", "tql/operators",
+    "tql/range_functions", "tql/tql", "union/union", "window/window",
 )
 #: cases of the same surface that wait for a later module: case -> module
 WAITING = {"system/failpoints": "common/profiler.py"}
@@ -194,7 +197,7 @@ def case_files(filters: List[str], cases_dir: Path = CASES_DIR
     return files
 
 
-def run_one(sql_path: Path, device: str = "cpu") -> Optional[str]:
+def run_one(sql_path: Path, device: str = "cuda") -> Optional[str]:
     """Run one case on a fresh standalone frontend; None when its output
     byte-matches the golden, else the unified diff."""
     from ..common import background_jobs, failpoint
@@ -226,8 +229,8 @@ def run_one(sql_path: Path, device: str = "cpu") -> Optional[str]:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--device", default="cpu",
-                        help="the query engine's device (cpu or cuda)")
+    parser.add_argument("--device", default="cuda",
+                        help="the query engine's device (cuda or cpu)")
     parser.add_argument("--cases", type=Path, default=CASES_DIR,
                         help="directory of .sql/.result cases")
     parser.add_argument("filters", nargs="*",

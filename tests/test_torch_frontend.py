@@ -9,7 +9,8 @@ then CREATE DATABASE / USE, ALTER TABLE ... ADD COLUMN ... DEFAULT read
 back over rows written before it, ADMIN FLUSH / COMPACT TABLE, DELETE ...
 WHERE, TRUNCATE, DROP TABLE, a table partitioned into three ranges, and
 the protocol ingest calls (`handle_row_insert` with auto-create and
-auto-alter, `handle_bulk_load`). Every Output is compared: affected rows,
+auto-alter, `handle_bulk_load`), and TQL EVAL over a table of three
+fields and over the partitioned table. Every Output is compared: affected rows,
 columns, keys, counts, integers, strings, min and max exact; sums and
 averages within the float32 bound of tests/test_torch_sql.py,
 |port - ref| <= 1e-5 |ref| + 8 eps32 P, P the sum of |x| over the
@@ -185,6 +186,10 @@ def _script():
                                  timestamp_column="ts", ctx=ctx)),
         Item("read the bulk-loaded table", "SELECT host, count(*), sum(val), "
              "max(n), min(ts) FROM bulk GROUP BY host ORDER BY host"),
+        Item("tql eval over two fields", f"TQL EVAL ({T0 // 1000}, "
+             f"{T0 // 1000 + 60}, '5s') monitor{{host=\"h0\"}}"),
+        Item("tql eval over a partitioned table", f"TQL EVAL ({T0 // 1000}, "
+             f"{T0 // 1000 + 30}, '10s') sum by (host) (p)"),
         Item("unflushed insert", "INSERT INTO monitor (host, ts, cpu) VALUES "
              f"('h9', {T0 + 99 * STEP}, 12.5)"),
     ]
@@ -390,6 +395,13 @@ def test_script_reached_what_it_tests(run):
     assert out["bulk load, auto-create"] == 600
     assert list(_frame(out["read the auto-created table"]).columns) == [
         "host", "greptime_timestamp", "greptime_value", "extra"]
+    # TQL over the tables: a series per field, a sum per host over the
+    # three partitions
+    fields = _frame(out["tql eval over two fields"])
+    assert set(fields["__field__"]) == {"cpu", "memory", "disk"}
+    assert len(fields) == 3 * 13
+    assert sorted(set(_frame(out["tql eval over a partitioned table"])[
+        "host"])) == [f"h{i}" for i in range(9)]
 
 
 def test_partitioned_table_splits_rows_like_reference(run):
@@ -438,7 +450,6 @@ def test_packages_open_each_others_data_home(run, label):
     "SHOW FLOWS",
     "ADMIN SHOW TRACE 'last'",
     "KILL 1",
-    "TQL EVAL (0, 10, '5s') cpu",
     "SET profiling = 1",
     "SET dist_fanout = 4",
     "SET exact_distinct = 1",

@@ -22,6 +22,11 @@
   functions) and the port's golden runner run without the reference, and
   their modules are the port's own; chip_smoke.py imports neither jax
   nor the JAX package.
+- PromQL over tables (promql/lowering.py: the region-backed select, the
+  lowered aggregate path, TQL EVAL / EXPLAIN / ANALYZE through the
+  frontend) runs without the reference; the golden runner, like every
+  entry point, runs on "cuda" unless asked for the CPU, and refuses to
+  answer on a machine without CUDA.
 - The storage engine (WAL, memtable, SSTs, manifest, compaction) runs
   without the reference; the port's host substrate (`common/`) imports
   no pandas or pyarrow; the port's metrics live in a registry of their
@@ -294,7 +299,8 @@ with tempfile.TemporaryDirectory() as home:
                 "GROUP BY host"):
         assert fe.do_query(sql)[0].num_rows >= 1, sql
     fe.shutdown()
-assert sqlness.run_one(sqlness.CASES_DIR / "show" / "show.sql") is None
+assert sqlness.run_one(sqlness.CASES_DIR / "show" / "show.sql",
+                       device="cpu") is None
 new = sorted(set(sys.modules) - before)
 print(json.dumps(new))
 """
@@ -319,7 +325,8 @@ def test_sql_surface_imports_no_reference():
 @pytest.mark.parametrize("module", ["query/sketches.py", "query/show.py",
                                     "query/window.py",
                                     "catalog/information_schema.py",
-                                    "tools/sqlness.py"])
+                                    "tools/sqlness.py",
+                                    "promql/lowering.py"])
 def test_surface_modules_are_the_ports_own(module):
     """The SQL surface's modules exist in the port, import nothing
     forbidden and keep their imports relative."""
@@ -331,6 +338,53 @@ def test_surface_modules_are_the_ports_own(module):
         elif isinstance(node, ast.Import):
             assert all(a.name.split(".")[0] not in FORBIDDEN
                        for a in node.names), path
+
+
+_PROMQL_TABLE_PROBE = r"""
+import json, sys, tempfile
+before = set(sys.modules)
+import numpy as np
+from greptimedb_tpu_torch.datanode import DatanodeOptions
+from greptimedb_tpu_torch.frontend import build_standalone
+from greptimedb_tpu_torch.query import tpu_exec
+
+with tempfile.TemporaryDirectory() as home:
+    fe = build_standalone(DatanodeOptions(data_home=home, device="cpu"))
+    fe.do_query("CREATE TABLE c (host STRING, ts TIMESTAMP TIME INDEX, "
+                "v DOUBLE, PRIMARY KEY(host))")
+    fe.do_query("INSERT INTO c VALUES " + ", ".join(
+        f"('h{i % 3}', {i * 10_000}, {float(i % 7)})" for i in range(90)))
+    fe.do_query("ADMIN FLUSH TABLE c")
+    out = fe.do_query("TQL EVAL (0, 300, '60s') rate(c[2m])")[0]
+    assert out.num_rows > 0
+    tpu_exec.TPU_DISPATCH_MIN_ROWS = 0
+    v, _ = fe.promql_engine().query_range(
+        "sum by (host) (rate(c[1m]))", 0, 600_000, 60_000)
+    assert len(v.labels) == 3 and v.ok.any()
+    (region,) = fe.catalog.table("greptime", "public", "c").regions.values()
+    assert region.last_scan_profile.path == "resident"
+    text = fe.do_query("TQL EXPLAIN (0, 600, '60s') avg(c)")[0]
+    assert "TpuAggregateExec" in text.batches[0].to_pydict()["plan"][0]
+    fe.do_query("TQL ANALYZE (0, 600, '60s') avg(c)")
+    fe.shutdown()
+new = sorted(set(sys.modules) - before)
+print(json.dumps(new))
+"""
+
+
+def test_promql_over_tables_imports_no_reference():
+    """TQL EVAL / EXPLAIN / ANALYZE through the frontend and a lowered
+    query_range run on the CPU without adding jax or greptimedb_tpu to
+    sys.modules, through the port's own lowering."""
+    out = subprocess.run([sys.executable, "-c", _PROMQL_TABLE_PROBE],
+                         cwd=REPO, env=_ENV, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    new = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in new if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+    for m in ("promql.lowering", "promql.engine", "query.ir"):
+        assert f"greptimedb_tpu_torch.{m}" in new, m
 
 
 def test_chip_smoke_imports_nothing_forbidden():
@@ -395,12 +449,25 @@ def test_frontend_packages_are_the_ports_own(package):
                            for a in node.names), path
 
 
-@pytest.mark.parametrize("engine", ["promql", "sql", "frontend"])
+@pytest.mark.parametrize("engine", ["promql", "sql", "frontend",
+                                    "sqlness"])
 def test_default_device_raises_without_cuda(engine, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("CUDA is available: the default device is usable")
     if engine == "sql":
         _sql_default_device_raises()
+        return
+    if engine == "sqlness":
+        # the golden runner without --device refuses rather than answer
+        # on the CPU (in a subprocess: a run resets the process's
+        # failpoint and background-job registries, as a fresh server's)
+        out = subprocess.run(
+            [sys.executable, "-m", "greptimedb_tpu_torch.tools.sqlness",
+             "basic/basic"], cwd=REPO, env=_ENV, capture_output=True,
+            text=True, timeout=120)
+        assert out.returncode != 0
+        assert "CUDA is not available" in out.stderr
+        assert "[PASS]" not in out.stdout and "[FAIL]" not in out.stdout
         return
     if engine == "frontend":
         from greptimedb_tpu_torch.datanode import DatanodeOptions

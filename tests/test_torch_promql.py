@@ -15,6 +15,10 @@ E[x^2] - E[x]^2 and the least-squares slope) round where XLA and torch
 contract or reassociate float32 products differently, so queries through
 them also accept an absolute error of 8 * eps32 * max|gauge|
 (`CANCEL_ATOL`); the gauge is centred on 0 to keep that small.
+
+The last test loads the same `cpu` series into a table of each
+package's standalone frontend and holds the port's region-backed
+`select` (promql/lowering.py) to the reference's.
 """
 
 import math
@@ -251,8 +255,67 @@ def test_query_range_value_types(engines):
                                rtol=1e-5)
 
 
-def test_port_select_is_not_ported_yet():
-    from greptimedb_tpu_torch.errors import UnsupportedError
-    eng = teng.PromqlEngine(_NoTables(), device="cpu")
-    with pytest.raises(UnsupportedError, match="storage slice"):
-        eng.query_to_prom_json("cpu", BASE_MS, BASE_MS + 60_000, 60_000)
+def _table_frontends(tmp_path):
+    """Both packages' standalone frontends with STORE's `cpu` series
+    loaded into a table of the same name (tags host and region, one
+    DOUBLE field), by handle_bulk_load."""
+    from greptimedb_tpu.datanode import DatanodeInstance, DatanodeOptions
+    from greptimedb_tpu.frontend import FrontendInstance
+    from greptimedb_tpu_torch.datanode import \
+        DatanodeOptions as PortOptions
+    from greptimedb_tpu_torch.frontend import build_standalone
+    cols = {"host": [], "region": [], "ts": [], "val": []}
+    for tags, ts, v in STORE["cpu"]:
+        cols["host"] += [tags["host"]] * len(ts)
+        cols["region"] += [tags["region"]] * len(ts)
+        cols["ts"].append(ts)
+        cols["val"].append(v)
+    cols = {"host": np.array(cols["host"], dtype=object),
+            "region": np.array(cols["region"], dtype=object),
+            "ts": np.concatenate(cols["ts"]),
+            "val": np.concatenate(cols["val"])}
+    ref = FrontendInstance(DatanodeInstance(DatanodeOptions(
+        data_home=str(tmp_path / "ref"), register_numbers_table=False)))
+    ref.start()
+    port = build_standalone(PortOptions(
+        data_home=str(tmp_path / "port"), register_numbers_table=False,
+        device="cpu"))
+    for fe in (ref, port):
+        fe.handle_bulk_load("cpu", dict(cols), tag_columns=["host", "region"],
+                            timestamp_column="ts")
+    return ref, port
+
+
+def test_port_select_over_a_table_matches_reference(engines, tmp_path):
+    """The port's `select` over a region-backed table (promql/lowering.py
+    select_series) returns the reference's selection: the same labels,
+    timestamps and values; and a query over the table answers as the
+    in-memory seam serving the same series does."""
+    from greptimedb_tpu.promql.parser import parse_promql as ref_parse
+    from greptimedb_tpu.session import QueryContext as RefCtx
+    from greptimedb_tpu_torch.promql.parser import parse_promql
+    from greptimedb_tpu_torch.session import QueryContext
+    ref, port = _table_frontends(tmp_path)
+    try:
+        lo, hi = BASE_MS, BASE_MS + HOUR_MS
+        for text in ("cpu", 'cpu{host="b"}', 'cpu{region=~"e.*"}',
+                     'cpu{host!="a", region="west"}'):
+            want = ref.promql_engine().select(ref_parse(text), lo, hi,
+                                              RefCtx())
+            got = port.promql_engine().select(parse_promql(text), lo, hi,
+                                              QueryContext())
+            assert want.labels and got.labels == want.labels, text
+            assert (got.data_min, got.data_max) == \
+                (want.data_min, want.data_max), text
+            for name in ("ts", "values", "lengths"):
+                np.testing.assert_array_equal(
+                    getattr(got.matrix, name), getattr(want.matrix, name),
+                    err_msg=f"{text}: {name}")
+        _, mem = engines
+        for q in ("avg_over_time(cpu[5m])", 'sum by (region) (cpu)'):
+            args = (q, lo, hi, 60_000)
+            assert port.promql_engine().query_to_prom_json(*args) == \
+                mem.query_to_prom_json(*args), q
+    finally:
+        ref.shutdown()
+        port.shutdown()

@@ -12,7 +12,6 @@ Out of scope, each waiting for a module of a later slice:
 - copy/*: COPY (common/datasource.py);
 - explain/rollup, flow/create_flow, system/background_jobs: flows
   (flow/);
-- tql/*: TQL (promql/lowering.py);
 - explain/analyze, explain/index_prune: red on the JAX package itself
   (their partial_bytes differ from what it prints under the tests'
   settings); the port prints what the reference prints on them;
@@ -85,7 +84,9 @@ def test_in_scope_cases_exist():
     names = {str(p.relative_to(sqlness.CASES_DIR))[:-4]
              for p in sqlness.case_files([])}
     assert set(IN_SCOPE) | set(WAITING) <= names
-    assert len(IN_SCOPE) + len(WAITING) == 28
+    assert len(IN_SCOPE) + len(WAITING) == 32
+    assert {c for c in IN_SCOPE if c.startswith("tql/")} == {
+        "tql/explain", "tql/operators", "tql/range_functions", "tql/tql"}
 
 
 @pytest.mark.parametrize(
@@ -101,10 +102,11 @@ def test_splitter_matches_reference(path):
 
 
 def test_filter_and_missing_cases(tmp_path, capsys):
-    assert sqlness.main(["--cases", str(tmp_path), "nothing"]) == 2
+    cpu = ["--device", "cpu", "--cases", str(tmp_path)]
+    assert sqlness.main(cpu + ["nothing"]) == 2
     (tmp_path / "a.sql").write_text("SELECT 1;")
-    assert sqlness.main(["--cases", str(tmp_path)]) == 1
+    assert sqlness.main(cpu) == 1
     assert "missing .result" in capsys.readouterr().out
     (tmp_path / "a.result").write_text(
         "SELECT 1;\n\n+---+\n| 1 |\n+---+\n| 1 |\n+---+\n")
-    assert sqlness.main(["--cases", str(tmp_path), "a"]) == 0
+    assert sqlness.main(cpu + ["a"]) == 0
