@@ -98,11 +98,12 @@ Phases (none of them catches a failure; any failed check exits non-zero):
    host on cpu and cpu_24h within 8 eps64 sum|x| of exact sums; rank() over
    avg by host (the CPU fallback, as in the reference), exact ranks; SHOW
    TABLES, DESCRIBE TABLE, SHOW CREATE TABLE and information_schema.columns
-   against the TSBS DDL; the 27 in-scope standalone sqlness goldens through
-   greptimedb_tpu_torch/tools/sqlness.py on the card, byte-equal to their
-   .result files and launching no kernel (the 4 tql/* cases run in phase
-   9). The phase launches segment_moments exactly once (EXPLAIN ANALYZE).
-   Each statement's wall is printed.
+   against the TSBS DDL; the 30 non-TQL in-scope standalone sqlness goldens
+   through greptimedb_tpu_torch/tools/sqlness.py on the card, byte-equal to
+   their .result files (the 4 tql/* cases run in phase 9), launching
+   segment_moments only in flow/create_flow's two refresh folds. The phase
+   launches segment_moments three times (EXPLAIN ANALYZE and the two
+   folds). Each statement's wall is printed.
 9. PromQL over the port's own regions: phase 6-8's frontend shut down,
    build_standalone(DatanodeOptions(data_home=<temporary>, device="cuda"))
    again, tables cpu_usage_user and cpu_seconds_total in GreptimeDB's
@@ -129,11 +130,36 @@ Phases (none of them catches a failure; any failed check exits non-zero):
    statement prints its wall, its stages (select / device eval + fetch /
    JSON shaping, or lowered frame / finalize / rebuild), the dispatch,
    each launch's device time and the peak device memory.
+10. continuous rollup flows, on phase 6-8's frontend and tables (run
+   right after phase 8; the datanode's background tick is off, so each
+   fold is FlowManager.tick()): CREATE FLOW cpu_1m (the ten tags, 1
+   minute, sum, count and max of the ten fields) and its first fold with
+   the scan cache cold, on the device route with one segment_moments
+   launch, its wall split into the fold's stages (scan_prep, runs,
+   launch, tags, fetch, sink_write) and the launch's device time; every
+   sink row (2.88 M) against a float64 brute force of the edited rows
+   (counts exact, max the float32 max, sums within 8 eps32 sum|x|, the
+   ten tags those of the host). The fold's launch is then held against
+   the plain version on its own inputs and timed beside
+   torch.segment_reduce and its byte bound. Q1-Q4 through the rollup
+   rewrite (EXPLAIN and ExecStats name `rollup-rewrite`), each against
+   `SET rollup_rewrite = 0` and the brute force, their warm walls printed
+   rewritten and raw; Q5 and Q6 not rewritten. 10 more minutes for every
+   host (240 000 rows by handle_row_insert) and the incremental fold:
+   exactly those rows folded, the watermark at the last new ts, the new
+   buckets against the brute force. A flow on cpu_p under `SET
+   stream_threshold_rows = 100000`: every region folds on the host
+   (fold_region_cold), no launch, no scan-cache entry, the sink against
+   the brute force. SHOW FLOWS, information_schema.flows and the flow
+   gauges; ADMIN FLUSH TABLE of the sinks, shutdown() and
+   build_standalone on the same data home (the time to recover), the
+   flows back with their watermarks and a tick that folds nothing.
 
 Before the last line come two JSON objects: the numbers of the bucket
 entry, which the main paths do not launch, then the kernel table of the
-main paths (PromQL's window bounds, SQL's segment moments), each with
-its launches by phase; the last line is {"ok": true, "device": {...}}.
+main paths (PromQL's window bounds, SQL's and the flow folds' segment
+moments), each with its launches by phase; the last line is {"ok":
+true, "device": {...}}.
 Without CUDA, or without the package beside this script, it exits
 non-zero and prints no result.
 """
@@ -1275,8 +1301,9 @@ def sql_edits(fe, table, ts, tags, fields, host_sids, eight, seed):
 
 class MomentsTimer:
     """Times each segment-moments launch inside the real statements and
-    keeps each call's inputs. It hooks tpu_exec's sorted_grouped_aggregate,
-    whose arguments (the kernel's own) it keeps in `calls`, and the
+    keeps each call's inputs. It hooks the sorted_grouped_aggregate of
+    tpu_exec and of storage/downsample (the flow fold), whose arguments
+    (the kernel's own) it keeps in `calls`, and the
     kernel's C launch entry (a function of the ctypes library that
     ops/cuda_build.py loads), which it fences behind a spin kernel queued
     after everything the Python wrapper does first: the wrapper's first
@@ -1297,8 +1324,11 @@ class MomentsTimer:
     def __init__(self, torch):
         from greptimedb_tpu_torch.ops import kernels as K
         from greptimedb_tpu_torch.query import tpu_exec
+        from greptimedb_tpu_torch.storage import downsample
         self.torch, self.lib = torch, K._lib()
         self.aggregate = tpu_exec.sorted_grouped_aggregate
+        check(downsample.sorted_grouped_aggregate is self.aggregate,
+              "the flow fold and the SQL path call different wrappers")
         self.entry = self.lib.segment_moments_launch
         self.pending, self.calls = [], []
         self.spin_cycles, self.fenced = self.SPIN_CYCLES, True
@@ -1329,11 +1359,14 @@ class MomentsTimer:
         fence.argtypes, fence.restype = self.entry.argtypes, \
             self.entry.restype
         tpu_exec.sorted_grouped_aggregate = keep
+        downsample.sorted_grouped_aggregate = keep
         self.lib.segment_moments_launch = fence
 
     def close(self):
         from greptimedb_tpu_torch.query import tpu_exec
+        from greptimedb_tpu_torch.storage import downsample
         tpu_exec.sorted_grouped_aggregate = self.aggregate
+        downsample.sorted_grouped_aggregate = self.aggregate
         self.lib.segment_moments_launch = self.entry
 
     def take(self):
@@ -1623,8 +1656,11 @@ class SqlFrontend:
         from greptimedb_tpu_torch.datanode import DatanodeOptions
         from greptimedb_tpu_torch.frontend import build_standalone
         t0 = time.perf_counter()
-        self.fe = build_standalone(DatanodeOptions(data_home=self.data_home,
-                                                   device=DEVICE))
+        # flows fold when phase 10 calls tick(), so that each fold is
+        # timed: no background tick
+        self.fe = build_standalone(DatanodeOptions(
+            data_home=self.data_home, flow_tick_interval_s=0,
+            device=DEVICE))
         seconds = time.perf_counter() - t0
         qe = self.fe.query_engine
         qe._finish_aggregate_frame = self._timed(
@@ -1759,9 +1795,10 @@ def phase_sql(torch, seed):
     frontend's share and the stages; results against a float64 brute
     force; then shutdown() with batch 2 unflushed and build_standalone on
     the same data home (catalog replay, table open, WAL replay), Q5
-    again; then the partitioned table and the narrow-integer table.
-    Returns the segment-moments launches of the run, and the kernel's
-    inputs at Q1, Q4 and Q6."""
+    again; then the partitioned table and the narrow-integer table; then
+    phases 8 and 10 on the same tables. Returns the segment-moments
+    launches of phases 6 and 7, phase 8's launches and walls, the
+    kernel's inputs at Q1, Q4 and Q6, and phase 10's result."""
     import shutil
     import tempfile
 
@@ -1795,7 +1832,6 @@ def phase_sql(torch, seed):
                               eight, seed + 4)
         host_tags = tags[:2]
         cpu_regions = [tg[1] for tg in tags]
-        del tags
 
         inputs, frames = {}, {}
         K.segment_moments.launches = 0
@@ -1839,10 +1875,10 @@ def phase_sql(torch, seed):
         streamed = sql_streamed_vs_resident(sql, queries, frames, ts, fields,
                                             ties, eight)
         # phase 8's copy of `cpu`: two fields, the write-path edits in
+        # (phase 10 reads all ten)
         cpu = types.SimpleNamespace(
             ts=ts, regions=cpu_regions, usage_user=fields["usage_user"],
             usage_system=fields["usage_system"], extra={})
-        del fields
 
         # recovery: batch 2 is only in the WAL and the memtable
         open_s = sql.restart()
@@ -1863,13 +1899,17 @@ def phase_sql(torch, seed):
             f"bit-equal to the frame before the shutdown")
         cols = sql_incremental(sql, q5, queries[q5], host_tags,
                                int(ts[-1]))
+        extra_row = {}
         for i, t in enumerate(cols["ts"]):
             h = int(cols["hostname"][i][5:])
             u, v = cols["usage_user"][i], cols["usage_system"][i]
             if t == ts[0]:
-                cpu.usage_user[h, 0], cpu.usage_system[h, 0] = u, v
+                for f in CPU_FIELDS:
+                    fields[f][h, 0] = cols[f][i]
             else:
                 cpu.extra[h] = (u, v)
+                extra_row = {"host": h, "ts": int(t),
+                             **{f: cols[f][i] for f in CPU_FIELDS}}
         cpu_p = sql_partitioned(sql, seed + 6)
         fused = sql_fusion(sql, queries[q5])
         sql_narrow(sql, seed + 5)
@@ -1890,11 +1930,15 @@ def phase_sql(torch, seed):
             f"narrow-integer queries, {launches_24h} streamed device slices "
             f"on cpu_24h)")
         surface = phase_surface(sql, cpu, cpu_24h, cpu_p)
+        del cpu_24h
+        flows = phase_flows(sql, types.SimpleNamespace(
+            ts=ts, tags=tags, fields=fields, extra=extra_row), cpu_p,
+            queries, ties, eight)
     finally:
         if sql is not None:
             sql.close()
         shutil.rmtree(data_home, ignore_errors=True)
-    return launches, surface, inputs
+    return launches, surface, inputs, flows
 
 
 #: the whole-table query that warms the scan cache before Q3's and Q4's
@@ -2014,7 +2058,8 @@ def sql_partitioned(sql, seed):
     each group lies in one region; Q6 and Q7 fold every group from the
     partials of all the regions, first_value and last_value breaking ts
     ties across them. Returns phase 8's copy of the table: ts, each host's
-    region, usage_user and usage_system."""
+    region, usage_user and usage_system, and phase 10's: every host's tags
+    and every field (the INSERT and DELETE leave the load's rows)."""
     ts, tags, fields = tsbs_cpu_table(seed, hosts=PART_HOSTS)
     H, n = fields["usage_user"].shape
     names = sorted(f"host_{h}" for h in range(H))
@@ -2065,7 +2110,7 @@ def sql_partitioned(sql, seed):
     return types.SimpleNamespace(
         ts=ts, regions=[tg[1] for tg in tags],
         usage_user=fields["usage_user"], usage_system=fields["usage_system"],
-        extra={})
+        extra={}, tags=tags, fields=fields)
 
 
 #: statements that run Q5 together on cpu_p for the fusion check
@@ -2442,6 +2487,12 @@ def check_expressions(label, got, t):
     return worst
 
 
+#: flow/create_flow's folds: its two rollup-rewritten SELECTs each catch
+#: their flow's one-region sink up first (one launch each); the other
+#: goldens' tables are under the dispatch floor and launch nothing
+GOLDEN_FOLDS = 2
+
+
 def goldens(cases):
     """The sqlness cases through tools/sqlness.py on the card, each on a
     fresh frontend; the diffs of those that differ from their .result."""
@@ -2620,18 +2671,430 @@ def phase_surface(sql, cpu, cpu_24h, cpu_p):
     s.walls["goldens"] = time.perf_counter() - t0
     check(not failed, "goldens differ on the card:\n" + "\n".join(failed))
     n = K.segment_moments.launches - n0
-    check(n == 0, f"the goldens launched segment_moments {n} times, not 0")
+    check(n == GOLDEN_FOLDS, f"the goldens launched segment_moments {n} "
+          f"times, not {GOLDEN_FOLDS} (flow/create_flow's refresh folds)")
     log(f"goldens: {len(cases)} standalone sqlness cases (the tql/* ones "
         f"run in phase 9) through tools/sqlness.py on {DEVICE!r} "
         f"byte-equal to their .result in {s.walls['goldens']:.2f}s "
-        f"(0 launches)")
+        f"({n} launches: flow/create_flow's refresh folds)")
     launches = K.segment_moments.launches
-    check(launches == 1, f"phase 8 launched segment_moments {launches} "
-          f"times, not once (EXPLAIN ANALYZE Q1)")
+    check(launches == 1 + GOLDEN_FOLDS, f"phase 8 launched segment_moments "
+          f"{launches} times, not {1 + GOLDEN_FOLDS} (EXPLAIN ANALYZE Q1 "
+          f"and the goldens' folds)")
     s.walls["phase"] = time.perf_counter() - t_phase
     log(f"phase 8: {launches} segment_moments launches; "
         f"{s.walls['phase']:.1f}s")
     return launches, s.walls
+
+
+# ---------------------------------------------------------------------------
+# phase 10: continuous rollup flows
+# ---------------------------------------------------------------------------
+
+#: the flows' stride: BASELINE config 5's 1 s → 1 m downsample and the
+#: goldens' stride (a TSBS 10 s interval puts 6 samples in a bucket)
+FLOW_STRIDE_MS = 60_000
+FLOW_WIDTH = FLOW_STRIDE_MS // INTERVAL_MS
+#: the flow's aggregates of every field: sink column suffix -> op
+FLOW_AGGS = {"sum": "sum", "cnt": "count", "max": "max"}
+#: minutes written to every host after the first fold
+FLOW_NEW_MINUTES = 10
+#: the cold fold's streaming threshold: each of cpu_p's regions is over it
+FLOW_COLD_THRESHOLD = 100_000
+#: the queries the rollup rewrite serves, and those it must leave alone
+REWRITTEN = ("Q1 double-groupby-all", "Q2 double-groupby-1",
+             "Q3 cpu-max-all-8", "Q4 single-groupby-5-8-1")
+NOT_REWRITTEN = ("Q5 per-host moments", "Q6 global aggregate")
+
+
+def flow_ddl(name, source):
+    """CREATE FLOW over a TSBS table: every tag, the 1 m bucket, and sum,
+    count and max of each field."""
+    aggs = ", ".join(f"{op}({f}) AS {f}_{sfx}" for f in CPU_FIELDS
+                     for sfx, op in FLOW_AGGS.items())
+    tags = ", ".join(TSBS_TAGS)
+    return (f"CREATE FLOW {name} AS SELECT {tags}, date_bin(INTERVAL "
+            f"'1 minute', ts) AS b, {aggs} FROM {source} GROUP BY {tags}, b")
+
+
+def flow_brute(fields, tail=None):
+    """The float64 brute force of a flow's sink over a TSBS table's
+    fields ([H, n], n a whole number of buckets), then `tail` ({field:
+    [H, k * FLOW_WIDTH]} of the samples after them, NaN where a host has
+    none): {column: [H, buckets]} of each field's sum, count, max and
+    sum of |x|, and `present`, where a bucket holds a sample."""
+    out = {}
+    for f in CPU_FIELDS:
+        x = fields[f]
+        H = x.shape[0]
+        x = x.reshape(H, -1, FLOW_WIDTH)
+        if tail is not None:
+            x = np.concatenate(
+                [x, tail[f].reshape(H, -1, FLOW_WIDTH)], axis=1)
+        live = ~np.isnan(x)
+        out[f"{f}_cnt"] = live.sum(axis=2).astype(np.float64)
+        out[f"{f}_sum"] = np.nansum(x, axis=2)
+        out[f"{f}_abs"] = np.nansum(np.abs(x), axis=2)
+        out[f"{f}_max"] = np.where(live.any(axis=2),
+                                   np.where(live, x, -np.inf).max(axis=2),
+                                   np.nan)
+        out["present"] = live.any(axis=2)     # the same for every field
+    return out
+
+
+def check_sink(label, table, tags, want, device_fold, min_bucket=0):
+    """Every sink row with bucket >= `min_bucket` against the brute
+    force: the row set equal, the ten tags those of the row's host,
+    counts exact, max equal to the float32 max (the device fold reduces
+    float32 mirrors) or to the float64 max (the host fold), sums within
+    8 eps32 sum|x|. Returns the rows checked."""
+    (region,) = table.regions.values()
+    data = region.snapshot().read_merged()
+    sd = data.series_dict
+    every = np.arange(sd.num_series, dtype=np.int32)
+    per_tag = [sd.decode_tag_column(every, i) for i in range(len(TSBS_TAGS))]
+    host_of = np.array([int(str(h)[5:]) for h in per_tag[0]], dtype=np.int64)
+    for s in range(sd.num_series):
+        got = tuple(str(col[s]) for col in per_tag)
+        check(got == tuple(tags[host_of[s]]),
+              f"{label}: series {s} has tags {got}, its host "
+              f"{tags[host_of[s]]}")
+    hosts = host_of[data.series_ids]
+    b = (data.ts - TSBS_START_MS) // FLOW_STRIDE_MS
+    keep = b >= min_bucket
+    hosts, b = hosts[keep], b[keep]
+    present = want["present"].copy()
+    present[:, :min_bucket] = False
+    check(bool((b < present.shape[1]).all()) and
+          bool(present[hosts, b].all()) and len(b) == int(present.sum()),
+          f"{label}: {len(b)} sink rows, the brute force has "
+          f"{int(present.sum())} buckets")
+    worst = 0.0
+    for f in CPU_FIELDS:
+        for sfx in FLOW_AGGS:
+            vals, valid = data.fields[f"{f}_{sfx}"]
+            g = vals[keep].astype(np.float64)
+            check(valid is None or bool(valid[keep].all()),
+                  f"{label}: {f}_{sfx} has nulls")
+            w = want[f"{f}_{sfx}"][hosts, b]
+            if sfx == "sum":
+                bnd = 8 * U32 * want[f"{f}_abs"][hosts, b]
+                d = np.abs(g - w)
+                check(bool((d <= bnd).all()), f"{label}: {f}_sum outside "
+                      f"8 eps32 sum|x| at {int((d > bnd).sum())} rows")
+                worst = max(worst, float((d / np.maximum(bnd, 1e-300))
+                                         .max()))
+                continue
+            if sfx == "max" and device_fold:
+                w = w.astype(np.float32).astype(np.float64)
+            check(bool((g == w).all()), f"{label}: {f}_{sfx} differs at "
+                  f"{int((g != w).sum())} rows (e.g. {g[g != w][:3]} vs "
+                  f"{w[g != w][:3]})")
+    log(f"  check {label}: {len(b)} sink rows vs the float64 brute force: "
+        f"the row set, ten tags, counts and max exact, sums within 8 eps32 "
+        f"sum|x| (max |err|/bound {worst:.3g})")
+    return len(b)
+
+
+def fold_log(label, prof, wall, dev_ms):
+    """One fold's wall and stages (the region's last_scan_profile)."""
+    stages = ", ".join(f"{k} {v * 1e3:.1f}" for k, v in prof.stages.items())
+    kernel = f"; kernel (device) {' / '.join(f'{x:.4f}' for x in dev_ms)} " \
+        f"ms" if dev_ms else ""
+    log(f"{label}: wall {wall * 1e3:.1f} ms ({prof.path}: {stages} ms; "
+        f"counters {prof.counters}){kernel}")
+
+
+def timed_tick(sql, fenced):
+    """FlowManager.tick() with each launch fenced (or not); returns (flow
+    key -> buckets written, wall seconds, launches, device ms)."""
+    from greptimedb_tpu_torch.ops import kernels as K
+    torch = sql.torch
+    sql.timer.fenced = fenced
+    sql.timer.spin_cycles = MomentsTimer.SPIN_CYCLES
+    torch.cuda.synchronize()
+    n0 = K.segment_moments.launches
+    t0 = time.perf_counter()
+    written = sql.fe.datanode.flow_manager.tick()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dev_ms = sql.timer.take()[0] if fenced else []
+    sql.timer.fenced = False
+    return written, wall, K.segment_moments.launches - n0, dev_ms
+
+
+def phase_flows(sql, cpu, cpu_p, queries, ties, eight):
+    """Phase 10 on the tables phases 6 and 7 loaded, through the same
+    frontend (its flows fold only when tick() is called): CREATE FLOW on
+    cpu and its first fold (one segment_moments launch), every sink row
+    against the float64 brute force; the rollup rewrite of Q1-Q4 against
+    their raw answers and the brute force, Q5 and Q6 left alone; 10 more
+    minutes for every host and the incremental fold; a flow on cpu_p
+    folded on the host (each region over the streaming threshold); SHOW
+    FLOWS, information_schema.flows and the flow gauges; ADMIN FLUSH the
+    sinks, a restart, and a tick that folds nothing. `cpu` carries ts,
+    every host's tags, every field with the edits, and the one sample
+    past the load; `cpu_p` the partitioned table's. Returns the phase's
+    launches, walls and the first fold's launch inputs."""
+    from greptimedb_tpu_torch.common import exec_stats
+    from greptimedb_tpu_torch.ops import kernels as K
+    from greptimedb_tpu_torch.query import stream_exec, tpu_exec
+    log("== phase 10: continuous rollup flows")
+    t_phase = time.perf_counter()
+    K.segment_moments.launches = 0
+    walls = {}
+    H, n = cpu.fields[CPU_FIELDS[0]].shape
+    key, key_p = "greptime.public.cpu_1m", "greptime.public.cpu_p_1m"
+
+    # 1. CREATE FLOW and the first fold, the scan cache cold
+    t0 = time.perf_counter()
+    sql.do(flow_ddl("cpu_1m", "cpu"))
+    log(f"CREATE FLOW cpu_1m (10 tags, 1 minute, sum/count/max of the 10 "
+        f"fields: 30 sink columns) in {(time.perf_counter() - t0) * 1e3:.1f}"
+        f" ms")
+    fm = sql.fe.datanode.flow_manager
+    tpu_exec.SCAN_CACHE.clear()
+    (region,) = sql.table("cpu").regions.values()
+    check(not tpu_exec.region_streams_cold(region),
+          "cpu streams cold: the fold would not take the device route")
+    written, wall, launches, dev_ms = timed_tick(sql, fenced=True)
+    walls["first fold"] = wall
+    fold_inputs = sql.timer.calls[-1]
+    fold_log(f"first fold of cpu ({H * n + 1} rows)",
+             region.last_scan_profile, wall, dev_ms)
+    check(region.last_scan_profile.path == "flow-fold" and launches == 1,
+          f"the first fold took {region.last_scan_profile.path} with "
+          f"{launches} launches, not the device route with one")
+    nb = n // FLOW_WIDTH
+    check(written == {key: H * nb + 1}, f"the first fold wrote {written}, "
+          f"not {H * nb + 1} buckets")
+    spec = fm.flows()[0]
+    check(spec.stats["rows_folded"] == H * n + 1,
+          f"rows_folded {spec.stats['rows_folded']}, not {H * n + 1}")
+    # the sample past the load: host extra["host"], one bucket of its own
+    x = cpu.extra
+    check(x["ts"] == int(cpu.ts[-1]) + INTERVAL_MS,
+          f"the sample past the load is at {x['ts']}")
+    tail = {f: np.full((H, FLOW_WIDTH), np.nan) for f in CPU_FIELDS}
+    for f in CPU_FIELDS:
+        tail[f][x["host"], 0] = x[f]
+    want = flow_brute(cpu.fields, tail)
+    t0 = time.perf_counter()
+    check_sink("first fold", sql.table("cpu_1m"), cpu.tags, want,
+               device_fold=True)
+    del want
+    walls["first fold check"] = time.perf_counter() - t0
+
+    # 3. the rollup rewrite (step 2, the launch against the plain version,
+    # runs after the phase on `fold_inputs`). Both sides run with the
+    # dispatch floor pinned at 0: the first rewritten statement builds
+    # the sink's scan cache, and the adaptive floor it then sets (its
+    # time, capped at 0.5 s, at 15 M rows/s: 7.5 M rows) would send the
+    # 2.88 M-row sink to the pandas path (8.0 s for Q1 in my first run)
+    sink = next(iter(sql.table("cpu_1m").regions.values()))
+    for name in REWRITTEN:
+        q = queries[name]
+        plan = sql_frame(sql.do("EXPLAIN " + q))["plan"][0]
+        check("Dispatch: rollup-rewrite (flow cpu_1m: cpu -> cpu_1m, "
+              "stride 60000ms -> " in plan and "TableScan: cpu_1m" in plan,
+              f"{name}: EXPLAIN {plan!r}")
+        runs = {}
+        for label, on in (("rewritten", 1), ("raw", 0)):
+            sql.do(f"SET rollup_rewrite = {on}")
+            read = sink if on else region
+            for run in ("first", "warm"):
+                read.last_scan_profile = None
+                n0 = K.segment_moments.launches
+                t0 = time.perf_counter()
+                with exec_stats.collect() as st, sql.floor_pinned():
+                    out = sql.do(q)
+                prof = read.last_scan_profile
+                runs[label, run] = (time.perf_counter() - t0,
+                                    st.dispatch or "",
+                                    K.segment_moments.launches - n0,
+                                    prof.path if prof else "cpu")
+            rewritten = runs[label, "warm"][1].startswith(
+                "rollup-rewrite (flow cpu_1m")
+            check(rewritten == bool(on),
+                  f"{name} ({label}): dispatch {runs[label, 'warm'][1]!r}")
+            got = sql_frame(out)
+            want, exact, approx = sql_expected(name, cpu.ts, cpu.fields,
+                                               ties, eight,
+                                               partials=bool(on))
+            worst = compare_sql(f"{name} ({label})", got, want, exact,
+                                approx)
+            runs[label] = (got, approx, worst)
+        sql.do("SET rollup_rewrite = 1")
+        (g1, b1, w1), (g0, b0, w0) = runs["rewritten"], runs["raw"]
+        for col in g0.columns:
+            a, c = g1[col].to_numpy(), g0[col].to_numpy()
+            if col in b0:
+                d = np.abs(a.astype(np.float64) - c)
+                check(bool((d <= b0[col] + b1[col]).all()),
+                      f"{name}: {col} rewritten and raw differ by more "
+                      f"than their bounds")
+            else:
+                check(bool((a == c).all()), f"{name}: {col} rewritten and "
+                      f"raw differ")
+        first, warm, raw = (runs["rewritten", "first"],
+                            runs["rewritten", "warm"], runs["raw", "warm"])
+        walls[name] = warm[0], raw[0]
+        log(f"  {name}: rewritten (dispatch {warm[1]!r}, the sink read "
+            f"{first[3]} then {warm[3]}) first {first[0] * 1e3:.1f} ms, warm "
+            f"{warm[0] * 1e3:.1f} ms ({warm[2]} launches); raw (dispatch "
+            f"{raw[1]!r}, {raw[3]}) warm {raw[0] * 1e3:.1f} ms ({raw[2]} "
+            f"launches); {len(g1)} rows equal within both bounds, max "
+            f"|err|/bound vs the brute force {w1:.3g} rewritten, {w0:.3g} "
+            f"raw")
+    for name in NOT_REWRITTEN:
+        q = queries[name]
+        plan = sql_frame(sql.do("EXPLAIN " + q))["plan"][0]
+        with exec_stats.collect() as st:
+            sql.do(q)
+        check("rollup-rewrite" not in plan and
+              not (st.dispatch or "").startswith("rollup-rewrite"),
+              f"{name} was rewritten: {st.dispatch!r}")
+        log(f"  {name}: no time bucket, not rewritten (dispatch "
+            f"{st.dispatch!r})")
+
+    # 4. 10 more minutes for every host, then the incremental fold
+    rng = np.random.default_rng(H)
+    k = FLOW_NEW_MINUTES * FLOW_WIDTH
+    t_new = int(cpu.ts[-1]) + INTERVAL_MS * (2 + np.arange(k))
+    new = {f: rng.random((H, k)) * 100.0 for f in CPU_FIELDS}
+    cols = {t: np.tile(np.array([tg[i] for tg in cpu.tags], dtype=object), k)
+            for i, t in enumerate(TSBS_TAGS)}
+    cols["ts"] = np.repeat(t_new, H)
+    for f in CPU_FIELDS:
+        cols[f] = new[f].T.ravel()
+    t0 = time.perf_counter()
+    wrote = sql.fe.handle_row_insert("cpu", cols, tag_columns=TSBS_TAGS,
+                                     timestamp_column="ts")
+    insert_s = time.perf_counter() - t0
+    check(wrote == H * k, f"handle_row_insert wrote {wrote} rows")
+    del cols
+    before = spec.stats["rows_folded"]
+    written, wall, launches, dev_ms = timed_tick(sql, fenced=False)
+    walls["incremental fold"] = wall
+    fold_log(f"incremental fold after handle_row_insert of {wrote} rows "
+             f"({insert_s:.2f}s)", region.last_scan_profile, wall, dev_ms)
+    grew = spec.stats["rows_folded"] - before
+    check(grew == H * k and launches == 1,
+          f"the incremental fold folded {grew} rows with {launches} "
+          f"launches, not {H * k} with one")
+    wm = spec.watermarks[region.name]["ts"]
+    check(wm == int(t_new[-1]) and spec.watermark_ts() == wm,
+          f"the watermark is {wm}, not the last new ts {int(t_new[-1])}")
+    nb_new = -(-(k + 1) // FLOW_WIDTH)
+    check(written == {key: H * nb_new},
+          f"the incremental fold wrote {written}, not {H * nb_new} buckets")
+    tail = {f: np.full((H, nb_new * FLOW_WIDTH), np.nan) for f in CPU_FIELDS}
+    for f in CPU_FIELDS:
+        tail[f][x["host"], 0] = x[f]
+        tail[f][:, 1:k + 1] = new[f]
+    want = flow_brute(cpu.fields, tail)
+    check_sink("incremental fold, buckets from 12 h", sql.table("cpu_1m"),
+               cpu.tags, want, device_fold=True, min_bucket=nb)
+    del want, new, tail
+    log(f"  the watermark advanced to {wm} (the last new ts); rows_folded "
+        f"grew by {grew}")
+
+    # 5. a flow on cpu_p folded on the host: every region streams cold
+    saved = stream_exec.stream_threshold_rows()
+    sql.do(f"SET stream_threshold_rows = {FLOW_COLD_THRESHOLD}")
+    try:
+        tpu_exec.SCAN_CACHE.clear()
+        sql.do(flow_ddl("cpu_p_1m", "cpu_p"))
+        regions_p = list(sql.table("cpu_p").regions.values())
+        check(all(tpu_exec.region_streams_cold(r) for r in regions_p),
+              "a region of cpu_p does not stream cold")
+        written, wall, launches, _ = timed_tick(sql, fenced=False)
+        walls["cold fold"] = wall
+        Hp, n_p = cpu_p.fields[CPU_FIELDS[0]].shape
+        check(launches == 0 and written == {key: 0, key_p:
+                                            Hp * n_p // FLOW_WIDTH},
+              f"the cold fold wrote {written} with {launches} launches")
+        for r in regions_p:
+            check(r.last_scan_profile.path == "flow-fold-cold" and
+                  not tpu_exec.SCAN_CACHE.cached(r),
+                  f"region {r.name} took {r.last_scan_profile.path} or "
+                  f"entered the scan cache")
+            fold_log(f"  cold fold of region {r.name}", r.last_scan_profile,
+                     r.last_scan_profile.total_s, [])
+        log(f"cold fold of cpu_p ({Hp * n_p} rows, {len(regions_p)} regions "
+            f"over the streaming threshold {FLOW_COLD_THRESHOLD}): wall "
+            f"{wall * 1e3:.1f} ms, 0 launches, no scan-cache entry")
+        check_sink("cold fold of cpu_p", sql.table("cpu_p_1m"), cpu_p.tags,
+                   flow_brute(cpu_p.fields), device_fold=False)
+    finally:
+        sql.do(f"SET stream_threshold_rows = {saved}")
+
+    # 6. SHOW FLOWS, information_schema.flows, the flow gauges
+    specs = {s.name: s for s in fm.flows()}
+    shown = sql_frame(sql.do("SHOW FLOWS"))
+    info = sql_frame(sql.do("SELECT * FROM information_schema.flows"))
+    gauges = sql_frame(sql.do(
+        "SELECT metric_name, labels, value FROM "
+        "information_schema.runtime_metrics WHERE metric_name IN "
+        "('greptime_flow_watermark_ts', 'greptime_flow_rows_folded', "
+        "'greptime_flow_buckets_written') ORDER BY labels, metric_name"))
+    want_rows = {"cpu_1m": (H * n + 1 + H * k, 2, H * nb + 1 + H * nb_new),
+                 "cpu_p_1m": (Hp * n_p, 1, Hp * n_p // FLOW_WIDTH)}
+    check(list(shown["flow_name"]) == sorted(want_rows) and
+          list(info["flow_name"]) == sorted(want_rows),
+          f"SHOW FLOWS {list(shown['flow_name'])}, information_schema."
+          f"flows {list(info['flow_name'])}")
+    for i, name in enumerate(sorted(want_rows)):
+        rows, folds, buckets = want_rows[name]
+        s = specs[name]
+        src = name[:-3]
+        check(shown["source"][i] == src and shown["sink"][i] == name and
+              shown["stride_ms"][i] == FLOW_STRIDE_MS and
+              shown["watermark"][i] == s.watermark_ts() and
+              shown["rows_folded"][i] == rows, f"SHOW FLOWS row "
+              f"{shown.iloc[i].to_dict()}")
+        check(info["source_table"][i] == src and
+              info["folds"][i] == folds and info["rows_folded"][i] == rows
+              and info["buckets_written"][i] == buckets,
+              f"information_schema.flows row {info.iloc[i].to_dict()}")
+        g = gauges[gauges["labels"] == f'{{flow="{name}", source="{src}"}}']
+        check(dict(zip(g["metric_name"], g["value"])) == {
+            "greptime_flow_buckets_written": float(buckets),
+            "greptime_flow_rows_folded": float(rows),
+            "greptime_flow_watermark_ts": float(s.watermark_ts())},
+            f"flow gauges of {name}: {g.to_dict('list')}")
+    log(f"catalog views: SHOW FLOWS, information_schema.flows and the flow "
+        f"gauges of runtime_metrics agree with the folds: "
+        f"{ {n: r for n, r in want_rows.items()} } (rows folded, folds, "
+        f"buckets written)")
+
+    # 7. ADMIN FLUSH the sinks, restart, a tick folds nothing
+    for name in sorted(want_rows):
+        sql.do(f"ADMIN FLUSH TABLE {name}")
+    state = {s.key: (json.dumps(s.watermarks, sort_keys=True), dict(s.stats))
+             for s in fm.flows()}
+    open_s = sql.restart()
+    walls["restart"] = open_s
+    fm = sql.fe.datanode.flow_manager
+    got = {s.key: (json.dumps(s.watermarks, sort_keys=True), dict(s.stats))
+           for s in fm.flows()}
+    check(got == state, f"the flows came back as {got}, not {state}")
+    written, wall, launches, _ = timed_tick(sql, fenced=False)
+    check(written == {key: 0, key_p: 0} and launches == 0 and
+          {s.key: dict(s.stats) for s in fm.flows()} ==
+          {k_: v[1] for k_, v in state.items()},
+          f"the tick after the restart wrote {written} with {launches} "
+          f"launches")
+    log(f"restart: shutdown(), then build_standalone on the same data home "
+        f"in {open_s * 1e3:.1f} ms; both flows recovered with their "
+        f"watermarks and counters; a tick ({wall * 1e3:.1f} ms) folds "
+        f"nothing")
+    launches = K.segment_moments.launches
+    walls["phase"] = time.perf_counter() - t_phase
+    log(f"phase 10: {launches} segment_moments launches; "
+        f"{walls['phase']:.1f}s")
+    return {"launches": launches, "walls": walls,
+            "fold_inputs": fold_inputs}
 
 
 # ---------------------------------------------------------------------------
@@ -3349,11 +3812,15 @@ def main() -> int:
     phase_moments_check()
     log("== phase 6: SQL on TSBS cpu-only, then segment_moments at the "
         "main path's shapes")
-    launches, (surface, walls), inputs = phase_sql(torch, args.seed)
+    launches, (surface, walls), inputs, flows = phase_sql(torch, args.seed)
     from greptimedb_tpu_torch.tools import segment_moments_bench as smb
     shapes = phase_moments_time(torch, {q: inputs[q] for q in smb.QUERIES})
     del inputs
-    log(f"phase 8 took {walls['phase']:.1f}s of the script's "
+    log("== phase 10's fold launch against the plain version")
+    shapes.update(phase_moments_time(
+        torch, {"phase 10 fold": flows.pop("fold_inputs")}, tool=False))
+    log(f"phase 8 took {walls['phase']:.1f}s and phase 10 "
+        f"{flows['walls']['phase']:.1f}s of the script's "
         f"{time.perf_counter() - t_all:.1f}s so far")
     k1_9, moments_9, inputs = phase_promql_tables(torch, p4)
     del p4
@@ -3368,9 +3835,9 @@ def main() -> int:
           "by_shape": shapes}
     kern[0]["launches_by_phase"] = {"4": kern[0]["launches"], "9": k1_9}
     kern[0]["launches"] += k1_9
-    k2["launches"] = launches + surface + moments_9
+    k2["launches"] = launches + surface + moments_9 + flows["launches"]
     k2["launches_by_phase"] = {"6-7": launches, "8": surface,
-                               "9": moments_9}
+                               "9": moments_9, "10": flows["launches"]}
     new = set(sys.modules) - before
     bad = sorted(m for m in new if m.split(".")[0] in
                  ("jax", "jaxlib", "greptimedb_tpu"))

@@ -14,13 +14,13 @@ tables are materialized from live catalog state at scan time:
   SQL exactly like the /metrics endpoint.
 
 Ported from greptimedb_tpu/catalog/information_schema.py. The port serves
-tables, columns, failpoints, cluster_info, region_peers, processes,
+tables, columns, flows, failpoints, cluster_info, region_peers, processes,
 background_jobs and runtime_metrics (from the port's own Prometheus
-registry, common/telemetry.registry()); a standalone port has no meta
-service, so cluster_info and region_peers are synthesized from the local
-regions. flows, self_monitor, trace_spans and profile_samples read
-modules the port does not have yet and raise UnsupportedError naming
-them.
+registry, common/telemetry.registry(), with the flow gauges of the
+catalog's FlowManager); a standalone port has no meta service, so
+cluster_info and region_peers are synthesized from the local regions.
+self_monitor, trace_spans and profile_samples read modules the port does
+not have yet and raise UnsupportedError naming them.
 """
 
 from __future__ import annotations
@@ -131,6 +131,17 @@ _BACKGROUND_JOBS_SCHEMA = Schema([
     ColumnSchema("detail", dt.STRING, nullable=True),
 ])
 
+_FLOWS_SCHEMA = Schema([
+    ColumnSchema("flow_name", dt.STRING),
+    ColumnSchema("source_table", dt.STRING),
+    ColumnSchema("sink_table", dt.STRING),
+    ColumnSchema("stride_ms", dt.INT64),
+    ColumnSchema("aggs", dt.STRING),
+    ColumnSchema("watermark", dt.INT64, nullable=True),
+    ColumnSchema("folds", dt.INT64),
+    ColumnSchema("rows_folded", dt.INT64),
+    ColumnSchema("buckets_written", dt.INT64),
+])
 
 
 def _engine_gauges(catalog_manager, catalog_name: str):
@@ -168,6 +179,22 @@ def _engine_gauges(catalog_manager, catalog_name: str):
                              "gauge"))
     rows.append(("greptime_region_count", "", float(region_count),
                  "gauge"))
+    # flow fold state: watermark timestamp + lifetime counters per flow
+    # (the flow_* prometheus counters cover rates; these are the gauges)
+    fm = getattr(catalog_manager, "flow_manager", None)
+    if fm is not None:
+        for spec in fm.flows(catalog_name):
+            labels = f'{{flow="{spec.name}", source="{spec.source}"}}'
+            wm = spec.watermark_ts()
+            if wm is not None:
+                rows.append(("greptime_flow_watermark_ts", labels,
+                             float(wm), "gauge"))
+            rows.append(("greptime_flow_rows_folded", labels,
+                         float(spec.stats.get("rows_folded", 0)),
+                         "gauge"))
+            rows.append(("greptime_flow_buckets_written", labels,
+                         float(spec.stats.get("buckets_written", 0)),
+                         "gauge"))
     from ..query.tpu_exec import SCAN_CACHE
     rows.append(("greptime_scan_cache_resident_bytes", "",
                  float(SCAN_CACHE.resident_bytes()), "gauge"))
@@ -288,7 +315,6 @@ class _VirtualTable(Table):
 #: the reference's information_schema tables whose modules the port does
 #: not have yet: table name → what is missing
 _NOT_PORTED = {
-    "flows": "flows (flow/)",
     "self_monitor": "the self-monitor (monitor/)",
     "trace_spans": "the trace store (common/trace_store.py)",
     "profile_samples": "the profiler (common/profiler.py)",
@@ -342,6 +368,25 @@ def information_schema_table(catalog_manager, catalog_name: str,
                             "YES" if cs.nullable else "NO")
             return rows
         return _VirtualTable("columns", _COLUMNS_SCHEMA, build_columns)
+    if name == "flows":
+        def build_flows():
+            rows = {k: [] for k in _FLOWS_SCHEMA.names()}
+            fm = getattr(catalog_manager, "flow_manager", None)
+            for spec in (fm.flows(catalog_name) if fm is not None else []):
+                rows["flow_name"].append(spec.name)
+                rows["source_table"].append(spec.source)
+                rows["sink_table"].append(spec.sink)
+                rows["stride_ms"].append(spec.stride_ms)
+                rows["aggs"].append(", ".join(a.describe()
+                                              for a in spec.aggs))
+                rows["watermark"].append(spec.watermark_ts())
+                rows["folds"].append(spec.stats.get("folds", 0))
+                rows["rows_folded"].append(
+                    spec.stats.get("rows_folded", 0))
+                rows["buckets_written"].append(
+                    spec.stats.get("buckets_written", 0))
+            return rows
+        return _VirtualTable("flows", _FLOWS_SCHEMA, build_flows)
     if name in _NOT_PORTED:
         raise UnsupportedError(
             f"information_schema.{name}: {_NOT_PORTED[name]} is not "

@@ -1,0 +1,645 @@
+"""FlowManager: lifecycle + incremental maintenance of continuous rollups.
+
+Reference behavior: GreptimeDB's flow engine (`CREATE FLOW ... AS SELECT
+<aggs> FROM src GROUP BY date_bin(...)`) maintains a materialized rollup
+table as new rows arrive. Here the fold is the device sorted-segment
+reduce (storage/downsample.py) driven incrementally:
+
+- each flow tracks a per-source-region **watermark** — the committed
+  sequence it last folded. A fold selects only rows beyond the watermark
+  (read off the merged-scan cache's per-row sequence column), finds the
+  earliest time bucket those rows touch, and re-reduces the source from
+  that bucket boundary forward. Because the sink rows carry the same
+  (tags, bucket_ts) key, re-folding a partially-filled top-of-bucket is
+  idempotent: MVCC dedup in the sink region keeps the newest fold.
+- specs + watermarks persist across restarts: standalone in a JSON doc
+  next to the mito manifests on the object store, distributed in the
+  meta kv — the same split the catalog uses.
+- the background task is **cooperative under tests**: `tick()` folds all
+  flows once; `start_background()` wraps it in a RepeatedTask only when
+  the host opts in (DatanodeInstance skips it under pytest so no
+  free-running threads race the test harness).
+
+Ported from greptimedb_tpu/flow/manager.py. The FlowManager folds on its
+`device` ("cuda" unless the caller asks for "cpu"); the standalone
+datanode passes its own. `KvFlowStore` is copied for the distributed
+frontend, which the port does not have yet.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import threading
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Tuple
+
+from ..common import failpoint as _fp
+from ..common.time import TimeUnit
+from ..errors import (InvalidArgumentsError, PlanError, TableNotFoundError,
+                      UnsupportedError)
+from ..sql import ast
+
+logger = logging.getLogger(__name__)
+
+_fp.register("flow_fold")
+_fp.register("flow_fold_commit")
+
+#: aggregate ops a flow can materialize. avg is exact here because every
+#: fold recomputes whole buckets from source rows (sum + count moments,
+#: finalized at write time — the same decomposition the plan IR applies);
+#: note a stored avg column only serves queries at the flow's own tag
+#: grain — the read-time rollup rewrite (flow/rewrite.py) still derives
+#: coarser-grouped avg from a stored sum + count pair, never by
+#: averaging averages.
+FLOW_OPS = ("sum", "count", "avg", "min", "max", "first", "last")
+
+
+@dataclass
+class FlowAgg:
+    op: str                        # sum/count/avg/min/max/first/last
+    column: Optional[str]          # source field; None = count(*)
+    dest: str                      # sink column name
+
+    def to_dict(self) -> dict:
+        return {"op": self.op, "column": self.column, "dest": self.dest}
+
+    @staticmethod
+    def from_dict(d: dict) -> "FlowAgg":
+        return FlowAgg(d["op"], d.get("column"), d["dest"])
+
+    def describe(self) -> str:
+        return f"{self.op}({self.column or '*'}) -> {self.dest}"
+
+
+@dataclass
+class FlowSpec:
+    name: str
+    catalog: str
+    schema: str                    # database name
+    source: str                    # source table
+    sink: str                      # rollup table
+    stride_ms: int
+    origin_ms: int
+    ts_column: str
+    tags: List[str]
+    aggs: List[FlowAgg]
+    raw_sql: str = ""
+    #: per-source-region watermark: region name -> {"seq": int, "ts": int}
+    watermarks: Dict[str, dict] = field(default_factory=dict)
+    #: fold counters: folds / rows_folded / buckets_written
+    stats: Dict[str, int] = field(default_factory=dict)
+
+    @property
+    def key(self) -> str:
+        return f"{self.catalog}.{self.schema}.{self.name}"
+
+    def watermark_ts(self) -> Optional[int]:
+        vals = [w.get("ts") for w in self.watermarks.values()
+                if w.get("ts") is not None]
+        return max(vals) if vals else None
+
+    def to_dict(self) -> dict:
+        return {
+            "name": self.name, "catalog": self.catalog,
+            "schema": self.schema, "source": self.source, "sink": self.sink,
+            "stride_ms": self.stride_ms, "origin_ms": self.origin_ms,
+            "ts_column": self.ts_column, "tags": list(self.tags),
+            "aggs": [a.to_dict() for a in self.aggs],
+            "raw_sql": self.raw_sql, "watermarks": self.watermarks,
+            "stats": self.stats,
+        }
+
+    @staticmethod
+    def from_dict(d: dict) -> "FlowSpec":
+        return FlowSpec(
+            name=d["name"], catalog=d["catalog"], schema=d["schema"],
+            source=d["source"], sink=d["sink"],
+            stride_ms=int(d["stride_ms"]),
+            origin_ms=int(d.get("origin_ms", 0)),
+            ts_column=d["ts_column"], tags=list(d["tags"]),
+            aggs=[FlowAgg.from_dict(a) for a in d["aggs"]],
+            raw_sql=d.get("raw_sql", ""),
+            watermarks=dict(d.get("watermarks", {})),
+            stats=dict(d.get("stats", {})))
+
+
+# ---------------------------------------------------------------------------
+# spec compilation (CREATE FLOW -> FlowSpec)
+# ---------------------------------------------------------------------------
+
+def compile_flow(stmt: ast.CreateFlow, src_table, catalog: str,
+                 schema_name: str) -> FlowSpec:
+    """Validate the flow SELECT against the source table and produce the
+    FlowSpec. Raises on anything the incremental fold cannot maintain."""
+    from ..query.expr import expr_name
+    from ..query.planner import _AGG_CANON
+    from ..query.tpu_exec import _match_bucket
+
+    q = stmt.query
+    if q.joins or q.where is not None or q.having is not None or \
+            q.order_by or q.limit is not None or q.offset or q.distinct:
+        raise PlanError(
+            "CREATE FLOW supports plain single-table aggregates: no "
+            "JOIN/WHERE/HAVING/ORDER BY/LIMIT/DISTINCT")
+    if q.from_ is None or q.from_.name is None:
+        raise PlanError("CREATE FLOW needs a FROM table")
+    if not q.group_by:
+        raise PlanError("CREATE FLOW needs GROUP BY date_bin(stride, ts)")
+
+    src_schema = src_table.schema
+    tc = src_schema.timestamp_column
+    if tc is None:
+        raise PlanError("flow source table has no time index")
+    if tc.dtype.time_unit != TimeUnit.MILLISECOND:
+        raise UnsupportedError(
+            "flows require a millisecond time index (date_bin strides "
+            "are millisecond-based)")
+    tag_names = src_schema.tag_names()
+    field_names = set(src_schema.field_names())
+
+    rule = getattr(src_table, "partition_rule", None)
+    if rule is not None and tc.name in rule.partition_columns():
+        raise UnsupportedError(
+            "flow source must not be partitioned on the time index: a "
+            "series' bucket could span regions and partial folds would "
+            "clobber each other")
+
+    # resolve GROUP BY aliases / ordinals against the projection list
+    # (the same rule planner.analyze applies)
+    alias_map = {item.alias.lower(): item.expr
+                 for item in q.projections if item.alias}
+
+    def resolve_ref(g):
+        if isinstance(g, ast.Literal) and isinstance(g.value, int):
+            idx = g.value - 1
+            if 0 <= idx < len(q.projections):
+                return q.projections[idx].expr
+            raise PlanError(f"GROUP BY ordinal {g.value} out of range")
+        if isinstance(g, ast.Column) and g.table is None and \
+                g.name.lower() in alias_map:
+            return alias_map[g.name.lower()]
+        return g
+
+    bucket = None
+    tags: List[str] = []
+    group_keys: Dict[str, str] = {}      # expr_name -> kind
+    for g in [resolve_ref(x) for x in q.group_by]:
+        if isinstance(g, ast.Column) and g.name in tag_names:
+            tags.append(g.name)
+            group_keys[expr_name(g)] = "tag"
+            continue
+        b = _match_bucket(g, tc.name)
+        if b is not None and bucket is None:
+            bucket = b
+            group_keys[expr_name(g)] = "bucket"
+            continue
+        raise PlanError(
+            f"flow GROUP BY must be tag columns plus exactly one "
+            f"date_bin/date_trunc over {tc.name!r}; got {expr_name(g)!r}")
+    if bucket is None:
+        raise PlanError(
+            "CREATE FLOW needs a date_bin/date_trunc time bucket in "
+            "GROUP BY (bad or missing stride)")
+    if bucket.stride_ms <= 0:
+        raise PlanError(f"bad flow stride {bucket.stride_ms}ms")
+
+    aggs: List[FlowAgg] = []
+    used_names = set(tag_names) | {tc.name}
+    for item in q.projections:
+        e = item.expr
+        if isinstance(e, ast.Star):
+            raise PlanError("'*' projection is not valid in CREATE FLOW")
+        if expr_name(e) in group_keys:
+            continue                     # group key passthrough
+        if not isinstance(e, ast.FunctionCall):
+            raise PlanError(
+                f"flow projections must be group keys or aggregates; "
+                f"got {expr_name(e)!r}")
+        op = _AGG_CANON.get(e.name, e.name)
+        if op in ("approx_distinct", "approx_percentile", "median"):
+            raise UnsupportedError(
+                f"{op} partials are sketches, not columns a flow sink "
+                f"can store; query the raw table — the distributed "
+                f"sketch pushdown (README 'Distributed aggregation') "
+                f"serves it without materialization")
+        if op not in FLOW_OPS:
+            raise UnsupportedError(
+                f"aggregate {e.name!r} is not derivable in a flow "
+                f"(supported: {', '.join(FLOW_OPS)})")
+        if e.distinct:
+            raise UnsupportedError("DISTINCT aggregates in flows")
+        col: Optional[str] = None
+        if e.args and isinstance(e.args[0], ast.Star):
+            if op != "count":
+                raise PlanError(f"{op}(*) is not valid")
+        elif e.args:
+            if not isinstance(e.args[0], ast.Column) or len(e.args) > 1:
+                raise PlanError(
+                    f"flow aggregates take a plain column argument; got "
+                    f"{expr_name(e)!r}")
+            col = e.args[0].name
+            if col not in field_names:
+                raise PlanError(
+                    f"column {col!r} is not a field of the source table")
+            cs = src_schema.column_schema(col)
+            if cs.dtype.is_string or cs.dtype.is_binary:
+                if op != "count":
+                    raise PlanError(
+                        f"{op} over non-numeric column {col!r}")
+        elif op != "count":
+            raise PlanError(f"{op}() needs an argument")
+        dest = item.alias or (f"{col}_{op}" if col else "row_count")
+        if dest in used_names:
+            raise PlanError(f"duplicate flow output column {dest!r}")
+        used_names.add(dest)
+        aggs.append(FlowAgg(op, col, dest))
+    if not aggs:
+        raise PlanError("CREATE FLOW needs at least one aggregate")
+    if set(tags) != set(tag_names):
+        # the fold reduces per (series, bucket); a sink keyed by a tag
+        # SUBSET would collapse distinct series onto one row key and
+        # MVCC dedup would silently drop all but one. Queries that want
+        # coarser grouping still get it — the rollup rewrite collapses
+        # tags at read time.
+        missing = sorted(set(tag_names) - set(tags))
+        raise PlanError(
+            f"flow GROUP BY must include every tag column of the source "
+            f"(missing: {', '.join(missing)}); group coarser at query "
+            f"time instead")
+
+    return FlowSpec(
+        name=stmt.name, catalog=catalog, schema=schema_name,
+        source=q.from_.name.table, sink=stmt.sink or stmt.name,
+        stride_ms=bucket.stride_ms, origin_ms=bucket.origin,
+        ts_column=tc.name, tags=tags, aggs=aggs, raw_sql=stmt.raw_sql)
+
+
+def sink_schema_for(spec: FlowSpec, src_schema):
+    """(Schema, pk_indices) for the rollup sink table."""
+    from ..datatypes import data_type as dt
+    from ..datatypes.schema import ColumnSchema, Schema, SemanticType
+    cols = []
+    for tag in spec.tags:
+        cs = src_schema.column_schema(tag)
+        cols.append(ColumnSchema(tag, cs.dtype, nullable=False,
+                                 semantic_type=SemanticType.TAG))
+    ts = src_schema.column_schema(spec.ts_column)
+    cols.append(ColumnSchema(spec.ts_column, ts.dtype, nullable=False,
+                             semantic_type=SemanticType.TIMESTAMP))
+    for a in spec.aggs:
+        cols.append(ColumnSchema(a.dest, dt.FLOAT64, nullable=True))
+    schema = Schema(cols)
+    pk = [i for i, c in enumerate(cols)
+          if c.semantic_type == SemanticType.TAG]
+    return schema, pk
+
+
+def _validate_sink(spec: FlowSpec, sink_table) -> None:
+    schema = sink_table.schema
+    tc = schema.timestamp_column
+    if tc is None or tc.name != spec.ts_column:
+        raise InvalidArgumentsError(
+            f"sink table {spec.sink!r} time index must be "
+            f"{spec.ts_column!r}")
+    have_tags = set(schema.tag_names())
+    missing = [t for t in spec.tags if t not in have_tags]
+    if missing:
+        raise InvalidArgumentsError(
+            f"sink table {spec.sink!r} is missing tag column(s) {missing}")
+    for a in spec.aggs:
+        if not schema.contains(a.dest):
+            raise InvalidArgumentsError(
+                f"sink table {spec.sink!r} is missing column {a.dest!r}")
+
+
+# ---------------------------------------------------------------------------
+# durable state stores
+# ---------------------------------------------------------------------------
+
+FLOW_DOC_PREFIX = "flow/"
+
+
+class ObjectStoreFlowStore:
+    """Standalone persistence: one JSON doc per flow on the object store,
+    next to the mito manifests (the same durability story the catalog
+    uses)."""
+
+    def __init__(self, store, state_prefix: str = ""):
+        self.store = store
+        self.prefix = f"{state_prefix}{FLOW_DOC_PREFIX}"
+
+    def _key(self, flow_key: str) -> str:
+        return f"{self.prefix}{flow_key}.json"
+
+    def load_all(self) -> List[dict]:
+        docs = []
+        for key in self.store.list(self.prefix):
+            if not key.endswith(".json"):
+                continue
+            try:
+                docs.append(json.loads(self.store.read(key)))
+            except Exception:  # noqa: BLE001 — a corrupt doc skips one flow
+                logger.exception("flow store: cannot read %s", key)
+        return docs
+
+    def save(self, spec: FlowSpec) -> None:
+        self.store.write(self._key(spec.key),
+                         json.dumps(spec.to_dict()).encode())
+
+    def delete(self, flow_key: str) -> None:
+        self.store.delete(self._key(flow_key))
+
+
+class KvFlowStore:
+    """Distributed persistence: flow docs in the meta kv (reference: the
+    flownode registers flows through meta). Accepts a raw kv
+    (put/range/delete) or a MetaClient (kv_put/kv_range/kv_delete)."""
+
+    KV_PREFIX = "__flow/"
+
+    def __init__(self, kv):
+        self._put = getattr(kv, "kv_put", None) or kv.put
+        self._range = getattr(kv, "kv_range", None) or kv.range
+        self._del = getattr(kv, "kv_delete", None) or kv.delete
+
+    def load_all(self) -> List[dict]:
+        docs = []
+        for key, v in self._range(self.KV_PREFIX):
+            try:
+                docs.append(json.loads(v))
+            except Exception:  # noqa: BLE001 — one corrupt doc must not
+                logger.exception(       # keep the frontend from starting
+                    "flow store: cannot decode %s", key)
+        return docs
+
+    def save(self, spec: FlowSpec) -> None:
+        self._put(f"{self.KV_PREFIX}{spec.key}",
+                  json.dumps(spec.to_dict()).encode())
+
+    def delete(self, flow_key: str) -> None:
+        self._del(f"{self.KV_PREFIX}{flow_key}")
+
+
+# ---------------------------------------------------------------------------
+# manager
+# ---------------------------------------------------------------------------
+
+class FlowManager:
+    """Owns every flow's spec, watermark and fold loop for one node."""
+
+    def __init__(self, catalog_manager, state_store,
+                 create_sink_fn: Optional[Callable] = None,
+                 device="cuda"):
+        self.catalog = catalog_manager
+        self.store = state_store
+        #: where the folds reduce (the query engine's device)
+        self.device = device
+        #: create_sink_fn(spec, schema, pk_indices) -> Table; when None the
+        #: sink table must already exist
+        self.create_sink_fn = create_sink_fn
+        from ..common.locks import TrackedLock, TrackedRLock
+        from ..common.tracking import tracked_state
+        self._lock = TrackedRLock("flow.manager")
+        #: serializes folds: the background tick thread and a query-path
+        #: refresh() must not fold the same flow concurrently (both would
+        #: read one watermark and double-count the same delta, and
+        #: store.save would serialize a mid-mutation watermark dict)
+        self._fold_lock = TrackedLock("flow.fold")
+        self._flows: Dict[str, FlowSpec] = tracked_state(
+            {}, "flow.manager.flows")
+        self._task = None
+        #: read-path refresh floor for sources WITHOUT sequence counters
+        #: (DistTables): lagging() cannot cheaply answer there, so
+        #: refresh() folds at most once per this interval instead of on
+        #: every rollup-served query
+        self.generic_refresh_min_interval_s = 5.0
+        self._last_generic_fold: Dict[str, float] = {}
+
+    # ---- lifecycle ----
+    def recover(self) -> None:
+        """Reload persisted flows (watermarks included) after restart."""
+        if self.store is None:
+            return
+        for doc in self.store.load_all():
+            try:
+                spec = FlowSpec.from_dict(doc)
+            except Exception:  # noqa: BLE001
+                logger.exception("flow recover: bad doc %r", doc)
+                continue
+            with self._lock:
+                self._flows[spec.key] = spec
+        if self._flows:
+            logger.info("recovered %d flow(s): %s", len(self._flows),
+                        ", ".join(sorted(self._flows)))
+
+    def start_background(self, interval_s: float = 10.0) -> None:
+        """Free-running tick loop — hosts opt in explicitly; tests drive
+        `tick()` cooperatively instead (tier-1 safety)."""
+        if self._task is not None:
+            return
+        from ..storage.scheduler import RepeatedTask
+        self._task = RepeatedTask(interval_s, self.tick, name="flow-tick")
+        self._task.start()
+
+    def stop(self) -> None:
+        if self._task is not None:
+            self._task.stop()
+            self._task = None
+
+    # ---- DDL ----
+    def create_flow(self, stmt: ast.CreateFlow, ctx) -> FlowSpec:
+        catalog, schema_name = ctx.current_catalog, ctx.current_schema
+        if stmt.query is None or stmt.query.from_ is None or \
+                stmt.query.from_.name is None:
+            raise PlanError("CREATE FLOW needs a FROM table")
+        src_cat, src_schema, _ = ctx.resolve(stmt.query.from_.name)
+        if (src_cat, src_schema) != (catalog, schema_name):
+            # the flow is keyed (and later SHOWn/DROPped) under the
+            # session schema — a cross-schema source would make it
+            # unmanageable from where it was created
+            raise UnsupportedError(
+                f"flow source must live in the current database "
+                f"({schema_name}); USE {src_schema} first")
+        key = f"{catalog}.{schema_name}.{stmt.name}"
+        with self._lock:
+            if key in self._flows:
+                if stmt.if_not_exists:
+                    return self._flows[key]
+                raise InvalidArgumentsError(
+                    f"flow {stmt.name!r} already exists")
+        src = self.catalog.table(catalog, schema_name,
+                                 stmt.query.from_.name.table)
+        if src is None:
+            raise TableNotFoundError(
+                f"flow source table "
+                f"{stmt.query.from_.name.table!r} not found")
+        spec = compile_flow(stmt, src, catalog, schema_name)
+        if spec.sink == spec.source:
+            raise InvalidArgumentsError(
+                "flow sink must differ from its source table")
+        sink = self.catalog.table(catalog, schema_name, spec.sink)
+        if sink is None:
+            if self.create_sink_fn is None:
+                raise TableNotFoundError(
+                    f"flow sink table {spec.sink!r} not found (create it "
+                    f"first)")
+            schema, pk = sink_schema_for(spec, src.schema)
+            sink = self.create_sink_fn(spec, schema, pk)
+        _validate_sink(spec, sink)
+        with self._lock:
+            # re-check: a concurrent CREATE FLOW may have registered the
+            # name while this one compiled / created the sink
+            if key in self._flows:
+                if stmt.if_not_exists:
+                    return self._flows[key]
+                raise InvalidArgumentsError(
+                    f"flow {stmt.name!r} already exists")
+            self._flows[key] = spec
+            if self.store is not None:
+                self.store.save(spec)
+        from ..common.telemetry import increment_counter
+        increment_counter("flow_create")
+        logger.info("created flow %s: %s -> %s stride=%dms aggs=[%s]",
+                    spec.name, spec.source, spec.sink, spec.stride_ms,
+                    ", ".join(a.describe() for a in spec.aggs))
+        return spec
+
+    def drop_flow(self, name: str, ctx, if_exists: bool = False) -> bool:
+        key = f"{ctx.current_catalog}.{ctx.current_schema}.{name}"
+        with self._lock:
+            spec = self._flows.pop(key, None)
+            if spec is None:
+                if if_exists:
+                    return False
+                raise InvalidArgumentsError(f"flow {name!r} not found")
+            if self.store is not None:
+                self.store.delete(key)
+        return True
+
+    # ---- introspection ----
+    def flows(self, catalog: Optional[str] = None,
+              schema: Optional[str] = None) -> List[FlowSpec]:
+        with self._lock:
+            out = list(self._flows.values())
+        if catalog is not None:
+            out = [f for f in out if f.catalog == catalog]
+        if schema is not None:
+            out = [f for f in out if f.schema == schema]
+        return sorted(out, key=lambda f: f.key)
+
+    def flows_for_source(self, catalog: str, schema: str,
+                         table_name: str) -> List[FlowSpec]:
+        return [f for f in self.flows(catalog, schema)
+                if f.source == table_name]
+
+    def get(self, catalog: str, schema: str, name: str
+            ) -> Optional[FlowSpec]:
+        with self._lock:
+            return self._flows.get(f"{catalog}.{schema}.{name}")
+
+    # ---- maintenance ----
+    def tick(self) -> Dict[str, int]:
+        """Fold every flow once; returns flow key -> bucket rows written.
+        Errors are contained per flow (background-loop safety). Each fold
+        is a background job with its own root trace — the read-path
+        refresh() folds stay on the querying statement's trace instead."""
+        from ..common import background_jobs
+        out: Dict[str, int] = {}
+        for spec in self.flows():
+            try:
+                with background_jobs.job("flow_fold", table=spec.sink,
+                                         flow=spec.name):
+                    out[spec.key] = self.fold_flow(spec)
+            except Exception:  # noqa: BLE001
+                logger.exception("flow %s fold failed", spec.key)
+        return out
+
+    def _source_counters(self, spec: FlowSpec):
+        """The source's storage regions when sequence counters exist
+        locally, else None (DistTables / non-region tables)."""
+        from . import lowering
+        src = self.catalog.table(spec.catalog, spec.schema, spec.source)
+        if src is None:
+            return src, None
+        return src, lowering.source_counters(src)
+
+    def lagging(self, spec: FlowSpec) -> bool:
+        """Cheap freshness probe: does the source hold committed rows the
+        flow has not folded? Reads only sequence counters — no scan."""
+        from . import lowering
+        src, regions = self._source_counters(spec)
+        if src is None:
+            return False
+        if regions is None:
+            return True                  # no counters: assume lagging
+        return lowering.source_lagging(spec, regions)
+
+    def refresh(self, spec: FlowSpec) -> int:
+        """Fold only if the source advanced past the watermark (the
+        read-side hook: a rollup-rewritten query first catches the sink
+        up, so rewrite answers equal the raw scan). Counter-less sources
+        cannot answer "did anything change?" cheaply, so their read-path
+        folds are rate-limited instead of running per query."""
+        src, regions = self._source_counters(spec)
+        if src is None:
+            return 0
+        if regions is None:
+            import time
+            now = time.monotonic()
+            last = self._last_generic_fold.get(spec.key)
+            if last is not None and \
+                    now - last < self.generic_refresh_min_interval_s:
+                return 0
+            self._last_generic_fold[spec.key] = now
+            return self.fold_flow(spec)
+        if not self.lagging(spec):
+            return 0
+        return self.fold_flow(spec)
+
+    def fold_flow(self, spec: FlowSpec) -> int:
+        """One incremental fold of a flow. Returns bucket rows written."""
+        from ..common import exec_stats
+        from ..common.telemetry import increment_counter, span, timer
+        src = self.catalog.table(spec.catalog, spec.schema, spec.source)
+        dst = self.catalog.table(spec.catalog, spec.schema, spec.sink)
+        if src is None or dst is None:
+            logger.warning("flow %s: source or sink missing; skipping",
+                           spec.key)
+            return 0
+        with self._fold_lock:
+            _fp.fail_point("flow_fold")
+            wm_before = json.dumps(spec.watermarks, sort_keys=True)
+            with span("flow_fold", flow=spec.name, source=spec.source,
+                      sink=spec.sink), timer("flow_fold"):
+                # all data access (regions, scan cache, scan_batches,
+                # IR plans) lives in flow/lowering.py — the one module
+                # under flow/ that touches it
+                from . import lowering
+                written, new_rows = lowering.fold_source(spec, src, dst,
+                                                         self.device)
+            if written or new_rows:
+                spec.stats["folds"] = spec.stats.get("folds", 0) + 1
+                spec.stats["rows_folded"] = \
+                    spec.stats.get("rows_folded", 0) + new_rows
+                spec.stats["buckets_written"] = \
+                    spec.stats.get("buckets_written", 0) + written
+                increment_counter("flow_folds")
+                increment_counter("flow_rows_folded", new_rows)
+                increment_counter("flow_buckets_written", written)
+                exec_stats.record("flow_fold", rows=new_rows,
+                                  flow=spec.name, buckets=written)
+            # persist only when the fold changed something — an idle
+            # background tick must not PUT a byte-identical doc per flow
+            dirty = bool(written or new_rows) or \
+                json.dumps(spec.watermarks, sort_keys=True) != wm_before
+            # crash HERE = sink rows written, watermark never persisted:
+            # the reopened flow re-folds the same window, and sink MVCC
+            # overwrite keeps the re-fold idempotent (no double counting)
+            _fp.fail_point("flow_fold_commit")
+            with self._lock:
+                if dirty and self.store is not None and \
+                        spec.key in self._flows:
+                    self.store.save(spec)
+        return written
+

@@ -1,0 +1,233 @@
+"""Transparent rollup rewrite: serve GROUP BY date_bin from a flow sink.
+
+The read half of the flow subsystem (reference: materialized-view query
+rewrite; GreptimeDB serves flows as ordinary tables, the rewrite is this
+build's extension). A `GROUP BY date_bin(stride', ts)` aggregate over a
+flow's source table is re-targeted at the rollup sink when:
+
+- stride' is a multiple of the flow stride (bucket-aligned origins),
+- every GROUP BY key is the time bucket or a tag the flow preserves,
+- WHERE touches only preserved tags and bucket-aligned time ranges,
+- every aggregate is derivable from the stored columns:
+  sum/count/min/max/first/last map 1:1 (count re-sums the stored counts),
+  avg derives from a stored sum + count pair.
+
+The rewritten statement then flows through the normal dispatch chain
+(device-resident / streamed / CPU) against a table ~stride'/1 smaller;
+EXPLAIN and EXPLAIN ANALYZE name the decision as `rollup-rewrite`.
+
+Ported from greptimedb_tpu/flow/rewrite.py.
+"""
+
+from __future__ import annotations
+
+import copy
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+from ..sql import ast
+from ..sql.ast import BinaryOp, Cast, Column, FunctionCall, ObjectName
+
+#: process-global kill switch (SET rollup_rewrite = 0/1) — the
+#: differential tests and operators compare against the raw path with it
+_ENABLED = [True]
+
+from ..query.planner import _AGG_CANON  # one alias map, not three copies
+
+_DIRECT_OPS = {"sum", "min", "max", "first", "last"}
+_INT_TYPE_NAMES = {"Int8", "Int16", "Int32", "Int64",
+                   "UInt8", "UInt16", "UInt32", "UInt64"}
+
+
+def set_enabled(on: bool) -> None:
+    _ENABLED[0] = bool(on)
+
+
+def enabled() -> bool:
+    return _ENABLED[0]
+
+
+@dataclass
+class RollupRewrite:
+    flow: object                   # FlowSpec
+    query: ast.Query               # rewritten, targeting the sink
+    sink: str
+    note: str                      # EXPLAIN / dispatch detail
+
+
+def try_rewrite(manager, table, analysis, query: ast.Query, ctx
+                ) -> Optional[RollupRewrite]:
+    """Return a rewrite of `query` onto a flow sink, or None."""
+    if manager is None or not _ENABLED[0]:
+        return None
+    if not analysis.is_aggregate or query.joins or \
+            query.from_ is None or query.from_.name is None:
+        return None
+    catalog, schema_name, name = ctx.resolve(query.from_.name)
+    flows = manager.flows_for_source(catalog, schema_name, name)
+    if not flows:
+        return None
+    # prefer the coarsest compatible flow: biggest row reduction
+    for flow in sorted(flows, key=lambda f: -f.stride_ms):
+        rw = _rewrite_for(flow, table, analysis, query)
+        if rw is not None:
+            return rw
+    return None
+
+
+def _rewrite_for(flow, table, a, query: ast.Query
+                 ) -> Optional[RollupRewrite]:
+    from ..query.expr import expr_name
+    from ..query.tpu_exec import (_conjuncts, _match_bucket,
+                                  _match_time_pred, _refs)
+
+    schema = table.schema
+    tc = schema.timestamp_column
+    if tc is None or tc.name != flow.ts_column:
+        return None
+    ts_name = tc.name
+    tag_set = set(flow.tags)
+
+    # GROUP BY: exactly one bucket over ts, every other key a kept tag
+    bucket = None
+    qtags = set()
+    for g in a.group_exprs:
+        if isinstance(g, Column) and g.name in tag_set:
+            qtags.add(g.name)
+            continue
+        b = _match_bucket(g, ts_name)
+        if b is not None and bucket is None:
+            bucket = b
+            continue
+        return None
+    if bucket is None:
+        return None
+    s = flow.stride_ms
+    if bucket.stride_ms % s != 0 or \
+            (bucket.origin - flow.origin_ms) % s != 0:
+        return None
+
+    # WHERE: preserved tags, or bucket-aligned time ranges
+    for c in _conjuncts(query.where):
+        refs = _refs(c)
+        if refs and refs <= tag_set:
+            continue
+        if refs == {ts_name}:
+            rng = _match_time_pred(c, ts_name)
+            if rng is None:
+                return None
+            lo, hi = rng
+            if lo is not None and (lo - flow.origin_ms) % s != 0:
+                return None
+            if hi is not None and (hi - flow.origin_ms) % s != 0:
+                return None
+            continue
+        return None
+
+    # aggregate derivability: (op, column) -> replacement builder
+    by_key: Dict[Tuple[str, Optional[str]], str] = {
+        (fa.op, fa.column): fa.dest for fa in flow.aggs}
+
+    def _src_int_type(col: Optional[str]) -> Optional[str]:
+        """Source column's integral type name, or None — sink columns
+        are FLOAT64, so integer results must cast back (the same rule
+        _result_dtype_override applies on the raw path)."""
+        if col is None or not schema.contains(col):
+            return None
+        d = schema.column_schema(col).dtype
+        return d.name if d.name in _INT_TYPE_NAMES else None
+
+    def map_call(op: str, col: Optional[str]):
+        """Replacement expr for op(col) over the sink, or None."""
+        if op == "count":
+            dest = by_key.get(("count", col))
+            if dest is None:
+                return None
+            # counts re-sum; cast back so the result stays integral
+            return Cast(FunctionCall("sum", [Column(dest)]), "bigint")
+        if op in _DIRECT_OPS:
+            dest = by_key.get((op, col))
+            if dest is None:
+                return None
+            out = FunctionCall(op, [Column(dest)])
+            it = _src_int_type(col)
+            if it is not None:
+                return Cast(out, "bigint" if op == "sum" else it)
+            return out
+        if op == "avg":
+            ds = by_key.get(("sum", col))
+            dc = by_key.get(("count", col))
+            if ds is None or dc is None:
+                return None
+            return BinaryOp("/", FunctionCall("sum", [Column(ds)]),
+                            FunctionCall("sum", [Column(dc)]))
+        return None
+
+    for call in a.agg_calls:
+        if call.distinct or call.params:
+            return None
+        if call.arg is None:
+            col = None
+        elif isinstance(call.arg, Column):
+            col = call.arg.name
+        else:
+            return None
+        if map_call(call.op, col) is None:
+            return None
+        if call.op in ("first", "last") and qtags != tag_set:
+            # collapsing the flow's tag dimension loses intra-bucket
+            # timestamps: first/last over per-series sink rows cannot
+            # reproduce the globally time-ordered raw answer
+            return None
+
+    # ---- build the rewritten statement ----
+    new_q = copy.deepcopy(query)
+    new_q.from_ = ast.TableRef(
+        name=ObjectName([flow.catalog, flow.schema, flow.sink]),
+        alias=query.from_.alias)
+
+    def xform(e):
+        if e is None or isinstance(e, (ast.Literal, ast.Star)):
+            return e
+        if isinstance(e, Column):
+            return Column(e.name)        # drop source-table qualifiers
+        if isinstance(e, FunctionCall) and e.over is None and \
+                not e.distinct:
+            op = _AGG_CANON.get(e.name, e.name)
+            if op == "avg" or op == "count" or op in _DIRECT_OPS:
+                col = None
+                shape_ok = False
+                if op == "count" and (not e.args or
+                                      isinstance(e.args[0], ast.Star)):
+                    shape_ok = True            # count(*)
+                elif len(e.args) == 1 and isinstance(e.args[0], Column):
+                    col = e.args[0].name
+                    shape_ok = True
+                if shape_ok:
+                    repl = map_call(op, col)
+                    if repl is not None:
+                        return repl
+        if isinstance(e, FunctionCall):
+            out = FunctionCall(e.name, [xform(x) for x in e.args],
+                               e.distinct)
+            if e.over is not None:
+                out.over = ast.WindowSpec(
+                    [xform(x) for x in e.over.partition_by],
+                    [(xform(x), asc) for x, asc in e.over.order_by],
+                    e.over.frame)
+            return out
+        from ..query.planner import map_expr_children
+        return map_expr_children(e, xform)
+
+    new_q.projections = []
+    for item in query.projections:
+        alias = item.alias or expr_name(item.expr)
+        new_q.projections.append(ast.SelectItem(xform(item.expr), alias))
+    new_q.where = xform(query.where)
+    new_q.group_by = [xform(g) for g in query.group_by]
+    new_q.having = xform(query.having)
+    new_q.order_by = [(xform(e), asc) for e, asc in query.order_by]
+
+    note = (f"flow {flow.name}: {flow.source} -> {flow.sink}, "
+            f"stride {s}ms -> {bucket.stride_ms}ms")
+    return RollupRewrite(flow=flow, query=new_q, sink=flow.sink, note=note)

@@ -48,7 +48,8 @@ class FrontendInstance:
         self._tql_engine = None
         self.statement_executor = StatementExecutor(
             self.catalog, datanode.engines, self.query_engine,
-            procedure_manager=datanode.procedure_manager)
+            procedure_manager=datanode.procedure_manager,
+            flow_manager=datanode.flow_manager)
         from ..common import background_jobs, process_list
         process_list.configure_node("standalone")
         background_jobs.configure_node("standalone")

@@ -5,10 +5,11 @@ handlers (src/datanode/src/sql/*.rs): CREATE/DROP/ALTER TABLE, CREATE/DROP
 DATABASE, INSERT, DELETE, USE, SET, TRUNCATE.
 
 Ported from greptimedb_tpu/frontend/statement.py. DDL runs through the
-procedure manager when the datanode has one. Not ported yet, and raising
+procedure manager when the datanode has one; CREATE / DROP / SHOW FLOW
+go to the datanode's FlowManager (flow/). Not ported yet, and raising
 UnsupportedError: CREATE EXTERNAL TABLE (the file-table engine), COPY
-(common/datasource), flows, ADMIN SHOW TRACE / SHOW PROFILE (the trace
-store and the profiler) and KILL.
+(common/datasource), ADMIN SHOW TRACE / SHOW PROFILE (the trace store and
+the profiler) and KILL.
 """
 
 from __future__ import annotations
@@ -77,6 +78,42 @@ def build_schema_from_create(stmt: ast.CreateTable):
     pk_indices = [i for i, c in enumerate(cols)
                   if c.semantic_type == SemanticType.TAG]
     return schema, pk_indices
+
+
+def show_flows_output(flow_manager, stmt: ast.ShowFlows,
+                      ctx: QueryContext) -> Output:
+    """SHOW FLOWS rendering. The `watermark` column carries
+    wall-advancing fold state; the sqlness runner normalizes it in
+    goldens."""
+    import re
+
+    from ..datatypes import data_type as dt
+    from ..datatypes.record_batch import RecordBatch
+    from ..query.expr import like_to_regex
+
+    flows = flow_manager.flows(ctx.current_catalog, ctx.current_schema)
+    if stmt.like:
+        rx = re.compile(like_to_regex(stmt.like))
+        flows = [f for f in flows if rx.match(f.name)]
+    schema = Schema([
+        ColumnSchema("flow_name", dt.STRING),
+        ColumnSchema("source", dt.STRING),
+        ColumnSchema("sink", dt.STRING),
+        ColumnSchema("stride_ms", dt.INT64),
+        ColumnSchema("aggs", dt.STRING),
+        ColumnSchema("watermark", dt.INT64, nullable=True),
+        ColumnSchema("rows_folded", dt.INT64),
+    ])
+    rb = RecordBatch.from_pydict(schema, {
+        "flow_name": [f.name for f in flows],
+        "source": [f.source for f in flows],
+        "sink": [f.sink for f in flows],
+        "stride_ms": [f.stride_ms for f in flows],
+        "aggs": [", ".join(a.describe() for a in f.aggs) for f in flows],
+        "watermark": [f.watermark_ts() for f in flows],
+        "rows_folded": [f.stats.get("rows_folded", 0) for f in flows],
+    })
+    return Output.record_batches([rb], schema)
 
 
 def evaluate_insert_rows(stmt: ast.Insert, columns, query_engine, ctx
@@ -200,6 +237,15 @@ def apply_set_variable(stmt: ast.SetVariable, ctx: QueryContext) -> Output:
         # GREPTIME_SLOW_QUERY_MS env/config (off when unset)
         from ..common.telemetry import set_slow_query_threshold_ms
         set_slow_query_threshold_ms(_int_setting(stmt))
+    elif name == "rollup_rewrite":
+        # flow rollup-rewrite kill switch (differential tests and
+        # operators compare against the raw path with it off)
+        from ..flow import rewrite as flow_rewrite
+        try:
+            flow_rewrite.set_enabled(bool(int(stmt.value)))
+        except (TypeError, ValueError):
+            raise InvalidArgumentsError(
+                f"SET {stmt.name}: expected 0 or 1, got {stmt.value!r}")
     elif name.startswith("failpoint_"):
         # fault-injection surface: SET failpoint_<point> = 'action'
         # ('off' or 0 disarms). Same registry as GREPTIME_FAILPOINTS
@@ -293,7 +339,6 @@ def apply_set_variable(stmt: ast.SetVariable, ctx: QueryContext) -> Output:
 #: the reference's session knobs whose modules the port does not have
 #: yet: knob names → what is missing
 _KNOBS_NOT_PORTED = {
-    **dict.fromkeys(("rollup_rewrite",), "the flow rollup rewrite (flow/)"),
     **dict.fromkeys(("dist_fanout", "dist_rpc_max_retries",
                      "dist_rpc_retry_base_ms", "dist_partial_agg",
                      "exact_distinct"),
@@ -315,13 +360,15 @@ _KNOBS_NOT_PORTED = {
 class StatementExecutor:
     def __init__(self, catalog: CatalogManager,
                  engines: Dict[str, TableEngine], query_engine,
-                 procedure_manager=None):
+                 procedure_manager=None, flow_manager=None):
         self.catalog = catalog
         self.engines = engines
         self.query_engine = query_engine
         # when present, DDL runs as durable procedures (reference:
         # table-procedure + mito DDL procedures)
         self.procedure_manager = procedure_manager
+        # continuous rollup flows (flow/manager.py)
+        self.flow_manager = flow_manager
 
     def engine_for(self, name: str) -> TableEngine:
         engine = self.engines.get(name)
@@ -449,19 +496,25 @@ class StatementExecutor:
         engine.truncate_table(catalog, schema_name, table_name)
         return Output.rows(0)
 
-    # ---- not ported yet ----
+    # ---- flows (continuous rollups) ----
+    def _require_flows(self):
+        if self.flow_manager is None:
+            raise UnsupportedError("flows are not enabled on this node")
+        return self.flow_manager
+
     def create_flow(self, stmt: ast.CreateFlow, ctx: QueryContext) -> Output:
-        raise UnsupportedError("CREATE FLOW: flows (flow/) are not ported "
-                               "yet")
+        self._require_flows().create_flow(stmt, ctx)
+        return Output.rows(0)
 
     def drop_flow(self, stmt: ast.DropFlow, ctx: QueryContext) -> Output:
-        raise UnsupportedError("DROP FLOW: flows (flow/) are not ported "
-                               "yet")
+        self._require_flows().drop_flow(stmt.name, ctx,
+                                        if_exists=stmt.if_exists)
+        return Output.rows(0)
 
     def show_flows(self, stmt: ast.ShowFlows, ctx: QueryContext) -> Output:
-        raise UnsupportedError("SHOW FLOWS: flows (flow/) are not ported "
-                               "yet")
+        return show_flows_output(self._require_flows(), stmt, ctx)
 
+    # ---- not ported yet ----
     def copy(self, stmt: ast.Copy, ctx: QueryContext) -> Output:
         raise UnsupportedError("COPY: the file formats and codecs "
                                "(common/datasource.py) are not ported yet")

@@ -8,8 +8,10 @@ engine's device) and otherwise run the pandas columnar fallback.
 
 Ported: SELECT (with joins, UNION, uncorrelated subqueries and window
 functions, which run in pandas), EXPLAIN / EXPLAIN ANALYZE, SHOW,
-DESCRIBE and information_schema. Not ported yet: the flow rollup rewrite
-(flow/), so no statement is re-targeted at a rollup sink.
+DESCRIBE, information_schema and the flow rollup rewrite (flow/rewrite.py:
+a compatible `GROUP BY date_bin` is re-targeted at a flow's rollup sink
+after a refresh fold, and EXPLAIN names it as the `rollup-rewrite`
+dispatch).
 """
 
 from __future__ import annotations
@@ -55,6 +57,9 @@ class QueryEngine:
         #: the slow-query log and EXPLAIN ANALYZE read it (diagnostic only;
         #: a concurrent server sees the latest finished query's stats)
         self.last_exec_stats: Optional[exec_stats.ExecStats] = None
+        #: set by the hosting instance when flows exist; enables the
+        #: transparent rollup rewrite (flow/rewrite.py)
+        self.flow_manager = None
 
     # ---- dispatch ----
     def execute(self, stmt: Statement, ctx: Optional[QueryContext] = None
@@ -106,13 +111,23 @@ class QueryEngine:
             table = None
             if inner.from_ is not None and inner.from_.name is not None:
                 table = self.resolve_table(inner.from_, ctx)
+            # rollup rewrite first (no fold on plain EXPLAIN): the plan
+            # below then describes the statement actually executed —
+            # against the flow sink — with the rewrite as the dispatch.
+            # `inner` stays the original so EXPLAIN ANALYZE re-enters the
+            # execution path (which rewrites again, with a refresh fold).
+            pq, rollup_note = inner, None
             if table is not None:
                 # same literal→timestamp coercion the execution path
-                # applies, so the explained dispatch matches the executed
-                # one
+                # applies, so the explained dispatch (incl. the rewrite's
+                # aligned-time-range check) matches the executed one
                 inner.where = convert_time_literals(inner.where,
                                                     table.schema)
-            plan = tpu_exec.plan_for(table, a, inner) if table else None
+                rw = self._maybe_rollup_rewrite(table, a, inner, ctx,
+                                                refresh=False)
+                if rw is not None:
+                    table, pq, a, rollup_note = rw
+            plan = tpu_exec.plan_for(table, a, pq) if table else None
             if plan is not None:
                 # pin the dispatch decision (sqlness explain goldens):
                 # pushdown / cpu-small-scan / streamed-cold / resident.
@@ -140,8 +155,13 @@ class QueryEngine:
                     expr_name(g) for g in a.group_exprs))
             else:
                 lines.append("CpuProjectionExec")
-            if inner.where is not None:
-                lines.append("  Filter: " + expr_name(inner.where))
+            if rollup_note is not None:
+                # the rewrite is the outermost dispatch decision; the
+                # underlying device/CPU decision for the sink follows
+                lines.insert(1, f"  Dispatch: rollup-rewrite "
+                                f"({rollup_note})")
+            if pq.where is not None:
+                lines.append("  Filter: " + expr_name(pq.where))
             if table is not None:
                 lines.append(f"  TableScan: {table.name}")
         else:
@@ -226,6 +246,14 @@ class QueryEngine:
         # post-resolution (reference: TypeConversionRule, optimizer.rs:33)
         query.where = convert_time_literals(query.where, table.schema)
 
+        # transparent rollup rewrite: a compatible GROUP BY date_bin is
+        # re-targeted at a flow's rollup sink (after an incremental
+        # refresh fold, so answers equal the raw scan); the rewritten
+        # statement then takes the normal dispatch chain below
+        rw = self._maybe_rollup_rewrite(table, a, query, ctx, refresh=True)
+        if rw is not None:
+            table, query, a, _ = rw
+
         # device fast path
         result = tpu_exec.try_execute(table, a, query, self.device)
         if result is not None:
@@ -257,6 +285,45 @@ class QueryEngine:
                 df = _batches_to_df(table.scan_batches(projection=needed))
         exec_stats.record("scan", rows=len(df), cached=cached)
         return self._run_on_frame(df, a, query, table)
+
+    # ---- rollup rewrite (flows) ----
+    def _maybe_rollup_rewrite(self, table, a: Analysis, query: Query,
+                              ctx: QueryContext, *, refresh: bool):
+        """(table, query, analysis, note) for a flow-sink rewrite of this
+        statement, or None. refresh=True first folds source rows past the
+        flow's watermark into the sink (skipped for plain EXPLAIN)."""
+        manager = self.flow_manager
+        if manager is None:
+            return None
+        import logging
+
+        from ..flow import rewrite as flow_rewrite
+        try:
+            rw = flow_rewrite.try_rewrite(manager, table, a, query, ctx)
+        except Exception:  # noqa: BLE001 — the rewrite must never break
+            logging.getLogger(__name__).exception(  # a query; fall back
+                "rollup rewrite failed")            # to raw
+            return None
+        if rw is None:
+            return None
+        if refresh:
+            try:
+                manager.refresh(rw.flow)
+            except Exception:  # noqa: BLE001 — a sink that cannot catch
+                logging.getLogger(__name__).exception(  # up may be
+                    "flow %s refresh failed; serving the raw scan",
+                    rw.flow.name)     # arbitrarily wrong (even empty):
+                return None           # answer from the raw table
+        try:
+            sink_table = self.resolve_table(rw.query.from_, ctx)
+        except TableNotFoundError:
+            # sink dropped while the flow still exists: the raw scan
+            # must keep answering (fold_flow skips the same way)
+            return None
+        exec_stats.set_dispatch(f"rollup-rewrite ({rw.note})")
+        exec_stats.record("rollup_rewrite", flow=rw.flow.name,
+                          sink=rw.sink)
+        return sink_table, rw.query, analyze(rw.query), rw.note
 
     # ---- UNION [ALL] ----
     def execute_set_query(self, sq: SetQuery, ctx: QueryContext) -> Output:

@@ -164,12 +164,16 @@ class MergedScan:
         return self.mirrors[key]
 
     def device_valid(self, name: str) -> torch.Tensor:
+        """A field's validity mask on the device. A field with no null
+        row shares the one all-valid mask, so the kernel reads no mask
+        of its own for it (a scan that takes in memtable rows carries a
+        validity array for every field: write batches build one even
+        without nulls)."""
         key = f"v:{name}"
         if key not in self.mirrors:
             _, valid = self.fields[name]
-            if valid is None:
-                return self.device_valid_all()
-            self.mirrors[key] = self.to_device(valid)
+            self.mirrors[key] = self.device_valid_all() \
+                if valid is None or valid.all() else self.to_device(valid)
         return self.mirrors[key]
 
     def device_valid_all(self) -> torch.Tensor:
@@ -188,8 +192,12 @@ class MergedScan:
             total += getattr(vals, "nbytes", 8 * len(vals))
             if valid is not None:
                 total += valid.nbytes
+        seen = set()                  # an all-valid field's mask is shared
         for v in self.mirrors.values():
             for x in (v if isinstance(v, tuple) else (v,)):
+                if id(x) in seen:
+                    continue
+                seen.add(id(x))
                 if isinstance(x, torch.Tensor):
                     total += x.numel() * x.element_size()
                 else:
@@ -340,7 +348,7 @@ class _ScanCache:
             sids = data.series_ids[kept]
             ts = data.ts[kept]
             seq = data.seq[kept]
-            fields = {n: (d[kept], _some_null(vd, kept))
+            fields = {n: (d[kept], vd[kept] if vd is not None else None)
                       for n, (d, vd) in data.fields.items()}
         else:
             sids, ts, seq = data.series_ids, data.ts, data.seq
@@ -469,31 +477,14 @@ class _ScanCache:
                     x if x is not None else np.ones(len(r[4][name][0]),
                                                     dtype=bool)
                     for x, r in zip(dvs, runs)])[dsel]
-                # an all-valid field shares the one all-valid device mask
-                if cv is not None or not dv[dlive].all():
-                    valid = splice(cv if cv is not None
-                                   else np.ones(n_cached, bool), dv)
-                    if valid.all():
-                        valid = None
+                valid = splice(cv if cv is not None
+                               else np.ones(n_cached, bool), dv)
             fields[name] = (splice(cd, dd), valid)
         if prof is not None:
             prof.mark("merge", time.perf_counter() - t1)
         base = int(ts.min()) if ts.size else 0
         return MergedScan(sids, ts, fields, cached.series_dict, base,
                           cached.torch_device, seq=seq)
-
-
-def _some_null(valid: Optional[np.ndarray],
-               kept: np.ndarray) -> Optional[np.ndarray]:
-    """A field's validity over the kept rows, or None when every kept row
-    is valid: a scan that takes in memtable rows carries a validity
-    array for every field (write batches build one even without nulls),
-    and a None column shares the one all-valid device mask instead of a
-    mirror and a kernel mask read of its own."""
-    if valid is None:
-        return None
-    v = valid[kept]
-    return None if v.all() else v
 
 
 SCAN_CACHE = _ScanCache()

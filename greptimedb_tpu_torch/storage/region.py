@@ -99,7 +99,10 @@ class ScanProfile:
     region (`last_scan_profile`) — the scan twin of IngestProfile. `path`
     names the route taken: "resident" (scan cache + device kernel),
     "streamed" (cold slice streaming, query/stream_exec.py) or
-    "indexed-point" (the SST index, then a host reduction). Host-clock
+    "indexed-point" (the SST index, then a host reduction); a flow fold
+    leaves "flow-fold" (storage/downsample.py names its stages) or
+    "flow-fold-cold" (read_merged, reduce, sink_write: the host fold of
+    flow/lowering.py). Host-clock
     stages (seconds) of the resident path (query/tpu_exec.py): scan_prep
     (cache lookup or merged scan build; on a miss or an incremental
     merge, its parts region_scan — memtables and SST decode — and

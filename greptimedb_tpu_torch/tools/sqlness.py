@@ -13,9 +13,10 @@ rendering as the JAX package's tests/sqlness/runner.py, over the port's
 own `RecordBatch` and `pretty_print`; it reads the cases by path
 (default: the repo's tests/sqlness/cases/standalone/) and imports nothing
 of the JAX package. Each case gets a fresh data home and a fresh
-`build_standalone(DatanodeOptions(device=...))`; the failpoint registry
-and the background-job registry are reset first, as a fresh server's
-would be. The device is "cuda" unless `--device cpu` asks for the CPU;
+`build_standalone(DatanodeOptions(device=...))`, whose flows fold only
+when a statement folds them (no background tick, as under the test
+suite); the failpoint registry and the background-job registry are reset
+first, as a fresh server's would be. The device is "cuda" unless `--device cpu` asks for the CPU;
 without CUDA a run on "cuda" raises instead of answering. `filter` keeps
 the cases whose path (relative to the cases directory) contains one of
 the substrings. Exit code 0 when every case matched, 1 otherwise (the
@@ -41,14 +42,15 @@ CASES_DIR = Path(__file__).resolve().parents[2] / "tests" / "sqlness" / \
 IN_SCOPE = (
     "aggregate/aggregate", "alter/alter", "basic/basic", "cast/cast",
     "create/create", "cte/cte", "delete/delete", "explain/dispatch",
-    "functions/functions", "insert/default_values", "insert/insert",
-    "insert/insert_invalid", "insert/insert_select", "join/join",
-    "limit/limit", "order/null_ordering", "order/order_by",
-    "schema/schema", "show/show", "subquery/subquery",
-    "system/cluster_info", "system/information_schema",
-    "system/runtime_metrics", "timestamp/time_units",
-    "timestamp/timestamp", "tql/explain", "tql/operators",
-    "tql/range_functions", "tql/tql", "union/union", "window/window",
+    "explain/rollup", "flow/create_flow", "functions/functions",
+    "insert/default_values", "insert/insert", "insert/insert_invalid",
+    "insert/insert_select", "join/join", "limit/limit",
+    "order/null_ordering", "order/order_by", "schema/schema", "show/show",
+    "subquery/subquery", "system/background_jobs", "system/cluster_info",
+    "system/information_schema", "system/runtime_metrics",
+    "timestamp/time_units", "timestamp/timestamp", "tql/explain",
+    "tql/operators", "tql/range_functions", "tql/tql", "union/union",
+    "window/window",
 )
 #: cases of the same surface that wait for a later module: case -> module
 WAITING = {"system/failpoints": "common/profiler.py"}
@@ -210,7 +212,8 @@ def run_one(sql_path: Path, device: str = "cuda") -> Optional[str]:
     background_jobs.reset()
     with tempfile.TemporaryDirectory() as home:
         fe = build_standalone(DatanodeOptions(
-            data_home=home, register_numbers_table=True, device=device))
+            data_home=home, register_numbers_table=True,
+            flow_tick_interval_s=0, device=device))
         try:
             got = run_case(sql_path.read_text(), fe)
         finally:

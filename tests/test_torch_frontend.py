@@ -445,14 +445,15 @@ def test_packages_open_each_others_data_home(run, label):
     "CREATE EXTERNAL TABLE e (host STRING, ts TIMESTAMP TIME INDEX) WITH "
     "(location = '/nonexistent', format = 'csv')",
     "COPY monitor TO '/nonexistent/x.parquet'",
-    "CREATE FLOW f SINK TO s AS SELECT host, date_bin(INTERVAL '1 minute', "
-    "ts) AS b, max(cpu) FROM monitor GROUP BY host, b",
-    "SHOW FLOWS",
+    "COPY monitor FROM '/nonexistent/x.parquet'",
     "ADMIN SHOW TRACE 'last'",
+    "ADMIN SHOW PROFILE 'last'",
     "KILL 1",
     "SET profiling = 1",
     "SET dist_fanout = 4",
     "SET exact_distinct = 1",
+    "SET trace_sample_ratio = 1",
+    "SET ingest_coalesce = 1",
 ])
 def test_port_raises_for_what_it_has_not_ported(tmp_path, sql):
     ref_parse(sql)                        # the reference's grammar has it

@@ -326,7 +326,8 @@ def test_sql_surface_imports_no_reference():
                                     "query/window.py",
                                     "catalog/information_schema.py",
                                     "tools/sqlness.py",
-                                    "promql/lowering.py"])
+                                    "promql/lowering.py",
+                                    "storage/downsample.py"])
 def test_surface_modules_are_the_ports_own(module):
     """The SQL surface's modules exist in the port, import nothing
     forbidden and keep their imports relative."""
@@ -387,6 +388,50 @@ def test_promql_over_tables_imports_no_reference():
         assert f"greptimedb_tpu_torch.{m}" in new, m
 
 
+_FLOW_PROBE = r"""
+import json, sys, tempfile
+before = set(sys.modules)
+from greptimedb_tpu_torch.datanode import DatanodeOptions
+from greptimedb_tpu_torch.frontend import build_standalone
+
+with tempfile.TemporaryDirectory() as home:
+    fe = build_standalone(DatanodeOptions(data_home=home, device="cpu"))
+    fe.do_query("CREATE TABLE c (host STRING, ts TIMESTAMP TIME INDEX, "
+                "v DOUBLE, PRIMARY KEY(host))")
+    fe.do_query("INSERT INTO c VALUES " + ", ".join(
+        f"('h{i % 3}', {i * 10_000}, {float(i % 7)})" for i in range(90)))
+    fe.do_query("CREATE FLOW c_1m AS SELECT host, date_bin(INTERVAL "
+                "'1 minute', ts) AS b, sum(v) AS s, count(v) AS n FROM c "
+                "GROUP BY host, b")
+    assert fe.datanode.flow_manager.tick()["greptime.public.c_1m"] > 0
+    fe.do_query("SELECT host, date_bin(INTERVAL '5 minutes', ts) AS b, "
+                "avg(v) FROM c GROUP BY host, b")
+    assert "rollup-rewrite" in fe.query_engine.last_exec_stats.dispatch
+    assert fe.do_query("SHOW FLOWS")[0].num_rows == 1
+    assert fe.do_query("SELECT * FROM information_schema.flows")[0]         .num_rows == 1
+    fe.shutdown()
+new = sorted(set(sys.modules) - before)
+print(json.dumps(new))
+"""
+
+
+def test_flow_path_imports_no_reference():
+    """CREATE FLOW, a fold, the rollup rewrite, SHOW FLOWS and
+    information_schema.flows run on the CPU without adding jax or
+    greptimedb_tpu to sys.modules, through the port's own flow/ and
+    storage/downsample.py."""
+    out = subprocess.run([sys.executable, "-c", _FLOW_PROBE], cwd=REPO,
+                         env=_ENV, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    new = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in new if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+    for m in ("flow.manager", "flow.lowering", "flow.rewrite",
+              "storage.downsample"):
+        assert f"greptimedb_tpu_torch.{m}" in new, m
+
+
 def test_chip_smoke_imports_nothing_forbidden():
     """chip_smoke.py imports neither jax nor the JAX package, at module
     level or inside a function."""
@@ -431,7 +476,7 @@ def test_port_sources_import_nothing_forbidden():
 
 
 @pytest.mark.parametrize("package", ["mito", "procedure", "partition",
-                                     "datanode", "frontend"])
+                                     "datanode", "frontend", "flow"])
 def test_frontend_packages_are_the_ports_own(package):
     """Each package of the standalone frontend exists in the port, imports
     nothing forbidden and keeps its imports relative (the walk over every

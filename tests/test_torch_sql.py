@@ -303,11 +303,10 @@ def test_mvcc_overwrite_and_delete_visible(engines):
 
 def test_unsupported_statements_raise(engines):
     """information_schema tables over modules the port does not have
-    yet (flows, the trace store, the profiler, the self-monitor) raise
+    yet (the trace store, the profiler, the self-monitor) raise
     UnsupportedError naming them."""
     port = engines[2]
-    for sql in ("SELECT * FROM information_schema.flows",
-                "SELECT * FROM information_schema.trace_spans",
+    for sql in ("SELECT * FROM information_schema.trace_spans",
                 "SELECT * FROM information_schema.profile_samples",
                 "SELECT * FROM information_schema.self_monitor"):
         with pytest.raises(UnsupportedError):
@@ -316,14 +315,16 @@ def test_unsupported_statements_raise(engines):
 
 def test_all_valid_fields_share_the_valid_mask(engines):
     """The port's region merges SSTs with memtable rows, whose write
-    batches carry a validity array for every field: a field with no null
-    among the merged rows mirrors as the one all-valid mask, a field
-    with nulls keeps its own."""
+    batches carry a validity array for every field: the scan keeps each
+    array on the host, as the reference does (the raw-row frame reads a
+    field with one as float64), a field with no null among the merged
+    rows mirrors as the one all-valid mask, a field with nulls keeps its
+    own."""
     _, _, _, table, _ = engines
     (region,) = table.regions.values()
     assert region.version_control.current.memtables.mutable.num_rows == 2
     scan = tpu_exec.SCAN_CACHE.get(region, "cpu")
-    assert scan.fields["usage_system"][1] is None
+    assert scan.fields["usage_system"][1].all()
     assert scan.device_valid("usage_system") is scan.device_valid_all()
     assert not scan.fields["usage_user"][1].all()
 
