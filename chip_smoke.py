@@ -6,7 +6,8 @@
 Phases (none of them catches a failure; any failed check exits non-zero):
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions,
-   and whether pandas, pyarrow and prometheus_client import here;
+   and whether pandas, pyarrow, prometheus_client, aiohttp (phase 11's
+   server) and cryptography import here;
 2. builds both kernels from greptimedb_tpu_torch/csrc, the window-bounds
    kernel and the segment-moments kernel, one nvcc (sm_90a) each, started
    together, into the package's git-ignored build directory, and prints
@@ -154,11 +155,44 @@ Phases (none of them catches a failure; any failed check exits non-zero):
    gauges; ADMIN FLUSH TABLE of the sinks, shutdown() and
    build_standalone on the same data home (the time to recover), the
    flows back with their watermarks and a tick that folds nothing.
+11. the HTTP front door, on phase 9's frontend and tables (run right
+   after phase 9's checks, its launch counts set to 0 before and read
+   after): HttpServer(fe, addr="127.0.0.1:0").start() (servers/http.py,
+   aiohttp), every request over a real socket with urllib, the native
+   snappy codec loaded. /health, /status (the two tables' regions, a
+   resident scan cache), buildinfo, /api/v1/labels, the 4000 hostname
+   values and series. Through /api/v1/query_range at 24 h and a 60 s
+   step, warm, each beside the direct query_to_prom_json call of the same
+   query run back to back (their difference is the front door's own
+   cost): the row path's sum by (region) of rate (one K1 launch) and the
+   lowered avg by (region) of avg_over_time (one segment_moments launch),
+   each equal to phase 9's answer; both again with explain=1, equal to
+   TQL EXPLAIN; /api/v1/query of avg(cpu_usage_user) at the end of the
+   range against the float64 brute force; /v1/promql over the first hour,
+   equal to phase 9's TQL EVAL answer. /v1/sql with `SET
+   tpu_dispatch_min_rows = 0` and an aggregate by region (one launch),
+   equal to output_to_json of do_query's Output. Prometheus remote write
+   of 10 more minutes of phase 4's generator for every host on both
+   metrics (480 000 samples) in requests of 2000 samples, the
+   remote-write queue's default, from 8 concurrent senders: the wall, the
+   samples per second and the ingest_coalesce_* counters; count(*) of
+   each table through /v1/sql; the row path's rate over the last hour,
+   written minutes included, against the float64 brute force; remote read
+   of one host's written minutes, exactly the written samples. One minute
+   of TSBS cpu-only as InfluxDB lines (24 000 lines, 10 tags, 10 fields)
+   through /v1/influxdb/write from 8 senders, and avg(usage_user) by
+   hostname through /v1/sql against the brute force; one OpenTSDB telnet
+   put and one HTTP put read back. `SET admission_max_inflight = 1` and 8
+   concurrent /v1/sql aggregates: at least one 429 with Retry-After and
+   code 6001, counted by /status; /v1/scripts and /debug/prof/cpu answer
+   the error envelope naming their module; /metrics carries the
+   greptime_http_request latency series. Then the server shuts down.
 
 Before the last line come two JSON objects: the numbers of the bucket
 entry, which the main paths do not launch, then the kernel table of the
-main paths (PromQL's window bounds, SQL's and the flow folds' segment
-moments), each with its launches by phase; the last line is {"ok":
+main paths (PromQL's window bounds, SQL's, the flow folds' and the HTTP
+front door's segment moments), each with its launches by phase; the
+last line is {"ok":
 true, "device": {...}}.
 Without CUDA, or without the package beside this script, it exits
 non-zero and prints no result.
@@ -232,7 +266,8 @@ def phase_machine(torch) -> None:
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
-    for mod in ("pandas", "pyarrow", "prometheus_client"):
+    for mod in ("pandas", "pyarrow", "prometheus_client", "aiohttp",
+                "cryptography"):
         r = subprocess.run([sys.executable, "-c", f"import {mod}"],
                            capture_output=True, text=True)
         log(f"import {mod}: {'ok' if r.returncode == 0 else 'missing'}")
@@ -1127,7 +1162,7 @@ def tsbs_cpu_table(seed: int, hosts: int = HOSTS, hours: int = SQL_HOURS):
     (steps N(0, 1), start U(0, 100)). Returns ts [n], one tag tuple per
     host and {field: float64 [hosts, n]}."""
     rng = np.random.default_rng(seed)
-    n = hours * 3600_000 // INTERVAL_MS
+    n = int(hours * 3600_000 // INTERVAL_MS)
     ts = TSBS_START_MS + np.arange(n, dtype=np.int64) * INTERVAL_MS
     regions = list(TSBS_REGIONS)
     tags = []
@@ -3610,11 +3645,13 @@ def prom_tql(pf, start_s, end_s, span_end_s, answers):
         f"(with phase 8's, {len(sqlness.IN_SCOPE)} in-scope cases)")
 
 
-def phase_promql_tables(torch, p4):
+def phase_promql_tables(torch, p4, seed):
     """Phase 9: PromQL over the port's own regions through its standalone
-    frontend on the card. `p4` carries phase 4's series and answers.
-    Returns the phase's K1 launches, its segment_moments launches, and
-    each device-lowered query's segment_moments inputs (24 h, warm)."""
+    frontend on the card, then phase 11 (the HTTP front door) on the same
+    frontend. `p4` carries phase 4's series and answers. Returns the
+    phase's K1 launches, its segment_moments launches, each
+    device-lowered query's segment_moments inputs (24 h, warm), and phase
+    11's result (`phase_http`)."""
     import shutil
     import tempfile
 
@@ -3630,7 +3667,7 @@ def phase_promql_tables(torch, p4):
     steps = np.arange(start, end + 1, STEP_MS, dtype=np.int64)
     steps_s = steps.astype(np.float64) / 1000.0
     data_home = tempfile.mkdtemp(prefix="chip_smoke_prom_")
-    pf, moment_inputs = None, {}
+    pf, moment_inputs, lowered_answers = None, {}, {}
     try:
         pf = PromFrontend(torch, data_home)
         log(f"build_standalone(DatanodeOptions(data_home={data_home!r}, "
@@ -3685,6 +3722,7 @@ def phase_promql_tables(torch, p4):
                 got = json_matrix(q, res, key, keys, steps_s, wok)
                 compare(f"{q} [{run}]", got, want, wok,
                         LOWERED_RTOL * np.abs(want) + 1e-12)
+            lowered_answers[q] = res
             if nm:
                 # the warm launch's inputs, for the kernel's check and
                 # times at this shape after the phase
@@ -3734,12 +3772,666 @@ def phase_promql_tables(torch, p4):
               f"and segment_moments {nm} times")
         log(f"phase 9: {nk} counts_leq_grid and {nm} segment_moments "
             f"launches; {time.perf_counter() - t_phase:.1f}s")
+        http = phase_http(torch, pf, p4, seed, types.SimpleNamespace(
+            row=json_answers, lowered=lowered_answers, tql=tql_answers,
+            tql_end=tql_end))
     finally:
         if pf is not None:
             pf.close()
         tpu_exec.SCAN_CACHE.clear()
         shutil.rmtree(data_home, ignore_errors=True)
-    return nk, nm, moment_inputs
+    return nk, nm, moment_inputs, http
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the HTTP front door
+# ---------------------------------------------------------------------------
+
+#: Prometheus's remote-write queue_config defaults (its configuration
+#: documentation): samples per request and, here, the shards sending them
+SAMPLES_PER_SEND = 2000
+SHARDS = 8
+#: minutes of phase 4's generator written through remote write, and of
+#: TSBS cpu-only written as InfluxDB lines, in bodies of this many lines
+#: (Telegraf's default metric_batch_size; 5000 TSBS lines, 2.2 MB, exceed
+#: the server's 1 MiB request limit, aiohttp's default client_max_size,
+#: which the reference's server has too) from SHARDS senders
+WRITE_MINUTES = 10
+INFLUX_MINUTES = 1
+INFLUX_LINES_PER_BODY = 1000
+#: concurrent /v1/sql aggregates under `SET admission_max_inflight = 1`
+ADMISSION_SENDERS = 8
+#: `SELECT 1` over HTTP and through do_query, in turns: the front door's
+#: own cost apart from any query
+FRONT_DOOR_REPS = 50
+HTTP_TIMEOUT_S = 600
+
+
+class HttpClient:
+    """Requests to the phase's server over a real socket (urllib)."""
+
+    def __init__(self, port):
+        self.port = port
+
+    def call(self, path, method="GET", body=None, headers=None,
+             params=None):
+        """(status, body, headers, wall s)."""
+        import urllib.error
+        import urllib.parse
+        import urllib.request
+        url = f"http://127.0.0.1:{self.port}{path}"
+        if params:
+            url += "?" + urllib.parse.urlencode(params, doseq=True)
+        r = urllib.request.Request(url, data=body, method=method,
+                                   headers=headers or {})
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(r, timeout=HTTP_TIMEOUT_S) as resp:
+                out = resp.status, resp.read(), dict(resp.headers)
+        except urllib.error.HTTPError as e:
+            out = e.code, e.read(), dict(e.headers)
+        return (*out, time.perf_counter() - t0)
+
+    def json(self, path, status=200, **kw):
+        code, body, headers, wall = self.call(path, **kw)
+        check(code == status, f"{path} {kw.get('params')}: HTTP {code}, not "
+              f"{status}: {body[:500]!r}")
+        return json.loads(body), headers, wall
+
+    def sql(self, stmt, status=200):
+        import urllib.parse
+        return self.json("/v1/sql", status=status, method="POST",
+                         body=urllib.parse.urlencode({"sql": stmt}).encode(),
+                         headers={"Content-Type":
+                                  "application/x-www-form-urlencoded"})
+
+
+def parallel(fns):
+    """Run `fns` on threads started together; their results in order."""
+    import threading
+    out = [None] * len(fns)
+    errors = []
+    gate = threading.Barrier(len(fns))
+
+    def run(i):
+        gate.wait(timeout=HTTP_TIMEOUT_S)
+        try:
+            out[i] = fns[i]()
+        except BaseException as e:  # noqa: BLE001 — raised in the caller
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(fns))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=HTTP_TIMEOUT_S)
+    check(not any(t.is_alive() for t in threads), "a sender did not finish")
+    if errors:
+        raise errors[0]
+    return out
+
+
+def as_json(doc):
+    """A Python answer as the server's JSON renders it."""
+    return json.loads(json.dumps(doc))
+
+
+def records(out):
+    """{column: [values]} of a /v1/sql output's records."""
+    rec = out["records"]
+    names = [c["name"] for c in rec["schema"]["column_schemas"]]
+    return {n: [r[i] for r in rec["rows"]] for i, n in enumerate(names)}
+
+
+def continue_series(ts, metrics, seed, minutes):
+    """`minutes` more of phase 4's generator for every host: usage_user's
+    clamped walk and the counter continue from their last samples."""
+    rng = np.random.default_rng(seed + 11)
+    n = minutes * 60_000 // INTERVAL_MS
+    new_ts = ts[-1] + INTERVAL_MS * np.arange(1, n + 1, dtype=np.int64)
+    usage = metrics["cpu_usage_user"]
+    x = usage[:, -1].copy()
+    walk = np.empty((usage.shape[0], n))
+    steps = rng.standard_normal((n, usage.shape[0]))
+    for i in range(n):
+        x = np.clip(x + steps[i], 0.0, 100.0)
+        walk[:, i] = x
+    counter = metrics["cpu_seconds_total"][:, -1:] + np.cumsum(
+        walk / 100.0 * (INTERVAL_MS / 1000.0), axis=1)
+    return new_ts, {"cpu_usage_user": walk, "cpu_seconds_total": counter}
+
+
+def remote_write_bodies(labels, new_ts, new):
+    """Prometheus's sharded send: series spread over SHARDS shards, each
+    shard sending its samples in time order, SAMPLES_PER_SEND to a
+    request, snappy-compressed prompb.WriteRequests (the port's
+    encoder). Returns one list of bodies per shard."""
+    from greptimedb_tpu_torch.servers import prometheus as prom
+    series = [(name, h) for name in new for h in range(len(labels))]
+    shards = []
+    for s in range(SHARDS):
+        mine = series[s::SHARDS]
+        per = max(1, SAMPLES_PER_SEND // len(mine))
+        bodies = []
+        for j in range(0, len(new_ts), per):
+            bodies.append(prom.encode_write_request([prom.TimeSeries(
+                labels={"__name__": name, **labels[h]},
+                samples=[(float(v), int(t)) for v, t in
+                         zip(new[name][h, j:j + per], new_ts[j:j + per])])
+                for name, h in mine]))
+        shards.append(bodies)
+    return shards
+
+
+def decode_read_response(body):
+    """prompb.ReadResponse → [[(labels dict, [(value, ts)])] per query]."""
+    from greptimedb_tpu_torch.utils import protowire as pw
+    from greptimedb_tpu_torch.utils import snappy
+    out = []
+    for _, _, qr in pw.iter_fields(memoryview(snappy.decompress(body))):
+        series = []
+        for _, _, msg in pw.iter_fields(qr):
+            labels, samples = {}, []
+            for f, _, v in pw.iter_fields(msg):
+                sub = {f2: v2 for f2, _, v2 in pw.iter_fields(v)}
+                if f == 1:
+                    labels[bytes(sub[1]).decode()] = bytes(sub[2]).decode()
+                else:
+                    samples.append((pw.decode_double(sub[1]),
+                                    pw.decode_sint64(sub[2])))
+            series.append((labels, samples))
+        out.append(series)
+    return out
+
+
+def read_request(matchers, start_ms, end_ms):
+    from greptimedb_tpu_torch.utils import protowire as pw
+    from greptimedb_tpu_torch.utils import snappy
+    q = pw.field_varint(1, start_ms) + pw.field_varint(2, end_ms)
+    for mt, name, value in matchers:
+        q += pw.field_bytes(3, pw.field_varint(1, mt) +
+                            pw.field_bytes(2, name.encode()) +
+                            pw.field_bytes(3, value.encode()))
+    return snappy.compress(bytes(pw.field_bytes(1, q)))
+
+
+def influx_bodies(ts, tags, fields):
+    """TSBS cpu-only as InfluxDB line protocol (measurement `cpu`, the ten
+    tags, the ten usage_* fields, ms timestamps), time-major as TSBS
+    writes it, INFLUX_LINES_PER_BODY lines to a body."""
+    heads = [",".join(["cpu"] + [f"{k}={v}" for k, v in zip(TSBS_TAGS, t)])
+             for t in tags]
+    lines = []
+    for j, t in enumerate(ts):
+        for h, head in enumerate(heads):
+            kv = ",".join(f"{f}={float(fields[f][h, j])!r}"
+                          for f in CPU_FIELDS)
+            lines.append(f"{head} {kv} {int(t)}")
+    return ["\n".join(lines[i:i + INFLUX_LINES_PER_BODY]).encode()
+            for i in range(0, len(lines), INFLUX_LINES_PER_BODY)]
+
+
+class FrontDoor:
+    """Phase 11's requests over phase 9's frontend: each Prometheus API
+    request beside the direct query_to_prom_json call of the same query,
+    with the launches each made."""
+
+    def __init__(self, torch, pf, http):
+        self.torch, self.pf, self.http = torch, pf, http
+
+    def launches(self):
+        from greptimedb_tpu_torch.ops import kernels as K
+        from greptimedb_tpu_torch.ops import pallas_window as pw
+        return pw.counts_leq_grid.launches, K.segment_moments.launches
+
+    def drain(self):
+        """Reads the fenced launches' device times and drops the kept
+        moment inputs (phase 11 times no kernel of its own)."""
+        k1 = [d for d, _, _ in self.pf.k1.take()]
+        m_ms, _ = self.pf.moments.take()
+        self.pf.moments.calls.clear()
+        return k1, m_ms
+
+    def prom(self, name, path, q, start_ms, end_ms, step_ms, *, k1, moments,
+             direct=True, instant=False):
+        """The request (seconds in its parameters, as Grafana sends them),
+        then the same query through query_to_prom_json back to back; both
+        answers equal, each making `k1` / `moments` launches. Returns the
+        HTTP answer's data."""
+        params = {"query": q}
+        if instant:
+            params["time"] = f"{end_ms / 1000:.3f}"
+        else:
+            params.update(start=f"{start_ms / 1000:.3f}",
+                          end=f"{end_ms / 1000:.3f}",
+                          step=f"{step_ms // 1000}s")
+        l0 = self.launches()
+        doc, _, wall = self.http.json(path, params=params)
+        l1 = self.launches()
+        self.drain()
+        check(doc["status"] == "success", f"{name}: {doc}")
+        check((l1[0] - l0[0], l1[1] - l0[1]) == (k1, moments),
+              f"{name}: {l1[0] - l0[0]} counts_leq_grid and "
+              f"{l1[1] - l0[1]} segment_moments launches over HTTP, not "
+              f"{k1} and {moments}")
+        line = f"{name}: HTTP {path} {wall * 1e3:.1f} ms"
+        if direct:
+            t0 = time.perf_counter()
+            want = self.pf.eng.query_to_prom_json(
+                q, end_ms if instant else start_ms, end_ms,
+                1000 if instant else step_ms, instant=instant)
+            self.torch.cuda.synchronize()
+            d_wall = time.perf_counter() - t0
+            l2 = self.launches()
+            self.drain()
+            check((l2[0] - l1[0], l2[1] - l1[1]) == (k1, moments),
+                  f"{name}: the direct call made other launches")
+            check(doc["data"] == as_json(want), f"{name}: the HTTP answer "
+                  f"differs from query_to_prom_json's")
+            line += (f", direct query_to_prom_json {d_wall * 1e3:.1f} ms "
+                     f"(the front door's own {(wall - d_wall) * 1e3:.1f} "
+                     f"ms), equal answers")
+        log(line + f"; {len(doc['data']['result'])} series, launches "
+            f"K1 {k1}, segment_moments {moments}")
+        return doc["data"]
+
+    def explain(self, q, start_ms, end_ms, lowered):
+        """?explain=1 against TQL EXPLAIN of the same query and span."""
+        doc, _, _ = self.http.json("/api/v1/query_range", params={
+            "query": q, "start": str(start_ms // 1000),
+            "end": str(end_ms // 1000), "step": f"{STEP_MS // 1000}s",
+            "explain": "1"})
+        lines = doc["data"]["result"]
+        check(doc["data"]["resultType"] == "explain", f"explain {q}: {doc}")
+        plan = tql_frame(self.pf.do(
+            f"TQL EXPLAIN ({start_ms // 1000}, {end_ms // 1000}, "
+            f"'{STEP_MS // 1000}s') {q}"))["plan"].iloc[0]
+        check("\n".join(lines) == plan, f"explain {q}: {lines} differs from "
+              f"TQL EXPLAIN's {plan!r}")
+        check(("TpuAggregateExec" in plan) == lowered and
+              (lowered or "promql-row-path" in plan),
+              f"explain {q}: {plan!r}")
+        log(f"explain=1 {q}: equal to TQL EXPLAIN ("
+            f"{'TpuAggregateExec' if lowered else 'the row path'}): "
+            + " | ".join(ln.strip() for ln in lines))
+
+
+def phase_http(torch, pf, p4, seed, phase9):
+    """Phase 11: the port's HTTP server (servers/http.py) over phase 9's
+    frontend, every request over a real socket. `phase9` carries phase
+    9's answers (row path, lowered, TQL EVAL) of the same queries.
+    Returns the phase's K1 and segment_moments launches and its walls."""
+    from greptimedb_tpu_torch.common import telemetry
+    from greptimedb_tpu_torch.ops import kernels as K
+    from greptimedb_tpu_torch.ops import pallas_window as pw
+    from greptimedb_tpu_torch.query import tpu_exec
+    from greptimedb_tpu_torch.servers.http import HttpServer, output_to_json
+    from greptimedb_tpu_torch.servers.opentsdb import OpentsdbServer
+    from greptimedb_tpu_torch.utils import snappy
+    log("== phase 11: the HTTP front door")
+    t_phase = time.perf_counter()
+    check(snappy._load() is not None and
+          snappy._lib._name == snappy._LIB_PATH,
+          "the native snappy codec did not load")
+    log(f"snappy: the native codec, {snappy._LIB_PATH} built from "
+        f"{snappy._SRC}")
+    ts, labels, metrics = p4.ts, p4.labels, p4.metrics
+    H = len(labels)
+    start, end = int(ts[0]), int(ts[0]) + HOURS * 3600_000
+    walls = {}
+    pf.k1.take()
+    pf.moments.take()
+    pf.moments.calls.clear()
+    pw.counts_leq_grid.launches = K.segment_moments.launches = 0
+    srv = HttpServer(pf.fe, addr="127.0.0.1:0")
+    srv.start()
+    try:
+        http = HttpClient(srv.port)
+        door = FrontDoor(torch, pf, http)
+        log(f"HttpServer(fe, addr='127.0.0.1:0').start(): port {srv.port}")
+
+        # ---- the metadata routes ----
+        t0 = time.perf_counter()
+        check(http.json("/health")[0] == {}, "/health")
+        status, _, _ = http.json("/status")
+        tables = [pf.fe.catalog.table("greptime", "public", n) for n in
+                  pf.fe.catalog.table_names("greptime", "public")]
+        n_regions = sum(len(getattr(t, "regions", {})) for t in tables)
+        check(status["region_count"] == n_regions == 2 and
+              status["scan_cache_resident_bytes"] > 0,
+              f"/status: {status}")
+        build = http.json("/api/v1/status/buildinfo")[0]["data"]
+        check(build["version"] == "2.45.0", f"buildinfo: {build}")
+        got = http.json("/api/v1/labels")[0]["data"]
+        check(got == ["__name__", "datacenter", "hostname", "region"],
+              f"/api/v1/labels: {got}")
+        got = http.json("/api/v1/label/hostname/values")[0]["data"]
+        check(got == sorted(lb["hostname"] for lb in labels),
+              f"/api/v1/label/hostname/values: {len(got)} values")
+        got = http.json("/api/v1/series",
+                        params={"match[]": "cpu_usage_user"})[0]["data"]
+        want = sorted((("__name__", "cpu_usage_user"),
+                       *sorted(lb.items())) for lb in labels)
+        check(len(got) == H and sorted(tuple(sorted(e.items()))
+                                       for e in got) == want,
+              f"/api/v1/series: {len(got)} entries")
+        walls["metadata"] = time.perf_counter() - t0
+        resident = status["scan_cache_resident_bytes"] / 1e9
+        log(f"metadata routes: /health, /status ({status['region_count']} "
+            f"regions, scan cache {resident:.3f} GB resident), buildinfo, "
+            f"4 labels, {H} hostname values, {H} series in "
+            f"{walls['metadata'] * 1e3:.1f} ms")
+        via_http, direct = [], []
+        for _ in range(FRONT_DOOR_REPS):
+            doc, _, wall = http.sql("SELECT 1")
+            via_http.append(wall * 1e3)
+            t0 = time.perf_counter()
+            out = pf.do("SELECT 1")
+            direct.append((time.perf_counter() - t0) * 1e3)
+        check(doc["output"][0] == as_json(output_to_json(out)),
+              f"SELECT 1: {doc}")
+        q_h = statistics.quantiles(via_http, n=4)
+        q_d = statistics.quantiles(direct, n=4)
+        walls["front door ms"] = q_h[1] - q_d[1]
+        log(f"the front door's own cost: SELECT 1 x {FRONT_DOOR_REPS} in "
+            f"turns, HTTP /v1/sql median {q_h[1]:.3f} ms (quartiles "
+            f"{q_h[0]:.3f}-{q_h[2]:.3f}) against do_query {q_d[1]:.3f} ms "
+            f"({q_d[0]:.3f}-{q_d[2]:.3f}): {walls['front door ms']:.3f} ms")
+
+        # ---- the Prometheus API at 24 h, 60 s step, warm ----
+        row_q = "sum by (region) (rate(cpu_seconds_total[5m]))"
+        (region,) = pf.fe.catalog.table("greptime", "public",
+                                        "cpu_seconds_total").regions.values()
+        if not tpu_exec.SCAN_CACHE.cached(region):
+            t0 = time.perf_counter()
+            pf.eng.query_to_prom_json(row_q, start, end, STEP_MS)
+            door.drain()
+            log(f"{row_q}: the table's scan cache filled first (the phase "
+                f"reads warm) in {(time.perf_counter() - t0) * 1e3:.1f} ms")
+        data = door.prom(f"{row_q} (row path)", "/api/v1/query_range",
+                         row_q, start, end, STEP_MS, k1=1, moments=0)
+        check(data == as_json(phase9.row[row_q]), f"{row_q}: the HTTP answer "
+              f"differs from phase 9's")
+        log(f"  check {row_q}: equal to phase 9's answer")
+        low_q = TQL_QUERY
+        pf.do(f"SET tpu_dispatch_min_rows = {pf.floor}")
+        data = door.prom(f"{low_q} (lowered)", "/api/v1/query_range",
+                         low_q, start, end, STEP_MS, k1=0, moments=1)
+        check(data == as_json(phase9.lowered[low_q]), f"{low_q}: the HTTP "
+              f"answer differs from phase 9's")
+        log(f"  check {low_q}: equal to phase 9's answer")
+        door.explain(row_q, start, end, lowered=False)
+        door.explain(low_q, start, end, lowered=True)
+        inst_q = "avg(cpu_usage_user)"
+        data = door.prom(inst_q, "/api/v1/query", inst_q, end, end, 1000,
+                         k1=0, moments=1, instant=True)
+        lo, hi = window_index(ts, np.array([end]), RANGE_MS)
+        want = float(np.mean(metrics["cpu_usage_user"][:, hi[0] - 1]))
+        (res,) = data["result"]
+        got = float(res["value"][1])
+        check(data["resultType"] == "vector" and res["metric"] == {} and
+              abs(got - want) <= LOWERED_RTOL * abs(want) + QUANT * abs(want),
+              f"{inst_q} at the end: {got} against {want}")
+        log(f"  check {inst_q} at {end // 1000}: {got} against the float64 "
+            f"{want:.9g}")
+        pf.do(f"SET tpu_dispatch_min_rows = {pf.floor}")
+        l0 = door.launches()
+        doc, _, wall = http.json("/v1/promql", method="POST", params={
+            "query": low_q, "start": str(start // 1000),
+            "end": str(phase9.tql_end // 1000), "step": "60s"})
+        l1 = door.launches()
+        door.drain()
+        cols = records(doc["output"][0])
+        want = parse_series(phase9.tql["lowered"]["result"], "region")
+        check(sorted(set(cols["region"])) == sorted(want) and
+              l1[1] - l0[1] == 1, f"/v1/promql: {sorted(set(cols['region']))}"
+              f", {l1[1] - l0[1]} launches")
+        for r in want:
+            keep = [i for i, x in enumerate(cols["region"]) if x == r]
+            tv = np.array([[cols["ts"][i] / 1000.0, cols["value"][i]]
+                           for i in keep])
+            check(np.array_equal(tv, want[r]), f"/v1/promql: {r} differs "
+                  f"from phase 9's TQL EVAL answer")
+        t0 = time.perf_counter()
+        pf.do(f"TQL EVAL ({start // 1000}, {phase9.tql_end // 1000}, '60s') "
+              f"{low_q}")
+        d_wall = time.perf_counter() - t0
+        door.drain()
+        log(f"/v1/promql {low_q} over {ROW_CHECK_HOURS} h: HTTP "
+            f"{wall * 1e3:.1f} ms, direct TQL EVAL through do_query "
+            f"{d_wall * 1e3:.1f} ms; {len(cols['region'])} rows equal to "
+            f"phase 9's TQL EVAL answer")
+
+        # ---- /v1/sql ----
+        agg = ("SELECT region, avg(greptime_value), max(greptime_value) FROM "
+               "cpu_usage_user GROUP BY region")
+        l0 = door.launches()
+        doc, _, wall = http.sql(f"SET tpu_dispatch_min_rows = 0; {agg}")
+        l1 = door.launches()
+        door.drain()
+        pf.do("SET tpu_dispatch_min_rows = 0")
+        t0 = time.perf_counter()
+        out = pf.do(agg)
+        d_wall = time.perf_counter() - t0
+        door.drain()
+        check(l1[1] - l0[1] == 1 and doc["output"][0] == {"affectedrows": 0}
+              and doc["output"][1] == as_json(output_to_json(out)),
+              f"/v1/sql {agg}: {l1[1] - l0[1]} launches, {doc['output']}")
+        log(f"/v1/sql {agg} (SET tpu_dispatch_min_rows = 0 first): HTTP "
+            f"{wall * 1e3:.1f} ms, direct do_query {d_wall * 1e3:.1f} ms; "
+            f"one segment_moments launch; output equal to output_to_json of "
+            f"do_query's Output ({len(doc['output'][1]['records']['rows'])} "
+            f"regions)")
+        pf.do(f"SET tpu_dispatch_min_rows = {pf.floor}")
+
+        # ---- Prometheus remote write: WRITE_MINUTES more ----
+        new_ts, new = continue_series(ts, metrics, seed, WRITE_MINUTES)
+        t0 = time.perf_counter()
+        shards = remote_write_bodies(labels, new_ts, new)
+        enc_s = time.perf_counter() - t0
+        n_req = sum(len(b) for b in shards)
+        n_samples = H * len(new_ts) * len(new)
+        n_bytes = sum(len(x) for b in shards for x in b)
+        reg = telemetry.registry()
+
+        def counter(name):
+            return reg.get_sample_value(f"greptime_{name}_total") or 0.0
+
+        names = ("ingest_coalesce_batches", "ingest_coalesce_merged_requests",
+                 "ingest_coalesce_follower_acks")
+        c0 = {n: counter(n) for n in names}
+
+        def shard(bodies):
+            def send():
+                for b in bodies:
+                    code, body, _, _ = http.call("/v1/prometheus/write",
+                                                 method="POST", body=b)
+                    check(code == 204, f"remote write: HTTP {code} {body!r}")
+            return send
+
+        t0 = time.perf_counter()
+        parallel([shard(b) for b in shards])
+        walls["remote write"] = time.perf_counter() - t0
+        moved = {n: int(counter(n) - v) for n, v in c0.items()}
+        log(f"remote write: {n_samples} samples ({H} hosts x {len(new_ts)} "
+            f"x {len(new)} metrics) in {n_req} requests of <= "
+            f"{SAMPLES_PER_SEND} samples ({n_bytes / 1e6:.1f} MB snappy; "
+            f"encoded in {enc_s:.2f}s) from {SHARDS} senders: "
+            f"{walls['remote write']:.2f}s, "
+            f"{n_samples / walls['remote write']:.0f} samples/s; "
+            + ", ".join(f"{n} {v}" for n, v in moved.items()))
+        for name in new:
+            doc, _, wall = http.sql(f"SELECT count(*) FROM {name}")
+            n = doc["output"][0]["records"]["rows"][0][0]
+            check(n == H * (len(ts) + len(new_ts)),
+                  f"count(*) FROM {name}: {n}")
+            log(f"/v1/sql SELECT count(*) FROM {name}: {n} in "
+                f"{wall * 1e3:.1f} ms")
+        door.drain()
+        ts2 = np.concatenate([ts, new_ts])
+        end2 = int(new_ts[-1]) + INTERVAL_MS
+        start2 = end2 - 3600_000
+        steps2 = np.arange(start2, end2 + 1, STEP_MS, dtype=np.int64)
+        data = door.prom(f"{row_q} over the last hour, written minutes "
+                         f"included", "/api/v1/query_range", row_q, start2,
+                         end2, STEP_MS, k1=1, moments=0, direct=False)
+        C2 = np.concatenate([metrics["cpu_seconds_total"],
+                             new["cpu_seconds_total"]], axis=1)
+        rate, ok, b, _ = ref_rate(ts2, C2, steps2, RANGE_MS)
+        del C2
+        reg_of = np.asarray([lb["region"] for lb in labels])
+        regions = sorted(set(reg_of.tolist()))
+        want, wok = grouped(rate, ok, reg_of, regions, "sum")
+        wb, _ = grouped(b + QUANT * np.abs(np.where(ok, rate, 0.0)), ok,
+                        reg_of, regions, "sum")
+        compare(f"{row_q} over the extended range", series_values(
+            row_q, parse_series(data["result"], "region"), regions,
+            steps2.astype(np.float64) / 1000.0, wok), want, wok, wb)
+        host = labels[0]
+        code, body, headers, wall = http.call(
+            "/v1/prometheus/read", method="POST", body=read_request(
+                [(0, "__name__", "cpu_usage_user"),
+                 (0, "hostname", host["hostname"])],
+                int(new_ts[0]), int(new_ts[-1])))
+        check(code == 200 and headers.get("Content-Encoding") == "snappy",
+              f"remote read: HTTP {code}")
+        ((got_labels, samples),), = decode_read_response(body)
+        check(got_labels == {"__name__": "cpu_usage_user", **host} and
+              samples == [(float(v), int(t)) for v, t in
+                          zip(new["cpu_usage_user"][0], new_ts)],
+              f"remote read: {got_labels}, {len(samples)} samples")
+        log(f"/v1/prometheus/read cpu_usage_user{{hostname=\"{host['hostname']}"
+            f"\"}} over the written minutes: {len(samples)} samples, exactly "
+            f"those written, in {wall * 1e3:.1f} ms")
+
+        # ---- InfluxDB line protocol, OpenTSDB ----
+        t0 = time.perf_counter()
+        i_ts, i_tags, i_fields = tsbs_cpu_table(seed + 12, H,
+                                                INFLUX_MINUTES / 60)
+        bodies = influx_bodies(i_ts, i_tags, i_fields)
+        gen_s = time.perf_counter() - t0
+
+        def influx(mine):
+            def send():
+                for b in mine:
+                    code, body, _, _ = http.call(
+                        "/v1/influxdb/write", method="POST", body=b,
+                        params={"precision": "ms"})
+                    check(code == 204, f"influx write: HTTP {code} {body!r}")
+            return send
+
+        t0 = time.perf_counter()
+        parallel([influx(bodies[s::SHARDS]) for s in range(SHARDS)])
+        walls["influx"] = time.perf_counter() - t0
+        n_lines = H * len(i_ts)
+        log(f"/v1/influxdb/write: {n_lines} lines (TSBS cpu-only, "
+            f"{INFLUX_MINUTES} min, 10 tags, 10 fields; made in {gen_s:.2f}s) "
+            f"in {len(bodies)} bodies of <= {INFLUX_LINES_PER_BODY} lines "
+            f"({max(len(b) for b in bodies) / 1e6:.2f} MB at most) from "
+            f"{SHARDS} senders: {walls['influx']:.2f}s, "
+            f"{n_lines / walls['influx']:.0f} lines/s")
+        doc, _, wall = http.sql("SELECT hostname, avg(usage_user), count(*) "
+                                "FROM cpu GROUP BY hostname ORDER BY hostname")
+        cols = records(doc["output"][0])
+        order = sorted(range(H), key=lambda h: i_tags[h][0])
+        x = i_fields["usage_user"][order]
+        want = x.mean(axis=1)
+        got = np.asarray(cols["avg(usage_user)"], dtype=np.float64)
+        bound = 1e-5 * np.abs(want) + 8 * U32 * np.abs(x).sum() / x.shape[1]
+        check(cols["hostname"] == [i_tags[h][0] for h in order] and
+              cols["count(*)"] == [len(i_ts)] * H and
+              bool(np.all(np.abs(got - want) <= bound)),
+              f"influx avg(usage_user) by hostname: max |err| "
+              f"{np.max(np.abs(got - want))}")
+        log(f"  check SELECT hostname, avg(usage_user): {H} hosts, max |err| "
+            f"{np.max(np.abs(got - want)):.3g} (bound "
+            f"{float(bound.min()):.3g}), {wall * 1e3:.1f} ms")
+        tsdb = OpentsdbServer(pf.fe)
+        tsdb.start()
+        try:
+            import socket
+            with socket.create_connection(("127.0.0.1", tsdb.port),
+                                          timeout=HTTP_TIMEOUT_S) as sock:
+                f = sock.makefile("rwb")
+                f.write(f"put tsdb.telnet {start // 1000} 41.5 host=host_0\n"
+                        f"version\n".encode())
+                f.flush()
+                version = f.readline()
+                f.write(b"exit\n")
+                f.flush()
+        finally:
+            tsdb.shutdown()
+        put = json.dumps({"metric": "tsdb.http", "timestamp": start,
+                          "value": 19.25, "tags": {"host": "host_1"}})
+        doc, _, _ = http.json("/v1/opentsdb/api/put", method="POST",
+                              body=put.encode())
+        got = [records(o) for o in http.sql(
+            'SELECT * FROM "tsdb.telnet"; SELECT * FROM "tsdb.http"')[0][
+                "output"]]
+        check(version.startswith(b"net.opentsdb") and
+              doc == {"success": 1, "failed": 0} and got == [
+                  {"host": ["host_0"], "greptime_timestamp": [start],
+                   "greptime_value": [41.5]},
+                  {"host": ["host_1"], "greptime_timestamp": [start],
+                   "greptime_value": [19.25]}],
+              f"OpenTSDB: {version!r} {doc} {got}")
+        log("OpenTSDB: one telnet put and one HTTP put, read back exactly")
+
+        # ---- admission, the routes not ported, /metrics ----
+        http.sql("SET tpu_dispatch_min_rows = 0")
+        http.sql("SET admission_max_inflight = 1")
+        rejected0 = http.json("/status")[0]["admission"]["rejected_total"]
+
+        def aggregate():
+            return http.call("/v1/sql", params={"sql": agg})
+
+        t0 = time.perf_counter()
+        answers = parallel([aggregate] * ADMISSION_SENDERS)
+        walls["admission"] = time.perf_counter() - t0
+        http.sql("SET admission_max_inflight = 0")
+        door.drain()
+        codes = [a[0] for a in answers]
+        busy = [a for a in answers if a[0] == 429]
+        rejected = http.json("/status")[0]["admission"]["rejected_total"]
+        check(busy and 200 in codes and all(
+            a[2].get("Retry-After") == "1" and
+            json.loads(a[1])["code"] == 6001 for a in busy) and
+            rejected - rejected0 == len(busy),
+            f"admission: codes {codes}, rejected {rejected - rejected0}")
+        log(f"admission: SET admission_max_inflight = 1, {ADMISSION_SENDERS} "
+            f"concurrent /v1/sql aggregates: {codes.count(200)} answered, "
+            f"{len(busy)} got 429 with Retry-After 1 and code 6001 "
+            f"(/status rejected_total +{rejected - rejected0}) in "
+            f"{walls['admission'] * 1e3:.1f} ms")
+        pf.do(f"SET tpu_dispatch_min_rows = {pf.floor}")
+        for path, method, module in (
+                ("/v1/scripts?name=s", "POST", "script/"),
+                ("/debug/prof/cpu", "GET", "common/profiler.py")):
+            doc, _, _ = http.json(path, status=400, method=method,
+                                  body=b"" if method == "POST" else None)
+            check(doc["code"] == 1001 and module in doc["error"],
+                  f"{path}: {doc}")
+        code, body, _, _ = http.call("/metrics")
+        text = body.decode()
+        series = sorted({re.search(r'route="([^"]*)"', ln).group(1)
+                         for ln in text.splitlines()
+                         if ln.startswith("greptime_http_request_seconds_"
+                                          "count{")})
+        check(code == 200 and series, "/metrics has no greptime_http_request "
+              "latency series")
+        log(f"/v1/scripts and /debug/prof/cpu: the UnsupportedError envelope "
+            f"naming the module; /metrics: greptime_http_request_seconds for "
+            f"{len(series)} routes")
+    finally:
+        srv.shutdown()
+    nk, nm = pw.counts_leq_grid.launches, K.segment_moments.launches
+    check(nk > 0 and nm > 0, f"phase 11 launched counts_leq_grid {nk} and "
+          f"segment_moments {nm} times")
+    walls["phase"] = time.perf_counter() - t_phase
+    log(f"phase 11: {nk} counts_leq_grid and {nm} segment_moments launches; "
+        f"{walls['phase']:.1f}s")
+    return types.SimpleNamespace(k1=nk, moments=nm, walls=walls)
 
 
 def phase_moments_time(torch, inputs, tool=True):
@@ -3822,7 +4514,7 @@ def main() -> int:
     log(f"phase 8 took {walls['phase']:.1f}s and phase 10 "
         f"{flows['walls']['phase']:.1f}s of the script's "
         f"{time.perf_counter() - t_all:.1f}s so far")
-    k1_9, moments_9, inputs = phase_promql_tables(torch, p4)
+    k1_9, moments_9, inputs, http = phase_promql_tables(torch, p4, args.seed)
     del p4
     log("== phase 9's segment_moments shapes against the plain version")
     shapes.update(phase_moments_time(
@@ -3833,11 +4525,14 @@ def main() -> int:
           "source": "greptimedb_tpu_torch/csrc/segment_moments.cu",
           "replaces": "greptimedb_tpu/ops/kernels.py:730", **shapes["Q1"],
           "by_shape": shapes}
-    kern[0]["launches_by_phase"] = {"4": kern[0]["launches"], "9": k1_9}
-    kern[0]["launches"] += k1_9
-    k2["launches"] = launches + surface + moments_9 + flows["launches"]
+    kern[0]["launches_by_phase"] = {"4": kern[0]["launches"], "9": k1_9,
+                                    "11": http.k1}
+    kern[0]["launches"] += k1_9 + http.k1
+    k2["launches"] = launches + surface + moments_9 + flows["launches"] + \
+        http.moments
     k2["launches_by_phase"] = {"6-7": launches, "8": surface,
-                               "9": moments_9, "10": flows["launches"]}
+                               "9": moments_9, "10": flows["launches"],
+                               "11": http.moments}
     new = set(sys.modules) - before
     bad = sorted(m for m in new if m.split(".")[0] in
                  ("jax", "jaxlib", "greptimedb_tpu"))

@@ -1,0 +1,171 @@
+"""Admission control: a bounded per-frontend gate over new work.
+
+Reference behavior: the reference front door sheds load at the protocol
+servers instead of collapsing — past a configured limit new statements
+are rejected with a retryable "server busy" error while work already in
+flight runs to completion. Here the gate is process-wide (one per
+frontend process, like the process registry it reads):
+
+- **in-flight statements** — fed by the live process registry
+  (``common/process_list.REGISTRY``): when ``admission_max_inflight``
+  is set and that many statements are already running, a new statement
+  is rejected with :class:`~..errors.OverloadedError` (HTTP 429 +
+  ``Retry-After``, MySQL 1040 server-busy, PG SQLSTATE 53300).
+- **queued ingest bytes** — protocol bulk bodies (Prometheus remote
+  write, InfluxDB lines, OpenTSDB puts) reserve their payload size for
+  the duration of the request; past ``admission_max_queued_bytes`` new
+  bodies are rejected the same way.
+
+Design rules (the "never deadlock" contract):
+
+- the gate REJECTS, it never queues — rejected work holds nothing, so
+  it cannot deadlock against work already holding WAL group-commit
+  cohort slots;
+- ``KILL`` and ``SET`` statements are always admitted: the operator's
+  way OUT of an overload must not be behind the gate it is clearing;
+- the self-monitor's own ``greptime_private`` writes are exempt via the
+  thread-local :func:`exempt` context (suppress-style, like
+  ``telemetry.suppress_metrics``) — observability must keep flowing
+  exactly when the node is overloaded.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Dict, Iterator, Optional
+
+from ..errors import OverloadedError
+from ..utils import env_int as _env_int
+from .locks import TrackedLock
+
+_tls = threading.local()
+
+
+class AdmissionGate:
+    """Process-wide admission state. Limits of 0 disable a dimension
+    (the default: the gate is opt-in via ``SET admission_*`` or the
+    ``GREPTIME_ADMISSION_*`` env knobs)."""
+
+    def __init__(self) -> None:
+        self._lock = TrackedLock("common.admission")
+        self.max_inflight = _env_int("GREPTIME_ADMISSION_MAX_INFLIGHT", 0)
+        self.max_queued_bytes = _env_int(
+            "GREPTIME_ADMISSION_MAX_QUEUED_BYTES", 0)
+        self.retry_after_s = max(
+            1, _env_int("GREPTIME_ADMISSION_RETRY_AFTER_S", 1))
+        self._queued_bytes = 0
+        self._rejected = 0
+
+    # ---- configuration (SET admission_*) ----
+    def configure(self, *, max_inflight: Optional[int] = None,
+                  max_queued_bytes: Optional[int] = None,
+                  retry_after_s: Optional[int] = None) -> None:
+        with self._lock:
+            if max_inflight is not None:
+                if max_inflight < 0:
+                    raise ValueError("admission_max_inflight must be >= 0")
+                self.max_inflight = int(max_inflight)
+            if max_queued_bytes is not None:
+                if max_queued_bytes < 0:
+                    raise ValueError(
+                        "admission_max_queued_bytes must be >= 0")
+                self.max_queued_bytes = int(max_queued_bytes)
+            if retry_after_s is not None:
+                if retry_after_s < 1:
+                    raise ValueError("admission_retry_after_s must be >= 1")
+                self.retry_after_s = int(retry_after_s)
+
+    #: statement kinds admitted even at the limit: the operator's way
+    #: out of an overload (KILL a hog, raise the limit) must not be
+    #: behind the gate it is clearing
+    EXEMPT_STMTS = frozenset({"Kill", "SetVariable"})
+
+    # ---- statement gate ----
+    def admit_statement(self, stmt_kind: str = "") -> None:
+        """Reject (typed, retryable) when the live process registry is
+        already at the in-flight limit. Never blocks, never queues.
+        `stmt_kind` is the parsed AST class name (``type(s).__name__``)
+        so exemptions key on what the statement IS, not text sniffing."""
+        limit = self.max_inflight
+        if limit <= 0 or is_exempt():
+            return
+        if stmt_kind in self.EXEMPT_STMTS:
+            return
+        from . import process_list
+        inflight = len(process_list.REGISTRY)
+        if inflight < limit:
+            return
+        self._reject(
+            f"admission limit reached: {inflight} statements in flight "
+            f">= admission_max_inflight={limit}; retry after "
+            f"{self.retry_after_s}s")
+
+    # ---- ingest byte gate ----
+    @contextlib.contextmanager
+    def admit_ingest(self, nbytes: int) -> Iterator[None]:
+        """Reserve `nbytes` of the queued-ingest budget for the duration
+        of one protocol bulk request; reject when the reservation would
+        cross the limit. Admitted work ALWAYS releases its reservation
+        (the finally), so rejection pressure subsides as in-flight
+        bodies drain."""
+        limit = self.max_queued_bytes
+        if limit <= 0 or is_exempt():
+            yield
+            return
+        with self._lock:
+            over = self._queued_bytes + nbytes > limit
+            if over and self._queued_bytes == 0:
+                # a single body larger than the whole budget is still
+                # admitted when the gate is idle — rejecting it forever
+                # would be a livelock, and one body IS the queue
+                over = False
+            queued = self._queued_bytes if over else None
+            if not over:
+                self._queued_bytes += nbytes
+        if queued is not None:
+            self._reject(
+                f"admission limit reached: {queued} ingest bytes queued "
+                f"+ {nbytes} new > admission_max_queued_bytes={limit}; "
+                f"retry after {self.retry_after_s}s")
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._queued_bytes -= nbytes
+
+    def _reject(self, msg: str) -> None:
+        from .telemetry import increment_counter
+        with self._lock:
+            self._rejected += 1
+        increment_counter("admission_rejected")
+        raise OverloadedError(msg, retry_after_s=self.retry_after_s)
+
+    # ---- introspection (status/tests) ----
+    def snapshot(self) -> Dict[str, int]:
+        with self._lock:
+            return {"max_inflight": self.max_inflight,
+                    "max_queued_bytes": self.max_queued_bytes,
+                    "queued_bytes": self._queued_bytes,
+                    "rejected_total": self._rejected,
+                    "retry_after_s": self.retry_after_s}
+
+
+#: the process-wide gate every frontend + protocol server shares
+GATE = AdmissionGate()
+
+
+def is_exempt() -> bool:
+    return getattr(_tls, "exempt", 0) > 0
+
+
+@contextlib.contextmanager
+def exempt() -> Iterator[None]:
+    """Mark this thread's work as gate-exempt (the self-monitor's own
+    ``greptime_private`` writes: shedding the observer during overload
+    would blind the operator exactly when they need the data)."""
+    _tls.exempt = getattr(_tls, "exempt", 0) + 1
+    try:
+        yield
+    finally:
+        _tls.exempt -= 1

@@ -7,9 +7,11 @@ engine. In standalone mode it sits directly on an in-process datanode
 (instance.rs:200-222).
 
 Ported from greptimedb_tpu/frontend/instance.py for the standalone
-deployment; queries run on the datanode's device. Not ported yet: the
-admission gate, the plugin interceptor, the self-monitor, the trace store,
-the profiler and the script engine. TQL and the Prometheus API's
+deployment; queries run on the datanode's device. `do_query` admits
+each statement through the admission gate (common/admission.py) and
+consults the `SqlQueryInterceptor` in `plugins` (servers/interceptor.py),
+in the reference's order. Not ported yet: the self-monitor, the trace
+store, the profiler and the script engine. TQL and the Prometheus API's
 queries go to `promql_engine()`, over the same catalog.
 """
 
@@ -46,6 +48,8 @@ class FrontendInstance:
         self.catalog = datanode.catalog
         self.query_engine = datanode.query_engine
         self._tql_engine = None
+        from ..common.plugins import Plugins
+        self.plugins = Plugins()
         self.statement_executor = StatementExecutor(
             self.catalog, datanode.engines, self.query_engine,
             procedure_manager=datanode.procedure_manager,
@@ -65,13 +69,24 @@ class FrontendInstance:
     def do_query(self, sql: str, ctx: Optional[QueryContext] = None
                  ) -> List[Output]:
         ctx = ctx or QueryContext()
+        interceptor = self._interceptor()
+        if interceptor is not None:
+            sql = interceptor.pre_parsing(sql, ctx)
         stmts = parse_statements(sql)
+        if interceptor is not None:
+            stmts = interceptor.post_parsing(stmts, ctx)
         from ..common import process_list
+        from ..common.admission import GATE as _admission
         from ..common.telemetry import (
             increment_counter, observe_latency, slow_query_threshold_ms,
             span, timer)
         outputs = []
         for s in stmts:
+            # admission gate: reject-with-retry-after past the in-flight
+            # limit (KILL/SET stay admitted — the operator's way out)
+            _admission.admit_statement(type(s).__name__)
+            if interceptor is not None:
+                interceptor.pre_execute(s, ctx)
             t0 = time.perf_counter()
             try:
                 with span("execute_stmt", stmt=type(s).__name__,
@@ -98,8 +113,16 @@ class FrontendInstance:
                 _slow_logger.warning(
                     "slow query: %.1fms (threshold %dms) trace=%s stmt=%r",
                     elapsed_ms, thr, sp["trace_id"], sql)
+            if interceptor is not None:
+                out = interceptor.post_execute(out, ctx)
             outputs.append(out)
         return outputs
+
+    def _interceptor(self):
+        """Plugin chain hook (reference: SqlQueryInterceptor consulted by
+        every protocol frontend, src/servers/src/interceptor.rs:26)."""
+        from ..servers.interceptor import SqlQueryInterceptor
+        return self.plugins.get(SqlQueryInterceptor)
 
     def execute_stmt(self, stmt: ast.Statement, ctx: QueryContext) -> Output:
         ex = self.statement_executor

@@ -315,6 +315,32 @@ def apply_set_variable(stmt: ast.SetVariable, ctx: QueryContext) -> Output:
         # GREPTIME_SST_INDEX)
         from ..storage.index import configure_sst_index
         configure_sst_index(enabled=bool(_int_setting(stmt)))
+    elif name in ("ingest_coalesce", "ingest_coalesce_window_ms"):
+        # protocol-ingest coalescer (servers/coalesce.py): merge
+        # concurrent small same-table writes into shared bulk batches
+        from ..servers.coalesce import configure_coalescer
+        value = _int_setting(stmt)
+        try:
+            if name == "ingest_coalesce":
+                configure_coalescer(enabled=bool(value))
+            else:
+                configure_coalescer(window_ms=value)
+        except ValueError as e:
+            raise InvalidArgumentsError(f"SET {stmt.name}: {e}")
+    elif name in ("admission_max_inflight", "admission_max_queued_bytes",
+                  "admission_retry_after_s"):
+        # admission gate (common/admission.py): 0 disables a dimension
+        from ..common.admission import GATE
+        value = _int_setting(stmt)
+        try:
+            if name == "admission_max_inflight":
+                GATE.configure(max_inflight=value)
+            elif name == "admission_max_queued_bytes":
+                GATE.configure(max_queued_bytes=value)
+            else:
+                GATE.configure(retry_after_s=value)
+        except ValueError as e:
+            raise InvalidArgumentsError(f"SET {stmt.name}: {e}")
     elif name.startswith("balancer_"):
         # elastic-region balancer knobs live in meta-srv
         raise InvalidArgumentsError(
@@ -343,11 +369,6 @@ _KNOBS_NOT_PORTED = {
                      "dist_rpc_retry_base_ms", "dist_partial_agg",
                      "exact_distinct"),
                     "the distributed frontend"),
-    **dict.fromkeys(("ingest_coalesce", "ingest_coalesce_window_ms"),
-                    "the ingest coalescer (servers/coalesce.py)"),
-    **dict.fromkeys(("admission_max_inflight", "admission_max_queued_bytes",
-                     "admission_retry_after_s"),
-                    "the admission gate (common/admission.py)"),
     **dict.fromkeys(("trace_sample_ratio", "trace_retention_ms"),
                     "the trace store (common/trace_store.py)"),
     **dict.fromkeys(("profiling", "profile_hz", "profile_retention_ms"),

@@ -1,0 +1,190 @@
+"""Protocol-ingest coalescing: merge concurrent small writes into
+shared bulk batches.
+
+Reference behavior: the reference's per-protocol servers funnel tiny
+Prometheus remote-write / InfluxDB line requests through one gRPC
+insert plane where the region server batches them; our port did one
+``handle_row_insert`` per request — at thousands of concurrent
+remote-write streams that is one WAL record + one fsync wait + one
+auto-create probe per 5-row body.
+
+Mechanics (cooperative, no background thread — the FlowManager /
+self-monitor tier-1 rule): requests for the same **(frontend, catalog,
+schema, table, column-name signature)** land in one pending batch. The
+first arrival is the *leader*: it sleeps the coalesce window (default
+2 ms), closes the batch, concatenates the column lists, and runs ONE
+``handle_row_insert`` for everyone. Followers park on the batch event
+with a bounded wait + ``check_cancelled`` (the GL11 contract).
+
+Per-request acks still reflect per-request durability and errors: a
+follower returns only after the shared insert — WAL append + (group-
+commit) fsync included — has covered its rows, and a shared-insert
+failure surfaces to EVERY cohort member (none of their rows are
+durable). Keying on the column signature means a request that would
+need a different auto-create/alter shape never rides a stranger's
+batch, so one bad request cannot poison unrelated acks.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+from ..common.locks import TrackedLock
+from ..common.process_list import check_cancelled
+from ..common.telemetry import increment_counter
+from ..errors import GreptimeError, InternalError
+
+#: hard bound on how long a follower parks for the leader's shared
+#: insert before surfacing an error (never deadlock on a dead leader)
+_FOLLOW_TIMEOUT_S = 30.0
+
+from ..utils import env_flag as _env_flag, env_float as _env_float
+
+_CFG_LOCK = TrackedLock("servers.coalesce_config")
+
+_ENABLED = [_env_flag("GREPTIME_INGEST_COALESCE", True)]
+_WINDOW_MS = [_env_float("GREPTIME_INGEST_COALESCE_WINDOW_MS", 2.0)]
+
+
+def configure_coalescer(*, enabled: Optional[bool] = None,
+                        window_ms: Optional[float] = None) -> None:
+    """Process-wide knobs (SET ingest_coalesce /
+    ingest_coalesce_window_ms; 0 ms behaves like off)."""
+    with _CFG_LOCK:
+        if enabled is not None:
+            _ENABLED[0] = bool(enabled)
+        if window_ms is not None:
+            if window_ms < 0:
+                raise ValueError("ingest_coalesce_window_ms must be >= 0")
+            _WINDOW_MS[0] = float(window_ms)
+
+
+def coalescer_settings() -> Tuple[bool, float]:
+    with _CFG_LOCK:
+        return _ENABLED[0], _WINDOW_MS[0]
+
+
+class _Batch:
+    """One open cohort of same-shape requests for one table."""
+
+    __slots__ = ("requests", "done", "error")
+
+    def __init__(self) -> None:
+        self.requests: List[Dict[str, list]] = []
+        self.done = threading.Event()
+        self.error: Optional[BaseException] = None
+
+
+class IngestCoalescer:
+    """See module docstring. One instance per process (module-level
+    ``COALESCER``), shared by every protocol server like the process
+    registry is."""
+
+    def __init__(self) -> None:
+        from ..common.tracking import tracked_state
+        self._lock = TrackedLock("servers.ingest_coalesce")
+        self._pending: Dict[tuple, _Batch] = tracked_state(
+            {}, "servers.coalesce.pending")
+
+    def ingest(self, frontend, table: str, columns: Dict[str, list], *,
+               tag_columns=(), timestamp_column: str, ctx,
+               types: Optional[dict] = None) -> int:
+        """Drop-in for ``frontend.handle_row_insert`` on protocol ingest
+        paths; returns THIS request's row count once its rows are as
+        durable as a solo insert would have made them."""
+        n_rows = len(columns.get(timestamp_column, ()))
+        enabled, window_ms = coalescer_settings()
+        if not enabled or window_ms <= 0:
+            return frontend.handle_row_insert(
+                table, columns, tag_columns=tag_columns,
+                timestamp_column=timestamp_column, types=types, ctx=ctx)
+        key = (id(frontend), ctx.current_catalog, ctx.current_schema,
+               table, tuple(sorted(columns)), tuple(tag_columns),
+               timestamp_column)
+        with self._lock:
+            batch = self._pending.get(key)
+            leader = batch is None
+            if leader:
+                batch = _Batch()
+                self._pending[key] = batch
+            batch.requests.append(columns)
+        if leader:
+            return self._lead(frontend, key, batch, table,
+                              tag_columns=tag_columns,
+                              timestamp_column=timestamp_column,
+                              types=types, ctx=ctx, n_rows=n_rows,
+                              window_ms=window_ms)
+        return self._follow(batch, n_rows)
+
+    # ---- leader: window → close → merge → one shared insert ----
+    def _lead(self, frontend, key, batch: _Batch, table: str, *,
+              tag_columns, timestamp_column, types, ctx, n_rows: int,
+              window_ms: float) -> int:
+        time.sleep(window_ms / 1e3)        # the accumulation window
+        with self._lock:
+            self._pending.pop(key, None)   # close: later arrivals re-key
+            requests = list(batch.requests)
+        try:
+            merged = requests[0] if len(requests) == 1 else \
+                _merge_requests(requests)
+            frontend.handle_row_insert(
+                table, merged, tag_columns=tag_columns,
+                timestamp_column=timestamp_column, types=types, ctx=ctx)
+        except BaseException as e:
+            # the whole cohort's rows are un-durable: every member errors
+            batch.error = e
+            raise
+        finally:
+            batch.done.set()
+        increment_counter("ingest_coalesce_batches")
+        if len(requests) > 1:
+            increment_counter("ingest_coalesce_merged_requests",
+                              len(requests) - 1)
+        return n_rows
+
+    # ---- follower: bounded park on the leader's shared insert ----
+    def _follow(self, batch: _Batch, n_rows: int) -> int:
+        deadline = time.monotonic() + _FOLLOW_TIMEOUT_S
+        while not batch.done.wait(timeout=0.05):
+            check_cancelled()              # killed mid-wait: bail out
+            if time.monotonic() > deadline:
+                raise InternalError(
+                    "coalesced ingest wait timed out (leader died?)")
+        if batch.error is not None:
+            raise _recast(batch.error)
+        increment_counter("ingest_coalesce_follower_acks")
+        return n_rows
+
+    def pending_batches(self) -> int:
+        with self._lock:
+            return len(self._pending)
+
+
+def _merge_requests(requests: List[Dict[str, list]]) -> Dict[str, list]:
+    """Concatenate same-signature column dicts (the key guarantees every
+    request carries exactly the same column names)."""
+    merged: Dict[str, list] = {}
+    for name in requests[0]:
+        out: list = []
+        for req in requests:
+            out.extend(req[name])
+        merged[name] = out
+    return merged
+
+
+def _recast(e: BaseException) -> GreptimeError:
+    """A follower's copy of the cohort error: same taxonomy type where
+    possible so protocol mappings (429, server-busy, 400...) hold for
+    every member, not just the leader's request."""
+    if isinstance(e, GreptimeError):
+        try:
+            return type(e)(str(e))
+        except TypeError:
+            return GreptimeError(str(e))
+    return InternalError(f"coalesced ingest failed: {e}")
+
+
+#: the process-wide coalescer every protocol server shares
+COALESCER = IngestCoalescer()

@@ -1,0 +1,135 @@
+"""InfluxDB line-protocol ingestion.
+
+Reference behavior: src/servers/src/influxdb.rs + line_writer.rs — parse
+`measurement[,tag=v] field=v[,f2=v2] [timestamp]` lines, group by
+measurement, insert with auto create/alter. Timestamps arrive at a caller
+precision (default ns) and are stored as ms.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Tuple
+
+from ..errors import InvalidArgumentsError
+
+PRECISION_MS = {"n": 1e-6, "ns": 1e-6, "u": 1e-3, "us": 1e-3,
+                "ms": 1.0, "s": 1e3, "m": 6e4, "h": 3.6e6}
+
+GREPTIME_TIMESTAMP = "greptime_timestamp"
+
+
+def _split_escaped(s: str, sep: str, escapable: str) -> List[str]:
+    out = []
+    cur = []
+    i = 0
+    in_quote = False
+    while i < len(s):
+        c = s[i]
+        if c == "\\" and i + 1 < len(s) and s[i + 1] in escapable + '\\"':
+            cur.append(s[i + 1])
+            i += 2
+            continue
+        if c == '"':
+            in_quote = not in_quote
+            cur.append(c)
+            i += 1
+            continue
+        if c == sep and not in_quote:
+            out.append("".join(cur))
+            cur = []
+            i += 1
+            continue
+        cur.append(c)
+        i += 1
+    out.append("".join(cur))
+    return out
+
+
+def _parse_field_value(raw: str):
+    if raw.startswith('"') and raw.endswith('"') and len(raw) >= 2:
+        return raw[1:-1]
+    if raw.endswith(("i", "u")) and raw[:-1].lstrip("+-").isdigit():
+        return int(raw[:-1])
+    low = raw.lower()
+    if low in ("t", "true"):
+        return True
+    if low in ("f", "false"):
+        return False
+    try:
+        return float(raw)
+    except ValueError as e:
+        raise InvalidArgumentsError(f"bad field value {raw!r}") from e
+
+
+def parse_lines(body: str, precision: str = "ns"
+                ) -> List[Tuple[str, Dict[str, object], Dict[str, object],
+                                int]]:
+    """→ [(measurement, tags, fields, ts_ms)]"""
+    scale = PRECISION_MS.get(precision)
+    if scale is None:
+        raise InvalidArgumentsError(f"bad precision {precision!r}")
+    now = int(time.time() * 1000)
+    out = []
+    for line in body.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        parts = _split_escaped(line, " ", ", ")
+        parts = [p for p in parts if p != ""]
+        if len(parts) < 2:
+            raise InvalidArgumentsError(f"bad line: {line!r}")
+        head = _split_escaped(parts[0], ",", " ,=")
+        measurement = head[0]
+        if not measurement:
+            raise InvalidArgumentsError(f"missing measurement: {line!r}")
+        tags: Dict[str, object] = {}
+        for kv in head[1:]:
+            k, _, v = kv.partition("=")
+            tags[k] = v
+        fields: Dict[str, object] = {}
+        for kv in _split_escaped(parts[1], ",", " ,="):
+            k, _, v = kv.partition("=")
+            if not k or not v:
+                raise InvalidArgumentsError(f"bad field {kv!r} in {line!r}")
+            fields[k] = _parse_field_value(v)
+        if len(parts) >= 3:
+            ts_ms = int(int(parts[2]) * scale)
+        else:
+            ts_ms = now
+        out.append((measurement, tags, fields, ts_ms))
+    return out
+
+
+def body_to_inserts(body: str, precision: str = "ns"):
+    """Line-protocol body → (per-measurement column dicts, per-
+    measurement tag names) — the one-call shape the HTTP handler and
+    the ingest coalescer share."""
+    return lines_to_inserts(parse_lines(body, precision))
+
+
+def lines_to_inserts(parsed) -> Dict[str, Dict[str, list]]:
+    """Group parsed points per measurement into column dicts with aligned
+    rows (missing tags/fields → None)."""
+    by_table: Dict[str, List] = {}
+    for m, tags, fields, ts in parsed:
+        by_table.setdefault(m, []).append((tags, fields, ts))
+    result = {}
+    tag_cols_by_table = {}
+    for m, rows in by_table.items():
+        tag_names = sorted({k for tags, _, _ in rows for k in tags})
+        field_names = sorted({k for _, fields, _ in rows for k in fields})
+        cols: Dict[str, list] = {GREPTIME_TIMESTAMP: []}
+        for t in tag_names:
+            cols[t] = []
+        for f in field_names:
+            cols[f] = []
+        for tags, fields, ts in rows:
+            cols[GREPTIME_TIMESTAMP].append(ts)
+            for t in tag_names:
+                cols[t].append(tags.get(t, ""))
+            for f in field_names:
+                cols[f].append(fields.get(f))
+        result[m] = cols
+        tag_cols_by_table[m] = tag_names
+    return result, tag_cols_by_table

@@ -1,0 +1,139 @@
+"""Prometheus-compatible HTTP API (/api/v1/*).
+
+Reference behavior: src/servers/src/prom.rs — instant/range queries
+returning Prometheus JSON, plus labels / series / label values metadata
+endpoints. Query evaluation delegates to the PromQL engine.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import time
+from typing import Dict, List
+
+from aiohttp import web
+
+from ..common.time import parse_prom_duration, parse_prom_time
+from ..errors import GreptimeError
+
+
+def _error(typ: str, msg: str, status=400):
+    return web.json_response(
+        {"status": "error", "errorType": typ, "error": msg}, status=status)
+
+
+async def _eval(server, request, *, instant: bool):
+    ctx = server._ctx(request)
+    query = await server._param(request, "query")
+    if not query:
+        return _error("bad_data", "missing query")
+    try:
+        if instant:
+            t = parse_prom_time(await server._param(request, "time"),
+                                default=time.time())
+            start_ms = end_ms = t
+            step_ms = 1000
+        else:
+            start_ms = parse_prom_time(await server._param(request, "start"))
+            end_ms = parse_prom_time(await server._param(request, "end"))
+            step_raw = await server._param(request, "step")
+            if start_ms is None or end_ms is None or not step_raw:
+                return _error("bad_data", "start/end/step are required")
+            step_ms = parse_prom_duration(step_raw)
+        engine = server.frontend.promql_engine()
+        loop = asyncio.get_running_loop()
+        explain = (await server._param(request, "explain")) in (
+            "1", "true", "yes")
+        if explain:
+            # ?explain=1: render the plan the way SQL's EXPLAIN does —
+            # the Prom expression tree plus the IR node each aggregate
+            # lowered to (TpuAggregateExec / RawScan) and its dispatch
+            lines = await loop.run_in_executor(
+                None, lambda: engine.explain_lines(
+                    query, start_ms, end_ms, step_ms, ctx))
+            return web.json_response(
+                {"status": "success",
+                 "data": {"resultType": "explain", "result": lines}})
+        result = await loop.run_in_executor(
+            None, lambda: engine.query_to_prom_json(
+                query, start_ms, end_ms, step_ms, ctx, instant=instant))
+        return web.json_response({"status": "success", "data": result})
+    except GreptimeError as e:
+        return _error("execution", str(e), status=422)
+
+
+async def instant_query(server, request):
+    return await _eval(server, request, instant=True)
+
+
+async def range_query(server, request):
+    return await _eval(server, request, instant=False)
+
+
+def _match_tables(server, request, ctx) -> List[str]:
+    matches = request.query.getall("match[]", [])
+    names = server.frontend.catalog.table_names(
+        ctx.current_catalog, ctx.current_schema)
+    if not matches:
+        return names
+    out = []
+    for m in matches:
+        name = m.split("{", 1)[0].strip()
+        if name and name in names:
+            out.append(name)
+    return out
+
+
+async def labels_query(server, request):
+    ctx = server._ctx(request)
+    labels = {"__name__"}
+    for name in _match_tables(server, request, ctx):
+        t = server.frontend.catalog.table(ctx.current_catalog,
+                                          ctx.current_schema, name)
+        if t is not None:
+            labels.update(t.schema.tag_names())
+    return web.json_response({"status": "success", "data": sorted(labels)})
+
+
+async def label_values_query(server, request):
+    ctx = server._ctx(request)
+    label = request.match_info["name"]
+    values = set()
+    if label == "__name__":
+        values.update(_match_tables(server, request, ctx))
+    else:
+        for name in _match_tables(server, request, ctx):
+            t = server.frontend.catalog.table(ctx.current_catalog,
+                                              ctx.current_schema, name)
+            if t is None or label not in t.schema.tag_names():
+                continue
+            idx = t.schema.tag_names().index(label)
+            for region in getattr(t, "regions", {}).values():
+                sd = region.series_dict
+                import numpy as np
+                ids = np.arange(sd.num_series, dtype=np.int32)
+                values.update(str(v) for v in sd.decode_tag_column(ids, idx))
+    return web.json_response({"status": "success", "data": sorted(values)})
+
+
+async def series_query(server, request):
+    ctx = server._ctx(request)
+    out: List[Dict[str, str]] = []
+    for name in _match_tables(server, request, ctx):
+        t = server.frontend.catalog.table(ctx.current_catalog,
+                                          ctx.current_schema, name)
+        if t is None or not hasattr(t, "regions"):
+            continue
+        tag_names = t.schema.tag_names()
+        import numpy as np
+        for region in t.regions.values():
+            sd = region.series_dict
+            ids = np.arange(sd.num_series, dtype=np.int32)
+            cols = [sd.decode_tag_column(ids, i)
+                    for i in range(len(tag_names))]
+            for row in range(sd.num_series):
+                entry = {"__name__": name}
+                for i, tn in enumerate(tag_names):
+                    entry[tn] = str(cols[i][row])
+                out.append(entry)
+    return web.json_response({"status": "success", "data": out})

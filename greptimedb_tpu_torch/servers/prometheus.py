@@ -1,0 +1,181 @@
+"""Prometheus remote write / remote read.
+
+Reference behavior: src/servers/src/prometheus.rs:286-373 — remote write
+decodes snappy+prompb.WriteRequest into per-metric inserts (one table per
+`__name__`, labels→tags, greptime_timestamp/greptime_value); remote read
+runs time-range + matcher scans and re-encodes prompb.ReadResponse.
+"""
+
+from __future__ import annotations
+
+import re
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+from ..utils import protowire as pw
+from ..utils.snappy import compress, decompress
+
+METRIC_NAME_LABEL = "__name__"
+GREPTIME_TIMESTAMP = "greptime_timestamp"
+GREPTIME_VALUE = "greptime_value"
+
+# prompb.LabelMatcher.Type
+MATCH_EQ, MATCH_NEQ, MATCH_RE, MATCH_NRE = 0, 1, 2, 3
+
+
+@dataclass
+class TimeSeries:
+    labels: Dict[str, str] = field(default_factory=dict)
+    samples: List[Tuple[float, int]] = field(default_factory=list)  # (v, ts)
+
+
+def decode_write_request(body: bytes) -> List[TimeSeries]:
+    raw = memoryview(decompress(body))
+    series: List[TimeSeries] = []
+    for fnum, wt, val in pw.iter_fields(raw):
+        if fnum == 1 and wt == 2:                    # timeseries
+            ts = TimeSeries()
+            for f2, w2, v2 in pw.iter_fields(val):
+                if f2 == 1 and w2 == 2:              # label
+                    name = value = ""
+                    for f3, w3, v3 in pw.iter_fields(v2):
+                        if f3 == 1:
+                            name = bytes(v3).decode()
+                        elif f3 == 2:
+                            value = bytes(v3).decode()
+                    ts.labels[name] = value
+                elif f2 == 2 and w2 == 2:            # sample
+                    sval, sts = 0.0, 0
+                    for f3, w3, v3 in pw.iter_fields(v2):
+                        if f3 == 1 and w3 == 1:
+                            sval = pw.decode_double(v3)
+                        elif f3 == 2 and w3 == 0:
+                            sts = pw.decode_sint64(v3)
+                    ts.samples.append((sval, sts))
+            series.append(ts)
+    return series
+
+
+def series_to_inserts(series: List[TimeSeries]):
+    """Group samples per metric table (reference: prometheus.rs to_grpc_insert
+    shape: labels→tags + ts + value)."""
+    by_metric: Dict[str, List[TimeSeries]] = {}
+    for ts in series:
+        name = ts.labels.get(METRIC_NAME_LABEL)
+        if not name:
+            continue
+        by_metric.setdefault(name, []).append(ts)
+    result = {}
+    tag_cols = {}
+    for metric, sl in by_metric.items():
+        tag_names = sorted({k for s in sl for k in s.labels
+                            if k != METRIC_NAME_LABEL})
+        cols: Dict[str, list] = {GREPTIME_TIMESTAMP: [],
+                                 GREPTIME_VALUE: []}
+        for t in tag_names:
+            cols[t] = []
+        for s in sl:
+            for v, t_ms in s.samples:
+                cols[GREPTIME_TIMESTAMP].append(t_ms)
+                cols[GREPTIME_VALUE].append(v)
+                for t in tag_names:
+                    cols[t].append(s.labels.get(t, ""))
+        result[metric] = cols
+        tag_cols[metric] = tag_names
+    return result, tag_cols
+
+
+def write_request_to_inserts(body: bytes):
+    """snappy prompb.WriteRequest body → (per-metric column dicts,
+    per-metric tag names) — the one-call shape the HTTP handler and the
+    ingest coalescer share."""
+    return series_to_inserts(decode_write_request(body))
+
+
+@dataclass
+class Matcher:
+    type: int
+    name: str
+    value: str
+
+    def matches(self, v: str) -> bool:
+        if self.type == MATCH_EQ:
+            return v == self.value
+        if self.type == MATCH_NEQ:
+            return v != self.value
+        if self.type == MATCH_RE:
+            return re.fullmatch(self.value, v) is not None
+        return re.fullmatch(self.value, v) is None
+
+
+@dataclass
+class ReadQuery:
+    start_ms: int
+    end_ms: int
+    matchers: List[Matcher] = field(default_factory=list)
+
+    def metric_name(self) -> Optional[str]:
+        for m in self.matchers:
+            if m.name == METRIC_NAME_LABEL and m.type == MATCH_EQ:
+                return m.value
+        return None
+
+
+def decode_read_request(body: bytes) -> List[ReadQuery]:
+    raw = memoryview(decompress(body))
+    queries: List[ReadQuery] = []
+    for fnum, wt, val in pw.iter_fields(raw):
+        if fnum == 1 and wt == 2:                    # query
+            q = ReadQuery(0, 0)
+            for f2, w2, v2 in pw.iter_fields(val):
+                if f2 == 1 and w2 == 0:
+                    q.start_ms = pw.decode_sint64(v2)
+                elif f2 == 2 and w2 == 0:
+                    q.end_ms = pw.decode_sint64(v2)
+                elif f2 == 3 and w2 == 2:
+                    mt, name, value = 0, "", ""
+                    for f3, w3, v3 in pw.iter_fields(v2):
+                        if f3 == 1 and w3 == 0:
+                            mt = v3
+                        elif f3 == 2:
+                            name = bytes(v3).decode()
+                        elif f3 == 3:
+                            value = bytes(v3).decode()
+                    q.matchers.append(Matcher(mt, name, value))
+            queries.append(q)
+    return queries
+
+
+def encode_read_response(results: List[List[TimeSeries]]) -> bytes:
+    """results: one list of TimeSeries per query → snappy(prompb)."""
+    body = bytearray()
+    for series in results:
+        qr = bytearray()
+        for s in series:
+            ts_msg = bytearray()
+            for name, value in sorted(s.labels.items()):
+                lbl = pw.field_bytes(1, name.encode()) + \
+                    pw.field_bytes(2, value.encode())
+                ts_msg += pw.field_bytes(1, lbl)
+            for v, t_ms in s.samples:
+                sample = pw.field_double(1, v) + pw.field_varint(2, t_ms)
+                ts_msg += pw.field_bytes(2, sample)
+            qr += pw.field_bytes(1, bytes(ts_msg))
+        body += pw.field_bytes(1, bytes(qr))
+    return compress(bytes(body))
+
+
+def encode_write_request(series: List[TimeSeries]) -> bytes:
+    """Build a snappy prompb.WriteRequest (test/client helper)."""
+    body = bytearray()
+    for s in series:
+        ts_msg = bytearray()
+        for name, value in s.labels.items():
+            lbl = pw.field_bytes(1, name.encode()) + \
+                pw.field_bytes(2, value.encode())
+            ts_msg += pw.field_bytes(1, lbl)
+        for v, t_ms in s.samples:
+            sample = pw.field_double(1, v) + pw.field_varint(2, t_ms)
+            ts_msg += pw.field_bytes(2, sample)
+        body += pw.field_bytes(1, bytes(ts_msg))
+    return compress(bytes(body))

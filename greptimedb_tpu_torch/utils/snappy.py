@@ -1,0 +1,195 @@
+"""Snappy block-format codec: native C++ with pure-Python fallback.
+
+Prometheus remote read/write bodies are snappy-compressed protobuf
+(reference: src/servers/src/prometheus.rs:286, via the snappy crate).
+The image has no snappy binding, so native/snappy.cpp implements the
+block format (greedy hash-match compression + full decompression),
+built on first use via g++ and bound through ctypes; this module keeps
+the pure-Python decoder and a literal-only encoder as the fallback.
+
+The library builds from the port's own native/snappy.cpp into
+native/build/ (git-ignored; rebuilt when the source is newer), under a
+temporary name per process, as the port's native WAL does: concurrent
+processes may build at once. The reference's library is never loaded.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import logging
+import os
+import subprocess
+import threading
+from typing import Optional, Tuple
+
+_logger = logging.getLogger(__name__)
+
+_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "native")
+_SRC = os.path.join(_NATIVE_DIR, "snappy.cpp")
+_BUILD_DIR = os.path.join(_NATIVE_DIR, "build")
+_LIB_PATH = os.path.join(_BUILD_DIR, "libgdbsnappy.so")
+_lib = None
+_lib_failed = False
+_build_lock = threading.Lock()
+
+
+def _load() -> Optional[ctypes.CDLL]:
+    global _lib, _lib_failed
+    if _lib is not None or _lib_failed:
+        return _lib
+    with _build_lock:
+        if _lib is not None or _lib_failed:
+            return _lib
+        try:
+            if not (os.path.exists(_LIB_PATH) and
+                    os.path.getmtime(_LIB_PATH) >= os.path.getmtime(_SRC)):
+                tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
+                os.makedirs(_BUILD_DIR, exist_ok=True)
+                subprocess.run(
+                    ["g++", "-O2", "-shared", "-fPIC", "-std=c++17",
+                     "-o", tmp, _SRC],
+                    check=True, capture_output=True, timeout=120)
+                from . import atomic_publish
+                atomic_publish(tmp, _LIB_PATH, fsync=False)  # build artifact
+            lib = ctypes.CDLL(_LIB_PATH)
+            lib.snappy_max_compressed.restype = ctypes.c_uint64
+            lib.snappy_max_compressed.argtypes = [ctypes.c_uint64]
+            lib.snappy_compress.restype = ctypes.c_uint64
+            lib.snappy_compress.argtypes = [
+                ctypes.c_char_p, ctypes.c_uint64, ctypes.c_char_p]
+            lib.snappy_uncompressed_length.restype = ctypes.c_uint64
+            lib.snappy_uncompressed_length.argtypes = [
+                ctypes.c_char_p, ctypes.c_uint64]
+            lib.snappy_uncompress.restype = ctypes.c_int64
+            lib.snappy_uncompress.argtypes = [
+                ctypes.c_char_p, ctypes.c_uint64, ctypes.c_char_p,
+                ctypes.c_uint64]
+            _lib = lib
+        except (subprocess.SubprocessError, OSError) as e:
+            _logger.warning("native snappy unavailable (%s); using the "
+                            "pure-Python codec", e)
+            _lib_failed = True
+    return _lib
+
+
+def _read_varint(data: bytes, pos: int) -> Tuple[int, int]:
+    result = 0
+    shift = 0
+    while True:
+        if pos >= len(data):
+            raise ValueError("snappy: truncated varint")
+        b = data[pos]
+        pos += 1
+        result |= (b & 0x7F) << shift
+        if not b & 0x80:
+            return result, pos
+        shift += 7
+        if shift > 35:
+            raise ValueError("snappy: varint too long")
+
+
+def _write_varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        if n:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def decompress(data: bytes) -> bytes:
+    if not data:
+        return b""
+    lib = _load()
+    if lib is not None:
+        want = lib.snappy_uncompressed_length(data, len(data))
+        buf = ctypes.create_string_buffer(max(int(want), 1))
+        got = lib.snappy_uncompress(data, len(data), buf, want)
+        if got >= 0 and got == want:
+            return buf.raw[:got]
+        raise ValueError("snappy: corrupt input (native decoder)")
+    return _py_decompress(data)
+
+
+def _py_decompress(data: bytes) -> bytes:
+    expected, pos = _read_varint(data, 0)
+    out = bytearray()
+    n = len(data)
+    while pos < n:
+        tag = data[pos]
+        elem_type = tag & 0x03
+        if elem_type == 0x00:                       # literal
+            length = (tag >> 2) + 1
+            pos += 1
+            if length > 60:
+                extra = length - 60
+                if pos + extra > n:
+                    raise ValueError("snappy: truncated literal length")
+                length = int.from_bytes(data[pos:pos + extra], "little") + 1
+                pos += extra
+            if pos + length > n:
+                raise ValueError("snappy: truncated literal")
+            out += data[pos:pos + length]
+            pos += length
+            continue
+        if elem_type == 0x01:                       # copy, 1-byte offset
+            length = ((tag >> 2) & 0x07) + 4
+            if pos + 1 >= n:
+                raise ValueError("snappy: truncated copy1")
+            offset = ((tag >> 5) << 8) | data[pos + 1]
+            pos += 2
+        elif elem_type == 0x02:                     # copy, 2-byte offset
+            length = (tag >> 2) + 1
+            if pos + 2 >= n:
+                raise ValueError("snappy: truncated copy2")
+            offset = int.from_bytes(data[pos + 1:pos + 3], "little")
+            pos += 3
+        else:                                       # copy, 4-byte offset
+            length = (tag >> 2) + 1
+            if pos + 4 >= n:
+                raise ValueError("snappy: truncated copy4")
+            offset = int.from_bytes(data[pos + 1:pos + 5], "little")
+            pos += 5
+        if offset == 0 or offset > len(out):
+            raise ValueError("snappy: invalid copy offset")
+        start = len(out) - offset
+        for i in range(length):                     # may self-overlap
+            out.append(out[start + i])
+    if len(out) != expected:
+        raise ValueError(
+            f"snappy: length mismatch ({len(out)} != {expected})")
+    return bytes(out)
+
+
+def compress(data: bytes) -> bytes:
+    """Snappy compression (native hash-match codec when available)."""
+    lib = _load()
+    if lib is not None:
+        cap = int(lib.snappy_max_compressed(len(data)))
+        buf = ctypes.create_string_buffer(cap)
+        got = lib.snappy_compress(data, len(data), buf)
+        if got > 0 or not data:
+            return buf.raw[:got]
+    return _py_compress(data)
+
+
+def _py_compress(data: bytes) -> bytes:
+    """Literal-only snappy encoding (valid, uncompressed)."""
+    out = bytearray(_write_varint(len(data)))
+    pos = 0
+    n = len(data)
+    while pos < n:
+        chunk = min(n - pos, 65536)
+        if chunk <= 60:
+            out.append((chunk - 1) << 2)
+        else:
+            extra = (chunk - 1).bit_length() + 7 >> 3
+            out.append((59 + extra) << 2)
+            out += (chunk - 1).to_bytes(extra, "little")
+        out += data[pos:pos + chunk]
+        pos += chunk
+    return bytes(out)

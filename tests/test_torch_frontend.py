@@ -453,7 +453,7 @@ def test_packages_open_each_others_data_home(run, label):
     "SET dist_fanout = 4",
     "SET exact_distinct = 1",
     "SET trace_sample_ratio = 1",
-    "SET ingest_coalesce = 1",
+    "SET self_monitor_retention_ms = 60000",
 ])
 def test_port_raises_for_what_it_has_not_ported(tmp_path, sql):
     ref_parse(sql)                        # the reference's grammar has it

@@ -32,6 +32,11 @@
   no pandas or pyarrow; the port's metrics live in a registry of their
   own, so both packages count under the same names in one process; the
   port's native WAL builds from its own `native/wal.cpp`.
+- The HTTP server family (servers/, utils/{protowire,snappy}.py,
+  common/{admission,plugins}.py) serves SQL, PromQL, remote write and
+  read and InfluxDB lines without adding jax or greptimedb_tpu to
+  sys.modules; its modules are the port's own; the port's snappy library
+  builds from its own `native/snappy.cpp` into `native/build/`.
 """
 
 import ast
@@ -476,7 +481,8 @@ def test_port_sources_import_nothing_forbidden():
 
 
 @pytest.mark.parametrize("package", ["mito", "procedure", "partition",
-                                     "datanode", "frontend", "flow"])
+                                     "datanode", "frontend", "flow",
+                                     "servers"])
 def test_frontend_packages_are_the_ports_own(package):
     """Each package of the standalone frontend exists in the port, imports
     nothing forbidden and keeps its imports relative (the walk over every
@@ -584,9 +590,10 @@ _STORAGE_PROBE = r"""
 import json, sys, tempfile
 before = set(sys.modules)
 import numpy as np
-from greptimedb_tpu_torch.common import (background_jobs, exec_stats,
-                                         failpoint, locks, process_list,
-                                         telemetry, tracking)
+from greptimedb_tpu_torch.common import (admission, background_jobs,
+                                         exec_stats, failpoint, locks,
+                                         plugins, process_list, telemetry,
+                                         tracking)
 host_only = sorted(set(sys.modules) - before)
 from greptimedb_tpu_torch.datatypes import data_type as dt
 from greptimedb_tpu_torch.datatypes.schema import (ColumnSchema, Schema,
@@ -666,3 +673,94 @@ def test_native_wal_builds_from_port_source():
     lib = nw.load_library()
     assert lib is not None and lib._name == nw._LIB
     assert os.path.getmtime(nw._LIB) >= os.path.getmtime(nw._SRC)
+
+
+_HTTP_PROBE = r"""
+import json, sys, tempfile, urllib.parse, urllib.request
+before = set(sys.modules)
+from greptimedb_tpu_torch.datanode import DatanodeOptions
+from greptimedb_tpu_torch.frontend import build_standalone
+from greptimedb_tpu_torch.servers import prometheus
+from greptimedb_tpu_torch.servers.http import HttpServer
+from greptimedb_tpu_torch.utils import snappy
+
+
+def req(path, body=None, params=None):
+    url = f"http://127.0.0.1:{srv.port}{path}"
+    if params:
+        url += "?" + urllib.parse.urlencode(params)
+    with urllib.request.urlopen(urllib.request.Request(
+            url, data=body, method="POST" if body is not None else "GET"),
+            timeout=10) as resp:
+        return resp.status, resp.read()
+
+
+with tempfile.TemporaryDirectory() as home:
+    fe = build_standalone(DatanodeOptions(data_home=home, device="cpu"))
+    srv = HttpServer(fe, addr="127.0.0.1:0")
+    srv.start()
+    try:
+        series = [prometheus.TimeSeries(
+            labels={"__name__": "up", "host": f"h{i}"},
+            samples=[(float(j), 1_700_000_000_000 + j * 10_000)
+                     for j in range(30)]) for i in range(3)]
+        assert req("/v1/prometheus/write",
+                   prometheus.encode_write_request(series))[0] == 204
+        assert req("/v1/influxdb/write", b"m,h=a v=1 1",
+                   {"precision": "ms"})[0] == 204
+        assert req("/v1/sql", params={
+            "sql": "SET tpu_dispatch_min_rows = 0; SELECT host, avg("
+                   "greptime_value) FROM up GROUP BY host"})[0] == 200
+        status, body = req("/api/v1/query_range", params={
+            "query": "sum(rate(up[1m]))", "start": "1700000000",
+            "end": "1700000290", "step": "30"})
+        assert status == 200 and json.loads(body)["data"]["result"]
+        q = snappy.compress(prometheus.pw.field_bytes(1, (
+            prometheus.pw.field_varint(1, 0) +
+            prometheus.pw.field_varint(2, 1_800_000_000_000) +
+            prometheus.pw.field_bytes(3, prometheus.pw.field_varint(1, 0) +
+                                      prometheus.pw.field_bytes(
+                                          2, b"__name__") +
+                                      prometheus.pw.field_bytes(3, b"up")))))
+        assert req("/v1/prometheus/read", q)[0] == 200
+        assert snappy._lib is not None
+    finally:
+        srv.shutdown()
+        fe.shutdown()
+new = sorted(set(sys.modules) - before)
+print(json.dumps(new))
+"""
+
+
+def test_http_path_imports_no_reference():
+    """The port's HTTP server answers remote write, InfluxDB lines, a
+    device-path SQL aggregate, a Prometheus range query and remote read on
+    the CPU without adding jax or greptimedb_tpu to sys.modules, through
+    its own servers/ and codecs."""
+    out = subprocess.run([sys.executable, "-c", _HTTP_PROBE], cwd=REPO,
+                         env=_ENV, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    new = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in new if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+    for m in ("servers.http", "servers.prom_api", "servers.prometheus",
+              "servers.influxdb", "servers.coalesce", "servers.auth",
+              "servers.interceptor", "common.admission", "common.plugins",
+              "utils.snappy", "utils.protowire"):
+        assert f"greptimedb_tpu_torch.{m}" in new, m
+
+
+def test_native_snappy_builds_from_port_source():
+    from greptimedb_tpu.utils import snappy as ref_snappy
+    from greptimedb_tpu_torch.utils import snappy
+    assert snappy._SRC == os.path.join(PORT, "native", "snappy.cpp")
+    assert os.path.dirname(snappy._LIB_PATH) == os.path.join(PORT, "native",
+                                                             "build")
+    assert snappy._LIB_PATH != ref_snappy._LIB_PATH
+    if shutil.which("g++") is None:
+        pytest.skip("the native snappy builds with g++, which this machine "
+                    "lacks")
+    lib = snappy._load()
+    assert lib is not None and lib._name == snappy._LIB_PATH
+    assert os.path.getmtime(snappy._LIB_PATH) >= os.path.getmtime(snappy._SRC)
