@@ -1,9 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (greptimedb_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--phases LIST]
 
-Phases (none of them catches a failure; any failed check exits non-zero):
+Phases (none of them catches a failure; any failed check exits non-zero).
+With no `--phases` every phase runs; `--phases 12` (a comma-separated
+list) runs the phases named and those they stand on (phases 1 and 2
+always; 12 needs 5, 6 and 7, and runs 12b only with 9), and names them
+in its last two lines:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions,
    and whether pandas, pyarrow, prometheus_client, aiohttp (phase 11's
@@ -99,7 +103,7 @@ Phases (none of them catches a failure; any failed check exits non-zero):
    host on cpu and cpu_24h within 8 eps64 sum|x| of exact sums; rank() over
    avg by host (the CPU fallback, as in the reference), exact ranks; SHOW
    TABLES, DESCRIBE TABLE, SHOW CREATE TABLE and information_schema.columns
-   against the TSBS DDL; the 30 non-TQL in-scope standalone sqlness goldens
+   against the TSBS DDL; the 32 non-TQL in-scope standalone sqlness goldens
    through greptimedb_tpu_torch/tools/sqlness.py on the card, byte-equal to
    their .result files (the 4 tql/* cases run in phase 9), launching
    segment_moments only in flow/create_flow's two refresh folds. The phase
@@ -187,13 +191,42 @@ Phases (none of them catches a failure; any failed check exits non-zero):
    code 6001, counted by /status; /v1/scripts and /debug/prof/cpu answer
    the error envelope naming their module; /metrics carries the
    greptime_http_request latency series. Then the server shuts down.
+12. the MySQL and Postgres wire servers (servers/mysql.py,
+   servers/postgres.py), every statement over a real socket through a
+   minimal client of each protocol; its launches set to 0 before and
+   read after. 12a, inside phase 6's run after phase 10, on phase 6's
+   frontend and tables: MysqlServer(fe) and PostgresServer(fe) on port
+   0; Q1-Q6 on cpu warm through do_query, then over MySQL and over
+   Postgres, each column's name and wire type and each value's text
+   equal to the servers' encoding of do_query's Output, the three walls
+   printed (the static dispatch floor pinned before each, so the three
+   take one route); SELECT 1 x 50 in turns over each wire and through
+   do_query (the wires' own cost). KILL: Q1 on cpu_24h streamed ("host"
+   mode) run to its end through do_query (its wall over its slices, two
+   in flight, is one slice's time), then again over MySQL; SHOW FULL
+   PROCESSLIST over Postgres lists it, KILL <id> over Postgres ends it,
+   and the MySQL client gets errno 1105 "query <id> was killed" within
+   one slice's time; that connection then answers SELECT 1, and
+   COM_PROCESS_KILL of an unknown id answers errno 1094. COPY on cpu_p:
+   TO a parquet file under the data home's object store; FROM it into
+   cpu_copy (cpu_p's DDL, four regions, bulk_load) over MySQL, count(*)
+   exact, Q5 on cpu_copy within its bound of the float64 brute force and
+   within twice it of Q5 on cpu_p; the first hour (cpu_1h, loaded from
+   the same generator) TO and FROM csv.gz and json.zst, counts by host
+   exact and sums by host within 8 eps32 sum|x|; CREATE EXTERNAL TABLE
+   over the parquet file (inferred schema), count(*) and max(usage_user)
+   by region on it equal to cpu_p's (the max at float32). 12b, right
+   after phase 11 on phase 9's frontend: TQL EVAL over the first hour of
+   sum by (region) (rate(cpu_seconds_total[5m])) (the row path: one K1
+   launch) through do_query, MySQL and Postgres, equal as above.
 
 Before the last line come two JSON objects: the numbers of the bucket
 entry, which the main paths do not launch, then the kernel table of the
-main paths (PromQL's window bounds, SQL's, the flow folds' and the HTTP
-front door's segment moments), each with its launches by phase; the
-last line is {"ok":
-true, "device": {...}}.
+main paths (PromQL's window bounds, SQL's, the flow folds', the HTTP
+front door's and the wires' segment moments), each with its launches by
+phase; the last line is {"ok": true, "device": {...}}. A run of chosen
+phases lists only the kernels it launched, and both lines carry
+"phases": the list of those that ran.
 Without CUDA, or without the package beside this script, it exits
 non-zero and prints no result.
 """
@@ -206,6 +239,7 @@ import json
 import os
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -1820,6 +1854,7 @@ class SqlFrontend:
                 saved
 
 
+@contextlib.contextmanager
 def phase_sql(torch, seed):
     """SQL on the GPU through the port's standalone frontend
     (build_standalone → FrontendInstance.do_query) over a temporary data
@@ -1830,10 +1865,10 @@ def phase_sql(torch, seed):
     frontend's share and the stages; results against a float64 brute
     force; then shutdown() with batch 2 unflushed and build_standalone on
     the same data home (catalog replay, table open, WAL replay), Q5
-    again; then the partitioned table and the narrow-integer table; then
-    phases 8 and 10 on the same tables. Returns the segment-moments
-    launches of phases 6 and 7, phase 8's launches and walls, the
-    kernel's inputs at Q1, Q4 and Q6, and phase 10's result."""
+    again; then the partitioned table, the narrow-integer table and phase
+    7. Yields, for phases 8, 10 and 12a on the same frontend and tables,
+    the frontend (`sql`), the tables' data, the segment-moments launches
+    of phases 6 and 7 and the kernel's inputs at Q1, Q4 and Q6."""
     import shutil
     import tempfile
 
@@ -1964,16 +1999,19 @@ def phase_sql(torch, seed):
             f"{fused} for 8 fused statements, {len(NARROW_QUERIES)} "
             f"narrow-integer queries, {launches_24h} streamed device slices "
             f"on cpu_24h)")
-        surface = phase_surface(sql, cpu, cpu_24h, cpu_p)
+        st = types.SimpleNamespace(
+            sql=sql, cpu=cpu, cpu_24h=cpu_24h, cpu_p=cpu_p,
+            cpu_full=types.SimpleNamespace(ts=ts, tags=tags, fields=fields,
+                                           extra=extra_row),
+            queries=queries, ties=ties, eight=eight, launches=launches,
+            inputs=inputs)
+        # phase 8 alone reads cpu_24h's arrays; the caller drops them
         del cpu_24h
-        flows = phase_flows(sql, types.SimpleNamespace(
-            ts=ts, tags=tags, fields=fields, extra=extra_row), cpu_p,
-            queries, ties, eight)
+        yield st
     finally:
         if sql is not None:
             sql.close()
         shutil.rmtree(data_home, ignore_errors=True)
-    return launches, surface, inputs, flows
 
 
 #: the whole-table query that warms the scan cache before Q3's and Q4's
@@ -2145,7 +2183,7 @@ def sql_partitioned(sql, seed):
     return types.SimpleNamespace(
         ts=ts, regions=[tg[1] for tg in tags],
         usage_user=fields["usage_user"], usage_system=fields["usage_system"],
-        extra={}, tags=tags, fields=fields)
+        extra={}, tags=tags, fields=fields, partition=partition)
 
 
 #: statements that run Q5 together on cpu_p for the fusion check
@@ -3645,13 +3683,14 @@ def prom_tql(pf, start_s, end_s, span_end_s, answers):
         f"(with phase 8's, {len(sqlness.IN_SCOPE)} in-scope cases)")
 
 
-def phase_promql_tables(torch, p4, seed):
+@contextlib.contextmanager
+def phase_promql_tables(torch, p4):
     """Phase 9: PromQL over the port's own regions through its standalone
-    frontend on the card, then phase 11 (the HTTP front door) on the same
-    frontend. `p4` carries phase 4's series and answers. Returns the
-    phase's K1 launches, its segment_moments launches, each
-    device-lowered query's segment_moments inputs (24 h, warm), and phase
-    11's result (`phase_http`)."""
+    frontend on the card. `p4` carries phase 4's series and answers.
+    Yields, for phases 11 and 12b on the same frontend, the frontend
+    (`pf`), the range's start, the phase's answers, its K1 and
+    segment_moments launches and each device-lowered query's
+    segment_moments inputs (24 h, warm)."""
     import shutil
     import tempfile
 
@@ -3772,15 +3811,16 @@ def phase_promql_tables(torch, p4, seed):
               f"and segment_moments {nm} times")
         log(f"phase 9: {nk} counts_leq_grid and {nm} segment_moments "
             f"launches; {time.perf_counter() - t_phase:.1f}s")
-        http = phase_http(torch, pf, p4, seed, types.SimpleNamespace(
-            row=json_answers, lowered=lowered_answers, tql=tql_answers,
-            tql_end=tql_end))
+        yield types.SimpleNamespace(
+            pf=pf, start=start, k1=nk, moments=nm, inputs=moment_inputs,
+            answers=types.SimpleNamespace(
+                row=json_answers, lowered=lowered_answers, tql=tql_answers,
+                tql_end=tql_end))
     finally:
         if pf is not None:
             pf.close()
         tpu_exec.SCAN_CACHE.clear()
         shutil.rmtree(data_home, ignore_errors=True)
-    return nk, nm, moment_inputs, http
 
 
 # ---------------------------------------------------------------------------
@@ -4434,6 +4474,530 @@ def phase_http(torch, pf, p4, seed, phase9):
     return types.SimpleNamespace(k1=nk, moments=nm, walls=walls)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the MySQL and Postgres wire servers, KILL and COPY
+# ---------------------------------------------------------------------------
+
+#: SELECT 1 through each wire and through do_query, in turns: the wires'
+#: own cost is the difference of the medians
+WIRE_REPS = 50
+WIRE_TIMEOUT_S = 600
+#: the share of cpu_24h's streamed Q1 after which KILL is sent
+KILL_AFTER = 0.3
+
+
+class WireMysql:
+    """A minimal MySQL client over a real socket: HandshakeResponse41
+    without a password, COM_QUERY text result sets, COM_PING and
+    COM_PROCESS_KILL. An answer is ("ok", affected), ("err", errno,
+    message) or ("rows", [(name, MySQL type code)], rows of bytes or
+    None)."""
+
+    def __init__(self, port):
+        import socket
+        from greptimedb_tpu_torch.servers import mysql
+        self.m = mysql
+        self.sock = socket.create_connection(("127.0.0.1", port),
+                                             timeout=WIRE_TIMEOUT_S)
+        self.io = mysql.PacketIO(self.sock)
+        check(self.io.read_packet()[0] == 10, "MySQL: no HandshakeV10")
+        caps = (mysql.CLIENT_PROTOCOL_41 | mysql.CLIENT_SECURE_CONNECTION
+                | mysql.CLIENT_PLUGIN_AUTH)
+        self.io.write_packet(struct.pack("<IIB", caps, 1 << 24, 45)
+                             + b"\x00" * 23 + b"greptime\x00\x00"
+                             + b"mysql_native_password\x00")
+        check(self._simple(self.io.read_packet())[0] == "ok",
+              "MySQL: the handshake was refused")
+
+    def _simple(self, p):
+        if p[0] == 0xFF:
+            return ("err", int.from_bytes(p[1:3], "little"),
+                    p[9:].decode(errors="replace"))
+        if p[0] == 0x00:
+            return ("ok", self.m.read_lenenc_int(p, 1)[0])
+        return None
+
+    def _command(self, cmd, payload=b""):
+        self.io.reset_seq()
+        self.io.write_packet(bytes([cmd]) + payload)
+
+    def ping(self):
+        self._command(self.m.COM_PING)
+        return self._simple(self.io.read_packet())
+
+    def kill(self, pid):
+        self._command(self.m.COM_PROCESS_KILL, struct.pack("<I", pid))
+        return self._simple(self.io.read_packet())
+
+    def query(self, sql):
+        self._command(self.m.COM_QUERY, sql.encode())
+        head = self.io.read_packet()
+        simple = self._simple(head)
+        if simple is not None:
+            return simple
+        ncols = self.m.read_lenenc_int(head, 0)[0]
+        cols = []
+        for _ in range(ncols):
+            cd, pos = self.io.read_packet(), 0
+            for _ in range(4):               # catalog, schema, table, org
+                _, pos = self.m.read_lenenc_str(cd, pos)
+            name, _ = self.m.read_lenenc_str(cd, pos)
+            cols.append((name.decode(), cd[-6]))
+        self.io.read_packet()                # EOF after the columns
+        rows = []
+        while True:
+            p = self.io.read_packet()
+            if p[0] == 0xFE and len(p) < 9:
+                return ("rows", cols, rows)
+            row, pos = [], 0
+            for _ in range(ncols):
+                if p[pos] == 0xFB:
+                    row.append(None)
+                    pos += 1
+                else:
+                    v, pos = self.m.read_lenenc_str(p, pos)
+                    row.append(bytes(v))
+            rows.append(row)
+
+    def close(self):
+        try:
+            self._command(self.m.COM_QUIT)
+            self.sock.close()
+        except OSError:
+            pass
+
+
+class WirePg:
+    """A minimal Postgres v3 client over a real socket: startup without a
+    password and the simple query protocol. An answer is ("ok", command
+    tag), ("err", SQLSTATE, message) or ("rows", [(name, OID)], rows of
+    bytes or None, command tag)."""
+
+    def __init__(self, port):
+        import socket
+        from greptimedb_tpu_torch.servers import postgres
+        self.sock = socket.create_connection(("127.0.0.1", port),
+                                             timeout=WIRE_TIMEOUT_S)
+        self.f = self.sock.makefile("rb")
+        body = struct.pack("!I", postgres.PROTOCOL_V3) + \
+            b"user\x00greptime\x00database\x00public\x00\x00"
+        self.sock.sendall(struct.pack("!I", len(body) + 4) + body)
+        while True:
+            tag, payload = self._read()
+            check(tag != "E", f"Postgres: startup refused: {payload!r}")
+            if tag == "Z":
+                break
+
+    def _read(self):
+        head = self.f.read(5)
+        check(len(head) == 5, "Postgres: the server closed the connection")
+        n = int.from_bytes(head[1:5], "big")
+        return chr(head[0]), self.f.read(n - 4)
+
+    def query(self, sql):
+        body = sql.encode() + b"\x00"
+        self.sock.sendall(b"Q" + struct.pack("!I", len(body) + 4) + body)
+        cols, rows, tag, err = None, [], None, None
+        while True:
+            t, p = self._read()
+            if t == "T":
+                n, pos, cols = int.from_bytes(p[:2], "big"), 2, []
+                for _ in range(n):
+                    end = p.index(b"\x00", pos)
+                    cols.append((p[pos:end].decode(),
+                                 int.from_bytes(p[end + 7:end + 11], "big")))
+                    pos = end + 19
+            elif t == "D":
+                n, pos, row = int.from_bytes(p[:2], "big"), 2, []
+                for _ in range(n):
+                    ln = int.from_bytes(p[pos:pos + 4], "big", signed=True)
+                    pos += 4
+                    if ln < 0:
+                        row.append(None)
+                    else:
+                        row.append(p[pos:pos + ln])
+                        pos += ln
+                rows.append(row)
+            elif t == "C":
+                tag = p.rstrip(b"\x00").decode()
+            elif t == "E":
+                fields = {f[:1]: f[1:].decode() for f in p.split(b"\x00")
+                          if f}
+                err = ("err", fields.get(b"C"), fields.get(b"M"))
+            elif t == "Z":
+                break
+        if err is not None:
+            return err
+        return ("rows", cols, rows, tag) if cols is not None else \
+            ("ok", tag)
+
+    def close(self):
+        try:
+            self.sock.sendall(b"X" + struct.pack("!I", 4))
+            self.sock.close()
+        except OSError:
+            pass
+
+
+def wire_expected(out):
+    """What each wire must carry for a do_query Output, by the servers'
+    own encoders: (MySQL columns, MySQL text rows, Postgres columns,
+    Postgres text rows)."""
+    from greptimedb_tpu_torch.servers import mysql, postgres
+    schema = out.batches[0].schema
+    cs = schema.column_schemas
+    my_cols = [(c.name, mysql._mysql_type(c.dtype)) for c in cs]
+    pg_cols = [(c.name, postgres._pg_oid(c.dtype)) for c in cs]
+    my_rows, pg_rows = [], []
+    for b in out.batches:
+        for row in b.rows():
+            my_rows.append([None if v is None else str(v).encode() for v in
+                            mysql._Connection._format_row(schema, row)])
+            pg_rows.append([postgres._pg_text(v, c.dtype)
+                            for v, c in zip(row, cs)])
+    return my_cols, my_rows, pg_cols, pg_rows
+
+
+def wire_same(name, fe, my, pg, sql, walls, pin=lambda: None):
+    """One statement through do_query, then over MySQL and over Postgres:
+    every column's name and wire type and every value's text equal to the
+    Output's as the servers encode it. `pin` runs before each of the
+    three. Logs the three walls."""
+    pin()
+    t0 = time.perf_counter()
+    (out,) = fe.do_query(sql)
+    direct = time.perf_counter() - t0
+    my_cols, my_rows, pg_cols, pg_rows = wire_expected(out)
+    pin()
+    t0 = time.perf_counter()
+    got_my = my.query(sql)
+    w_my = time.perf_counter() - t0
+    pin()
+    t0 = time.perf_counter()
+    got_pg = pg.query(sql)
+    w_pg = time.perf_counter() - t0
+    check(got_my == ("rows", my_cols, my_rows),
+          f"{name} over MySQL differs from do_query's Output: "
+          f"{str(got_my)[:300]}")
+    check(got_pg == ("rows", pg_cols, pg_rows, f"SELECT {len(pg_rows)}"),
+          f"{name} over Postgres differs from do_query's Output: "
+          f"{str(got_pg)[:300]}")
+    walls[name] = {"direct": direct, "mysql": w_my, "postgres": w_pg}
+    log(f"  {name}: {len(my_rows)} rows x {len(my_cols)} columns, equal "
+        f"on both wires (names, types, every value's text); wall MySQL "
+        f"{w_my * 1e3:.1f} ms, Postgres {w_pg * 1e3:.1f} ms, do_query "
+        f"{direct * 1e3:.1f} ms")
+    return out
+
+
+def wire_servers(fe):
+    from greptimedb_tpu_torch.servers.mysql import MysqlServer
+    from greptimedb_tpu_torch.servers.postgres import PostgresServer
+    my_srv, pg_srv = MysqlServer(fe), PostgresServer(fe)
+    my_srv.start()
+    pg_srv.start()
+    log(f"MysqlServer(fe).start() on port {my_srv.port}, "
+        f"PostgresServer(fe).start() on port {pg_srv.port}")
+    return my_srv, pg_srv
+
+
+def wire_front_cost(fe, my, pg):
+    """Medians of SELECT 1 over each wire and through do_query, in
+    turns."""
+    t = {"mysql": [], "postgres": [], "direct": []}
+    for _ in range(WIRE_REPS):
+        for key, fn in (("mysql", lambda: my.query("SELECT 1")),
+                        ("postgres", lambda: pg.query("SELECT 1")),
+                        ("direct", lambda: fe.do_query("SELECT 1"))):
+            t0 = time.perf_counter()
+            fn()
+            t[key].append(time.perf_counter() - t0)
+    med = {k: statistics.median(v) * 1e3 for k, v in t.items()}
+    log(f"SELECT 1 x {WIRE_REPS} in turns, median: MySQL {med['mysql']:.3f}"
+        f" ms, Postgres {med['postgres']:.3f} ms, do_query "
+        f"{med['direct']:.3f} ms (the wires' own cost: "
+        f"{med['mysql'] - med['direct']:.3f} / "
+        f"{med['postgres'] - med['direct']:.3f} ms)")
+    return med
+
+
+def wire_kill(sql, my_srv, pg, q1, pin):
+    """Q1 streamed on cpu_24h ("host" mode) over MySQL; SHOW FULL
+    PROCESSLIST over Postgres lists it; KILL <id> over Postgres ends it
+    and MySQL's client gets the cancel error within one slice's time;
+    the MySQL connection then answers; COM_PROCESS_KILL of an unknown id
+    is errno 1094. Returns (the kill latency, one slice's time) in s."""
+    import threading
+    q = re.sub(r"\bFROM cpu\b", "FROM cpu_24h", q1)
+    # the statement run to its end first: its wall over its slices (two
+    # in flight at a time) is one slice's time
+    pin()
+    sql.execute("Q1 on cpu_24h, run to its end", q, "cold, host, unfenced",
+                "cpu_24h", path="streamed")
+    slices = sum(p.counters.get("slices", 0) for p in sql.last.profiles)
+    full = sql.last.wall
+    slice_s = full * 2 / slices
+    victim = WireMysql(my_srv.port)
+    done, outcome = [], []
+
+    def run():
+        outcome.append(victim.query(q))
+        done.append(time.perf_counter())
+
+    pin()
+    t_start = time.perf_counter()
+    th = threading.Thread(target=run)
+    th.start()
+    pid = None
+    while pid is None and time.perf_counter() - t_start < full:
+        ans = pg.query("SHOW FULL PROCESSLIST")
+        check(ans[0] == "rows", f"SHOW FULL PROCESSLIST: {ans}")
+        names = [c for c, _ in ans[1]]
+        for r in ans[2]:
+            if r[names.index("Info")] == q.encode():
+                pid = int(r[names.index("Id")])
+                check(r[names.index("Protocol")] == b"mysql",
+                      f"the scan's row: {r}")
+    check(pid is not None, "SHOW FULL PROCESSLIST over Postgres never "
+          "listed the streamed Q1")
+    time.sleep(max(0.0, KILL_AFTER * full - (time.perf_counter() - t_start)))
+    t_kill = time.perf_counter()
+    killed = pg.query(f"KILL {pid}")
+    th.join(timeout=WIRE_TIMEOUT_S)
+    check(not th.is_alive(), "the killed statement did not end")
+    latency = done[0] - t_kill
+    check(killed == ("ok", "KILL"), f"KILL over Postgres: {killed}")
+    err = outcome[0]
+    check(err[0] == "err" and err[1] == 1105 and
+          f"query {pid} was killed" in err[2],
+          f"the killed Q1 over MySQL answered {str(err)[:200]}")
+    check(latency <= slice_s, f"the cancel error came "
+          f"{latency * 1e3:.1f} ms after KILL, more than one slice's "
+          f"{slice_s * 1e3:.1f} ms")
+    ans = victim.query("SELECT 1")
+    check(ans[0] == "rows" and ans[2] == [[b"1"]],
+          f"the MySQL connection answers {ans} after the KILL")
+    ans = victim.kill(424242)
+    check(ans[:2] == ("err", 1094) and "no such running" in ans[2],
+          f"COM_PROCESS_KILL of an unknown id: {ans}")
+    victim.close()
+    log(f"KILL: Q1 on cpu_24h streamed over MySQL (run to its end: "
+        f"{full * 1e3:.1f} ms, {slices} slices, two in flight: "
+        f"{slice_s * 1e3:.1f} ms a slice); listed by SHOW FULL PROCESSLIST "
+        f"over Postgres as id {pid}; KILL {pid} over Postgres "
+        f"{(t_kill - t_start) * 1e3:.1f} ms in; the MySQL client got "
+        f"errno 1105 '{err[2]}' {latency * 1e3:.1f} ms after the KILL; "
+        f"the connection answers SELECT 1; COM_PROCESS_KILL 424242: errno "
+        f"1094")
+    return latency, slice_s
+
+
+def wire_copy(sql, my, cpu_p, walls):
+    """COPY on cpu_p: TO parquet under the data home's object store, FROM
+    it into cpu_copy (cpu_p's DDL) over MySQL, counts exact and Q5 on the
+    copy against Q5 on cpu_p and the brute force; the first hour as csv.gz
+    and json.zst round-tripped; an external table over the parquet
+    file."""
+    fe = sql.fe
+    root = fe.datanode.store.root
+    H, n = cpu_p.fields["usage_user"].shape
+    rows = H * n
+    pq_path = os.path.join(root, "ext", "cpu_p.parquet")
+
+    def timed(label, stmt, want):
+        t0 = time.perf_counter()
+        ans = my.query(stmt)
+        walls[label] = time.perf_counter() - t0
+        check(ans == want, f"{label}: {str(ans)[:300]}, not {want}")
+        return walls[label]
+
+    s = timed("COPY cpu_p TO parquet", f"COPY cpu_p TO '{pq_path}' WITH "
+              f"(format='parquet')", ("ok", rows))
+    log(f"  COPY cpu_p TO '{pq_path}' (parquet, {os.path.getsize(pq_path)} "
+        f"bytes): {rows} rows in {s:.2f}s ({rows / s:.0f} rows/s)")
+    timed("create cpu_copy", sql_ddl("cpu_copy", {
+        f: "DOUBLE" for f in CPU_FIELDS}, cpu_p.partition), ("ok", 0))
+    s = timed("COPY cpu_copy FROM parquet", f"COPY cpu_copy FROM "
+              f"'{pq_path}' WITH (format='parquet')", ("ok", rows))
+    log(f"  COPY cpu_copy FROM the parquet file over MySQL (cpu_p's DDL, "
+        f"{len(sql.table('cpu_copy').regions)} regions, bulk_load): {rows} "
+        f"rows in {s:.2f}s ({rows / s:.0f} rows/s)")
+    got = my.query("SELECT count(*) FROM cpu_copy")
+    check(got == ("rows", [("count(*)", 8)], [[str(rows).encode()]]),
+          f"count(*) of cpu_copy: {got}")
+    # Q5 on both tables on the card
+    q5 = sql_queries(np.random.default_rng(0), H)[1]["Q5 per-host moments"]
+    frames = {}
+    for t in ("cpu_p", "cpu_copy"):
+        with sql.floor_pinned():
+            frames[t] = sql_frame(sql.execute(
+                f"Q5 per-host moments on {t}",
+                re.sub(r"\bFROM cpu\b", f"FROM {t}", q5), "unfenced", t))
+    ties = tie_hosts(sql.table("cpu_copy"))
+    want, exact, approx = sql_expected("Q5 per-host moments", cpu_p.ts,
+                                       cpu_p.fields, ties, [])
+    worst = compare_sql("Q5 on cpu_copy", frames["cpu_copy"], want, exact,
+                        approx)
+    # each within its bound of the brute force, so within twice it of
+    # each other
+    worst2 = compare_sql("Q5 on cpu_copy against cpu_p", frames["cpu_copy"],
+                         frames["cpu_p"], exact,
+                         {k: 2 * v for k, v in approx.items()}, f32=False)
+    log(f"  count(*) of cpu_copy over MySQL: {rows}, exact; Q5 on cpu_copy "
+        f"vs the float64 brute force: max |err|/bound {worst:.3g}; vs Q5 on "
+        f"cpu_p: max |err|/(2 bound) {worst2:.3g}")
+
+    # the first hour as csv.gz and json.zst
+    per_h = 3600_000 // INTERVAL_MS
+    sql.do(sql_ddl("cpu_1h", {f: "DOUBLE" for f in CPU_FIELDS}))
+    sql_bulk_load(sql.fe, "cpu_1h", cpu_p.ts[:per_h], cpu_p.tags,
+                  {f: X[:, :per_h] for f, X in cpu_p.fields.items()})
+    hour_rows = H * per_h
+    sums = my.query("SELECT hostname, count(*), sum(usage_user) FROM cpu_1h "
+                    "GROUP BY hostname ORDER BY hostname")
+    for suffix, opts in (("csv.gz", "format='csv'"),
+                         ("json.zst", "format='json', compression='zstd'")):
+        path = os.path.join(root, "ext", f"cpu_1h.{suffix}")
+        t = "cpu_1h_" + suffix.split(".")[0]
+        s_to = timed(f"COPY cpu_1h TO {suffix}", f"COPY cpu_1h TO "
+                     f"'{path}' WITH ({opts})", ("ok", hour_rows))
+        timed(f"create {t}", sql_ddl(t, {f: "DOUBLE" for f in CPU_FIELDS}),
+              ("ok", 0))
+        s_from = timed(f"COPY {t} FROM {suffix}", f"COPY {t} FROM '{path}' "
+                       f"WITH ({opts})", ("ok", hour_rows))
+        got = my.query(f"SELECT hostname, count(*), sum(usage_user) FROM {t} "
+                       f"GROUP BY hostname ORDER BY hostname")
+        check(got[0] == "rows" and len(got[2]) == H and
+              [r[:2] for r in got[2]] == [r[:2] for r in sums[2]],
+              f"{t}: its hosts and counts differ from cpu_1h's")
+        A = np.abs(cpu_p.fields["usage_user"][:, :per_h]).sum(axis=1).max()
+        d = max(abs(float(g[2]) - float(w[2]))
+                for g, w in zip(got[2], sums[2]))
+        check(d <= 8 * U32 * A, f"{t}: sum(usage_user) by host off by {d}")
+        log(f"  the first hour ({hour_rows} rows) as {suffix}: COPY TO "
+            f"{s_to:.2f}s ({os.path.getsize(path)} bytes), COPY FROM "
+            f"{s_from:.2f}s ({hour_rows / s_from:.0f} rows/s); counts by "
+            f"host exact, sum(usage_user) by host within {d:.3g} "
+            f"(bound {8 * U32 * A:.3g})")
+
+    # an external table over the parquet file
+    timed("create external", "CREATE EXTERNAL TABLE cpu_p_ext WITH "
+          "(location='ext/cpu_p.parquet')", ("ok", 0))
+    agg = ("SELECT region, count(*), max(usage_user) FROM {t} GROUP BY "
+           "region ORDER BY region")
+    t0 = time.perf_counter()
+    ext = my.query(agg.format(t="cpu_p_ext"))
+    walls["external aggregate"] = time.perf_counter() - t0
+    with sql.floor_pinned():
+        src = my.query(agg.format(t="cpu_p"))
+    check(ext[0] == src[0] == "rows" and len(ext[2]) == len(src[2]) > 0,
+          f"the external table's aggregate: {str(ext)[:200]}")
+    for g, w in zip(ext[2], src[2]):
+        check(g[:2] == w[:2] and np.float32(float(g[2])) ==
+              np.float32(float(w[2])), f"cpu_p_ext {g} != cpu_p {w}")
+    log(f"  CREATE EXTERNAL TABLE cpu_p_ext over the parquet file "
+        f"(inferred schema); count(*) and max(usage_user) by region over "
+        f"MySQL in {walls['external aggregate']:.2f}s, equal to cpu_p's "
+        f"(counts exact, max equal at float32)")
+
+
+def phase_wire_sql(torch, sql, queries, cpu_p):
+    """Phase 12a: the MySQL and Postgres servers over phase 6's frontend
+    (after phase 10's restart): Q1-Q6 on cpu warm over each wire against
+    do_query, the wires' own cost, KILL of a streamed Q1 on cpu_24h, and
+    COPY on cpu_p. Returns its segment_moments launches and walls."""
+    from greptimedb_tpu_torch.ops import kernels as K
+    log("== phase 12a: the MySQL and Postgres wire servers over phase 6's "
+        "frontend")
+    from greptimedb_tpu_torch.query import tpu_exec
+    t_phase = time.perf_counter()
+    walls = {}
+    sql.timer.fenced = False
+    K.segment_moments.launches = 0
+    saved = tpu_exec.TPU_DISPATCH_MIN_ROWS, tpu_exec._observed_min_dt[0]
+
+    def pin():
+        # the static floor, which each device query would otherwise raise
+        # (the adaptive floor can send the rollup sink to pandas): one
+        # route for the direct and the wire runs of a statement
+        tpu_exec.TPU_DISPATCH_MIN_ROWS, tpu_exec._observed_min_dt[0] = \
+            saved[0], None
+
+    my_srv, pg_srv = wire_servers(sql.fe)
+    my = pg = None
+    try:
+        my, pg = WireMysql(my_srv.port), WirePg(pg_srv.port)
+        for name, q in queries.items():
+            # warm: the scan cache filled by the statement's first run
+            pin()
+            sql.fe.do_query(q)
+            wire_same(name, sql.fe, my, pg, q, walls, pin)
+        walls["select 1"] = wire_front_cost(sql.fe, my, pg)
+        q1 = next(q for n, q in queries.items() if n.startswith("Q1"))
+        walls["kill"], walls["slice"] = wire_kill(sql, my_srv, pg, q1,
+                                                    pin)
+        wire_copy(sql, my, cpu_p, walls)
+    finally:
+        for c in (my, pg):
+            if c is not None:
+                c.close()
+        my_srv.shutdown()
+        pg_srv.shutdown()
+        sql.timer.fenced = True
+        tpu_exec.TPU_DISPATCH_MIN_ROWS, tpu_exec._observed_min_dt[0] = saved
+    launches = K.segment_moments.launches
+    check(launches > 0, "phase 12a launched no segment_moments")
+    walls["phase"] = time.perf_counter() - t_phase
+    log(f"phase 12a: {launches} segment_moments launches; "
+        f"{walls['phase']:.1f}s")
+    return types.SimpleNamespace(moments=launches, walls=walls)
+
+
+#: phase 12b's TQL: a range function whose range differs from the step
+#: takes the row path, whose window bounds K1 finds
+WIRE_TQL = "sum by (region) (rate(cpu_seconds_total[5m]))"
+
+
+def phase_wire_prom(torch, pf, start_ms):
+    """Phase 12b: one TQL EVAL over the first hour through each wire on
+    phase 9's frontend, equal to the same statement through do_query; it
+    launches K1 on the row path. Returns its launches and walls."""
+    from greptimedb_tpu_torch.ops import kernels as K
+    from greptimedb_tpu_torch.ops import pallas_window as pw
+    log("== phase 12b: TQL over the MySQL and Postgres wires on phase 9's "
+        "frontend")
+    t_phase = time.perf_counter()
+    walls = {}
+    pf.k1.take()
+    pf.moments.take()
+    pw.counts_leq_grid.launches = K.segment_moments.launches = 0
+    s0 = start_ms // 1000
+    tql = f"TQL EVAL ({s0}, {s0 + 3600}, '60s') {WIRE_TQL}"
+    my_srv, pg_srv = wire_servers(pf.fe)
+    my = pg = None
+    try:
+        my, pg = WireMysql(my_srv.port), WirePg(pg_srv.port)
+        out = wire_same("TQL EVAL over 1 h", pf.fe, my, pg, tql, walls)
+        check(out.num_rows > 0, "TQL EVAL answered no rows")
+    finally:
+        for c in (my, pg):
+            if c is not None:
+                c.close()
+        my_srv.shutdown()
+        pg_srv.shutdown()
+    k1 = pf.k1.take()
+    pf.moments.take()
+    nk, nm = pw.counts_leq_grid.launches, K.segment_moments.launches
+    check(nk == 3 and len(k1) == nk, f"phase 12b launched counts_leq_grid "
+          f"{nk} times ({len(k1)} timed), not once for each of do_query, "
+          f"MySQL and Postgres")
+    walls["phase"] = time.perf_counter() - t_phase
+    log(f"phase 12b: K1 {nk} launches (device " + " / ".join(
+        f"{d:.4f}" for d, _, _ in k1) + f" ms), segment_moments {nm}; "
+        f"{walls['phase']:.1f}s")
+    return types.SimpleNamespace(k1=nk, moments=nm, walls=walls)
+
+
 def phase_moments_time(torch, inputs, tool=True):
     """segment_moments on the inputs the main path gave it (`inputs`:
     label -> the kernel's arguments), against its plain version and the
@@ -4475,10 +5039,41 @@ def phase_moments_time(torch, inputs, tool=True):
 
 # ---------------------------------------------------------------------------
 
+#: the phases; `--phases` runs some of them with the phases they stand on
+PHASES = tuple(str(i) for i in range(1, 13))
+#: what each phase needs run with it (phases 1 and 2 always run): 3 and 4
+#: are one call, as are 6 and 7; 5 launches segment_moments before the
+#: phases that fence its launches (a process's first launch loads the
+#: module); 8, 10 and 12a run on phase 6's frontend and tables, 9
+#: compares with phase 4's answers, 11 and 12b run on phase 9's frontend
+#: (12b only when 9 runs)
+NEEDS = {"3": ("4",), "4": ("3",), "6": ("5", "7"), "7": ("6",),
+         "8": ("6",), "9": ("4", "5"), "10": ("6",), "11": ("9",),
+         "12": ("6",)}
+
+
+def resolve_phases(arg: str) -> set:
+    want = {p.strip() for p in arg.split(",") if p.strip()}
+    unknown = want - set(PHASES)
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown phases {sorted(unknown)}")
+    out = {"1", "2"} | want
+    while True:
+        more = {d for p in out for d in NEEDS.get(p, ())} - out
+        if not more:
+            return out
+        out |= more
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated phases to run with the phases "
+                    "they need (default: every phase); a run of chosen "
+                    "phases names them in its last two lines")
     args = ap.parse_args()
+    phases = resolve_phases(args.phases)
     t_all = time.perf_counter()
     before = set(sys.modules)
 
@@ -4492,57 +5087,102 @@ def main() -> int:
     check(pkg_dir == os.path.join(HERE, "greptimedb_tpu_torch"),
           f"greptimedb_tpu_torch imported from {pkg_dir}, not this checkout")
 
+    log(f"phases {','.join(sorted(phases, key=int))}")
     log("== phase 1: machine")
     phase_machine(torch)
     log("== phase 2: build")
     phase_kernel_build()
-    log("== phase 3 + 4: kernel checks, then PromQL on TSBS cpu-only")
-    from greptimedb_tpu_torch.ops import pallas_window as pw
-    k1 = K1Timer(torch, pw.counts_leq_grid)
-    kern, p4 = phase_promql(torch, args.seed, k1)
-    log("== phase 5: segment_moments against its plain version")
-    phase_moments_check()
-    log("== phase 6: SQL on TSBS cpu-only, then segment_moments at the "
-        "main path's shapes")
-    launches, (surface, walls), inputs, flows = phase_sql(torch, args.seed)
+    # each main-path kernel's launches by the phase that made them
+    k1_by, moments_by, shapes, walls = {}, {}, {}, {}
+    kern = p4 = None
+    if "4" in phases:
+        log("== phase 3 + 4: kernel checks, then PromQL on TSBS cpu-only")
+        from greptimedb_tpu_torch.ops import pallas_window as pw
+        k1 = K1Timer(torch, pw.counts_leq_grid)
+        kern, p4 = phase_promql(torch, args.seed, k1)
+        k1_by["4"] = kern[0]["launches"]
+    if "5" in phases:
+        log("== phase 5: segment_moments against its plain version")
+        phase_moments_check()
     from greptimedb_tpu_torch.tools import segment_moments_bench as smb
-    shapes = phase_moments_time(torch, {q: inputs[q] for q in smb.QUERIES})
-    del inputs
-    log("== phase 10's fold launch against the plain version")
-    shapes.update(phase_moments_time(
-        torch, {"phase 10 fold": flows.pop("fold_inputs")}, tool=False))
-    log(f"phase 8 took {walls['phase']:.1f}s and phase 10 "
-        f"{flows['walls']['phase']:.1f}s of the script's "
-        f"{time.perf_counter() - t_all:.1f}s so far")
-    k1_9, moments_9, inputs, http = phase_promql_tables(torch, p4, args.seed)
-    del p4
-    log("== phase 9's segment_moments shapes against the plain version")
-    shapes.update(phase_moments_time(
-        torch, {f"phase 9 {q}": a for q, a in inputs.items()}, tool=False))
-    del inputs
-    # Q1 is the kernel's row; every shape's numbers beside it
-    k2 = {"name": "segment_moments", "route": "cuda",
-          "source": "greptimedb_tpu_torch/csrc/segment_moments.cu",
-          "replaces": "greptimedb_tpu/ops/kernels.py:730", **shapes["Q1"],
-          "by_shape": shapes}
-    kern[0]["launches_by_phase"] = {"4": kern[0]["launches"], "9": k1_9,
-                                    "11": http.k1}
-    kern[0]["launches"] += k1_9 + http.k1
-    k2["launches"] = launches + surface + moments_9 + flows["launches"] + \
-        http.moments
-    k2["launches_by_phase"] = {"6-7": launches, "8": surface,
-                               "9": moments_9, "10": flows["launches"],
-                               "11": http.moments}
+    if "6" in phases:
+        log("== phase 6: SQL on TSBS cpu-only, then segment_moments at the "
+            "main path's shapes")
+        with phase_sql(torch, args.seed) as st:
+            moments_by["6-7"] = st.launches
+            if "8" in phases:
+                moments_by["8"], w = phase_surface(st.sql, st.cpu,
+                                                   st.cpu_24h, st.cpu_p)
+                walls["8"] = w["phase"]
+            del st.cpu_24h
+            if "10" in phases:
+                flows = phase_flows(st.sql, st.cpu_full, st.cpu_p,
+                                    st.queries, st.ties, st.eight)
+                moments_by["10"] = flows["launches"]
+                walls["10"] = flows["walls"]["phase"]
+            if "12" in phases:
+                wire = phase_wire_sql(torch, st.sql, st.queries, st.cpu_p)
+                moments_by["12"] = wire.moments
+                walls["12a"] = wire.walls["phase"]
+        shapes.update(phase_moments_time(
+            torch, {q: st.inputs[q] for q in smb.QUERIES}))
+        del st
+        if "10" in phases:
+            log("== phase 10's fold launch against the plain version")
+            shapes.update(phase_moments_time(
+                torch, {"phase 10 fold": flows.pop("fold_inputs")},
+                tool=False))
+        log(f"phase 8 took {walls.get('8', 0.0):.1f}s and phase 10 "
+            f"{walls.get('10', 0.0):.1f}s of the script's "
+            f"{time.perf_counter() - t_all:.1f}s so far")
+    if "9" in phases:
+        with phase_promql_tables(torch, p4) as p9:
+            k1_by["9"], moments_by["9"] = p9.k1, p9.moments
+            if "11" in phases:
+                http = phase_http(torch, p9.pf, p4, args.seed, p9.answers)
+                k1_by["11"], moments_by["11"] = http.k1, http.moments
+            if "12" in phases:
+                wire = phase_wire_prom(torch, p9.pf, p9.start)
+                k1_by["12"] = wire.k1
+                moments_by["12"] = moments_by.get("12", 0) + wire.moments
+                walls["12b"] = wire.walls["phase"]
+        del p4
+        log("== phase 9's segment_moments shapes against the plain version")
+        shapes.update(phase_moments_time(
+            torch, {f"phase 9 {q}": a for q, a in p9.inputs.items()},
+            tool=False))
+        del p9
+    if "12" in phases:
+        log(f"phase 12 took {walls['12a']:.1f}s (12a) + "
+            f"{walls.get('12b', 0.0):.1f}s (12b)")
+    kernels = []
+    if k1_by:
+        kernels.append({**kern[0], "launches": sum(k1_by.values()),
+                        "launches_by_phase": k1_by})
+    if moments_by:
+        # Q1 is the kernel's row (a run without phase 6: the first shape
+        # timed); every shape's numbers beside it
+        row = shapes["Q1"] if "Q1" in shapes else next(iter(shapes.values()))
+        kernels.append({
+            "name": "segment_moments", "route": "cuda",
+            "source": "greptimedb_tpu_torch/csrc/segment_moments.cu",
+            "replaces": "greptimedb_tpu/ops/kernels.py:730", **row,
+            "by_shape": shapes, "launches": sum(moments_by.values()),
+            "launches_by_phase": moments_by})
     new = set(sys.modules) - before
     bad = sorted(m for m in new if m.split(".")[0] in
                  ("jax", "jaxlib", "greptimedb_tpu"))
     check(not bad, f"the port imported {bad[:5]}")
     log(f"total {time.perf_counter() - t_all:.1f}s")
+    # a run of chosen phases says so in its last two lines
+    chosen = {} if phases == set(PHASES) else \
+        {"phases": sorted(phases, key=int)}
     # the kernels the main paths launched; the bucket entry, which is off
     # them, gets a line of its own
-    print(json.dumps({"entries_off_main_path": [kern[1]]}), flush=True)
-    print(json.dumps({"kernels": [kern[0], k2]}), flush=True)
-    print(json.dumps({"ok": True, "device": {
+    if kern is not None:
+        print(json.dumps({"entries_off_main_path": [kern[1]]}), flush=True)
+    print(json.dumps({"kernels": kernels, **chosen}), flush=True)
+    print(json.dumps({"ok": True, **chosen, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -9,8 +9,9 @@ Ported from greptimedb_tpu/datanode/instance.py for the standalone
 deployment. The query engine and the flow folds run on
 `DatanodeOptions.device` ("cuda" unless the caller asks for "cpu"); flow
 specs and watermarks persist on the object store and are reloaded at
-start. Not ported yet: the file-table engine (`engines` holds mito
-only), read-replica shipping, the heartbeat and the balancer's mailbox
+start. `engines` holds mito and the immutable file-table engine
+(file_table/, CREATE EXTERNAL TABLE). Not ported yet: read-replica
+shipping, the heartbeat and the balancer's mailbox
 steps, with the node id that scopes a datanode's WAL and control state
 on a shared object store.
 """
@@ -25,6 +26,7 @@ import torch
 
 from .. import DEFAULT_CATALOG_NAME, DEFAULT_SCHEMA_NAME
 from ..catalog import LocalCatalogManager
+from ..file_table import ImmutableFileTableEngine
 from ..flow import FlowManager, ObjectStoreFlowStore
 from ..mito import MitoEngine
 from ..mito.procedure import register_loaders
@@ -69,7 +71,9 @@ class DatanodeInstance:
         self.storage = StorageEngine(config, store=store)
         self.store = self.storage.store
         self.mito = MitoEngine(self.storage)
-        self.engines = {self.mito.name: self.mito}
+        self.file_engine = ImmutableFileTableEngine(self.store)
+        self.engines = {self.mito.name: self.mito,
+                        self.file_engine.name: self.file_engine}
         self.catalog = LocalCatalogManager(self.store, self.engines)
         self.query_engine = QueryEngine(self.catalog, device=opts.device)
         # durable DDL (reference: procedure manager + loader registration,

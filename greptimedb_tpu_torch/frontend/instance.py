@@ -10,7 +10,9 @@ Ported from greptimedb_tpu/frontend/instance.py for the standalone
 deployment; queries run on the datanode's device. `do_query` admits
 each statement through the admission gate (common/admission.py) and
 consults the `SqlQueryInterceptor` in `plugins` (servers/interceptor.py),
-in the reference's order. Not ported yet: the self-monitor, the trace
+in the reference's order; KILL trips the process registry
+(`statement.apply_kill`), which the MySQL and Postgres servers also
+reach. Not ported yet: the self-monitor, the trace
 store, the profiler and the script engine. TQL and the Prometheus API's
 queries go to `promql_engine()`, over the same catalog.
 """
@@ -32,7 +34,7 @@ from ..session import QueryContext
 from ..sql import ast, parse_statements
 from ..table.requests import (
     AddColumnRequest, AlterKind, AlterTableRequest, CreateTableRequest)
-from .statement import StatementExecutor, apply_admin_maintenance
+from .statement import StatementExecutor, apply_admin_maintenance, apply_kill
 
 GREPTIME_TIMESTAMP = "greptime_timestamp"
 GREPTIME_VALUE = "greptime_value"
@@ -153,9 +155,7 @@ class FrontendInstance:
         if isinstance(stmt, ast.SetVariable):
             return ex.set_variable(stmt, ctx)
         if isinstance(stmt, ast.Kill):
-            raise UnsupportedError(
-                "KILL: statement cancellation through the frontend is not "
-                "ported yet")
+            return apply_kill(stmt)
         if isinstance(stmt, ast.Admin):
             if stmt.kind in ("flush_table", "compact_table"):
                 return apply_admin_maintenance(self.catalog, stmt, ctx)

@@ -6,19 +6,24 @@ DATABASE, INSERT, DELETE, USE, SET, TRUNCATE.
 
 Ported from greptimedb_tpu/frontend/statement.py. DDL runs through the
 procedure manager when the datanode has one; CREATE / DROP / SHOW FLOW
-go to the datanode's FlowManager (flow/). Not ported yet, and raising
-UnsupportedError: CREATE EXTERNAL TABLE (the file-table engine), COPY
-(common/datasource), ADMIN SHOW TRACE / SHOW PROFILE (the trace store and
-the profiler) and KILL.
+go to the datanode's FlowManager (flow/); CREATE EXTERNAL TABLE goes to
+the file-table engine (file_table/); COPY TO / FROM reads and writes
+parquet, csv and json files (gzip / zstd through common/datasource.py),
+COPY FROM through the table's bulk load; KILL (`apply_kill`) trips the
+port's process registry. Not ported yet, and raising UnsupportedError:
+ADMIN SHOW TRACE / SHOW PROFILE (the trace store and the profiler).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import os
+from typing import Dict, Optional
 
 import pandas as pd
 
 from ..catalog import CatalogManager
+from ..common.datasource import (file_codec, open_compressed_in,
+                                 open_compressed_out)
 from ..datatypes.data_type import parse_type_name
 from ..datatypes.schema import (
     ColumnDefaultConstraint, ColumnSchema, Schema, SemanticType)
@@ -177,6 +182,17 @@ def _int_setting(stmt: ast.SetVariable) -> int:
     except (TypeError, ValueError):
         raise InvalidArgumentsError(
             f"SET {stmt.name}: expected an integer, got {stmt.value!r}")
+
+
+def apply_kill(stmt: ast.Kill) -> Output:
+    """Shared KILL handler: trip the cancel event of a running statement
+    in the process-wide registry. The killed statement raises
+    QueryCancelledError at its next batch boundary; an unknown or
+    already-finished id is a clean InvalidArgumentsError (the registry
+    raises it), never a crash."""
+    from ..common import process_list
+    process_list.REGISTRY.kill(stmt.process_id)
+    return Output.rows(1)
 
 
 def apply_admin_maintenance(catalog: CatalogManager, stmt: ast.Admin,
@@ -409,12 +425,21 @@ class StatementExecutor:
             from ..errors import TableAlreadyExistsError
             raise TableAlreadyExistsError(
                 f"table {table_name!r} already exists")
-        if stmt.external:
-            raise UnsupportedError(
-                "CREATE EXTERNAL TABLE: the file-table engine "
-                "(file_table/) is not ported yet")
         schema, pk_indices = build_schema_from_create(stmt)
-        engine = self.engine_for(stmt.engine)
+        # CREATE EXTERNAL TABLE routes to the file engine (reference:
+        # file-table-engine; immutable, single-step — no procedure)
+        engine_name = "file" if stmt.external else stmt.engine
+        engine = self.engine_for(engine_name)
+        if stmt.external:
+            table = engine.create_table(CreateTableRequest(
+                table_name, schema, catalog_name=catalog,
+                schema_name=schema_name,
+                primary_key_indices=pk_indices,
+                create_if_not_exists=stmt.if_not_exists,
+                table_options=dict(stmt.options)))
+            self.catalog.register_table(catalog, schema_name, table_name,
+                                        table)
+            return Output.rows(0)
         request = CreateTableRequest(
             table_name, schema, catalog_name=catalog,
             schema_name=schema_name, primary_key_indices=pk_indices,
@@ -535,10 +560,90 @@ class StatementExecutor:
     def show_flows(self, stmt: ast.ShowFlows, ctx: QueryContext) -> Output:
         return show_flows_output(self._require_flows(), stmt, ctx)
 
-    # ---- not ported yet ----
+    # ---- COPY ----
     def copy(self, stmt: ast.Copy, ctx: QueryContext) -> Output:
-        raise UnsupportedError("COPY: the file formats and codecs "
-                               "(common/datasource.py) are not ported yet")
+        catalog, schema_name, table_name = ctx.resolve(stmt.table)
+        table = self.catalog.table(catalog, schema_name, table_name)
+        if table is None:
+            raise TableNotFoundError(f"table {table_name!r} not found")
+        fmt = str(stmt.options.get("format", "parquet")).lower()
+        path = stmt.path
+        codec = file_codec(path, stmt.options.get("compression"))
+        if stmt.direction == "to":
+            return self._copy_to(table, path, fmt, codec)
+        return self._copy_from(table, path, fmt, codec)
+
+    def _copy_to(self, table, path: str, fmt: str,
+                 codec: Optional[str]) -> Output:
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+
+        batches = table.scan_batches()
+        arrow_batches = [b.to_arrow() for b in batches if b.num_rows]
+        tbl = pa.Table.from_batches(arrow_batches) if arrow_batches else \
+            pa.Table.from_batches([], schema=table.schema.to_arrow())
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        if fmt == "parquet":
+            pq.write_table(tbl, path)      # parquet compresses internally
+        elif fmt == "csv":
+            import pyarrow.csv as pcsv
+            with open_compressed_out(path, codec) as sink:
+                pcsv.write_csv(tbl, sink)
+        elif fmt == "json":
+            data = tbl.to_pandas().to_json(None, orient="records",
+                                           lines=True, date_format="iso")
+            with open_compressed_out(path, codec) as sink:
+                sink.write(data.encode())
+        else:
+            raise UnsupportedError(f"COPY format {fmt!r}")
+        return Output.rows(tbl.num_rows)
+
+    def _copy_from(self, table, path: str, fmt: str,
+                   codec: Optional[str]) -> Output:
+        import io as _io
+
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+
+        # csv and json carry no types: each column's is inferred from its
+        # text, so a STRING column of digits ('007', a TSBS rack) would
+        # arrive as the integer 7 (which bulk ingest of a tag refuses) and
+        # an all-null one, from json, as float NaN. The table's STRING
+        # columns are read as text; every other column keeps the
+        # reference's inference
+        strings = {c.name for c in table.schema.column_schemas
+                   if c.dtype.is_string}
+        if fmt == "parquet":
+            tbl = pq.read_table(path)
+        elif fmt == "csv":
+            import pyarrow.csv as pcsv
+            import pyarrow.compute as pc
+            with open_compressed_in(path, codec) as src:
+                tbl = pcsv.read_csv(src, convert_options=pcsv.ConvertOptions(
+                    column_types={c: pa.string() for c in strings}))
+            # a column of empty fields only is inferred as nulls, as the
+            # reference reads it
+            for i, name in enumerate(tbl.column_names):
+                if name in strings and tbl.num_rows and \
+                        pc.all(pc.equal(tbl[name], "")).as_py():
+                    tbl = tbl.set_column(i, name, pa.nulls(tbl.num_rows))
+        elif fmt == "json":
+            with open_compressed_in(path, codec) as src:
+                raw = src.read()
+            raw = raw.to_pybytes() if hasattr(raw, "to_pybytes") else raw
+            frame = pd.read_json(_io.BytesIO(raw), orient="records",
+                                 lines=True,
+                                 dtype={c: "object" for c in strings})
+            tbl = pa.Table.from_pandas(frame)
+        else:
+            raise UnsupportedError(f"COPY format {fmt!r}")
+        from ..datatypes.record_batch import arrow_to_ingest_columns
+        cols = arrow_to_ingest_columns(tbl, table.schema)
+        # WAL-less direct-to-SST load when the engine supports it — the
+        # SSTs + one manifest edit are the durability story for COPY FROM
+        bulk = getattr(table, "bulk_load", None)
+        n = bulk(cols) if bulk is not None else table.insert(cols)
+        return Output.rows(n)
 
     # ---- DML ----
     def insert(self, stmt: ast.Insert, ctx: QueryContext) -> Output:

@@ -7,7 +7,8 @@ handler traits implemented by the frontend.
 
 Ported so far: the HTTP server (http.py, prom_api.py) with the ingest
 protocols it serves (prometheus.py, influxdb.py, opentsdb.py, the
-OpenTSDB telnet listener included), auth.py, tls.py, the ingest
-coalescer (coalesce.py) and the query interceptor (interceptor.py). The
-MySQL, Postgres, gRPC and Flight servers are not ported yet.
+OpenTSDB telnet listener included), the MySQL and Postgres wire servers
+(mysql.py, postgres.py), auth.py, tls.py, the ingest coalescer
+(coalesce.py) and the query interceptor (interceptor.py). The gRPC and
+Flight servers are not ported yet.
 """

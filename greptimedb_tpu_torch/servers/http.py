@@ -17,9 +17,6 @@ differs from the reference:
   `generate_latest(common.telemetry.registry())`: the port registers
   nothing in prometheus_client's default REGISTRY, which the reference
   serves.
-- `/api/v1/status/buildinfo` names `SERVER_VERSION`, which the reference
-  takes from servers/mysql.py; until the MySQL server is ported this
-  module holds the same constant.
 - `/v1/trace/{trace_id}` (the trace store), `/debug/prof/cpu` (the
   profiler), `/v1/scripts` and `/v1/run-script` (the script engine) stay
   in the route table and raise `UnsupportedError` naming the module that
@@ -46,11 +43,6 @@ from . import influxdb as influx_mod
 from . import opentsdb as tsdb_mod
 from . import prometheus as prom_mod
 from .auth import NoopUserProvider, UserProvider
-
-#: the version string the MySQL handshake announces (the reference's
-#: servers/mysql.py), which buildinfo names
-SERVER_VERSION = "8.4.0-greptimedb-tpu"
-
 
 def parse_db_param(db: Optional[str]) -> tuple:
     if not db:
@@ -128,6 +120,7 @@ class HttpServer:
 
     async def handle_prom_buildinfo(self, request):
         """Grafana probes this to detect the Prometheus flavor."""
+        from .mysql import SERVER_VERSION
         return web.json_response({
             "status": "success",
             "data": {"version": "2.45.0",

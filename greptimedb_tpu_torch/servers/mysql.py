@@ -1,0 +1,667 @@
+"""MySQL wire-protocol server.
+
+Reference behavior: src/servers/src/mysql/ — opensrv-mysql based shim with
+auth + prepared-statement emulation (server.rs:20-60, handler.rs:386) and
+"federated" fabricated answers for client bootstrap queries such as
+`SELECT @@version_comment` (federated.rs:398). Here the protocol is
+implemented directly: HandshakeV10 / HandshakeResponse41,
+mysql_native_password auth, COM_QUERY text result sets, COM_STMT_*
+prepared-statement emulation (client-side substitution, like the
+reference), and the federated shim table. The server is a thin host-side
+adapter — every query goes through the same frontend `do_query` the other
+protocols use.
+
+Ported from greptimedb_tpu/servers/mysql.py over the port's standalone
+frontend: each statement runs on the frontend's device ("cuda" unless the
+frontend was built for the CPU); the server itself has no device. KILL
+and COM_PROCESS_KILL trip the port's own process registry
+(common/process_list.py). `SERVER_VERSION` lives here; servers/http.py's
+buildinfo names it.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import logging
+import re
+import socket
+import socketserver
+import ssl as ssl_mod
+import struct
+import threading
+from typing import Dict, List, Optional, Tuple
+
+from ..errors import GreptimeError
+from ..session import Channel, QueryContext
+
+logger = logging.getLogger(__name__)
+
+SERVER_VERSION = "8.4.0-greptimedb-tpu"
+
+# capability flags
+CLIENT_LONG_PASSWORD = 0x1
+CLIENT_CONNECT_WITH_DB = 0x8
+CLIENT_PROTOCOL_41 = 0x200
+CLIENT_SSL = 0x800
+CLIENT_TRANSACTIONS = 0x2000
+CLIENT_SECURE_CONNECTION = 0x8000
+CLIENT_MULTI_STATEMENTS = 0x10000
+CLIENT_MULTI_RESULTS = 0x20000
+CLIENT_PLUGIN_AUTH = 0x80000
+CLIENT_PLUGIN_AUTH_LENENC = 0x200000
+CLIENT_DEPRECATE_EOF = 0x1000000
+
+SERVER_CAPABILITIES = (
+    CLIENT_LONG_PASSWORD | CLIENT_CONNECT_WITH_DB | CLIENT_PROTOCOL_41
+    | CLIENT_TRANSACTIONS | CLIENT_SECURE_CONNECTION
+    | CLIENT_MULTI_STATEMENTS | CLIENT_MULTI_RESULTS | CLIENT_PLUGIN_AUTH)
+
+SERVER_STATUS_AUTOCOMMIT = 0x0002
+CHARSET_UTF8MB4 = 45
+CHARSET_BINARY = 63
+
+# column types
+T_TINY, T_SHORT, T_LONG, T_FLOAT, T_DOUBLE = 1, 2, 3, 4, 5
+T_NULL, T_TIMESTAMP, T_LONGLONG = 6, 7, 8
+T_DATETIME, T_VARCHAR, T_BLOB, T_VAR_STRING, T_STRING = 12, 15, 252, 253, 254
+
+# commands
+COM_QUIT, COM_INIT_DB, COM_QUERY, COM_FIELD_LIST = 0x01, 0x02, 0x03, 0x04
+COM_PROCESS_KILL = 0x0C
+COM_PING = 0x0E
+COM_STMT_PREPARE, COM_STMT_EXECUTE = 0x16, 0x17
+COM_STMT_CLOSE, COM_STMT_RESET = 0x19, 0x1A
+
+
+# ---------------------------------------------------------------------------
+# low-level codec
+# ---------------------------------------------------------------------------
+
+def lenenc_int(n: int) -> bytes:
+    if n < 0xFB:
+        return bytes([n])
+    if n < 1 << 16:
+        return b"\xfc" + struct.pack("<H", n)
+    if n < 1 << 24:
+        return b"\xfd" + struct.pack("<I", n)[:3]
+    return b"\xfe" + struct.pack("<Q", n)
+
+
+def lenenc_str(s: bytes) -> bytes:
+    return lenenc_int(len(s)) + s
+
+
+def read_lenenc_int(buf: bytes, pos: int) -> Tuple[int, int]:
+    first = buf[pos]
+    if first < 0xFB:
+        return first, pos + 1
+    if first == 0xFC:
+        return struct.unpack_from("<H", buf, pos + 1)[0], pos + 3
+    if first == 0xFD:
+        return int.from_bytes(buf[pos + 1:pos + 4], "little"), pos + 4
+    return struct.unpack_from("<Q", buf, pos + 1)[0], pos + 9
+
+
+def read_lenenc_str(buf: bytes, pos: int) -> Tuple[bytes, int]:
+    n, pos = read_lenenc_int(buf, pos)
+    return buf[pos:pos + n], pos + n
+
+
+def native_password_scramble(password: str, nonce: bytes) -> bytes:
+    """mysql_native_password: SHA1(pwd) XOR SHA1(nonce + SHA1(SHA1(pwd)))."""
+    if not password:
+        return b""
+    h1 = hashlib.sha1(password.encode()).digest()
+    h2 = hashlib.sha1(h1).digest()
+    h3 = hashlib.sha1(nonce + h2).digest()
+    return bytes(a ^ b for a, b in zip(h1, h3))
+
+
+class PacketIO:
+    """3-byte length + 1-byte sequence framing over a socket."""
+
+    def __init__(self, sock: socket.socket):
+        self.sock = sock
+        self.seq = 0
+
+    def read_packet(self) -> Optional[bytes]:
+        header = self._read_n(4)
+        if header is None:
+            return None
+        length = int.from_bytes(header[:3], "little")
+        self.seq = (header[3] + 1) & 0xFF
+        body = self._read_n(length)
+        return body
+
+    def _read_n(self, n: int) -> Optional[bytes]:
+        chunks = []
+        while n > 0:
+            chunk = self.sock.recv(n)
+            if not chunk:
+                return None
+            chunks.append(chunk)
+            n -= len(chunk)
+        return b"".join(chunks)
+
+    def write_packet(self, payload: bytes) -> None:
+        offset = 0
+        while True:
+            chunk = payload[offset:offset + 0xFFFFFF]
+            header = len(chunk).to_bytes(3, "little") + bytes([self.seq])
+            self.seq = (self.seq + 1) & 0xFF
+            self.sock.sendall(header + chunk)
+            offset += len(chunk)
+            if len(chunk) < 0xFFFFFF:
+                break
+
+    def reset_seq(self) -> None:
+        self.seq = 0
+
+
+# ---------------------------------------------------------------------------
+# federated shims (reference: src/servers/src/mysql/federated.rs)
+# ---------------------------------------------------------------------------
+
+_FEDERATED_VARS = {
+    "version_comment": "GreptimeDB TPU edition",
+    "version": SERVER_VERSION,
+    "max_allowed_packet": "16777216",
+    "system_time_zone": "UTC",
+    "time_zone": "SYSTEM",
+    "session.time_zone": "SYSTEM",
+    "auto_increment_increment": "1",
+    "session.auto_increment_increment": "1",
+    "sql_mode": ("ONLY_FULL_GROUP_BY,STRICT_TRANS_TABLES,"
+                 "NO_ZERO_IN_DATE,NO_ZERO_DATE,"
+                 "ERROR_FOR_DIVISION_BY_ZERO,NO_ENGINE_SUBSTITUTION"),
+    "lower_case_table_names": "0",
+    "transaction_isolation": "REPEATABLE-READ",
+    "session.transaction_isolation": "REPEATABLE-READ",
+    "tx_isolation": "REPEATABLE-READ",
+    "session.tx_isolation": "REPEATABLE-READ",
+    "wait_timeout": "28800",
+    "interactive_timeout": "28800",
+    "net_write_timeout": "60",
+    "performance_schema": "0",
+    "license": "Apache-2.0",
+}
+
+_SET_RE = re.compile(r"^\s*set\s+", re.I)
+_SHOW_VARIABLES_RE = re.compile(r"^\s*show\s+(session\s+|global\s+)?"
+                                r"variables", re.I)
+_SHOW_COLLATION_RE = re.compile(r"^\s*show\s+(collation|character\s+set)",
+                                re.I)
+_SELECT_VAR_RE = re.compile(r"^\s*select\s+@@([\w.]+)\s*(;)?\s*$", re.I)
+_SELECT_VERSION_RE = re.compile(r"^\s*select\s+version\(\)\s*(;)?\s*$", re.I)
+_SELECT_DATABASE_RE = re.compile(r"^\s*select\s+database\(\)\s*(;)?\s*$",
+                                 re.I)
+_TX_RE = re.compile(r"^\s*(begin|start\s+transaction|commit|rollback)\b",
+                    re.I)
+_USE_RE = re.compile(r"^\s*use\s+`?(\w+)`?\s*(;)?\s*$", re.I)
+
+
+def federated_answer(sql: str, ctx: QueryContext
+                     ) -> Optional[Tuple[List[str], List[List]]]:
+    """Fabricated (columns, rows) for client bootstrap queries, or None.
+    An empty columns list means 'answer with plain OK'."""
+    if _SET_RE.match(sql) or _TX_RE.match(sql):
+        return [], []
+    m = _SELECT_VAR_RE.match(sql)
+    if m:
+        var = m.group(1)
+        val = _FEDERATED_VARS.get(var.lower())
+        return [f"@@{var}"], [[val]]
+    if _SELECT_VERSION_RE.match(sql):
+        return ["version()"], [[SERVER_VERSION]]
+    if _SELECT_DATABASE_RE.match(sql):
+        return ["database()"], [[ctx.current_schema]]
+    if _SHOW_VARIABLES_RE.match(sql):
+        return ["Variable_name", "Value"], []
+    if _SHOW_COLLATION_RE.match(sql):
+        return ["Collation", "Charset", "Id", "Default", "Compiled",
+                "Sortlen"], []
+    return None
+
+
+# ---------------------------------------------------------------------------
+# server
+# ---------------------------------------------------------------------------
+
+class _PreparedStatement:
+    __slots__ = ("sql", "num_params")
+
+    def __init__(self, sql: str):
+        self.sql = sql
+        self.num_params = sql.count("?")
+
+
+class _Connection:
+    def __init__(self, server: "MysqlServer", sock: socket.socket,
+                 conn_id: int):
+        self.server = server
+        self.io = PacketIO(sock)
+        self.sock = sock
+        self.conn_id = conn_id
+        self.ctx = QueryContext(channel=Channel.MYSQL)
+        self.client_caps = 0
+        self.stmts: Dict[int, _PreparedStatement] = {}
+        self.next_stmt_id = 1
+
+    # ---- packets out ----
+    def send_ok(self, affected: int = 0, status: int =
+                SERVER_STATUS_AUTOCOMMIT) -> None:
+        self.io.write_packet(b"\x00" + lenenc_int(affected) + lenenc_int(0)
+                             + struct.pack("<HH", status, 0))
+
+    def send_err(self, message: str, errno: int = 1105,
+                 sqlstate: str = "HY000") -> None:
+        self.io.write_packet(b"\xff" + struct.pack("<H", errno) + b"#"
+                             + sqlstate.encode()[:5].ljust(5, b"0")
+                             + message.encode()[:512])
+
+    def send_eof(self, status: int = SERVER_STATUS_AUTOCOMMIT) -> None:
+        self.io.write_packet(b"\xfe" + struct.pack("<HH", 0, status))
+
+    def _column_def(self, name: str, col_type: int,
+                    charset: int = CHARSET_UTF8MB4,
+                    length: int = 1024) -> bytes:
+        return (lenenc_str(b"def") + lenenc_str(b"") + lenenc_str(b"")
+                + lenenc_str(b"") + lenenc_str(name.encode())
+                + lenenc_str(name.encode()) + b"\x0c"
+                + struct.pack("<HIBHB", charset, length, col_type, 0, 31)
+                + b"\x00\x00")
+
+    def send_resultset(self, names: List[str], types: List[int],
+                       rows, binary: bool = False) -> None:
+        self.io.write_packet(lenenc_int(len(names)))
+        for name, t in zip(names, types):
+            charset = CHARSET_UTF8MB4 if t in (
+                T_VAR_STRING, T_STRING, T_VARCHAR, T_BLOB) else CHARSET_BINARY
+            self.io.write_packet(self._column_def(name, t, charset))
+        self.send_eof()
+        for row in rows:
+            self.io.write_packet(
+                self._binary_row(row) if binary else self._text_row(row))
+        self.send_eof()
+
+    @staticmethod
+    def _text_row(row) -> bytes:
+        out = b""
+        for v in row:
+            if v is None:
+                out += b"\xfb"
+            else:
+                out += lenenc_str(str(v).encode())
+        return out
+
+    @staticmethod
+    def _binary_row(row) -> bytes:
+        """Binary protocol row with every column declared VAR_STRING (the
+        prepared-statement emulation path, like the reference's rewrite)."""
+        ncols = len(row)
+        null_bitmap = bytearray((ncols + 9) // 8)
+        values = b""
+        for i, v in enumerate(row):
+            if v is None:
+                null_bitmap[(i + 2) // 8] |= 1 << ((i + 2) % 8)
+            else:
+                values += lenenc_str(str(v).encode())
+        return b"\x00" + bytes(null_bitmap) + values
+
+    # ---- handshake ----
+    def handshake(self) -> bool:
+        # Per-connection random salt, printable non-zero bytes (0x21-0x7E)
+        # as real MySQL servers send: NUL would truncate the scramble in
+        # libmysqlclient-style clients, and a deterministic salt would let a
+        # sniffed mysql_native_password response be replayed.
+        import secrets
+        nonce = bytes(0x21 + secrets.randbelow(0x7F - 0x21)
+                      for _ in range(20))
+        caps = SERVER_CAPABILITIES
+        if self.server.ssl_context is not None:
+            caps |= CLIENT_SSL
+        greeting = (b"\x0a" + SERVER_VERSION.encode() + b"\x00"
+                    + struct.pack("<I", self.conn_id)
+                    + nonce[:8] + b"\x00"
+                    + struct.pack("<H", caps & 0xFFFF)
+                    + bytes([CHARSET_UTF8MB4])
+                    + struct.pack("<H", SERVER_STATUS_AUTOCOMMIT)
+                    + struct.pack("<H", caps >> 16)
+                    + bytes([21]) + b"\x00" * 10
+                    + nonce[8:20] + b"\x00"
+                    + b"mysql_native_password\x00")
+        self.io.write_packet(greeting)
+        resp = self.io.read_packet()
+        if resp is None:
+            return False
+        client_caps = struct.unpack_from("<I", resp, 0)[0]
+        if client_caps & CLIENT_SSL and self.server.ssl_context is not None:
+            # SSLRequest is a truncated handshake response; upgrade now
+            self.sock = self.server.ssl_context.wrap_socket(
+                self.sock, server_side=True)
+            self.io.sock = self.sock
+            resp = self.io.read_packet()
+            if resp is None:
+                return False
+            client_caps = struct.unpack_from("<I", resp, 0)[0]
+        self.client_caps = client_caps
+        pos = 4 + 4 + 1 + 23
+        end = resp.index(b"\x00", pos)
+        username = resp[pos:end].decode()
+        pos = end + 1
+        if client_caps & CLIENT_PLUGIN_AUTH_LENENC:
+            auth, pos = read_lenenc_str(resp, pos)
+        elif client_caps & CLIENT_SECURE_CONNECTION:
+            alen = resp[pos]
+            auth = resp[pos + 1:pos + 1 + alen]
+            pos += 1 + alen
+        else:
+            end = resp.index(b"\x00", pos)
+            auth = resp[pos:end]
+            pos = end + 1
+        database = None
+        if client_caps & CLIENT_CONNECT_WITH_DB and pos < len(resp):
+            end = resp.index(b"\x00", pos)
+            database = resp[pos:end].decode()
+            pos = end + 1
+
+        if not self._check_auth(username, auth, nonce):
+            self.send_err("Access denied for user "
+                          f"'{username}'", errno=1045, sqlstate="28000")
+            return False
+        self.ctx.username = username
+        if database:
+            self.ctx.set_current_schema(database)
+        self.send_ok()
+        return True
+
+    def _check_auth(self, username: str, auth: bytes, nonce: bytes) -> bool:
+        provider = self.server.user_provider
+        if provider is None:
+            return True
+        password = provider.plain_password(username)
+        if password is None:
+            # no stored secret (e.g. noop provider): defer to authenticate
+            return provider.authenticate(username, "")
+        expected = native_password_scramble(password, nonce)
+        return auth == expected
+
+    # ---- command loop ----
+    def run(self) -> None:
+        try:
+            if not self.handshake():
+                return
+            while True:
+                self.io.reset_seq()
+                packet = self.io.read_packet()
+                if packet is None or packet[0] == COM_QUIT:
+                    return
+                self.dispatch(packet)
+        except (ConnectionError, OSError):
+            pass
+        except Exception:  # noqa: BLE001
+            logger.exception("mysql connection %d crashed", self.conn_id)
+        finally:
+            try:
+                self.sock.close()
+            except OSError:
+                pass
+
+    def dispatch(self, packet: bytes) -> None:
+        cmd, body = packet[0], packet[1:]
+        if cmd == COM_PING:
+            self.send_ok()
+        elif cmd == COM_INIT_DB:
+            self.ctx.set_current_schema(body.decode())
+            self.send_ok()
+        elif cmd == COM_QUERY:
+            self.handle_query(body.decode())
+        elif cmd == COM_FIELD_LIST:
+            self.send_eof()
+        elif cmd == COM_STMT_PREPARE:
+            self.handle_stmt_prepare(body.decode())
+        elif cmd == COM_STMT_EXECUTE:
+            self.handle_stmt_execute(body)
+        elif cmd == COM_STMT_CLOSE:
+            self.stmts.pop(struct.unpack_from("<I", body, 0)[0], None)
+        elif cmd == COM_STMT_RESET:
+            self.send_ok()
+        elif cmd == COM_PROCESS_KILL:
+            # `mysqladmin kill` / the wire form of KILL <id>: same
+            # registry and same clean-error semantics as the SQL path
+            from ..common import process_list
+            pid = struct.unpack_from("<I", body, 0)[0]
+            try:
+                process_list.REGISTRY.kill(pid)
+            except GreptimeError as e:
+                self.send_err(str(e), errno=1094)  # ER_NO_SUCH_THREAD
+                return
+            self.send_ok()
+        else:
+            self.send_err(f"unsupported command 0x{cmd:02x}", errno=1047)
+
+    def handle_query(self, sql: str, binary: bool = False) -> None:
+        m = _USE_RE.match(sql)
+        if m:
+            self.ctx.set_current_schema(m.group(1))
+            self.send_ok()
+            return
+        fed = federated_answer(sql, self.ctx)
+        if fed is not None:
+            names, rows = fed
+            if not names:
+                self.send_ok()
+            else:
+                self.send_resultset(names, [T_VAR_STRING] * len(names),
+                                    rows, binary=binary)
+            return
+        try:
+            outputs = self.server.instance.do_query(sql, self.ctx)
+        except GreptimeError as e:
+            from ..errors import OverloadedError
+            if isinstance(e, OverloadedError):
+                # clean server-busy: ER_CON_COUNT_ERROR is the MySQL
+                # error clients already treat as "back off and retry"
+                self.send_err(str(e), errno=1040)
+                return
+            self.send_err(str(e))
+            return
+        except Exception as e:  # noqa: BLE001
+            logger.exception("mysql query failed: %s", sql)
+            self.send_err(str(e))
+            return
+        out = outputs[-1]
+        if not out.is_batches:
+            self.send_ok(affected=out.affected_rows or 0)
+            return
+        batches = out.batches
+        if not batches:
+            self.send_ok()
+            return
+        schema = batches[0].schema
+        names = schema.names()
+        types = [_mysql_type(c.dtype) for c in schema.column_schemas]
+        if binary:
+            types = [T_VAR_STRING] * len(names)
+        rows = (self._format_row(schema, row)
+                for b in batches for row in b.rows())
+        self.send_resultset(names, types, rows, binary=binary)
+
+    @staticmethod
+    def _format_row(schema, row) -> List:
+        out = []
+        for col, v in zip(schema.column_schemas, row):
+            if v is None:
+                out.append(None)
+            elif col.dtype.is_timestamp:
+                from ..common.time import Timestamp
+                out.append(Timestamp(v, col.dtype.time_unit).to_datetime()
+                           .strftime("%Y-%m-%d %H:%M:%S.%f")[:-3])
+            elif isinstance(v, bool):
+                out.append(1 if v else 0)
+            else:
+                out.append(v)
+        return out
+
+    # ---- prepared statements (emulation) ----
+    def handle_stmt_prepare(self, sql: str) -> None:
+        stmt = _PreparedStatement(sql)
+        stmt_id = self.next_stmt_id
+        self.next_stmt_id += 1
+        self.stmts[stmt_id] = stmt
+        self.io.write_packet(b"\x00" + struct.pack("<I", stmt_id)
+                             + struct.pack("<HH", 0, stmt.num_params)
+                             + b"\x00" + struct.pack("<H", 0))
+        if stmt.num_params:
+            for _ in range(stmt.num_params):
+                self.io.write_packet(self._column_def("?", T_VAR_STRING))
+            self.send_eof()
+
+    def handle_stmt_execute(self, body: bytes) -> None:
+        stmt_id = struct.unpack_from("<I", body, 0)[0]
+        stmt = self.stmts.get(stmt_id)
+        if stmt is None:
+            self.send_err(f"unknown statement {stmt_id}", errno=1243)
+            return
+        pos = 4 + 1 + 4
+        params: List = []
+        if stmt.num_params:
+            nbytes = (stmt.num_params + 7) // 8
+            null_bitmap = body[pos:pos + nbytes]
+            pos += nbytes
+            bound = body[pos]
+            pos += 1
+            types = []
+            if bound:
+                for _ in range(stmt.num_params):
+                    types.append(struct.unpack_from("<H", body, pos)[0])
+                    pos += 2
+            else:
+                types = [T_VAR_STRING] * stmt.num_params
+            for i in range(stmt.num_params):
+                if null_bitmap[i // 8] & (1 << (i % 8)):
+                    params.append(None)
+                    continue
+                v, pos = _read_binary_value(body, pos, types[i] & 0xFF)
+                params.append(v)
+        sql = _substitute_params(stmt.sql, params)
+        self.handle_query(sql, binary=True)
+
+
+def _read_binary_value(buf: bytes, pos: int, t: int) -> Tuple[object, int]:
+    if t == T_NULL:
+        return None, pos
+    if t == T_TINY:
+        return struct.unpack_from("<b", buf, pos)[0], pos + 1
+    if t == T_SHORT:
+        return struct.unpack_from("<h", buf, pos)[0], pos + 2
+    if t == T_LONG:
+        return struct.unpack_from("<i", buf, pos)[0], pos + 4
+    if t == T_LONGLONG:
+        return struct.unpack_from("<q", buf, pos)[0], pos + 8
+    if t == T_FLOAT:
+        return struct.unpack_from("<f", buf, pos)[0], pos + 4
+    if t == T_DOUBLE:
+        return struct.unpack_from("<d", buf, pos)[0], pos + 8
+    if t in (T_TIMESTAMP, T_DATETIME):
+        n = buf[pos]
+        pos += 1
+        fields = buf[pos:pos + n]
+        pos += n
+        if n == 0:
+            return "0000-00-00 00:00:00", pos
+        year, month, day = struct.unpack_from("<HBB", fields, 0)
+        h = m = s = us = 0
+        if n >= 7:
+            h, m, s = fields[4], fields[5], fields[6]
+        if n == 11:
+            us = struct.unpack_from("<I", fields, 7)[0]
+        return (f"{year:04d}-{month:02d}-{day:02d} "
+                f"{h:02d}:{m:02d}:{s:02d}.{us:06d}"), pos
+    # string-ish types: lenenc
+    raw, pos = read_lenenc_str(buf, pos)
+    return raw.decode(), pos
+
+
+def _substitute_params(sql: str, params: List) -> str:
+    """Client-side parameter substitution (the reference emulates prepared
+    statements the same way through opensrv)."""
+    out = []
+    it = iter(params)
+    in_str = False
+    for ch in sql:
+        if ch == "'":
+            in_str = not in_str
+            out.append(ch)
+        elif ch == "?" and not in_str:
+            v = next(it)
+            if v is None:
+                out.append("NULL")
+            elif isinstance(v, str):
+                escaped = v.replace("'", "''")
+                out.append(f"'{escaped}'")
+            else:
+                out.append(repr(v))
+        else:
+            out.append(ch)
+    return "".join(out)
+
+
+def _mysql_type(dtype) -> int:
+    if dtype.is_timestamp:
+        return T_DATETIME
+    if dtype.is_string:
+        return T_VAR_STRING
+    if dtype.is_float:
+        return T_DOUBLE
+    if dtype.is_boolean:
+        return T_TINY
+    return T_LONGLONG
+
+
+class MysqlServer:
+    """Threaded MySQL protocol listener over a frontend instance."""
+
+    def __init__(self, instance, host: str = "127.0.0.1", port: int = 0,
+                 user_provider=None, ssl_context: Optional[
+                     ssl_mod.SSLContext] = None):
+        self.instance = instance
+        self.user_provider = user_provider
+        self.ssl_context = ssl_context
+        self._next_conn_id = 1
+        self._lock = threading.Lock()
+        server_self = self
+
+        class Handler(socketserver.BaseRequestHandler):
+            def handle(self):
+                with server_self._lock:
+                    conn_id = server_self._next_conn_id
+                    server_self._next_conn_id += 1
+                _Connection(server_self, self.request, conn_id).run()
+
+        class Server(socketserver.ThreadingTCPServer):
+            allow_reuse_address = True
+            daemon_threads = True
+
+        self._tcp = Server((host, port), Handler)
+        self.port = self._tcp.server_address[1]
+        self._thread: Optional[threading.Thread] = None
+
+    def serve_in_background(self) -> threading.Thread:
+        from ..common.runtime import new_thread
+        self._thread = new_thread(self._tcp.serve_forever, daemon=True,
+                                  name="mysql-server",
+                                  propagate_context=False)
+        self._thread.start()
+        return self._thread
+
+    # CLI lifecycle alias (cmd/main.py starts all servers uniformly)
+    start = serve_in_background
+
+    @property
+    def host(self) -> str:
+        return self._tcp.server_address[0]
+
+    def shutdown(self) -> None:
+        self._tcp.shutdown()
+        self._tcp.server_close()

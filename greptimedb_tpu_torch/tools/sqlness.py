@@ -16,17 +16,21 @@ of the JAX package. Each case gets a fresh data home and a fresh
 `build_standalone(DatanodeOptions(device=...))`, whose flows fold only
 when a statement folds them (no background tick, as under the test
 suite); the failpoint registry and the background-job registry are reset
-first, as a fresh server's would be. The device is "cuda" unless `--device cpu` asks for the CPU;
-without CUDA a run on "cuda" raises instead of answering. `filter` keeps
-the cases whose path (relative to the cases directory) contains one of
-the substrings. Exit code 0 when every case matched, 1 otherwise (the
-diffs are printed), 2 when nothing matched.
+first, as a fresh server's would be. A statement's `'/tmp/sqlness_`
+paths (the copy/* cases' files) run as files under the case's own data
+home, so two runs of one case never share a file; the output echoes the
+statement as written. The device is "cuda" unless `--device cpu` asks
+for the CPU; without CUDA a run on "cuda" raises instead of answering.
+`filter` keeps the cases whose path (relative to the cases directory)
+contains one of the substrings. Exit code 0 when every case matched, 1
+otherwise (the diffs are printed), 2 when nothing matched.
 """
 
 from __future__ import annotations
 
 import argparse
 import difflib
+import os
 import re
 import sys
 import tempfile
@@ -41,7 +45,8 @@ CASES_DIR = Path(__file__).resolve().parents[2] / "tests" / "sqlness" / \
 #: smoke script on the card both run these)
 IN_SCOPE = (
     "aggregate/aggregate", "alter/alter", "basic/basic", "cast/cast",
-    "create/create", "cte/cte", "delete/delete", "explain/dispatch",
+    "copy/copy", "copy/copy_compressed", "create/create", "cte/cte",
+    "delete/delete", "explain/dispatch",
     "explain/rollup", "flow/create_flow", "functions/functions",
     "insert/default_values", "insert/insert", "insert/insert_invalid",
     "insert/insert_select", "join/join", "limit/limit",
@@ -167,8 +172,15 @@ def render_output(out) -> str:
     return f"Affected Rows: {out.affected_rows or 0}"
 
 
-def run_case(sql_text: str, frontend) -> str:
-    """Execute a case file's statements; return the .result content."""
+#: the fixed file prefix the copy/* cases write and read
+TMP_PREFIX = "'/tmp/sqlness_"
+
+
+def run_case(sql_text: str, frontend, files_dir: Optional[str] = None
+             ) -> str:
+    """Execute a case file's statements; return the .result content.
+    With `files_dir`, each statement runs with its `'/tmp/sqlness_`
+    paths moved into that directory."""
     from ..errors import GreptimeError
     from ..session import QueryContext
 
@@ -179,6 +191,9 @@ def run_case(sql_text: str, frontend) -> str:
         if not body:
             continue
         blocks.append(stmt)
+        if files_dir is not None:
+            body = body.replace(
+                TMP_PREFIX, "'" + os.path.join(files_dir, "sqlness_"))
         try:
             outputs = frontend.do_query(body, ctx)
             blocks.append(render_output(outputs[-1]))
@@ -215,7 +230,8 @@ def run_one(sql_path: Path, device: str = "cuda") -> Optional[str]:
             data_home=home, register_numbers_table=True,
             flow_tick_interval_s=0, device=device))
         try:
-            got = run_case(sql_path.read_text(), fe)
+            got = run_case(sql_path.read_text(), fe,
+                           files_dir=os.path.join(home, "files"))
         finally:
             fe.shutdown()
     result_path = sql_path.with_suffix(".result")

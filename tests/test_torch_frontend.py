@@ -442,13 +442,8 @@ def test_packages_open_each_others_data_home(run, label):
 
 
 @pytest.mark.parametrize("sql", [
-    "CREATE EXTERNAL TABLE e (host STRING, ts TIMESTAMP TIME INDEX) WITH "
-    "(location = '/nonexistent', format = 'csv')",
-    "COPY monitor TO '/nonexistent/x.parquet'",
-    "COPY monitor FROM '/nonexistent/x.parquet'",
     "ADMIN SHOW TRACE 'last'",
     "ADMIN SHOW PROFILE 'last'",
-    "KILL 1",
     "SET profiling = 1",
     "SET dist_fanout = 4",
     "SET exact_distinct = 1",

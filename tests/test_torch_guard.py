@@ -37,6 +37,12 @@
   read and InfluxDB lines without adding jax or greptimedb_tpu to
   sys.modules; its modules are the port's own; the port's snappy library
   builds from its own `native/snappy.cpp` into `native/build/`.
+- The MySQL and Postgres servers (servers/{mysql,postgres}.py), KILL, COPY
+  and external tables (file_table/, common/datasource.py) run without
+  adding jax or greptimedb_tpu to sys.modules, and their modules are the
+  port's own. common/datasource.py is the one module of common/ that
+  reads pyarrow (COPY's and the file tables' codecs): only
+  frontend/statement.py and file_table/ import it, never the PromQL path.
 """
 
 import ast
@@ -58,6 +64,11 @@ HOST_STACK = ("pandas", "pyarrow")
 PROMQL_PATH = ("__init__.py", "common/", "errors.py", "ops/__init__.py",
                "ops/cuda_build.py", "ops/pallas_window.py", "ops/window.py",
                "promql/", "session/", "sql/", "tools/")
+#: under PROMQL_PATH but off the PromQL path: COPY's and the file tables'
+#: codecs over pyarrow streams
+DATASOURCE = "common/datasource.py"
+#: the only modules that import DATASOURCE
+DATASOURCE_USERS = ("frontend/statement.py", "file_table/engine.py")
 # one intra-op thread: the subprocesses share cores with parallel workers
 _ENV = dict(os.environ, OMP_NUM_THREADS="1")
 
@@ -463,7 +474,7 @@ def test_port_sources_import_nothing_forbidden():
     for path in _port_sources():
         rel = os.path.relpath(path, PORT).replace(os.sep, "/")
         forbidden = FORBIDDEN + (HOST_STACK if rel.startswith(PROMQL_PATH)
-                                 else ())
+                                 and rel != DATASOURCE else ())
         tree = ast.parse(open(path).read(), path)
         for node in ast.walk(tree):
             names = []
@@ -482,7 +493,7 @@ def test_port_sources_import_nothing_forbidden():
 
 @pytest.mark.parametrize("package", ["mito", "procedure", "partition",
                                      "datanode", "frontend", "flow",
-                                     "servers"])
+                                     "servers", "file_table"])
 def test_frontend_packages_are_the_ports_own(package):
     """Each package of the standalone frontend exists in the port, imports
     nothing forbidden and keeps its imports relative (the walk over every
@@ -764,3 +775,108 @@ def test_native_snappy_builds_from_port_source():
     lib = snappy._load()
     assert lib is not None and lib._name == snappy._LIB_PATH
     assert os.path.getmtime(snappy._LIB_PATH) >= os.path.getmtime(snappy._SRC)
+
+
+def test_datasource_stays_off_the_promql_path():
+    """common/datasource.py (pyarrow) is imported by COPY and the file
+    tables only: no other source of the port names it."""
+    users = []
+    for path in _port_sources():
+        rel = os.path.relpath(path, PORT).replace(os.sep, "/")
+        for node in ast.walk(ast.parse(open(path).read(), path)):
+            if isinstance(node, ast.ImportFrom) and (node.module or "") \
+                    .endswith("datasource"):
+                users.append(rel)
+    assert sorted(set(users)) == sorted(DATASOURCE_USERS)
+
+
+_WIRE_PROBE = r"""
+import json, sys, tempfile, socket, struct, os
+before = set(sys.modules)
+from greptimedb_tpu_torch.datanode import DatanodeOptions
+from greptimedb_tpu_torch.frontend import build_standalone
+from greptimedb_tpu_torch.servers import mysql
+from greptimedb_tpu_torch.servers.mysql import MysqlServer
+from greptimedb_tpu_torch.servers.postgres import PostgresServer
+
+
+def my_query(port, sql):
+    s = socket.create_connection(("127.0.0.1", port), timeout=10)
+    io = mysql.PacketIO(s)
+    g = io.read_packet()
+    io.write_packet(struct.pack("<IIB", mysql.CLIENT_PROTOCOL_41 |
+                                mysql.CLIENT_SECURE_CONNECTION, 1 << 24, 45)
+                    + b"\0" * 23 + b"greptime\0\0")
+    assert io.read_packet()[0] == 0
+    io.reset_seq()
+    io.write_packet(bytes([mysql.COM_QUERY]) + sql.encode())
+    head = io.read_packet()
+    s.close()
+    return head
+
+
+def pg_query(port, sql):
+    s = socket.create_connection(("127.0.0.1", port), timeout=10)
+    body = struct.pack("!I", 196608) + b"user\0greptime\0\0"
+    s.sendall(struct.pack("!I", len(body) + 4) + body)
+    f = s.makefile("rb")
+    def msg():
+        head = f.read(5)
+        return chr(head[0]), f.read(struct.unpack("!I", head[1:])[0] - 4)
+    while msg()[0] != "Z":
+        pass
+    s.sendall(b"Q" + struct.pack("!I", len(sql) + 5) + sql.encode() + b"\0")
+    tags = []
+    while True:
+        t, _ = msg()
+        tags.append(t)
+        if t == "Z":
+            s.close()
+            return tags
+
+
+with tempfile.TemporaryDirectory() as home:
+    fe = build_standalone(DatanodeOptions(data_home=home, device="cpu"))
+    my, pg = MysqlServer(fe), PostgresServer(fe)
+    my.start(); pg.start()
+    try:
+        fe.do_query("CREATE TABLE t (host STRING, ts TIMESTAMP TIME INDEX, "
+                    "v DOUBLE, PRIMARY KEY(host))")
+        fe.do_query("INSERT INTO t VALUES ('h0', 1, 1.5), ('h2', 2, 2.5)")
+        assert my_query(my.port, "SELECT host, avg(v) FROM t GROUP BY "
+                        "host")[0] == 2
+        assert pg_query(pg.port, "SELECT * FROM t") == ["T", "D", "D", "C",
+                                                         "Z"]
+        assert my_query(my.port, "KILL 99")[0] == 0xFF
+        # an external table's location is a key under the object store
+        out = os.path.join(fe.datanode.store.root, "ext", "t.csv.gz")
+        fe.do_query(f"COPY t TO '{out}' WITH (format='csv')")
+        fe.do_query("CREATE EXTERNAL TABLE e WITH (location='ext/t.csv.gz', "
+                    "format='csv')")
+        fe.do_query("CREATE TABLE u (host STRING, ts TIMESTAMP TIME INDEX, "
+                    "v DOUBLE, PRIMARY KEY(host))")
+        fe.do_query(f"COPY u FROM '{out}' WITH (format='csv')")
+        assert fe.do_query("SELECT count(*) FROM e")[0].num_rows == 1
+    finally:
+        my.shutdown(); pg.shutdown()
+        fe.shutdown()
+new = sorted(set(sys.modules) - before)
+print(json.dumps(new))
+"""
+
+
+def test_wire_servers_and_copy_import_no_reference():
+    """The MySQL and Postgres servers answer over real sockets, KILL
+    answers, COPY TO / FROM and an external table run on the CPU without
+    adding jax or greptimedb_tpu to sys.modules, through the port's own
+    modules."""
+    out = subprocess.run([sys.executable, "-c", _WIRE_PROBE], cwd=REPO,
+                         env=_ENV, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    new = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in new if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+    for m in ("servers.mysql", "servers.postgres", "file_table.engine",
+              "common.datasource"):
+        assert f"greptimedb_tpu_torch.{m}" in new, m

@@ -6,10 +6,13 @@ port's own golden runner (greptimedb_tpu_torch/tools/sqlness.py: a fresh
 output must byte-match the committed `.result`, the same file the JAX
 package's runner is held to (tests/test_sqlness.py).
 
+The copy/* cases run with their '/tmp/sqlness_ files moved under the
+case's own data home (the runner rewrites the path it executes and
+echoes the statement as written), so parallel runs never share a file.
+
 Out of scope, each waiting for a module of a later slice:
 - admin/show_profile, admin/show_trace: the profiler and the trace store
   (common/profiler.py, common/trace_store.py);
-- copy/*: COPY (common/datasource.py);
 - explain/analyze, explain/index_prune: red on the JAX package itself
   (their partial_bytes differ from what it prints under the tests'
   settings); the port prints what the reference prints on them;
@@ -82,11 +85,31 @@ def test_in_scope_cases_exist():
     names = {str(p.relative_to(sqlness.CASES_DIR))[:-4]
              for p in sqlness.case_files([])}
     assert set(IN_SCOPE) | set(WAITING) <= names
-    assert len(IN_SCOPE) + len(WAITING) == 35
+    assert len(IN_SCOPE) + len(WAITING) == 37
     assert {c for c in IN_SCOPE if c.startswith("tql/")} == {
         "tql/explain", "tql/operators", "tql/range_functions", "tql/tql"}
-    assert {"explain/rollup", "flow/create_flow",
-            "system/background_jobs"} <= set(IN_SCOPE)
+    assert {"explain/rollup", "flow/create_flow", "system/background_jobs",
+            "copy/copy", "copy/copy_compressed"} <= set(IN_SCOPE)
+
+
+def test_copy_case_files_stay_under_the_given_directory(tmp_path):
+    """run_case executes a copy case's '/tmp/sqlness_ paths as files under
+    `files_dir` and echoes each statement as written: the output is the
+    golden, and the files are where the runner put them."""
+    from greptimedb_tpu_torch.datanode import DatanodeOptions
+    from greptimedb_tpu_torch.frontend import build_standalone
+    path = sqlness.CASES_DIR / "copy" / "copy_compressed.sql"
+    fe = build_standalone(DatanodeOptions(data_home=str(tmp_path / "home"),
+                                          device="cpu"))
+    try:
+        got = sqlness.run_case(path.read_text(), fe,
+                               files_dir=str(tmp_path / "files"))
+    finally:
+        fe.shutdown()
+    assert got == path.with_suffix(".result").read_text()
+    assert "'/tmp/sqlness_copy_comp.csv.gz'" in got
+    assert sorted(p.name for p in (tmp_path / "files").iterdir()) == [
+        "sqlness_copy_comp.csv.gz", "sqlness_copy_comp.json.zst"]
 
 
 @pytest.mark.parametrize(
