@@ -6,8 +6,8 @@
 Phases (none of them catches a failure; any failed check exits non-zero).
 With no `--phases` every phase runs; `--phases 12` (a comma-separated
 list) runs the phases named and those they stand on (phases 1 and 2
-always; 12 needs 5, 6 and 7, and runs 12b only with 9), and names them
-in its last two lines:
+always; 12 and 13 need 5, 6 and 7, and 12 runs 12b only with 9), and
+names them in its last two lines:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions,
    and whether pandas, pyarrow, prometheus_client, aiohttp (phase 11's
@@ -188,22 +188,24 @@ in its last two lines:
    hostname through /v1/sql against the brute force; one OpenTSDB telnet
    put and one HTTP put read back. `SET admission_max_inflight = 1` and 8
    concurrent /v1/sql aggregates: at least one 429 with Retry-After and
-   code 6001, counted by /status; /v1/scripts and /debug/prof/cpu answer
-   the error envelope naming their module; /metrics carries the
-   greptime_http_request latency series. Then the server shuts down.
+   code 6001, counted by /status; /v1/scripts with a script of no
+   coprocessor and /debug/prof/cpu in an unknown format answer the 400
+   envelope; /metrics carries the greptime_http_request latency series.
+   Then the server shuts down.
 12. the MySQL and Postgres wire servers (servers/mysql.py,
    servers/postgres.py), every statement over a real socket through a
    minimal client of each protocol; its launches set to 0 before and
    read after. 12a, inside phase 6's run after phase 10, on phase 6's
    frontend and tables: MysqlServer(fe) and PostgresServer(fe) on port
-   0; Q1-Q6 on cpu warm through do_query, then over MySQL and over
-   Postgres, each column's name and wire type and each value's text
-   equal to the servers' encoding of do_query's Output, the three walls
-   printed (the static dispatch floor pinned before each, so the three
-   take one route); SELECT 1 x 50 in turns over each wire and through
-   do_query (the wires' own cost). KILL: Q1 on cpu_24h streamed ("host"
-   mode) run to its end through do_query (its wall over its slices, two
-   in flight, is one slice's time), then again over MySQL; SHOW FULL
+   0; Q2-Q6 on cpu warm through do_query, then over MySQL and over
+   Postgres (Q1's 48 000 rows are cut for time: Q2's 48 000 take the
+   same encoding), each column's name and wire type and each value's
+   text equal to the servers' encoding of do_query's Output, the three
+   walls printed (the static dispatch floor pinned before each, so the
+   three take one route); SELECT 1 x 50 in turns over each wire and
+   through do_query (the wires' own cost). KILL: Q1 on cpu_24h streamed
+   ("host" mode, whose run to its end in phase 7 gives one slice's time:
+   its wall over its slices, two in flight) over MySQL; SHOW FULL
    PROCESSLIST over Postgres lists it, KILL <id> over Postgres ends it,
    and the MySQL client gets errno 1105 "query <id> was killed" within
    one slice's time; that connection then answers SELECT 1, and
@@ -219,14 +221,38 @@ in its last two lines:
    after phase 11 on phase 9's frontend: TQL EVAL over the first hour of
    sum by (region) (rate(cpu_seconds_total[5m])) (the row path: one K1
    launch) through do_query, MySQL and Postgres, equal as above.
+13. the trace store, the profiler, the self-monitor and coprocessor
+   scripts (common/trace_store.py, common/profiler.py, monitor/,
+   script/), inside phase 6's run after phase 12a, on phase 6's frontend
+   and `cpu`, with the launch counts set to 0 before and read after.
+   13a: Q6 and Q1 warm (the static dispatch floor pinned before each, so
+   both launch), five times in turns with tracing and profiling off (SET
+   trace_sample_ratio = 0, SET profiling = 0) and on (ratio 1, profiling
+   at 250 Hz), the medians printed; ADMIN SHOW TRACE of the last Q1 and
+   Q6, whose stored waterfalls must be the reference's (execute_stmt →
+   tpu_execute → region_scan on the resident path); after a
+   self_monitor.tick(), ADMIN SHOW PROFILE 'last' holds the last Q1's
+   samples, frames of the port among them. 13b: three ticks, their walls
+   and the system tables' row counts; TQL EVAL of rate() over one
+   node_metrics series (the row path: K1) within rtol 1e-5 of the same
+   TQL on the CPU; an aggregate over greptime_private.trace_spans with
+   the floor at 0 (one segment_moments launch) equal to the pandas path.
+   13c: an HttpServer over the frontend; POST /v1/scripts of a
+   coprocessor whose sql is Q5 and whose body standardizes the per-host
+   stddev in torch on the card (it asserts `.is_cuda`), /v1/run-script,
+   and the coprocessor as a SQL UDF over the stored spans' durations,
+   each within 8 eps32 sum|x| of numpy. 13d: GET
+   /debug/prof/cpu?seconds=1 while Q1 runs on another thread: folded
+   stacks with frames of the port's query path. Without phase 4, K1's
+   kernel-table row is timed at 13b's inputs.
 
 Before the last line come two JSON objects: the numbers of the bucket
 entry, which the main paths do not launch, then the kernel table of the
 main paths (PromQL's window bounds, SQL's, the flow folds', the HTTP
-front door's and the wires' segment moments), each with its launches by
-phase; the last line is {"ok": true, "device": {...}}. A run of chosen
-phases lists only the kernels it launched, and both lines carry
-"phases": the list of those that ran.
+front door's, the wires' and phase 13's segment moments), each with its
+launches by phase; the last line is {"ok": true, "device": {...}}. A run
+of chosen phases lists only the kernels it launched, and both lines
+carry "phases": the list of those that ran.
 Without CUDA, or without the package beside this script, it exits
 non-zero and prints no result.
 """
@@ -1726,10 +1752,11 @@ class SqlFrontend:
         from greptimedb_tpu_torch.frontend import build_standalone
         t0 = time.perf_counter()
         # flows fold when phase 10 calls tick(), so that each fold is
-        # timed: no background tick
+        # timed, and the self-monitor scrapes when phase 13 ticks it: no
+        # background tick of either
         self.fe = build_standalone(DatanodeOptions(
             data_home=self.data_home, flow_tick_interval_s=0,
-            device=DEVICE))
+            self_monitor_interval_s=0, device=DEVICE))
         seconds = time.perf_counter() - t0
         qe = self.fe.query_engine
         qe._finish_aggregate_frame = self._timed(
@@ -1983,7 +2010,7 @@ def phase_sql(torch, seed):
         cpu_p = sql_partitioned(sql, seed + 6)
         fused = sql_fusion(sql, queries[q5])
         sql_narrow(sql, seed + 5)
-        launches_24h, cpu_24h = sql_streamed_24h(sql, seed + 7)
+        launches_24h, cpu_24h, q1_24h = sql_streamed_24h(sql, seed + 7)
         launches = K.segment_moments.launches
         want = 3 * len(queries) + streamed + 1 + 2 + \
             len(PART_QUERIES) * len(PART_RUNS) * PART_REGIONS + fused + \
@@ -2004,7 +2031,7 @@ def phase_sql(torch, seed):
             cpu_full=types.SimpleNamespace(ts=ts, tags=tags, fields=fields,
                                            extra=extra_row),
             queries=queries, ties=ties, eight=eight, launches=launches,
-            inputs=inputs)
+            inputs=inputs, q1_24h=q1_24h)
         # phase 8 alone reads cpu_24h's arrays; the caller drops them
         del cpu_24h
         yield st
@@ -2262,8 +2289,10 @@ def sql_streamed_24h(sql, seed):
     spans each run cold in the default "host" mode (Q3 and Q4 take the
     SST index), then Q1, Q5 and Q6 in "device" mode (one segment_moments
     launch per non-empty slice); every answer against the float64 brute
-    force. Returns the launches and phase 8's copy of the table (ts, each
-    host's region, usage_user and usage_system)."""
+    force. Returns the launches, phase 8's copy of the table (ts, each
+    host's region, usage_user and usage_system) and Q1's "host" run (its
+    wall in s and its slices: phase 12a's KILL is held to one slice's
+    time)."""
     from greptimedb_tpu_torch.query import stream_exec, tpu_exec
     log("== phase 7: the streamed cold path on TSBS cpu-only at 24 h")
     # the earlier tables' scans and launch inputs (the timing keeps its
@@ -2297,7 +2326,7 @@ def sql_streamed_24h(sql, seed):
         f"{half / 1e9:.3f} GB (rows {rows} <= stream_threshold_rows {thr})")
     eight, queries = sql_queries(np.random.default_rng(seed + 1), H)
     ties = tie_hosts(table)
-    launches = 0
+    launches, q1_host = 0, None
     runs = [(name, "host") for name in queries] + \
         [(name, "device") for name in queries
          if name.split()[0] in DEVICE_QUERIES]
@@ -2317,6 +2346,9 @@ def sql_streamed_24h(sql, seed):
               f"stream_threshold_rows={thr})", f"{name}: dispatch {d!r}")
         if mode == "device":
             check(sql.last.launches > 0, f"{name}: no device slice")
+        elif name.startswith("Q1"):
+            q1_host = (sql.last.wall, sum(p.counters.get("slices", 0)
+                                          for p in sql.last.profiles))
         launches += sql.last.launches
         want, exact, approx = sql_expected(name, ts, fields, ties, eight,
                                            partials=mode == "device")
@@ -2347,7 +2379,7 @@ def sql_streamed_24h(sql, seed):
     check(errors == 0, f"stream_device_stage_errors {errors}")
     log(f"cpu_24h never entered the scan cache; stream_device_stage_errors "
         f"{errors:.0f}; {launches} segment_moments launches")
-    return launches, keep
+    return launches, keep, q1_host
 
 
 #: the narrow-integer table's fields: SQL type and the range each draws
@@ -3264,8 +3296,8 @@ class PromFrontend:
         from greptimedb_tpu_torch.promql import lowering
         from greptimedb_tpu_torch.query import ir, tpu_exec
         self.torch = torch
-        self.fe = build_standalone(DatanodeOptions(data_home=data_home,
-                                                   device=DEVICE))
+        self.fe = build_standalone(DatanodeOptions(
+            data_home=data_home, self_monitor_interval_s=0, device=DEVICE))
         self.eng = self.fe.promql_engine()
         self.t, self.frame = {}, None
         #: the port's dispatch floor, which each lowered statement sets
@@ -4418,7 +4450,7 @@ def phase_http(torch, pf, p4, seed, phase9):
               f"OpenTSDB: {version!r} {doc} {got}")
         log("OpenTSDB: one telnet put and one HTTP put, read back exactly")
 
-        # ---- admission, the routes not ported, /metrics ----
+        # ---- admission, the script and profiler routes, /metrics ----
         http.sql("SET tpu_dispatch_min_rows = 0")
         http.sql("SET admission_max_inflight = 1")
         rejected0 = http.json("/status")[0]["admission"]["rejected_total"]
@@ -4445,13 +4477,17 @@ def phase_http(torch, pf, p4, seed, phase9):
             f"(/status rejected_total +{rejected - rejected0}) in "
             f"{walls['admission'] * 1e3:.1f} ms")
         pf.do(f"SET tpu_dispatch_min_rows = {pf.floor}")
-        for path, method, module in (
-                ("/v1/scripts?name=s", "POST", "script/"),
-                ("/debug/prof/cpu", "GET", "common/profiler.py")):
+        # the script and profiler routes' own validation envelopes (phase
+        # 13 drives the routes themselves)
+        from greptimedb_tpu_torch.errors import StatusCode
+        for path, method, error in (
+                ("/v1/scripts?name=s", "POST", "defines no @copr"),
+                ("/debug/prof/cpu?format=pprof", "GET",
+                 "not supported")):
             doc, _, _ = http.json(path, status=400, method=method,
                                   body=b"" if method == "POST" else None)
-            check(doc["code"] == 1001 and module in doc["error"],
-                  f"{path}: {doc}")
+            check(doc["code"] == int(StatusCode.INVALID_ARGUMENTS) and
+                  error in doc["error"], f"{path}: {doc}")
         code, body, _, _ = http.call("/metrics")
         text = body.decode()
         series = sorted({re.search(r'route="([^"]*)"', ln).group(1)
@@ -4460,8 +4496,8 @@ def phase_http(torch, pf, p4, seed, phase9):
                                           "count{")})
         check(code == 200 and series, "/metrics has no greptime_http_request "
               "latency series")
-        log(f"/v1/scripts and /debug/prof/cpu: the UnsupportedError envelope "
-            f"naming the module; /metrics: greptime_http_request_seconds for "
+        log(f"/v1/scripts with no @copr and /debug/prof/cpu?format=pprof: "
+            f"the 400 envelope; /metrics: greptime_http_request_seconds for "
             f"{len(series)} routes")
     finally:
         srv.shutdown()
@@ -4482,6 +4518,9 @@ def phase_http(torch, pf, p4, seed, phase9):
 #: own cost is the difference of the medians
 WIRE_REPS = 50
 WIRE_TIMEOUT_S = 600
+#: the queries phase 12a no longer sends over the wires (the script's time
+#: limit): Q2's 48 000 rows take the same row encoding as Q1's
+WIRE_CUT = ("Q1 double-groupby-all",)
 #: the share of cpu_24h's streamed Q1 after which KILL is sent
 KILL_AFTER = 0.3
 
@@ -4721,21 +4760,19 @@ def wire_front_cost(fe, my, pg):
     return med
 
 
-def wire_kill(sql, my_srv, pg, q1, pin):
+def wire_kill(sql, my_srv, pg, q1, pin, q1_24h):
     """Q1 streamed on cpu_24h ("host" mode) over MySQL; SHOW FULL
     PROCESSLIST over Postgres lists it; KILL <id> over Postgres ends it
     and MySQL's client gets the cancel error within one slice's time;
     the MySQL connection then answers; COM_PROCESS_KILL of an unknown id
-    is errno 1094. Returns (the kill latency, one slice's time) in s."""
+    is errno 1094. `q1_24h` is phase 7's run of the same statement to its
+    end: (wall s, slices). Returns (the kill latency, one slice's time)
+    in s."""
     import threading
     q = re.sub(r"\bFROM cpu\b", "FROM cpu_24h", q1)
-    # the statement run to its end first: its wall over its slices (two
-    # in flight at a time) is one slice's time
-    pin()
-    sql.execute("Q1 on cpu_24h, run to its end", q, "cold, host, unfenced",
-                "cpu_24h", path="streamed")
-    slices = sum(p.counters.get("slices", 0) for p in sql.last.profiles)
-    full = sql.last.wall
+    # phase 7 ran the statement to its end in the same mode: its wall
+    # over its slices (two in flight at a time) is one slice's time
+    full, slices = q1_24h
     slice_s = full * 2 / slices
     victim = WireMysql(my_srv.port)
     done, outcome = [], []
@@ -4781,7 +4818,8 @@ def wire_kill(sql, my_srv, pg, q1, pin):
     check(ans[:2] == ("err", 1094) and "no such running" in ans[2],
           f"COM_PROCESS_KILL of an unknown id: {ans}")
     victim.close()
-    log(f"KILL: Q1 on cpu_24h streamed over MySQL (run to its end: "
+    log(f"KILL: Q1 on cpu_24h streamed over MySQL (run to its end in "
+        f"phase 7: "
         f"{full * 1e3:.1f} ms, {slices} slices, two in flight: "
         f"{slice_s * 1e3:.1f} ms a slice); listed by SHOW FULL PROCESSLIST "
         f"over Postgres as id {pid}; KILL {pid} over Postgres "
@@ -4901,11 +4939,13 @@ def wire_copy(sql, my, cpu_p, walls):
         f"(counts exact, max equal at float32)")
 
 
-def phase_wire_sql(torch, sql, queries, cpu_p):
+def phase_wire_sql(torch, sql, queries, cpu_p, q1_24h):
     """Phase 12a: the MySQL and Postgres servers over phase 6's frontend
-    (after phase 10's restart): Q1-Q6 on cpu warm over each wire against
-    do_query, the wires' own cost, KILL of a streamed Q1 on cpu_24h, and
-    COPY on cpu_p. Returns its segment_moments launches and walls."""
+    (after phase 10's restart): Q2-Q6 on cpu warm over each wire against
+    do_query (Q1's 48 000-row answer is cut for time: Q2's 48 000 rows
+    take the same encoding), the wires' own cost, KILL of a streamed Q1 on
+    cpu_24h (`q1_24h`: phase 7's run of it), and COPY on cpu_p. Returns
+    its segment_moments launches and walls."""
     from greptimedb_tpu_torch.ops import kernels as K
     log("== phase 12a: the MySQL and Postgres wire servers over phase 6's "
         "frontend")
@@ -4928,6 +4968,8 @@ def phase_wire_sql(torch, sql, queries, cpu_p):
     try:
         my, pg = WireMysql(my_srv.port), WirePg(pg_srv.port)
         for name, q in queries.items():
+            if name in WIRE_CUT:
+                continue
             # warm: the scan cache filled by the statement's first run
             pin()
             sql.fe.do_query(q)
@@ -4935,7 +4977,7 @@ def phase_wire_sql(torch, sql, queries, cpu_p):
         walls["select 1"] = wire_front_cost(sql.fe, my, pg)
         q1 = next(q for n, q in queries.items() if n.startswith("Q1"))
         walls["kill"], walls["slice"] = wire_kill(sql, my_srv, pg, q1,
-                                                    pin)
+                                                    pin, q1_24h)
         wire_copy(sql, my, cpu_p, walls)
     finally:
         for c in (my, pg):
@@ -4998,6 +5040,453 @@ def phase_wire_prom(torch, pf, start_ms):
     return types.SimpleNamespace(k1=nk, moments=nm, walls=walls)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the trace store, the profiler, the self-monitor, scripts
+# ---------------------------------------------------------------------------
+
+#: ADMIN SHOW TRACE's waterfall of a device-path aggregate on a resident
+#: region, as (span, depth, parent span): what the reference's
+#: FrontendInstance renders for the same statement
+#: (tests/test_torch_trace_store.py holds the two packages to each other)
+DEVICE_WATERFALL = [("execute_stmt", 0, None),
+                    ("tpu_execute", 1, "execute_stmt"),
+                    ("region_scan", 2, "tpu_execute")]
+#: the warm queries run with tracing and profiling off, then on, in turns
+OBSERVED = ("Q6 global aggregate", "Q1 double-groupby-all")
+OBSERVE_REPS = 5
+#: tracing and profiling on: every trace kept, the sampler at its top rate
+OBSERVE_ON = ("SET trace_sample_ratio = 1", "SET profiling = 1",
+              "SET profile_hz = 250")
+OBSERVE_OFF = ("SET trace_sample_ratio = 0", "SET profiling = 0")
+MONITOR_TICKS = 3
+#: the node_metrics series 13b's TQL reads: every statement counts there
+MONITOR_METRIC = "greptime_stmt_query_total"
+#: 13b's aggregate over the stored spans
+SPANS_AGG = ("SELECT span_name, count(*) AS n, max(duration_ms) AS m, "
+             "sum(duration_ms) AS t FROM greptime_private.trace_spans "
+             "GROUP BY span_name ORDER BY span_name")
+#: 13c's SQL UDF call: the coprocessor over the stored spans' durations
+#: (a small table: a UDF runs on the raw-row path, whose pandas frame of
+#: `cpu` would take ~25 s to build)
+UDF_SQL = ("SELECT span_id, {col} FROM greptime_private.trace_spans "
+           "ORDER BY span_id")
+BURST_S = 1
+
+
+def zscore_script(q5):
+    """13c's coprocessor: Q5's per-host stddev of usage_user standardized
+    in torch, on the card (its body checks where its tensor is)."""
+    where = "x.is_cuda" if DEVICE == "cuda" else \
+        f"x.device.type == {DEVICE!r}"
+    return (f"@copr(args=['stddev(usage_user)'], returns=['z', 'device'],\n"
+            f"      sql={q5!r})\n"
+            f"def zscore(s):\n"
+            f"    x = torch.as_tensor(s)\n"
+            f"    assert {where}, f'the body ran on {{x.device}}'\n"
+            f"    z = (x - x.mean()) / x.std(unbiased=False)\n"
+            f"    return z, x.device.type\n")
+
+
+def standardize_check(name, got, x):
+    """`got` against numpy's standardization of float64 `x`, within
+    8 eps32 sum|x| per value."""
+    x = np.asarray(x, dtype=np.float64)
+    want = (x - x.mean()) / x.std()
+    got = np.asarray(got, dtype=np.float64)
+    bound = 8 * np.finfo(np.float32).eps * np.abs(x).sum()
+    err = float(np.abs(got - want).max())
+    check(got.shape == want.shape and err <= bound,
+          f"{name}: max |err| {err:.3g} against numpy, bound {bound:.3g}")
+    return err, bound
+
+
+def waterfall_structure(fe, trace_id):
+    """(span, depth, parent span) of a stored trace, depth-first."""
+    from greptimedb_tpu_torch.common import trace_store
+    rows = trace_store.fetch_trace(fe.catalog, trace_id)
+    by_id = {r["span_id"]: r for r in rows}
+    out = []
+    for r in sorted(rows, key=lambda r: (r["ts"], r["span_id"])):
+        depth, p = 0, r["parent_span_id"]
+        while p in by_id:
+            depth, p = depth + 1, by_id[p]["parent_span_id"]
+        parent = by_id.get(r["parent_span_id"])
+        out.append((r["span_name"], depth,
+                    parent["span_name"] if parent else None))
+    return sorted(out, key=lambda t: t[1])
+
+
+def observe_queries(sql, queries, pin):
+    """13a: Q6 and Q1 warm, in turns with tracing and profiling off and
+    on; the traced statements' waterfalls; the profile of the last one.
+    Returns the walls."""
+    from greptimedb_tpu_torch.common import profiler, trace_store
+    from greptimedb_tpu_torch.ops import kernels as K
+    fe, torch = sql.fe, sql.torch
+    sink = trace_store.sink()
+    walls = {(q, m): [] for q in OBSERVED for m in ("off", "on")}
+    traced = {}
+    launched = K.segment_moments.launches
+    for _ in range(OBSERVE_REPS):
+        for mode, knobs in (("off", OBSERVE_OFF), ("on", OBSERVE_ON)):
+            for k in knobs:
+                sql.do(k)
+            if mode == "on":
+                # a sampler switched off polls its knob every IDLE_POLL_S:
+                # let it wake before the timed runs
+                time.sleep(profiler.Profiler.IDLE_POLL_S + 0.05)
+            for name in OBSERVED:
+                pin()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sql.do(queries[name])
+                torch.cuda.synchronize()
+                walls[(name, mode)].append(time.perf_counter() - t0)
+                if mode == "on":
+                    traced[name] = sink.last_retained
+    # the sampler stops before the reads, so 'last' stays the last Q1
+    profiler.configure(enabled=False)
+    time.sleep(0.05)
+    launched = K.segment_moments.launches - launched
+    check(launched == OBSERVE_REPS * 2 * len(OBSERVED), f"the timed runs "
+          f"launched segment_moments {launched} times, not once each")
+    med = {k: statistics.median(v) * 1e3 for k, v in walls.items()}
+    for name in OBSERVED:
+        off, on = med[(name, "off")], med[(name, "on")]
+        log(f"  {name} warm, median of {OBSERVE_REPS} in turns: tracing "
+            f"and profiling off {off:.1f} ms, on (ratio 1, 250 Hz) "
+            f"{on:.1f} ms ({(on - off) / off * 100:+.1f} %); all: off "
+            + " / ".join(f"{w * 1e3:.1f}" for w in walls[(name, "off")])
+            + ", on " + " / ".join(f"{w * 1e3:.1f}"
+                                   for w in walls[(name, "on")]))
+    last = traced[OBSERVED[-1]]
+    check(last == sink.last_retained, "the last traced statement is not "
+          "the last retained trace")
+    # the last Q1 first: each ADMIN statement is a retained trace too
+    for name in reversed(OBSERVED):
+        tid = traced[name]
+        sql_show = "ADMIN SHOW TRACE 'last'" if tid == last else \
+            f"ADMIN SHOW TRACE '{tid}'"
+        t0 = time.perf_counter()
+        out = sql.do(sql_show)
+        wall = time.perf_counter() - t0
+        d = out.batches[0].to_pydict()
+        got = waterfall_structure(fe, tid)
+        check(got == DEVICE_WATERFALL, f"{name}: the stored waterfall is "
+              f"{got}, not the reference's {DEVICE_WATERFALL}")
+        check([s.strip(" └─") for s in d["span"]] ==
+              [n for n, _, _ in DEVICE_WATERFALL] and
+              '"path":"resident"' in d["detail"][-1],
+              f"{sql_show}: spans {d['span']}, {d['detail']}")
+        log(f"  {sql_show} ({name}, {wall * 1e3:.1f} ms): " + "; ".join(
+            f"{s.strip()} {dur:.1f} ms (self {own:.1f})" for s, dur, own in
+            zip(d["span"], d["duration_ms"], d["self_ms"])) +
+            f"; the reference's spans, depths and parents")
+    sampled = profiler.sampler().last_query_trace
+    check(sampled == last, f"the profiler's last sampled statement is "
+          f"{sampled}, not the last Q1 {last}")
+    t0 = time.perf_counter()
+    ticked = fe.self_monitor.tick()
+    tick_s = time.perf_counter() - t0
+    out = sql.do("ADMIN SHOW PROFILE 'last'")
+    d = out.batches[0].to_pydict()
+    check(out.num_rows > 0 and max(d["total_samples"]) >= 1,
+          "ADMIN SHOW PROFILE 'last' holds no sample of the last Q1")
+    port_frames = [f for f in d["frame"] if "greptimedb_tpu_torch/" in f]
+    check(bool(port_frames), "the last Q1's profile holds no frame of the "
+          "port")
+    top = sorted(zip(d["self_samples"], d["frame"]), reverse=True)[:3]
+    log(f"  tick {tick_s * 1e3:.1f} ms ({ticked} rows); ADMIN SHOW PROFILE "
+        f"'last' (the last Q1): {out.num_rows} frames, "
+        f"{max(d['total_samples'])} samples; top self: " + "; ".join(
+            f"{f.strip(' └─')} {n}" for n, f in top))
+    return med
+
+
+def observe_monitor(sql, queries, pin, k1_calls):
+    """13b: three ticks; TQL EVAL of rate() over node_metrics on the row
+    path (K1), held to the same TQL on the CPU; an aggregate over the
+    stored spans on the device path (segment_moments), held to the pandas
+    path. Returns the tick walls and the device TQL's last K1 inputs."""
+    from greptimedb_tpu_torch.ops import kernels as K
+    from greptimedb_tpu_torch.ops import pallas_window as pw
+    from greptimedb_tpu_torch.promql.engine import PromqlEngine
+    from greptimedb_tpu_torch.query import tpu_exec
+    from greptimedb_tpu_torch.session import QueryContext
+    from greptimedb_tpu_torch.sql import parse_sql
+    fe = sql.fe
+    ticks, stamps = [], []
+    for i in range(MONITOR_TICKS):
+        if i:
+            time.sleep(0.5)
+        pin()
+        sql.do(queries["Q6 global aggregate"])   # the counter moves
+        t0 = time.perf_counter()
+        written = fe.self_monitor.tick()
+        ticks.append(time.perf_counter() - t0)
+        stamps.append(int(time.time() * 1000))
+        check(written > 0 and fe.self_monitor.stats["last_error"] is None,
+              f"tick {i}: {written} rows, {fe.self_monitor.stats}")
+    counts = {t: sql_frame(sql.do(f"SELECT count(*) FROM greptime_private."
+                                  f"{t}"))["count(*)"].iloc[0]
+              for t in ("node_metrics", "region_heat", "trace_spans",
+                        "profile_samples")}
+    log(f"  {MONITOR_TICKS} ticks: " + " / ".join(
+        f"{w * 1e3:.1f}" for w in ticks) + " ms; rows: " + ", ".join(
+        f"{k} {v}" for k, v in counts.items()))
+    check(counts["region_heat"] >= MONITOR_TICKS, f"region_heat: {counts}")
+    ctx = QueryContext(current_schema="greptime_private")
+    tql = (f"TQL EVAL ({stamps[0] // 1000}, {stamps[-1] // 1000 + 1}, "
+           f"'1s') rate(node_metrics{{metric_name=\"{MONITOR_METRIC}\"}}"
+           f"[1m])")
+    k0 = pw.counts_leq_grid.launches
+    t0 = time.perf_counter()
+    (out,) = fe.do_query(tql, ctx)
+    wall = time.perf_counter() - t0
+    k1 = pw.counts_leq_grid.launches - k0
+    check(k1 > 0 and len(k1_calls) >= k1, f"the TQL over node_metrics "
+          f"launched K1 {k1} times")
+    k1_inputs = k1_calls[-1]
+    got = sql_frame(out)
+    t0 = time.perf_counter()
+    plain = sql_frame(PromqlEngine(fe.catalog, device="cpu").execute_tql(
+        parse_sql(tql), ctx))
+    cpu_wall = time.perf_counter() - t0
+    check(len(got) > 0 and list(got.columns) == list(plain.columns) and
+          got.drop(columns="value").equals(plain.drop(columns="value")),
+          f"the TQL over node_metrics: {got} against the CPU's {plain}")
+    v, w = got["value"].to_numpy(float), plain["value"].to_numpy(float)
+    check(np.isfinite(v).all() and (v >= 0).all() and
+          np.allclose(v, w, rtol=1e-5, atol=0),
+          f"rate over node_metrics: {v} against the CPU's {w}")
+    log(f"  {tql} on the row path: {len(got)} points, K1 {k1} launches, "
+        f"{wall * 1e3:.1f} ms; rates {v.min():.4g}-{v.max():.4g}/s, within "
+        f"rtol 1e-5 of the same TQL on the CPU ({cpu_wall * 1e3:.1f} ms)")
+    (region,) = fe.catalog.table("greptime", "greptime_private",
+                                 "trace_spans").regions.values()
+    saved = tpu_exec.TPU_DISPATCH_MIN_ROWS
+    m0 = K.segment_moments.launches
+    try:
+        sql.do("SET tpu_dispatch_min_rows = 0")
+        region.last_scan_profile = None
+        t0 = time.perf_counter()
+        dev = sql_frame(sql.do(SPANS_AGG))
+        dev_wall = time.perf_counter() - t0
+        check(region.last_scan_profile is not None and
+              region.last_scan_profile.path == "resident",
+              "the aggregate over trace_spans did not take the device")
+        launched = K.segment_moments.launches - m0
+        sql.do("SET tpu_dispatch_min_rows = 1000000000")
+        region.last_scan_profile = None
+        t0 = time.perf_counter()
+        host = sql_frame(sql.do(SPANS_AGG))
+        host_wall = time.perf_counter() - t0
+        check(region.last_scan_profile is None,
+              "the floor raised, the aggregate still took the device")
+    finally:
+        sql.do(f"SET tpu_dispatch_min_rows = {saved}")
+    eps = np.finfo(np.float32).eps
+    check(launched == 1 and dev["span_name"].equals(host["span_name"]) and
+          dev["n"].equals(host["n"]) and
+          np.allclose(dev["m"], host["m"], rtol=eps, atol=0) and
+          (np.abs(dev["t"] - host["t"]) <= 8 * eps * host["t"].abs()).all(),
+          f"trace_spans by span name, device {dev} against pandas {host}")
+    log(f"  {SPANS_AGG}: {len(dev)} span names, {int(dev['n'].sum())} spans; "
+        f"device path (1 segment_moments launch) {dev_wall * 1e3:.1f} ms == "
+        f"pandas path {host_wall * 1e3:.1f} ms (counts exact, max and sum "
+        f"within float32)")
+    return ticks, k1_inputs
+
+
+def observe_scripts(sql, client, queries, pin):
+    """13c: the coprocessor stored over /v1/scripts, run over
+    /v1/run-script and as a SQL UDF, each held to numpy. Returns the
+    walls."""
+    q5 = queries["Q5 per-host moments"]
+    walls = {}
+    pin()
+    x = sql_frame(sql.do(q5))["stddev(usage_user)"].to_numpy(float)
+    doc, _, walls["store"] = client.json(
+        "/v1/scripts", method="POST", params={"name": "zscore",
+                                               "db": "public"},
+        body=zscore_script(q5).encode())
+    check(doc == {"code": 0}, f"POST /v1/scripts: {doc}")
+    pin()
+    doc, _, walls["run"] = client.json(
+        "/v1/run-script", method="POST", body=b"",
+        params={"name": "zscore", "db": "public"})
+    got = records(doc["output"][0])
+    check(set(got["device"]) == {DEVICE},
+          f"the body ran on {set(got['device'])}")
+    err, bound = standardize_check("/v1/run-script zscore", got["z"], x)
+    log(f"  POST /v1/scripts {walls['store'] * 1e3:.1f} ms; /v1/run-script "
+        f"zscore (Q5's {len(x)} stddevs standardized in torch on "
+        f"{got['device'][0]}) {walls['run'] * 1e3:.1f} ms; max |err| "
+        f"{err:.3g} against numpy, bound {bound:.3g}")
+    t0 = time.perf_counter()
+    xs = sql_frame(sql.do(UDF_SQL.format(col="duration_ms")))
+    plain = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = sql_frame(sql.do(UDF_SQL.format(col="zscore(duration_ms) AS z")))
+    walls["udf"] = time.perf_counter() - t0
+    check(out["span_id"].equals(xs["span_id"]), "the UDF's rows differ")
+    err, bound = standardize_check("zscore() as a SQL UDF", out["z"],
+                                   xs["duration_ms"])
+    log(f"  {UDF_SQL.format(col='zscore(duration_ms) AS z')} ({len(xs)} "
+        f"rows) through do_query {walls['udf'] * 1e3:.1f} ms (without the "
+        f"UDF {plain * 1e3:.1f} ms); max |err| {err:.3g} against numpy, "
+        f"bound {bound:.3g}")
+    return walls
+
+
+def observe_burst(sql, client, queries, pin):
+    """13d: GET /debug/prof/cpu?seconds=1 while Q1 runs on another
+    thread: folded stacks holding the port's query path. Returns the
+    burst's wall."""
+    import threading
+    stop, runs, errors = threading.Event(), [], []
+
+    def busy():
+        try:
+            while not stop.is_set():
+                pin()
+                sql.do(queries["Q1 double-groupby-all"])
+                runs.append(1)
+        except BaseException as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    th = threading.Thread(target=busy)
+    th.start()
+    try:
+        code, body, headers, wall = client.call(
+            "/debug/prof/cpu", params={"seconds": BURST_S})
+    finally:
+        stop.set()
+        th.join(timeout=HTTP_TIMEOUT_S)
+    check(not th.is_alive() and not errors, f"Q1 beside the burst: {errors}")
+    lines = body.decode().splitlines()
+    check(code == 200 and headers["Content-Type"].startswith("text/plain")
+          and lines, f"/debug/prof/cpu: HTTP {code}, {body[:300]!r}")
+    counts = [int(ln.rsplit(" ", 1)[1]) for ln in lines]
+    query = sum(c for ln, c in zip(lines, counts)
+                if "greptimedb_tpu_torch/query/" in ln)
+    check(query > 0, "the burst caught no frame of the port's query path")
+    log(f"  GET /debug/prof/cpu?seconds={BURST_S} beside {len(runs)} Q1 "
+        f"runs: {wall * 1e3:.1f} ms, {len(lines)} stacks, {sum(counts)} "
+        f"samples, {query} in greptimedb_tpu_torch/query/")
+    return wall
+
+
+def phase_observe(torch, sql, queries):
+    """Phase 13 on phase 6's frontend and `cpu`: tracing and profiling
+    over warm Q6 and Q1 (13a), the self-monitor, TQL over its metrics and
+    SQL over its spans (13b), a coprocessor over HTTP and as a SQL UDF
+    (13c), a CPU burst during Q1 (13d). Returns its launches, K1's inputs
+    and the walls."""
+    from greptimedb_tpu_torch.common import profiler, trace_store
+    from greptimedb_tpu_torch.ops import kernels as K
+    from greptimedb_tpu_torch.ops import pallas_window as pw
+    from greptimedb_tpu_torch.ops import window as win
+    from greptimedb_tpu_torch.query import tpu_exec
+    from greptimedb_tpu_torch.servers.http import HttpServer
+    log("== phase 13: the trace store, the profiler, the self-monitor and "
+        "scripts over phase 6's frontend")
+    t_phase = time.perf_counter()
+    fe = sql.fe
+    # the goldens' and the restart's frontends installed theirs last: the
+    # phase observes phase 6's frontend (one frontend a process, as served)
+    trace_store.install(fe.trace_sink)
+    profiler.install(fe.profiler)
+    floor = tpu_exec.TPU_DISPATCH_MIN_ROWS
+    saved = (trace_store.sample_ratio(), profiler.enabled(), profiler.hz())
+    grid = win.counts_leq_grid
+    k1_calls = []
+
+    def recorded(*args):
+        k1_calls.append(args)
+        return grid(*args)
+
+    def pin():
+        # the static floor, which each device query would otherwise raise
+        sql.do(f"SET tpu_dispatch_min_rows = {floor}")
+
+    win.counts_leq_grid = recorded
+    sql.timer.fenced = False
+    K.segment_moments.launches = pw.counts_leq_grid.launches = 0
+    walls = {}
+    srv = None
+    steps = {}
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        steps[name] = time.perf_counter() - t0
+        log(f"  ({name}: {steps[name]:.1f}s)")
+        return out
+
+    try:
+        log("-- 13a: traced and profiled warm queries")
+        walls["queries"] = step("13a", lambda: observe_queries(
+            sql, queries, pin))
+        log("-- 13b: the self-monitor")
+        walls["ticks"], k1_inputs = step("13b", lambda: observe_monitor(
+            sql, queries, pin, k1_calls))
+        srv = HttpServer(fe, addr="127.0.0.1:0")
+        srv.start()
+        client = HttpClient(srv.port)
+        log(f"-- 13c: scripts over HttpServer(fe) on port {srv.port}")
+        walls["scripts"] = step("13c", lambda: observe_scripts(
+            sql, client, queries, pin))
+        log("-- 13d: a CPU burst during Q1")
+        walls["burst"] = step("13d", lambda: observe_burst(
+            sql, client, queries, pin))
+    finally:
+        if srv is not None:
+            srv.shutdown()
+        win.counts_leq_grid = grid
+        sql.timer.fenced = True
+        trace_store.configure(sample_ratio=saved[0])
+        profiler.configure(enabled=saved[1], hz=saved[2])
+        tpu_exec.TPU_DISPATCH_MIN_ROWS, tpu_exec._observed_min_dt[0] = \
+            floor, None
+    moments, k1 = K.segment_moments.launches, pw.counts_leq_grid.launches
+    check(moments > 0 and k1 > 0, f"phase 13 launched segment_moments "
+          f"{moments} and K1 {k1} times")
+    walls["phase"] = time.perf_counter() - t_phase
+    log(f"phase 13: segment_moments {moments} launches, K1 {k1}; "
+        f"{walls['phase']:.1f}s")
+    return types.SimpleNamespace(moments=moments, k1=k1, walls=walls,
+                                 k1_inputs=k1_inputs)
+
+
+def k1_row_at(torch, args):
+    """K1's kernel-table row timed at one main-path call's inputs (a run
+    without phase 4, whose row comes from phase 3)."""
+    from greptimedb_tpu_torch.ops import pallas_window as pw
+    ts, t0, step, T = args
+    S, L = ts.shape
+    want = pw.counts_leq_plain(pw.step_buckets(ts, t0, step, T), T)
+    err = same(torch, f"counts_leq_grid at phase 13's shape ({S}, {L}) "
+               f"T={T}", pw.counts_leq_grid(ts, t0, step, T), want)
+    ends = (torch.arange(T, dtype=torch.int64, device=ts.device) * step +
+            t0).to(torch.int32)[None, :].expand(S, -1).contiguous()
+    launches = pw.counts_leq_grid.launches
+    ms = median_ms(torch, lambda: pw.counts_leq_grid(ts, t0, step, T))
+    pw.counts_leq_grid.launches = launches      # timing is off the path
+    plain = median_ms(torch, lambda: pw.counts_leq_plain(
+        pw.step_buckets(ts, t0, step, T), T))
+    lib = median_ms(torch, lambda: torch.searchsorted(ts, ends, right=True))
+    bound_ms, bound_by, _, _ = bound(S, L, T)
+    log(f"  K1 at ({S}, {L}) T={T}: {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"torch.searchsorted {lib:.4f} ms, bound {bound_ms:.5f} ms by "
+        f"{bound_by}")
+    return {"name": "counts_leq_grid", "route": "cuda",
+            "source": "greptimedb_tpu_torch/csrc/counts_leq.cu",
+            "replaces": "greptimedb_tpu/ops/pallas_window.py:61",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib}
+
+
 def phase_moments_time(torch, inputs, tool=True):
     """segment_moments on the inputs the main path gave it (`inputs`:
     label -> the kernel's arguments), against its plain version and the
@@ -5040,16 +5529,16 @@ def phase_moments_time(torch, inputs, tool=True):
 # ---------------------------------------------------------------------------
 
 #: the phases; `--phases` runs some of them with the phases they stand on
-PHASES = tuple(str(i) for i in range(1, 13))
+PHASES = tuple(str(i) for i in range(1, 14))
 #: what each phase needs run with it (phases 1 and 2 always run): 3 and 4
 #: are one call, as are 6 and 7; 5 launches segment_moments before the
 #: phases that fence its launches (a process's first launch loads the
-#: module); 8, 10 and 12a run on phase 6's frontend and tables, 9
+#: module); 8, 10, 12a and 13 run on phase 6's frontend and tables, 9
 #: compares with phase 4's answers, 11 and 12b run on phase 9's frontend
 #: (12b only when 9 runs)
 NEEDS = {"3": ("4",), "4": ("3",), "6": ("5", "7"), "7": ("6",),
          "8": ("6",), "9": ("4", "5"), "10": ("6",), "11": ("9",),
-         "12": ("6",)}
+         "12": ("6",), "13": ("6",)}
 
 
 def resolve_phases(arg: str) -> set:
@@ -5094,7 +5583,7 @@ def main() -> int:
     phase_kernel_build()
     # each main-path kernel's launches by the phase that made them
     k1_by, moments_by, shapes, walls = {}, {}, {}, {}
-    kern = p4 = None
+    kern = p4 = k1_row = None
     if "4" in phases:
         log("== phase 3 + 4: kernel checks, then PromQL on TSBS cpu-only")
         from greptimedb_tpu_torch.ops import pallas_window as pw
@@ -5121,9 +5610,18 @@ def main() -> int:
                 moments_by["10"] = flows["launches"]
                 walls["10"] = flows["walls"]["phase"]
             if "12" in phases:
-                wire = phase_wire_sql(torch, st.sql, st.queries, st.cpu_p)
+                wire = phase_wire_sql(torch, st.sql, st.queries, st.cpu_p,
+                                      st.q1_24h)
                 moments_by["12"] = wire.moments
                 walls["12a"] = wire.walls["phase"]
+            if "13" in phases:
+                obs = phase_observe(torch, st.sql, st.queries)
+                moments_by["13"], k1_by["13"] = obs.moments, obs.k1
+                walls["13"] = obs.walls["phase"]
+                if kern is None:
+                    log("== K1 at phase 13's shape (phase 4 did not run)")
+                    k1_row = k1_row_at(torch, obs.k1_inputs)
+                del obs
         shapes.update(phase_moments_time(
             torch, {q: st.inputs[q] for q in smb.QUERIES}))
         del st
@@ -5155,9 +5653,12 @@ def main() -> int:
     if "12" in phases:
         log(f"phase 12 took {walls['12a']:.1f}s (12a) + "
             f"{walls.get('12b', 0.0):.1f}s (12b)")
+    if "13" in phases:
+        log(f"phase 13 took {walls['13']:.1f}s")
     kernels = []
     if k1_by:
-        kernels.append({**kern[0], "launches": sum(k1_by.values()),
+        kernels.append({**(kern[0] if kern is not None else k1_row),
+                        "launches": sum(k1_by.values()),
                         "launches_by_phase": k1_by})
     if moments_by:
         # Q1 is the kernel's row (a run without phase 6: the first shape

@@ -14,7 +14,10 @@ and csrc/segment_moments.cu; the single-region storage engine under it
 host substrate in utils/ and common/); and the standalone frontend over
 it (frontend/, datanode/, the mito table engine in mito/, DDL procedures
 in procedure/, partition rules in partition/, the durable catalog in
-catalog/). The package never imports jax or greptimedb_tpu; the PromQL
+catalog/), with its observability (common/trace_store.py,
+common/profiler.py, monitor/) and coprocessor scripts (script/), whose
+bodies run on the frontend's device. The package never imports jax or
+greptimedb_tpu; the PromQL
 path imports torch and numpy only, the SQL path and the storage engine
 also pandas and pyarrow (as the reference's do). Entry points run on the
 GPU unless the caller passes `device="cpu"`.

@@ -19,8 +19,10 @@ background_jobs and runtime_metrics (from the port's own Prometheus
 registry, common/telemetry.registry(), with the flow gauges of the
 catalog's FlowManager); a standalone port has no meta service, so
 cluster_info and region_peers are synthesized from the local regions.
-self_monitor, trace_spans and profile_samples read modules the port does
-not have yet and raise UnsupportedError naming them.
+self_monitor reads the frontend's SelfMonitor (monitor/); trace_spans and
+profile_samples are views over greptime_private.trace_spans and
+greptime_private.profile_samples, flushed from the trace sink and the
+profiler first (common/trace_store.py, common/profiler.py).
 """
 
 from __future__ import annotations
@@ -30,7 +32,6 @@ from typing import List, Optional, Sequence
 from ..datatypes import data_type as dt
 from ..datatypes.record_batch import RecordBatch
 from ..datatypes.schema import ColumnSchema, Schema
-from ..errors import UnsupportedError
 from ..table.metadata import TableIdent, TableInfo, TableMeta, TableType
 from ..table.table import Table
 
@@ -287,6 +288,43 @@ def _region_peer_rows(catalog_manager, catalog_name: str):
     return rows
 
 
+_SELF_MONITOR_SCHEMA = Schema([
+    ColumnSchema("node", dt.STRING),
+    ColumnSchema("ticks", dt.INT64),
+    ColumnSchema("metric_rows", dt.INT64),
+    ColumnSchema("heat_rows", dt.INT64),
+    ColumnSchema("rows_written", dt.INT64),
+    ColumnSchema("retention_deleted", dt.INT64),
+    ColumnSchema("retention_ms", dt.INT64),
+    ColumnSchema("last_tick_ms", dt.FLOAT64),
+    ColumnSchema("last_error", dt.STRING, nullable=True),
+])
+
+_TRACE_SPANS_SCHEMA = Schema([
+    ColumnSchema("trace_id", dt.STRING),
+    ColumnSchema("span_id", dt.STRING),
+    ColumnSchema("parent_span_id", dt.STRING, nullable=True),
+    ColumnSchema("node", dt.STRING),
+    ColumnSchema("service", dt.STRING),
+    ColumnSchema("span_name", dt.STRING),
+    ColumnSchema("ts", dt.INT64),
+    ColumnSchema("duration_ms", dt.FLOAT64),
+    ColumnSchema("status", dt.STRING),
+    ColumnSchema("attrs", dt.STRING, nullable=True),
+])
+
+_PROFILE_SAMPLES_SCHEMA = Schema([
+    ColumnSchema("node", dt.STRING),
+    ColumnSchema("kind", dt.STRING),
+    ColumnSchema("id", dt.STRING),
+    ColumnSchema("trace_id", dt.STRING),
+    ColumnSchema("stack_id", dt.STRING),
+    ColumnSchema("ts", dt.INT64),
+    ColumnSchema("stack", dt.STRING),
+    ColumnSchema("count", dt.INT64),
+])
+
+
 class _VirtualTable(Table):
     """Read-only table whose rows come from a builder at scan time."""
 
@@ -312,13 +350,21 @@ class _VirtualTable(Table):
         return [batch]
 
 
-#: the reference's information_schema tables whose modules the port does
-#: not have yet: table name → what is missing
-_NOT_PORTED = {
-    "self_monitor": "the self-monitor (monitor/)",
-    "trace_spans": "the trace store (common/trace_store.py)",
-    "profile_samples": "the profiler (common/profiler.py)",
-}
+def _stored_rows(catalog_manager, catalog_name: str, schema: Schema,
+                 table_name: str) -> dict:
+    """Every row of a greptime_private table in `schema`'s columns (a
+    column the table lacks reads as nulls)."""
+    rows = {k: [] for k in schema.names()}
+    table = catalog_manager.table(catalog_name, "greptime_private",
+                                  table_name)
+    if table is None:
+        return rows
+    for b in table.scan_batches():
+        d = b.to_pydict()
+        for k in rows:
+            col = d.get(k)
+            rows[k].extend(col if col is not None else [None] * b.num_rows)
+    return rows
 
 
 def information_schema_table(catalog_manager, catalog_name: str,
@@ -387,10 +433,6 @@ def information_schema_table(catalog_manager, catalog_name: str,
                     spec.stats.get("buckets_written", 0))
             return rows
         return _VirtualTable("flows", _FLOWS_SCHEMA, build_flows)
-    if name in _NOT_PORTED:
-        raise UnsupportedError(
-            f"information_schema.{name}: {_NOT_PORTED[name]} is not "
-            f"ported yet")
     if name == "failpoints":
         def build_failpoints():
             from ..common import failpoint
@@ -431,6 +473,45 @@ def information_schema_table(catalog_manager, catalog_name: str,
             return rows
         return _VirtualTable("processes", _PROCESSES_SCHEMA,
                              build_processes)
+    if name == "self_monitor":
+        def build_self_monitor():
+            rows = {k: [] for k in _SELF_MONITOR_SCHEMA.names()}
+            mon = getattr(catalog_manager, "self_monitor", None)
+            if mon is not None:
+                for k, v in mon.row().items():
+                    rows[k].append(v)
+            return rows
+        return _VirtualTable("self_monitor", _SELF_MONITOR_SCHEMA,
+                             build_self_monitor)
+    if name == "trace_spans":
+        def build_trace_spans():
+            # a SQL view over the durable store: the sink's pending spans
+            # flush first, so a statement that just finished reads its
+            # own spans (the reference also pings a distributed
+            # frontend's datanodes here; that comes with the
+            # distributed plane)
+            from ..common import trace_store
+            sink = trace_store.sink()
+            if sink is not None:
+                sink.flush()
+            return _stored_rows(catalog_manager, catalog_name,
+                                _TRACE_SPANS_SCHEMA,
+                                trace_store.TRACE_SPANS_TABLE)
+        return _VirtualTable("trace_spans", _TRACE_SPANS_SCHEMA,
+                             build_trace_spans)
+    if name == "profile_samples":
+        def build_profile_samples():
+            # a SQL view over the profiler's durable table, flushed
+            # first, as trace_spans is
+            from ..common import profiler
+            s = profiler.sampler()
+            if s is not None:
+                s.flush()
+            return _stored_rows(catalog_manager, catalog_name,
+                                _PROFILE_SAMPLES_SCHEMA,
+                                profiler.PROFILE_SAMPLES_TABLE)
+        return _VirtualTable("profile_samples", _PROFILE_SAMPLES_SCHEMA,
+                             build_profile_samples)
     if name == "background_jobs":
         def build_background_jobs():
             from ..common import background_jobs

@@ -49,6 +49,10 @@ class DatanodeOptions:
     #: never started under pytest (tests drive FlowManager.tick()
     #: cooperatively — tier-1 safety), and 0 disables it everywhere
     flow_tick_interval_s: float = 10.0
+    #: self-monitoring scrape cadence (metrics + region heat →
+    #: greptime_private system tables); same pytest/0 rules as the flow
+    #: tick
+    self_monitor_interval_s: float = 30.0
     #: where the query engine and the flow folds run; tests pass "cpu"
     device: str = "cuda"
 

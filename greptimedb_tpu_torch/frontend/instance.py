@@ -12,14 +12,19 @@ each statement through the admission gate (common/admission.py) and
 consults the `SqlQueryInterceptor` in `plugins` (servers/interceptor.py),
 in the reference's order; KILL trips the process registry
 (`statement.apply_kill`), which the MySQL and Postgres servers also
-reach. Not ported yet: the self-monitor, the trace
-store, the profiler and the script engine. TQL and the Prometheus API's
+reach. As the reference's standalone frontend does, it builds and
+installs the self-monitor (monitor/), the durable trace store's sink
+(common/trace_store.py) and the continuous profiler
+(common/profiler.py), answers ADMIN SHOW TRACE / SHOW PROFILE, and
+loads the persisted coprocessor scripts (script/) in `start()`, whose
+bodies run on the frontend's device. TQL and the Prometheus API's
 queries go to `promql_engine()`, over the same catalog.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -34,7 +39,8 @@ from ..session import QueryContext
 from ..sql import ast, parse_statements
 from ..table.requests import (
     AddColumnRequest, AlterKind, AlterTableRequest, CreateTableRequest)
-from .statement import StatementExecutor, apply_admin_maintenance, apply_kill
+from .statement import (StatementExecutor, apply_admin_maintenance,
+                        apply_kill, apply_show_profile, apply_show_trace)
 
 GREPTIME_TIMESTAMP = "greptime_timestamp"
 GREPTIME_VALUE = "greptime_value"
@@ -56,15 +62,51 @@ class FrontendInstance:
             self.catalog, datanode.engines, self.query_engine,
             procedure_manager=datanode.procedure_manager,
             flow_manager=datanode.flow_manager)
-        from ..common import background_jobs, process_list
+        self.script_engine = None
+        # self-monitoring: the scraper walks the port's telemetry
+        # registry + per-region heat and writes both through
+        # handle_row_insert into greptime_private system tables
+        # (monitor/scraper.py)
+        from ..common import (background_jobs, process_list, profiler,
+                              trace_store)
+        from ..monitor import SelfMonitor
+        self.self_monitor = SelfMonitor(self, node_label="standalone")
+        self.catalog.self_monitor = self.self_monitor
         process_list.configure_node("standalone")
         background_jobs.configure_node("standalone")
+        # durable trace store: completed spans buffer in the sink; the
+        # tail verdict fires at trace completion (this process roots its
+        # statements' traces) and retained spans flush through
+        # handle_row_insert into greptime_private.trace_spans
+        self.trace_sink = trace_store.TraceSink(
+            node_label="standalone", service="standalone", role="root",
+            writer=self)
+        trace_store.install(self.trace_sink)
+        self.catalog.trace_sink = self.trace_sink
+        # continuous profiler: folded stacks aggregate in-process and
+        # flush on the self-monitor tick into
+        # greptime_private.profile_samples (SET profiling = 1 arms it)
+        self.profiler = profiler.Profiler(node_label="standalone",
+                                          writer=self)
+        profiler.install(self.profiler)
 
     def start(self) -> None:
         if not self.datanode._started:
             self.datanode.start()
+        # recompile + re-register persisted coprocessors (reference:
+        # scripts system table, src/script/src/table.rs:51)
+        from ..script import ScriptEngine
+        self.script_engine = ScriptEngine(self)
+        self.script_engine.load_scripts()
+        # free-running scrape tick only outside pytest (tests drive
+        # tick() cooperatively, as flows are)
+        interval = self.datanode.opts.self_monitor_interval_s
+        if interval > 0 and "PYTEST_CURRENT_TEST" not in os.environ:
+            self.self_monitor.start_background(interval)
 
     def shutdown(self) -> None:
+        self.self_monitor.stop()
+        self.profiler.stop(join=False)
         self.datanode.shutdown()
 
     # ---- SqlQueryHandler ----
@@ -90,6 +132,7 @@ class FrontendInstance:
             if interceptor is not None:
                 interceptor.pre_execute(s, ctx)
             t0 = time.perf_counter()
+            prev_stats = self.query_engine.last_exec_stats
             try:
                 with span("execute_stmt", stmt=type(s).__name__,
                           channel=ctx.channel.value) as sp, \
@@ -112,9 +155,24 @@ class FrontendInstance:
             elapsed_ms = (time.perf_counter() - t0) * 1e3
             thr = slow_query_threshold_ms()
             if thr is not None and elapsed_ms >= thr:
+                # only attach ExecStats THIS statement produced — a slow
+                # DDL/DML or plain EXPLAIN (which never collects) must
+                # not report the previous SELECT's stages
+                stats = self.query_engine.last_exec_stats
+                if stats is prev_stats:
+                    stats = None
+                # trace_stored makes the WARN a working pointer: 'yes'
+                # means ADMIN SHOW TRACE '<trace>' can replay it later
+                from ..common import profiler, trace_store
+                sink = trace_store.sink()
                 _slow_logger.warning(
-                    "slow query: %.1fms (threshold %dms) trace=%s stmt=%r",
-                    elapsed_ms, thr, sp["trace_id"], sql)
+                    "slow query: %.1fms (threshold %dms) trace=%s "
+                    "trace_stored=%s%s stmt=%r stats=[%s]", elapsed_ms,
+                    thr, sp["trace_id"],
+                    sink.stored_verdict(sp["trace_id"])
+                    if sink is not None else "off",
+                    profiler.slow_query_suffix(sp["trace_id"]), sql,
+                    stats.summary() if stats is not None else "n/a")
             if interceptor is not None:
                 out = interceptor.post_execute(out, ctx)
             outputs.append(out)
@@ -159,10 +217,10 @@ class FrontendInstance:
         if isinstance(stmt, ast.Admin):
             if stmt.kind in ("flush_table", "compact_table"):
                 return apply_admin_maintenance(self.catalog, stmt, ctx)
-            if stmt.kind in ("show_trace", "show_profile"):
-                raise UnsupportedError(
-                    f"ADMIN {stmt.kind.upper().replace('_', ' ')}: the "
-                    f"trace store and the profiler are not ported yet")
+            if stmt.kind == "show_trace":
+                return apply_show_trace(self.catalog, stmt)
+            if stmt.kind == "show_profile":
+                return apply_show_profile(self.catalog, stmt)
             # region placement is a cluster concept: standalone's single
             # implicit node has nothing to migrate/split between
             raise UnsupportedError(

@@ -10,8 +10,10 @@ go to the datanode's FlowManager (flow/); CREATE EXTERNAL TABLE goes to
 the file-table engine (file_table/); COPY TO / FROM reads and writes
 parquet, csv and json files (gzip / zstd through common/datasource.py),
 COPY FROM through the table's bulk load; KILL (`apply_kill`) trips the
-port's process registry. Not ported yet, and raising UnsupportedError:
-ADMIN SHOW TRACE / SHOW PROFILE (the trace store and the profiler).
+port's process registry; ADMIN SHOW TRACE / SHOW PROFILE
+(`apply_show_trace`, `apply_show_profile`) render the stored waterfall
+and profile tree (common/trace_store.py, common/profiler.py). The
+distributed frontend's knobs raise UnsupportedError until it is ported.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import pandas as pd
 from ..catalog import CatalogManager
 from ..common.datasource import (file_codec, open_compressed_in,
                                  open_compressed_out)
-from ..datatypes.data_type import parse_type_name
+from ..datatypes.data_type import FLOAT64, INT64, STRING, parse_type_name
 from ..datatypes.schema import (
     ColumnDefaultConstraint, ColumnSchema, Schema, SemanticType)
 from ..errors import (
@@ -195,6 +197,64 @@ def apply_kill(stmt: ast.Kill) -> Output:
     return Output.rows(1)
 
 
+def apply_show_trace(catalog: CatalogManager, stmt: ast.Admin) -> Output:
+    """ADMIN SHOW TRACE handler: render one stored trace's reassembled
+    per-node waterfall from greptime_private.trace_spans (the reference
+    also syncs a distributed frontend's datanodes first, which comes with
+    the distributed plane)."""
+    from ..common import trace_store
+    trace_id, rows = trace_store.sync_and_fetch(catalog,
+                                                stmt.trace_id or "")
+    if trace_id is None:
+        raise InvalidArgumentsError(
+            "ADMIN SHOW TRACE 'last': no trace has been retained on "
+            "this frontend yet")
+    if not rows:
+        raise InvalidArgumentsError(
+            f"trace {trace_id!r} not found in greptime_private."
+            f"trace_spans (sampled out, swept by retention, or never "
+            f"existed)")
+    return _rows_output([("span", STRING), ("node", STRING),
+                         ("start_offset_ms", INT64),
+                         ("duration_ms", FLOAT64), ("self_ms", FLOAT64),
+                         ("status", STRING), ("detail", STRING)],
+                        trace_store.waterfall_rows(rows))
+
+
+def apply_show_profile(catalog: CatalogManager,
+                       stmt: ast.Admin) -> Output:
+    """ADMIN SHOW PROFILE handler: render one query's (or trace's) stored
+    folded stacks as a per-node top-down self/total tree from
+    greptime_private.profile_samples (the reference also drains a
+    distributed frontend's datanode samplers first, which comes with the
+    distributed plane)."""
+    from ..common import profiler
+    ident, rows = profiler.sync_and_fetch(catalog, stmt.trace_id or "")
+    if ident is None:
+        raise InvalidArgumentsError(
+            "ADMIN SHOW PROFILE 'last': no query has been profiled on "
+            "this frontend yet (SET profiling = 1 and run one)")
+    if not rows:
+        raise InvalidArgumentsError(
+            f"profile for {ident!r} not found in greptime_private."
+            f"profile_samples (profiling was off while it ran, it was "
+            f"too fast to sample, or retention swept it)")
+    return _rows_output([("frame", STRING), ("node", STRING),
+                         ("self_samples", INT64),
+                         ("total_samples", INT64)],
+                        profiler.profile_tree_rows(rows))
+
+
+def _rows_output(columns, rows) -> Output:
+    """One record batch of `rows` (dicts) in `columns`, (name, type)
+    pairs."""
+    from ..datatypes.record_batch import RecordBatch
+    schema = Schema([ColumnSchema(n, t) for n, t in columns])
+    rb = RecordBatch.from_pydict(schema, {
+        n: [r[n] for r in rows] for n, _ in columns})
+    return Output.record_batches([rb], schema)
+
+
 def apply_admin_maintenance(catalog: CatalogManager, stmt: ast.Admin,
                             ctx: QueryContext) -> Output:
     """Shared ADMIN FLUSH/COMPACT TABLE handler: force the table's
@@ -357,6 +417,51 @@ def apply_set_variable(stmt: ast.SetVariable, ctx: QueryContext) -> Output:
                 GATE.configure(retry_after_s=value)
         except ValueError as e:
             raise InvalidArgumentsError(f"SET {stmt.name}: {e}")
+    elif name == "trace_sample_ratio":
+        # head-sample rate of the tail-sampling trace store (slow/
+        # error/KILLed/balancer traces retain regardless); 0 = only
+        # tail-flagged traces persist, 1 = everything does
+        from ..common import trace_store
+        try:
+            trace_store.configure(sample_ratio=float(stmt.value))
+        except (TypeError, ValueError):
+            raise InvalidArgumentsError(
+                f"SET {stmt.name}: expected a number in [0, 1], got "
+                f"{stmt.value!r}")
+    elif name == "trace_retention_ms":
+        # retention for greptime_private.trace_spans (swept batched on
+        # the self-monitor tick; 0 disables). Separate from
+        # self_monitor_retention_ms — traces are bulkier than metrics
+        from ..common import trace_store
+        trace_store.configure(retention_ms=_int_setting(stmt))
+    elif name == "profiling":
+        # continuous stack sampler master switch (common/profiler.py);
+        # env twin GREPTIME_PROFILING. Sampling starts/stops live.
+        from ..common import profiler
+        profiler.configure(enabled=bool(_int_setting(stmt)))
+    elif name == "profile_hz":
+        # continuous sampling rate (default ~19 Hz — low enough for
+        # always-on, high enough to catch a slow query's hot frames)
+        from ..common import profiler
+        try:
+            profiler.configure(hz=float(stmt.value))
+        except (TypeError, ValueError):
+            raise InvalidArgumentsError(
+                f"SET {stmt.name}: expected a rate in "
+                f"[{profiler.MIN_HZ:g}, {profiler.MAX_HZ:g}] Hz, got "
+                f"{stmt.value!r}")
+    elif name == "profile_retention_ms":
+        # retention for greptime_private.profile_samples (swept batched
+        # on the self-monitor tick; 0 disables). Separate knob from the
+        # trace/metrics windows — profiles age fastest
+        from ..common import profiler
+        profiler.configure(retention_ms=_int_setting(stmt))
+    elif name == "self_monitor_retention_ms":
+        # retention window for greptime_private.node_metrics /
+        # region_heat (monitor/scraper.py sweeps on each tick;
+        # 0 disables the sweep)
+        from ..monitor import scraper
+        scraper.configure_retention(_int_setting(stmt))
     elif name.startswith("balancer_"):
         # elastic-region balancer knobs live in meta-srv
         raise InvalidArgumentsError(
@@ -385,12 +490,6 @@ _KNOBS_NOT_PORTED = {
                      "dist_rpc_retry_base_ms", "dist_partial_agg",
                      "exact_distinct"),
                     "the distributed frontend"),
-    **dict.fromkeys(("trace_sample_ratio", "trace_retention_ms"),
-                    "the trace store (common/trace_store.py)"),
-    **dict.fromkeys(("profiling", "profile_hz", "profile_retention_ms"),
-                    "the profiler (common/profiler.py)"),
-    **dict.fromkeys(("self_monitor_retention_ms",),
-                    "the self-monitor (monitor/)"),
 }
 
 

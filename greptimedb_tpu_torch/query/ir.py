@@ -27,7 +27,7 @@ import numpy as np
 import pandas as pd
 
 from ..common import exec_stats
-from ..common.telemetry import increment_counter
+from ..common.telemetry import increment_counter, span, timer
 from ..errors import SketchCodecError, UnsupportedError
 from .tpu_exec import (
     BucketGroup,
@@ -151,7 +151,8 @@ def execute_agg_plan(table, plan: TpuPlan, device) -> pd.DataFrame:
     the raw-row path — a sketch partial that fails to decode — never a
     wrong answer."""
     t0 = time.perf_counter()
-    frames = region_moment_frames(table, plan, device)
+    with span("tpu_execute", table=table.name), timer("tpu_execute"):
+        frames = region_moment_frames(table, plan, device)
     _note_device_query_time(time.perf_counter() - t0)
     if not frames:
         cols = group_key_columns(plan)

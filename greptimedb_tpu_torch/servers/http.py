@@ -17,12 +17,12 @@ differs from the reference:
   `generate_latest(common.telemetry.registry())`: the port registers
   nothing in prometheus_client's default REGISTRY, which the reference
   serves.
-- `/v1/trace/{trace_id}` (the trace store), `/debug/prof/cpu` (the
-  profiler), `/v1/scripts` and `/v1/run-script` (the script engine) stay
-  in the route table and raise `UnsupportedError` naming the module that
-  is not ported yet; the error middleware renders the JSON error
-  envelope.
-- `/v1/admin/downsample` reduces on the frontend's device.
+- `/v1/admin/downsample` reduces on the frontend's device, and the
+  coprocessors of `/v1/scripts` and `/v1/run-script` run on it
+  (script/).
+- `/v1/trace/{trace_id}` and `/debug/prof/cpu` serve this process: the
+  reference's fan-out to a distributed frontend's datanodes (span-sync
+  pings, the Flight `profile` action) comes with the distributed plane.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ from typing import Any, Dict, List, Optional
 
 from aiohttp import web
 
-from ..errors import AuthError, GreptimeError, StatusCode, UnsupportedError
+from ..errors import AuthError, GreptimeError, StatusCode
 from ..query.output import Output
 from ..session import Channel, QueryContext
 from .. import DEFAULT_CATALOG_NAME, DEFAULT_SCHEMA_NAME
@@ -43,6 +43,7 @@ from . import influxdb as influx_mod
 from . import opentsdb as tsdb_mod
 from . import prometheus as prom_mod
 from .auth import NoopUserProvider, UserProvider
+
 
 def parse_db_param(db: Optional[str]) -> tuple:
     if not db:
@@ -275,15 +276,59 @@ class HttpServer:
 
     # ---- coprocessor scripts (reference: /v1/scripts + /v1/run-script,
     # src/servers/src/http.rs:434-578 script routes) ----
+    def _script_engine(self):
+        engine = getattr(self.frontend, "script_engine", None)
+        if engine is None:
+            from ..script import ScriptEngine
+            engine = ScriptEngine(self.frontend)
+            self.frontend.script_engine = engine
+        return engine
+
     async def handle_scripts(self, request):
-        self._ctx(request)
-        raise UnsupportedError(
-            "/v1/scripts: the script engine (script/) is not ported yet")
+        ctx = self._ctx(request)
+        name = request.query.get("name")
+        if request.query.get("db"):
+            ctx.set_current_schema(request.query["db"])
+        if not name:
+            return web.json_response(
+                {"code": int(StatusCode.INVALID_ARGUMENTS),
+                 "error": "missing 'name' parameter"}, status=400)
+        script = (await request.read()).decode()
+        loop = asyncio.get_running_loop()
+        engine = self._script_engine()
+        await loop.run_in_executor(
+            None, self._traced_call(
+                request, lambda: engine.insert_script(name, script, ctx)))
+        return web.json_response({"code": 0})
 
     async def handle_run_script(self, request):
-        self._ctx(request)
-        raise UnsupportedError(
-            "/v1/run-script: the script engine (script/) is not ported yet")
+        t0 = time.perf_counter()
+        ctx = self._ctx(request)
+        name = request.query.get("name")
+        if request.query.get("db"):
+            ctx.set_current_schema(request.query["db"])
+        loop = asyncio.get_running_loop()
+        engine = self._script_engine()
+        if name:
+            out = await loop.run_in_executor(
+                None, self._traced_call(
+                    request, lambda: engine.run(name, ctx=ctx)))
+        else:
+            script = (await request.read()).decode()
+            if not script:
+                return web.json_response(
+                    {"code": int(StatusCode.INVALID_ARGUMENTS),
+                     "error": "missing 'name' parameter or script body"},
+                    status=400)
+            out = await loop.run_in_executor(
+                None, self._traced_call(
+                    request, lambda: engine.run(script, ctx=ctx,
+                                                is_script_text=True)))
+        return web.json_response({
+            "code": 0,
+            "output": [output_to_json(out)],
+            "execution_time_ms": int((time.perf_counter() - t0) * 1e3),
+        })
 
     async def handle_influx_write(self, request):
         ctx = self._ctx_influx(request)
@@ -442,21 +487,84 @@ class HttpServer:
 
     async def handle_trace(self, request):
         """GET /v1/trace/<trace_id> — the reassembled waterfall of one
-        stored trace, in the reference; the trace store is not ported."""
+        stored trace from greptime_private.trace_spans (the durable trace
+        store). 'last' = the most recently retained trace on this
+        frontend. 404 when the trace was sampled out, swept by retention,
+        or never existed."""
         self.user_provider.auth_http_basic(
             request.headers.get("Authorization"))
-        raise UnsupportedError(
-            "/v1/trace: the trace store (common/trace_store.py) is not "
-            "ported yet")
+        trace_id = request.match_info["trace_id"]
+
+        def work():
+            from ..common import trace_store
+            tid, rows = trace_store.sync_and_fetch(
+                self.frontend.catalog, trace_id)
+            if not rows:
+                return tid, None
+            return tid, {
+                "spans": rows,
+                "waterfall": trace_store.waterfall_rows(rows),
+            }
+
+        loop = asyncio.get_running_loop()
+        tid, doc = await loop.run_in_executor(
+            None, self._traced_call(request, work))
+        if doc is None:
+            return web.json_response(
+                {"code": int(StatusCode.INVALID_ARGUMENTS),
+                 "error": f"trace {tid or trace_id!r} not found "
+                          f"(sampled out, swept, or never existed)"},
+                status=404)
+        doc["trace_id"] = tid
+        doc["span_count"] = len(doc["spans"])
+        return web.json_response(doc)
 
     async def handle_cpu_prof(self, request):
-        """GET /debug/prof/cpu — an on-demand CPU sampling burst, in the
-        reference; the profiler is not ported."""
+        """GET /debug/prof/cpu?seconds=N&hz=H&format=folded|flamegraph|json
+        — an on-demand high-rate CPU sampling burst (the reference's
+        pprof-shaped /debug/prof/cpu, src/common/pprof) of this process.
+        Works with `SET profiling` off — the burst has its own clock and
+        rate."""
         self.user_provider.auth_http_basic(
             request.headers.get("Authorization"))
-        raise UnsupportedError(
-            "/debug/prof/cpu: the profiler (common/profiler.py) is not "
-            "ported yet")
+        fmt = request.query.get("format", "folded")
+        if fmt not in ("folded", "flamegraph", "json"):
+            return web.json_response(
+                {"code": int(StatusCode.INVALID_ARGUMENTS),
+                 "error": f"format {fmt!r} not supported "
+                          f"(folded | flamegraph | json)"}, status=400)
+        try:
+            seconds = float(request.query.get("seconds", "3"))
+            hz = request.query.get("hz")
+            hz_f = float(hz) if hz is not None else None
+        except ValueError:
+            return web.json_response(
+                {"code": int(StatusCode.INVALID_ARGUMENTS),
+                 "error": "seconds/hz must be numbers"}, status=400)
+
+        def work():
+            from ..common import profiler
+            s = profiler.sampler()
+            return [] if s is None else s.collect_burst(seconds,
+                                                        burst_hz=hz_f)
+
+        loop = asyncio.get_running_loop()
+        rows = await loop.run_in_executor(
+            None, self._traced_call(request, work))
+        from ..common import profiler as prof_mod
+        if fmt == "folded":
+            return web.Response(text=prof_mod.folded_text(rows),
+                                content_type="text/plain")
+        if fmt == "flamegraph":
+            return web.Response(
+                text=prof_mod.flamegraph_svg(
+                    rows, title=f"cpu {seconds:g}s burst"),
+                content_type="image/svg+xml")
+        return web.json_response({
+            "seconds": seconds,
+            "sample_count": sum(int(r.get("count") or 0) for r in rows),
+            "rows": rows,
+        })
 
     async def handle_mem_prof(self, request):
         """Heap profile dump (reference: jemalloc /v1/prof/mem,

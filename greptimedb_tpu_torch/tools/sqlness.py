@@ -13,9 +13,10 @@ rendering as the JAX package's tests/sqlness/runner.py, over the port's
 own `RecordBatch` and `pretty_print`; it reads the cases by path
 (default: the repo's tests/sqlness/cases/standalone/) and imports nothing
 of the JAX package. Each case gets a fresh data home and a fresh
-`build_standalone(DatanodeOptions(device=...))`, whose flows fold only
-when a statement folds them (no background tick, as under the test
-suite); the failpoint registry and the background-job registry are reset
+`build_standalone(DatanodeOptions(device=...))`, whose flows fold and
+whose self-monitor scrapes only when a statement asks (no background
+tick, as under the test suite); the failpoint registry, the
+background-job registry and the trace and profiler knobs are reset
 first, as a fresh server's would be. A statement's `'/tmp/sqlness_`
 paths (the copy/* cases' files) run as files under the case's own data
 home, so two runs of one case never share a file; the output echoes the
@@ -44,6 +45,7 @@ CASES_DIR = Path(__file__).resolve().parents[2] / "tests" / "sqlness" / \
 #: the cases the port byte-matches (the test suite on the CPU and the
 #: smoke script on the card both run these)
 IN_SCOPE = (
+    "admin/show_profile", "admin/show_trace",
     "aggregate/aggregate", "alter/alter", "basic/basic", "cast/cast",
     "copy/copy", "copy/copy_compressed", "create/create", "cte/cte",
     "delete/delete", "explain/dispatch",
@@ -52,13 +54,14 @@ IN_SCOPE = (
     "insert/insert_select", "join/join", "limit/limit",
     "order/null_ordering", "order/order_by", "schema/schema", "show/show",
     "subquery/subquery", "system/background_jobs", "system/cluster_info",
-    "system/information_schema", "system/runtime_metrics",
+    "system/failpoints", "system/information_schema",
+    "system/runtime_metrics",
     "timestamp/time_units", "timestamp/timestamp", "tql/explain",
     "tql/operators", "tql/range_functions", "tql/tql", "union/union",
     "window/window",
 )
 #: cases of the same surface that wait for a later module: case -> module
-WAITING = {"system/failpoints": "common/profiler.py"}
+WAITING: dict = {}
 
 
 def split_statements(text: str) -> List[str]:
@@ -217,18 +220,22 @@ def case_files(filters: List[str], cases_dir: Path = CASES_DIR
 def run_one(sql_path: Path, device: str = "cuda") -> Optional[str]:
     """Run one case on a fresh standalone frontend; None when its output
     byte-matches the golden, else the unified diff."""
-    from ..common import background_jobs, failpoint
+    from ..common import background_jobs, failpoint, profiler, trace_store
     from ..datanode import DatanodeOptions
     from ..frontend import build_standalone
 
-    # failpoint state and the job registry are process-global; a case
-    # sees them as a fresh server would
+    # failpoint state, the job registry and the trace and profiler knobs
+    # are process-global; a case sees them as a fresh server would
     failpoint.reset()
     background_jobs.reset()
+    trace_store.configure(sample_ratio=0.01)
+    profiler.configure(enabled=False, hz=19.0,
+                       retention_ms=24 * 3600 * 1000)
     with tempfile.TemporaryDirectory() as home:
         fe = build_standalone(DatanodeOptions(
             data_home=home, register_numbers_table=True,
-            flow_tick_interval_s=0, device=device))
+            flow_tick_interval_s=0, self_monitor_interval_s=0,
+            device=device))
         try:
             got = run_case(sql_path.read_text(), fe,
                            files_dir=os.path.join(home, "files"))

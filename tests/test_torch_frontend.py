@@ -441,6 +441,22 @@ def test_packages_open_each_others_data_home(run, label):
                                   _frame(before["port"][label]))
 
 
+#: of the statements below, those whose modules have since been ported
+#: (the trace store, the profiler, the self-monitor): they answer as the
+#: reference does
+_PORTED_SINCE = {"ADMIN SHOW TRACE 'last'", "ADMIN SHOW PROFILE 'last'",
+                 "SET profiling = 1", "SET trace_sample_ratio = 1",
+                 "SET self_monitor_retention_ms = 60000"}
+
+
+def _answer(fe, sql, ctx):
+    try:
+        out = fe.do_query(sql, ctx)[-1]
+    except Exception as e:  # noqa: BLE001 — each package's own class
+        return f"{type(e).__name__}: {e}"
+    return out.affected_rows
+
+
 @pytest.mark.parametrize("sql", [
     "ADMIN SHOW TRACE 'last'",
     "ADMIN SHOW PROFILE 'last'",
@@ -451,16 +467,44 @@ def test_packages_open_each_others_data_home(run, label):
     "SET self_monitor_retention_ms = 60000",
 ])
 def test_port_raises_for_what_it_has_not_ported(tmp_path, sql):
+    """A statement of a module the port does not have (the distributed
+    frontend) raises UnsupportedError; one of a module ported since
+    answers what the reference answers on a fresh frontend with no
+    retained trace and no profiled query."""
+    from greptimedb_tpu.common import profiler as ref_profiler
+    from greptimedb_tpu.common import trace_store as ref_trace
+    from greptimedb_tpu.monitor import scraper as ref_scraper
+    from greptimedb_tpu_torch.common import profiler, trace_store
+    from greptimedb_tpu_torch.monitor import scraper
     ref_parse(sql)                        # the reference's grammar has it
-    fe = _open("port", tmp_path)
+    mods = (profiler, ref_profiler)
+    saved = ([(m.enabled(), m.hz(), m.retention_ms()) for m in mods],
+             [m.sample_ratio() for m in (trace_store, ref_trace)],
+             [m.retention_ms() for m in (scraper, ref_scraper)])
+    sides = {side: _open(side, tmp_path / side) for side in ("port", "ref")}
     try:
-        fe.do_query("CREATE TABLE monitor (host STRING, ts TIMESTAMP TIME "
-                    "INDEX, cpu DOUBLE, PRIMARY KEY(host))")
+        for m in (trace_store, ref_trace):
+            m.configure(sample_ratio=0.0)
+        for side, fe in sides.items():
+            fe.do_query("CREATE TABLE monitor (host STRING, ts TIMESTAMP "
+                        "TIME INDEX, cpu DOUBLE, PRIMARY KEY(host))",
+                        _ctx(side))
         parse_sql(sql)
-        with pytest.raises(UnsupportedError, match="not ported|require"):
-            fe.do_query(sql)
+        if sql in _PORTED_SINCE:
+            got = _answer(sides["port"], sql, _ctx("port"))
+            assert got == _answer(sides["ref"], sql, _ctx("ref"))
+        else:
+            with pytest.raises(UnsupportedError, match="not ported|require"):
+                sides["port"].do_query(sql)
     finally:
-        fe.shutdown()
+        for fe in sides.values():
+            fe.shutdown()
+        for m, (on, hz, keep) in zip(mods, saved[0]):
+            m.configure(enabled=on, hz=hz, retention_ms=keep)
+        for m, r in zip((trace_store, ref_trace), saved[1]):
+            m.configure(sample_ratio=r)
+        for m, keep in zip((scraper, ref_scraper), saved[2]):
+            m.configure_retention(keep)
 
 
 def test_streaming_and_fusion_knobs_match_reference(tmp_path):

@@ -43,6 +43,14 @@
   port's own. common/datasource.py is the one module of common/ that
   reads pyarrow (COPY's and the file tables' codecs): only
   frontend/statement.py and file_table/ import it, never the PromQL path.
+- The trace store, the profiler, the self-monitor and the script engine
+  (common/{trace_store,profiler}.py, monitor/, script/) answer ADMIN SHOW
+  TRACE / SHOW PROFILE, tick and run a torch coprocessor without adding
+  jax or greptimedb_tpu to sys.modules; their modules are the port's own
+  with relative imports; the coprocessor namespace holds torch and no
+  jnp; the profiler's sampler thread creates no CUDA context, because
+  the sampler module and what it reads at sample time never import
+  torch.
 """
 
 import ast
@@ -493,7 +501,8 @@ def test_port_sources_import_nothing_forbidden():
 
 @pytest.mark.parametrize("package", ["mito", "procedure", "partition",
                                      "datanode", "frontend", "flow",
-                                     "servers", "file_table"])
+                                     "servers", "file_table", "monitor",
+                                     "script"])
 def test_frontend_packages_are_the_ports_own(package):
     """Each package of the standalone frontend exists in the port, imports
     nothing forbidden and keeps its imports relative (the walk over every
@@ -880,3 +889,137 @@ def test_wire_servers_and_copy_import_no_reference():
     for m in ("servers.mysql", "servers.postgres", "file_table.engine",
               "common.datasource"):
         assert f"greptimedb_tpu_torch.{m}" in new, m
+
+
+_OBSERVABILITY_PROBE = r"""
+import json, sys, tempfile
+before = set(sys.modules)
+from greptimedb_tpu_torch.datanode import DatanodeOptions
+from greptimedb_tpu_torch.frontend import build_standalone
+
+with tempfile.TemporaryDirectory() as home:
+    fe = build_standalone(DatanodeOptions(data_home=home, device="cpu"))
+    try:
+        fe.do_query("CREATE TABLE t (host STRING, ts TIMESTAMP TIME INDEX, "
+                    "v DOUBLE, PRIMARY KEY(host))")
+        fe.do_query("INSERT INTO t VALUES ('h0', 1, 1.5), ('h2', 2, 2.5)")
+        fe.do_query("SET trace_sample_ratio = 1")
+        fe.do_query("SELECT host, v FROM t")
+        assert fe.do_query("ADMIN SHOW TRACE 'last'")[0].num_rows >= 1
+        fe.profiler.sample_once()
+        assert fe.self_monitor.tick() > 0
+        for view in ("self_monitor", "trace_spans", "profile_samples"):
+            fe.do_query(f"SELECT * FROM information_schema.{view}")
+        fe.script_engine.insert_script("half", (
+            "@copr(args=['v'], returns=['h'], sql='SELECT v FROM t')\n"
+            "def half(v):\n    return torch.as_tensor(v) / 2\n"))
+        out = fe.script_engine.run("half")
+        assert out.batches[0].column(0).to_pylist() == [0.75, 1.25]
+        fe.do_query("SET trace_sample_ratio = 0.01")
+    finally:
+        fe.shutdown()
+new = sorted(set(sys.modules) - before)
+print(json.dumps(new))
+"""
+
+
+def test_observability_and_scripts_import_no_reference():
+    """A traced statement, ADMIN SHOW TRACE, a profiler sample, a
+    self-monitor tick, the three information_schema views and a torch
+    coprocessor run on the CPU without adding jax or greptimedb_tpu to
+    sys.modules, through the port's own modules."""
+    out = subprocess.run([sys.executable, "-c", _OBSERVABILITY_PROBE],
+                         cwd=REPO, env=_ENV, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    new = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in new if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+    for m in ("common.trace_store", "common.profiler", "monitor.scraper",
+              "script.engine", "script.copr"):
+        assert f"greptimedb_tpu_torch.{m}" in new, m
+
+
+#: what the profiler's sampling pass imports or calls into at sample time
+SAMPLER_MODULES = ("common/profiler.py", "common/background_jobs.py",
+                   "common/process_list.py", "common/failpoint.py",
+                   "common/locks.py", "common/tracking.py",
+                   "common/runtime.py", "utils/__init__.py")
+
+
+@pytest.mark.parametrize("rel", SAMPLER_MODULES)
+def test_sampler_never_imports_torch(rel):
+    """The profiler's thread walks sys._current_frames() and the port's
+    process and job registries only: none of the modules it runs imports
+    torch, at module level or inside a function, so sampling can neither
+    create a CUDA context nor synchronize the device."""
+    path = os.path.join(PORT, rel)
+    for node in ast.walk(ast.parse(open(path).read(), path)):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        assert not [n for n in names if n.split(".")[0] == "torch"], path
+
+
+_SAMPLER_PROBE = r"""
+import os, sys, threading, time
+import torch
+from greptimedb_tpu_torch.common import profiler
+
+torch_dir = os.path.dirname(torch.__file__)
+touched = []
+
+
+def watch(frame, event, arg):
+    if not threading.current_thread().name.startswith("profiler-"):
+        return
+    if event == "call" and frame.f_code.co_filename.startswith(torch_dir):
+        touched.append(frame.f_code.co_name)
+    elif event == "c_call" and str(getattr(arg, "__module__", "")) \
+            .startswith("torch"):
+        touched.append(arg.__name__)
+
+
+threading.setprofile(watch)
+p = profiler.Profiler(node_label="probe", writer=None)
+profiler.install(p)
+profiler.configure(enabled=True, hz=250)
+time.sleep(0.3)
+p.collect_burst(0.1, burst_hz=250)
+profiler.configure(enabled=False)
+profiler.install(None)
+threading.setprofile(None)
+assert p.stats["samples"] > 0, p.stats
+assert not touched, touched[:10]
+print("ok")
+"""
+
+
+def test_sampler_thread_calls_no_torch():
+    """The profiler's own thread, sampling at 250 Hz and through a burst,
+    enters no torch function (Python or C): it cannot create a CUDA
+    context or synchronize the device the sampled statements run on."""
+    out = subprocess.run([sys.executable, "-c", _SAMPLER_PROBE], cwd=REPO,
+                         env=_ENV, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_script_namespace_holds_torch_and_no_jnp(tmp_path):
+    from greptimedb_tpu_torch.datanode import DatanodeOptions
+    from greptimedb_tpu_torch.frontend import build_standalone
+    fe = build_standalone(DatanodeOptions(data_home=str(tmp_path),
+                                          device="cpu"))
+    try:
+        c = fe.script_engine.compile(
+            "@copr(args=[])\ndef ns():\n    return sorted(globals())\n")
+        names = set(c())
+        assert {"torch", "np", "numpy", "copr", "coprocessor"} <= names
+        assert "jnp" not in names and "jax" not in names
+        assert fe.script_engine.device == fe.query_engine.device
+    finally:
+        fe.shutdown()

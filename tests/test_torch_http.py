@@ -30,8 +30,10 @@ Then what only the port is asked here: 401 without credentials under a
 taking effect; concurrent same-shape InfluxDB bodies coalescing with
 every row landing; a recording `SqlQueryInterceptor` plugin seeing the
 same calls in the same order in both packages; `/metrics` serving the
-port's own registry; the routes whose modules are not ported answering
-the `UnsupportedError` envelope; an HTTPS server with a `tls.py` context.
+port's own registry; the routes of the trace store, the profiler and the
+script engine, which the port once refused, answering as the reference's
+server does (tests/test_torch_{trace_store,profiler,script}.py hold them
+further); an HTTPS server with a `tls.py` context.
 """
 
 import base64
@@ -777,18 +779,51 @@ def test_metrics_serve_the_ports_registry(port_server):
     ("POST", "/v1/scripts?name=s", "script/"),
     ("POST", "/v1/run-script?name=s", "script/"),
 ])
-def test_unported_routes_answer_the_error_envelope(port_server, method,
-                                                   path, module):
+def test_unported_routes_answer_the_error_envelope(port_server, tmp_path,
+                                                   method, path, module):
+    """The routes of `module`, which the port refused before it was
+    ported, answer these requests as the reference's server does: no
+    retained trace is the 404 envelope, an empty script (no @copr) and a
+    script never stored are the error envelope, and a CPU burst
+    (3 s by default, both servers at once) is folded text."""
     _, start = port_server
     srv = start()
-    status, body, headers = req(srv.port, path, method,
-                                b"" if method == "POST" else None)
-    assert status == 400 and headers["Content-Type"].startswith(
-        "application/json")
-    doc = json.loads(body)
-    assert doc["code"] == int(StatusCode.UNSUPPORTED)
-    assert module in doc["error"] and "not ported yet" in doc["error"]
-    assert sorted(doc) == ["code", "error", "execution_time_ms"]
+    ref_fe = RefFrontend(RefDatanode(RefOptions(
+        data_home=str(tmp_path / "ref"))))
+    ref_fe.start()
+    ref_srv = RefHttpServer(ref_fe, addr="127.0.0.1:0")
+    ref_srv.start()
+    try:
+        body = b"" if method == "POST" else None
+        answers = {}
+
+        def ask(key, port):
+            answers[key] = req(port, path, method, body)
+
+        threads = [threading.Thread(target=ask, args=(k, p))
+                   for k, p in (("port", srv.port), ("ref", ref_srv.port))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(TIMEOUT_S)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        ref_srv.shutdown()
+        ref_fe.shutdown()
+    (status, got, headers), (ref_status, want, ref_headers) = \
+        answers["port"], answers["ref"]
+    assert status == ref_status
+    assert headers["Content-Type"] == ref_headers["Content-Type"]
+    if module == "common/profiler.py":
+        assert status == 200
+        lines = got.decode().splitlines()
+        assert lines and all(ln.rsplit(" ", 1)[1].isdigit() for ln in lines)
+        return
+    doc, ref_doc = json.loads(got), json.loads(want)
+    doc.pop("execution_time_ms", None)
+    ref_doc.pop("execution_time_ms", None)
+    assert doc == ref_doc and status >= 400
+    assert doc["code"] != int(StatusCode.UNSUPPORTED)
 
 
 def test_https_server_answers_health(port_server, tmp_path):

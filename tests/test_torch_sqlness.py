@@ -10,14 +10,12 @@ The copy/* cases run with their '/tmp/sqlness_ files moved under the
 case's own data home (the runner rewrites the path it executes and
 echoes the statement as written), so parallel runs never share a file.
 
-Out of scope, each waiting for a module of a later slice:
-- admin/show_profile, admin/show_trace: the profiler and the trace store
-  (common/profiler.py, common/trace_store.py);
-- explain/analyze, explain/index_prune: red on the JAX package itself
-  (their partial_bytes differ from what it prints under the tests'
-  settings); the port prints what the reference prints on them;
-- system/failpoints: its profiler_flush row needs common/profiler.py; the
-  rest of the case is held to its golden below.
+In scope: 39 of the 41 standalone cases, admin/show_profile,
+admin/show_trace and system/failpoints (whose profiler_flush row the
+port's common/profiler.py registers) among them; none waits for a later
+slice. Out of scope: explain/analyze and explain/index_prune, red on the
+JAX package itself (their partial_bytes differ from what it prints under
+the tests' settings); the port prints what the reference prints on them.
 
 The runner's statement splitter is held to the JAX package's on every
 case file.
@@ -60,9 +58,9 @@ def _without_profiler_block(text: str) -> str:
 
 
 def test_failpoints_case_apart_from_profiler(tmp_path):
-    """system/failpoints.sql through the port: every statement but the
-    profiler_flush lookup (common/profiler.py is not ported) byte-matches
-    the golden."""
+    """system/failpoints.sql through the port: every statement apart from
+    the profiler_flush lookup byte-matches the golden, and so does that
+    lookup, whose failpoint the port's common/profiler.py registers."""
     from greptimedb_tpu_torch.common import background_jobs, failpoint
     from greptimedb_tpu_torch.datanode import DatanodeOptions
     from greptimedb_tpu_torch.frontend import build_standalone
@@ -76,20 +74,24 @@ def test_failpoints_case_apart_from_profiler(tmp_path):
     finally:
         fe.shutdown()
     want = path.with_suffix(".result").read_text()
-    assert "profiler_flush" in want and "profiler_flush" not in got
+    assert "profiler_flush" in want and "profiler_flush" in got
     assert _without_profiler_block(got) == _without_profiler_block(want)
     assert len(_without_profiler_block(want)) < len(want)
+    assert got == want
 
 
 def test_in_scope_cases_exist():
     names = {str(p.relative_to(sqlness.CASES_DIR))[:-4]
              for p in sqlness.case_files([])}
-    assert set(IN_SCOPE) | set(WAITING) <= names
-    assert len(IN_SCOPE) + len(WAITING) == 37
+    assert set(IN_SCOPE) <= names
+    assert len(IN_SCOPE) == 39 and not WAITING
+    assert names - set(IN_SCOPE) == {"explain/analyze",
+                                     "explain/index_prune"}
     assert {c for c in IN_SCOPE if c.startswith("tql/")} == {
         "tql/explain", "tql/operators", "tql/range_functions", "tql/tql"}
     assert {"explain/rollup", "flow/create_flow", "system/background_jobs",
-            "copy/copy", "copy/copy_compressed"} <= set(IN_SCOPE)
+            "copy/copy", "copy/copy_compressed", "admin/show_profile",
+            "admin/show_trace", "system/failpoints"} <= set(IN_SCOPE)
 
 
 def test_copy_case_files_stay_under_the_given_directory(tmp_path):
