@@ -6,8 +6,8 @@
 Phases (none of them catches a failure; any failed check exits non-zero).
 With no `--phases` every phase runs; `--phases 12` (a comma-separated
 list) runs the phases named and those they stand on (phases 1 and 2
-always; 12 and 13 need 5, 6 and 7, and 12 runs 12b only with 9), and
-names them in its last two lines:
+always; 12 and 13 need 5, 6 and 7, and 12 runs 12b only with 9; 14
+needs none), and names them in its last two lines:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions,
    and whether pandas, pyarrow, prometheus_client, aiohttp (phase 11's
@@ -245,11 +245,44 @@ names them in its last two lines:
    /debug/prof/cpu?seconds=1 while Q1 runs on another thread: folded
    stacks with frames of the port's query path. Without phase 4, K1's
    kernel-table row is timed at 13b's inputs.
+14. the standalone process as users start it, over an S3 data home with
+   the LRU disk cache (storage/{s3,cache}.py, cmd/, servers/flight.py,
+   client/), with a data home of its own and its launch counts set to 0
+   before and read after. 14a: a mock S3 endpoint in a child process (a
+   ThreadingHTTPServer on loopback over a directory: PUT, GET, HEAD,
+   DELETE, ListObjectsV2), a TOML in the reference's layout ([storage]
+   type S3 with cache_path and a cache_capacity that holds the SSTs,
+   [http], [mysql], [postgres], [grpc] on free loopback ports), and
+   cmd.main.load_options -> build_servers, every server started. 14b:
+   TSBS cpu-only, 4000 hosts x 3 h (4.32 M rows), CREATE TABLE and
+   Database.bulk_load over Flight do_put, ADMIN FLUSH TABLE through
+   Database.sql; the walls, the bucket's objects and bytes and the PUT
+   rate. 14c: Q1, Q5 and Q6 through Database.sql (the dispatch floor
+   pinned by SET over Flight before each), each cold and warm (median of
+   3), one segment_moments launch each, in three opens of the process:
+   the first with the cache empty (the SSTs pulled from S3), a restart on
+   the same cache (the index recovered from disk: no SST pulled), a
+   restart on a fresh cache (pulled again); each answer against the
+   float64 brute force of phase 6 over the same rows, the opens equal
+   exactly; in the first open the same queries through do_query (the
+   Flight front door's cost) and Q5 and Q6 over /v1/sql and MySQL, equal
+   to Flight's rows. 14d: a per-series TQL EVAL of rate() over one host's
+   usage_user (the row path: K1) through Database.sql, within rtol 1e-5
+   of the same TQL on a device="cpu" build over the bucket opened after
+   the card's process is shut down. 14e: `python3 -m
+   greptimedb_tpu_torch.cmd.main standalone start -c <toml>` as a child
+   process with a fresh cache: its count(*) and Q6 through Database equal
+   14c's; nvidia-smi's compute apps gain its row (the card's machine
+   reports pids of another namespace) and it holds /dev/nvidia* open;
+   `cli attach` prints the count; SIGTERM ends it with 0 within 10 s.
+   Without phases 4 and 13, K1's row is timed at 14d's inputs; without
+   phase 6, segment_moments' at 14c's first Q1.
 
 Before the last line come two JSON objects: the numbers of the bucket
 entry, which the main paths do not launch, then the kernel table of the
 main paths (PromQL's window bounds, SQL's, the flow folds', the HTTP
-front door's, the wires' and phase 13's segment moments), each with its
+front door's, the wires', phase 13's and phase 14's segment moments),
+each with its
 launches by phase; the last line is {"ok": true, "device": {...}}. A run
 of chosen phases lists only the kernels it launched, and both lines
 carry "phases": the list of those that ran.
@@ -1564,6 +1597,8 @@ def sql_expected(name, ts, fields, ties, eight, partials=False):
     H, n = fields["usage_user"].shape
     names = np.asarray([f"host_{i}" for i in range(H)])
     per_h = 3600_000 // INTERVAL_MS
+    # the queries' span (SQL_HOURS), or the table's if shorter (phase 14)
+    hours = min(SQL_HOURS, n // per_h)
     exact, approx = {}, {}
 
     def bucketed(hosts, nb, width, fns):
@@ -1588,7 +1623,7 @@ def sql_expected(name, ts, fields, ties, eight, partials=False):
 
     if name.startswith(("Q1", "Q2")):
         fs = CPU_FIELDS if name.startswith("Q1") else CPU_FIELDS[:1]
-        df = bucketed(np.arange(H), SQL_HOURS, per_h,
+        df = bucketed(np.arange(H), hours, per_h,
                       {f"avg({f})": (f, "avg") for f in fs})
         df = df.rename(columns={"t": "hour"})
         keys = ["hour", "hostname"]
@@ -1610,10 +1645,10 @@ def sql_expected(name, ts, fields, ties, eight, partials=False):
         else:
             # one group per hour over every host: its first and last ts
             # tie across hosts
-            key = {"hour": TSBS_START_MS + np.arange(SQL_HOURS) * 3600_000}
+            key = {"hour": TSBS_START_MS + np.arange(hours) * 3600_000}
             first, last = X[ties[0], ::per_h], X[ties[2], per_h - 1::per_h]
-            X = X.reshape(H, SQL_HOURS, per_h).transpose(1, 0, 2).reshape(
-                SQL_HOURS, H * per_h)
+            X = X.reshape(H, hours, per_h).transpose(1, 0, 2).reshape(
+                hours, H * per_h)
         S = X.sum(axis=1)
         sq = (X * X).sum(axis=1)
         c = X.shape[1]
@@ -4236,8 +4271,11 @@ def phase_http(torch, pf, p4, seed, phase9):
         door.explain(row_q, start, end, lowered=False)
         door.explain(low_q, start, end, lowered=True)
         inst_q = "avg(cpu_usage_user)"
+        # over HTTP only (the script's time limit): the direct call of the
+        # same instant query took as long again (15-16 s), and the answer
+        # is held to the float64 brute force below
         data = door.prom(inst_q, "/api/v1/query", inst_q, end, end, 1000,
-                         k1=0, moments=1, instant=True)
+                         k1=0, moments=1, direct=False, instant=True)
         lo, hi = window_index(ts, np.array([end]), RANGE_MS)
         want = float(np.mean(metrics["cpu_usage_user"][:, hi[0] - 1]))
         (res,) = data["result"]
@@ -5459,14 +5497,749 @@ def phase_observe(torch, sql, queries):
                                  k1_inputs=k1_inputs)
 
 
-def k1_row_at(torch, args):
+# ---------------------------------------------------------------------------
+# phase 14: the standalone process over S3
+# ---------------------------------------------------------------------------
+
+#: TSBS cpu-only, 4000 hosts x 3 h at 10 s: 4.32 M rows (phase 6's 12 h
+#: cut to 3 h for the script's time limit; schema, hosts, interval kept)
+S3_HOURS = 3
+S3_BUCKET = "greptimedb"
+S3_ROOT = "data"
+#: large enough to hold the region's SSTs (printed after the flush)
+S3_CACHE_BYTES = 4 << 30
+S3_WARM_RUNS = 3
+#: the per-series TQL of 14d: one host's usage_user over the 3 h
+S3_TQL = 'rate(cpu{hostname="host_7", __field__="usage_user"}[5m])'
+S3_SERVERS = ("http", "mysql", "postgres", "grpc")
+CHILD_TIMEOUT_S = 180
+
+
+def serve_mock_s3(root):
+    """A mock S3 endpoint, run in a child process so that its GIL stays
+    out of the frontend's scans: a ThreadingHTTPServer on loopback over
+    the directory `root` (a bucket a directory, an object a file) with
+    the REST semantics of the reference tests' mock (PUT, GET, HEAD,
+    DELETE, ListObjectsV2 paged by 1000 keys) and request counters at
+    GET /__stats. Prints its port, then serves until terminated."""
+    import http.server
+    import shutil
+    import threading
+    import urllib.parse
+    stats = {"PUT": 0, "put_bytes": 0, "GET": 0, "get_bytes": 0,
+             "HEAD": 0, "DELETE": 0, "LIST": 0}
+    lock = threading.Lock()
+
+    def count(kind, nbytes=0, key=None):
+        with lock:
+            stats[kind] += 1
+            if key:
+                stats[key] += nbytes
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+        def _path(self):
+            key = urllib.parse.unquote(self.path.split("?")[0].lstrip("/"))
+            return os.path.join(root, *key.split("/"))
+
+        def _reply(self, status, body=b""):
+            self.send_response(status)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            if body:
+                self.wfile.write(body)
+
+        def do_PUT(self):
+            path = self._path()
+            left = int(self.headers.get("Content-Length", 0))
+            count("PUT", left, "put_bytes")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            tmp = f"{path}.{threading.get_ident()}.part"
+            with open(tmp, "wb") as f:
+                while left:
+                    chunk = self.rfile.read(min(left, 1 << 22))
+                    if not chunk:
+                        break
+                    f.write(chunk)
+                    left -= len(chunk)
+            os.replace(tmp, path)
+            self._reply(200)
+
+        def do_GET(self):
+            parsed = urllib.parse.urlparse(self.path)
+            if parsed.path == "/__stats":
+                with lock:
+                    self._reply(200, json.dumps(stats).encode())
+                return
+            query = urllib.parse.parse_qs(parsed.query)
+            if "list-type" in query:
+                count("LIST")
+                base = os.path.join(root, parsed.path.strip("/"))
+                prefix = query.get("prefix", [""])[0]
+                after = query.get("continuation-token", [""])[0]
+                keys = []
+                for d, _, files in os.walk(base):
+                    for f in files:
+                        k = os.path.relpath(os.path.join(d, f), base)
+                        k = k.replace(os.sep, "/")
+                        if not f.endswith(".part") and \
+                                k.startswith(prefix) and k > after:
+                            keys.append(k)
+                keys.sort()
+                page, more = keys[:1000], len(keys) > 1000
+                body = "<ListBucketResult>" + "".join(
+                    f"<Contents><Key>{k}</Key></Contents>" for k in page) + \
+                    f"<IsTruncated>{str(more).lower()}</IsTruncated>"
+                if more:
+                    body += (f"<NextContinuationToken>{page[-1]}"
+                             "</NextContinuationToken>")
+                self._reply(200, (body + "</ListBucketResult>").encode())
+                return
+            path = self._path()
+            if not os.path.isfile(path):
+                self._reply(404)
+                return
+            size = os.path.getsize(path)
+            count("GET", size, "get_bytes")
+            self.send_response(200)
+            self.send_header("Content-Length", str(size))
+            self.end_headers()
+            with open(path, "rb") as f:
+                shutil.copyfileobj(f, self.wfile, 1 << 22)
+
+        def do_HEAD(self):
+            count("HEAD")
+            self.send_response(200 if os.path.isfile(self._path()) else 404)
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+
+        def do_DELETE(self):
+            count("DELETE")
+            try:
+                os.unlink(self._path())
+            except FileNotFoundError:
+                pass
+            self._reply(204)
+
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    srv.daemon_threads = True
+    print(srv.server_address[1], flush=True)
+    srv.serve_forever()
+
+
+class MockS3:
+    """serve_mock_s3 in a child process (a fresh interpreter: no CUDA
+    state is inherited), over a directory of the phase's temporary
+    home."""
+
+    def __init__(self, root):
+        self.root = root
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", "import sys; from chip_smoke import "
+             "serve_mock_s3; serve_mock_s3(sys.argv[1])", root], cwd=HERE,
+            stdout=subprocess.PIPE, text=True)
+        line = self.proc.stdout.readline()
+        check(line.strip().isdigit(), f"the mock S3 process sent no port "
+              f"(exit {self.proc.poll()})")
+        self.port = int(line)
+        self.endpoint = f"http://127.0.0.1:{self.port}"
+
+    def stats(self):
+        import urllib.request
+        with urllib.request.urlopen(f"{self.endpoint}/__stats",
+                                    timeout=30) as r:
+            return json.loads(r.read())
+
+    def bucket(self):
+        """(objects, bytes, SST files, SST bytes) in the bucket now."""
+        n = nbytes = ssts = sst_bytes = 0
+        for d, _, files in os.walk(os.path.join(self.root, S3_BUCKET)):
+            for f in files:
+                size = os.path.getsize(os.path.join(d, f))
+                n, nbytes = n + 1, nbytes + size
+                if f.endswith(".parquet"):
+                    ssts, sst_bytes = ssts + 1, sst_bytes + size
+        return n, nbytes, ssts, sst_bytes
+
+    def close(self):
+        self.proc.terminate()
+        self.proc.wait(30)
+        self.proc.stdout.close()
+
+
+def free_ports(n):
+    import socket
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def s3_toml(path, data_home, endpoint, cache, ports):
+    """A TOML in the reference's layout (cmd/main.py's [storage], [http],
+    [mysql], [postgres], [grpc] and [logging] tables)."""
+    addrs = "".join(f'\n[{name}]\naddr = "127.0.0.1:{port}"\n'
+                    for name, port in zip(S3_SERVERS, ports))
+    with open(path, "w") as f:
+        f.write(f'''[storage]
+type = "S3"
+data_home = "{data_home}"
+bucket = "{S3_BUCKET}"
+root = "{S3_ROOT}"
+endpoint = "{endpoint}"
+access_key_id = "chip-smoke"
+secret_access_key = "chip-smoke-secret"
+cache_path = "{cache}"
+cache_capacity = {S3_CACHE_BYTES}
+{addrs}
+[logging]
+level = "info"
+''')
+    return path
+
+
+def cache_counters():
+    from greptimedb_tpu_torch.common import telemetry
+    out = {}
+    for name in ("read_cache_hit", "read_cache_miss", "read_cache_corrupt"):
+        c = telemetry._counters.get(telemetry._sanitize(name))
+        out[name] = 0 if c is None else int(c._value.get())
+    return out
+
+
+class S3Process:
+    """What `greptime standalone start -c <toml>` builds, in this
+    process: cmd.main.load_options → build_servers, every server started;
+    a Flight `Database` on its gRPC port; the cache layer's reads that
+    went on to S3 recorded."""
+
+    def __init__(self, toml, label, s3):
+        from greptimedb_tpu_torch.client.flight import Database
+        from greptimedb_tpu_torch.cmd.main import build_servers, load_options
+        from greptimedb_tpu_torch.storage.cache import LruCacheLayer
+        self.label = label
+        got0 = s3.stats()
+        t0 = time.perf_counter()
+        opts = load_options(argparse.Namespace(config_file=toml))
+        check(opts.device == "cuda" and opts.storage["type"] == "S3",
+              f"load_options: device {opts.device!r}, storage "
+              f"{opts.storage}")
+        opts.device = DEVICE          # "cpu" only in a CPU rehearsal
+        self.fe, self.servers = build_servers(opts)
+        for s in self.servers:
+            s.start()
+        self.open_s = time.perf_counter() - t0
+        got = s3.stats()
+        kinds = [type(s).__name__ for s in self.servers]
+        check(kinds == ["HttpServer", "MysqlServer", "PostgresServer",
+                        "GrpcServer"], f"build_servers built {kinds}")
+        self.ports = dict(zip(S3_SERVERS, (s.port for s in self.servers)))
+        self.layer = self.fe.datanode.store
+        check(isinstance(self.layer, LruCacheLayer) and
+              type(self.layer.inner).__name__ == "RetryingObjectStore" and
+              type(self.layer.inner.inner).__name__ == "S3ObjectStore",
+              f"the object store is {type(self.layer).__name__}")
+        self.pulled = []
+        read = self.layer.inner.read
+
+        def pulled(key):
+            self.pulled.append(key)
+            return read(key)
+
+        self.layer.inner.read = pulled
+        self.db = Database(f"grpc://127.0.0.1:{self.ports['grpc']}")
+        log(f"  {label}: load_options -> build_servers -> start in "
+            f"{self.open_s:.2f}s (read from S3: {got['GET'] - got0['GET']}"
+            f" objects, {(got['get_bytes'] - got0['get_bytes']) / 1e6:.2f} "
+            f"MB, {got['LIST'] - got0['LIST']} listings); "
+            f"{', '.join(kinds)} on ports {self.ports}; cache index "
+            f"{len(self.layer._entries)} entries, "
+            f"{self.layer._size / 1e6:.1f} MB")
+
+    def pin(self):
+        # over Flight, as a client would: SET reaches the process's
+        # dispatch floor, which each device query raises again
+        check(self.db.sql("SET tpu_dispatch_min_rows = 0") == 0,
+              "SET over Flight")
+
+    def region(self):
+        (r,) = self.fe.catalog.table("greptime", "public",
+                                     "cpu").regions.values()
+        return r
+
+    def close(self):
+        self.db.close()
+        for s in self.servers:
+            s.shutdown()
+        self.fe.shutdown()
+
+
+def flight_frame(batches):
+    import pandas as pd
+    return pd.concat([pd.DataFrame(b.to_pydict()) for b in batches],
+                     ignore_index=True)
+
+
+def s3_open_queries(proc, queries, want, direct=False):
+    """Q1, Q5 and Q6 through Database.sql, each cold (the scan cache
+    cleared: the SSTs read through the disk cache) and warm (median of
+    3), on the device path with one launch each. Returns {name: frame},
+    the SST keys the first cold query pulled from S3 and its disk-cache
+    hits, and the walls."""
+    from greptimedb_tpu_torch.ops import kernels as K
+    from greptimedb_tpu_torch.query import tpu_exec
+    frames, walls = {}, {}
+    first = None
+    for name, sql in queries.items():
+        region = proc.region()
+        tpu_exec.SCAN_CACHE.clear()
+        proc.pin()
+        pulled0, hits0 = len(proc.pulled), proc.layer.hits
+        misses0, m0 = proc.layer.misses, K.segment_moments.launches
+        region.last_scan_profile = None
+        t0 = time.perf_counter()
+        batches = proc.db.sql(sql)
+        cold = time.perf_counter() - t0
+        got = flight_frame(batches)
+        launched = K.segment_moments.launches - m0
+        p = region.last_scan_profile
+        check(p is not None and p.path == "resident" and launched == 1,
+              f"{proc.label} {name} cold: path "
+              f"{p.path if p is not None else None}, {launched} launches")
+        pulled = [k for k in proc.pulled[pulled0:]
+                  if k.endswith((".parquet", ".idx"))]
+        if first is None:
+            first = (pulled, proc.layer.hits - hits0,
+                     proc.layer.misses - misses0)
+        err = compare_sql(f"{proc.label} {name}", got, *want[name])
+        warm = []
+        for _ in range(S3_WARM_RUNS):
+            proc.pin()
+            t0 = time.perf_counter()
+            batches = proc.db.sql(sql)
+            warm.append(time.perf_counter() - t0)
+            again = flight_frame(batches)
+            check(again.equals(got), f"{proc.label} {name}: a warm answer "
+                  f"differs from the cold one")
+        walls[name] = {"cold": cold, "warm": statistics.median(warm)}
+        line = (f"  {proc.label} {name}: {len(got)} rows, max |err|/bound "
+                f"{err:.3g}; cold {cold * 1e3:.1f} ms ({len(pulled)} SST "
+                f"objects pulled from S3, disk cache +"
+                f"{proc.layer.hits - hits0} hits +"
+                f"{proc.layer.misses - misses0} misses), warm over Flight "
+                f"{walls[name]['warm'] * 1e3:.1f} ms")
+        if direct:
+            # the same statement through do_query in this process: the
+            # Flight front door's own cost is the difference
+            ds = []
+            for _ in range(S3_WARM_RUNS):
+                proc.pin()
+                t0 = time.perf_counter()
+                (out,) = proc.fe.do_query(sql)
+                ds.append(time.perf_counter() - t0)
+            direct_s = walls[name]["do_query"] = statistics.median(ds)
+            check(flight_frame(out.batches).equals(got),
+                  f"{name}: do_query differs from Flight")
+            line += (f", do_query {direct_s * 1e3:.1f} ms (Flight adds "
+                     f"{(walls[name]['warm'] - direct_s) * 1e3:.2f} ms)")
+        log(line)
+        frames[name] = got
+    log(f"  {proc.label}: cache hits {proc.layer.hits}, misses "
+        f"{proc.layer.misses}, {len(proc.layer._entries)} entries "
+        f"{proc.layer._size / 1e6:.1f} MB; counters {cache_counters()}")
+    return frames, first, walls
+
+
+def s3_other_wires(proc, queries, frames):
+    """Q5 and Q6 over /v1/sql and over MySQL on the same process: the
+    rows Flight gave, as each server encodes them."""
+    from greptimedb_tpu_torch.query.output import Output
+    from greptimedb_tpu_torch.servers.http import output_to_json
+    http = HttpClient(proc.ports["http"])
+    my = WireMysql(proc.ports["mysql"])
+    try:
+        for name in ("Q5 per-host moments", "Q6 global aggregate"):
+            sql = queries[name]
+            proc.pin()
+            batches = proc.db.sql(sql)
+            check(flight_frame(batches).equals(frames[name]),
+                  f"{name} over Flight differs from the open's answer")
+            out = Output.record_batches(batches)
+            proc.pin()
+            doc, _, w_http = http.sql(sql)
+            check(doc["output"][0] == as_json(output_to_json(out)),
+                  f"{name} over /v1/sql differs from Flight's rows")
+            my_cols, my_rows, _, _ = wire_expected(out)
+            proc.pin()
+            t0 = time.perf_counter()
+            got = my.query(sql)
+            w_my = time.perf_counter() - t0
+            check(got == ("rows", my_cols, my_rows),
+                  f"{name} over MySQL differs from Flight's rows: "
+                  f"{str(got)[:300]}")
+            log(f"  {name}: /v1/sql ({w_http * 1e3:.1f} ms) and MySQL "
+                f"({w_my * 1e3:.1f} ms) give Flight's {len(my_rows)} rows")
+    finally:
+        my.close()
+
+
+def compute_apps():
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi: {out.stderr[-300:]}")
+    return [ln.strip() for ln in out.stdout.splitlines() if ln.strip()]
+
+
+def opens_card(pid):
+    """The device files a process holds open (/proc/<pid>/fd)."""
+    fd = f"/proc/{pid}/fd"
+    held = set()
+    for f in os.listdir(fd):
+        try:
+            target = os.readlink(os.path.join(fd, f))
+        except OSError:
+            continue
+        if target.startswith("/dev/nvidia"):
+            held.add(target)
+    return held
+
+
+def s3_child(home, toml, ports, count, q6, queries):
+    """14e: `python3 -m greptimedb_tpu_torch.cmd.main standalone start -c
+    <toml>` as a child process over the same bucket with a fresh cache;
+    count(*) and Q6 through Database equal to 14c's; the card's compute
+    apps list it; `cli attach` prints the count; SIGTERM ends it with 0
+    within 10 s. Returns its walls."""
+    import signal
+    from greptimedb_tpu_torch.client.flight import Database
+    apps0 = compute_apps()
+    logf = open(os.path.join(home, "child.log"), "w")
+    t0 = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-m", "greptimedb_tpu_torch.cmd.main", "standalone",
+         "start", "-c", toml], cwd=HERE, stdout=logf,
+        stderr=subprocess.STDOUT)
+    walls = {}
+    db = None
+
+    def tail():
+        logf.flush()
+        with open(os.path.join(home, "child.log")) as f:
+            return f.read()[-3000:]
+
+    try:
+        addr = f"grpc://127.0.0.1:{ports['grpc']}"
+        while True:
+            check(child.poll() is None, f"standalone start exited "
+                  f"{child.returncode}: {tail()}")
+            check(time.perf_counter() - t0 < CHILD_TIMEOUT_S,
+                  f"standalone start answered nothing in {CHILD_TIMEOUT_S}"
+                  f" s: {tail()}")
+            try:
+                db = Database(addr)
+                first = flight_frame(db.sql("SELECT 1"))
+                break
+            except Exception:  # noqa: BLE001 — not serving yet
+                if db is not None:
+                    db.close()
+                    db = None
+                time.sleep(0.2)
+        walls["first_answer"] = time.perf_counter() - t0
+        check(int(first.iloc[0, 0]) == 1, f"the child's SELECT 1: {first}")
+        # the floor pinned as in 14c, so that count(*) and Q6 take the
+        # device path (each device query raises it again)
+        check(db.sql("SET tpu_dispatch_min_rows = 0") == 0, "SET")
+        t1 = time.perf_counter()
+        got = flight_frame(db.sql("SELECT count(*) FROM cpu"))
+        walls["count"] = time.perf_counter() - t1
+        check(int(got.iloc[0, 0]) == count, f"the child's count(*) "
+              f"{got.iloc[0, 0]} != {count}")
+        apps = compute_apps()
+        held = opens_card(child.pid)
+        listed = str(child.pid) in apps
+        check((listed or len(apps) == len(apps0) + 1) and held,
+              f"nvidia-smi lists {apps} (before the child: {apps0}); the "
+              f"child holds {sorted(held)}")
+        log(f"  the child (pid {child.pid}) answered SELECT 1 "
+            f"{walls['first_answer']:.2f}s after its spawn, then count(*) "
+            f"= {count} (cold, its SSTs pulled from S3 into its fresh "
+            f"cache) in {walls['count']:.2f}s; nvidia-smi "
+            f"compute apps {apps0} -> {apps} (" + (
+                "its pid listed" if listed else
+                "one more row; pids read in another namespace") +
+            f"), the child holds {len(held)} /dev/nvidia* files")
+        check(db.sql("SET tpu_dispatch_min_rows = 0") == 0, "SET")
+        t1 = time.perf_counter()
+        got6 = flight_frame(db.sql(queries["Q6 global aggregate"]))
+        walls["q6"] = time.perf_counter() - t1
+        check(got6.equals(q6), f"the child's Q6 {got6.to_dict()} differs "
+              f"from 14c's {q6.to_dict()}")
+        log(f"  the child's Q6 {walls['q6'] * 1e3:.1f} ms, equal to 14c's")
+        t1 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "greptimedb_tpu_torch.cmd.main", "cli",
+             "attach", "--grpc-addr", f"127.0.0.1:{ports['grpc']}"],
+            cwd=HERE, input="SET tpu_dispatch_min_rows = 0;\n"
+            "SELECT count(*) FROM cpu;\n\\q\n",
+            capture_output=True, text=True, timeout=120)
+        walls["cli"] = time.perf_counter() - t1
+        check(cli.returncode == 0 and
+              re.search(rf"\|\s*{count}\s*\|", cli.stdout) is not None,
+              f"cli attach: exit {cli.returncode}: {cli.stdout[-500:]} "
+              f"{cli.stderr[-500:]}")
+        log(f"  cli attach printed count(*) = {count} "
+            f"({walls['cli']:.2f}s)")
+        db.close()
+        db = None
+        t1 = time.perf_counter()
+        child.send_signal(signal.SIGTERM)
+        rc = child.wait(timeout=10)
+        walls["sigterm"] = time.perf_counter() - t1
+        check(rc == 0, f"standalone start exited {rc} on SIGTERM: {tail()}")
+        for _ in range(50):
+            if len(compute_apps()) == len(apps0):
+                break
+            time.sleep(0.1)
+        check(len(compute_apps()) == len(apps0), "the child's row is still "
+              "among the card's compute apps")
+        log(f"  SIGTERM: the child exited 0 in {walls['sigterm']:.2f}s")
+    finally:
+        if db is not None:
+            db.close()
+        if child.poll() is None:
+            child.kill()
+            child.wait(30)
+        logf.close()
+    return walls
+
+
+def phase_s3(torch, seed):
+    """Phase 14: the standalone process as users start it, over an S3
+    data home (a mock S3 in a child process) with the LRU disk cache,
+    through its Flight front door. Returns its launches, the kernels'
+    inputs of its first launches and the walls."""
+    import shutil
+    import tempfile
+    from greptimedb_tpu_torch.cmd.main import load_options
+    from greptimedb_tpu_torch.datanode import (
+        DatanodeInstance, DatanodeOptions)
+    from greptimedb_tpu_torch.frontend import FrontendInstance
+    from greptimedb_tpu_torch.ops import kernels as K
+    from greptimedb_tpu_torch.ops import pallas_window as pw
+    from greptimedb_tpu_torch.ops import window as win
+    from greptimedb_tpu_torch.query import tpu_exec
+    from greptimedb_tpu_torch.storage.object_store import build_object_store
+    log("== phase 14: greptime standalone start over S3 with the disk "
+        "cache, through the Flight front door")
+    t_phase = time.perf_counter()
+    home = tempfile.mkdtemp(prefix="chip_smoke_s3_")
+    walls, steps = {}, {}
+    s3 = proc = None
+    grid, aggregate = win.counts_leq_grid, tpu_exec.sorted_grouped_aggregate
+    k1_calls, moment_calls = [], []
+
+    def k1_recorded(*args):
+        k1_calls.append(args)
+        return grid(*args)
+
+    def kept(gids, mask, ts, values, col_masks=(), **kw):
+        if not moment_calls:
+            moment_calls.append((kw["ends"], mask, ts, list(values),
+                                 list(col_masks), list(kw["ops"])))
+        return aggregate(gids, mask, ts, values, col_masks, **kw)
+
+    def step(name):
+        steps[name] = time.perf_counter()
+        log(f"-- 14{name}")
+
+    def done(name):
+        steps[name] = time.perf_counter() - steps[name]
+        log(f"  (14{name}: {steps[name]:.1f}s)")
+
+    win.counts_leq_grid = k1_recorded
+    tpu_exec.sorted_grouped_aggregate = kept
+    pw.counts_leq_grid.launches = K.segment_moments.launches = 0
+    floor = tpu_exec.TPU_DISPATCH_MIN_ROWS
+    try:
+        step("a")
+        t0 = time.perf_counter()
+        ts, tags, fields = tsbs_cpu_table(seed, HOSTS, S3_HOURS)
+        cols = sql_columns(ts, tags, fields)
+        N = len(cols["ts"])
+        log(f"  TSBS cpu-only: {HOSTS} hosts x {S3_HOURS} h at 10 s = {N} "
+            f"rows, 10 tags, 10 fields, made in "
+            f"{time.perf_counter() - t0:.1f}s")
+        s3 = MockS3(os.path.join(home, "s3"))
+        ports = free_ports(len(S3_SERVERS))
+        data_home = os.path.join(home, "data_home")
+        toml = s3_toml(os.path.join(home, "config.toml"), data_home,
+                       s3.endpoint, os.path.join(home, "cache1"), ports)
+        log(f"  mock S3 (pid {s3.proc.pid}) on {s3.endpoint}; {toml}: "
+            f"[storage] type S3, bucket {S3_BUCKET}, root {S3_ROOT}, "
+            f"cache_capacity {S3_CACHE_BYTES}; ports {ports}")
+        proc = S3Process(toml, "open 1 (empty cache)", s3)
+        done("a")
+
+        step("b")
+        t0 = time.perf_counter()
+        check(proc.db.sql(sql_ddl("cpu", {f: "DOUBLE" for f in CPU_FIELDS}))
+              == 0, "CREATE TABLE over Flight")
+        put0 = s3.stats()
+        t0 = time.perf_counter()
+        n = proc.db.bulk_load("cpu", cols, tag_columns=TSBS_TAGS,
+                              timestamp_column="ts")
+        load = time.perf_counter() - t0
+        check(n == N, f"bulk_load wrote {n} rows of {N}")
+        t0 = time.perf_counter()
+        check(proc.db.sql("ADMIN FLUSH TABLE cpu") == 0, "ADMIN FLUSH TABLE")
+        proc.fe.datanode.storage.scheduler.wait_idle(timeout=600)
+        flush = time.perf_counter() - t0
+        put1 = s3.stats()
+        objects, nbytes, ssts, sst_bytes = s3.bucket()
+        puts = put1["PUT"] - put0["PUT"]
+        put_bytes = put1["put_bytes"] - put0["put_bytes"]
+        walls.update(load=load, flush=flush)
+        prof = proc.region().last_ingest_profile
+        log(f"  Database.bulk_load of {N} rows over Flight do_put "
+            f"{load:.2f}s ({N / load / 1e6:.2f} Mrows/s); ADMIN FLUSH TABLE "
+            f"{flush:.2f}s")
+        log(f"  the region's bulk_ingest: {prof.describe()} (the rest of "
+            f"the load: the client's arrow conversion, the do_put stream, "
+            f"the server's arrow_to_ingest_columns)")
+        log(f"  bucket: {objects} objects, {nbytes / 1e6:.1f} MB; {ssts} "
+            f"SSTs {sst_bytes / 1e6:.1f} MB (the cache holds "
+            f"{S3_CACHE_BYTES / 1e6:.0f} MB); {puts} PUTs of "
+            f"{put_bytes / 1e6:.1f} MB in the load and flush, "
+            f"{put_bytes / 1e6 / (load + flush):.1f} MB/s")
+        check(ssts > 0 and sst_bytes < S3_CACHE_BYTES,
+              f"{ssts} SSTs of {sst_bytes} bytes")
+        done("b")
+
+        step("c")
+        queries = {k: v for k, v in sql_queries(
+            np.random.default_rng(seed), HOSTS)[1].items()
+            if k.split()[0] in DEVICE_QUERIES}
+        ties = tie_hosts(proc.fe.catalog.table("greptime", "public", "cpu"))
+        want = {q: sql_expected(q, ts, fields, ties, None)
+                for q in queries}
+        del cols
+        opens, firsts = [], []
+        for label, cache in (("open 1 (empty cache)", None),
+                             ("open 2 (same cache)", "cache1"),
+                             ("open 3 (fresh cache)", "cache3")):
+            if cache is not None:
+                proc.close()
+                proc = None
+                s3_toml(toml, data_home, s3.endpoint,
+                        os.path.join(home, cache), ports)
+                proc = S3Process(toml, label, s3)
+            frames, first, w = s3_open_queries(
+                proc, queries, want, direct=cache is None)
+            walls[label] = {"open": proc.open_s, **w}
+            opens.append(frames)
+            firsts.append(first)
+            if cache is None:
+                s3_other_wires(proc, queries, frames)
+        for frames in opens[1:]:
+            for q in queries:
+                check(frames[q].equals(opens[0][q]),
+                      f"{q}: the opens disagree")
+        (p1, h1, m1), (p2, h2, m2), (p3, h3, m3) = firsts
+        check(p1 and not p2 and sorted(p3) == sorted(p1) and m2 == 0 and
+              h2 >= len(p1), f"the first cold query's SST reads: open 1 "
+              f"pulled {len(p1)} from S3 ({m1} misses), open 2 {len(p2)} "
+              f"({h2} hits, {m2} misses), open 3 {len(p3)} ({m3} misses)")
+        log(f"  the three opens agree exactly; the first cold query's SST "
+            f"reads: open 1 {m1} misses ({len(p1)} objects pulled), open 2 "
+            f"{h2} hits and no miss, open 3 {m3} misses")
+        done("c")
+
+        step("d")
+        s0 = TSBS_START_MS // 1000
+        tql = (f"TQL EVAL ({s0}, {s0 + S3_HOURS * 3600}, '60s') "
+               + S3_TQL)
+        k0 = pw.counts_leq_grid.launches
+        t0 = time.perf_counter()
+        got = flight_frame(proc.db.sql(tql))
+        walls["tql"] = time.perf_counter() - t0
+        check(pw.counts_leq_grid.launches > k0 and len(got) > 0,
+              f"the TQL launched K1 {pw.counts_leq_grid.launches - k0} "
+              f"times, {len(got)} rows")
+        proc.close()
+        proc = None
+        opts = load_options(argparse.Namespace(config_file=s3_toml(
+            toml, data_home, s3.endpoint, os.path.join(home, "cache_cpu"),
+            ports)))
+        cpu_fe = FrontendInstance(DatanodeInstance(DatanodeOptions(
+            data_home=data_home, device="cpu", flow_tick_interval_s=0,
+            self_monitor_interval_s=0),
+            store=build_object_store(opts.storage, data_home)))
+        try:
+            cpu_fe.start()
+            t0 = time.perf_counter()
+            (out,) = cpu_fe.do_query(tql)
+            cpu_wall = time.perf_counter() - t0
+        finally:
+            cpu_fe.shutdown()
+        plain = flight_frame(out.batches)
+        check(list(got.columns) == list(plain.columns) and
+              got.drop(columns="value").equals(plain.drop(columns="value")),
+              f"the TQL: {got.head()} against the CPU's {plain.head()}")
+        v, w = got["value"].to_numpy(float), plain["value"].to_numpy(float)
+        check(np.isfinite(v).all() and np.allclose(v, w, rtol=1e-5, atol=0),
+              f"the TQL's rates differ from the CPU's: {v[:5]} {w[:5]}")
+        log(f"  {tql} over Flight: {len(got)} points, K1 "
+            f"{pw.counts_leq_grid.launches - k0} launches, "
+            f"{walls['tql'] * 1e3:.1f} ms; within rtol 1e-5 of the same TQL "
+            f"on a device=\"cpu\" build over the bucket "
+            f"({cpu_wall * 1e3:.1f} ms)")
+        done("d")
+
+        step("e")
+        s3_toml(toml, data_home, s3.endpoint, os.path.join(home, "cache5"),
+                ports)
+        walls["child"] = s3_child(
+            home, toml, dict(zip(S3_SERVERS, ports)), N,
+            opens[0]["Q6 global aggregate"], queries)
+        done("e")
+    finally:
+        win.counts_leq_grid = grid
+        tpu_exec.sorted_grouped_aggregate = aggregate
+        tpu_exec.TPU_DISPATCH_MIN_ROWS, tpu_exec._observed_min_dt[0] = \
+            floor, None
+        if proc is not None:
+            proc.close()
+        if s3 is not None:
+            s3.close()
+        shutil.rmtree(home, ignore_errors=True)
+    moments, k1 = K.segment_moments.launches, pw.counts_leq_grid.launches
+    check(moments > 0 and k1 > 0, f"phase 14 launched segment_moments "
+          f"{moments} and K1 {k1} times")
+    walls["phase"] = time.perf_counter() - t_phase
+    log(f"phase 14: segment_moments {moments} launches, K1 {k1}; "
+        + ", ".join(f"14{k} {v:.1f}s" for k, v in steps.items()) +
+        f"; {walls['phase']:.1f}s")
+    return types.SimpleNamespace(moments=moments, k1=k1, walls=walls,
+                                 k1_inputs=k1_calls[-1],
+                                 moment_inputs=moment_calls[0])
+
+
+def k1_row_at(torch, args, label):
     """K1's kernel-table row timed at one main-path call's inputs (a run
-    without phase 4, whose row comes from phase 3)."""
+    without phase 4, whose row comes from phase 3); `label` names the
+    phase that gave them."""
     from greptimedb_tpu_torch.ops import pallas_window as pw
     ts, t0, step, T = args
     S, L = ts.shape
     want = pw.counts_leq_plain(pw.step_buckets(ts, t0, step, T), T)
-    err = same(torch, f"counts_leq_grid at phase 13's shape ({S}, {L}) "
+    err = same(torch, f"counts_leq_grid at {label} shape ({S}, {L}) "
                f"T={T}", pw.counts_leq_grid(ts, t0, step, T), want)
     ends = (torch.arange(T, dtype=torch.int64, device=ts.device) * step +
             t0).to(torch.int32)[None, :].expand(S, -1).contiguous()
@@ -5529,13 +6302,13 @@ def phase_moments_time(torch, inputs, tool=True):
 # ---------------------------------------------------------------------------
 
 #: the phases; `--phases` runs some of them with the phases they stand on
-PHASES = tuple(str(i) for i in range(1, 14))
+PHASES = tuple(str(i) for i in range(1, 15))
 #: what each phase needs run with it (phases 1 and 2 always run): 3 and 4
 #: are one call, as are 6 and 7; 5 launches segment_moments before the
 #: phases that fence its launches (a process's first launch loads the
 #: module); 8, 10, 12a and 13 run on phase 6's frontend and tables, 9
 #: compares with phase 4's answers, 11 and 12b run on phase 9's frontend
-#: (12b only when 9 runs)
+#: (12b only when 9 runs); 14 has a data home of its own and needs none
 NEEDS = {"3": ("4",), "4": ("3",), "6": ("5", "7"), "7": ("6",),
          "8": ("6",), "9": ("4", "5"), "10": ("6",), "11": ("9",),
          "12": ("6",), "13": ("6",)}
@@ -5620,7 +6393,7 @@ def main() -> int:
                 walls["13"] = obs.walls["phase"]
                 if kern is None:
                     log("== K1 at phase 13's shape (phase 4 did not run)")
-                    k1_row = k1_row_at(torch, obs.k1_inputs)
+                    k1_row = k1_row_at(torch, obs.k1_inputs, "phase 13's")
                 del obs
         shapes.update(phase_moments_time(
             torch, {q: st.inputs[q] for q in smb.QUERIES}))
@@ -5650,11 +6423,25 @@ def main() -> int:
             torch, {f"phase 9 {q}": a for q, a in p9.inputs.items()},
             tool=False))
         del p9
+    if "14" in phases:
+        s3 = phase_s3(torch, args.seed)
+        moments_by["14"], k1_by["14"] = s3.moments, s3.k1
+        walls["14"] = s3.walls["phase"]
+        if kern is None and k1_row is None:
+            log("== K1 at phase 14's shape (phases 4 and 13 did not run)")
+            k1_row = k1_row_at(torch, s3.k1_inputs, "phase 14's")
+        if not shapes:
+            log("== phase 14's Q1 launch against the plain version")
+            shapes.update(phase_moments_time(
+                torch, {"phase 14 Q1": s3.moment_inputs}, tool=False))
+        del s3
     if "12" in phases:
         log(f"phase 12 took {walls['12a']:.1f}s (12a) + "
             f"{walls.get('12b', 0.0):.1f}s (12b)")
     if "13" in phases:
         log(f"phase 13 took {walls['13']:.1f}s")
+    if "14" in phases:
+        log(f"phase 14 took {walls['14']:.1f}s")
     kernels = []
     if k1_by:
         kernels.append({**(kern[0] if kern is not None else k1_row),

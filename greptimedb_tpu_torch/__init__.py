@@ -16,7 +16,12 @@ it (frontend/, datanode/, the mito table engine in mito/, DDL procedures
 in procedure/, partition rules in partition/, the durable catalog in
 catalog/), with its observability (common/trace_store.py,
 common/profiler.py, monitor/) and coprocessor scripts (script/), whose
-bodies run on the frontend's device. The package never imports jax or
+bodies run on the frontend's device; its protocol servers (servers/:
+HTTP, MySQL, Postgres, OpenTSDB and the gRPC / Arrow Flight front door)
+with the greptime-proto codec (api/) and the Flight client (client/);
+the S3 object store with its LRU disk cache (storage/s3.py,
+storage/cache.py); and the `greptime` CLI (cmd/: `standalone start`,
+`cli attach`). The package never imports jax or
 greptimedb_tpu; the PromQL
 path imports torch and numpy only, the SQL path and the storage engine
 also pandas and pyarrow (as the reference's do). Entry points run on the

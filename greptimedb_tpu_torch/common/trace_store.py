@@ -45,7 +45,9 @@ from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
 from .locks import TrackedLock
-from .runtime import env_float, env_int
+# from utils, not runtime: a client that reads the sink (client/flight.py)
+# must not import the storage engine, and with it torch, through runtime
+from ..utils import env_float, env_int
 from .tracking import tracked_state
 
 logger = logging.getLogger(__name__)

@@ -9,6 +9,8 @@ Ported so far: the HTTP server (http.py, prom_api.py) with the ingest
 protocols it serves (prometheus.py, influxdb.py, opentsdb.py, the
 OpenTSDB telnet listener included), the MySQL and Postgres wire servers
 (mysql.py, postgres.py), auth.py, tls.py, the ingest coalescer
-(coalesce.py) and the query interceptor (interceptor.py). The gRPC and
-Flight servers are not ported yet.
+(coalesce.py), the query interceptor (interceptor.py), and the
+gRPC / Arrow Flight front door (flight.py's `FlightFrontendServer`,
+grpc.py's `GrpcServer`). The Flight datanode server, the distributed
+router↔worker plane, comes with the distributed frontend and datanode.
 """

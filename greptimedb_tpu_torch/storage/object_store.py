@@ -171,22 +171,31 @@ def new_fs_object_store(root: str) -> FsObjectStore:
 def build_object_store(storage: dict, data_home: str) -> "ObjectStore":
     """Construct the configured backend (reference: datanode builds its
     object store from ObjectStoreConfig — Fs/S3/Oss — and optionally wraps
-    the LRU disk cache, src/datanode/src/instance.rs:334-359). The port
-    has the Fs backend; S3 (storage/s3.py) and the LRU cache layer
-    (storage/cache.py) are not ported yet and raise."""
-    from ..errors import UnsupportedError
+    the LRU disk cache, src/datanode/src/instance.rs:334-359)."""
     from .retry import RetryingObjectStore
     kind = str(storage.get("type", "File")).lower()
     if kind in ("file", "fs"):
         store: ObjectStore = FsObjectStore(
             storage.get("data_home", data_home))
     elif kind == "s3":
-        raise UnsupportedError("the S3 object store is not ported yet")
+        from .s3 import S3Config, S3ObjectStore
+        store = S3ObjectStore(S3Config(
+            bucket=storage["bucket"],
+            root=storage.get("root", ""),
+            endpoint=storage.get("endpoint"),
+            region=storage.get("region", "us-east-1"),
+            access_key_id=storage.get("access_key_id", ""),
+            secret_access_key=storage.get("secret_access_key", "")))
     else:
         raise ValueError(f"unknown storage type {storage.get('type')!r}")
-    if storage.get("cache_path"):
-        raise UnsupportedError("the object-store cache layer is not "
-                               "ported yet")
-    # transient faults (socket resets, injected failpoints) retry with
-    # backoff before any engine code sees them
-    return RetryingObjectStore(store)
+    # transient faults (S3 5xx/429, socket resets, injected failpoints)
+    # retry with backoff before any engine code sees them; the cache
+    # layer stacks on top so cache hits never pay the wrapper
+    store = RetryingObjectStore(store)
+    cache = storage.get("cache_path")
+    if cache:
+        from .cache import LruCacheLayer
+        store = LruCacheLayer(
+            store, cache, int(storage.get("cache_capacity",
+                                          512 * 1024 * 1024)))
+    return store

@@ -60,6 +60,9 @@ def is_transient(exc: BaseException) -> bool:
     from ..errors import TransientRpcError
     if isinstance(exc, TransientRpcError):
         return True
+    from .s3 import S3TransientError
+    if isinstance(exc, S3TransientError):
+        return True
     if isinstance(exc, (FileNotFoundError, NotADirectoryError,
                         IsADirectoryError, PermissionError)):
         return False

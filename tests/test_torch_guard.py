@@ -51,6 +51,15 @@
   jnp; the profiler's sampler thread creates no CUDA context, because
   the sampler module and what it reads at sample time never import
   torch.
+- The standalone process (cmd/, api/, client/, servers/{flight,grpc}.py,
+  storage/{s3,cache}.py) builds its servers over S3 with the disk cache,
+  answers the Flight client and `cli attach` without adding jax or
+  greptimedb_tpu to sys.modules; its packages are the port's own with
+  relative imports; cmd/main.py turns on no compile cache (the port has
+  no jax_cache); storage/retry.py and storage/object_store.py import s3
+  and cache only inside functions, as the reference does, so their
+  failpoints register when the reference's do; the client side (`cli
+  attach`, the Flight `Database`) imports no torch.
 """
 
 import ast
@@ -502,7 +511,7 @@ def test_port_sources_import_nothing_forbidden():
 @pytest.mark.parametrize("package", ["mito", "procedure", "partition",
                                      "datanode", "frontend", "flow",
                                      "servers", "file_table", "monitor",
-                                     "script"])
+                                     "script", "api", "client", "cmd"])
 def test_frontend_packages_are_the_ports_own(package):
     """Each package of the standalone frontend exists in the port, imports
     nothing forbidden and keeps its imports relative (the walk over every
@@ -1023,3 +1032,192 @@ def test_script_namespace_holds_torch_and_no_jnp(tmp_path):
         assert fe.script_engine.device == fe.query_engine.device
     finally:
         fe.shutdown()
+
+
+_STANDALONE_PROBE = r"""
+import builtins, http.server, json, sys, tempfile, threading, urllib.parse
+before = set(sys.modules)
+objects = {}
+
+
+class S3(http.server.BaseHTTPRequestHandler):
+    def log_message(self, *a):
+        pass
+
+    def _key(self):
+        return urllib.parse.unquote(self.path.split("?")[0].lstrip("/"))
+
+    def _reply(self, status, body=b""):
+        self.send_response(status)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def do_PUT(self):
+        objects[self._key()] = self.rfile.read(
+            int(self.headers["Content-Length"]))
+        self._reply(200)
+
+    def do_GET(self):
+        u = urllib.parse.urlparse(self.path)
+        q = urllib.parse.parse_qs(u.query)
+        if "list-type" in q:
+            b, p = u.path.lstrip("/"), q.get("prefix", [""])[0]
+            keys = sorted(k[len(b) + 1:] for k in objects
+                          if k.startswith(f"{b}/{p}"))
+            self._reply(200, ("<ListBucketResult>" + "".join(
+                f"<Contents><Key>{k}</Key></Contents>" for k in keys) +
+                "</ListBucketResult>").encode())
+        elif self._key() in objects:
+            self._reply(200, objects[self._key()])
+        else:
+            self._reply(404)
+
+    def do_HEAD(self):
+        self._reply(200 if self._key() in objects else 404)
+
+    def do_DELETE(self):
+        objects.pop(self._key(), None)
+        self._reply(204)
+
+
+srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), S3)
+threading.Thread(target=srv.serve_forever, args=(0.01,), daemon=True).start()
+from greptimedb_tpu_torch.cmd.main import StandaloneOptions, build_servers, main
+from greptimedb_tpu_torch.client.flight import Database
+
+with tempfile.TemporaryDirectory() as home:
+    opts = StandaloneOptions(
+        data_home=home, http_addr="127.0.0.1:0", mysql_addr="127.0.0.1:0",
+        postgres_addr="127.0.0.1:0", grpc_addr="127.0.0.1:0", device="cpu",
+        storage={"type": "S3", "bucket": "b", "root": "r",
+                 "endpoint": f"http://127.0.0.1:{srv.server_address[1]}",
+                 "cache_path": home + "/cache"})
+    fe, servers = build_servers(opts)
+    for s in servers:
+        s.start()
+    grpc = servers[-1]
+    db = Database(f"grpc://127.0.0.1:{grpc.port}")
+    db.bulk_load("t", {"h": ["a", "b"], "greptime_timestamp": [1, 2],
+                       "v": [1.0, 2.0]}, tag_columns=["h"])
+    db.insert("t", {"h": ["c"], "greptime_timestamp": [3], "v": [3.0]},
+              tag_columns=["h"])
+    assert db.sql("ADMIN FLUSH TABLE t") == 0
+    got = [tuple(r) for b in db.sql("SELECT h, v FROM t ORDER BY h")
+           for r in b.rows()]
+    assert got == [("a", 1.0), ("b", 2.0), ("c", 3.0)], got
+    assert any(k.endswith(".parquet") for k in objects)
+    from greptimedb_tpu_torch.api.client import GreptimeDatabase
+    proto = GreptimeDatabase(f"grpc://127.0.0.1:{grpc.port}")
+    table, _ = proto.sql("SELECT count(*) FROM t")
+    assert table.column(0).to_pylist() == [3]
+    proto.close()
+    lines = iter(["SELECT count(*) FROM t;", "\\q"])
+    builtins.input = lambda prompt="": next(lines)
+    main(["cli", "attach", "--grpc-addr", f"127.0.0.1:{grpc.port}"])
+    db.close()
+    for s in servers:
+        s.shutdown()
+    fe.shutdown()
+srv.shutdown()
+new = sorted(set(sys.modules) - before)
+print(json.dumps(new))
+"""
+
+
+def test_standalone_process_imports_no_reference():
+    """`build_servers` over S3 with the disk cache, a bulk load, a row
+    insert, a flush to the bucket, queries over Flight (a JSON ticket and
+    a greptime-proto one) and `cli attach` run on the CPU without adding jax or greptimedb_tpu to sys.modules,
+    through the port's own modules."""
+    out = subprocess.run([sys.executable, "-c", _STANDALONE_PROBE],
+                         cwd=REPO, env=_ENV, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    lines = out.stdout.strip().splitlines()
+    assert any("| 3        |" in line for line in lines), lines
+    new = json.loads(lines[-1])
+    bad = [m for m in new if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+    for m in ("storage.s3", "storage.cache", "api.v1", "servers.flight",
+              "servers.grpc", "client.flight", "cmd.main"):
+        assert f"greptimedb_tpu_torch.{m}" in new, m
+
+
+def _imports(tree):
+    """(module-level, inside-function) relative imports of a module, as
+    dotted names ('.s3')."""
+    top, inner = set(), set()
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom):
+            top.add("." * node.level + (node.module or ""))
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            for sub in ast.walk(node):
+                if isinstance(sub, ast.ImportFrom):
+                    inner.add("." * sub.level + (sub.module or ""))
+    return top, inner
+
+
+@pytest.mark.parametrize("rel,lazy", [
+    ("storage/retry.py", {".s3"}),
+    ("storage/object_store.py", {".s3", ".cache"})])
+def test_s3_and_cache_import_lazily_as_in_the_reference(rel, lazy):
+    """retry.py and object_store.py import s3 and cache only inside
+    functions, where the reference's do, so that `objstore_request` and
+    `cache_read` register at the same point in a process's life."""
+    got = {}
+    for pkg in ("greptimedb_tpu", "greptimedb_tpu_torch"):
+        path = os.path.join(REPO, pkg, rel)
+        got[pkg] = _imports(ast.parse(open(path).read(), path))
+    for pkg, (top, inner) in got.items():
+        assert not top & {".s3", ".cache"}, (pkg, top)
+        assert lazy <= inner, (pkg, inner)
+    assert {m for m in got["greptimedb_tpu_torch"][1] if m in lazy} == \
+        {m for m in got["greptimedb_tpu"][1] if m in lazy}
+
+
+def test_cmd_turns_on_no_compile_cache():
+    """The port compiles no program at run time: cmd/main.py names no
+    jax_cache and no compile-cache call, and the port has no
+    common/jax_cache.py."""
+    path = os.path.join(PORT, "cmd", "main.py")
+    tree = ast.parse(open(path).read(), path)
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom):
+            names.add(node.module or "")
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.Name):
+            names.add(node.id)
+        elif isinstance(node, ast.Attribute):
+            names.add(node.attr)
+    assert not {n for n in names if "jax_cache" in n or
+                "compile_cache" in n}, names
+    assert not os.path.exists(os.path.join(PORT, "common", "jax_cache.py"))
+
+
+_CLIENT_PROBE = r"""
+import importlib, json, sys
+import pyarrow as pa
+importlib.import_module("greptimedb_tpu_torch.cmd.main")
+from greptimedb_tpu_torch.client import flight
+from greptimedb_tpu_torch.datatypes.record_batch import (
+    RecordBatch, pretty_print)
+flight._traced({"type": "sql", "sql": "SELECT 1"})
+flight._absorb_stream_stats(pa.schema([]))
+pretty_print([RecordBatch.from_arrow(pa.record_batch({"a": [1]}))])
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("torch", "jax"))))
+"""
+
+
+def test_client_imports_no_torch():
+    """`cli attach` and the Flight `Database` (what a client process runs
+    to send a statement and print its answer) import no torch: a client
+    starts in under a second instead of loading the CUDA libraries."""
+    out = subprocess.run([sys.executable, "-c", _CLIENT_PROBE], cwd=REPO,
+                         env=_ENV, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
