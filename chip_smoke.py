@@ -6,8 +6,8 @@
 Phases (none of them catches a failure; any failed check exits non-zero).
 With no `--phases` every phase runs; `--phases 12` (a comma-separated
 list) runs the phases named and those they stand on (phases 1 and 2
-always; 12 and 13 need 5, 6 and 7, and 12 runs 12b only with 9; 14
-needs none), and names them in its last two lines:
+always; 12 and 13 need 5, 6 and 7, and 12 runs 12b only with 9; 14 and
+15 need none), and names them in its last two lines:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions,
    and whether pandas, pyarrow, prometheus_client, aiohttp (phase 11's
@@ -277,11 +277,41 @@ needs none), and names them in its last two lines:
    `cli attach` prints the count; SIGTERM ends it with 0 within 10 s.
    Without phases 4 and 13, K1's row is timed at 14d's inputs; without
    phase 6, segment_moments' at 14c's first Q1.
+15. the datanode as a cluster member (meta/, datanode/, servers/flight.py's
+   FlightDatanodeServer, client/), with a data home of its own and its
+   launch count set to 0 before and read after. 15a: MetaSrv(MemKv())
+   with an in-process MetaClient; two DatanodeInstances (node ids 1 and
+   2, device "cuda") on one data home, each behind a FlightDatanodeServer
+   and registered by its first heartbeat; create_table_route places a
+   table's four regions (TSBS cpu-only's DDL, PARTITION BY RANGE COLUMNS
+   (hostname) at cpu_p's boundaries over all 4000 hosts), two on each
+   node (load_based), and FlightDatanodeClient.ddl_create_table creates
+   each node's own. 15b: TSBS cpu-only, 4000 hosts x 3 h (4.32 M rows),
+   each region's rows by write_region(op="bulk") over Flight do_put to
+   its node (do_put -> arrow_to_ingest_columns -> bulk_ingest), both
+   nodes at once; the wall and rows/s beside each region's bulk_ingest
+   profile. 15c: Q1, Q5 and Q6 as region_moments tickets (the plan as
+   query/plan_codec.py encodes it) to both nodes at once, cold (scan
+   cache cleared) and warm, each beside the same calls through
+   LocalDatanodeClient in this process; every launch of the Flight calls
+   on a server thread, of the local ones on this one; the Flight frames
+   bit-equal to the local ones; the partial_wire bytes; the folded answer
+   (_finalize and the statement's projection, as a frontend folds it)
+   against phase 6's float64 brute force; `regions=[r]` of a node's own
+   region gives that region's frame alone, and a region the other node
+   hosts raises StaleRouteError through the Flight client. 15d: a full
+   heartbeat from each node (its wall): cluster_info lists two alive
+   datanodes whose approximate_rows sum to 4.32 M, region_heat names the
+   four regions, and a flush_table mailed to node 2 runs on its next
+   beat. 15e: node 2 shut down and reopened with node id 2 on the same
+   data home behind a new server (its wall): it hosts its two regions
+   and its cold Q1 frames are bit-equal to those before. Then
+   segment_moments is timed at the first region Q1 launch's inputs.
 
 Before the last line come two JSON objects: the numbers of the bucket
 entry, which the main paths do not launch, then the kernel table of the
 main paths (PromQL's window bounds, SQL's, the flow folds', the HTTP
-front door's, the wires', phase 13's and phase 14's segment moments),
+front door's, the wires', phase 13's, 14's and 15's segment moments),
 each with its
 launches by phase; the last line is {"ok": true, "device": {...}}. A run
 of chosen phases lists only the kernels it launched, and both lines
@@ -351,7 +381,7 @@ def check(cond: bool, msg: str) -> None:
 # phase 1
 # ---------------------------------------------------------------------------
 
-def phase_machine(torch) -> None:
+def phase_machine(torch) -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -364,6 +394,7 @@ def phase_machine(torch) -> None:
         r = subprocess.run([sys.executable, "-c", f"import {mod}"],
                            capture_output=True, text=True)
         log(f"import {mod}: {'ok' if r.returncode == 0 else 'missing'}")
+    return smi
 
 
 # ---------------------------------------------------------------------------
@@ -6231,6 +6262,376 @@ def phase_s3(torch, seed):
                                  moment_inputs=moment_calls[0])
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the datanode as a cluster member
+# ---------------------------------------------------------------------------
+
+CLUSTER_HOURS = 3                   # phase 14's span: 4.32 M rows
+CLUSTER_NODES = (1, 2)
+CLUSTER_REGIONS = 4
+CLUSTER_QUERIES = ("Q1 double-groupby-all", "Q5 per-host moments",
+                   "Q6 global aggregate")
+CLUSTER_TABLE = ("greptime", "public", "cpu")
+
+
+def cluster_partition(hosts):
+    """cpu_p's PARTITION BY RANGE COLUMNS (hostname) clause over `hosts`
+    hosts: CLUSTER_REGIONS regions of equal host counts."""
+    names = sorted(f"host_{h}" for h in range(hosts))
+    bounds = [f"'{names[k * hosts // CLUSTER_REGIONS]}'"
+              for k in range(1, CLUSTER_REGIONS)] + ["MAXVALUE"]
+    return " PARTITION BY RANGE COLUMNS (hostname) (" + ", ".join(
+        f"PARTITION r{i} VALUES LESS THAN ({b})"
+        for i, b in enumerate(bounds)) + ")"
+
+
+def cluster_plan(dn, sql):
+    """(plan, analysis, query) of one aggregate on a datanode's table, as
+    the frontend's planner makes them before it ships the plan."""
+    from greptimedb_tpu_torch.query import tpu_exec
+    from greptimedb_tpu_torch.query.planner import (
+        analyze, convert_time_literals)
+    from greptimedb_tpu_torch.sql import parse_sql
+    table = dn.catalog.table(*CLUSTER_TABLE)
+    q = parse_sql(sql)
+    q.where = convert_time_literals(q.where, table.schema)
+    a = analyze(q)
+    plan = tpu_exec.plan_for(table, a, q)
+    check(plan is not None, f"no device plan for {sql}")
+    return plan, a, q
+
+
+def cluster_fold(dn, sql, frames):
+    """The frontend's fold of the nodes' moment frames: _finalize, then
+    the projection and ORDER BY of the statement."""
+    import pandas as pd
+    from greptimedb_tpu_torch.query import tpu_exec
+    plan, a, q = cluster_plan(dn, sql)
+    merged = tpu_exec._finalize(pd.concat(frames, ignore_index=True), plan)
+    return sql_frame(dn.query_engine._finish_aggregate_frame(
+        merged, a, q, dn.catalog.table(*CLUSTER_TABLE)))
+
+
+def scatter(fns):
+    """Run one call per node at once, as a frontend scatters; returns
+    their results in order."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(fns)) as pool:
+        return [f.result() for f in [pool.submit(fn) for fn in fns]]
+
+
+def phase_cluster(torch, seed):
+    """Phase 15: two datanodes (node ids 1 and 2) on one data home, each
+    behind a FlightDatanodeServer, placed by the in-process meta service
+    and reporting to it by heartbeat; TSBS cpu-only at 4000 hosts x 3 h
+    range-partitioned into four regions, two on each node, loaded region
+    by region over Flight do_put; Q1, Q5 and Q6 as region moments over
+    Flight (segment_moments launched on the servers' threads) and through
+    LocalDatanodeClient; the stale route, the heartbeat views, a mailed
+    flush and node 2's restart. Returns its launches, the first region
+    Q1 launch's inputs and the walls."""
+    import shutil
+    import tempfile
+    import threading
+    from greptimedb_tpu_torch.client import LocalDatanodeClient
+    from greptimedb_tpu_torch.client.flight import FlightDatanodeClient
+    from greptimedb_tpu_torch.common import exec_stats
+    from greptimedb_tpu_torch.datanode import (
+        DatanodeInstance, DatanodeOptions)
+    from greptimedb_tpu_torch.errors import StaleRouteError
+    from greptimedb_tpu_torch.frontend.statement import (
+        build_schema_from_create)
+    from greptimedb_tpu_torch.meta import MemKv, MetaClient, MetaSrv, Peer
+    from greptimedb_tpu_torch.ops import kernels as K
+    from greptimedb_tpu_torch.partition.rule import rule_from_partitions
+    from greptimedb_tpu_torch.query import tpu_exec
+    from greptimedb_tpu_torch.servers.flight import FlightDatanodeServer
+    from greptimedb_tpu_torch.sql import parse_sql
+    from greptimedb_tpu_torch.table import CreateTableRequest
+    log("== phase 15: two datanodes over Arrow Flight, placed by the "
+        "in-process meta service, with heartbeats")
+    t_phase = time.perf_counter()
+    home = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    walls, steps = {}, {}
+    aggregate = tpu_exec.sorted_grouped_aggregate
+    moment_calls, threads = [], []
+    dns, servers, clients = {}, {}, {}
+    cat, sch, tname = CLUSTER_TABLE
+
+    def kept(gids, mask, ts, values, col_masks=(), **kw):
+        threads.append(threading.current_thread() is threading.main_thread())
+        if not moment_calls:
+            moment_calls.append((kw["ends"], mask, ts, list(values),
+                                 list(col_masks), list(kw["ops"])))
+        return aggregate(gids, mask, ts, values, col_masks, **kw)
+
+    def step(name):
+        steps[name] = time.perf_counter()
+        log(f"-- 15{name}")
+
+    def done(name):
+        steps[name] = time.perf_counter() - steps[name]
+        log(f"  (15{name}: {steps[name]:.1f}s)")
+
+    def open_node(i):
+        dn = DatanodeInstance(DatanodeOptions(
+            data_home=home, node_id=i, device=DEVICE,
+            register_numbers_table=False, flow_tick_interval_s=0,
+            self_monitor_interval_s=0))
+        dn.start()
+        srv = FlightDatanodeServer(dn)
+        srv.serve_in_background()
+        client = FlightDatanodeClient(srv.address, i)
+        check(client.ping() == i, f"node {i} answers ping")
+        return dn, srv, client
+
+    def close_node(i):
+        servers.pop(i).shutdown()
+        clients.pop(i).close()
+        dns.pop(i).shutdown()
+
+    def moments_over(how, sql, regions=None):
+        """Each node's frames for `sql` (over Flight at once, or through
+        LocalDatanodeClient in turn), the wall, the wire bytes and the
+        longest server-side time (the datanode's ExecStats total, which
+        rides the stream back)."""
+        plan = cluster_plan(dns[1], sql)[0]
+
+        def flight_call(i):
+            with exec_stats.collect() as st:
+                frames = clients[i].region_moments(
+                    cat, sch, tname, plan, regions=regions)
+            return (frames, st.stages["partial_wire"].detail["bytes"],
+                    st.remote_total_ms)
+
+        t0 = time.perf_counter()
+        if how == "flight":
+            got = scatter([lambda i=i: flight_call(i)
+                           for i in CLUSTER_NODES])
+        else:
+            got = [(LocalDatanodeClient(dns[i]).region_moments(
+                cat, sch, tname, plan, regions=regions), 0, 0.0)
+                for i in CLUSTER_NODES]
+        wall = time.perf_counter() - t0
+        return ({i: g[0] for i, g in zip(CLUSTER_NODES, got)}, wall,
+                sum(g[1] for g in got), max(g[2] for g in got))
+
+    def same_frames(label, a, b):
+        for i in CLUSTER_NODES:
+            check(len(a[i]) == len(b[i]) and
+                  all(x.equals(y) and list(x.dtypes) == list(y.dtypes)
+                      for x, y in zip(a[i], b[i])),
+                  f"{label}: node {i}'s frames differ")
+
+    tpu_exec.sorted_grouped_aggregate = kept
+    K.segment_moments.launches = 0
+    try:
+        step("a")
+        t0 = time.perf_counter()
+        ts, tags, fields = tsbs_cpu_table(seed, HOSTS, CLUSTER_HOURS)
+        cols = sql_columns(ts, tags, fields)
+        N = len(cols["ts"])
+        log(f"  TSBS cpu-only: {HOSTS} hosts x {CLUSTER_HOURS} h at 10 s = "
+            f"{N} rows, made in {time.perf_counter() - t0:.1f}s")
+        srv = MetaSrv(MemKv())
+        meta = MetaClient(srv)
+        t0 = time.perf_counter()
+        for i in CLUSTER_NODES:
+            dns[i], servers[i], clients[i] = open_node(i)
+            meta.register(Peer(i, servers[i].address))
+            # the first beat registers the node; later beats are driven
+            # below (a beat an hour keeps the task from racing them)
+            dns[i].start_heartbeat(meta, interval_s=3600, stats_every=1)
+        walls["open"] = time.perf_counter() - t0
+        alive = [p.id for p in srv.alive_datanodes()]
+        check(alive == list(CLUSTER_NODES), f"alive datanodes {alive}")
+        stmt = parse_sql(sql_ddl(tname, {f: "DOUBLE" for f in CPU_FIELDS},
+                                 cluster_partition(HOSTS)))
+        schema, pk = build_schema_from_create(stmt)
+        rule = rule_from_partitions(stmt.partitions)
+        route = meta.create_route(".".join(CLUSTER_TABLE),
+                                  rule.region_numbers())
+        owner = {rr.region_number: rr.leader.id
+                 for rr in route.region_routes}
+        on = {i: route.regions_on(i) for i in CLUSTER_NODES}
+        check(sorted(len(v) for v in on.values()) == [2, 2],
+              f"load_based placement {on}")
+        for i in CLUSTER_NODES:
+            clients[i].ddl_create_table(CreateTableRequest(
+                tname, schema, catalog_name=cat, schema_name=sch,
+                primary_key_indices=pk, create_if_not_exists=True,
+                partitions=stmt.partitions, table_id=route.table_id,
+                assigned_region_numbers=on[i]))
+            hosted = sorted(dns[i].catalog.table(*CLUSTER_TABLE).regions)
+            check(hosted == on[i], f"node {i} hosts {hosted}, not {on[i]}")
+        log(f"  meta placed table {route.table_id}'s regions {on} "
+            f"(load_based); nodes opened and registered in "
+            f"{walls['open']:.2f}s; RANGE COLUMNS (hostname) at cpu_p's "
+            f"boundaries over {HOSTS} hosts")
+        done("a")
+
+        step("b")
+        H = len(tags)
+        host_region = np.array([rule.find_region((f"host_{h}",))
+                                for h in range(H)])
+        row_region = np.tile(host_region, N // H)
+        parts = {}
+        for rn in sorted(owner):
+            idx = np.flatnonzero(row_region == rn)
+            parts[rn] = {k: v[idx] for k, v in cols.items()}
+        del cols, row_region
+        t0 = time.perf_counter()
+        wrote = scatter([lambda i=i: sum(
+            clients[i].write_region(cat, sch, tname, rn, parts[rn],
+                                    op="bulk") for rn in on[i])
+            for i in CLUSTER_NODES])
+        walls["load"] = time.perf_counter() - t0
+        check(sum(wrote) == N, f"write_region wrote {wrote}, want {N}")
+        del parts
+        log(f"  write_region(op='bulk') of {N} rows over Flight do_put, "
+            f"both nodes at once: {walls['load']:.2f}s "
+            f"({N / walls['load'] / 1e6:.2f} Mrows/s)")
+        for i in CLUSTER_NODES:
+            for rn, r in sorted(dns[i].catalog.table(
+                    *CLUSTER_TABLE).regions.items()):
+                log(f"    node {i} region {rn}: {r.series_dict.num_series} "
+                    f"hosts; bulk_ingest {r.last_ingest_profile.describe()}")
+        done("b")
+
+        step("c")
+        queries = {k: v for k, v in sql_queries(
+            np.random.default_rng(seed), HOSTS)[1].items()
+            if k in CLUSTER_QUERIES}
+        regions = {}
+        for i in CLUSTER_NODES:
+            regions.update(dns[i].catalog.table(*CLUSTER_TABLE).regions)
+        ties = tie_hosts(types.SimpleNamespace(
+            regions={rn: regions[rn] for rn in sorted(regions)}))
+        cold_q1 = None
+        for name, sql in queries.items():
+            want = sql_expected(name, ts, fields, ties, None)
+            runs = {}
+            for how in ("flight", "local"):
+                tpu_exec.SCAN_CACHE.clear()
+                m0, t0 = K.segment_moments.launches, len(threads)
+                cold = moments_over(how, sql)
+                warm = moments_over(how, sql)
+                on_main = threads[t0:]
+                check(K.segment_moments.launches - m0 ==
+                      2 * CLUSTER_REGIONS and
+                      len(on_main) == 2 * CLUSTER_REGIONS and
+                      (not any(on_main) if how == "flight"
+                       else all(on_main)),
+                      f"{name} {how}: {K.segment_moments.launches - m0} "
+                      f"launches, on the main thread {on_main}")
+                same_frames(f"{name} {how} cold / warm", cold[0], warm[0])
+                runs[how] = (cold, warm)
+            same_frames(f"{name} Flight / LocalDatanodeClient",
+                        runs["flight"][0][0], runs["local"][0][0])
+            frames = runs["flight"][0][0]
+            if cold_q1 is None:
+                cold_q1 = frames
+            got = cluster_fold(dns[1], sql, [f for i in CLUSTER_NODES
+                                             for f in frames[i]])
+            err = compare_sql(f"phase 15 {name}", got, *want)
+            (fc, fw), (lc, lw) = runs["flight"], runs["local"]
+            walls[name] = {"flight_cold": fc[1], "flight_warm": fw[1],
+                           "local_cold": lc[1], "local_warm": lw[1],
+                           "partial_wire": fc[2],
+                           "server_warm_ms": fw[3]}
+            log(f"  {name}: {len(got)} rows folded from "
+                f"{sum(len(f) for f in frames.values())} region frames "
+                f"(max |err|/bound {err:.3g}); over Flight cold "
+                f"{fc[1] * 1e3:.1f} ms (server-side {fc[3]:.1f} ms), warm "
+                f"{fw[1] * 1e3:.1f} ms (server-side {fw[3]:.1f} ms; "
+                f"partial_wire {fc[2]} bytes); LocalDatanodeClient cold "
+                f"{lc[1] * 1e3:.1f} ms, warm {lw[1] * 1e3:.1f} ms; the "
+                f"Flight frames bit-equal to the in-process ones")
+        q1 = queries[CLUSTER_QUERIES[0]]
+        plan = cluster_plan(dns[1], q1)[0]
+        for i in CLUSTER_NODES:
+            mine, theirs = on[i][0], on[3 - i][0]
+            sub = clients[i].region_moments(cat, sch, tname, plan,
+                                            regions=[mine])
+            check(len(sub) == 1 and sub[0].equals(
+                cold_q1[i][on[i].index(mine)]),
+                f"node {i} regions=[{mine}]: {len(sub)} frames")
+            try:
+                clients[i].region_moments(cat, sch, tname, plan,
+                                          regions=[theirs])
+            except StaleRouteError as e:
+                log(f"  node {i} regions=[{theirs}] (node {3 - i}'s): "
+                    f"StaleRouteError through the Flight client: "
+                    f"{str(e).splitlines()[0][:100]}")
+            else:
+                check(False, f"node {i} answered for region {theirs}")
+        done("c")
+
+        step("d")
+        t0 = time.perf_counter()
+        for i in CLUSTER_NODES:
+            dns[i]._heartbeat_task.fn()
+        walls["heartbeat"] = (time.perf_counter() - t0) / len(CLUSTER_NODES)
+        info = {r["peer_id"]: r for r in srv.cluster_info()}
+        peers = [r for r in info.values() if r["peer_type"] == "datanode"]
+        check(sorted(r["peer_id"] for r in peers) == list(CLUSTER_NODES) and
+              all(r["lease_state"] == "alive" for r in peers) and
+              sum(r["approximate_rows"] for r in peers) == N and
+              all(r["region_count"] == 2 for r in peers),
+              f"cluster_info: {peers}")
+        heat = srv.region_heat()
+        names = {f"{route.table_id}_{rn:010d}" for rn in owner}
+        check({h["region"] for h in heat} == names and
+              sum(h["rows"] for h in heat) == N, f"region_heat: {heat}")
+        table2 = dns[2].catalog.table(*CLUSTER_TABLE)
+        flushed = []
+        flush = table2.flush
+        table2.flush = lambda: (flushed.append(1), flush())[1]
+        srv.send_mailbox(2, {"type": "flush_table", "catalog": cat,
+                             "schema": sch, "table": tname})
+        dns[2]._heartbeat_task.fn()
+        table2.flush = flush
+        check(flushed == [1], "the mailed flush_table reached node 2")
+        log(f"  a full beat from each node: {walls['heartbeat'] * 1e3:.1f} "
+            f"ms each; cluster_info: 2 alive datanodes, "
+            f"{[r['approximate_rows'] for r in peers]} rows; region_heat "
+            f"names {sorted(names)}; a mailed flush_table ran on node 2's "
+            f"next beat")
+        done("d")
+
+        step("e")
+        close_node(2)
+        t0 = time.perf_counter()
+        dns[2], servers[2], clients[2] = open_node(2)
+        walls["restart"] = time.perf_counter() - t0
+        hosted = sorted(dns[2].catalog.table(*CLUSTER_TABLE).regions)
+        check(hosted == on[2], f"node 2 reopened with {hosted}")
+        tpu_exec.SCAN_CACHE.clear()
+        again = clients[2].region_moments(cat, sch, tname, plan)
+        check(len(again) == len(cold_q1[2]) and
+              all(x.equals(y) for x, y in zip(again, cold_q1[2])),
+              "node 2's cold Q1 after its restart differs")
+        log(f"  node 2 shut down and reopened on the same data home behind "
+            f"a new server in {walls['restart']:.2f}s: regions {hosted}, "
+            f"cold Q1 frames bit-equal to those before")
+        done("e")
+    finally:
+        tpu_exec.sorted_grouped_aggregate = aggregate
+        for i in list(dns):
+            close_node(i)
+        shutil.rmtree(home, ignore_errors=True)
+    moments = K.segment_moments.launches
+    check(moments > 0, f"phase 15 launched segment_moments {moments} times")
+    walls["phase"] = time.perf_counter() - t_phase
+    log(f"phase 15: segment_moments {moments} launches ("
+        f"{sum(1 for t in threads if not t)} on the Flight servers' "
+        f"threads); " + ", ".join(f"15{k} {v:.1f}s" for k, v in
+                                   steps.items()) +
+        f"; {walls['phase']:.1f}s")
+    return types.SimpleNamespace(moments=moments, walls=walls,
+                                 moment_inputs=moment_calls[0])
+
+
 def k1_row_at(torch, args, label):
     """K1's kernel-table row timed at one main-path call's inputs (a run
     without phase 4, whose row comes from phase 3); `label` names the
@@ -6302,13 +6703,14 @@ def phase_moments_time(torch, inputs, tool=True):
 # ---------------------------------------------------------------------------
 
 #: the phases; `--phases` runs some of them with the phases they stand on
-PHASES = tuple(str(i) for i in range(1, 15))
+PHASES = tuple(str(i) for i in range(1, 16))
 #: what each phase needs run with it (phases 1 and 2 always run): 3 and 4
 #: are one call, as are 6 and 7; 5 launches segment_moments before the
 #: phases that fence its launches (a process's first launch loads the
 #: module); 8, 10, 12a and 13 run on phase 6's frontend and tables, 9
 #: compares with phase 4's answers, 11 and 12b run on phase 9's frontend
-#: (12b only when 9 runs); 14 has a data home of its own and needs none
+#: (12b only when 9 runs); 14 and 15 have data homes of their own and
+#: need none
 NEEDS = {"3": ("4",), "4": ("3",), "6": ("5", "7"), "7": ("6",),
          "8": ("6",), "9": ("4", "5"), "10": ("6",), "11": ("9",),
          "12": ("6",), "13": ("6",)}
@@ -6351,7 +6753,7 @@ def main() -> int:
 
     log(f"phases {','.join(sorted(phases, key=int))}")
     log("== phase 1: machine")
-    phase_machine(torch)
+    card = phase_machine(torch)
     log("== phase 2: build")
     phase_kernel_build()
     # each main-path kernel's launches by the phase that made them
@@ -6435,6 +6837,15 @@ def main() -> int:
             shapes.update(phase_moments_time(
                 torch, {"phase 14 Q1": s3.moment_inputs}, tool=False))
         del s3
+    if "15" in phases:
+        cluster = phase_cluster(torch, args.seed)
+        moments_by["15"] = cluster.moments
+        walls["15"] = cluster.walls["phase"]
+        log("== phase 15's first region Q1 launch against the plain version")
+        shapes.update(phase_moments_time(
+            torch, {"phase 15 Q1 region": cluster.moment_inputs},
+            tool=False))
+        del cluster
     if "12" in phases:
         log(f"phase 12 took {walls['12a']:.1f}s (12a) + "
             f"{walls.get('12b', 0.0):.1f}s (12b)")
@@ -6442,6 +6853,8 @@ def main() -> int:
         log(f"phase 13 took {walls['13']:.1f}s")
     if "14" in phases:
         log(f"phase 14 took {walls['14']:.1f}s")
+    if "15" in phases:
+        log(f"phase 15 took {walls['15']:.1f}s")
     kernels = []
     if k1_by:
         kernels.append({**(kern[0] if kern is not None else k1_row),
@@ -6462,6 +6875,9 @@ def main() -> int:
                  ("jax", "jaxlib", "greptimedb_tpu"))
     check(not bad, f"the port imported {bad[:5]}")
     log(f"total {time.perf_counter() - t_all:.1f}s")
+    # the card again beside the numbers below, for a reader of the
+    # output's end
+    log(card)
     # a run of chosen phases says so in its last two lines
     chosen = {} if phases == set(PHASES) else \
         {"phases": sorted(phases, key=int)}

@@ -157,11 +157,12 @@ class LocalCatalogManager(MemoryCatalogManager):
     their own manifests).
     """
 
-    def __init__(self, store, engines: Dict[str, TableEngine]):
+    def __init__(self, store, engines: Dict[str, TableEngine],
+                 state_prefix: str = ""):
         super().__init__()
         self.store = store
         self.engines = engines
-        self._doc_key = SYSTEM_CATALOG_KEY
+        self._doc_key = state_prefix + SYSTEM_CATALOG_KEY
         self._started = False
         # registrations whose engine was unavailable at start(); preserved
         # verbatim in the system doc so a config fix can recover them

@@ -513,7 +513,11 @@ class MitoTable(Table):
 class MitoEngine(TableEngine):
     name = MITO_ENGINE
 
-    def __init__(self, storage: StorageEngine):
+    def __init__(self, storage: StorageEngine, state_prefix: str = ""):
+        # control state (registry/manifests) is node-scoped when several
+        # datanodes share one object store; region DATA stays globally
+        # addressed so regions can move between nodes
+        self.state_prefix = state_prefix
         self.storage = storage
         self.store = storage.store
         from ..common.locks import TrackedLock
@@ -525,7 +529,7 @@ class MitoEngine(TableEngine):
 
     # ---- engine registry (next id + table dirs) ----
     def _registry_key(self) -> str:
-        return "mito/engine.json"
+        return f"{self.state_prefix}mito/engine.json"
 
     def _load_registry(self) -> dict:
         if self.store.exists(self._registry_key()):
@@ -537,7 +541,8 @@ class MitoEngine(TableEngine):
                          json.dumps(self._registry).encode())
 
     def _manifest_key(self, catalog: str, schema: str, table_id: int) -> str:
-        return f"mito/{catalog}/{schema}/{table_id}/manifest.json"
+        return (f"{self.state_prefix}mito/{catalog}/{schema}/"
+                f"{table_id}/manifest.json")
 
     # ---- DDL ----
     def create_table(self, request: CreateTableRequest) -> MitoTable:

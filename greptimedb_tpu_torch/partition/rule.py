@@ -308,6 +308,61 @@ class HashPartitionRule(PartitionRule):
         return [r for r in self.regions if r in hit]
 
 
+def refine_range_rule(rule: PartitionRule, region: int, at_value: Any,
+                      children: Sequence[int]) -> PartitionRule:
+    """Split one region of a range rule into two children at `at_value`:
+    the region covering [prev_bound, bound) is replaced by
+    [prev_bound, at_value) -> children[0] and [at_value, bound) ->
+    children[1]. Returns a NEW rule — rules are shared by live tables
+    whose callers (find_regions_by_filters, SHOW CREATE TABLE) assume
+    the bounds/regions lists never mutate in place.
+
+    Raises ValueError unless `at_value` falls strictly inside the
+    region's range (an empty child region would be a routing dead end).
+    Hash rules cannot refine one bucket (the modulus is global); multi-
+    column range rules are not refinable yet."""
+    if len(children) != 2:
+        raise ValueError(f"refine needs exactly 2 children, got {children}")
+    single_col: Optional[RangePartitionRule] = None
+    if isinstance(rule, RangePartitionRule):
+        single_col = rule
+    elif isinstance(rule, RangeColumnsPartitionRule) and \
+            len(rule.columns) == 1:
+        single_col = RangePartitionRule(
+            rule.columns[0], [b[0] for b in rule.bounds],
+            list(rule.regions))
+    if single_col is None:
+        kind = "hash" if isinstance(rule, HashPartitionRule) \
+            else type(rule).__name__
+        raise ValueError(
+            f"cannot refine a {kind} partition rule: only single-column "
+            f"range rules split region-locally")
+    if region not in single_col.regions:
+        raise ValueError(f"region {region} not in rule {single_col.regions}")
+    idx = single_col.regions.index(region)
+    lo = single_col.bounds[idx - 1] if idx > 0 else None
+    hi = single_col.bounds[idx]
+    if at_value is MAXVALUE or at_value is None:
+        raise ValueError("split value must be a concrete literal")
+    if lo is not None and not _lt(lo, at_value):
+        raise ValueError(
+            f"split value {at_value!r} not above the region's lower "
+            f"bound {lo!r}")
+    if not _lt(at_value, hi):
+        raise ValueError(
+            f"split value {at_value!r} not below the region's upper "
+            f"bound {hi!r}")
+    bounds = list(single_col.bounds)
+    regions = list(single_col.regions)
+    bounds[idx:idx + 1] = [at_value, hi]
+    regions[idx:idx + 1] = [children[0], children[1]]
+    refined = RangePartitionRule(single_col.column, bounds, regions)
+    if isinstance(rule, RangeColumnsPartitionRule):
+        return RangeColumnsPartitionRule(
+            list(rule.columns), [(b,) for b in bounds], regions)
+    return refined
+
+
 def rule_from_partitions(partitions: Any,
                          region_numbers: Optional[List[int]] = None
                          ) -> PartitionRule:

@@ -101,8 +101,10 @@ class ProcedureManager:
     """LocalManager: submit/run/persist/recover procedures."""
 
     def __init__(self, store, max_retries: int = 3,
-                 retry_delay_s: float = 0.05, run_async: bool = False):
+                 retry_delay_s: float = 0.05, run_async: bool = False,
+                 state_prefix: str = ""):
         self.store = store
+        self._prefix = state_prefix + PROC_PREFIX
         self.max_retries = max_retries
         self.retry_delay_s = retry_delay_s
         self.run_async = run_async
@@ -117,10 +119,10 @@ class ProcedureManager:
 
     # ---- state store ----
     def _step_key(self, pid: str, step: int) -> str:
-        return f"{PROC_PREFIX}/{pid}/{step:010d}.step"
+        return f"{self._prefix}/{pid}/{step:010d}.step"
 
     def _commit_key(self, pid: str) -> str:
-        return f"{PROC_PREFIX}/{pid}/commit"
+        return f"{self._prefix}/{pid}/commit"
 
     def _persist(self, pid: str, step: int, proc: Procedure) -> None:
         self.store.write(self._step_key(pid, step), json.dumps({
@@ -128,7 +130,7 @@ class ProcedureManager:
         }).encode())
 
     def _cleanup(self, pid: str) -> None:
-        for key in self.store.list(f"{PROC_PREFIX}/{pid}/"):
+        for key in self.store.list(f"{self._prefix}/{pid}/"):
             self.store.delete(key)
 
     # ---- execution ----
@@ -196,8 +198,9 @@ class ProcedureManager:
         """Resume every uncommitted procedure from its last persisted
         step. Returns the recovered procedure ids."""
         by_pid: Dict[str, List[str]] = {}
-        for key in self.store.list(f"{PROC_PREFIX}/"):
-            parts = key.split("/")
+        skip = len(self._prefix.split("/")) - 1
+        for key in self.store.list(f"{self._prefix}/"):
+            parts = key.split("/")[skip:]
             if len(parts) >= 3:
                 by_pid.setdefault(parts[1], []).append(key)
         recovered = []

@@ -53,7 +53,7 @@ import logging
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import pandas as pd
@@ -1330,17 +1330,34 @@ def region_streams_cold(region) -> bool:
          SCAN_CACHE.budget_bytes // 2)
 
 
-def region_moment_frames(table, plan: TpuPlan,
-                         device) -> List[pd.DataFrame]:
-    """Per-region moment frames of a table's regions. Each region takes
-    one path: a selective
+def region_moment_frames(table, plan: TpuPlan, device,
+                         regions: Optional[Sequence[int]] = None
+                         ) -> List[pd.DataFrame]:
+    """Per-region moment frames of a table's regions (the single-node
+    path and a datanode's side of aggregate pushdown). `regions`
+    restricts them to a subset of hosted region numbers (the frontend's
+    regions left after partition pruning); a region this node does not
+    host raises StaleRouteError. Each region takes one path: a selective
     point/IN query on an uncached region the SST index
     (_indexed_point_frames), a region above the streaming bounds the
     sliced cold scan (query/stream_exec.py; it never enters the cache),
     any other the device-resident scan cache, with identical concurrent
     scans fused (SCAN_FLIGHTS). KILL is checked between regions."""
     from . import stream_exec
-    regions = list(table.regions.values())
+    if regions is None:
+        regions = list(table.regions.values())
+    else:
+        want = set(regions)
+        missing = want - set(table.regions)
+        if missing:
+            # a pruned aggregate naming regions this node no longer hosts
+            # must not silently reduce a partial set: typed, so the
+            # caller refreshes its route and retries
+            from ..errors import StaleRouteError
+            raise StaleRouteError(
+                f"region(s) {sorted(missing)} of table "
+                f"{table.info.name} are not hosted here")
+        regions = [r for rn, r in table.regions.items() if rn in want]
     if not regions:
         return []
     point_sids = [region_point_sids(r, plan) for r in regions]

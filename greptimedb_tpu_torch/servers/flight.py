@@ -6,6 +6,12 @@ and streams record batches back; src/client/src/database.rs:209-260 is the
 matching client. Here the same plane is built directly on
 `pyarrow.flight` (Flight *is* gRPC + Arrow IPC):
 
+- `FlightDatanodeServer` wraps a `DatanodeInstance` and exposes the
+  `DatanodeClient` surface over the wire: DDL actions, `do_put` region
+  writes, `do_get` scans / pushed-down aggregate moments (the datanode's
+  `segment_moments` launches run on the server's Flight threads). This
+  is the multi-host version of the in-process router↔worker calls
+  (client/__init__.py).
 - `FlightFrontendServer` wraps a frontend and serves user SQL over
   `do_get` (JSON tickets and greptime-proto `GreptimeRequest` tickets) +
   gRPC-style row inserts and bulk loads with auto-create/alter over
@@ -13,12 +19,11 @@ matching client. Here the same plane is built directly on
 
 Tickets, descriptors and action bodies are JSON; data rides Arrow IPC.
 
-Ported from greptimedb_tpu/servers/flight.py: the shared helpers and the
-frontend server. The datanode half (`FlightDatanodeServer`, the
-router↔worker plane) comes with the distributed frontend and datanode
-(ROADMAP Queue 1 h1/h3); the helpers it shares (`_apply_wire_verdicts`,
-`_export_spans`, `_frames_stream`, `EXEC_STATS_KEY`, `_slow_logger`) are
-here already.
+Ported from greptimedb_tpu/servers/flight.py; its tickets, descriptors
+and action bodies are the reference's, so either package's client talks
+to either's server. The `repl_apply` action answers the datanode's
+UnsupportedError until read-replica shipping is ported (ROADMAP Queue 1,
+h4).
 """
 
 from __future__ import annotations
@@ -26,15 +31,18 @@ from __future__ import annotations
 import json
 import logging
 import threading
+import time
 from typing import Dict, Optional
 
 import pyarrow as pa
 import pyarrow.flight as flight
 
 from ..common import exec_stats
-from ..common.telemetry import remote_context
+from ..common.telemetry import (
+    remote_context, slow_query_threshold_ms, span)
 from ..datatypes.schema import Schema
 from ..errors import GreptimeError
+from ..table.requests import create_request_from_dict
 
 _EMPTY_SCHEMA = pa.schema([])
 
@@ -152,6 +160,226 @@ def _affected_stream(n: int,
         return flight.GeneratorStream(_AFFECTED_SCHEMA,
                                       iter([(batch, meta)]))
     return flight.GeneratorStream(_AFFECTED_SCHEMA, iter([batch]))
+
+
+# ---------------------------------------------------------------------------
+# datanode server (worker side of the distributed data plane)
+# ---------------------------------------------------------------------------
+
+class FlightDatanodeServer(flight.FlightServerBase):
+    """Serves one datanode's region data plane over Arrow Flight."""
+
+    def __init__(self, datanode, location: str = "grpc://127.0.0.1:0"):
+        super().__init__(location)
+        from ..client import LocalDatanodeClient
+        self.datanode = datanode
+        self.local = LocalDatanodeClient(datanode)
+        self._location = location
+
+    @property
+    def address(self) -> str:
+        return _advertised_address(self._location, self.port)
+
+    def serve_in_background(self) -> threading.Thread:
+        from ..common.runtime import new_thread
+        t = new_thread(self.serve, daemon=True,
+                       name=f"flight-dn{self.datanode.opts.node_id}",
+                       propagate_context=False)
+        t.start()
+        return t
+
+    # ---- control plane: DDL / flush / describe ----
+    def do_action(self, context, action):
+        body = json.loads(action.body.to_pybytes() or b"{}")
+        kind = action.type
+        _apply_wire_verdicts(body)
+        # join the caller's trace before any handler work so DDL/flush
+        # spans and logs carry the frontend's trace id
+        with remote_context(body.pop("traceparent", None)), \
+                span(f"dn_{kind}", node=self.datanode.opts.node_id):
+            yield from self._do_action_inner(kind, body)
+
+    def _do_action_inner(self, kind, body):
+        try:
+            if kind == "ddl_create_table":
+                self.local.ddl_create_table(
+                    create_request_from_dict(body["request"]))
+                resp = {"ok": True}
+            elif kind == "ddl_alter_table":
+                from ..table.requests import alter_request_from_dict
+                self.local.ddl_alter_table(
+                    alter_request_from_dict(body["request"]))
+                resp = {"ok": True}
+            elif kind == "ddl_drop_table":
+                dropped = self.local.ddl_drop_table(
+                    body["catalog"], body["schema"], body["table"])
+                resp = {"ok": True, "dropped": bool(dropped)}
+            elif kind == "flush_table":
+                self.local.flush_table(body["catalog"], body["schema"],
+                                       body["table"])
+                resp = {"ok": True}
+            elif kind == "describe_table":
+                described = self.local.describe_table(
+                    body["catalog"], body["schema"], body["table"])
+                if described is None:
+                    resp = {"ok": True, "info": None}
+                else:
+                    info, _rule = described
+                    resp = {"ok": True, "info": info.to_dict()}
+            elif kind == "ping":
+                resp = {"ok": True, "node_id": self.datanode.opts.node_id}
+            elif kind == "repl_apply":
+                # continuous replication consumer: apply shipped WAL
+                # records to this node's standby replica of the region
+                applied = self.local.repl_apply(
+                    body["catalog"], body["schema"], body["table"],
+                    int(body["region_number"]),
+                    list(body.get("entries") or []),
+                    leader_flushed=int(body.get("leader_flushed") or 0))
+                resp = {"ok": True, **applied}
+            elif kind == "background_jobs":
+                # live + recent background work on THIS node, for the
+                # frontend's cluster-merged information_schema view
+                from ..common import background_jobs
+                resp = {"ok": True, "jobs": background_jobs.rows()}
+            elif kind == "profile":
+                # continuous profiler, datanode side: writer-less
+                # sampler — {"drain": true} hands the pending aggregate
+                # to the frontend (which owns the flush), {"seconds":
+                # N[, "hz": h]} runs a high-rate burst for /debug/prof
+                from ..common import profiler
+                s = profiler.sampler()
+                if s is None:
+                    resp = {"ok": True, "rows": []}
+                elif body.get("seconds") is not None:
+                    resp = {"ok": True, "rows": s.collect_burst(
+                        float(body["seconds"]),
+                        burst_hz=body.get("hz"))}
+                else:
+                    resp = {"ok": True, "rows": s.drain_rows()}
+            else:
+                raise GreptimeError(f"unknown action {kind!r}")
+        except GreptimeError as e:
+            resp = {"ok": False, "error": str(e),
+                    "error_type": type(e).__name__}
+        exported = _export_spans()
+        if exported:
+            resp["trace_spans"] = exported
+        yield flight.Result(json.dumps(resp).encode())
+
+    # ---- write plane ----
+    def do_put(self, context, descriptor, reader, writer):
+        cmd = json.loads(descriptor.command)
+        if cmd.get("type") != "write_region":
+            raise GreptimeError(f"unsupported put {cmd.get('type')!r}")
+        _apply_wire_verdicts(cmd)
+        stats = exec_stats.ExecStats()
+        t0 = time.perf_counter()
+        with remote_context(cmd.get("traceparent")), \
+                span("dn_write_region", node=self.datanode.opts.node_id,
+                     table=cmd.get("table")) as sp, \
+                exec_stats.collect(stats):
+            tbl = reader.read_all()
+            op = cmd.get("op", "put")
+            target = self.datanode.catalog.table(
+                cmd["catalog"], cmd["schema"], cmd["table"]) \
+                if op == "bulk" else None
+            if target is not None:
+                # bulk path: typed ndarray columns feed bulk_ingest's raw
+                # fast path instead of a per-value pylist round trip
+                from ..datatypes.record_batch import arrow_to_ingest_columns
+                columns = arrow_to_ingest_columns(tbl, target.schema)
+            else:
+                columns = _arrow_to_columns(tbl)
+            n = self.local.write_region(
+                cmd["catalog"], cmd["schema"], cmd["table"],
+                cmd["region_number"], columns, op=op)
+        self._log_slow(sp, "write_region", cmd,
+                       (time.perf_counter() - t0) * 1e3, stats)
+        ack = {"affected_rows": n, "exec_stats": stats.to_dict()}
+        exported = _export_spans()
+        if exported:
+            ack["trace_spans"] = exported
+        writer.write(pa.py_buffer(json.dumps(ack).encode()))
+
+    def _log_slow(self, sp, what: str, cmd: dict, elapsed_ms: float,
+                  stats: exec_stats.ExecStats) -> None:
+        """Datanode-side slow-op log: after wire trace propagation this
+        reports the SAME trace id as the frontend's slow-query entry for
+        the statement that caused the RPC."""
+        thr = slow_query_threshold_ms()
+        if thr is None or elapsed_ms < thr:
+            return
+        _slow_logger.warning(
+            "slow datanode op: %s %.1fms (threshold %dms) trace=%s "
+            "node=%d table=%s stats=[%s]", what, elapsed_ms, thr,
+            sp["trace_id"], self.datanode.opts.node_id,
+            cmd.get("table"), stats.summary())
+
+    # ---- read plane ----
+    def do_get(self, context, ticket):
+        cmd = json.loads(ticket.ticket)
+        kind = cmd.get("type")
+        if kind not in ("scan", "region_moments"):
+            raise GreptimeError(f"unsupported ticket {kind!r}")
+        _apply_wire_verdicts(cmd)
+        # the scan executes eagerly under a local collector; its stats
+        # ride the stream schema back so the frontend can render this
+        # node's stage rows in its EXPLAIN ANALYZE tree
+        stats = exec_stats.ExecStats()
+        t0 = time.perf_counter()
+        with remote_context(cmd.get("traceparent")), \
+                span(f"dn_{kind}", node=self.datanode.opts.node_id,
+                     table=cmd.get("table")) as sp, \
+                exec_stats.collect(stats):
+            if kind == "scan":
+                batches, fallback = self._do_scan(cmd)
+            else:
+                frames = self._do_region_moments(cmd)
+        self._log_slow(sp, kind, cmd, (time.perf_counter() - t0) * 1e3,
+                       stats)
+        metadata = {EXEC_STATS_KEY: json.dumps(stats.to_dict()).encode()}
+        exported = _export_spans()
+        if exported:
+            from ..common.trace_store import TRACE_SPANS_WIRE_KEY
+            metadata[TRACE_SPANS_WIRE_KEY] = \
+                json.dumps(exported).encode()
+        if kind == "scan":
+            return _batches_stream(batches, fallback, metadata=metadata)
+        return _frames_stream(frames, metadata=metadata)
+
+    def _do_scan(self, cmd):
+        from ..common.time import TimestampRange
+        from ..query.plan_codec import expr_from_dict
+        filters = [expr_from_dict(f) for f in cmd["filters"]] \
+            if cmd.get("filters") else None
+        # rebuild a real TimestampRange: Region.scan dereferences
+        # .start/.end, so the wire's [lo, hi] pair must not stay a
+        # tuple (ranges ship in ms, the region-native unit)
+        time_range = None
+        if cmd.get("time_range"):
+            lo, hi = cmd["time_range"]
+            time_range = TimestampRange(lo, hi)
+        # self.local (a LocalDatanodeClient) records the "scan" stage
+        batches = self.local.scan_batches(
+            cmd["catalog"], cmd["schema"], cmd["table"],
+            projection=cmd.get("projection"),
+            time_range=time_range,
+            limit=cmd.get("limit"), filters=filters,
+            regions=cmd.get("regions"))
+        t = self.datanode.catalog.table(
+            cmd["catalog"], cmd["schema"], cmd["table"])
+        fallback = None
+        if t is not None:
+            fallback = t.schema if cmd.get("projection") is None \
+                else t.schema.project(cmd["projection"])
+        return batches, fallback
+
+    def _do_region_moments(self, cmd):
+        from ..query.plan_codec import plan_from_dict
+        return self.local.region_moments(
+            cmd["catalog"], cmd["schema"], cmd["table"],
+            plan_from_dict(cmd["plan"]), regions=cmd.get("regions"))
 
 
 # ---------------------------------------------------------------------------

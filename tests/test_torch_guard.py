@@ -60,6 +60,14 @@
   and cache only inside functions, as the reference does, so their
   failpoints register when the reference's do; the client side (`cli
   attach`, the Flight `Database`) imports no torch.
+- The datanode as a cluster member (meta/, datanode/, client/,
+  servers/flight.py's FlightDatanodeServer): meta places a table's
+  regions on two datanodes with node ids, each behind its Flight server,
+  which create, load and answer region moments over Flight and report by
+  heartbeat, without adding jax or greptimedb_tpu to sys.modules; meta/
+  is the port's own with relative imports; the datanode clients and the
+  meta service import no torch; a datanode with a node id left on its
+  default device raises without CUDA and opens nothing.
 """
 
 import ast
@@ -511,7 +519,8 @@ def test_port_sources_import_nothing_forbidden():
 @pytest.mark.parametrize("package", ["mito", "procedure", "partition",
                                      "datanode", "frontend", "flow",
                                      "servers", "file_table", "monitor",
-                                     "script", "api", "client", "cmd"])
+                                     "script", "api", "client", "cmd",
+                                     "meta"])
 def test_frontend_packages_are_the_ports_own(package):
     """Each package of the standalone frontend exists in the port, imports
     nothing forbidden and keeps its imports relative (the walk over every
@@ -1221,3 +1230,131 @@ def test_client_imports_no_torch():
                          timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+_CLUSTER_PROBE = r"""
+import json, sys, tempfile
+before = set(sys.modules)
+from greptimedb_tpu_torch.client import LocalDatanodeClient
+from greptimedb_tpu_torch.client.flight import FlightDatanodeClient
+from greptimedb_tpu_torch.datanode import DatanodeInstance, DatanodeOptions
+from greptimedb_tpu_torch.frontend.statement import build_schema_from_create
+from greptimedb_tpu_torch.meta import MemKv, MetaClient, MetaSrv, Peer
+from greptimedb_tpu_torch.partition.rule import rule_from_partitions
+from greptimedb_tpu_torch.query import tpu_exec
+from greptimedb_tpu_torch.query.planner import analyze
+from greptimedb_tpu_torch.servers.flight import FlightDatanodeServer
+from greptimedb_tpu_torch.sql import parse_sql
+from greptimedb_tpu_torch.table import CreateTableRequest
+home = tempfile.mkdtemp()
+srv = MetaSrv(MemKv())
+meta = MetaClient(srv)
+nodes, servers, clients = {}, {}, {}
+for i in (1, 2):
+    nodes[i] = DatanodeInstance(DatanodeOptions(
+        data_home=home, node_id=i, device="cpu",
+        register_numbers_table=False))
+    nodes[i].start()
+    servers[i] = FlightDatanodeServer(nodes[i])
+    servers[i].serve_in_background()
+    clients[i] = FlightDatanodeClient(servers[i].address, i)
+    meta.register(Peer(i, servers[i].address))
+    nodes[i].start_heartbeat(meta, interval_s=3600, stats_every=1)
+stmt = parse_sql("CREATE TABLE t (h STRING, ts TIMESTAMP TIME INDEX, "
+                 "v DOUBLE, PRIMARY KEY(h)) PARTITION BY RANGE COLUMNS (h) "
+                 "(PARTITION a VALUES LESS THAN ('m'), PARTITION b VALUES "
+                 "LESS THAN (MAXVALUE))")
+schema, pk = build_schema_from_create(stmt)
+route = meta.create_route("greptime.public.t", [0, 1])
+for i in (1, 2):
+    clients[i].ddl_create_table(CreateTableRequest(
+        "t", schema, primary_key_indices=pk, partitions=stmt.partitions,
+        table_id=route.table_id,
+        assigned_region_numbers=route.regions_on(i)))
+rule = rule_from_partitions(stmt.partitions)
+for rn, h in ((0, "a"), (1, "z")):
+    owner = next(r.leader.id for r in route.region_routes
+                 if r.region_number == rn)
+    clients[owner].write_region("greptime", "public", "t", rn, {
+        "h": [h, h], "ts": [1, 2], "v": [1.0, 2.0]}, op="bulk")
+q = parse_sql("SELECT h, sum(v) FROM t GROUP BY h")
+table = nodes[1].catalog.table("greptime", "public", "t")
+plan = tpu_exec.plan_for(table, analyze(q), q)
+got = [len(clients[i].region_moments("greptime", "public", "t", plan))
+       for i in (1, 2)]
+local = LocalDatanodeClient(nodes[1]).region_moments(
+    "greptime", "public", "t", plan)
+assert got == [1, 1] and len(local) == 1, got
+for i in (1, 2):
+    nodes[i]._heartbeat_task.fn()
+rows = sum(r["approximate_rows"] for r in srv.cluster_info()
+           if r["peer_type"] == "datanode")
+assert rows == 4, rows
+for i in (1, 2):
+    clients[i].close()
+    servers[i].shutdown()
+    nodes[i].shutdown()
+print(json.dumps(sorted(set(sys.modules) - before)))
+"""
+
+
+def test_cluster_member_imports_no_reference():
+    """Meta, two datanodes with node ids behind their Flight servers,
+    DDL, a bulk write_region, region moments over Flight and in the
+    process and full heartbeats run on the CPU without adding jax or
+    greptimedb_tpu to sys.modules, through the port's own modules."""
+    out = subprocess.run([sys.executable, "-c", _CLUSTER_PROBE], cwd=REPO,
+                         env=_ENV, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    new = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in new if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+    for m in ("meta.service", "meta.balancer", "meta.failure_detector",
+              "datanode.instance", "servers.flight", "client.flight",
+              "client"):
+        assert f"greptimedb_tpu_torch.{m}" in new, m
+
+
+_CLUSTER_CLIENT_PROBE = r"""
+import json, sys
+from greptimedb_tpu_torch.client import DatanodeClient, LocalDatanodeClient
+from greptimedb_tpu_torch.client.flight import FlightDatanodeClient
+from greptimedb_tpu_torch.meta import MemKv, MetaClient, MetaSrv
+from greptimedb_tpu_torch.meta.lock import DistributedLock, Election
+client = FlightDatanodeClient("grpc://127.0.0.1:1", 3)
+assert isinstance(client, DatanodeClient) and client.node_id == 3
+srv = MetaSrv(MemKv())
+MetaClient(srv).heartbeat(3, None)
+assert [p.id for p in srv.alive_datanodes()] == [3]
+assert DistributedLock(MemKv(), "x", holder="a").try_acquire()
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("torch", "jax"))))
+"""
+
+
+def test_datanode_clients_and_meta_import_no_torch():
+    """client/__init__.py (DatanodeClient, LocalDatanodeClient),
+    client/flight.py's FlightDatanodeClient and meta/ import no torch: a
+    frontend-side process or a metasrv loads no CUDA library to route."""
+    out = subprocess.run([sys.executable, "-c", _CLUSTER_CLIENT_PROBE],
+                         cwd=REPO, env=_ENV, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_cluster_datanode_default_device_raises_without_cuda(tmp_path):
+    """A datanode with a node id left on its default device ("cuda")
+    raises on a machine without CUDA, opens nothing on its data home and
+    does not join the in-process registry."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available: the default device is usable")
+    from greptimedb_tpu_torch.datanode import (
+        DatanodeInstance, DatanodeOptions)
+    from greptimedb_tpu_torch.datanode.instance import live_datanode
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DatanodeInstance(DatanodeOptions(data_home=str(tmp_path),
+                                         node_id=2))
+    assert not os.listdir(tmp_path)
+    assert live_datanode(2) is None
