@@ -7,7 +7,7 @@ Phases (none of them catches a failure; any failed check exits non-zero).
 With no `--phases` every phase runs; `--phases 12` (a comma-separated
 list) runs the phases named and those they stand on (phases 1 and 2
 always; 12 and 13 need 5, 6 and 7, and 12 runs 12b only with 9; 14 and
-15 need none), and names them in its last two lines:
+15 need none; 16 needs 15), and names them in its last two lines:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions,
    and whether pandas, pyarrow, prometheus_client, aiohttp (phase 11's
@@ -197,9 +197,9 @@ always; 12 and 13 need 5, 6 and 7, and 12 runs 12b only with 9; 14 and
    minimal client of each protocol; its launches set to 0 before and
    read after. 12a, inside phase 6's run after phase 10, on phase 6's
    frontend and tables: MysqlServer(fe) and PostgresServer(fe) on port
-   0; Q2-Q6 on cpu warm through do_query, then over MySQL and over
-   Postgres (Q1's 48 000 rows are cut for time: Q2's 48 000 take the
-   same encoding), each column's name and wire type and each value's
+   0; Q3-Q6 on cpu warm through do_query, then over MySQL and over
+   Postgres (Q1's and Q2's 48 000 rows are cut for time: Q3-Q6 take the
+   same per-row encoding), each column's name and wire type and each value's
    text equal to the servers' encoding of do_query's Output, the three
    walls printed (the static dispatch floor pinned before each, so the
    three take one route); SELECT 1 x 50 in turns over each wire and
@@ -262,7 +262,8 @@ always; 12 and 13 need 5, 6 and 7, and 12 runs 12b only with 9; 14 and
    3), one segment_moments launch each, in three opens of the process:
    the first with the cache empty (the SSTs pulled from S3), a restart on
    the same cache (the index recovered from disk: no SST pulled), a
-   restart on a fresh cache (pulled again); each answer against the
+   restart on a fresh cache (pulled again), the last two with Q1 alone
+   (Q5 and Q6 cut for time); each answer against the
    float64 brute force of phase 6 over the same rows, the opens equal
    exactly; in the first open the same queries through do_query (the
    Flight front door's cost) and Q5 and Q6 over /v1/sql and MySQL, equal
@@ -307,11 +308,44 @@ always; 12 and 13 need 5, 6 and 7, and 12 runs 12b only with 9; 14 and
    data home behind a new server (its wall): it hosts its two regions
    and its cold Q1 frames are bit-equal to those before. Then
    segment_moments is timed at the first region Q1 launch's inputs.
+16. the cluster's control plane as processes (meta/flight.py,
+   meta/replication.py, cmd/main.py's metasrv and datanode start, failover
+   adoption), with a data home of its own; its launches are those the
+   datanode processes' ExecStats report (each wrapper counts its launch
+   on the active collector, which rides the Flight response home), from
+   processes that start at 0. 16a: three `python3 -m
+   greptimedb_tpu_torch.cmd.main metasrv start --peers a,b,c` children on
+   free ports, each with a raft store, `--failover-interval 1
+   --datanode-lease-secs 3`; FailoverFlightMetaClient reaches the leader
+   (cluster_info); then two `datanode start --node-id 1|2 --metasrv-addr
+   a,b,c --heartbeat-interval 0.5` children on one data home, on the card,
+   registered by their first beats, pinged through PeerClientRegistry's
+   lazily dialled FlightDatanodeClients. 16b: phase 15's table: meta
+   places the four regions (two a node) and keeps the table info,
+   ddl_create_table, write_region(op="bulk") of the 4.32 M rows to both
+   nodes at once and flush_table, all through the registry. 16c: Q1, Q5
+   and Q6 as region_moments over Flight, twice each (the first Q1 cold:
+   the children's scan caches cannot be cleared from here, so Q5 and Q6
+   first read what Q1 cached), one launch a region a call, every region
+   on the device-resident route (the nodes' ExecStats), each region's
+   frame bit-equal across the two runs, the folded answer against phase
+   6's float64 brute force; each datanode holds /dev/nvidia*, no metasrv
+   does. 16d: SIGKILL of datanode 2; the times until meta's route moves
+   its regions to node 1, until node 1 has adopted them through the
+   heartbeat mailbox (describe_table lists all four) and until Q1, Q5 and
+   Q6 over all four regions on node 1 equal the answers before the kill
+   (each region's frame bit-equal). 16e: SIGKILL of the raft leader; the
+   time until FailoverFlightMetaClient reads the route from a new leader,
+   equal to the route before, and until node 1's heartbeats show it alive
+   in the new leader's cluster_info. 16f: no surviving metasrv holds the
+   card; SIGTERM ends node 1 and both metasrv children with 0 within
+   10 s.
 
 Before the last line come two JSON objects: the numbers of the bucket
 entry, which the main paths do not launch, then the kernel table of the
 main paths (PromQL's window bounds, SQL's, the flow folds', the HTTP
-front door's, the wires', phase 13's, 14's and 15's segment moments),
+front door's, the wires', phase 13's, 14's, 15's and 16's segment
+moments),
 each with its
 launches by phase; the last line is {"ok": true, "device": {...}}. A run
 of chosen phases lists only the kernels it launched, and both lines
@@ -4588,8 +4622,9 @@ def phase_http(torch, pf, p4, seed, phase9):
 WIRE_REPS = 50
 WIRE_TIMEOUT_S = 600
 #: the queries phase 12a no longer sends over the wires (the script's time
-#: limit): Q2's 48 000 rows take the same row encoding as Q1's
-WIRE_CUT = ("Q1 double-groupby-all",)
+#: limit): Q1's and Q2's 48 000 rows take the per-row encoding that Q3-Q6
+#: still take, and phase 14 sends Q1 over Flight
+WIRE_CUT = ("Q1 double-groupby-all", "Q2 double-groupby-1")
 #: the share of cpu_24h's streamed Q1 after which KILL is sent
 KILL_AFTER = 0.3
 
@@ -6171,15 +6206,19 @@ def phase_s3(torch, seed):
                 s3_toml(toml, data_home, s3.endpoint,
                         os.path.join(home, cache), ports)
                 proc = S3Process(toml, label, s3)
+            # opens 2 and 3 run the first query only (the script's time
+            # limit): its cold run is the one whose SST reads the cache
+            # serves or misses
             frames, first, w = s3_open_queries(
-                proc, queries, want, direct=cache is None)
+                proc, queries if cache is None else dict(
+                    list(queries.items())[:1]), want, direct=cache is None)
             walls[label] = {"open": proc.open_s, **w}
             opens.append(frames)
             firsts.append(first)
             if cache is None:
                 s3_other_wires(proc, queries, frames)
         for frames in opens[1:]:
-            for q in queries:
+            for q in frames:
                 check(frames[q].equals(opens[0][q]),
                       f"{q}: the opens disagree")
         (p1, h1, m1), (p2, h2, m2), (p3, h3, m3) = firsts
@@ -6285,14 +6324,14 @@ def cluster_partition(hosts):
         for i, b in enumerate(bounds)) + ")"
 
 
-def cluster_plan(dn, sql):
-    """(plan, analysis, query) of one aggregate on a datanode's table, as
-    the frontend's planner makes them before it ships the plan."""
+def table_plan(table, sql):
+    """(plan, analysis, query) of one aggregate on `table` (a datanode's
+    table, or a frontend's view of one that holds no region), as the
+    frontend's planner makes them before it ships the plan."""
     from greptimedb_tpu_torch.query import tpu_exec
     from greptimedb_tpu_torch.query.planner import (
         analyze, convert_time_literals)
     from greptimedb_tpu_torch.sql import parse_sql
-    table = dn.catalog.table(*CLUSTER_TABLE)
     q = parse_sql(sql)
     q.where = convert_time_literals(q.where, table.schema)
     a = analyze(q)
@@ -6301,15 +6340,23 @@ def cluster_plan(dn, sql):
     return plan, a, q
 
 
-def cluster_fold(dn, sql, frames):
+def cluster_plan(dn, sql):
+    return table_plan(dn.catalog.table(*CLUSTER_TABLE), sql)
+
+
+def fold_frames(engine, table, sql, frames):
     """The frontend's fold of the nodes' moment frames: _finalize, then
     the projection and ORDER BY of the statement."""
     import pandas as pd
     from greptimedb_tpu_torch.query import tpu_exec
-    plan, a, q = cluster_plan(dn, sql)
+    plan, a, q = table_plan(table, sql)
     merged = tpu_exec._finalize(pd.concat(frames, ignore_index=True), plan)
-    return sql_frame(dn.query_engine._finish_aggregate_frame(
-        merged, a, q, dn.catalog.table(*CLUSTER_TABLE)))
+    return sql_frame(engine._finish_aggregate_frame(merged, a, q, table))
+
+
+def cluster_fold(dn, sql, frames):
+    return fold_frames(dn.query_engine, dn.catalog.table(*CLUSTER_TABLE),
+                       sql, frames)
 
 
 def scatter(fns):
@@ -6632,6 +6679,409 @@ def phase_cluster(torch, seed):
                                  moment_inputs=moment_calls[0])
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the cluster's control plane as processes
+# ---------------------------------------------------------------------------
+
+#: how a child process runs the port's `greptime` CLI
+CLI = [sys.executable, "-m", "greptimedb_tpu_torch.cmd.main"]
+PROCS_METASRV = 3
+#: the metasrv children's short timers: a datanode silent for the lease
+#: is failed, and the failover runner looks every second
+PROCS_LEASE_S = 3
+PROCS_FAILOVER_S = 1
+PROCS_HEARTBEAT_S = 0.5
+
+
+class Child:
+    """One `greptime` CLI child process with its log."""
+
+    def __init__(self, label, args, home):
+        self.label = label
+        self.path = os.path.join(home, f"{label}.log")
+        self.log = open(self.path, "w")
+        self.proc = subprocess.Popen(CLI + args, cwd=HERE, stdout=self.log,
+                                     stderr=subprocess.STDOUT)
+
+    def tail(self):
+        self.log.flush()
+        with open(self.path) as f:
+            return f.read()[-3000:]
+
+    def running(self):
+        return self.proc.poll() is None
+
+    def kill(self):
+        import signal
+        self.proc.send_signal(signal.SIGKILL)
+        self.proc.wait(30)
+
+    def term(self):
+        """SIGTERM; (exit code, seconds to exit)."""
+        import signal
+        t0 = time.perf_counter()
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(10)
+        except subprocess.TimeoutExpired:
+            rc = None
+        return rc, time.perf_counter() - t0
+
+    def close(self):
+        if self.running():
+            self.proc.kill()
+            self.proc.wait(30)
+        self.log.close()
+
+
+def wait_for(what, fn, children, timeout=CHILD_TIMEOUT_S):
+    """Poll fn() until it returns a true value, every child still up;
+    (that value, seconds waited)."""
+    t0 = time.perf_counter()
+    while True:
+        for c in children:
+            check(c.running(), f"{what}: {c.label} exited "
+                  f"{c.proc.returncode}: {c.tail()}")
+        try:
+            v = fn()
+        except Exception:  # noqa: BLE001 — not there yet
+            v = None
+        if v:
+            return v, time.perf_counter() - t0
+        check(time.perf_counter() - t0 < timeout,
+              f"{what}: not within {timeout} s")
+        time.sleep(0.02)
+
+
+def region_frames(client, plan, regions):
+    """The node's frames of `regions` over Flight, one region a call (so
+    each frame is known by its region); (rn -> frame, the launches the
+    node's ExecStats report). Each region must take the device-resident
+    route."""
+    from greptimedb_tpu_torch.common import exec_stats
+    frames, launches, routes = {}, 0, set()
+    for rn in regions:
+        with exec_stats.collect() as st:
+            (frames[rn],) = client.region_moments(
+                *CLUSTER_TABLE, plan, regions=[rn])
+        launches += st.launches.get("segment_moments", 0)
+        routes.add(st.dispatch)
+    check(routes == {"device-resident (scan cache)"},
+          f"node {client.node_id}'s routes: {routes}")
+    return frames, launches
+
+
+def phase_procs(torch, seed):
+    """Phase 16: the cluster's control plane as processes. Three `metasrv
+    start --peers` children (a raft-replicated KV over Flight) and two
+    `datanode start` children on the card, on one data home; TSBS
+    cpu-only at 4000 hosts x 3 h range-partitioned into four regions that
+    meta places; Q1, Q5 and Q6 as region moments over Flight; datanode 2
+    killed and its regions adopted by node 1; the raft leader killed and
+    the routes read back from the new one; SIGTERM to the rest. Returns
+    the launches the datanodes' ExecStats report and the walls."""
+    import shutil
+    import tempfile
+    from greptimedb_tpu_torch.frontend.statement import (
+        build_schema_from_create)
+    from greptimedb_tpu_torch.meta.flight import (
+        FailoverFlightMetaClient, PeerClientRegistry)
+    from greptimedb_tpu_torch.mito.engine import MitoTable, _serialize_rule
+    from greptimedb_tpu_torch.partition.rule import rule_from_partitions
+    from greptimedb_tpu_torch.query import QueryEngine
+    from greptimedb_tpu_torch.sql import parse_sql
+    from greptimedb_tpu_torch.storage.series import SeriesDict
+    from greptimedb_tpu_torch.table import CreateTableRequest
+    from greptimedb_tpu_torch.table.metadata import (
+        TableIdent, TableInfo, TableMeta)
+    log("== phase 16: three metasrv and two datanode processes (raft over "
+        "Flight), a datanode's and the meta leader's failover")
+    t_phase = time.perf_counter()
+    home = tempfile.mkdtemp(prefix="chip_smoke_procs_")
+    walls, steps = {}, {}
+    cat, sch, tname = CLUSTER_TABLE
+    full = ".".join(CLUSTER_TABLE)
+    metas, dns = [], {}
+    meta = registry = None
+    launches = 0
+    # one launch a region a call on the card; none on the CPU, where the
+    # wrapper takes the plain version
+    per_region = 1 if DEVICE == "cuda" else 0
+
+    def step(name):
+        steps[name] = time.perf_counter()
+        log(f"-- 16{name}")
+
+    def done(name):
+        steps[name] = time.perf_counter() - steps[name]
+        log(f"  (16{name}: {steps[name]:.1f}s)")
+
+    def children():
+        return [c for c in metas + list(dns.values()) if c.running()]
+
+    try:
+        step("a")
+        ports = free_ports(PROCS_METASRV + len(CLUSTER_NODES))
+        addrs = [f"127.0.0.1:{p}" for p in ports[:PROCS_METASRV]]
+        peers = ",".join(addrs)
+        t0 = time.perf_counter()
+        for i, addr in enumerate(addrs):
+            metas.append(Child(f"metasrv{i}", [
+                "metasrv", "start", "--bind-addr", addr, "--peers", peers,
+                "--store", os.path.join(home, f"meta{i}"),
+                "--failover-interval", str(PROCS_FAILOVER_S),
+                "--datanode-lease-secs", str(PROCS_LEASE_S)], home))
+        meta = FailoverFlightMetaClient([f"grpc://{a}" for a in addrs],
+                                        retry_delay=0.1, max_rounds=300)
+        quick = meta.advisory()
+        info, _ = wait_for("a metasrv leader", quick.cluster_info,
+                           children())
+        walls["meta_leader"] = time.perf_counter() - t0
+        check(info[0]["peer_type"] == "metasrv" and
+              info[0]["lease_state"] == "leader",
+              f"cluster_info's metasrv row {info[0]}")
+        log(f"  metasrv children (pids {[c.proc.pid for c in metas]}) on "
+            f"{addrs}: the leader {meta.address} answered cluster_info "
+            f"{walls['meta_leader']:.2f}s after the spawn")
+        t0 = time.perf_counter()
+        for i, port in zip(CLUSTER_NODES, ports[PROCS_METASRV:]):
+            dns[i] = Child(f"datanode{i}", [
+                "datanode", "start", "--node-id", str(i), "--rpc-addr",
+                f"127.0.0.1:{port}", "--metasrv-addr", peers,
+                "--data-home", os.path.join(home, "data"),
+                "--heartbeat-interval", str(PROCS_HEARTBEAT_S)], home)
+        wait_for("both datanodes registered",
+                 lambda: [p.id for p in quick.list_datanodes()] ==
+                 list(CLUSTER_NODES), children())
+        walls["datanodes_registered"] = time.perf_counter() - t0
+        registry = PeerClientRegistry(meta)
+        check(len(registry) == 0, "PeerClientRegistry dialled early")
+        pings = [registry[i].ping() for i in CLUSTER_NODES]
+        check(pings == list(CLUSTER_NODES) and len(registry) == 2,
+              f"pings {pings}")
+        walls["datanodes_first_answer"] = time.perf_counter() - t0
+        log(f"  datanode children (pids "
+            f"{[c.proc.pid for c in dns.values()]}) registered with meta "
+            f"{walls['datanodes_registered']:.2f}s after their spawn and "
+            f"answered ping through PeerClientRegistry's lazily dialled "
+            f"FlightDatanodeClients at {walls['datanodes_first_answer']:.2f}"
+            f"s")
+        done("a")
+
+        step("b")
+        t0 = time.perf_counter()
+        ts, tags, fields = tsbs_cpu_table(seed, HOSTS, CLUSTER_HOURS)
+        cols = sql_columns(ts, tags, fields)
+        N = len(cols["ts"])
+        log(f"  TSBS cpu-only: {HOSTS} hosts x {CLUSTER_HOURS} h = {N} rows, "
+            f"made in {time.perf_counter() - t0:.1f}s")
+        stmt = parse_sql(sql_ddl(tname, {f: "DOUBLE" for f in CPU_FIELDS},
+                                 cluster_partition(HOSTS)))
+        schema, pk = build_schema_from_create(stmt)
+        rule = rule_from_partitions(stmt.partitions)
+        numbers = rule.region_numbers()
+        route = meta.create_route(full, numbers)
+        on = {i: route.regions_on(i) for i in CLUSTER_NODES}
+        check(sorted(len(v) for v in on.values()) == [2, 2],
+              f"meta placed {on}")
+        info = TableInfo(
+            ident=TableIdent(route.table_id), name=tname,
+            meta=TableMeta(schema=schema, primary_key_indices=pk,
+                           engine="mito", region_numbers=list(numbers),
+                           next_column_id=len(schema), options={},
+                           partition_rule=_serialize_rule(rule)),
+            catalog_name=cat, schema_name=sch)
+        # the schema rides with the route (the table's global value), so
+        # a node that never saw the DDL can adopt its regions
+        meta.put_table_info(full, info.to_dict())
+        for i in CLUSTER_NODES:
+            registry[i].ddl_create_table(CreateTableRequest(
+                tname, schema, catalog_name=cat, schema_name=sch,
+                primary_key_indices=pk, create_if_not_exists=True,
+                partitions=stmt.partitions, table_id=route.table_id,
+                assigned_region_numbers=on[i]))
+        H = len(tags)
+        host_region = np.array([rule.find_region((f"host_{h}",))
+                                for h in range(H)])
+        row_region = np.tile(host_region, N // H)
+        parts = {rn: {k: v[np.flatnonzero(row_region == rn)]
+                      for k, v in cols.items()} for rn in numbers}
+        del cols, row_region
+        # the ts ties of first / last_value follow each region's series
+        # ids, which its bulk_ingest assigns from the rows in this order;
+        # the first timestamp's rows hold every host of the region once,
+        # in the order the whole region first shows them
+        ties_of = {}
+        for rn in (numbers[0], numbers[-1]):
+            first = parts[rn]["ts"] == parts[rn]["ts"][0]
+            sd = SeriesDict.for_schema(schema)
+            sd.encode_rows([parts[rn][t][first] for t in schema.tag_names()])
+            ties_of[rn] = types.SimpleNamespace(series_dict=sd)
+        ties = tie_hosts(types.SimpleNamespace(regions=ties_of))
+        t0 = time.perf_counter()
+        wrote = scatter([lambda i=i: sum(
+            registry[i].write_region(cat, sch, tname, rn, parts[rn],
+                                     op="bulk") for rn in on[i])
+            for i in CLUSTER_NODES])
+        walls["load"] = time.perf_counter() - t0
+        check(sum(wrote) == N, f"write_region wrote {wrote}, want {N}")
+        del parts
+        t0 = time.perf_counter()
+        scatter([lambda i=i: registry[i].flush_table(cat, sch, tname)
+                 for i in CLUSTER_NODES])
+        walls["flush"] = time.perf_counter() - t0
+        log(f"  meta placed table {route.table_id}'s regions {on}; "
+            f"write_region(op='bulk') of {N} rows over Flight do_put to the "
+            f"two datanode processes at once {walls['load']:.2f}s "
+            f"({N / walls['load'] / 1e6:.2f} Mrows/s); flush_table "
+            f"{walls['flush']:.2f}s")
+        done("b")
+
+        step("c")
+        view = MitoTable(TableInfo.from_dict(meta.table_info(full)), {},
+                         rule)
+        engine = QueryEngine(None, device=DEVICE)
+        queries = {k: v for k, v in sql_queries(
+            np.random.default_rng(seed), HOSTS)[1].items()
+            if k in CLUSTER_QUERIES}
+        before, answers = {}, {}
+        for name, sql in queries.items():
+            plan = table_plan(view, sql)[0]
+            runs = []
+            for run in ("first", "again"):
+                t0 = time.perf_counter()
+                got = scatter([lambda i=i: region_frames(
+                    registry[i], plan, on[i]) for i in CLUSTER_NODES])
+                runs.append(time.perf_counter() - t0)
+                frames = {rn: f for g in got for rn, f in g[0].items()}
+                n = sum(g[1] for g in got)
+                check(n == per_region * len(numbers),
+                      f"{name} {run}: the datanodes report {n} launches")
+                launches += n
+                if run == "first":
+                    before[name] = frames
+                else:
+                    check(all(frames[rn].equals(before[name][rn])
+                              for rn in numbers),
+                          f"{name}: the second run's frames differ")
+            got = fold_frames(engine, view, sql,
+                              [before[name][rn] for rn in numbers])
+            err = compare_sql(f"phase 16 {name}", got,
+                              *sql_expected(name, ts, fields, ties, None))
+            answers[name] = got
+            walls[name] = {"first": runs[0], "again": runs[1]}
+            log(f"  {name}: {len(got)} rows folded from {len(numbers)} "
+                f"region frames of two processes (max |err|/bound "
+                f"{err:.3g}); over Flight first {runs[0] * 1e3:.1f} ms, "
+                f"again {runs[1] * 1e3:.1f} ms")
+        held = {c.label: sorted(opens_card(c.proc.pid))
+                for c in metas + list(dns.values())}
+        check(all(held[c.label] for c in dns.values()) and
+              not any(held[c.label] for c in metas),
+              f"/dev/nvidia* held: {held}")
+        log(f"  each datanode process holds {len(held['datanode1'])} "
+            f"/dev/nvidia* files; no metasrv process holds one")
+        done("c")
+
+        step("d")
+        t0 = time.perf_counter()
+        dns[2].kill()
+        _, walls["route_moved"] = wait_for(
+            "meta moves node 2's regions",
+            lambda: all(rr.leader.id == 1 for rr in
+                        meta.route(full).region_routes), children())
+        wait_for("node 1 adopts them",
+                 lambda: sorted(registry[1].describe_table(
+                     cat, sch, tname)[0].meta.region_numbers) == numbers,
+                 children())
+        walls["adopted"] = time.perf_counter() - t0
+        for name, sql in queries.items():
+            plan = table_plan(view, sql)[0]
+            frames, n = region_frames(registry[1], plan, numbers)
+            check(n == per_region * len(numbers),
+                  f"{name} after the failover: {n} launches")
+            launches += n
+            check(all(frames[rn].equals(before[name][rn])
+                      for rn in numbers),
+                  f"{name}: node 1's frames differ from those before")
+            got = fold_frames(engine, view, sql,
+                              [frames[rn] for rn in numbers])
+            check(got.equals(answers[name]),
+                  f"{name}: the answer after the failover differs")
+        walls["answers"] = time.perf_counter() - t0
+        log(f"  SIGKILL of datanode 2: meta's route moved its regions "
+            f"{on[2]} to node 1 after {walls['route_moved']:.2f}s, node 1 "
+            f"had adopted them (the heartbeat mailbox's open_regions) at "
+            f"{walls['adopted']:.2f}s, and Q1, Q5 and Q6 over all four "
+            f"regions, all on node 1, equalled the answers before the kill "
+            f"(each region's frame bit-equal) at {walls['answers']:.2f}s")
+        done("d")
+
+        step("e")
+        meta.cluster_info()                  # pins the leader
+        leader = meta.address
+        li = [f"grpc://{a}" for a in addrs].index(leader)
+        before_route = meta.route(full).to_dict()
+        t0 = time.perf_counter()
+        metas[li].kill()
+        got, _ = wait_for("a new meta leader",
+                          lambda: meta.route(full), children())
+        walls["new_leader"] = time.perf_counter() - t0
+        check(meta.address != leader, f"the killed {leader} answered")
+        check(got.to_dict() == before_route,
+              f"the route changed across the leader's kill: "
+              f"{got.to_dict()} != {before_route}")
+
+        def node1_alive():
+            rows = {r["peer_id"]: r for r in meta.cluster_info()}
+            ok = rows.get(1, {}).get("lease_state") == "alive"
+            return rows if ok else None
+        rows, _ = wait_for("node 1 alive on the new leader", node1_alive,
+                           children())
+        walls["cluster_info_alive"] = time.perf_counter() - t0
+        check(rows[-1]["lease_state"] == "leader" and
+              rows[-1]["peer_addr"] == meta.address,
+              f"the metasrv row {rows[-1]}")
+        log(f"  SIGKILL of the raft leader {leader}: "
+            f"FailoverFlightMetaClient reached the new leader "
+            f"{meta.address} with the route unchanged after "
+            f"{walls['new_leader']:.2f}s; node 1's heartbeats showed it "
+            f"alive there at {walls['cluster_info_alive']:.2f}s (node 2: "
+            f"{rows.get(2, {}).get('lease_state')})")
+        done("e")
+
+        step("f")
+        held = {c.label: sorted(opens_card(c.proc.pid))
+                for c in metas if c.running()}
+        check(not any(held.values()), f"a metasrv holds {held}")
+        exits = {c.label: c.term()
+                 for c in [dns[1]] + [m for m in metas if m.running()]}
+        check(all(rc == 0 and s < 10 for rc, s in exits.values()),
+              f"SIGTERM: {exits}")
+        walls["sigterm"] = max(s for _, s in exits.values())
+        log("  SIGTERM: " + ", ".join(
+            f"{k} exited {rc} in {s:.2f}s" for k, (rc, s) in exits.items()))
+        done("f")
+    finally:
+        if registry is not None:
+            for client in registry.values():
+                client.close()
+        if meta is not None:
+            meta.close()
+        for c in metas + list(dns.values()):
+            c.close()
+        shutil.rmtree(home, ignore_errors=True)
+    check(launches > 0 or DEVICE != "cuda",
+          f"phase 16: the datanodes launched segment_moments {launches} "
+          f"times")
+    walls["phase"] = time.perf_counter() - t_phase
+    log(f"phase 16: segment_moments {launches} launches in the datanode "
+        f"processes (their ExecStats); " + ", ".join(
+            f"16{k} {v:.1f}s" for k, v in steps.items()) +
+        f"; {walls['phase']:.1f}s")
+    return types.SimpleNamespace(moments=launches, walls=walls)
+
+
 def k1_row_at(torch, args, label):
     """K1's kernel-table row timed at one main-path call's inputs (a run
     without phase 4, whose row comes from phase 3); `label` names the
@@ -6703,17 +7153,18 @@ def phase_moments_time(torch, inputs, tool=True):
 # ---------------------------------------------------------------------------
 
 #: the phases; `--phases` runs some of them with the phases they stand on
-PHASES = tuple(str(i) for i in range(1, 16))
+PHASES = tuple(str(i) for i in range(1, 17))
 #: what each phase needs run with it (phases 1 and 2 always run): 3 and 4
 #: are one call, as are 6 and 7; 5 launches segment_moments before the
 #: phases that fence its launches (a process's first launch loads the
 #: module); 8, 10, 12a and 13 run on phase 6's frontend and tables, 9
 #: compares with phase 4's answers, 11 and 12b run on phase 9's frontend
 #: (12b only when 9 runs); 14 and 15 have data homes of their own and
-#: need none
+#: need none; 16 launches in its datanode processes, so phase 15 times the
+#: kernel at the region shape they launch at
 NEEDS = {"3": ("4",), "4": ("3",), "6": ("5", "7"), "7": ("6",),
          "8": ("6",), "9": ("4", "5"), "10": ("6",), "11": ("9",),
-         "12": ("6",), "13": ("6",)}
+         "12": ("6",), "13": ("6",), "16": ("15",)}
 
 
 def resolve_phases(arg: str) -> set:
@@ -6846,6 +7297,11 @@ def main() -> int:
             torch, {"phase 15 Q1 region": cluster.moment_inputs},
             tool=False))
         del cluster
+    if "16" in phases:
+        procs = phase_procs(torch, args.seed)
+        moments_by["16"] = procs.moments
+        walls["16"] = procs.walls["phase"]
+        del procs
     if "12" in phases:
         log(f"phase 12 took {walls['12a']:.1f}s (12a) + "
             f"{walls.get('12b', 0.0):.1f}s (12b)")
@@ -6855,6 +7311,8 @@ def main() -> int:
         log(f"phase 14 took {walls['14']:.1f}s")
     if "15" in phases:
         log(f"phase 15 took {walls['15']:.1f}s")
+    if "16" in phases:
+        log(f"phase 16 took {walls['16']:.1f}s")
     kernels = []
     if k1_by:
         kernels.append({**(kern[0] if kern is not None else k1_row),

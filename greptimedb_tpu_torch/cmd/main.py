@@ -3,15 +3,16 @@
 Reference behavior: src/cmd — `greptime standalone start -c config.toml
 --http-addr ...`; flags override file options (src/cmd/src/options.rs).
 
-Ported from greptimedb_tpu/cmd/main.py: `standalone start` and `cli
-attach`. The standalone process runs its query engine on
-`StandaloneOptions.device`, "cuda", which no TOML key or flag changes:
-on a machine without CUDA `standalone start` exits non-zero with the
-datanode's message. It turns on no compile cache: the port compiles no
-program at run time, and its kernels are built once per source digest
-(ops/cuda_build.py), so a restart reuses them. `metasrv`, `datanode`
-and `frontend start` keep the reference's flags and raise until the
-distributed frontend, datanode and meta service are ported.
+Ported from greptimedb_tpu/cmd/main.py: `standalone start`, `metasrv
+start`, `datanode start` and `cli attach`. The standalone process and a
+datanode run their query engine on the card ("cuda"), which no TOML key
+or flag changes: on a machine without CUDA both exit non-zero with the
+datanode's message. A metasrv holds no regions and never touches CUDA.
+No role turns on a compile cache: the port compiles no program at run
+time, and its kernels are built once per source digest
+(ops/cuda_build.py), so a restart reuses them. `frontend start` keeps
+the reference's flags and raises until the distributed frontend is
+ported.
 """
 
 from __future__ import annotations
@@ -186,21 +187,173 @@ def standalone_start(args) -> None:
     fe.shutdown()
 
 
-def _not_ported(role: str, items: str):
-    def start(args) -> None:
-        from ..errors import UnsupportedError
-        raise UnsupportedError(
-            f"greptime {role} start: the port has no distributed {role} "
-            f"(ROADMAP Queue 1 {items}); run `greptime standalone start`")
-    return start
+def _block_until_signal(on_shutdown) -> None:
+    stop = threading.Event()
+
+    def on_signal(signum, frame):
+        stop.set()
+
+    signal.signal(signal.SIGINT, on_signal)
+    signal.signal(signal.SIGTERM, on_signal)
+    stop.wait()
+    on_shutdown()
 
 
-#: the distributed roles (reference cmd/main.py metasrv_start,
-#: datanode_start, frontend_start) wait for the meta service (h2) and the
-#: Flight datanode plane (h1, h3)
-metasrv_start = _not_ported("metasrv", "h2")
-datanode_start = _not_ported("datanode", "h1/h3")
-frontend_start = _not_ported("frontend", "h2/h3")
+def _meta_client(addr_arg: str):
+    """--metasrv-addr accepts a comma-separated replica list; the
+    failover client walks it until a leader answers."""
+    from ..meta.flight import FailoverFlightMetaClient
+    addrs = [a.strip() for a in addr_arg.split(",") if a.strip()]
+    return FailoverFlightMetaClient([f"grpc://{a}" for a in addrs])
+
+
+def metasrv_start(args) -> None:
+    """Run the metadata server role (reference: greptime metasrv start;
+    etcd is replaced by a file-backed KV snapshot, or with --peers by a
+    raft-replicated KV). It holds no regions and never touches CUDA."""
+    from ..common.telemetry import init_logging
+    from ..meta import MetaSrv
+    from ..meta.flight import FlightMetaServer
+    from ..meta.kv import FileKv, MemKv
+
+    init_logging(args.log_level or "info")
+    from ..common import background_jobs, trace_store
+    background_jobs.configure_node("metasrv")
+    # buffer-role sink: balancer-op traces root here and verdict locally;
+    # retained spans ride home on the next meta RPC's response
+    trace_store.install(trace_store.TraceSink(
+        node_label="metasrv", service="metasrv", role="buffer"))
+    raft_node = None
+    if args.peers:
+        # replicated meta: --peers is the full replica set (this node
+        # included) and must be identical on every node: raft ids come
+        # from its sorted order. Transports ride the same Flight plane.
+        from ..meta.replication import (
+            FlightTransport, RaftNode, ReplicatedKv)
+        peers = sorted({a.strip() for a in args.peers.split(",")
+                        if a.strip()})
+        if args.bind_addr not in peers:
+            raise SystemExit(
+                f"--peers must list every replica including this node's "
+                f"--bind-addr {args.bind_addr!r} verbatim; got {peers}")
+        peer_addrs = dict(enumerate(peers, start=1))
+        my_id = next(i for i, a in peer_addrs.items()
+                     if a == args.bind_addr)
+        raft_node = RaftNode(
+            my_id, list(peer_addrs),
+            store_path=f"{args.store}.raft" if args.store else None)
+        for pid, addr in peer_addrs.items():
+            if pid != my_id:
+                raft_node.transports[pid] = FlightTransport(
+                    f"grpc://{addr}")
+        kv = ReplicatedKv(raft_node)
+    else:
+        kv = FileKv(args.store) if args.store else MemKv()
+    srv = MetaSrv(kv, datanode_lease_secs=args.datanode_lease_secs)
+    server = FlightMetaServer(srv, f"grpc://{args.bind_addr}",
+                              raft_node=raft_node)
+    server.serve_in_background()
+    if raft_node is not None:
+        raft_node.start()
+    # only the lease holder mutates routes (reference: election/etcd.rs);
+    # under raft the consensus leader is the lease holder
+    if raft_node is not None:
+        class _RaftElection:
+            def start(self):
+                pass
+
+            def stop(self):
+                pass
+
+            @property
+            def is_leader(self):
+                return raft_node.is_leader
+        election = _RaftElection()
+    else:
+        from ..meta.lock import Election
+        election = Election(kv, f"metasrv-{args.bind_addr}")
+    election.start()
+
+    # region failover runner on the leader, plus the region balancer's
+    # control loop (its state machines resume from __balancer/ keys)
+    from ..common.runtime import RepeatedTask
+    srv.balancer.is_leader_fn = lambda: election.is_leader
+
+    def failover_tick():
+        if not election.is_leader:
+            return
+        moves = srv.failover_check()
+        for m in moves:
+            logging.warning("failover: region %s of %s moved %d -> %d",
+                            m["region"], m["table"], m["from"], m["to"])
+        srv.balancer.tick()
+
+    runner = RepeatedTask(args.failover_interval, failover_tick,
+                          name="failover-runner")
+    runner.start()
+    logging.info("metasrv ready on %s (leader=%s)", server.address,
+                 election.is_leader)
+
+    def shutdown():
+        runner.stop()
+        election.stop()
+        if raft_node is not None:
+            raft_node.stop()
+        server.shutdown()
+
+    _block_until_signal(shutdown)
+
+
+def datanode_start(args) -> None:
+    """Run a region-hosting worker: Flight data plane + meta heartbeats
+    (reference: greptime datanode start). Its query engine runs on the
+    card: without CUDA the datanode raises and the process exits
+    non-zero."""
+    from ..common.telemetry import init_logging
+    from ..datanode import DatanodeInstance, DatanodeOptions
+    from ..meta import Peer
+    from ..servers.flight import FlightDatanodeServer
+
+    init_logging(args.log_level or "info")
+    # buffer-role trace sink: this process sees only its fragments of
+    # each trace, so it buffers spans until the frontend's verdict rides
+    # a later RPC and ships the released ones home on its response
+    from ..common import background_jobs, profiler, trace_store
+    label = f"dn{args.node_id}"
+    background_jobs.configure_node(label)
+    trace_store.install(trace_store.TraceSink(
+        node_label=label, service="datanode", role="buffer"))
+    # writer-less sampler: folded stacks drain over the Flight `profile`
+    # action to the asking frontend, which writes them
+    profiler.install(profiler.Profiler(node_label=label))
+    dn = DatanodeInstance(DatanodeOptions(
+        data_home=args.data_home or "./greptimedb_data",
+        node_id=args.node_id, register_numbers_table=False,
+        wal_sync_on_write=bool(getattr(args, "wal_sync_on_write",
+                                       False))))
+    dn.start()
+    server = FlightDatanodeServer(dn, f"grpc://{args.rpc_addr}")
+    server.serve_in_background()
+    meta = _meta_client(args.metasrv_addr)
+    meta.register(Peer(args.node_id, server.address))
+    dn.start_heartbeat(meta, interval_s=args.heartbeat_interval)
+    logging.info("datanode %d ready on %s (meta %s, device %s)",
+                 args.node_id, server.address, args.metasrv_addr,
+                 dn.opts.device)
+
+    def shutdown():
+        server.shutdown()
+        dn.shutdown()
+        meta.close()
+
+    _block_until_signal(shutdown)
+
+
+def frontend_start(args) -> None:
+    from ..errors import UnsupportedError
+    raise UnsupportedError(
+        "greptime frontend start: the port has no distributed frontend "
+        "(ROADMAP Queue 1 h3a); run `greptime standalone start`")
 
 
 def main(argv=None) -> int:

@@ -79,6 +79,10 @@ class ExecStats:
         #: sum of remote-reported totals absorbed into THIS collector
         #: (wall - remote_total = wire/serialization cost)
         self.remote_total_ms: float = 0.0
+        #: hand-written kernel launches by kernel name, counted where
+        #: each wrapper counts its own; they cross the wire with the
+        #: rest, so a client reads a datanode process's launches
+        self.launches: Dict[str, int] = {}
 
     # ---- recording ----
     def record(self, stage: str, *, rows: int = 0, files: int = 0,
@@ -109,6 +113,10 @@ class ExecStats:
         finally:
             self.record(name, elapsed_s=time.perf_counter() - t0, **detail)
 
+    def count_launch(self, kernel: str) -> None:
+        with self._lock:
+            self.launches[kernel] = self.launches.get(kernel, 0) + 1
+
     def set_dispatch(self, decision: str) -> None:
         """First decision wins: nested subqueries must not overwrite the
         top-level statement's dispatch line."""
@@ -131,9 +139,10 @@ class ExecStats:
 
     # ---- wire codec ----
     def to_dict(self) -> Dict:
-        """JSON-safe snapshot for shipping over an RPC response."""
+        """JSON-safe snapshot for shipping over an RPC response (the
+        reference's keys; `launches` only when a kernel launched)."""
         with self._lock:
-            return {
+            out = {
                 "dispatch": self.dispatch,
                 "total_ms": round(self.total_s * 1e3, 3),
                 "stages": [{
@@ -143,6 +152,9 @@ class ExecStats:
                                for k, v in st.detail.items()},
                 } for st in self.stages.values()],
             }
+            if self.launches:
+                out["launches"] = dict(self.launches)
+            return out
 
     def absorb(self, d: Dict) -> None:
         """Replay a remote collector's to_dict() into this one (the
@@ -156,6 +168,8 @@ class ExecStats:
                         **(st.get("detail") or {}))
         with self._lock:
             self.remote_total_ms += float(d.get("total_ms", 0.0))
+            for k, n in (d.get("launches") or {}).items():
+                self.launches[k] = self.launches.get(k, 0) + int(n)
 
     #: stages whose `rows` mean "rows scanned from storage". The three
     #: are mutually exclusive per region (cpu fallback / resident /
@@ -390,6 +404,13 @@ def absorb_remote(d) -> None:
     s = current()
     if s is not None and d:
         s.absorb(d)
+
+
+def count_launch(kernel: str) -> None:
+    """One launch of a hand-written kernel, on the active collector."""
+    s = current()
+    if s is not None:
+        s.count_launch(kernel)
 
 
 def set_dispatch(decision: str) -> None:

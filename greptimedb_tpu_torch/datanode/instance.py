@@ -20,11 +20,14 @@ addressed. Node 0 keeps the standalone layout. `start_heartbeat` reports
 liveness and region stats to the meta service (meta/) and runs the
 mailbox messages that ride its responses.
 
-Not ported yet: read-replica shipping and the balancer's region steps
-(failover adoption, migrate, split, standbys), which need mito's
-distributed methods and datanode/replication.py (ROADMAP Queue 1, h4).
-Each of them raises an UnsupportedError that names h4; a balancer step's
-failure is acked to meta as the reference acks any failed step.
+A datanode mailed `open_regions` by meta's failover runner adopts a
+dead peer's regions from the shared object store (mito's
+`adopt_regions`) and registers the table if it is new. Not ported yet:
+read-replica shipping and the balancer's region steps (migrate, split,
+standbys), which need mito's other distributed methods and
+datanode/replication.py (ROADMAP Queue 1, h4). Each of them raises an
+UnsupportedError that names h4; a balancer step's failure is acked to
+meta as the reference acks any failed step.
 """
 
 from __future__ import annotations
@@ -239,11 +242,19 @@ class DatanodeInstance:
             if t is not None:
                 t.flush()
         elif kind == "open_regions":
-            # failover adoption of a dead peer's regions: logged, as the
-            # reference logs an adoption it cannot run
-            logger.error("open_regions for %s regions %s: %s",
-                         msg.get("table"), msg.get("region_numbers"),
-                         _needs_h4("failover adoption (open_regions)"))
+            # failover: adopt a dead peer's regions (data on the shared
+            # object store; schema shipped in the message)
+            if msg.get("table_info") is None:
+                logger.error(
+                    "open_regions for %s without table info; skipping",
+                    msg.get("table"))
+                return
+            table = self.mito.adopt_regions(msg["table_info"],
+                                            msg["region_numbers"])
+            if self.catalog.table(msg["catalog"], msg["schema"],
+                                  msg["table"]) is None:
+                self.catalog.register_table(
+                    msg["catalog"], msg["schema"], msg["table"], table)
         elif kind is not None and (kind.startswith("balancer_") or
                                    kind.startswith("repl_")):
             self._handle_balancer_msg(msg)

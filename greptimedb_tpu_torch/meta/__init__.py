@@ -3,8 +3,11 @@
 Reference behavior: src/meta-srv + src/meta-client (see service.py).
 
 Ported from greptimedb_tpu/meta/: the in-process meta service (kv, lock,
-failure_detector, service, balancer). Meta over Flight (flight.py) and its
-KV replication (replication.py) are not ported yet.
+failure_detector, service, balancer), meta over Arrow Flight (flight.py:
+FlightMetaServer, FlightMetaClient, PeerClientRegistry,
+FailoverFlightMetaClient) and the raft-replicated KV (replication.py:
+RaftNode, ReplicatedKv and their transports). As in the reference, the
+wire and raft classes are imported from their modules.
 """
 
 from .balancer import RegionBalancer

@@ -13,8 +13,9 @@ create regions, then register — recovery re-opens from the manifest.
 
 Ported from greptimedb_tpu/mito/engine.py for the standalone deployment:
 the layout and documents are the reference's, so either package opens the
-other's data home. The distributed methods (region adoption on failover,
-standby replicas, region release and split) are not ported yet.
+other's data home. Region adoption on failover (`adopt_regions`) is
+ported; the balancer's distributed methods (standby replicas, region
+release and split) are not yet (ROADMAP Queue 1, h4).
 """
 
 from __future__ import annotations
@@ -641,6 +642,58 @@ class MitoEngine(TableEngine):
         table = MitoTable(info, regions, rule)
         self._tables[key] = table
         return table
+
+    def adopt_regions(self, info_doc: dict, region_numbers) -> MitoTable:
+        """Failover: open the given regions of a table this node may have
+        never seen — schema arrives via the meta-stored TableGlobalValue
+        (the reference leaves the failover *action* TODO,
+        failure_handler/runner.rs:132). Region manifests + SSTs live on
+        the shared object store at their last-flushed state; the dead
+        node's unflushed WAL tail is lost by design (RFC
+        2023-03-08-region-fault-tolerance). Fencing writes from a
+        partitioned-but-alive old owner is future lease work."""
+        import dataclasses
+        info = TableInfo.from_dict(info_doc)
+        key = (info.catalog_name, info.schema_name, info.name)
+        full = ".".join(key)
+        with self._lock:
+            table = self._tables.get(key)
+            schema = info.meta.schema
+            tid = info.ident.table_id
+            ropts = region_opts_from_table_options(info.meta.options)
+            opened = {}
+            for rn in region_numbers:
+                # no orphan sweep on adoption: fencing a partitioned-but-
+                # alive old owner is future lease work, and sweeping here
+                # could delete the old owner's mid-flush output right
+                # before its manifest commit references it
+                adopt_opts = {**(ropts or {}), "sweep_orphans": False}
+                region = self.storage.open_region(
+                    region_name(tid, rn), schema, opts=adopt_opts)
+                if region is None:
+                    region = self.storage.create_region(
+                        region_name(tid, rn), schema, opts=adopt_opts)
+                opened[rn] = region
+            if table is None:
+                rule = _deserialize_rule(info.meta.partition_rule)
+                meta = dataclasses.replace(
+                    info.meta, region_numbers=sorted(region_numbers))
+                local_info = dataclasses.replace(info, meta=meta)
+                table = MitoTable(local_info, opened, rule)
+                self._tables[key] = table
+                self._registry["tables"][full] = tid
+                self._registry["next_table_id"] = max(
+                    self._registry["next_table_id"], tid + 1)
+                self._save_registry()
+            else:
+                table.regions.update(opened)
+                table.info.meta.region_numbers = sorted(
+                    set(table.info.meta.region_numbers)
+                    | set(region_numbers))
+            self.store.write(
+                self._manifest_key(*key[:2], tid),
+                json.dumps(table.info.to_dict()).encode())
+            return table
 
     def alter_table(self, request: AlterTableRequest) -> MitoTable:
         key = (request.catalog_name, request.schema_name, request.table_name)

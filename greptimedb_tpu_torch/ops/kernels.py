@@ -28,6 +28,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..common import exec_stats
 from . import cuda_build
 
 # op_type values in the storage engine (mirrors reference OpType:
@@ -309,6 +310,7 @@ def _launch(ends, mask, ts, values, col_masks, ops, with_counts):
                 raise RuntimeError(f"segment_moments kernel launch failed: "
                                    f"{msg} (cuda error {err})")
             segment_moments.launches += 1
+            exec_stats.count_launch("segment_moments")
     return [outs[u] for u in slot], counts
 
 
@@ -326,7 +328,9 @@ def segment_moments(ends: torch.Tensor, mask: torch.Tensor, ts: torch.Tensor,
     int32 row count per run, or None without `with_counts`).
 
     CPU tensors: the plain version. CUDA tensors: the Hopper kernel
-    (counted in `segment_moments.launches`), or an exception."""
+    (counted in `segment_moments.launches` and on the active ExecStats,
+    whose `launches` a datanode's Flight response carries home), or an
+    exception."""
     n = mask.shape[0]
     if not (len(values) == len(col_masks) == len(ops)):
         raise ValueError("segment_moments: values, col_masks and ops "

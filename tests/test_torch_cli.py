@@ -6,9 +6,10 @@ add `device`, "cuda", which nothing in a TOML or on the command line
 sets); `build_servers` on the CPU builds the same servers in the same
 order, over S3 with the disk cache too; every subcommand parses its
 flags as the reference's does; `cli attach` prints the same text for the
-same input against either package's server; the distributed roles
-raise; and `standalone start` on a machine without CUDA exits non-zero
-with the datanode's message instead of starting on the CPU.
+same input against either package's server; `frontend start` raises
+until the distributed frontend is ported; and `standalone start` and
+`datanode start` on a machine without CUDA exit non-zero with the
+datanode's message instead of starting on the CPU.
 """
 
 import argparse
@@ -230,15 +231,13 @@ def test_bad_command_lines_exit_alike(argv, capsys):
     assert codes["port"] == codes["reference"] == 2
 
 
-@pytest.mark.parametrize("role,items", [("metasrv", "h2"),
-                                        ("datanode", "h1/h3"),
-                                        ("frontend", "h2/h3")])
+@pytest.mark.parametrize("role,items", [("frontend", "h3a")])
 def test_distributed_roles_raise(role, items):
+    """Only `frontend start` waits for the distributed frontend; `metasrv
+    start` and `datanode start` run (tests/test_torch_cluster_procs.py)."""
     from greptimedb_tpu_torch.errors import UnsupportedError
-    argv = [role, "start"] + (["--node-id", "1"] if role == "datanode"
-                              else [])
     with pytest.raises(UnsupportedError, match=f"Queue 1 {items}"):
-        port_main.main(argv)
+        port_main.main([role, "start"])
 
 
 def _flight_server(side, home):
@@ -343,4 +342,22 @@ def test_standalone_start_refuses_the_cpu(tmp_path):
     assert "CUDA is not available" in out.stderr
     assert "device='cpu'" in out.stderr
     assert "standalone ready" not in out.stderr
+    assert not os.path.exists(tmp_path / "home" / "data")
+
+
+def test_datanode_start_refuses_the_cpu(tmp_path):
+    """`datanode start` without CUDA exits non-zero with the datanode's
+    message: it neither serves nor registers with meta on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available: the datanode would start on the card")
+    out = subprocess.run(
+        [sys.executable, "-m", "greptimedb_tpu_torch.cmd.main", "datanode",
+         "start", "--node-id", "3", "--data-home", str(tmp_path / "home"),
+         "--metasrv-addr", f"127.0.0.1:{_free_port()}"], cwd=REPO,
+        env=dict(os.environ, OMP_NUM_THREADS="1"), capture_output=True,
+        text=True, timeout=120)
+    assert out.returncode != 0
+    assert "CUDA is not available" in out.stderr
+    assert "device='cpu'" in out.stderr
+    assert "ready on" not in out.stderr
     assert not os.path.exists(tmp_path / "home" / "data")

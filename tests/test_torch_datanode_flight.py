@@ -27,9 +27,9 @@ the port's node 2 opens the data home the reference's nodes wrote and
 answers as the reference's node 2 did. The heartbeat: after the same
 writes the port's full DatanodeStat equals the reference's, and a
 flush_table mailed on a heartbeat response flushes. The port's
-repl_apply, failover adoption and balancer steps answer
-UnsupportedError naming ROADMAP item h4, and a balancer step's failure
-is acked to meta. Tables stay small (two JAX signatures on the
+repl_apply and balancer steps answer UnsupportedError naming ROADMAP
+item h4, a balancer step's failure is acked to meta, and an
+open_regions mail without table info is logged and skipped. Tables stay small (two JAX signatures on the
 reference's side).
 """
 
@@ -604,12 +604,22 @@ def test_balancer_steps_name_h4(port_node, kind):
 
 
 def test_open_regions_is_logged(port_node, caplog):
+    """An open_regions mail without table info is logged and skipped, as
+    in the reference; with it, the node adopts the regions
+    (tests/test_torch_failover.py holds adoption to the reference)."""
+    msg = {"type": "open_regions", "catalog": CAT, "schema": SCH,
+           "table": "t", "region_numbers": [5]}
     with caplog.at_level(logging.ERROR,
                          logger="greptimedb_tpu_torch.datanode.instance"):
-        port_node._handle_mailbox({
-            "type": "open_regions", "catalog": CAT, "schema": SCH,
-            "table": "t", "region_numbers": [5], "table_info": {}})
-    assert any("h4" in r.getMessage() for r in caplog.records)
+        port_node._handle_mailbox(msg)
+    assert any("without table info" in r.getMessage()
+               for r in caplog.records)
+    assert not any("h4" in r.getMessage() for r in caplog.records)
+    table = port_node.catalog.table(CAT, SCH, "t")
+    assert sorted(table.regions) == [0, 1, 2, 3]
+    port_node._handle_mailbox({**msg, "table_info": table.info.to_dict()})
+    assert sorted(port_node.catalog.table(CAT, SCH, "t").regions) == \
+        [0, 1, 2, 3, 5]
 
 
 def test_live_datanode_registry(port_node):
@@ -637,3 +647,31 @@ def test_node_scoped_wal_home(tmp_path):
                      for x in got[("port", i)])
         assert port == ref
     assert got[("port", 3)][1] == "nodes/3/"
+
+
+def test_kernel_launches_ride_the_stats():
+    """A wrapper's launches count on the active ExecStats and cross the
+    wire in its to_dict() under `launches` (only when a kernel launched,
+    so a CPU node's stats keep the reference's keys); either package's
+    absorb reads the rest alike."""
+    port = importlib.import_module("greptimedb_tpu_torch.common.exec_stats")
+    ref = importlib.import_module("greptimedb_tpu.common.exec_stats")
+    with port.collect() as st:
+        port.record("reduce", rows=5, elapsed_s=0.001)
+        assert "launches" not in st.to_dict()
+        port.count_launch("segment_moments")
+        port.count_launch("segment_moments")
+        port.count_launch("counts_leq_grid")
+    port.count_launch("segment_moments")          # no collector: a no-op
+    d = json.loads(json.dumps(st.to_dict()))
+    assert d["launches"] == {"segment_moments": 2, "counts_leq_grid": 1}
+    got, want = port.ExecStats(), ref.ExecStats()
+    got.absorb(d)
+    got.absorb(d)
+    want.absorb(d)
+    assert got.launches == {"segment_moments": 4, "counts_leq_grid": 2}
+    once = port.ExecStats()
+    once.absorb(d)
+    out = once.to_dict()
+    assert out.pop("launches") == d["launches"]
+    assert out == want.to_dict()

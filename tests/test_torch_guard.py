@@ -1358,3 +1358,95 @@ def test_cluster_datanode_default_device_raises_without_cuda(tmp_path):
                                          node_id=2))
     assert not os.listdir(tmp_path)
     assert live_datanode(2) is None
+
+
+_META_WIRE_PROBE = r"""
+import json, sys
+from greptimedb_tpu_torch.meta import MemKv, MetaSrv
+from greptimedb_tpu_torch.meta.flight import (
+    FailoverFlightMetaClient, FlightMetaClient, FlightMetaServer,
+    PeerClientRegistry)
+from greptimedb_tpu_torch.meta.replication import (
+    FlightTransport, HaMetaClient, RaftNode, ReplicatedKv, connect_local)
+node = RaftNode(1, [1])
+node._run_election()
+kv = ReplicatedKv(node)
+kv.put("k", b"\xff")
+assert kv.get("k") == b"\xff"
+server = FlightMetaServer(MetaSrv(kv), raft_node=node)
+client = FlightMetaClient(server.address)
+PeerClientRegistry(client)
+FailoverFlightMetaClient([server.address]).close()
+FlightTransport(server.address)
+client.close()
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("torch", "jax",
+                                               "greptimedb_tpu"))))
+"""
+
+
+def test_meta_wire_and_raft_import_no_torch():
+    """meta/flight.py and meta/replication.py load no torch (and nothing
+    of the reference), like the rest of meta/: a one-node raft KV and a
+    Flight meta server, client, registry and transport are built
+    without it."""
+    out = subprocess.run([sys.executable, "-c", _META_WIRE_PROBE], cwd=REPO,
+                         env=_ENV, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+_METASRV_CUDA_PROBE = r"""
+import runpy, sys
+import torch
+def touched(*a, **k):
+    print("metasrv touched torch.cuda", flush=True)
+    raise RuntimeError("metasrv touched torch.cuda")
+for name in ("_lazy_init", "init", "is_available", "device_count",
+             "current_device", "set_device"):
+    setattr(torch.cuda, name, touched)
+sys.argv = ["greptime"] + sys.argv[1:]
+runpy.run_module("greptimedb_tpu_torch.cmd.main", run_name="__main__")
+"""
+
+
+def test_metasrv_process_never_touches_cuda(tmp_path):
+    """`metasrv start` (a one-node raft KV over Flight, with its failover
+    runner ticking) answers cluster_info and exits 0 on SIGTERM without
+    one call into torch.cuda: a metasrv holds no regions and opens no
+    CUDA context on a machine with a card."""
+    import signal
+    import time
+    from test_torch_cluster_procs import _free_ports
+    addr = f"127.0.0.1:{_free_ports(1)[0]}"
+    log = tmp_path / "metasrv.log"
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", _METASRV_CUDA_PROBE, "metasrv", "start",
+             "--bind-addr", addr, "--peers", addr, "--store",
+             str(tmp_path / "meta"), "--failover-interval", "0.2"],
+            cwd=REPO, env=_ENV, stdout=f, stderr=subprocess.STDOUT)
+    from greptimedb_tpu_torch.meta.flight import FailoverFlightMetaClient
+    client = FailoverFlightMetaClient([f"grpc://{addr}"], retry_delay=0.05,
+                                      max_rounds=1)
+    try:
+        deadline = time.monotonic() + 120
+        while True:
+            assert proc.poll() is None, log.read_text()[-2000:]
+            try:
+                rows = client.cluster_info()
+                break
+            except Exception:  # noqa: BLE001 — not serving yet
+                assert time.monotonic() < deadline, log.read_text()[-2000:]
+                time.sleep(0.05)
+        assert rows[0]["lease_state"] == "leader"
+        time.sleep(0.5)          # a few failover-runner ticks
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(10) == 0, log.read_text()[-2000:]
+    finally:
+        client.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+    assert "touched torch.cuda" not in log.read_text()
