@@ -7,7 +7,8 @@ Phases (none of them catches a failure; any failed check exits non-zero).
 With no `--phases` every phase runs; `--phases 12` (a comma-separated
 list) runs the phases named and those they stand on (phases 1 and 2
 always; 12 and 13 need 5, 6 and 7, and 12 runs 12b only with 9; 14 and
-15 need none; 16 needs 15), and names them in its last two lines:
+15 need none; 16 needs 15, 17 needs 16), and names them in its last two
+lines:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions,
    and whether pandas, pyarrow, prometheus_client, aiohttp (phase 11's
@@ -98,8 +99,8 @@ always; 12 and 13 need 5, 6 and 7, and 12 runs 12b only with 9; 14 and
    (streamed) and cpu_p (4 regions folded), each against numpy (distinct
    counts within 3 HyperLogLog standard errors, percentiles at their rank
    within 1 %); count(DISTINCT hostname) by region, exact (the raw-row
-   path); SET exact_distinct refused (it waits for the distributed
-   frontend); avg(usage_user + usage_system) and sum(usage_user * 2) by
+   path); SET exact_distinct refused (it waits for the count(DISTINCT)
+   sketch partial); avg(usage_user + usage_system) and sum(usage_user * 2) by
    host on cpu and cpu_24h within 8 eps64 sum|x| of exact sums; rank() over
    avg by host (the CPU fallback, as in the reference), exact ranks; SHOW
    TABLES, DESCRIBE TABLE, SHOW CREATE TABLE and information_schema.columns
@@ -340,12 +341,42 @@ always; 12 and 13 need 5, 6 and 7, and 12 runs 12b only with 9; 14 and
    in the new leader's cluster_info. 16f: no surviving metasrv holds the
    card; SIGTERM ends node 1 and both metasrv children with 0 within
    10 s.
+17. the distributed frontend as a process (frontend/distributed.py,
+   cmd/main.py's frontend start), riding phase 16's cluster; its
+   launches are those the node blocks of its EXPLAIN ANALYZE answers
+   report (the datanodes' ExecStats, carried over Flight) and those of
+   the distributed goldens in this process. 17a: a `frontend start
+   --metasrv-addr a,b,c` child with HTTP, MySQL and Flight addresses on
+   the card, spawned with 16a's datanodes once a meta leader answers (a
+   frontend reads meta's KV when it is built), no self-monitor scrape;
+   the time from its spawn to its first /v1/sql answer. 17b, between 16c
+   and 16d: DESCRIBE TABLE cpu (the table hydrated from meta's route) and
+   SHOW TABLES; Q1, Q5 and Q6 over /v1/sql and over Flight (Database),
+   equal to each other, within phase 16's bounds of the float64 brute
+   force and within twice them of 16c's fold; EXPLAIN ANALYZE Q1 through
+   /v1/sql (`aggregate-pushdown (regions pruned 0/4, fan-out=2 ...`, a
+   node block for each datanode with its segment_moments launches) and a
+   one-host statement pruned to one region (fan-out=1), its count and avg
+   against the brute force. 17c: CREATE TABLE cpu_f at cpu_p's boundaries
+   over /v1/sql, the first hour of phase 16's rows (1.44 M) by
+   Database.bulk_load to the frontend (handle_bulk_load -> _split_write
+   -> write_region(op="bulk") on the owners), a 4-row INSERT over MySQL
+   with a row in each region, each node's regions holding the rows the
+   rule puts there (scans of a region each), Q1 on cpu_f against a
+   float64 host fold of the same rows, DROP TABLE. 17d, after 16d's
+   adoption: the frontend's next Q1 (its route still names the dead
+   node) answers within the bounds through a stale-route retry (its log
+   says so), timed from the SIGKILL; EXPLAIN ANALYZE Q1 then scatters to
+   node 1 alone. 16f's SIGTERM ends the frontend too. 17e: the seven
+   distributed sqlness goldens through tools/sqlness.py's DistEnv (two
+   datanodes and a DistInstance in this process) on the card, byte-equal
+   to their .result files.
 
 Before the last line come two JSON objects: the numbers of the bucket
 entry, which the main paths do not launch, then the kernel table of the
 main paths (PromQL's window bounds, SQL's, the flow folds', the HTTP
-front door's, the wires', phase 13's, 14's, 15's and 16's segment
-moments),
+front door's, the wires', phase 13's, 14's, 15's, 16's and 17's
+segment moments),
 each with its
 launches by phase; the last line is {"ok": true, "device": {...}}. A run
 of chosen phases lists only the kernels it launched, and both lines
@@ -2792,18 +2823,19 @@ def phase_surface(sql, cpu, cpu_24h, cpu_p):
               f"({s.dispatch!r})")
         log(f"  check count(DISTINCT hostname) on {table}: exact per "
             f"region (the raw-row path, as in the reference)")
-    # SET exact_distinct acts only on the distributed pushdown, which the
-    # port does not have: it is refused, and the sketches stand
+    # SET exact_distinct acts only on the distributed pushdown's
+    # count(DISTINCT) sketch partial, which the port does not have: it is
+    # refused, and the sketches stand
     from greptimedb_tpu_torch.errors import UnsupportedError
     try:
         sql.do("SET exact_distinct = 1")
     except UnsupportedError as e:
-        check("the distributed frontend is not ported" in str(e),
+        check("sketch partial" in str(e) and "h3b" in str(e),
               f"SET exact_distinct: {e}")
     else:
         check(False, "SET exact_distinct = 1 was accepted")
     log("  check SET exact_distinct = 1: refused (UnsupportedError: it "
-        "waits for the distributed frontend)")
+        "waits for the count(DISTINCT) sketch partial)")
 
     # expression aggregates by host
     for table, t, path in (("cpu", cpu, "resident"),
@@ -6696,12 +6728,19 @@ PROCS_HEARTBEAT_S = 0.5
 class Child:
     """One `greptime` CLI child process with its log."""
 
-    def __init__(self, label, args, home):
+    def __init__(self, label, args, home, env=None):
         self.label = label
         self.path = os.path.join(home, f"{label}.log")
         self.log = open(self.path, "w")
-        self.proc = subprocess.Popen(CLI + args, cwd=HERE, stdout=self.log,
-                                     stderr=subprocess.STDOUT)
+        self.proc = subprocess.Popen(
+            CLI + args, cwd=HERE, stdout=self.log, stderr=subprocess.STDOUT,
+            env={**os.environ, **env} if env else None)
+
+    def text(self):
+        """The whole log so far."""
+        self.log.flush()
+        with open(self.path) as f:
+            return f.read()
 
     def tail(self):
         self.log.flush()
@@ -6771,17 +6810,258 @@ def region_frames(client, plan, regions):
     return frames, launches
 
 
-def phase_procs(torch, seed):
+# ---------------------------------------------------------------------------
+# phase 17: the frontend process over phase 16's cluster
+# ---------------------------------------------------------------------------
+
+#: phase 17c's table: cpu_p's DDL and boundaries, loaded with the first
+#: hour of phase 16's rows through the frontend
+FE_TABLE = "cpu_f"
+FE_LOAD_HOURS = 1
+
+
+def fe_frame(doc):
+    """A /v1/sql answer's rows as the frame sql_frame makes of an
+    Output."""
+    import pandas as pd
+    return pd.DataFrame(records(doc["output"][0]))
+
+
+def node_launches(rows):
+    """segment_moments launches in the node blocks of an EXPLAIN ANALYZE
+    answer (its `launches=` detail, which each datanode's ExecStats carry
+    over Flight); (launches, {node label: launches})."""
+    by_node = {}
+    for stage, detail in zip(rows["stage"], rows["detail"]):
+        if not stage.strip().startswith("dn"):
+            continue
+        m = re.search(r"launches=([^;]*)", detail or "")
+        n = 0
+        for part in (m.group(1).split(",") if m else ()):
+            kernel, _, count = part.partition(":")
+            if kernel.strip() == "segment_moments":
+                n += int(count)
+        by_node[stage.strip()] = n
+    return sum(by_node.values()), by_node
+
+
+def fe_analyze(http, sql):
+    """EXPLAIN ANALYZE of `sql` through /v1/sql: (dispatch line, its rows
+    as {column: values}, segment_moments launches of its node blocks,
+    {node: launches}, wall s)."""
+    doc, _, wall = http.sql("EXPLAIN ANALYZE " + sql)
+    rows = records(doc["output"][0])
+    dispatch = rows["detail"][rows["stage"].index("dispatch")]
+    n, by_node = node_launches(rows)
+    return dispatch, rows, n, by_node, wall
+
+
+def fe_queries(http, db, queries, wants, answers, fields, host_rule):
+    """17b: the frontend process's answers over phase 16's `cpu`, which it
+    hydrates from meta's route on first use: DESCRIBE TABLE and SHOW
+    TABLES; Q1, Q5 and Q6 over /v1/sql and over Flight, each equal to the
+    other and held to 16c's bounds; EXPLAIN ANALYZE Q1 (every region,
+    both nodes) and a one-host statement that prunes to one region (one
+    node), whose node blocks count the datanodes' launches. Returns
+    (launches, walls)."""
+    walls, launches = {}, 0
+    cat, sch, tname = CLUSTER_TABLE
+    t0 = time.perf_counter()
+    doc, _, _ = http.sql(f"DESCRIBE TABLE {tname}")
+    walls["describe_first"] = time.perf_counter() - t0
+    desc = records(doc["output"][0])
+    check(desc["Column"] == list(TSBS_TAGS) + ["ts"] + list(CPU_FIELDS),
+          f"DESCRIBE {tname} through the frontend: {desc['Column']}")
+    doc, _, _ = http.sql("SHOW TABLES")
+    shown = records(doc["output"][0])["Tables"]
+    check(tname in shown, f"SHOW TABLES through the frontend: {shown}")
+    log(f"  DESCRIBE TABLE {tname} ({walls['describe_first'] * 1e3:.1f} ms,"
+        f" the table hydrated from meta's route) lists its {len(desc['Column'])}"
+        f" columns; SHOW TABLES lists {shown}")
+    for name, sql in queries.items():
+        doc, _, w_http = http.sql(sql)
+        got = fe_frame(doc)
+        err = compare_sql(f"phase 17 {name} over /v1/sql", got, *wants[name])
+        t0 = time.perf_counter()
+        flight_got = flight_frame(db.sql(sql))
+        w_flight = time.perf_counter() - t0
+        check(flight_got.equals(got),
+              f"{name}: Flight's rows differ from /v1/sql's")
+        compare_sql(f"phase 17 {name} against 16c's fold", got,
+                    answers[name], wants[name][1],
+                    {c: np.asarray(b) * 2 for c, b in wants[name][2].items()})
+        walls[name] = {"http": w_http, "flight": w_flight}
+        log(f"  {name}: {len(got)} rows through the frontend process, "
+            f"/v1/sql {w_http * 1e3:.1f} ms and Flight {w_flight * 1e3:.1f} "
+            f"ms, equal to each other; max |err|/bound {err:.3g}, and "
+            f"within twice the bounds of 16c's fold")
+    q1 = queries["Q1 double-groupby-all"]
+    dispatch, _, n, by_node, wall = fe_analyze(http, q1)
+    check(dispatch.startswith("aggregate-pushdown (regions pruned 0/4, "
+                              "fan-out=2"),
+          f"EXPLAIN ANALYZE Q1's dispatch through the frontend: {dispatch}")
+    check(sorted(by_node) == ["dn1", "dn2"],
+          f"EXPLAIN ANALYZE Q1's node blocks: {by_node}")
+    check(n > 0 or DEVICE != "cuda",
+          f"EXPLAIN ANALYZE Q1: the node blocks report {by_node}")
+    launches += n
+    walls["analyze_q1"] = wall
+    log(f"  EXPLAIN ANALYZE Q1 ({wall * 1e3:.1f} ms): {dispatch}; node "
+        f"blocks' segment_moments launches {by_node}")
+    host = "host_7"
+    X = fields["usage_user"][7]
+    sql = (f"SELECT hostname, count(*), avg(usage_user) FROM {tname} "
+           f"WHERE hostname = '{host}' GROUP BY hostname")
+    dispatch, _, n, by_node, wall = fe_analyze(http, sql)
+    want_rn = host_rule.find_region((host,))
+    check(dispatch.startswith("aggregate-pushdown (regions pruned 3/4, "
+                              "fan-out=1"),
+          f"the one-host statement's dispatch: {dispatch}")
+    check(len(by_node) == 1 and (n > 0 or DEVICE != "cuda"),
+          f"the one-host statement's node blocks: {by_node}")
+    launches += n
+    doc, _, _ = http.sql(sql)
+    got = fe_frame(doc)
+    S = X.sum()
+    bound = sum_bound(S, S, X.size) / X.size + 4 * U64 * abs(S / X.size)
+    check(got["hostname"].tolist() == [host] and
+          got["count(*)"].tolist() == [X.size] and
+          abs(got["avg(usage_user)"][0] - S / X.size) <= bound,
+          f"the one-host statement's answer: {got.to_dict('list')}")
+    log(f"  WHERE hostname = '{host}' (region {want_rn}): {dispatch}; node "
+        f"blocks {by_node}; its count and avg against the brute force")
+    return launches, walls
+
+
+def fe_host_fold_q1(cols):
+    """Q1 over `cols` (a table's rows) as a float64 host fold: the keys
+    exact, each avg within the bound of a float32 run sum folded in
+    float64 (sum_bound over its group)."""
+    import pandas as pd
+    df = pd.DataFrame({"hour": (cols["ts"] - TSBS_START_MS) // 3600_000 *
+                       3600_000 + TSBS_START_MS,
+                       "hostname": cols["hostname"],
+                       **{f: cols[f] for f in CPU_FIELDS}})
+    keys = ["hour", "hostname"]
+    S = df.groupby(keys, sort=True).sum()
+    A = df.assign(**{f: df[f].abs() for f in CPU_FIELDS}).groupby(
+        keys, sort=True).sum()
+    c = df.groupby(keys, sort=True).size()
+    want = (S[list(CPU_FIELDS)].div(c, axis=0)).reset_index()
+    want.columns = ["hour", "hostname"] + [f"avg({f})" for f in CPU_FIELDS]
+    approx = {}
+    for f in CPU_FIELDS:
+        s, a = S[f].to_numpy(), A[f].to_numpy()
+        n = c.to_numpy()
+        approx[f"avg({f})"] = sum_bound(s, a, n) / n + \
+            4 * U64 * np.abs(s / n)
+    order = want.sort_values(["hour", "hostname"], kind="stable").index
+    want = want.loc[order].reset_index(drop=True)
+    approx = {k: v[order] for k, v in approx.items()}
+    return want, {"hour": True, "hostname": True}, approx
+
+
+def fe_table(http, db, my, registry, meta, ts, tags, fields, rule,
+             queries):
+    """17c: a second table through the frontend process. CREATE TABLE at
+    cpu_p's boundaries over /v1/sql; the first hour of phase 16's rows by
+    Database.bulk_load (Flight do_put to the frontend: handle_bulk_load ->
+    _split_write -> write_region(op="bulk") on the owners); a four-row
+    INSERT over MySQL with one row in each region; the rows on each
+    node's regions against the rule; Q1 against a float64 host fold of
+    the same rows; DROP TABLE. Returns walls."""
+    walls = {}
+    cat, sch, _ = CLUSTER_TABLE
+    full = f"{cat}.{sch}.{FE_TABLE}"
+    doc, _, walls["create"] = http.sql(sql_ddl(
+        FE_TABLE, {f: "DOUBLE" for f in CPU_FIELDS},
+        cluster_partition(HOSTS)))
+    check(doc["output"][0] == {"affectedrows": 0},
+          f"CREATE TABLE {FE_TABLE}: {doc}")
+    per_h = 3600_000 // INTERVAL_MS * FE_LOAD_HOURS
+    cols = sql_columns(ts[:per_h], tags,
+                       {f: v[:, :per_h] for f, v in fields.items()})
+    N = len(cols["ts"])
+    t0 = time.perf_counter()
+    wrote = db.bulk_load(FE_TABLE, cols, tag_columns=list(TSBS_TAGS),
+                         timestamp_column="ts")
+    walls["load"] = time.perf_counter() - t0
+    check(wrote == N, f"Database.bulk_load wrote {wrote}, want {N}")
+    log(f"  CREATE TABLE {FE_TABLE} over /v1/sql; Database.bulk_load of "
+        f"{N} rows to the frontend process {walls['load']:.2f}s "
+        f"({N / walls['load'] / 1e6:.2f} Mrows/s)")
+    # one new row a region, an hour after the load, values exact in
+    # float32
+    by_region = {}
+    for h in range(HOSTS):
+        by_region.setdefault(rule.find_region((f"host_{h}",)), h)
+    hosts = [by_region[rn] for rn in sorted(by_region)]
+    t_new = TSBS_START_MS + FE_LOAD_HOURS * 3600_000
+    new = {c: [] for c in cols}
+    values = []
+    for k, h in enumerate(hosts):
+        row = [f"'{v}'" for v in tags[h]] + [str(t_new + k * INTERVAL_MS)]
+        vals = [(k * 10 + j + 1) / 8.0 for j in range(len(CPU_FIELDS))]
+        values.append("(" + ", ".join(row + [repr(v) for v in vals]) + ")")
+        for t, v in zip(TSBS_TAGS, tags[h]):
+            new[t].append(v)
+        new["ts"].append(t_new + k * INTERVAL_MS)
+        for f, v in zip(CPU_FIELDS, vals):
+            new[f].append(v)
+    t0 = time.perf_counter()
+    got = my.query(f"INSERT INTO {FE_TABLE} ({', '.join(cols)}) VALUES "
+                   + ", ".join(values))
+    walls["insert"] = time.perf_counter() - t0
+    check(got == ("ok", len(hosts)), f"INSERT over MySQL: {got}")
+    route = meta.route(full)
+    owner = {rr.region_number: rr.leader.id for rr in route.region_routes}
+    check(sorted(set(owner.values())) == list(CLUSTER_NODES),
+          f"meta placed {FE_TABLE}'s regions on {owner}")
+    region_of = np.array([rule.find_region((f"host_{h}",))
+                          for h in range(HOSTS)])
+    for rn, node in sorted(owner.items()):
+        want = per_h * int((region_of == rn).sum()) + \
+            sum(1 for h in hosts if region_of[h] == rn)
+        got = sum(b.num_rows for b in registry[node].scan_batches(
+            cat, sch, FE_TABLE, projection=["ts"], regions=[rn]))
+        check(got == want, f"{FE_TABLE} region {rn} on node {node}: {got} "
+              f"rows, the rule puts {want} there")
+    log(f"  INSERT of {len(hosts)} rows over MySQL ({walls['insert'] * 1e3:.1f}"
+        f" ms), one in each region; every node's regions {owner} hold the "
+        f"rows the rule puts there")
+    q1 = queries["Q1 double-groupby-all"].replace(" FROM cpu ",
+                                                  f" FROM {FE_TABLE} ")
+    allc = {k: np.concatenate([np.asarray(cols[k]), np.asarray(
+        new[k], dtype=np.asarray(cols[k]).dtype)]) for k in cols}
+    want = fe_host_fold_q1(allc)
+    doc, _, walls["q1"] = http.sql(q1)
+    got = fe_frame(doc)
+    err = compare_sql(f"phase 17 {FE_TABLE} Q1", got, *want)
+    log(f"  Q1 on {FE_TABLE}: {len(got)} rows ({walls['q1'] * 1e3:.1f} ms), "
+        f"max |err|/bound {err:.3g} against the float64 host fold")
+    doc, _, walls["drop"] = http.sql(f"DROP TABLE {FE_TABLE}")
+    check(meta.route(full) is None, f"DROP TABLE left the route of {full}")
+    return walls
+
+
+def phase_procs(torch, seed, frontend=True):
     """Phase 16: the cluster's control plane as processes. Three `metasrv
     start --peers` children (a raft-replicated KV over Flight) and two
     `datanode start` children on the card, on one data home; TSBS
     cpu-only at 4000 hosts x 3 h range-partitioned into four regions that
     meta places; Q1, Q5 and Q6 as region moments over Flight; datanode 2
     killed and its regions adopted by node 1; the raft leader killed and
-    the routes read back from the new one; SIGTERM to the rest. Returns
-    the launches the datanodes' ExecStats report and the walls."""
+    the routes read back from the new one; SIGTERM to the rest. With
+    `frontend`, phase 17 rides this cluster: a `frontend start` child
+    spawned with the datanodes (17a), its answers over phase 16's table
+    (17b, between 16c and 16d), a second table through it (17c), its
+    stale-route retry after 16d's kill (17d), its SIGTERM in 16f, then
+    the distributed goldens in this process on the card. Returns the
+    launches the datanodes' ExecStats report (phase 16's and phase 17's)
+    and the walls."""
     import shutil
     import tempfile
+    from greptimedb_tpu_torch.client.flight import Database
     from greptimedb_tpu_torch.frontend.statement import (
         build_schema_from_create)
     from greptimedb_tpu_torch.meta.flight import (
@@ -6802,26 +7082,29 @@ def phase_procs(torch, seed):
     cat, sch, tname = CLUSTER_TABLE
     full = ".".join(CLUSTER_TABLE)
     metas, dns = [], {}
-    meta = registry = None
-    launches = 0
+    meta = registry = fe = db = my = None
+    launches = fe_launches = 0
     # one launch a region a call on the card; none on the CPU, where the
     # wrapper takes the plain version
     per_region = 1 if DEVICE == "cuda" else 0
 
     def step(name):
         steps[name] = time.perf_counter()
-        log(f"-- 16{name}")
+        log(f"-- {name}")
 
     def done(name):
         steps[name] = time.perf_counter() - steps[name]
-        log(f"  (16{name}: {steps[name]:.1f}s)")
+        log(f"  ({name}: {steps[name]:.1f}s)")
 
     def children():
-        return [c for c in metas + list(dns.values()) if c.running()]
+        return [c for c in metas + list(dns.values()) + [fe] if c is not None
+                and c.running()]
 
     try:
-        step("a")
-        ports = free_ports(PROCS_METASRV + len(CLUSTER_NODES))
+        step("16a")
+        ports = free_ports(PROCS_METASRV + len(CLUSTER_NODES) + 3)
+        fe_ports = dict(zip(("http", "mysql", "grpc"),
+                            ports[PROCS_METASRV + len(CLUSTER_NODES):]))
         addrs = [f"127.0.0.1:{p}" for p in ports[:PROCS_METASRV]]
         peers = ",".join(addrs)
         t0 = time.perf_counter()
@@ -6850,6 +7133,17 @@ def phase_procs(torch, seed):
                 f"127.0.0.1:{port}", "--metasrv-addr", peers,
                 "--data-home", os.path.join(home, "data"),
                 "--heartbeat-interval", str(PROCS_HEARTBEAT_S)], home)
+        if frontend:
+            # 17a: the frontend process starts with the datanodes, once a
+            # meta leader answers (its flow recovery reads meta's KV at
+            # construction); no self-monitor scrape writes tables of its
+            # own into the cluster during the phase
+            fe = Child("frontend", [
+                "frontend", "start", "--metasrv-addr", peers,
+                "--http-addr", f"127.0.0.1:{fe_ports['http']}",
+                "--mysql-addr", f"127.0.0.1:{fe_ports['mysql']}",
+                "--grpc-addr", f"127.0.0.1:{fe_ports['grpc']}"], home,
+                env={"GREPTIME_SELF_MONITOR_INTERVAL_S": "0"})
         wait_for("both datanodes registered",
                  lambda: [p.id for p in quick.list_datanodes()] ==
                  list(CLUSTER_NODES), children())
@@ -6866,9 +7160,19 @@ def phase_procs(torch, seed):
             f"answered ping through PeerClientRegistry's lazily dialled "
             f"FlightDatanodeClients at {walls['datanodes_first_answer']:.2f}"
             f"s")
-        done("a")
+        if frontend:
+            http = HttpClient(fe_ports["http"])
+            wait_for("the frontend's first answer",
+                     lambda: http.sql("SELECT 1")[0], children())
+            walls["frontend_first_answer"] = time.perf_counter() - t0
+            db = Database(f"grpc://127.0.0.1:{fe_ports['grpc']}")
+            my = WireMysql(fe_ports["mysql"])
+            log(f"  17a: the frontend child (pid {fe.proc.pid}), spawned "
+                f"with the datanodes, answered SELECT 1 over /v1/sql "
+                f"{walls['frontend_first_answer']:.2f}s after its spawn")
+        done("16a")
 
-        step("b")
+        step("16b")
         t0 = time.perf_counter()
         ts, tags, fields = tsbs_cpu_table(seed, HOSTS, CLUSTER_HOURS)
         cols = sql_columns(ts, tags, fields)
@@ -6935,16 +7239,16 @@ def phase_procs(torch, seed):
             f"two datanode processes at once {walls['load']:.2f}s "
             f"({N / walls['load'] / 1e6:.2f} Mrows/s); flush_table "
             f"{walls['flush']:.2f}s")
-        done("b")
+        done("16b")
 
-        step("c")
+        step("16c")
         view = MitoTable(TableInfo.from_dict(meta.table_info(full)), {},
                          rule)
         engine = QueryEngine(None, device=DEVICE)
         queries = {k: v for k, v in sql_queries(
             np.random.default_rng(seed), HOSTS)[1].items()
             if k in CLUSTER_QUERIES}
-        before, answers = {}, {}
+        before, answers, wants = {}, {}, {}
         for name, sql in queries.items():
             plan = table_plan(view, sql)[0]
             runs = []
@@ -6966,8 +7270,8 @@ def phase_procs(torch, seed):
                           f"{name}: the second run's frames differ")
             got = fold_frames(engine, view, sql,
                               [before[name][rn] for rn in numbers])
-            err = compare_sql(f"phase 16 {name}", got,
-                              *sql_expected(name, ts, fields, ties, None))
+            wants[name] = sql_expected(name, ts, fields, ties, None)
+            err = compare_sql(f"phase 16 {name}", got, *wants[name])
             answers[name] = got
             walls[name] = {"first": runs[0], "again": runs[1]}
             log(f"  {name}: {len(got)} rows folded from {len(numbers)} "
@@ -6981,9 +7285,20 @@ def phase_procs(torch, seed):
               f"/dev/nvidia* held: {held}")
         log(f"  each datanode process holds {len(held['datanode1'])} "
             f"/dev/nvidia* files; no metasrv process holds one")
-        done("c")
+        done("16c")
 
-        step("d")
+        if frontend:
+            step("17b")
+            n, walls["17b"] = fe_queries(http, db, queries, wants, answers,
+                                         fields, rule)
+            fe_launches += n
+            done("17b")
+            step("17c")
+            walls["17c"] = fe_table(http, db, my, registry, meta, ts, tags,
+                                    fields, rule, queries)
+            done("17c")
+
+        step("16d")
         t0 = time.perf_counter()
         dns[2].kill()
         _, walls["route_moved"] = wait_for(
@@ -7015,9 +7330,35 @@ def phase_procs(torch, seed):
             f"{walls['adopted']:.2f}s, and Q1, Q5 and Q6 over all four "
             f"regions, all on node 1, equalled the answers before the kill "
             f"(each region's frame bit-equal) at {walls['answers']:.2f}s")
-        done("d")
+        if frontend:
+            # 17d: the frontend still routes regions 1 and 3 to the dead
+            # node: its next Q1 retries the refused RPC, refreshes the
+            # route from meta and scatters again
+            q1 = queries["Q1 double-groupby-all"]
+            doc, _, w = http.sql(q1)
+            walls["frontend_after_kill"] = time.perf_counter() - t0
+            err = compare_sql("phase 17d Q1", fe_frame(doc),
+                              *wants["Q1 double-groupby-all"])
+            text = fe.text()
+            check("hit a stale route" in text and "refreshed route of "
+                  f"{full}" in text,
+                  f"17d: the frontend's log shows no stale-route retry: "
+                  f"{fe.tail()}")
+            dispatch, _, n, by_node, _ = fe_analyze(http, q1)
+            check(dispatch.startswith("aggregate-pushdown (regions pruned "
+                                      "0/4, fan-out=1") and
+                  list(by_node) == ["dn1"] and (n > 0 or DEVICE != "cuda"),
+                  f"17d: EXPLAIN ANALYZE Q1 after the failover: {dispatch} "
+                  f"{by_node}")
+            fe_launches += n
+            log(f"  17d: the frontend's Q1 after the kill ({w * 1e3:.1f} ms, "
+                f"retried through a stale-route refresh: its log) answered "
+                f"{walls['frontend_after_kill']:.2f}s after the SIGKILL, "
+                f"max |err|/bound {err:.3g}; EXPLAIN ANALYZE Q1 then: "
+                f"{dispatch}, node blocks {by_node}")
+        done("16d")
 
-        step("e")
+        step("16e")
         meta.cluster_info()                  # pins the leader
         leader = meta.address
         li = [f"grpc://{a}" for a in addrs].index(leader)
@@ -7048,38 +7389,78 @@ def phase_procs(torch, seed):
             f"{walls['new_leader']:.2f}s; node 1's heartbeats showed it "
             f"alive there at {walls['cluster_info_alive']:.2f}s (node 2: "
             f"{rows.get(2, {}).get('lease_state')})")
-        done("e")
+        done("16e")
 
-        step("f")
+        step("16f")
         held = {c.label: sorted(opens_card(c.proc.pid))
                 for c in metas if c.running()}
         check(not any(held.values()), f"a metasrv holds {held}")
+        if frontend:
+            my.close()
+            db.close()
         exits = {c.label: c.term()
-                 for c in [dns[1]] + [m for m in metas if m.running()]}
+                 for c in [dns[1]] + ([fe] if frontend else []) +
+                 [m for m in metas if m.running()]}
         check(all(rc == 0 and s < 10 for rc, s in exits.values()),
               f"SIGTERM: {exits}")
         walls["sigterm"] = max(s for _, s in exits.values())
         log("  SIGTERM: " + ", ".join(
             f"{k} exited {rc} in {s:.2f}s" for k, (rc, s) in exits.items()))
-        done("f")
+        done("16f")
     finally:
         if registry is not None:
             for client in registry.values():
                 client.close()
         if meta is not None:
             meta.close()
-        for c in metas + list(dns.values()):
+        for c in metas + list(dns.values()) + ([fe] if fe else []):
             c.close()
         shutil.rmtree(home, ignore_errors=True)
     check(launches > 0 or DEVICE != "cuda",
           f"phase 16: the datanodes launched segment_moments {launches} "
           f"times")
+    if frontend:
+        step("17e")
+        n = dist_goldens()
+        fe_launches += n
+        done("17e")
+        check(fe_launches > 0 or DEVICE != "cuda",
+              f"phase 17: segment_moments launched {fe_launches} times")
     walls["phase"] = time.perf_counter() - t_phase
     log(f"phase 16: segment_moments {launches} launches in the datanode "
-        f"processes (their ExecStats); " + ", ".join(
-            f"16{k} {v:.1f}s" for k, v in steps.items()) +
+        f"processes (their ExecStats)" + (
+            f"; phase 17: {fe_launches} (the frontend's EXPLAIN ANALYZE "
+            f"node blocks and the distributed goldens)" if frontend else
+            "") + "; " + ", ".join(
+            f"{k} {v:.1f}s" for k, v in steps.items()) +
         f"; {walls['phase']:.1f}s")
-    return types.SimpleNamespace(moments=launches, walls=walls)
+    return types.SimpleNamespace(moments=launches, moments17=fe_launches,
+                                 walls=walls)
+
+
+def dist_goldens():
+    """17e: the seven distributed sqlness goldens the distributed frontend
+    answers, through tools/sqlness.py's DistEnv (two datanodes and a
+    DistInstance in this process) on the card, byte-equal to their
+    .result files. Returns their segment_moments launches (the pushed-
+    down aggregates reduce on the datanodes' device: DistTables take no
+    dispatch floor)."""
+    from greptimedb_tpu_torch.ops import kernels as K
+    from greptimedb_tpu_torch.tools import sqlness
+    n0 = K.segment_moments.launches
+    t0 = time.perf_counter()
+    failed = [err for err in (
+        sqlness.run_one(sqlness.DIST_CASES_DIR / f"{case}.sql",
+                        device=DEVICE) for case in sqlness.DIST_IN_SCOPE)
+        if err is not None]
+    wall = time.perf_counter() - t0
+    check(not failed, "distributed goldens differ on the card:\n" +
+          "\n".join(failed))
+    n = K.segment_moments.launches - n0
+    log(f"  {len(sqlness.DIST_IN_SCOPE)} distributed sqlness cases through "
+        f"tools/sqlness.py's DistEnv on {DEVICE!r} byte-equal to their "
+        f".result in {wall:.2f}s ({n} segment_moments launches)")
+    return n
 
 
 def k1_row_at(torch, args, label):
@@ -7153,7 +7534,7 @@ def phase_moments_time(torch, inputs, tool=True):
 # ---------------------------------------------------------------------------
 
 #: the phases; `--phases` runs some of them with the phases they stand on
-PHASES = tuple(str(i) for i in range(1, 17))
+PHASES = tuple(str(i) for i in range(1, 18))
 #: what each phase needs run with it (phases 1 and 2 always run): 3 and 4
 #: are one call, as are 6 and 7; 5 launches segment_moments before the
 #: phases that fence its launches (a process's first launch loads the
@@ -7161,10 +7542,10 @@ PHASES = tuple(str(i) for i in range(1, 17))
 #: compares with phase 4's answers, 11 and 12b run on phase 9's frontend
 #: (12b only when 9 runs); 14 and 15 have data homes of their own and
 #: need none; 16 launches in its datanode processes, so phase 15 times the
-#: kernel at the region shape they launch at
+#: kernel at the region shape they launch at; 17 rides phase 16's cluster
 NEEDS = {"3": ("4",), "4": ("3",), "6": ("5", "7"), "7": ("6",),
          "8": ("6",), "9": ("4", "5"), "10": ("6",), "11": ("9",),
-         "12": ("6",), "13": ("6",), "16": ("15",)}
+         "12": ("6",), "13": ("6",), "16": ("15",), "17": ("16",)}
 
 
 def resolve_phases(arg: str) -> set:
@@ -7298,8 +7679,10 @@ def main() -> int:
             tool=False))
         del cluster
     if "16" in phases:
-        procs = phase_procs(torch, args.seed)
+        procs = phase_procs(torch, args.seed, frontend="17" in phases)
         moments_by["16"] = procs.moments
+        if "17" in phases:
+            moments_by["17"] = procs.moments17
         walls["16"] = procs.walls["phase"]
         del procs
     if "12" in phases:
@@ -7312,7 +7695,8 @@ def main() -> int:
     if "15" in phases:
         log(f"phase 15 took {walls['15']:.1f}s")
     if "16" in phases:
-        log(f"phase 16 took {walls['16']:.1f}s")
+        log(f"phase 16{' with 17' if '17' in phases else ''} took "
+            f"{walls['16']:.1f}s")
     kernels = []
     if k1_by:
         kernels.append({**(kern[0] if kern is not None else k1_row),

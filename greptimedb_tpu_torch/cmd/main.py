@@ -4,15 +4,17 @@ Reference behavior: src/cmd — `greptime standalone start -c config.toml
 --http-addr ...`; flags override file options (src/cmd/src/options.rs).
 
 Ported from greptimedb_tpu/cmd/main.py: `standalone start`, `metasrv
-start`, `datanode start` and `cli attach`. The standalone process and a
-datanode run their query engine on the card ("cuda"), which no TOML key
-or flag changes: on a machine without CUDA both exit non-zero with the
-datanode's message. A metasrv holds no regions and never touches CUDA.
-No role turns on a compile cache: the port compiles no program at run
-time, and its kernels are built once per source digest
-(ops/cuda_build.py), so a restart reuses them. `frontend start` keeps
-the reference's flags and raises until the distributed frontend is
-ported.
+start`, `datanode start`, `frontend start` and `cli attach`. The
+standalone process, a datanode and a frontend run their query engine on
+the card ("cuda"), which no TOML key or flag changes: on a machine
+without CUDA each exits non-zero with the datanode's (or the frontend's)
+message. A metasrv holds no regions and never touches CUDA. `frontend
+start` serves HTTP, MySQL, Postgres and Arrow Flight over a DistInstance
+(frontend/distributed.py) whose datanodes it finds through meta
+(`build_frontend` composes them, not yet started). No role turns on a
+compile cache: the port compiles no program at run time, and its kernels
+are built once per source digest (ops/cuda_build.py), so a restart
+reuses them.
 """
 
 from __future__ import annotations
@@ -349,11 +351,75 @@ def datanode_start(args) -> None:
     _block_until_signal(shutdown)
 
 
+def build_frontend(metasrv_addr: str, http_addr: str,
+                   mysql_addr: Optional[str] = None,
+                   postgres_addr: Optional[str] = None,
+                   grpc_addr: Optional[str] = None, device: str = "cuda"):
+    """Compose the distributed frontend and its protocol servers (not yet
+    started): a DistInstance on `device` over the meta replicas of
+    `metasrv_addr` (comma-separated) and the datanodes they list, dialled
+    lazily. Returns (frontend, servers, meta client)."""
+    from ..frontend.distributed import DistInstance
+    from ..meta.flight import PeerClientRegistry
+    from ..servers.auth import NoopUserProvider
+    from ..servers.flight import FlightFrontendServer
+    from ..servers.http import HttpServer
+
+    meta = _meta_client(metasrv_addr)
+    try:
+        fe = DistInstance(meta, PeerClientRegistry(meta), device=device)
+    except Exception:
+        meta.close()
+        raise
+    servers = [HttpServer(fe, NoopUserProvider(), http_addr)]
+    if mysql_addr:
+        from ..servers.mysql import MysqlServer
+        host, _, port = mysql_addr.partition(":")
+        servers.append(MysqlServer(fe, host=host or "127.0.0.1",
+                                   port=int(port or 0)))
+    if postgres_addr:
+        from ..servers.postgres import PostgresServer
+        host, _, port = postgres_addr.partition(":")
+        servers.append(PostgresServer(fe, host=host or "127.0.0.1",
+                                      port=int(port or 0)))
+    if grpc_addr:
+        servers.append(FlightFrontendServer(fe, f"grpc://{grpc_addr}"))
+    return fe, servers, meta
+
+
 def frontend_start(args) -> None:
-    from ..errors import UnsupportedError
-    raise UnsupportedError(
-        "greptime frontend start: the port has no distributed frontend "
-        "(ROADMAP Queue 1 h3a); run `greptime standalone start`")
+    """Run the stateless router role: SQL over HTTP/MySQL/Postgres/Flight
+    against datanodes resolved through the meta service (reference:
+    greptime frontend start). Its query engine runs on the card: without
+    CUDA the frontend raises and the process exits non-zero."""
+    from ..common.telemetry import init_logging
+
+    init_logging(args.log_level or "info")
+    fe, servers, meta = build_frontend(
+        args.metasrv_addr, args.http_addr, mysql_addr=args.mysql_addr,
+        postgres_addr=args.postgres_addr, grpc_addr=args.grpc_addr)
+    # self-monitoring scrape loop: frontend registry + cluster-wide
+    # region heat (meta heartbeats) → greptime_private tables
+    from ..common.runtime import env_int
+    monitor_interval = env_int("GREPTIME_SELF_MONITOR_INTERVAL_S", 30)
+    if monitor_interval > 0:
+        fe.self_monitor.start_background(monitor_interval)
+    for s in servers:
+        if hasattr(s, "serve_in_background"):
+            s.serve_in_background()
+        else:
+            s.start()
+    logging.info("frontend ready (http %s, meta %s, device %s)",
+                 args.http_addr, args.metasrv_addr,
+                 fe.query_engine.device)
+
+    def shutdown():
+        fe.shutdown()
+        for s in servers:
+            s.shutdown()
+        meta.close()
+
+    _block_until_signal(shutdown)
 
 
 def main(argv=None) -> int:

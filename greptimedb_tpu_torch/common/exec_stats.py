@@ -33,6 +33,12 @@ renders a per-node, per-stage tree under the dist_scatter line — each
 node row naming its actual dispatch plus node-elapsed vs network time —
 so a distributed EXPLAIN ANALYZE no longer collapses everything behind
 the wire into one number.
+
+In the port, each kernel wrapper also counts its launch on the active
+collector (`count_launch`); `to_dict()` ships the counts when a kernel
+launched, and a node row of the tree ends with `launches=<kernel>:<n>`
+when its node launched one (a CPU node's rows keep the reference's
+text).
 """
 
 from __future__ import annotations
@@ -330,8 +336,9 @@ def _json_safe(v: object) -> object:
 
 def _add_node_rows(add: "Callable", node_items: "list") -> None:
     """Per-node blocks of the EXPLAIN ANALYZE tree: a header row naming
-    the node's actual dispatch + node-vs-network split, then its stage
-    rows indented underneath."""
+    the node's actual dispatch + node-vs-network split (and, when the
+    node launched a kernel, its launches by kernel), then its stage rows
+    indented underneath."""
     for label, entry in node_items:
         ns: "ExecStats" = entry["stats"]
         wall_ms = entry["wall_ms"]
@@ -340,11 +347,15 @@ def _add_node_rows(add: "Callable", node_items: "list") -> None:
         with ns._lock:
             stages = list(ns.stages.values())
             dispatch = ns.dispatch
+            launches = sorted(ns.launches.items())
         rows = max((st.rows for st in stages), default=0)
         files = sum(st.files for st in stages)
-        add(f"  {label}", rows, files, wall_ms,
-            f"dispatch={dispatch or 'n/a'}; node_ms={node_ms:.2f} "
-            f"network_ms={net_ms:.2f}")
+        header = (f"dispatch={dispatch or 'n/a'}; node_ms={node_ms:.2f} "
+                  f"network_ms={net_ms:.2f}")
+        if launches:
+            header += "; launches=" + ",".join(
+                f"{k}:{n}" for k, n in launches)
+        add(f"  {label}", rows, files, wall_ms, header)
         for st in stages:
             add(f"    {st.stage}", st.rows, st.files, st.elapsed_s * 1e3,
                 st.detail_str())

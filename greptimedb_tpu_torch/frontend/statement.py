@@ -13,7 +13,10 @@ COPY FROM through the table's bulk load; KILL (`apply_kill`) trips the
 port's process registry; ADMIN SHOW TRACE / SHOW PROFILE
 (`apply_show_trace`, `apply_show_profile`) render the stored waterfall
 and profile tree (common/trace_store.py, common/profiler.py). The
-distributed frontend's knobs raise UnsupportedError until it is ported.
+distributed frontend's knobs (`SET dist_fanout`, `dist_rpc_max_retries`,
+`dist_rpc_retry_base_ms`, `dist_partial_agg`) act as the reference's do;
+`SET exact_distinct` raises UnsupportedError until the count(DISTINCT)
+sketch partial is ported.
 """
 
 from __future__ import annotations
@@ -341,6 +344,24 @@ def apply_set_variable(stmt: ast.SetVariable, ctx: QueryContext) -> Output:
             configure_retry(max_retries=value)
         else:
             configure_retry(base_ms=value)
+    elif name == "dist_fanout":
+        # per-statement bound on concurrently in-flight datanode RPCs
+        # in the distributed scatter-gather (1 = serial)
+        from ..common.runtime import configure_dist_fanout
+        configure_dist_fanout(_int_setting(stmt))
+    elif name in ("dist_rpc_max_retries", "dist_rpc_retry_base_ms"):
+        from .distributed import configure_dist_rpc_retry
+        value = _int_setting(stmt)
+        if name == "dist_rpc_max_retries":
+            configure_dist_rpc_retry(max_retries=value)
+        else:
+            configure_dist_rpc_retry(base_ms=value)
+    elif name == "dist_partial_agg":
+        # distributed partial-aggregate pushdown kill switch: 0 sends
+        # GROUP BYs over DistTables through the raw-row scatter
+        from ..query import tpu_exec
+        tpu_exec.configure_partial_pushdown(
+            enabled=bool(_int_setting(stmt)))
     elif name == "stream_threshold_rows":
         # the cold-scan streaming threshold, so operators can pin the
         # dispatch decision without a config reload
@@ -486,10 +507,8 @@ def apply_set_variable(stmt: ast.SetVariable, ctx: QueryContext) -> Output:
 #: the reference's session knobs whose modules the port does not have
 #: yet: knob names → what is missing
 _KNOBS_NOT_PORTED = {
-    **dict.fromkeys(("dist_fanout", "dist_rpc_max_retries",
-                     "dist_rpc_retry_base_ms", "dist_partial_agg",
-                     "exact_distinct"),
-                    "the distributed frontend"),
+    "exact_distinct": "the count(DISTINCT) sketch partial of the "
+                      "distributed pushdown (ROADMAP Queue 1, h3b)",
 }
 
 

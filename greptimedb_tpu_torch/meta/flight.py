@@ -11,7 +11,9 @@ frontends resolve routes across real sockets with no call-site changes.
 Ported from greptimedb_tpu/meta/flight.py (a copy): the action names and
 JSON bodies are the reference's, so either package's client talks to
 either package's server. Importing it loads no torch: a metasrv process
-holds no regions and never opens the card.
+holds no regions and never opens the card. `shutdown()` waits for the
+serve thread (servers/flight.py's servers do too), which the
+reference's does not.
 """
 
 from __future__ import annotations
@@ -46,7 +48,18 @@ class FlightMetaServer(flight.FlightServerBase):
         t = new_thread(self.serve, daemon=True, name="flight-metasrv",
                        propagate_context=False)
         t.start()
+        self._serving = t
         return t
+
+    def shutdown(self) -> None:
+        """Shut down, then wait for the serve thread to return: a Flight
+        server whose serve() is still winding down can close the
+        listening socket of a server made after it in the same process
+        (pyarrow 25)."""
+        super().shutdown()
+        t = getattr(self, "_serving", None)
+        if t is not None and t is not threading.current_thread():
+            t.join()
 
     def do_action(self, context: object, action: "flight.Action"
                   ) -> Iterator["flight.Result"]:

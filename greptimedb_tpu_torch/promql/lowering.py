@@ -30,9 +30,9 @@ replicates ops/window.py exactly), then the engine's ordinary host
 grouping aggregates it — outer semantics are shared with the row path by
 construction.
 
-The distributed plane (DistTable's aggregate pushdown and the wire
-RawScan of remote datanodes) is not ported: a table that would take it
-raises UnsupportedError naming it.
+PromQL's distributed branches (a DistTable's plans through its aggregate
+pushdown, and the wire RawScan of remote datanodes) are not ported: a
+distributed table raises UnsupportedError naming them.
 """
 
 from __future__ import annotations
@@ -618,8 +618,9 @@ def select_series(engine, sel: VectorSelector, lo_ms: int, hi_ms: int,
 
 def _distributed(metric: str) -> UnsupportedError:
     return UnsupportedError(
-        f"PromQL over {metric}: a distributed table needs the distributed "
-        "plane (aggregate pushdown and the wire scan), which is not ported "
+        f"PromQL over {metric}: a distributed table needs PromQL's "
+        "distributed branches (its plans through the aggregate pushdown "
+        "and the wire scan; ROADMAP Queue 1, h3b), which are not ported "
         "yet")
 
 

@@ -4,7 +4,9 @@ Reference behavior: src/query/src/datafusion.rs — the engine optimizes and
 executes logical plans, streaming record batches. Here (as in
 greptimedb_tpu/query/engine.py) `execute` dispatches on statement type;
 SELECTs try the device aggregate path first (tpu_exec.try_execute, on the
-engine's device) and otherwise run the pandas columnar fallback.
+engine's device, or the datanodes' for a distributed table) and otherwise
+run the pandas columnar fallback, which threads the WHERE conjuncts and a
+safe LIMIT into a distributed table's scan.
 
 Ported: SELECT (with joins, UNION, uncorrelated subqueries and window
 functions, which run in pandas), EXPLAIN / EXPLAIN ANALYZE, SHOW,
@@ -135,7 +137,13 @@ class QueryEngine:
                 # one (_dispatch_min_rows), so the plan text is
                 # deterministic across processes and runs.
                 est = tpu_exec._estimated_table_rows(table)
-                if est is not None and \
+                if hasattr(table, "execute_tpu_plan"):
+                    lines.append("TpuAggregateExec: " + plan.describe())
+                    lines.append(
+                        "  Dispatch: " +
+                        tpu_exec.dispatch_decision_for_pushdown(table,
+                                                                plan))
+                elif est is not None and \
                         est < tpu_exec.TPU_DISPATCH_MIN_ROWS:
                     lines.append("CpuAggregateExec: " + plan.describe())
                     lines.append(
@@ -282,7 +290,24 @@ class QueryEngine:
                             refs.add(tc.name)
                     needed = [c for c in table.schema.names()
                               if c in refs]
-                df = _batches_to_df(table.scan_batches(projection=needed))
+                if getattr(table, "supports_filter_pushdown", False):
+                    # distributed tables: thread the WHERE conjuncts in
+                    # (region pruning + wire-side tag filtering) and the
+                    # LIMIT when no later stage can change which rows
+                    # qualify (_run_on_frame still re-filters/limits —
+                    # pushdown only sheds rows, never decides)
+                    conj = tpu_exec._conjuncts(query.where)
+                    push_limit = None
+                    if query.limit is not None and not query.order_by \
+                            and not query.distinct and not a.is_aggregate \
+                            and not a.window_calls and not query.offset:
+                        push_limit = query.limit
+                    batches = table.scan_batches(
+                        projection=needed, filters=conj or None,
+                        limit=push_limit)
+                else:
+                    batches = table.scan_batches(projection=needed)
+                df = _batches_to_df(batches)
         exec_stats.record("scan", rows=len(df), cached=cached)
         return self._run_on_frame(df, a, query, table)
 

@@ -6,14 +6,17 @@ one DataFusion LogicalPlan. Here (as in greptimedb_tpu/query/ir.py):
 - `TpuPlan` (query/tpu_exec.py) — the aggregate node: time range, tag
   predicates, group keys (tags + one time bucket) and moment specs. SQL
   lowers into it through `plan_for`, other front ends through
-  `plan_from_specs`; `execute_agg_plan` below is the one executor: the
-  table's regions reduce on the device (tpu_exec.region_moment_frames),
-  `_finalize` folds their moment frames.
+  `plan_from_specs`; `execute_agg_plan` below is the one executor:
+  a distributed table (frontend/distributed.py) scatters the plan through
+  `DistTable.execute_tpu_plan` (the datanodes reduce their surviving
+  regions on their devices), a local table's regions reduce on the
+  engine's device (tpu_exec.region_moment_frames); `_finalize` folds the
+  moment frames either way.
 - `RawScan` — the scan leaf for statements that do not lower: a projected,
   filtered, time-bounded `scan_batches`.
 
-Distributed tables (aggregate pushdown, the plan codec) are not ported
-yet.
+query/plan_codec.py is the wire codec for the aggregate node (the
+frontend→datanode boundary).
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from .tpu_exec import (
     _aggs_desc,
     _finalize,
     _note_device_query_time,
+    dispatch_decision_for_pushdown,
     frames_nbytes,
     region_moment_frames,
     standard_final,
@@ -143,17 +147,29 @@ def plan_from_specs(schema, aggs: Sequence[Tuple[str, str, Optional[str]]],
 # ---------------------------------------------------------------------------
 
 def execute_agg_plan(table, plan: TpuPlan, device) -> pd.DataFrame:
-    """Execute the IR aggregate node on `device` and return the finalized
-    frame (group key columns + final slots): each region of the table
-    reduces through the resident, streamed or indexed-point path
-    (tpu_exec.region_moment_frames), and `_finalize` folds the moment
-    frames. Raises UnsupportedError when the statement should degrade to
-    the raw-row path — a sketch partial that fails to decode — never a
-    wrong answer."""
-    t0 = time.perf_counter()
-    with span("tpu_execute", table=table.name), timer("tpu_execute"):
-        frames = region_moment_frames(table, plan, device)
-    _note_device_query_time(time.perf_counter() - t0)
+    """Execute the IR aggregate node and return the finalized frame
+    (group key columns + final slots). A distributed table scatters the
+    plan through its cost-based `_plan_scatter` (the datanodes reduce on
+    their own devices, the frontend folds moment frames); a local table's
+    regions reduce on `device` through the resident, streamed or
+    indexed-point path (tpu_exec.region_moment_frames). Raises
+    UnsupportedError when the statement should degrade to the raw-row
+    path — cost-based dispatch chose raw-pull, a datanode rejected a plan
+    it cannot fold, or a sketch partial failed to decode — never a wrong
+    answer."""
+    if hasattr(table, "execute_tpu_plan"):
+        # distributed: aggregate pushdown. The table names its own
+        # scatter (pruning + fan-out), so EXPLAIN and execution print the
+        # same decision
+        exec_stats.set_dispatch(dispatch_decision_for_pushdown(table, plan))
+        with span("tpu_pushdown", table=table.name), timer("tpu_pushdown"):
+            frames = [f for f in table.execute_tpu_plan(plan)
+                      if f is not None and len(f)]
+    else:
+        t0 = time.perf_counter()
+        with span("tpu_execute", table=table.name), timer("tpu_execute"):
+            frames = region_moment_frames(table, plan, device)
+        _note_device_query_time(time.perf_counter() - t0)
     if not frames:
         cols = group_key_columns(plan)
         if cols:

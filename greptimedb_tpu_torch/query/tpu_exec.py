@@ -15,6 +15,13 @@ and/or time bucket → aggregate — as one kernel launch per region:
 
 Anything outside this shape returns None and the engine falls back to the
 CPU columnar executor. Reference: greptimedb_tpu/query/tpu_exec.py.
+A distributed table (frontend/distributed.py, `execute_tpu_plan`) takes
+the aggregate pushdown: the datanodes reduce their regions and the
+frontend folds their moment frames; it is never routed to the CPU by the
+dispatch floor, and `SET dist_partial_agg = 0` plans no pushdown at all
+(the raw-row scatter answers). A `count(DISTINCT)` is lowered on no table:
+its sketch partial is not ported, so over a distributed table it takes
+the raw-row scatter, whose answer is exact.
 `region_moment_frames` routes each region as the reference does: a point
 or IN tag query on an uncached region takes the SST index
 (`_indexed_point_frames`, reduced on the host), a region too big for the
@@ -868,6 +875,11 @@ def plan_for(table, a: Analysis, query: Query) -> Optional[TpuPlan]:
         return None
 
     # aggregates → moments
+    if hasattr(table, "execute_tpu_plan") and not _PARTIAL_PUSHDOWN[0]:
+        # SET dist_partial_agg = 0: no pushdown plan at all, so EXPLAIN
+        # (CpuAggregateExec) and execution (raw-row scatter + CPU
+        # fallback) render the same decision
+        return None
     moments: List[Moment] = []
     finals: List[Tuple[str, str, List[str]]] = []
     field_exprs: Dict[str, Expr] = {}
@@ -888,9 +900,9 @@ def plan_for(table, a: Analysis, query: Query) -> Optional[TpuPlan]:
         if op not in TPU_AGGREGATES and op not in SKETCH_AGGREGATES:
             return None
         if call.distinct:
-            # count(DISTINCT) rides a sketch partial only in the
-            # distributed pushdown (not ported): a standalone table keeps
-            # the exact raw-row path
+            # count(DISTINCT) would ride a sketch partial only in the
+            # distributed pushdown, whose sketch partial is not ported:
+            # every table keeps the exact raw-row path
             return None
         if call.arg is None:
             if op != "count":
@@ -1155,19 +1167,33 @@ def cached_table_frame(table, device) -> Optional[pd.DataFrame]:
         pd.concat(frames, ignore_index=True)
 
 
+#: SET dist_partial_agg — kill switch for the distributed partial
+#: pushdown: 0 routes aggregate statements over DistTables through the
+#: raw-row scatter instead (the differential and an operator's escape
+#: hatch)
+_PARTIAL_PUSHDOWN = [env_flag("GREPTIME_DIST_PARTIAL_AGG", True)]
+
+
+def configure_partial_pushdown(*, enabled: Optional[bool] = None) -> None:
+    if enabled is not None:
+        _PARTIAL_PUSHDOWN[0] = bool(enabled)
+
+
 def try_execute(table, a: Analysis, query: Query,
                 device) -> Optional[pd.DataFrame]:
     plan = plan_for(table, a, query)
     if plan is None:
         return None
-    # small scans take the CPU columnar path, which is faster and
-    # float64-exact
-    est = _estimated_table_rows(table)
-    if est is not None and est < _dispatch_min_rows():
-        exec_stats.set_dispatch(
-            f"cpu-small-scan (est_rows={est} < "
-            f"dispatch_floor={_dispatch_min_rows()})")
-        return None
+    if not hasattr(table, "execute_tpu_plan"):
+        # distributed tables always push down (the fallback would pull
+        # raw rows over the wire); local tables route small scans to the
+        # CPU columnar path, which is faster and float64-exact
+        est = _estimated_table_rows(table)
+        if est is not None and est < _dispatch_min_rows():
+            exec_stats.set_dispatch(
+                f"cpu-small-scan (est_rows={est} < "
+                f"dispatch_floor={_dispatch_min_rows()})")
+            return None
     from .ir import execute_agg_plan
     try:
         return execute_agg_plan(table, plan, device)
@@ -1201,6 +1227,21 @@ def frames_nbytes(frames) -> int:
             else:
                 total += int(s.to_numpy().nbytes)
     return total
+
+
+def dispatch_decision_for_pushdown(table, plan) -> str:
+    """The one aggregate-pushdown dispatch string EXPLAIN (query/engine)
+    and execution (try_execute) both print. DistTable exposes
+    scatter_describe (regions pruned a/b, fan-out=k); other pushdown
+    tables get the generic line."""
+    describe = getattr(table, "scatter_describe", None)
+    if describe is not None:
+        try:
+            return describe(plan)
+        except Exception:  # noqa: BLE001 — describing must never fail a
+            # query; fall through to the generic dispatch line
+            increment_counter("explain_describe_errors")
+    return "aggregate-pushdown (datanodes reduce, frontend folds)"
 
 
 def local_dispatch_decision(table, regions=None, cold=None,

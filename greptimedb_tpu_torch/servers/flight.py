@@ -23,7 +23,8 @@ Ported from greptimedb_tpu/servers/flight.py; its tickets, descriptors
 and action bodies are the reference's, so either package's client talks
 to either's server. The `repl_apply` action answers the datanode's
 UnsupportedError until read-replica shipping is ported (ROADMAP Queue 1,
-h4).
+h4). Unlike the reference's, each server's `shutdown()` waits for the
+thread `serve_in_background` started.
 """
 
 from __future__ import annotations
@@ -186,7 +187,18 @@ class FlightDatanodeServer(flight.FlightServerBase):
                        name=f"flight-dn{self.datanode.opts.node_id}",
                        propagate_context=False)
         t.start()
+        self._serving = t
         return t
+
+    def shutdown(self) -> None:
+        """Shut down, then wait for the serve thread to return: a Flight
+        server whose serve() is still winding down can close the
+        listening socket of a server made after it in the same process
+        (pyarrow 25)."""
+        super().shutdown()
+        t = getattr(self, "_serving", None)
+        if t is not None and t is not threading.current_thread():
+            t.join()
 
     # ---- control plane: DDL / flush / describe ----
     def do_action(self, context, action):
@@ -402,7 +414,18 @@ class FlightFrontendServer(flight.FlightServerBase):
         t = new_thread(self.serve, daemon=True, name="flight-frontend",
                        propagate_context=False)
         t.start()
+        self._serving = t
         return t
+
+    def shutdown(self) -> None:
+        """Shut down, then wait for the serve thread to return: a Flight
+        server whose serve() is still winding down can close the
+        listening socket of a server made after it in the same process
+        (pyarrow 25)."""
+        super().shutdown()
+        t = getattr(self, "_serving", None)
+        if t is not None and t is not threading.current_thread():
+            t.join()
 
     def do_get(self, context, ticket):
         raw = ticket.ticket

@@ -1,5 +1,6 @@
 """The port's sqlness golden runner: `.sql` cases through the port's
-standalone frontend, each output byte-compared with its `.result` golden.
+standalone or distributed frontend, each output byte-compared with its
+`.result` golden.
 
     python3 -m greptimedb_tpu_torch.tools.sqlness [--device cuda|cpu]
         [--cases DIR] [filter ...]
@@ -10,20 +11,25 @@ rendered outputs (`Affected Rows: N` / ASCII tables / `Error: ...`) are
 diffed against the committed `.result` file. This is the same statement
 splitter, comment stripping, volatile-column and detail normalisation and
 rendering as the JAX package's tests/sqlness/runner.py, over the port's
-own `RecordBatch` and `pretty_print`; it reads the cases by path
-(default: the repo's tests/sqlness/cases/standalone/) and imports nothing
-of the JAX package. Each case gets a fresh data home and a fresh
-`build_standalone(DatanodeOptions(device=...))`, whose flows fold and
-whose self-monitor scrapes only when a statement asks (no background
-tick, as under the test suite); the failpoint registry, the
-background-job registry and the trace and profiler knobs are reset
-first, as a fresh server's would be. A statement's `'/tmp/sqlness_`
+own `RecordBatch` and `pretty_print`; it reads the cases by path and
+imports nothing of the JAX package. Without `--cases` it runs the
+in-scope cases: `IN_SCOPE` of the repo's tests/sqlness/cases/standalone/
+and `DIST_IN_SCOPE` of tests/sqlness/cases/distributed/. Each case gets a
+fresh data home and a fresh frontend: a standalone case
+`build_standalone(DatanodeOptions(device=...))`, a case under a
+`distributed` directory `DistEnv` (two datanodes on one shared object
+store under an in-process meta, the twin of the JAX package's runner's
+`_DistEnv`), whose flows fold and whose self-monitor scrapes only when a
+statement asks (no background tick, as under the test suite); the
+failpoint registry, the background-job registry and the trace and
+profiler knobs are reset first, as a fresh server's would be. A statement's `'/tmp/sqlness_`
 paths (the copy/* cases' files) run as files under the case's own data
 home, so two runs of one case never share a file; the output echoes the
 statement as written. The device is "cuda" unless `--device cpu` asks
 for the CPU; without CUDA a run on "cuda" raises instead of answering.
-`filter` keeps the cases whose path (relative to the cases directory)
-contains one of the substrings. Exit code 0 when every case matched, 1
+`filter` keeps the cases whose path (relative to the cases directory,
+`distributed/...` for the distributed ones) contains one of the
+substrings. Exit code 0 when every case matched, 1
 otherwise (the diffs are printed), 2 when nothing matched.
 """
 
@@ -62,6 +68,17 @@ IN_SCOPE = (
 )
 #: cases of the same surface that wait for a later module: case -> module
 WAITING: dict = {}
+
+#: the distributed golden cases, beside the standalone ones
+DIST_CASES_DIR = CASES_DIR.parent / "distributed"
+
+#: the distributed cases the port byte-matches. The others: explain/*
+#: are red on the JAX package itself, system/* read meta-backed views
+#: (ROADMAP Queue 1, h3b) and admin/migrate_region moves a region (h4)
+DIST_IN_SCOPE = (
+    "alter/alter", "common/basic", "common/groupby", "common/window",
+    "cte/cte", "show/show", "subquery/subquery",
+)
 
 
 def split_statements(text: str) -> List[str]:
@@ -217,9 +234,78 @@ def case_files(filters: List[str], cases_dir: Path = CASES_DIR
     return files
 
 
+class DistEnv:
+    """Two-datanode cluster frontend for the distributed cases: meta over
+    a MemKv, both datanodes on one shared object store (their WAL and
+    control state stay node-scoped), a DistInstance over
+    LocalDatanodeClients, all on `device`. The elastic-region ADMIN
+    statements raise in the port, so no balancer operation is ever
+    queued for a heartbeat to carry."""
+
+    def __init__(self, data_home: str, device: str):
+        from ..client import LocalDatanodeClient
+        from ..datanode import DatanodeInstance, DatanodeOptions
+        from ..frontend.distributed import DistInstance
+        from ..meta import MemKv, MetaClient, MetaSrv, Peer
+        from ..storage.object_store import FsObjectStore
+        self.datanodes = []
+        self.srv = MetaSrv(MemKv())
+        meta = MetaClient(self.srv)
+        clients = {}
+        shared = FsObjectStore(os.path.join(data_home, "shared"))
+        try:
+            for i in (1, 2):
+                dn = DatanodeInstance(DatanodeOptions(
+                    data_home=os.path.join(data_home, f"dn{i}"),
+                    node_id=i, register_numbers_table=False,
+                    flow_tick_interval_s=0, self_monitor_interval_s=0,
+                    device=device), store=shared)
+                self.datanodes.append(dn)
+                dn.start()
+                dn.attach_meta(meta)
+                clients[i] = LocalDatanodeClient(dn)
+                self.srv.register_datanode(Peer(i, f"dn{i}"))
+                self.srv.handle_heartbeat(i)
+            self.fe = DistInstance(meta, clients, device=device)
+        except Exception:
+            self.shutdown()
+            raise
+
+    def do_query(self, sql: str, ctx=None):
+        return self.fe.do_query(sql, ctx)
+
+    def shutdown(self):
+        if getattr(self, "fe", None) is not None:
+            self.fe.shutdown()
+        for dn in self.datanodes:
+            dn.shutdown()
+
+
+def in_scope_files(filters: List[str]) -> List[Path]:
+    """The in-scope standalone cases, then the distributed ones, kept by
+    `filters` as `case_files` keeps them."""
+    files = [CASES_DIR / f"{c}.sql" for c in IN_SCOPE] + \
+        [DIST_CASES_DIR / f"{c}.sql" for c in DIST_IN_SCOPE]
+    if filters:
+        files = [f for f in files
+                 if any(flt in _case_name(f) for flt in filters)]
+    return files
+
+
+def _case_name(path: Path) -> str:
+    """A case's path relative to the cases directory it lives in:
+    `distributed/...` for a distributed case."""
+    if DIST_CASES_DIR in path.parents:
+        return "distributed/" + str(path.relative_to(DIST_CASES_DIR))
+    if CASES_DIR in path.parents:
+        return str(path.relative_to(CASES_DIR))
+    return str(path)
+
+
 def run_one(sql_path: Path, device: str = "cuda") -> Optional[str]:
-    """Run one case on a fresh standalone frontend; None when its output
-    byte-matches the golden, else the unified diff."""
+    """Run one case on a fresh frontend (a DistEnv for a case under a
+    `distributed` directory, else a standalone one); None when its
+    output byte-matches the golden, else the unified diff."""
     from ..common import background_jobs, failpoint, profiler, trace_store
     from ..datanode import DatanodeOptions
     from ..frontend import build_standalone
@@ -231,11 +317,15 @@ def run_one(sql_path: Path, device: str = "cuda") -> Optional[str]:
     trace_store.configure(sample_ratio=0.01)
     profiler.configure(enabled=False, hz=19.0,
                        retention_ms=24 * 3600 * 1000)
+    distributed = "distributed" in sql_path.resolve().parent.parts
     with tempfile.TemporaryDirectory() as home:
-        fe = build_standalone(DatanodeOptions(
-            data_home=home, register_numbers_table=True,
-            flow_tick_interval_s=0, self_monitor_interval_s=0,
-            device=device))
+        if distributed:
+            fe = DistEnv(home, device)
+        else:
+            fe = build_standalone(DatanodeOptions(
+                data_home=home, register_numbers_table=True,
+                flow_tick_interval_s=0, self_monitor_interval_s=0,
+                device=device))
         try:
             got = run_case(sql_path.read_text(), fe,
                            files_dir=os.path.join(home, "files"))
@@ -257,19 +347,26 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default="cuda",
                         help="the query engine's device (cuda or cpu)")
-    parser.add_argument("--cases", type=Path, default=CASES_DIR,
-                        help="directory of .sql/.result cases")
+    parser.add_argument("--cases", type=Path, default=None,
+                        help="directory of .sql/.result cases (default: "
+                             "the in-scope standalone and distributed "
+                             "cases)")
     parser.add_argument("filters", nargs="*",
                         help="substring filters on case paths")
     args = parser.parse_args(argv)
-    files = case_files(args.filters, args.cases)
+    if args.cases is None:
+        files = in_scope_files(args.filters)
+    else:
+        files = case_files(args.filters, args.cases)
     if not files:
         print("no cases matched", file=sys.stderr)
         return 2
     failures = []
     for f in files:
         err = run_one(f, args.device)
-        print(f"[{'FAIL' if err else 'PASS'}] {f.relative_to(args.cases)}")
+        name = _case_name(f) if args.cases is None \
+            else f.relative_to(args.cases)
+        print(f"[{'FAIL' if err else 'PASS'}] {name}")
         if err:
             failures.append(err)
     if failures:

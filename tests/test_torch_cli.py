@@ -6,10 +6,12 @@ add `device`, "cuda", which nothing in a TOML or on the command line
 sets); `build_servers` on the CPU builds the same servers in the same
 order, over S3 with the disk cache too; every subcommand parses its
 flags as the reference's does; `cli attach` prints the same text for the
-same input against either package's server; `frontend start` raises
-until the distributed frontend is ported; and `standalone start` and
-`datanode start` on a machine without CUDA exit non-zero with the
-datanode's message instead of starting on the CPU.
+same input against either package's server; `frontend start`'s
+`build_frontend` (on "cpu") composes the servers the reference's
+`frontend start` starts, in the same order, over a meta server; and
+`standalone start`, `datanode start` and `frontend start` on a machine
+without CUDA exit non-zero with the datanode's (or the frontend's)
+message instead of starting on the CPU.
 """
 
 import argparse
@@ -231,13 +233,102 @@ def test_bad_command_lines_exit_alike(argv, capsys):
     assert codes["port"] == codes["reference"] == 2
 
 
+def _meta_server(side):
+    """An in-process meta server of `side`'s package over a MemKv;
+    (server, its serve thread)."""
+    pkg = "greptimedb_tpu" if side == "reference" else "greptimedb_tpu_torch"
+    meta = importlib.import_module(f"{pkg}.meta")
+    flight = importlib.import_module(f"{pkg}.meta.flight")
+    server = flight.FlightMetaServer(meta.MetaSrv(meta.MemKv()))
+    return server, server.serve_in_background()
+
+
+def _join_flight_serving():
+    """Wait for every Flight frontend serve thread to return: a Flight
+    server still winding down after its shutdown can close the listening
+    socket of a server made after it in the process (ROADMAP Queue 3)."""
+    import threading
+    for t in threading.enumerate():
+        if t.name == "flight-frontend":
+            t.join(60)
+            assert not t.is_alive(), "a Flight frontend server serves on"
+
+
+def _reference_frontend_servers(addr, monkeypatch):
+    """The servers the reference's `frontend start` starts: its blocking
+    wait is replaced by one that reads the shutdown closure's `servers`,
+    then shuts down."""
+    seen = {}
+
+    def block(shutdown):
+        cells = dict(zip(shutdown.__code__.co_freevars,
+                         (c.cell_contents for c in shutdown.__closure__)))
+        seen["servers"] = [type(s).__name__ for s in cells["servers"]]
+        shutdown()
+        _join_flight_serving()
+    monkeypatch.setattr(ref_main, "_block_until_signal", block)
+    monkeypatch.setenv("GREPTIME_SELF_MONITOR_INTERVAL_S", "0")
+    ref_main.main(["frontend", "start", "--metasrv-addr", addr,
+                   "--http-addr", "127.0.0.1:0", "--mysql-addr",
+                   "127.0.0.1:0", "--postgres-addr", "127.0.0.1:0",
+                   "--grpc-addr", "127.0.0.1:0"])
+    return seen["servers"]
+
+
 @pytest.mark.parametrize("role,items", [("frontend", "h3a")])
-def test_distributed_roles_raise(role, items):
-    """Only `frontend start` waits for the distributed frontend; `metasrv
-    start` and `datanode start` run (tests/test_torch_cluster_procs.py)."""
-    from greptimedb_tpu_torch.errors import UnsupportedError
-    with pytest.raises(UnsupportedError, match=f"Queue 1 {items}"):
-        port_main.main([role, "start"])
+def test_distributed_roles_raise(role, items, monkeypatch):
+    """`frontend start` (ROADMAP item h3a) is ported: `build_frontend` on
+    "cpu" composes over a meta server the servers the reference's
+    `frontend start` starts, in the same order (HTTP, MySQL, Postgres,
+    Flight), and they answer; on a machine without CUDA the command
+    raises and exits non-zero instead of starting on the CPU."""
+    import urllib.parse
+    import urllib.request
+    metas = {side: _meta_server(side) for side in ("reference", "port")}
+    try:
+        addr = {side: m[0].address.split("://", 1)[1]
+                for side, m in metas.items()}
+        want = _reference_frontend_servers(addr["reference"], monkeypatch)
+        fe, servers, meta = port_main.build_frontend(
+            addr["port"], "127.0.0.1:0", mysql_addr="127.0.0.1:0",
+            postgres_addr="127.0.0.1:0", grpc_addr="127.0.0.1:0",
+            device="cpu")
+        try:
+            assert [type(s).__name__ for s in servers] == want == [
+                "HttpServer", "MysqlServer", "PostgresServer",
+                "FlightFrontendServer"]
+            assert fe.query_engine.device.type == "cpu"
+            for s in servers:
+                if hasattr(s, "serve_in_background"):
+                    s.serve_in_background()
+                else:
+                    s.start()
+            url = (f"http://127.0.0.1:{servers[0].port}/v1/sql?" +
+                   urllib.parse.urlencode({"sql": "SHOW TABLES"}))
+            with urllib.request.urlopen(url, timeout=30) as r:
+                assert r.status == 200
+        finally:
+            fe.shutdown()
+            for s in servers:
+                s.shutdown()
+            _join_flight_serving()
+            meta.close()
+        if torch.cuda.is_available():
+            return
+        out = subprocess.run(
+            [sys.executable, "-m", "greptimedb_tpu_torch.cmd.main", role,
+             "start", "--metasrv-addr", addr["port"], "--http-addr",
+             f"127.0.0.1:{_free_port()}"], cwd=REPO,
+            env=dict(os.environ, OMP_NUM_THREADS="1"), capture_output=True,
+            text=True, timeout=120)
+        assert out.returncode != 0
+        assert "CUDA is not available" in out.stderr
+        assert "device='cpu'" in out.stderr
+        assert "frontend ready" not in out.stderr
+    finally:
+        for server, thread in metas.values():
+            server.shutdown()
+            thread.join(60)
 
 
 def _flight_server(side, home):

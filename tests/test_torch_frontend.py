@@ -442,11 +442,12 @@ def test_packages_open_each_others_data_home(run, label):
 
 
 #: of the statements below, those whose modules have since been ported
-#: (the trace store, the profiler, the self-monitor): they answer as the
-#: reference does
+#: (the trace store, the profiler, the self-monitor, the distributed
+#: frontend's fan-out knob): they answer as the reference does
 _PORTED_SINCE = {"ADMIN SHOW TRACE 'last'", "ADMIN SHOW PROFILE 'last'",
                  "SET profiling = 1", "SET trace_sample_ratio = 1",
-                 "SET self_monitor_retention_ms = 60000"}
+                 "SET self_monitor_retention_ms = 60000",
+                 "SET dist_fanout = 4"}
 
 
 def _answer(fe, sql, ctx):
@@ -467,20 +468,23 @@ def _answer(fe, sql, ctx):
     "SET self_monitor_retention_ms = 60000",
 ])
 def test_port_raises_for_what_it_has_not_ported(tmp_path, sql):
-    """A statement of a module the port does not have (the distributed
-    frontend) raises UnsupportedError; one of a module ported since
+    """A statement of a module the port does not have (the count(DISTINCT)
+    sketch partial) raises UnsupportedError; one of a module ported since
     answers what the reference answers on a fresh frontend with no
-    retained trace and no profiled query."""
+    retained trace and no profiled query, and SET dist_fanout sets the
+    same fan-out in both packages."""
     from greptimedb_tpu.common import profiler as ref_profiler
+    from greptimedb_tpu.common import runtime as ref_runtime
     from greptimedb_tpu.common import trace_store as ref_trace
     from greptimedb_tpu.monitor import scraper as ref_scraper
-    from greptimedb_tpu_torch.common import profiler, trace_store
+    from greptimedb_tpu_torch.common import profiler, runtime, trace_store
     from greptimedb_tpu_torch.monitor import scraper
     ref_parse(sql)                        # the reference's grammar has it
     mods = (profiler, ref_profiler)
     saved = ([(m.enabled(), m.hz(), m.retention_ms()) for m in mods],
              [m.sample_ratio() for m in (trace_store, ref_trace)],
-             [m.retention_ms() for m in (scraper, ref_scraper)])
+             [m.retention_ms() for m in (scraper, ref_scraper)],
+             [m.dist_fanout() for m in (runtime, ref_runtime)])
     sides = {side: _open(side, tmp_path / side) for side in ("port", "ref")}
     try:
         for m in (trace_store, ref_trace):
@@ -493,6 +497,7 @@ def test_port_raises_for_what_it_has_not_ported(tmp_path, sql):
         if sql in _PORTED_SINCE:
             got = _answer(sides["port"], sql, _ctx("port"))
             assert got == _answer(sides["ref"], sql, _ctx("ref"))
+            assert runtime.dist_fanout() == ref_runtime.dist_fanout()
         else:
             with pytest.raises(UnsupportedError, match="not ported|require"):
                 sides["port"].do_query(sql)
@@ -505,6 +510,8 @@ def test_port_raises_for_what_it_has_not_ported(tmp_path, sql):
             m.configure(sample_ratio=r)
         for m, keep in zip((scraper, ref_scraper), saved[2]):
             m.configure_retention(keep)
+        for m, n in zip((runtime, ref_runtime), saved[3]):
+            m.configure_dist_fanout(n)
 
 
 def test_streaming_and_fusion_knobs_match_reference(tmp_path):

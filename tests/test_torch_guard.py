@@ -68,6 +68,12 @@
   is the port's own with relative imports; the datanode clients and the
   meta service import no torch; a datanode with a node id left on its
   default device raises without CUDA and opens nothing.
+- The distributed frontend (frontend/distributed.py, the dist pool of
+  common/runtime.py, cmd/main.py's `build_frontend`): a DistInstance
+  over LocalDatanodeClients and over FlightDatanodeClients runs DDL,
+  INSERT, a bulk load, an aggregate pushed down to the datanodes, a
+  raw-row scan and EXPLAIN on the CPU without adding jax or
+  greptimedb_tpu to sys.modules, through the port's own modules.
 """
 
 import ast
@@ -1450,3 +1456,71 @@ def test_metasrv_process_never_touches_cuda(tmp_path):
             proc.kill()
             proc.wait(30)
     assert "touched torch.cuda" not in log.read_text()
+
+
+_DIST_PROBE = r"""
+import json, sys, tempfile
+before = set(sys.modules)
+from greptimedb_tpu_torch.client import LocalDatanodeClient
+from greptimedb_tpu_torch.client.flight import FlightDatanodeClient
+from greptimedb_tpu_torch.datanode import DatanodeInstance, DatanodeOptions
+from greptimedb_tpu_torch.frontend.distributed import DistInstance
+from greptimedb_tpu_torch.meta import MemKv, MetaClient, MetaSrv, Peer
+from greptimedb_tpu_torch.servers.flight import FlightDatanodeServer
+home = tempfile.mkdtemp()
+nodes, servers, threads = {}, {}, {}
+for i in (1, 2):
+    nodes[i] = DatanodeInstance(DatanodeOptions(
+        data_home=f"{home}/dn{i}", node_id=i, device="cpu",
+        register_numbers_table=False))
+    nodes[i].start()
+    servers[i] = FlightDatanodeServer(nodes[i])
+    threads[i] = servers[i].serve_in_background()
+for kind in ("local", "flight"):
+    srv = MetaSrv(MemKv())
+    clients = {i: LocalDatanodeClient(nodes[i]) if kind == "local" else
+               FlightDatanodeClient(servers[i].address, i) for i in nodes}
+    for i in nodes:
+        srv.register_datanode(Peer(i, f"dn{i}"))
+        srv.handle_heartbeat(i)
+    fe = DistInstance(MetaClient(srv), clients, device="cpu")
+    t = f"t_{kind}"
+    fe.do_query(f"CREATE TABLE {t} (h STRING, ts TIMESTAMP TIME INDEX, "
+                "v DOUBLE, PRIMARY KEY(h)) PARTITION BY RANGE COLUMNS (h) "
+                "(PARTITION a VALUES LESS THAN ('m'), PARTITION b VALUES "
+                "LESS THAN (MAXVALUE))")
+    fe.do_query(f"INSERT INTO {t} VALUES ('a', 1, 1.0), ('z', 2, 2.0)")
+    fe.handle_bulk_load(t, {"h": ["b", "y"], "ts": [3, 4], "v": [3.0, 4.0]},
+                        tag_columns=["h"], timestamp_column="ts")
+    out = fe.do_query(f"SELECT h, sum(v) FROM {t} GROUP BY h ORDER BY h")
+    assert out[-1].batches[0].num_rows == 4
+    assert fe.query_engine.last_exec_stats.dispatch.startswith(
+        "aggregate-pushdown (regions pruned 0/2, fan-out=2")
+    out = fe.do_query(f"SELECT h, v FROM {t} WHERE v > 1.5 ORDER BY h")
+    assert out[-1].batches[0].num_rows == 3
+    fe.do_query(f"EXPLAIN SELECT count(*) FROM {t} WHERE h = 'a'")
+    fe.shutdown()
+from greptimedb_tpu_torch.cmd.main import build_frontend
+for i in nodes:
+    servers[i].shutdown()
+    threads[i].join(60)
+    nodes[i].shutdown()
+print(json.dumps(sorted(set(sys.modules) - before)))
+"""
+
+
+def test_distributed_frontend_imports_no_reference():
+    """A DistInstance over local and over Flight datanode clients runs
+    DDL, writes, a pushed-down aggregate, a raw-row scan and EXPLAIN on
+    the CPU without adding jax or greptimedb_tpu to sys.modules, through
+    the port's own frontend/distributed.py and dist pool."""
+    out = subprocess.run([sys.executable, "-c", _DIST_PROBE], cwd=REPO,
+                         env=_ENV, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    new = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in new if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+    for m in ("frontend.distributed", "common.runtime", "cmd.main",
+              "client.flight", "servers.flight"):
+        assert f"greptimedb_tpu_torch.{m}" in new, m

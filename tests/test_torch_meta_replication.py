@@ -499,7 +499,14 @@ FLIGHT_COMPOSITIONS = {"port": ("port", "port", "port"),
 class FlightCluster:
     """Three raft nodes, each behind its own package's FlightMetaServer
     over a MetaSrv of its ReplicatedKv, linked by the sender's
-    package's FlightTransport."""
+    package's FlightTransport.
+
+    A server's shutdown waits for its serve thread to return: a Flight
+    server whose serve() is still winding down can close the listening
+    socket of a server created after it in the same process (pyarrow
+    25; about one new server in twenty refused every connection when
+    the old serve thread was not joined), and a node behind such a
+    server never hears from its leader."""
 
     def __init__(self, kinds):
         self.kinds = kinds
@@ -508,8 +515,7 @@ class FlightCluster:
                      for k, nd in zip(kinds, self.nodes)]
         self.servers = [FLIGHT[k].FlightMetaServer(s, raft_node=nd)
                         for k, s, nd in zip(kinds, self.srvs, self.nodes)]
-        for s in self.servers:
-            s.serve_in_background()
+        self.serving = [s.serve_in_background() for s in self.servers]
         for k, a in zip(kinds, self.nodes):
             for b, sb in zip(self.nodes, self.servers):
                 if a is not b:
@@ -528,15 +534,20 @@ class FlightCluster:
                                  if self.nodes[i].is_leader],
                         what="wire leader election")[0]
 
+    def _shutdown_server(self, i):
+        self.servers[i].shutdown()
+        self.serving[i].join(DEADLINE_S)
+        assert not self.serving[i].is_alive(), f"server {i + 1} serves on"
+
     def kill(self, i):
         self.dead.add(i)
         self.nodes[i].stop()
-        self.servers[i].shutdown()
+        self._shutdown_server(i)
 
     def close(self):
         for i in self.live():
             self.nodes[i].stop()
-            self.servers[i].shutdown()
+            self._shutdown_server(i)
 
 
 @pytest.fixture()

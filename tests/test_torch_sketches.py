@@ -16,9 +16,10 @@ the CPU.
   uncached region) and a table partitioned into 4 regions, and under
   `SET approx_error_target`. Sketch results are equal, expression sums
   within 8 eps64 sum|x|, dispatch strings and EXPLAIN text byte-equal.
-  `SET exact_distinct` acts only on the distributed pushdown: the port
-  (which has none yet) refuses it, and the reference's standalone
-  answers under it equal the port's without it.
+  `SET exact_distinct` acts only on the distributed pushdown's sketch
+  partial: the port (which has not ported that partial) refuses it, and
+  the reference's standalone answers under it equal the port's without
+  it.
 - The `sketch_codec` failpoint degrades the statement to the raw-row
   answer and counts `sketch_degrade`.
 - Two concurrent statements that differ only in the expression, or only
@@ -501,15 +502,16 @@ def test_partitioned_matches_reference(sides, name):
 def test_sketch_knobs_match_reference(sides, knob):
     """SET approx_error_target reaches both packages' sketch modules and
     the answers and dispatch stay the reference's. SET exact_distinct acts
-    only on the distributed pushdown, so the port refuses it, naming that
-    module; the reference's standalone answers under it (a standalone
-    count(DISTINCT) keeps its exact raw-row path) equal the port's
-    without it."""
+    only on the distributed pushdown's count(DISTINCT) sketch partial,
+    which the port has not (ROADMAP item h3b), so the port refuses it,
+    naming that item; the reference's standalone answers under it (a
+    standalone count(DISTINCT) keeps its exact raw-row path) equal the
+    port's without it."""
     ref, port = sides
     exact = "exact_distinct" in knob
     if exact:
         with pytest.raises(UnsupportedError,
-                           match="the distributed frontend is not ported"):
+                           match=r"sketch partial .*h3b\) is not ported"):
             port.sql(knob)
     for name in ("by-region", "distinct", "global"):
         sql = SKETCH_Q[name].format(t="cpu")

@@ -17,6 +17,15 @@ slice. Out of scope: explain/analyze and explain/index_prune, red on the
 JAX package itself (their partial_bytes differ from what it prints under
 the tests' settings); the port prints what the reference prints on them.
 
+The seven distributed cases that the distributed frontend answers
+(`sqlness.DIST_IN_SCOPE`: distributed/{alter/alter, common/basic,
+common/groupby, common/window, cte/cte, show/show, subquery/subquery})
+run the same way on the runner's `DistEnv`: two datanodes on one shared
+object store under an in-process meta, a DistInstance on "cpu". Out of
+scope there: explain/* (red on the JAX package itself), system/* (the
+meta-backed views, ROADMAP Queue 1 h3b) and admin/migrate_region (h4).
+Without `--cases` the runner's command line runs both in-scope lists.
+
 The runner's statement splitter is held to the JAX package's on every
 case file.
 """
@@ -39,6 +48,29 @@ WAITING = sqlness.WAITING
 def test_golden_matches(case):
     err = sqlness.run_one(sqlness.CASES_DIR / f"{case}.sql", device="cpu")
     assert err is None, f"\n{err}"
+
+
+@pytest.mark.parametrize("case", list(sqlness.DIST_IN_SCOPE))
+def test_distributed_golden_matches(case):
+    err = sqlness.run_one(sqlness.DIST_CASES_DIR / f"{case}.sql",
+                          device="cpu")
+    assert err is None, f"\n{err}"
+
+
+def test_distributed_in_scope_cases_exist():
+    names = {str(p.relative_to(sqlness.DIST_CASES_DIR))[:-4]
+             for p in sqlness.case_files([], sqlness.DIST_CASES_DIR)}
+    assert set(sqlness.DIST_IN_SCOPE) <= names
+    assert len(sqlness.DIST_IN_SCOPE) == 7
+    assert names - set(sqlness.DIST_IN_SCOPE) == {
+        "admin/migrate_region", "explain/dist_analyze",
+        "explain/dist_partial_agg", "explain/dist_scan",
+        "system/cluster_info", "system/region_peers"}
+    default = sqlness.in_scope_files([])
+    assert len(default) == len(IN_SCOPE) + 7
+    assert [str(f) for f in sqlness.in_scope_files(["distributed/"])] == [
+        str(sqlness.DIST_CASES_DIR / f"{c}.sql")
+        for c in sqlness.DIST_IN_SCOPE]
 
 
 def _without_profiler_block(text: str) -> str:
