@@ -7,8 +7,8 @@ Phases (none of them catches a failure; any failed check exits non-zero).
 With no `--phases` every phase runs; `--phases 12` (a comma-separated
 list) runs the phases named and those they stand on (phases 1 and 2
 always; 12 and 13 need 5, 6 and 7, and 12 runs 12b only with 9; 14 and
-15 need none; 16 needs 15, 17 needs 16), and names them in its last two
-lines:
+15 need none; 16 needs 15, 17 needs 16, 18 needs 17), and names them
+in its last two lines:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions,
    and whether pandas, pyarrow, prometheus_client, aiohttp (phase 11's
@@ -99,8 +99,8 @@ lines:
    (streamed) and cpu_p (4 regions folded), each against numpy (distinct
    counts within 3 HyperLogLog standard errors, percentiles at their rank
    within 1 %); count(DISTINCT hostname) by region, exact (the raw-row
-   path); SET exact_distinct refused (it waits for the count(DISTINCT)
-   sketch partial); avg(usage_user + usage_system) and sum(usage_user * 2) by
+   path); SET exact_distinct accepted, the standalone plan unchanged (it
+   steers the distributed sketch partial, phase 18); avg(usage_user + usage_system) and sum(usage_user * 2) by
    host on cpu and cpu_24h within 8 eps64 sum|x| of exact sums; rank() over
    avg by host (the CPU fallback, as in the reference), exact ranks; SHOW
    TABLES, DESCRIBE TABLE, SHOW CREATE TABLE and information_schema.columns
@@ -123,8 +123,10 @@ lines:
    unit in the 6th significant digit and inside its float64 bound; the
    lowered shapes (range == step == 60 s: sum of rate, with the host-only
    reset_corr moment; avg of avg_over_time and max of max_over_time, one
-   segment_moments launch each; avg of the instant selector), cold and
-   warm, within rtol 2e-5 of a float64 brute force, and again on the row
+   segment_moments launch each; avg of the instant selector), cold (the
+   rate shape warm too), within rtol 2e-5 of a float64 brute force, the
+   lowered frame's series keys against the reference's rendering over its
+   first 576 400 rows, and again on the row
    path (the dispatch floor above the table's rows: rate at 24 h within
    the row path's float32 bound, the gauge queries over 1 h within rtol
    2e-5, the instant one at 24 h); a select through the streamed cold read
@@ -367,16 +369,50 @@ lines:
    adoption: the frontend's next Q1 (its route still names the dead
    node) answers within the bounds through a stale-route retry (its log
    says so), timed from the SIGKILL; EXPLAIN ANALYZE Q1 then scatters to
-   node 1 alone. 16f's SIGTERM ends the frontend too. 17e: the seven
+   node 1 alone. 16f's SIGTERM ends the frontend too. 17e: the ten
    distributed sqlness goldens through tools/sqlness.py's DistEnv (two
    datanodes and a DistInstance in this process) on the card, byte-equal
-   to their .result files.
+   to their .result files (admin/migrate_region and
+   system/{cluster_info,region_peers} among them).
+18. the rest of the distributed plane over phase 16's processes, after
+   16e (datanode 2 dead, its regions on node 1; two metasrv alive):
+   an in-process DistInstance(meta, PeerClientRegistry, device="cuda"),
+   so K1's launches on the frontend's device count here (0 before, read
+   after its statements), and one request of each kind through the
+   `frontend start` child. 18a: PromQL over the cluster's 4.32 M rows:
+   rate(cpu{__field__='usage_user', hostname=~'host_1.*'}[5m]) over the
+   span on the row path (the wire RawScan's rows and time, the run-wise
+   labelling's time against the reference's row-wise loop on one
+   region's batches, with the same labels and matrix), each K1 launch
+   against its plain version, K1 timed at this shape; the same through
+   the child's /api/v1/query_range; sum by (region) (rate(...[5m])) at
+   5 m and an instant avg through the aggregate pushdown, TQL ANALYZE's
+   node blocks with the datanodes' segment_moments launches; every
+   answer against the same TQL on an in-process standalone instance over
+   the same rows (the row path bit-equal, the lowered ones within rtol
+   2e-5). 18b: count(DISTINCT hostname) exact (TpuAggregateExec; the
+   child's too) and count(DISTINCT usage_user) (past the 4096-value set)
+   within four HLL standard errors of SET exact_distinct = 1's answer,
+   which equals numpy's. 18c: `datanode start --node-id 3` (spawned at
+   18a's start), SET balancer_enabled = 0, ADMIN MIGRATE REGION onto it
+   through the child (while 18b runs) and ADMIN SPLIT REGION at a
+   region's median host (while 18e runs and a small table's region gets
+   a replica by ADD REPLICA and loses it by REMOVE REPLICA), each timed
+   to region_peers showing it done, Q1 bit-equal before and after each.
+   18e: at trace ratio 1, ADMIN SHOW TRACE 'last' of a scattered Q1
+   lists spans of dn1 and dn3; cluster_info from meta (the child's too).
+   18d: ADMIN ADD REPLICA of dn3's region onto dn1; acknowledged
+   INSERTs; with SET read_replica = 'follower' reads land on the
+   caught-up follower (EXPLAIN ANALYZE's node blocks, with its launch)
+   with the same count (the child's too); SIGKILL of dn3 under
+   acknowledged ingest: the times until the route names the promoted
+   follower and until every acknowledged row reads back exactly once.
 
 Before the last line come two JSON objects: the numbers of the bucket
 entry, which the main paths do not launch, then the kernel table of the
 main paths (PromQL's window bounds, SQL's, the flow folds', the HTTP
-front door's, the wires', phase 13's, 14's, 15's, 16's and 17's
-segment moments),
+front door's, the wires', phase 13's, 14's, 15's, 16's, 17's and 18's
+segment moments, phase 18's window bounds on the distributed frontend),
 each with its
 launches by phase; the last line is {"ok": true, "device": {...}}. A run
 of chosen phases lists only the kernels it launched, and both lines
@@ -2748,7 +2784,7 @@ def phase_surface(sql, cpu, cpu_24h, cpu_p):
     aggregates over the first hour by region on cpu (resident host
     partials), cpu_24h (streamed) and cpu_p (4 regions folded);
     count(DISTINCT hostname) (the exact raw-row path); SET exact_distinct
-    refused; the expression aggregates by host on cpu and cpu_24h;
+    accepted, the plan unchanged; the expression aggregates by host on cpu and cpu_24h;
     a window over an aggregate; SHOW / DESCRIBE / SHOW CREATE TABLE /
     information_schema.columns against the TSBS DDL; the standalone
     sqlness goldens on the card. `cpu`, `cpu_24h` and `cpu_p` carry each
@@ -2824,18 +2860,21 @@ def phase_surface(sql, cpu, cpu_24h, cpu_p):
         log(f"  check count(DISTINCT hostname) on {table}: exact per "
             f"region (the raw-row path, as in the reference)")
     # SET exact_distinct acts only on the distributed pushdown's
-    # count(DISTINCT) sketch partial, which the port does not have: it is
-    # refused, and the sketches stand
-    from greptimedb_tpu_torch.errors import UnsupportedError
-    try:
-        sql.do("SET exact_distinct = 1")
-    except UnsupportedError as e:
-        check("sketch partial" in str(e) and "h3b" in str(e),
-              f"SET exact_distinct: {e}")
-    else:
-        check(False, "SET exact_distinct = 1 was accepted")
-    log("  check SET exact_distinct = 1: refused (UnsupportedError: it "
-        "waits for the count(DISTINCT) sketch partial)")
+    # count(DISTINCT) sketch partial (phase 18 drives it): a standalone
+    # table keeps the exact raw-row plan either way, as in the reference
+    from greptimedb_tpu_torch.query import sketches as sk
+    text = DISTINCT.format(t="cpu", lo=int(cpu.ts[0]),
+                           hi=int(cpu.ts[0]) + SKETCH_SPAN_MS)
+    plans = []
+    for v in (1, 0):
+        sql.do(f"SET exact_distinct = {v}")
+        check(sk.exact_distinct_forced() == bool(v),
+              f"SET exact_distinct = {v} did not reach the sketch knob")
+        plans.append(sql_frame(sql.do("EXPLAIN " + text))["plan"][0])
+    check(all(p.startswith("CpuAggregateExec") for p in plans),
+          f"count(DISTINCT) on the standalone cpu: plans {plans}")
+    log("  check SET exact_distinct = 1 / 0: accepted; count(DISTINCT) on "
+        "the standalone table plans CpuAggregateExec either way")
 
     # expression aggregates by host
     for table, t, path in (("cpu", cpu, "resident"),
@@ -3552,16 +3591,23 @@ class PromFrontend:
         return res
 
 
+#: the lowered frame's leading rows series_keys_check renders the
+#: reference's way (about 7 us a row in Python: the whole 5.76 M-row frame
+#: took 41 s of the script's time limit)
+SERIES_KEYS_CHECK_ROWS = 576_400
+
+
 def series_keys_check(frame):
     """The lowered frame's series keys (eval_lowered's first step on the
     host), rendered as greptimedb_tpu/promql/lowering.py's eval_lowered
     renders them (every row's key values, then the distinct tuples
     sorted) and by the port's _series_keys (each column factorised, each
-    distinct value rendered once): the same keys and row indices, each
-    timed."""
+    distinct value rendered once), over the frame's first
+    SERIES_KEYS_CHECK_ROWS rows: the same keys and row indices, each
+    timed (eval_lowered runs _series_keys over the whole frame)."""
     from greptimedb_tpu_torch.promql import lowering
     from greptimedb_tpu_torch.query.planner import _group_slot
-    df = frame[frame["__n"].to_numpy() > 0]
+    df = frame[frame["__n"].to_numpy() > 0].iloc[:SERIES_KEYS_CHECK_ROWS]
     cols = [_group_slot(t) for t in PROM_TAGS]
     t0 = time.perf_counter()
     rendered = [[lowering._key_str(v) for v in df[c]] for c in cols]
@@ -3915,7 +3961,9 @@ def phase_promql_tables(torch, p4):
         for q, (key, nm) in LOWERED_QUERIES.items():
             instant = "[" not in q
             keys, want, wok = lowered_brute(q, ts, labels, metrics, steps)
-            for run in ("cold", "warm"):
+            # rate's shape runs warm again at 24 h; the launching shapes
+            # read warm over 1 h below (the script's time limit)
+            for run in ("cold", "warm") if nm == 0 else ("cold",):
                 pf.do(f"SET tpu_dispatch_min_rows = {pf.floor}")
                 res = pf.query(q, q, run, start, end, lowered=True,
                                moments=nm)
@@ -3927,7 +3975,7 @@ def phase_promql_tables(torch, p4):
                         LOWERED_RTOL * np.abs(want) + 1e-12)
             lowered_answers[q] = res
             if nm:
-                # the warm launch's inputs, for the kernel's check and
+                # the 24 h launch's inputs, for the kernel's check and
                 # times at this shape after the phase
                 moment_inputs[q] = pf.moments.calls[-1]
             if q == TQL_QUERY:
@@ -7044,7 +7092,7 @@ def fe_table(http, db, my, registry, meta, ts, tags, fields, rule,
     return walls
 
 
-def phase_procs(torch, seed, frontend=True):
+def phase_procs(torch, seed, frontend=True, elastic=False):
     """Phase 16: the cluster's control plane as processes. Three `metasrv
     start --peers` children (a raft-replicated KV over Flight) and two
     `datanode start` children on the card, on one data home; TSBS
@@ -7056,9 +7104,10 @@ def phase_procs(torch, seed, frontend=True):
     spawned with the datanodes (17a), its answers over phase 16's table
     (17b, between 16c and 16d), a second table through it (17c), its
     stale-route retry after 16d's kill (17d), its SIGTERM in 16f, then
-    the distributed goldens in this process on the card. Returns the
-    launches the datanodes' ExecStats report (phase 16's and phase 17's)
-    and the walls."""
+    the distributed goldens in this process on the card. With `elastic`
+    (which needs `frontend`), phase 18 runs between 16e and 16f. Returns
+    the launches the datanodes' ExecStats report (phases 16, 17 and 18),
+    phase 18's K1 launches and K1 row, and the walls."""
     import shutil
     import tempfile
     from greptimedb_tpu_torch.client.flight import Database
@@ -7084,6 +7133,7 @@ def phase_procs(torch, seed, frontend=True):
     metas, dns = [], {}
     meta = registry = fe = db = my = None
     launches = fe_launches = 0
+    p18 = None
     # one launch a region a call on the card; none on the CPU, where the
     # wrapper takes the plain version
     per_region = 1 if DEVICE == "cuda" else 0
@@ -7391,6 +7441,13 @@ def phase_procs(torch, seed, frontend=True):
             f"{rows.get(2, {}).get('lease_state')})")
         done("16e")
 
+        if elastic:
+            p18 = phase_elastic(torch, types.SimpleNamespace(
+                home=home, peers=peers, meta=meta, registry=registry,
+                dns=dns, http=http, children=children, ts=ts, tags=tags,
+                fields=fields, queries=queries, wants=wants, rule=rule,
+                numbers=numbers))
+
         step("16f")
         held = {c.label: sorted(opens_card(c.proc.pid))
                 for c in metas if c.running()}
@@ -7435,6 +7492,775 @@ def phase_procs(torch, seed, frontend=True):
             f"{k} {v:.1f}s" for k, v in steps.items()) +
         f"; {walls['phase']:.1f}s")
     return types.SimpleNamespace(moments=launches, moments17=fe_launches,
+                                 p18=p18, walls=walls)
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the cluster's elastic and read paths
+# ---------------------------------------------------------------------------
+
+#: 18a's PromQL over the cluster's `cpu`, the field named by `__field__`
+#: (GreptimeDB's Prometheus view of a multi-field table): the row path (a
+#: regex matcher: the wire scan carries every row of the span and the
+#: frontend filters), a lowered range query (range == step) and a lowered
+#: instant aggregate
+ELASTIC_ROW = "rate(cpu{__field__='usage_user', hostname=~'host_1.*'}[5m])"
+ELASTIC_RANGE = "sum by (region) (rate(cpu{__field__='usage_user'}[5m]))"
+ELASTIC_INSTANT = "avg(cpu{__field__='usage_user'})"
+ELASTIC_STEP_S = 60
+#: the distinct-count sketch's stated error past its exact set: four HLL
+#: standard errors (1.04 / sqrt(2^14)) at the default precision
+HLL_REL_BOUND = 4 * 1.04 / 2 ** 7
+#: 18d: rows per acknowledged INSERT while the leader is killed, and the
+#: acknowledged INSERTs before the kill
+INGEST_ROWS = 20
+INGEST_BEFORE_KILL = 5
+#: 18d's bounded staleness for follower reads
+REPLICA_LAG_MS = 10_000
+
+
+def tql_series(frame):
+    """{label tuple: (ts ms int64 [n], value float64 [n])} of a TQL EVAL
+    answer; the label tuple is its non-empty label columns, sorted."""
+    import pandas as pd
+    labels = [c for c in frame.columns if c not in ("ts", "value")]
+    ts = frame["ts"]
+    ts = (ts.astype("int64") // 1_000_000) \
+        if str(ts.dtype).startswith("datetime") else ts.astype("int64")
+    frame = frame.assign(ts=ts.to_numpy())
+    groups = frame.groupby(labels, sort=False, dropna=False) if labels \
+        else [((), frame)]
+    out = {}
+    for k, g in groups:
+        k = k if isinstance(k, tuple) else (k,)
+        key = tuple(sorted((c, str(v)) for c, v in zip(labels, k)
+                           if not pd.isna(v) and str(v) != ""))
+        g = g.sort_values("ts", kind="stable")
+        out[key] = (g["ts"].to_numpy(np.int64),
+                    g["value"].to_numpy(dtype=float))
+    return out
+
+
+def same_series(name, got, want, rtol, atol=0.0, exact=False):
+    """Two tql_series answers: the same series and timestamps, values
+    bit-equal (`exact`) or within rtol / atol."""
+    check(sorted(got) == sorted(want), f"{name}: {len(got)} series against "
+          f"{len(want)}; e.g. {sorted(set(got) ^ set(want))[:2]}")
+    worst = 0.0
+    for k, (tw, vw) in want.items():
+        tg, vg = got[k]
+        check(np.array_equal(tg, tw), f"{name} {k}: timestamps differ")
+        if exact:
+            check(np.array_equal(vg, vw, equal_nan=True),
+                  f"{name} {k}: values differ bitwise")
+            continue
+        b = rtol * np.abs(vw) + atol
+        d = np.abs(vg - vw)
+        check(bool(((d <= b) | (np.isnan(vg) & np.isnan(vw))).all()),
+              f"{name} {k}: outside rtol {rtol} (max |err| "
+              f"{np.nanmax(d):.3g})")
+        worst = max(worst, float(np.nanmax(d / np.maximum(b, 1e-300))))
+    return worst
+
+
+def prom_json_series(result):
+    """tql_series of a /api/v1/query_range matrix."""
+    out = {}
+    for r in result:
+        k = tuple(sorted((a, b) for a, b in r["metric"].items()
+                         if a != "__name__" and b != ""))
+        ts = np.asarray([int(round(float(t) * 1000)) for t, _ in r["values"]],
+                        dtype=np.int64)
+        out[k] = (ts, np.asarray([float(v) for _, v in r["values"]]))
+    return out
+
+
+def analyze_launches(text):
+    """segment_moments launches in the node blocks of a TQL ANALYZE (or
+    EXPLAIN ANALYZE) text: {node label: launches}."""
+    by_node = {}
+    for line in text.splitlines():
+        head = line.strip()
+        if not re.match(r"dn\d+:", head):
+            continue
+        m = re.search(r"launches=([^;\s]*)", head)
+        n = 0
+        for part in (m.group(1).split(",") if m else ()):
+            kernel, _, count = part.partition(":")
+            if kernel.strip() == "segment_moments":
+                n += int(count)
+        by_node[head.split(":")[0]] = by_node.get(head.split(":")[0], 0) + n
+    return by_node
+
+
+def labelling_rowwise(batches, matchers, metric, tag_names, ts_name,
+                      fields, multi_field, lo_ms, hi_ms):
+    """The JAX package's row-path labelling of a wire scan
+    (greptimedb_tpu/promql/lowering.py `_wire_scan_selection`, after its
+    scan): a Python loop over every row and field. Kept here to time the
+    port's run-wise `_label_wire_batches` against it on the card's
+    batches; returns (labels, gids, ts, values) before the matrix."""
+    from greptimedb_tpu_torch.promql.engine import (
+        _is_sorted, _label_str, _matcher_keep, _matches_empty)
+    tagset = set(tag_names)
+    key_to_gid, glabels, gid_parts, ts_parts, val_parts = {}, [], [], [], []
+    for rb in batches:
+        if rb.num_rows == 0:
+            continue
+        data = rb.to_pydict()
+        n = rb.num_rows
+        tag_strs = [[_label_str(v) for v in data[t]] for t in tag_names]
+        keep = np.ones(n, dtype=bool)
+        for m in matchers:
+            if m.name in ("__name__", "__field__"):
+                continue
+            if m.name not in tagset:
+                if not _matches_empty(m):
+                    keep[:] = False
+                continue
+            keep &= _matcher_keep(tag_strs[tag_names.index(m.name)], m)
+        ts = np.asarray(data[ts_name], dtype=np.int64)
+        keep &= (ts >= lo_ms) & (ts <= hi_ms)
+        if not keep.any():
+            continue
+        rows = np.nonzero(keep)[0]
+        for fname in fields:
+            fcol = data[fname]
+            for i in rows:
+                fv = fcol[i]
+                if fv is None:
+                    continue
+                lbl_key = tuple(col[i] for col in tag_strs)
+                gkey = lbl_key + ((fname,) if multi_field else ())
+                gid = key_to_gid.get(gkey)
+                if gid is None:
+                    gid = len(glabels)
+                    key_to_gid[gkey] = gid
+                    lbl = {"__name__": metric}
+                    for tn, tv in zip(tag_names, lbl_key):
+                        if tv != "":
+                            lbl[tn] = tv
+                    if multi_field:
+                        lbl["__field__"] = fname
+                    glabels.append(lbl)
+                gid_parts.append(gid)
+                ts_parts.append(ts[i])
+                val_parts.append(float(fv))
+    gids = np.asarray(gid_parts, dtype=np.int32)
+    tsa = np.asarray(ts_parts, dtype=np.int64)
+    vals = np.asarray(val_parts, dtype=np.float64)
+    if not _is_sorted(gids, tsa):
+        order = np.lexsort((tsa, gids))
+        gids, tsa, vals = gids[order], tsa[order], vals[order]
+    return glabels, gids, tsa, vals
+
+
+def phase_elastic(torch, c):
+    """Phase 18 over phase 16's processes (after 16e: datanode 2 dead, its
+    regions adopted by node 1; two metasrv of three alive), driven through
+    an in-process DistInstance(meta, PeerClientRegistry, device=DEVICE)
+    so the script counts K1's launches on the frontend's device, with one
+    request of each kind through the `frontend start` child. 18a PromQL
+    over the cluster's 4.32 M rows (the row path by the wire scan into K1,
+    held to K1's plain version on its inputs; the lowered range and
+    instant shapes through the pushdown; TQL ANALYZE's node blocks), each
+    answer held to the same TQL on an in-process standalone instance over
+    the same rows; 18b count(DISTINCT) (exact under the sketch's set
+    bound, within its stated error past it against SET exact_distinct =
+    1); 18c a third datanode process, ADMIN MIGRATE REGION onto it and
+    ADMIN SPLIT REGION, Q1 equal before and after each; 18e a scattered
+    Q1's trace with spans from both datanode processes, and cluster_info
+    from meta; 18d ADMIN ADD / REMOVE REPLICA, a follower read, and the
+    SIGKILL of a region's leader under acknowledged ingest, its follower
+    promoted with every acknowledged row read back exactly once. Returns
+    K1's launches, K1's row at this phase's shape, the datanodes'
+    segment_moments launches (from node blocks) and the walls."""
+    import shutil
+    import tempfile
+    import threading
+
+    from greptimedb_tpu_torch.common import profiler, trace_store
+    from greptimedb_tpu_torch.datanode import DatanodeOptions
+    from greptimedb_tpu_torch.frontend import build_standalone
+    from greptimedb_tpu_torch.frontend import distributed as dist
+    from greptimedb_tpu_torch.ops import pallas_window as pw
+    from greptimedb_tpu_torch.ops import window as win
+    from greptimedb_tpu_torch.promql import lowering
+    from greptimedb_tpu_torch.promql.parser import parse_promql
+    from greptimedb_tpu_torch.query import ir, sketches
+    from greptimedb_tpu_torch.sql.ast import BinaryOp, Column, Literal
+    log("== phase 18: the cluster's elastic and read paths (PromQL over "
+        "DistTables, count(DISTINCT), migrate, split, read replicas)")
+    t_phase = time.perf_counter()
+    cat, sch, tname = CLUSTER_TABLE
+    full = ".".join(CLUSTER_TABLE)
+    walls, steps = {}, {}
+    moments = 0
+    dfe = sa = None
+    sa_home = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    grid = win.counts_leq_grid
+    k1_calls = []
+    saved = (trace_store.sample_ratio(), list(dist._READ_REPLICA),
+             list(dist._REPLICA_MAX_LAG_MS), sketches.exact_distinct_forced())
+
+    def recorded(*args):
+        k1_calls.append(args)
+        return grid(*args)
+
+    def step(name):
+        steps[name] = time.perf_counter()
+        log(f"-- {name}")
+
+    def done(name):
+        steps[name] = time.perf_counter() - steps[name]
+        log(f"  ({name}: {steps[name]:.1f}s)")
+
+    def frame(stmt, fe=None):
+        return sql_frame((fe or dfe).do_query(stmt)[-1])
+
+    def peers(table=full, view=False):
+        """The table's region_peers rows: meta's (what the view serves; the
+        polls read them, so no statement of this frontend runs beside
+        18e's trace), or through information_schema with `view`."""
+        import pandas as pd
+        rows = frame("SELECT table_name, region_number, peer_id, is_leader, "
+                     "status, replicated_seq, lag_ms, operation FROM "
+                     "information_schema.region_peers") if view else \
+            pd.DataFrame(c.meta.region_peers())
+        return rows[rows["table_name"] == table]
+
+    def watch(cond):
+        """Poll cond() on a thread from now on (statements run beside it);
+        (the thread, {"s": seconds until cond() held})."""
+        t0, out = time.perf_counter(), {}
+
+        def run():
+            while time.perf_counter() - t0 < CHILD_TIMEOUT_S:
+                try:
+                    if cond():
+                        out["s"] = time.perf_counter() - t0
+                        return
+                except Exception:  # noqa: BLE001 — not there yet
+                    pass
+                time.sleep(0.05)
+        th = threading.Thread(target=run, daemon=True)
+        th.start()
+        return th, out
+
+    def waited(what, watching):
+        th, out = watching
+        th.join(CHILD_TIMEOUT_S + 5)
+        check("s" in out, f"{what}: not within {CHILD_TIMEOUT_S} s")
+        return out["s"]
+
+    def settled(region, node, leader=True, table=full, view=False):
+        rows = peers(table, view)
+        r = rows[(rows["region_number"] == region) &
+                 (rows["peer_id"] == node) &
+                 (rows["is_leader"] == ("Yes" if leader else "No"))]
+        busy = rows["operation"].notna().any()
+        return len(r) == 1 and not busy
+
+    s0, s1 = int(c.ts[0]) // 1000, int(c.ts[-1]) // 1000
+
+    def tql(q, a=s0, b=s1, st=f"{ELASTIC_STEP_S}s", verb="EVAL"):
+        return f"TQL {verb} ({a}, {b}, '{st}') {q}"
+
+    k1 = 0
+    k1_row = None
+    try:
+        step("18a")
+        # the third datanode boots while 18a and 18b run
+        port3 = free_ports(1)[0]
+        t_spawn3 = time.perf_counter()
+        c.dns[3] = Child("datanode3", [
+            "datanode", "start", "--node-id", "3", "--rpc-addr",
+            f"127.0.0.1:{port3}", "--metasrv-addr", c.peers,
+            "--data-home", os.path.join(c.home, "data"),
+            "--heartbeat-interval", str(PROCS_HEARTBEAT_S)], c.home)
+        t0 = time.perf_counter()
+        dfe = dist.DistInstance(c.meta, c.registry, device=DEVICE)
+        walls["frontend"] = time.perf_counter() - t0
+        # placement below is the statements' alone: no auto split or
+        # rebalance onto the empty node
+        dfe.do_query("SET balancer_enabled = 0")
+        # the row path's wire scan and labelling, timed where they run
+        scan = {"rows": 0, "scan_s": 0.0, "label_s": 0.0}
+        raw_scan, label = ir.execute_raw_scan, lowering._label_wire_batches
+
+        def timed_scan(*args, **kw):
+            t = time.perf_counter()
+            out = raw_scan(*args, **kw)
+            scan["scan_s"] += time.perf_counter() - t
+            scan["rows"] += sum(b.num_rows for b in out)
+            return out
+
+        def timed_label(*args, **kw):
+            t = time.perf_counter()
+            out = label(*args, **kw)
+            scan["label_s"] += time.perf_counter() - t
+            return out
+
+        win.counts_leq_grid = recorded
+        ir.execute_raw_scan = timed_scan
+        lowering._label_wire_batches = timed_label
+        pw.counts_leq_grid.launches = 0
+        try:
+            t0 = time.perf_counter()
+            row = tql_series(frame(tql(ELASTIC_ROW)))
+            walls["row"] = time.perf_counter() - t0
+            ir.execute_raw_scan = raw_scan
+            lowering._label_wire_batches = label
+            k1 = pw.counts_leq_grid.launches
+            lowered, low_walls = {}, {}
+            for q, a, st in ((ELASTIC_RANGE, s0, "5m"),
+                             (ELASTIC_INSTANT, s1, f"{ELASTIC_STEP_S}s")):
+                t0 = time.perf_counter()
+                lowered[q] = tql_series(frame(tql(q, a, s1, st)))
+                low_walls[q] = time.perf_counter() - t0
+            text = "\n".join(frame(tql(ELASTIC_INSTANT, s1, s1, "60s",
+                                       verb="ANALYZE"))["plan"])
+            by_node = analyze_launches(text)
+            k1 = pw.counts_leq_grid.launches
+        finally:
+            win.counts_leq_grid = grid
+            ir.execute_raw_scan = raw_scan
+            lowering._label_wire_batches = label
+        n_an = sum(by_node.values())
+        moments += n_an
+        check(k1 > 0 or DEVICE != "cuda", f"18a: K1 launched {k1} times on "
+              f"the frontend's device for the row path")
+        check("aggregate-pushdown" in text and (n_an > 0 or DEVICE != "cuda")
+              and len(by_node) >= 1, f"18a: TQL ANALYZE {by_node}: {text}")
+        check(len(row) > 0 and scan.get("rows", 0) > 0,
+              f"18a: the row path answered {len(row)} series from "
+              f"{scan.get('rows')} scanned rows")
+        # K1's launches on this path against the plain version
+        for i, args in enumerate(k1_calls):
+            ts2d, t_0, stp, T = args
+            want = pw.counts_leq_plain(pw.step_buckets(ts2d, t_0, stp, T), T)
+            same(torch, f"18a K1 launch {i} ({tuple(ts2d.shape)}, T={T})",
+                 grid(ts2d, t_0, stp, T), want)
+        pw.counts_leq_grid.launches = k1       # the checks are off the path
+        if k1_calls:
+            log("== K1 at phase 18's row-path shape")
+            k1_row = k1_row_at(torch, k1_calls[-1], "phase 18's")
+            pw.counts_leq_grid.launches = k1
+        log(f"  {ELASTIC_ROW} over {s1 - s0} s at {ELASTIC_STEP_S} s: "
+            f"{len(row)} series, {walls['row']:.2f}s; the wire scan "
+            f"{scan['rows']} rows in {scan['scan_s']:.2f}s, the labelling "
+            f"{scan['label_s']:.3f}s; K1 {k1} launches on the frontend's "
+            f"device, each == plain")
+        log(f"  lowered: {ELASTIC_RANGE} {low_walls[ELASTIC_RANGE]:.2f}s, "
+            f"{ELASTIC_INSTANT} (instant) {low_walls[ELASTIC_INSTANT]:.2f}s; "
+            f"TQL ANALYZE's node blocks: segment_moments {by_node}")
+        # the reference's row-wise labelling against the port's run-wise
+        # one on the same batches (one region's: the row loop takes
+        # seconds a million rows)
+        table = dfe.catalog.table(cat, sch, tname)
+        tag_names = table.schema.tag_names()
+        lo_ms, hi_ms = int(c.ts[0]) - 300_000, int(c.ts[-1])
+        rscan = ir.RawScan(
+            projection=list(tag_names) + ["ts", "usage_user"],
+            time_range=(lo_ms, hi_ms + 1),
+            filters=[BinaryOp("=", Column("region"), Literal(c.tags[0][1]))])
+        batches = ir.execute_raw_scan(table, rscan)
+        (sel,) = parse_promql(ELASTIC_ROW).args
+        t0 = time.perf_counter()
+        port = lowering._label_wire_batches(
+            batches, sel, "cpu", tag_names, "ts", ["usage_user"], False,
+            lo_ms, hi_ms)
+        port_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = labelling_rowwise(batches, sel.matchers, "cpu", tag_names,
+                                "ts", ["usage_user"], False, lo_ms, hi_ms)
+        ref_s = time.perf_counter() - t0
+        nrows = sum(b.num_rows for b in batches)
+        check(port.labels == ref[0], "18a: the labels differ from the "
+              "row-wise labelling's")
+        from greptimedb_tpu_torch.ops.window import SeriesMatrix
+        sm = SeriesMatrix.build(ref[1], ref[2], ref[3], len(ref[0]))
+        check(all(np.array_equal(getattr(port.matrix, a), getattr(sm, a))
+                  for a in ("ts", "values", "lengths")),
+              "18a: the SeriesMatrix differs from the row-wise labelling's")
+        log(f"  labelling of {nrows} scanned rows (region {c.tags[0][1]!r}, "
+            f"{len(port.labels)} series): run-wise {port_s * 1e3:.1f} ms, "
+            f"the reference's row-wise loop {ref_s * 1e3:.1f} ms; labels, "
+            f"series ids and matrix equal")
+        del batches
+        # the same row query through the frontend child's Prometheus API,
+        # in another process while this one loads the standalone below
+        child_doc = []
+        child_th = threading.Thread(target=lambda: child_doc.append(
+            c.http.json("/api/v1/query_range", params={
+                "query": ELASTIC_ROW, "start": s0, "end": s1,
+                "step": ELASTIC_STEP_S})), daemon=True)
+        child_th.start()
+        # the same TQL on an in-process standalone instance over the same
+        # rows
+        t0 = time.perf_counter()
+        sa = build_standalone(DatanodeOptions(data_home=sa_home,
+                                              device=DEVICE))
+        sa.do_query(sql_ddl(tname, {f: "DOUBLE" for f in CPU_FIELDS}))
+        sa.handle_bulk_load(tname, sql_columns(c.ts, c.tags, c.fields),
+                            tag_columns=list(TSBS_TAGS),
+                            timestamp_column="ts")
+        walls["standalone_load"] = time.perf_counter() - t0
+        k_sa = pw.counts_leq_grid.launches
+        sa_row = tql_series(frame(tql(ELASTIC_ROW), sa))
+        same_series("18a row path against the standalone", row, sa_row,
+                    0.0, exact=True)
+        worst = 0.0
+        for q, a, st in ((ELASTIC_RANGE, s0, "5m"),
+                         (ELASTIC_INSTANT, s1, f"{ELASTIC_STEP_S}s")):
+            want = tql_series(frame(tql(q, a, s1, st), sa))
+            worst = max(worst, same_series(
+                f"18a {q} against the standalone", lowered[q], want,
+                LOWERED_RTOL, 1e-12))
+        k_sa = pw.counts_leq_grid.launches - k_sa
+        pw.counts_leq_grid.launches = k1
+        child_th.join(HTTP_TIMEOUT_S)
+        check(len(child_doc) == 1, "18a: the child's /api/v1/query_range "
+              "did not answer")
+        doc, _, w = child_doc[0]
+        child = prom_json_series(doc["data"]["result"])
+        err = same_series("18a the child's /api/v1/query_range", child, row,
+                          QUANT, 1e-12)
+        log(f"  the frontend child's /api/v1/query_range: {len(child)} "
+            f"series in {w:.2f}s (beside the standalone's load), within "
+            f"the printed 6 digits (max |err|/bound {err:.3g})")
+        sa.shutdown()
+        sa = None
+        # the standalone installed its trace sink and profiler last: the
+        # rest of the phase observes the distributed frontend's
+        trace_store.install(dfe.trace_sink)
+        profiler.install(dfe.profiler)
+        log(f"  the standalone instance over the same {HOSTS} hosts x "
+            f"{CLUSTER_HOURS} h (loaded in {walls['standalone_load']:.1f}s): "
+            f"the row path bit-equal, the lowered shapes within rtol "
+            f"{LOWERED_RTOL} (max |err|/bound {worst:.3g}); its own K1 "
+            f"launches ({k_sa}) are off the count")
+        done("18a")
+
+        # datanode 3 is up by now (spawned at 18a's start): its region's
+        # migration runs while 18b's statements do
+        step("18c migrate")
+        _, _ = wait_for("datanode 3 registered", lambda: 3 in [
+            p.id for p in c.meta.advisory().list_datanodes()], c.children())
+        check(c.registry[3].ping() == 3, "datanode 3 does not answer")
+        walls["node3"] = time.perf_counter() - t_spawn3
+        q1 = c.queries["Q1 double-groupby-all"]
+        before = frame(q1)
+        compare_sql("phase 18 Q1", before, *c.wants["Q1 double-groupby-all"])
+        log(f"  `datanode start --node-id 3` answered ping "
+            f"{walls['node3']:.2f}s after its spawn; Q1 before: "
+            f"{len(before)} rows within bounds")
+        mig, spl = c.numbers[0], c.numbers[1]
+        doc, _, _ = c.http.sql(f"ADMIN MIGRATE REGION {tname} {mig} TO 3")
+        migrating = watch(lambda: settled(mig, 3))
+        op = records(doc["output"][0])
+        check(op["kind"] == ["migrate"], f"18c: ADMIN MIGRATE answered {op}")
+        done("18c migrate")
+
+        step("18b")
+        q = f"SELECT count(DISTINCT hostname) AS c FROM {tname}"
+        t0 = time.perf_counter()
+        got = frame(q)["c"].tolist()
+        walls["distinct_tag"] = time.perf_counter() - t0
+        plan = frame("EXPLAIN " + q)["plan"][0]
+        check(got == [HOSTS] and plan.startswith("TpuAggregateExec"),
+              f"18b: {q} answered {got} with plan {plan[:200]!r}")
+        doc, _, w_child = c.http.sql(q)
+        check(records(doc["output"][0])["c"] == [HOSTS],
+              f"18b: the frontend child answered {doc}")
+        qf = f"SELECT count(DISTINCT usage_user) AS c FROM {tname}"
+        t0 = time.perf_counter()
+        est = int(frame(qf)["c"].iloc[0])
+        walls["distinct_sketch"] = time.perf_counter() - t0
+        check(frame("EXPLAIN " + qf)["plan"][0].startswith(
+            "TpuAggregateExec"), "18b: the field's count(DISTINCT) did not "
+            "lower to the sketch partial")
+        dfe.do_query("SET exact_distinct = 1")
+        t0 = time.perf_counter()
+        exact = int(frame(qf)["c"].iloc[0])
+        walls["distinct_exact"] = time.perf_counter() - t0
+        plan_exact = frame("EXPLAIN " + qf)["plan"][0]
+        dfe.do_query("SET exact_distinct = 0")
+        truth = len(np.unique(c.fields["usage_user"]))
+        check(plan_exact.startswith("CpuAggregateExec") and exact == truth
+              and exact > sketches.EXACT_SET_LIMIT and
+              abs(est - exact) <= HLL_REL_BOUND * exact,
+              f"18b: count(DISTINCT usage_user) sketch {est}, exact {exact} "
+              f"({plan_exact[:60]!r}), numpy {truth}")
+        log(f"  count(DISTINCT hostname) = {HOSTS}, exact under the "
+            f"{sketches.EXACT_SET_LIMIT}-value set (TpuAggregateExec; "
+            f"{walls['distinct_tag'] * 1e3:.1f} ms; the child {w_child * 1e3:.1f}"
+            f" ms); count(DISTINCT usage_user): the sketch {est} in "
+            f"{walls['distinct_sketch']:.2f}s against SET exact_distinct = 1's "
+            f"{exact} (numpy's) in {walls['distinct_exact']:.2f}s: "
+            f"{abs(est - exact) / exact * 100:.3f} % off, the bound "
+            f"{HLL_REL_BOUND * 100:.2f} %")
+        done("18b")
+
+
+        step("18c split")
+        walls["migrate"] = waited(f"region {mig} on datanode 3", migrating)
+        check(settled(mig, 3, view=True), "18c: information_schema."
+              "region_peers does not show the migration")
+        check(frame(q1).equals(before), "18c: Q1 after the migration differs")
+        # split at the median host of the region's range (the probe's own
+        # round trip is the goldens' and the tests')
+        names = sorted(f"host_{h}" for h in range(HOSTS))
+        at = names[HOSTS // CLUSTER_REGIONS + HOSTS // CLUSTER_REGIONS // 2]
+        check(c.rule.find_region((at,)) == spl, f"18c: {at!r} is not in "
+              f"region {spl}")
+        out = frame(f"ADMIN SPLIT REGION {tname} {spl} AT '{at}'")
+        splitting = watch(lambda: spl not in set(peers()["region_number"])
+                          and settled(mig, 3))
+        check(out["kind"].tolist() == ["split"], f"18c: ADMIN SPLIT {out}")
+        log(f"  ADMIN MIGRATE REGION {tname} {mig} TO 3 (through the "
+            f"frontend child, beside 18b) to region_peers showing it on "
+            f"dn3: {walls['migrate']:.2f}s; Q1 bit-equal after it; ADMIN "
+            f"SPLIT REGION {tname} {spl} AT {at!r} issued (18e runs beside "
+            f"it)")
+        done("18c split")
+
+        step("18e")
+        dfe.do_query("SET trace_sample_ratio = 1")
+        frame(q1)
+        trace = frame("ADMIN SHOW TRACE 'last'")
+        dfe.do_query(f"SET trace_sample_ratio = {saved[0]}")
+        nodes = sorted(set(trace["node"]))
+        check({"dn1", "dn3"} <= set(nodes), f"18e: the trace's nodes {nodes}")
+        ci = frame("SELECT peer_id, peer_type, lease_state FROM "
+                   "information_schema.cluster_info ORDER BY peer_id")
+        kinds = dict(zip(ci["peer_id"], zip(ci["peer_type"],
+                                             ci["lease_state"])))
+        check(kinds.get(-1, ("", ""))[0] == "metasrv" and
+              kinds.get(1) == ("datanode", "alive") and
+              kinds.get(3) == ("datanode", "alive"),
+              f"18e: cluster_info {kinds}")
+        doc, _, _ = c.http.sql("SELECT peer_id, peer_type FROM "
+                               "information_schema.cluster_info ORDER BY "
+                               "peer_id")
+        check(records(doc["output"][0])["peer_id"] == list(ci["peer_id"]),
+              f"18e: the child's cluster_info {doc}")
+        log(f"  ADMIN SHOW TRACE 'last' of a scattered Q1: {len(trace)} "
+            f"spans on {nodes}; cluster_info from meta: {kinds} (the "
+            f"child's too); the ten distributed goldens run in 17e")
+        done("18e")
+
+
+        # beside the split (the balancer runs one operation a table): a
+        # small table's region gets a replica, which is removed again
+        step("18d replica add and remove")
+        rr, rr_full = "cpu_rr", f"{cat}.{sch}.cpu_rr"
+        dfe.do_query(sql_ddl(rr, {"usage_user": "DOUBLE"},
+                             " PARTITION BY RANGE COLUMNS (hostname) ("
+                             "PARTITION r0 VALUES LESS THAN ('host_5'), "
+                             "PARTITION r1 VALUES LESS THAN (MAXVALUE))"))
+        dfe.do_query(f"INSERT INTO {rr} ({', '.join(TSBS_TAGS)}, ts, "
+                     f"usage_user) VALUES " + ", ".join(
+                         "(" + ", ".join(f"'{v}'" for v in tg) +
+                         f", {int(c.ts[0])}, 1.0)" for tg in c.tags[:8]))
+        rr_lead = next(rt.leader.id for rt in c.meta.route(
+            rr_full).region_routes if rt.region_number == 0)
+        rr_to = 4 - rr_lead                  # the other of nodes 1 and 3
+        t0 = time.perf_counter()
+        frame(f"ADMIN ADD REPLICA {rr} 0 TO {rr_to}")
+        wait_for(f"{rr} region 0's follower on dn{rr_to}",
+                 lambda: settled(0, rr_to, leader=False, table=rr_full),
+                 c.children())
+        walls["rr_add_replica"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        frame(f"ADMIN REMOVE REPLICA {rr} 0 FROM {rr_to}")
+
+        def removed():
+            rows = peers(rr_full)
+            return not ((rows["region_number"] == 0) &
+                        (rows["peer_id"] == rr_to)).any() and settled(
+                0, rr_lead, table=rr_full)
+        wait_for(f"{rr} region 0's follower removed", removed, c.children())
+        walls["remove_replica"] = time.perf_counter() - t0
+        log(f"  ADMIN ADD REPLICA {rr} 0 TO {rr_to} to done "
+            f"{walls['rr_add_replica']:.2f}s; ADMIN REMOVE REPLICA {rr} 0 "
+            f"FROM {rr_to} to done {walls['remove_replica']:.2f}s")
+        done("18d replica add and remove")
+
+        step("18c split done")
+        walls["split"] = waited(f"region {spl} split", splitting)
+        split_q1 = frame(q1)
+        compare_sql("phase 18 Q1 after the split", split_q1,
+                    *c.wants["Q1 double-groupby-all"])
+        check(split_q1.equals(before), "18c: Q1 after the split differs")
+        regions = sorted(set(peers(view=True)["region_number"]))
+        log(f"  ADMIN SPLIT REGION {tname} {spl} AT {at!r} to done: "
+            f"{walls['split']:.2f}s; regions now {regions}; Q1 bit-equal")
+        done("18c split done")
+
+        step("18d")
+        # region `mig` (its leader dn3) gets a follower on dn1
+        t0 = time.perf_counter()
+        frame(f"ADMIN ADD REPLICA {tname} {mig} TO 1")
+        wait_for(f"region {mig}'s follower on dn1",
+                 lambda: settled(mig, 1, leader=False), c.children())
+        walls["add_replica"] = time.perf_counter() - t0
+        check(settled(mig, 1, leader=False, view=True), "18d: information_"
+              "schema.region_peers does not show the follower")
+        # the hosts of region `mig`, and rows after the loaded span
+        rule = c.rule
+        hosts = [tg for tg in c.tags if rule.find_region((tg[0],)) == mig]
+        next_ts = [int(c.ts[-1]) + INTERVAL_MS]
+        acked, failed, lock = [], [], threading.Lock()
+
+        def insert(fe, n):
+            # n rows of distinct keys: the region's hosts in turn, each row
+            # a millisecond after the last
+            with lock:
+                t = next_ts[0]
+                next_ts[0] += n
+            rows = [(hosts[i % len(hosts)], t + i) for i in range(n)]
+            vals = ", ".join(
+                "(" + ", ".join(f"'{v}'" for v in tg) + f", {ts}, {i}.5)"
+                for i, (tg, ts) in enumerate(rows))
+            keys = [(tg[0], ts) for tg, ts in rows]
+            try:
+                fe.do_query(f"INSERT INTO {tname} ({', '.join(TSBS_TAGS)}, "
+                            f"ts, usage_user) VALUES {vals}")
+            except Exception as e:  # noqa: BLE001 — a refused write
+                failed.extend(keys)
+                return e
+            acked.extend(keys)
+            return None
+
+        for _ in range(INGEST_BEFORE_KILL):
+            check(insert(dfe, INGEST_ROWS) is None, "18d: an INSERT failed")
+        # a read of region `mig` alone (its range on hostname, no point
+        # predicate: the resident path, one launch on the node serving it)
+        names = sorted(f"host_{h}" for h in range(HOSTS))
+        upper = names[HOSTS // CLUSTER_REGIONS]
+        check(all(tg[0] < upper for tg in hosts), "18d: region "
+              f"{mig}'s hosts do not all sort below {upper!r}")
+        want_n = len(acked)
+        qr = (f"SELECT count(*) AS n, avg(usage_user) AS a FROM {tname} "
+              f"WHERE hostname < '{upper}' AND ts > {int(c.ts[-1])}")
+        dfe.do_query("SET read_replica = 'follower'")
+        dfe.do_query(f"SET replica_max_lag_ms = {REPLICA_LAG_MS}")
+
+        def caught_up():
+            rows = peers(view=True)
+            r = rows[(rows["region_number"] == mig)]
+            lead = r[r["is_leader"] == "Yes"]["replicated_seq"].tolist()
+            fol = r[r["is_leader"] == "No"]
+            return len(fol) == 1 and fol["replicated_seq"].tolist() == \
+                lead and fol["lag_ms"].iloc[0] is not None and \
+                0 <= fol["lag_ms"].iloc[0] <= REPLICA_LAG_MS
+        wait_for("the follower caught up (region_peers)", caught_up,
+                 c.children())
+        served, follower_launches = {}, 0
+        for _ in range(6):
+            an = frame("EXPLAIN ANALYZE " + qr)
+            text = "\n".join(f"{st.strip()}: {d}"
+                             for st, d in zip(an["stage"], an["detail"]))
+            got = int(frame(qr)["n"].iloc[0])
+            check(got == want_n, f"18d: a replica read answered {got}, "
+                  f"want {want_n}")
+            for node, n in analyze_launches(text).items():
+                served[node] = served.get(node, 0) + 1
+                if node == "dn1":
+                    follower_launches += n
+            if "dn1" in served and "dn3" in served:
+                break
+        moments += follower_launches
+        check("dn1" in served and (follower_launches > 0 or
+                                   DEVICE != "cuda"),
+              f"18d: no read of region {mig} landed on its follower (with "
+              f"a launch): {served}, {follower_launches} launches")
+        doc, _, _ = c.http.sql("SET read_replica = 'follower'")
+        doc, _, _ = c.http.sql(qr)
+        check(records(doc["output"][0])["n"] == [want_n],
+              f"18d: the child's replica read {doc}")
+        c.http.sql("SET read_replica = 'leader'")
+        dfe.do_query("SET read_replica = 'leader'")
+        log(f"  ADMIN ADD REPLICA {tname} {mig} TO 1 to done "
+            f"{walls['add_replica']:.2f}s; "
+            f"SET read_replica = 'follower' (lag bound {REPLICA_LAG_MS} "
+            f"ms): reads of region {mig} served by {served} (the follower "
+            f"dn1's node blocks: {follower_launches} segment_moments "
+            f"launches), each counting {want_n} rows; the child's too")
+        # SIGKILL of the region's leader under acknowledged ingest
+        stop = threading.Event()
+        errors = []
+
+        def writer():
+            while not stop.is_set():
+                e = insert(dfe, INGEST_ROWS)
+                if e is not None:
+                    # a write re-routes only on a stale-route error, as in
+                    # the reference; a refused connection to the dead
+                    # leader fails the INSERT. The client reads, and the
+                    # read's stale-route retry refreshes the route
+                    errors.append(e)
+                    try:
+                        dfe.do_query(qr)
+                    except Exception as e2:  # noqa: BLE001 — still moving
+                        errors.append(e2)
+                    time.sleep(0.2)
+        th = threading.Thread(target=writer, daemon=True)
+        th.start()
+        time.sleep(0.5)
+        t_kill = time.perf_counter()
+        c.dns[3].kill()
+        wait_for(f"region {mig} promoted on dn1", lambda: next(
+            rt.leader.id for rt in c.meta.route(full).region_routes
+            if rt.region_number == mig) == 1, c.children())
+        walls["kill_to_route"] = time.perf_counter() - t_kill
+        n_at_route = len(acked)
+        wait_for("acknowledged writes after the promotion",
+                 lambda: len(acked) >= n_at_route + 3 * INGEST_ROWS,
+                 c.children())
+        stop.set()
+        th.join(60)
+        check(not th.is_alive(), "18d: the writer did not stop")
+        keys = frame(f"SELECT hostname, ts FROM {tname} WHERE hostname < "
+                     f"'{upper}' AND ts > {int(c.ts[-1])}")
+        got = list(zip(keys["hostname"], keys["ts"].astype("int64")
+                       if keys["ts"].dtype.kind == "i" else
+                       keys["ts"].astype("int64") // 1_000_000))
+        walls["kill_to_answer"] = time.perf_counter() - t_kill
+        check(len(got) == len(set(got)), "18d: duplicated rows")
+        missing = set(acked) - set(got)
+        extra = set(got) - set(acked) - set(failed)
+        check(not missing and not extra, f"18d: {len(missing)} acknowledged "
+              f"rows lost, {len(extra)} rows never written")
+        loaded = int(frame(f"SELECT count(*) AS n FROM {tname} WHERE ts <= "
+                           f"{int(c.ts[-1])}")["n"].iloc[0])
+        check(loaded == len(c.ts) * HOSTS, f"18d: {loaded} rows of the "
+              f"loaded span after the promotion, want {len(c.ts) * HOSTS}")
+        log(f"  SIGKILL of dn3 (region {mig}'s leader) under acknowledged "
+            f"ingest ({INGEST_ROWS} rows an INSERT): the route named the "
+            f"promoted dn1 after {walls['kill_to_route']:.2f}s; all "
+            f"{len(acked)} acknowledged rows read back exactly once after "
+            f"{walls['kill_to_answer']:.2f}s ({len(failed)} rows of "
+            f"refused INSERTs, {len(set(got) & set(failed))} of them "
+            f"landed); the loaded span's {loaded} rows all there")
+        done("18d")
+    finally:
+        win.counts_leq_grid = grid
+        trace_store.configure(sample_ratio=saved[0])
+        dist.configure_read_replica(mode=saved[1][0], max_lag_ms=saved[2][0])
+        sketches.configure(exact_distinct=saved[3])
+        if sa is not None:
+            sa.shutdown()
+        if dfe is not None:
+            dfe.shutdown()
+        shutil.rmtree(sa_home, ignore_errors=True)
+    walls["phase"] = time.perf_counter() - t_phase
+    log(f"phase 18: K1 {k1} launches on the frontend's device, "
+        f"segment_moments {moments} in the datanode processes' node "
+        f"blocks; " + ", ".join(f"{k} {v:.1f}s" for k, v in steps.items()) +
+        f"; {walls['phase']:.1f}s")
+    return types.SimpleNamespace(k1=k1, k1_row=k1_row, moments=moments,
                                  walls=walls)
 
 
@@ -7534,7 +8360,7 @@ def phase_moments_time(torch, inputs, tool=True):
 # ---------------------------------------------------------------------------
 
 #: the phases; `--phases` runs some of them with the phases they stand on
-PHASES = tuple(str(i) for i in range(1, 18))
+PHASES = tuple(str(i) for i in range(1, 19))
 #: what each phase needs run with it (phases 1 and 2 always run): 3 and 4
 #: are one call, as are 6 and 7; 5 launches segment_moments before the
 #: phases that fence its launches (a process's first launch loads the
@@ -7543,9 +8369,11 @@ PHASES = tuple(str(i) for i in range(1, 18))
 #: (12b only when 9 runs); 14 and 15 have data homes of their own and
 #: need none; 16 launches in its datanode processes, so phase 15 times the
 #: kernel at the region shape they launch at; 17 rides phase 16's cluster
+#: and 18 phase 17's frontend child
 NEEDS = {"3": ("4",), "4": ("3",), "6": ("5", "7"), "7": ("6",),
          "8": ("6",), "9": ("4", "5"), "10": ("6",), "11": ("9",),
-         "12": ("6",), "13": ("6",), "16": ("15",), "17": ("16",)}
+         "12": ("6",), "13": ("6",), "16": ("15",), "17": ("16",),
+         "18": ("17",)}
 
 
 def resolve_phases(arg: str) -> set:
@@ -7590,7 +8418,7 @@ def main() -> int:
     phase_kernel_build()
     # each main-path kernel's launches by the phase that made them
     k1_by, moments_by, shapes, walls = {}, {}, {}, {}
-    kern = p4 = k1_row = None
+    kern = p4 = k1_row = k1_row18 = None
     if "4" in phases:
         log("== phase 3 + 4: kernel checks, then PromQL on TSBS cpu-only")
         from greptimedb_tpu_torch.ops import pallas_window as pw
@@ -7679,10 +8507,18 @@ def main() -> int:
             tool=False))
         del cluster
     if "16" in phases:
-        procs = phase_procs(torch, args.seed, frontend="17" in phases)
+        procs = phase_procs(torch, args.seed, frontend="17" in phases,
+                            elastic="18" in phases)
         moments_by["16"] = procs.moments
         if "17" in phases:
             moments_by["17"] = procs.moments17
+        if "18" in phases:
+            moments_by["18"] = procs.p18.moments
+            k1_by["18"] = procs.p18.k1
+            walls["18"] = procs.p18.walls["phase"]
+            k1_row18 = procs.p18.k1_row
+            if kern is None and k1_row is None:
+                k1_row = k1_row18
         walls["16"] = procs.walls["phase"]
         del procs
     if "12" in phases:
@@ -7695,13 +8531,17 @@ def main() -> int:
     if "15" in phases:
         log(f"phase 15 took {walls['15']:.1f}s")
     if "16" in phases:
-        log(f"phase 16{' with 17' if '17' in phases else ''} took "
-            f"{walls['16']:.1f}s")
+        log(f"phase 16{' with 17' if '17' in phases else ''}"
+            f"{' and 18' if '18' in phases else ''} took {walls['16']:.1f}s")
+    if "18" in phases:
+        log(f"phase 18 took {walls['18']:.1f}s")
     kernels = []
     if k1_by:
         kernels.append({**(kern[0] if kern is not None else k1_row),
                         "launches": sum(k1_by.values()),
-                        "launches_by_phase": k1_by})
+                        "launches_by_phase": k1_by,
+                        **({"phase_18_shape": k1_row18}
+                           if k1_row18 is not None else {})})
     if moments_by:
         # Q1 is the kernel's row (a run without phase 6: the first shape
         # timed); every shape's numbers beside it

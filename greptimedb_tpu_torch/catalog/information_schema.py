@@ -17,16 +17,21 @@ Ported from greptimedb_tpu/catalog/information_schema.py. The port serves
 tables, columns, flows, failpoints, cluster_info, region_peers, processes,
 background_jobs and runtime_metrics (from the port's own Prometheus
 registry, common/telemetry.registry(), with the flow gauges of the
-catalog's FlowManager); a standalone port has no meta service, so
-cluster_info and region_peers are synthesized from the local regions.
-self_monitor reads the frontend's SelfMonitor (monitor/); trace_spans and
-profile_samples are views over greptime_private.trace_spans and
+catalog's FlowManager). cluster_info and region_peers read the meta
+service on a clustered frontend (DistInstance pins `meta_client` on its
+catalog; an unreachable meta yields no rows, as in the reference) and are
+synthesized from the local regions standalone. self_monitor reads the
+frontend's SelfMonitor (monitor/); trace_spans and profile_samples are
+views over greptime_private.trace_spans and
 greptime_private.profile_samples, flushed from the trace sink and the
-profiler first (common/trace_store.py, common/profiler.py).
+profiler first (common/trace_store.py, common/profiler.py) after the
+datanodes of a clustered frontend (`dist_clients`) were pinged or
+drained; background_jobs merges those datanodes' and meta's registries.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import List, Optional, Sequence
 
 from ..datatypes import data_type as dt
@@ -34,6 +39,8 @@ from ..datatypes.record_batch import RecordBatch
 from ..datatypes.schema import ColumnSchema, Schema
 from ..table.metadata import TableIdent, TableInfo, TableMeta, TableType
 from ..table.table import Table
+
+logger = logging.getLogger(__name__)
 
 INFORMATION_SCHEMA_NAME = "information_schema"
 
@@ -237,9 +244,24 @@ def _latency_summary_rows(families=None):
 
 
 def _cluster_nodes(catalog_manager, catalog_name: str):
-    """cluster_info rows: one synthesized row for the standalone process
-    (the reference reads the meta service on a clustered frontend; the
-    port has no meta service yet)."""
+    """cluster_info rows: from the meta service when this frontend is
+    clustered (DistInstance pins `meta_client` on its catalog), else a
+    single synthesized row for the standalone process so the view exists
+    on every topology."""
+    meta = getattr(catalog_manager, "meta_client", None)
+    if meta is not None and hasattr(meta, "cluster_info"):
+        try:
+            # advisory() bounds a failover client to one quick pass over
+            # the replicas: the health view must degrade immediately
+            # when meta is down, not stall behind the write-path's
+            # multi-round retry budget
+            if hasattr(meta, "advisory"):
+                meta = meta.advisory()
+            return meta.cluster_info()
+        except Exception:  # noqa: BLE001 — health view over a flaky
+            logger.exception(           # meta must degrade, not 500
+                "cluster_info: meta unreachable")
+            return []
     import json as _json
     import time as _time
     from ..query.stream_exec import region_stat_entries
@@ -260,10 +282,28 @@ def _cluster_nodes(catalog_manager, catalog_name: str):
     }]
 
 
+def _dist_clients(catalog_manager) -> list:
+    """The datanode clients a clustered frontend pinned on its catalog
+    (none standalone)."""
+    clients = getattr(catalog_manager, "dist_clients", None)
+    return list(dict(clients).values()) if clients else []
+
+
 def _region_peer_rows(catalog_manager, catalog_name: str):
-    """region_peers rows: placement + lease state per (table, region),
-    synthesized from the local regions (the reference reads the meta
-    service on a clustered frontend)."""
+    """region_peers rows: placement + lease state + in-flight balancer
+    operation per (table, region). Meta-backed on a clustered frontend
+    (same advisory degradation as cluster_info); synthesized from local
+    regions standalone so the view exists on every topology."""
+    meta = getattr(catalog_manager, "meta_client", None)
+    if meta is not None and hasattr(meta, "region_peers"):
+        try:
+            if hasattr(meta, "advisory"):
+                meta = meta.advisory()
+            return meta.region_peers()
+        except Exception:  # noqa: BLE001 — health view over a flaky
+            logger.exception(           # meta must degrade, not 500
+                "region_peers: meta unreachable")
+            return []
     rows = []
     for schema_name in catalog_manager.schema_names(catalog_name):
         for tname in catalog_manager.table_names(catalog_name,
@@ -485,12 +525,21 @@ def information_schema_table(catalog_manager, catalog_name: str,
                              build_self_monitor)
     if name == "trace_spans":
         def build_trace_spans():
-            # a SQL view over the durable store: the sink's pending spans
-            # flush first, so a statement that just finished reads its
-            # own spans (the reference also pings a distributed
-            # frontend's datanodes here; that comes with the
-            # distributed plane)
+            # a SQL view over the durable store: ping the datanodes
+            # (the ordinary RPC piggyback releases freshly-verdicted
+            # buffered spans — same sequence as ADMIN SHOW TRACE) and
+            # flush the sink first, so "the query just finished" reads
+            # see their spans cluster-wide
             from ..common import trace_store
+            for client in _dist_clients(catalog_manager):
+                ping = getattr(client, "ping", None)
+                if ping is None:
+                    continue
+                try:
+                    ping()
+                except Exception as e:  # noqa: BLE001 — degrade to
+                    logger.debug(       # what the store already holds
+                        "trace_spans: span-sync ping failed: %s", e)
             sink = trace_store.sink()
             if sink is not None:
                 sink.flush()
@@ -501,11 +550,24 @@ def information_schema_table(catalog_manager, catalog_name: str,
                              build_trace_spans)
     if name == "profile_samples":
         def build_profile_samples():
-            # a SQL view over the profiler's durable table, flushed
-            # first, as trace_spans is
+            # a SQL view over the profiler's durable table: drain every
+            # reachable datanode's pending aggregate (the same Flight
+            # `profile` action ADMIN SHOW PROFILE uses) and flush the
+            # local sampler first, so a just-finished query's stacks are
+            # visible cluster-wide
             from ..common import profiler
             s = profiler.sampler()
             if s is not None:
+                for client in _dist_clients(catalog_manager):
+                    fetch = getattr(client, "profile", None)
+                    if fetch is None:
+                        continue
+                    try:
+                        s.absorb_rows(fetch(drain=True))
+                    except Exception:  # noqa: BLE001 — a dead peer
+                        logger.debug(   # degrades, never 500s the view
+                            "profile_samples: peer drain failed",
+                            exc_info=True)
                 s.flush()
             return _stored_rows(catalog_manager, catalog_name,
                                 _PROFILE_SAMPLES_SCHEMA,
@@ -515,10 +577,35 @@ def information_schema_table(catalog_manager, catalog_name: str,
     if name == "background_jobs":
         def build_background_jobs():
             from ..common import background_jobs
-            # the local registry (the reference also reads every
-            # reachable datanode's on a clustered frontend)
+            # local registry first, then every reachable datanode's (a
+            # dist frontend pins `dist_clients`); dedup by
+            # (node, job_id) — an in-process cluster shares one
+            # process-wide registry, so the fan-out re-reads it
+            merged = {}
+            for r in background_jobs.rows():
+                merged[(r.get("node"), r.get("job_id"))] = r
+            peers = _dist_clients(catalog_manager)
+            # the metasrv runs the balancer: its op-step jobs live in
+            # ITS registry (advisory() bounds a failover client to one
+            # quick pass, the cluster_info precedent)
+            meta = getattr(catalog_manager, "meta_client", None)
+            if meta is not None and hasattr(meta, "background_jobs"):
+                peers.append(meta.advisory() if hasattr(meta, "advisory")
+                             else meta)
+            for client in peers:
+                fetch = getattr(client, "background_jobs", None)
+                if fetch is None:
+                    continue
+                try:
+                    for r in fetch():
+                        merged.setdefault(
+                            (r.get("node"), r.get("job_id")), r)
+                except Exception:  # noqa: BLE001 — a dead peer
+                    logger.debug(       # degrades, never 500s the view
+                        "background_jobs: peer unreachable",
+                        exc_info=True)
             ordered = sorted(
-                background_jobs.rows(),
+                merged.values(),
                 key=lambda r: (r.get("state") != "running",
                                str(r.get("node")),
                                -(r.get("job_id") or 0)))

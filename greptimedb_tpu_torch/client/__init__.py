@@ -19,8 +19,6 @@ returns per-run moment frames that the frontend folds.
 Ported from greptimedb_tpu/client/. This module and client/flight.py
 import no torch (a client process runs them); the engine imports stay
 inside the methods that run on a datanode, as in the reference.
-`repl_apply` answers the datanode's UnsupportedError until read-replica
-shipping is ported (ROADMAP Queue 1, h4).
 """
 
 from __future__ import annotations

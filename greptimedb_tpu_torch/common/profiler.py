@@ -40,7 +40,8 @@ never synchronizes the device the sampled statements run on.
 `flamegraph_svg`, `folded_text` and `profile_tree_rows` render exactly
 what the reference's do on the same rows. The datanode-side halves (the
 writer-less sampler, `drain_rows` / `absorb_rows` over the Flight
-``profile`` action) come along whole and wait for the distributed plane.
+``profile`` action) are the reference's, and a distributed frontend
+drains them (ADMIN SHOW PROFILE, information_schema.profile_samples).
 """
 
 from __future__ import annotations

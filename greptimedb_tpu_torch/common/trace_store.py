@@ -30,9 +30,10 @@ Ported from greptimedb_tpu/common/trace_store.py unchanged in behavior:
 the sink plugs into the port's own `telemetry.set_span_sink`, and the
 tail verdicts, the head-sample hash and the retention sweep are the
 reference's. The standalone frontend (frontend/instance.py) installs a
-root-role sink; the datanode-side halves (`TRACE_SPANS_WIRE_KEY`,
-`absorb_spans`, `apply_verdicts`, `take_export`) come along whole and
-wait for the distributed plane, which drives them.
+root-role sink, and so does a distributed frontend, which syncs its
+datanodes' buffered spans through the datanode-side halves
+(`TRACE_SPANS_WIRE_KEY`, `absorb_spans`, `apply_verdicts`,
+`take_export`).
 """
 
 from __future__ import annotations

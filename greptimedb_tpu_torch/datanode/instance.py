@@ -22,12 +22,16 @@ mailbox messages that ride its responses.
 
 A datanode mailed `open_regions` by meta's failover runner adopts a
 dead peer's regions from the shared object store (mito's
-`adopt_regions`) and registers the table if it is new. Not ported yet:
-read-replica shipping and the balancer's region steps (migrate, split,
-standbys), which need mito's other distributed methods and
-datanode/replication.py (ROADMAP Queue 1, h4). Each of them raises an
-UnsupportedError that names h4; a balancer step's failure is acked to
-meta as the reference acks any failed step.
+`adopt_regions`) and registers the table if it is new. The balancer
+(meta/balancer.py) drives the elastic region operations (migrate, split,
+read replicas) through mailbox messages riding heartbeat responses; each
+handler here performs one idempotent step (flush snapshot, fence +
+WAL-tail read, adopt + tail replay, release, split copy/apply, standby
+attach and promotion) and reports back through ``balancer_ack`` on the
+meta client, so a re-delivered message after a crash resumes the
+operation instead of corrupting it. `ReplicaShipper`
+(datanode/replication.py) ships each leader region's WAL tail to its
+followers' `repl_apply`.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ import torch
 
 from .. import DEFAULT_CATALOG_NAME, DEFAULT_SCHEMA_NAME
 from ..catalog import LocalCatalogManager
+from ..common import failpoint as _fp
 from ..errors import UnsupportedError
 from ..file_table import ImmutableFileTableEngine
 from ..flow import FlowManager, ObjectStoreFlowStore
@@ -56,6 +61,11 @@ from ..table.requests import CreateTableRequest
 
 logger = logging.getLogger(__name__)
 
+_fp.register("balancer_snapshot_upload")
+_fp.register("repl_apply")
+_fp.register("repl_promote")
+_fp.register("repl_bootstrap")
+
 #: live in-process datanodes by node id (latest wins), as in the
 #: reference: same-process peers resolve each other here instead of
 #: dialing a Flight socket (single-process clusters: tests, embedded
@@ -69,13 +79,6 @@ def live_datanode(node_id) -> Optional["DatanodeInstance"]:
         return None
     with _live_lock:
         return _live_datanodes.get(int(node_id))
-
-
-def _needs_h4(what: str) -> UnsupportedError:
-    return UnsupportedError(
-        f"{what} needs mito's region adoption / standby / split methods "
-        f"and read-replica shipping, which the port has not yet (ROADMAP "
-        f"Queue 1, h4)")
 
 
 @dataclass
@@ -152,6 +155,11 @@ class DatanodeInstance:
         #: meta client for datanode→meta control RPCs (balancer step
         #: acks); start_heartbeat wires it, tests may attach directly
         self._meta_client = None
+        # continuous WAL-tail replication to read replicas:
+        # repl_set_followers mailbox steps wire regions in, the region
+        # on_commit hook nudges the ship thread
+        from .replication import ReplicaShipper
+        self.replication = ReplicaShipper(self)
         with _live_lock:
             _live_datanodes[int(opts.node_id)] = self
 
@@ -261,8 +269,9 @@ class DatanodeInstance:
 
     # ---- elastic-region steps (meta/balancer.py's worker side) ----
     def _handle_balancer_msg(self, msg: dict) -> None:
-        """Run one balancer step and ack the result to meta; a failed
-        step is acked with its error, and the balancer rolls back."""
+        """Run one balancer step and ack the result to meta. SimulatedCrash
+        (a BaseException) propagates — the torture harness, like a real
+        SIGKILL, must see the step die before its ack."""
         op_id, step = msg.get("op_id"), msg.get("type")
         from ..common import background_jobs
         try:
@@ -293,17 +302,165 @@ class DatanodeInstance:
                 "balancer ack for op %s step %s failed", op_id, step)
 
     def _balancer_step(self, msg: dict) -> dict:
-        raise _needs_h4(f"balancer step {msg['type']!r}")
+        kind = msg["type"]
+        cat, sch, tbl = msg["catalog"], msg["schema"], msg["table"]
+        if kind == "balancer_snapshot":
+            # migrate step 1: make the region's full state durable on the
+            # shared object store (ingest continues meanwhile)
+            _fp.fail_point("balancer_snapshot_upload")
+            _, region = self.mito._hosted(cat, sch, tbl, msg["region"])
+            region.flush()
+            return {"flushed_seq":
+                    int(region.version_control.current.flushed_sequence)}
+        if kind == "balancer_fence":
+            # migrate step 2: stop the world for THIS region only, then
+            # read the final WAL tail for the target to replay
+            _, region = self.mito._hosted(cat, sch, tbl, msg["region"])
+            region.fence()
+            return {"wal_tail": region.wal_tail()}
+        if kind == "balancer_open":
+            # migrate step 3 (target side): last-flushed shared state +
+            # shipped WAL tail = everything the source ever acked
+            table = self.mito.adopt_region_with_tail(
+                msg["table_info"], msg["region"], msg.get("wal_tail"))
+            if self.catalog.table(cat, sch, tbl) is None:
+                self.catalog.register_table(cat, sch, tbl, table)
+            return {"replayed": len(msg.get("wal_tail") or [])}
+        if kind == "balancer_release":
+            gone = self.mito.release_region(cat, sch, tbl, msg["region"])
+            if gone:
+                self.catalog.deregister_table(cat, sch, tbl)
+            return {"table_gone": gone}
+        if kind == "balancer_unfence":
+            table = self.catalog.table(cat, sch, tbl)
+            region = (getattr(table, "regions", None) or {}).get(
+                msg["region"])
+            if region is not None and region.fenced:
+                region.unfence()
+            return {}
+        if kind == "balancer_split_prepare":
+            if msg.get("at_value") is None:
+                # probe-only round: the balancer pins the value in the
+                # op doc BEFORE any copy, so a re-delivered prepare
+                # cannot re-probe a moved median and copy rows across a
+                # different boundary (cross-child duplicates)
+                value = self.mito.probe_split_value(
+                    cat, sch, tbl, msg["region"])
+                return {"split_value": value, "probed": True}
+            _fp.fail_point("balancer_snapshot_upload")
+            seq, copied = self.mito.prepare_split(
+                cat, sch, tbl, msg["region"], list(msg["children"]),
+                msg["at_value"])
+            return {"split_value": msg["at_value"], "snapshot_seq": seq,
+                    "copied": copied}
+        if kind == "balancer_split_catchup":
+            copied = self.mito.split_catchup(
+                cat, sch, tbl, msg["region"], list(msg["children"]),
+                msg["at_value"], int(msg["snapshot_seq"]))
+            return {"copied": copied}
+        if kind == "balancer_split_apply":
+            self.mito.apply_split(cat, sch, tbl, msg["region"],
+                                  list(msg["children"]), msg["rule"])
+            return {}
+        if kind == "balancer_split_abort":
+            self.mito.abort_split(cat, sch, tbl, msg["region"],
+                                  list(msg["children"]))
+            return {}
+        if kind == "repl_bootstrap":
+            # replica-add step 2 (leader side): the WAL delta past the
+            # snapshot's flushed sequence, WITHOUT fencing — ingest
+            # continues; the continuous shipper covers records committed
+            # after this read (followers dedup by sequence)
+            _fp.fail_point("repl_bootstrap")
+            _, region = self.mito._hosted(cat, sch, tbl, msg["region"])
+            flushed = int(region.version_control.current.flushed_sequence)
+            return {"wal_tail": region.wal_entries_since(flushed),
+                    "flushed_seq": flushed}
+        if kind == "repl_attach":
+            # replica-add step 3 (follower side): adopt the last-flushed
+            # shared state as a durable standby + replay the bootstrap
+            # tail at its original sequences
+            table = self.mito.adopt_standby(
+                msg["table_info"], msg["region"], msg.get("wal_tail"))
+            if self.catalog.table(cat, sch, tbl) is None:
+                self.catalog.register_table(cat, sch, tbl, table)
+            return {"replayed": len(msg.get("wal_tail") or [])}
+        if kind == "repl_set_followers":
+            # leader side, post-commit (and after failover promotions):
+            # (re)wire the continuous shipper's follower set
+            _, region = self.mito._hosted(cat, sch, tbl, msg["region"])
+            n = self.replication.set_followers(
+                cat, sch, tbl, msg["region"], region.name,
+                list(msg.get("followers") or []))
+            return {"followers": n}
+        if kind == "repl_drop":
+            # follower side: detach the standby (replica removed, or a
+            # pre-commit replica-add rollback)
+            gone = self.mito.release_region(cat, sch, tbl, msg["region"])
+            if gone:
+                self.catalog.deregister_table(cat, sch, tbl)
+            return {"table_gone": gone}
+        if kind == "repl_promote":
+            # failover promotion (fire-and-forget from failover_check):
+            # fence the dead leader's WAL dir, refresh from the shared
+            # manifest, salvage + replay its surviving WAL records, then
+            # take over as leader — zero acked rows lost
+            _fp.fail_point("repl_promote")
+            _, region = self.mito._hosted(cat, sch, tbl, msg["region"])
+            if not getattr(region, "standby", False):
+                # re-delivered promotion (meta retries the fire-and-
+                # forget mail until a heartbeat confirms): already leader
+                return {"salvaged": 0, "replayed": 0, "committed_seq":
+                        int(region.version_control.committed_sequence)}
+            old_id = msg.get("old_leader")
+            old_dir = self._wal_dir_of(old_id, region.name) \
+                if old_id is not None else None
+            return self.mito.promote_standby(cat, sch, tbl, msg["region"],
+                                             old_dir)
+        raise UnsupportedError(f"unknown balancer step {kind!r}")
 
+    def _wal_dir_of(self, node_id: int, region_name: str) -> str:
+        """Another datanode's WAL dir for a region, on the SHARED
+        data_home (mirrors EngineConfig.wal_home scoping) — promotion
+        salvages a dead leader's acked-but-unflushed records from it."""
+        if node_id:
+            return os.path.join(self.opts.data_home, "nodes",
+                                str(node_id), "wal", region_name)
+        return os.path.join(self.opts.data_home, "wal", region_name)
+
+    # ---- replica apply (follower side of the continuous ship path;
+    # reached in-process via the shipper or over the repl_apply Flight
+    # action) ----
     def repl_apply(self, catalog: str, schema: str, table: str,
                    region_number: int, entries: list,
                    leader_flushed: int = 0) -> dict:
-        """Apply shipped WAL records to a standby replica of the region
-        (the follower side of continuous replication)."""
-        raise _needs_h4(f"repl_apply to region {region_number} of "
-                        f"{catalog}.{schema}.{table}")
+        _fp.fail_point("repl_apply")
+        _, region = self.mito._hosted(catalog, schema, table,
+                                      region_number)
+        if not region.standby:
+            # already promoted (or never a standby): a late ship from a
+            # deposed leader — ignore it; the WAL-dir fence keeps that
+            # leader from acking anything new
+            return {"replayed": 0, "standby": False, "committed_seq":
+                    int(region.version_control.committed_sequence)}
+        vc = region.version_control
+        gap = bool(entries) and \
+            int(entries[0]["seq"]) > vc.committed_sequence + 1
+        if gap or int(leader_flushed or 0) > \
+                vc.current.flushed_sequence:
+            # the leader flushed past this replica's manifest view (or
+            # shipped records skipped ahead): reopen from the CURRENT
+            # shared manifest — it always covers the gap, and the reopen
+            # bounds the standby's memtable to the leader's unflushed
+            # window
+            region = self.mito.refresh_standby(catalog, schema, table,
+                                               region_number)
+        replayed = region.ingest_wal_tail(entries) if entries else 0
+        return {"replayed": replayed, "standby": True, "committed_seq":
+                int(region.version_control.committed_sequence)}
 
     def shutdown(self) -> None:
+        self.replication.stop()
         self.flow_manager.stop()
         if self._heartbeat_task is not None:
             self._heartbeat_task.stop()

@@ -21,9 +21,9 @@ the device scan cache or raw scan_batches; FlowManager (manager.py) owns
 lifecycle/watermark policy and delegates every data access here.
 
 Ported from greptimedb_tpu/flow/lowering.py. Every fold reduces on the
-device the FlowManager passes in. The port has no distributed frontend
-yet, so fold_generic / _ir_fold are reached only by a source without
-local regions.
+device the FlowManager passes in; a source without local regions (a
+DistTable) folds through fold_generic / _ir_fold, whose plan the
+datanodes reduce.
 """
 
 from __future__ import annotations

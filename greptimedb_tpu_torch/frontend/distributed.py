@@ -37,14 +37,13 @@ Ported from greptimedb_tpu/frontend/distributed.py. The frontend's
 device is explicit: `DistInstance(meta, clients, device="cuda")` unless
 the caller asks for "cpu", and without CUDA a "cuda" frontend raises, as
 a datanode does; the aggregates reduce on the datanodes' devices either
-way. Not ported here: PromQL over DistTables (TQL raises, naming it), the
-count(DISTINCT) sketch partial (such a statement takes the exact raw-row
-scatter), the cross-node drains of the trace store and the profiler and
-the meta-backed information_schema views (ROADMAP Queue 1, h3b); ADMIN
-MIGRATE / SPLIT / REBALANCE / ADD or REMOVE REPLICA raise naming the
-elastic regions they drive (h4). `SET read_replica` / `replica_max_lag_ms`
-answer as the reference's do; with no replicas in meta's region_peers,
-reads route to the leaders.
+way. PromQL over DistTables rides the same engine as standalone: lowered
+aggregates scatter through the pushdown, the row path reads the selector
+by a wire RawScan (promql/lowering.py) and builds its matrix on this
+frontend's device. ADMIN MIGRATE / SPLIT / REBALANCE / ADD or REMOVE
+REPLICA enqueue meta balancer operations; `SET read_replica` /
+`replica_max_lag_ms` route reads to lag-bounded followers, as the
+reference's do.
 """
 
 from __future__ import annotations
@@ -975,11 +974,6 @@ class _RouteHydratingCatalog(MemoryCatalogManager):
             self._miss_guard.busy = False
 
 
-#: ADMIN statements that drive elastic regions through the meta balancer
-_ELASTIC_ADMIN = ("migrate_region", "split_region", "rebalance",
-                  "add_replica", "remove_replica")
-
-
 class DistInstance:
     """Distributed frontend instance (reference DistInstance).
 
@@ -998,6 +992,9 @@ class DistInstance:
         self.meta = meta
         self.clients = clients
         self.catalog = _RouteHydratingCatalog(self)
+        # information_schema.cluster_info resolves through the meta
+        # client hanging off the catalog (both frontends serve the view)
+        self.catalog.meta_client = meta
         self.query_engine = QueryEngine(self.catalog, device=device)
         # continuous rollup flows: specs live in the meta kv so every
         # frontend (and a restarted one) sees the same flows; folds run
@@ -1026,17 +1023,23 @@ class DistInstance:
         process_list.configure_node("frontend")
         background_jobs.configure_node("frontend")
         # durable trace store, root role: this frontend decides the tail
-        # verdict for its statements' traces
+        # verdict for its statements' traces; datanode spans buffer
+        # remotely until the verdict piggybacks on a later RPC (or the
+        # in-process datanodes of a test cluster share this very sink)
         self.trace_sink = trace_store.TraceSink(
             node_label="frontend", service="frontend", role="root",
             writer=self)
         trace_store.install(self.trace_sink)
         self.catalog.trace_sink = self.trace_sink
         # continuous profiler, same root role: samples taken on this
-        # frontend flush through the self-monitor path
+        # frontend flush through the self-monitor path; datanode-side
+        # samples drain over the Flight `profile` action on demand
         self.profiler = profiler.Profiler(node_label="frontend",
                                           writer=self)
         profiler.install(self.profiler)
+        # information_schema.background_jobs fans out to every
+        # reachable datanode and merges (compactions run THERE)
+        self.catalog.dist_clients = clients
         #: coprocessor scripts: the HTTP server builds the engine on
         #: first use, on the query engine's device
         self.script_engine = None
@@ -1445,9 +1448,9 @@ class DistInstance:
     def promql_engine(self):
         """Lazily-built, shared PromQL engine (TQL and the Prometheus
         API), on the query engine's device. Its selectors resolve
-        DistTables from this frontend's catalog; the lowering and the
-        row path refuse them until PromQL's distributed branches are
-        ported."""
+        DistTables from this frontend's catalog, so lowerable aggregates
+        scatter TpuPlans to the datanodes and non-lowerable shapes ride
+        the IR raw scan (region pruning + wire filter pushdown)."""
         if self._tql_engine is None:
             from ..promql.engine import PromqlEngine
             self._tql_engine = PromqlEngine(self.catalog,
@@ -1458,27 +1461,54 @@ class DistInstance:
         return self.promql_engine().execute_tql(stmt, ctx)
 
     def _admin(self, stmt: ast.Admin, ctx: QueryContext):
-        """ADMIN FLUSH / COMPACT TABLE scatter to the owning datanodes;
-        SHOW TRACE / SHOW PROFILE render what this frontend stored (the
-        datanodes' spans and samples are not drained here). The elastic
-        region statements (MIGRATE / SPLIT / REBALANCE / ADD or REMOVE
-        REPLICA) raise: the meta balancer's datanode steps are not
-        ported."""
+        """ADMIN MIGRATE/SPLIT/REBALANCE → meta balancer ops. Async by
+        design (the reference's migrate_region returns a procedure id):
+        the returned op id tracks progress in region_peers."""
+        from .statement import admin_ops_output
         if stmt.kind in ("flush_table", "compact_table"):
             from .statement import apply_admin_maintenance
             return apply_admin_maintenance(self.catalog, stmt, ctx)
         if stmt.kind == "show_trace":
+            # sync first: a ping per datanode piggybacks this frontend's
+            # verdicts and collects any released buffered spans, so the
+            # waterfall is complete even though the query long finished
             from .statement import apply_show_trace
-            return apply_show_trace(self.catalog, stmt)
+            return apply_show_trace(self.catalog, stmt,
+                                    sync_clients=list(
+                                        self.clients.values()))
         if stmt.kind == "show_profile":
+            # drain every datanode's pending sample aggregate over the
+            # Flight `profile` action, flush locally, then read the
+            # per-node tree back out of greptime_private
             from .statement import apply_show_profile
-            return apply_show_profile(self.catalog, stmt)
-        if stmt.kind in _ELASTIC_ADMIN:
-            raise UnsupportedError(
-                f"ADMIN {stmt.kind}: elastic regions (the balancer's "
-                f"datanode steps and read replicas; ROADMAP Queue 1, h4) "
-                f"are not ported yet")
-        raise UnsupportedError(f"ADMIN {stmt.kind}")
+            return apply_show_profile(self.catalog, stmt,
+                                      sync_clients=list(
+                                          self.clients.values()))
+        if stmt.kind == "rebalance":
+            full = None
+            if stmt.table is not None:
+                catalog, schema_name, name = ctx.resolve(stmt.table)
+                full = f"{catalog}.{schema_name}.{name}"
+            return admin_ops_output(self.meta.admin_rebalance(full))
+        catalog, schema_name, name = ctx.resolve(stmt.table)
+        full = f"{catalog}.{schema_name}.{name}"
+        if self._resolve_table(catalog, schema_name, name) is None:
+            raise TableNotFoundError(f"table {name!r} not found")
+        if stmt.kind == "migrate_region":
+            op = self.meta.admin_migrate_region(full, stmt.region,
+                                                stmt.target_node)
+        elif stmt.kind == "split_region":
+            op = self.meta.admin_split_region(full, stmt.region,
+                                              stmt.at_value)
+        elif stmt.kind == "add_replica":
+            op = self.meta.admin_add_replica(full, stmt.region,
+                                             stmt.target_node)
+        elif stmt.kind == "remove_replica":
+            op = self.meta.admin_remove_replica(full, stmt.region,
+                                                stmt.target_node)
+        else:
+            raise UnsupportedError(f"ADMIN {stmt.kind}")
+        return admin_ops_output([op])
 
     def _insert(self, stmt: ast.Insert, ctx: QueryContext):
         from ..errors import ColumnNotFoundError

@@ -14,15 +14,15 @@ port's process registry; ADMIN SHOW TRACE / SHOW PROFILE
 (`apply_show_trace`, `apply_show_profile`) render the stored waterfall
 and profile tree (common/trace_store.py, common/profiler.py). The
 distributed frontend's knobs (`SET dist_fanout`, `dist_rpc_max_retries`,
-`dist_rpc_retry_base_ms`, `dist_partial_agg`) act as the reference's do;
-`SET exact_distinct` raises UnsupportedError until the count(DISTINCT)
-sketch partial is ported.
+`dist_rpc_retry_base_ms`, `dist_partial_agg`, `exact_distinct`) act as
+the reference's do, and `admin_ops_output` renders the elastic ADMIN
+statements' balancer operations.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import pandas as pd
 
@@ -189,6 +189,33 @@ def _int_setting(stmt: ast.SetVariable) -> int:
             f"SET {stmt.name}: expected an integer, got {stmt.value!r}")
 
 
+def admin_ops_output(ops: List[dict]) -> Output:
+    """Render ADMIN MIGRATE/SPLIT/REBALANCE/ADD or REMOVE REPLICA
+    results: one row per enqueued balancer operation (async — the op id
+    is the tracking handle; information_schema.region_peers shows live
+    state)."""
+    def detail(op: dict) -> str:
+        if op["kind"] == "migrate":
+            return f"dn{op['from_node']} -> dn{op['to_node']}"
+        if op["kind"] == "replica_add":
+            return f"replica on dn{op['to_node']} (leader " \
+                   f"dn{op['from_node']})"
+        if op["kind"] == "replica_remove":
+            return f"drop replica on dn{op['to_node']}"
+        d = f"children={op['children']}"
+        if op.get("at_value") is not None:
+            d += f" at={op['at_value']!r}"
+        return d
+
+    return _rows_output([("op_id", STRING), ("kind", STRING),
+                         ("table_name", STRING), ("region", INT64),
+                         ("detail", STRING), ("state", STRING)],
+                        [{"op_id": op["id"], "kind": op["kind"],
+                          "table_name": op["table"], "region": op["region"],
+                          "detail": detail(op), "state": op["state"]}
+                         for op in ops])
+
+
 def apply_kill(stmt: ast.Kill) -> Output:
     """Shared KILL handler: trip the cancel event of a running statement
     in the process-wide registry. The killed statement raises
@@ -200,14 +227,19 @@ def apply_kill(stmt: ast.Kill) -> Output:
     return Output.rows(1)
 
 
-def apply_show_trace(catalog: CatalogManager, stmt: ast.Admin) -> Output:
+def apply_show_trace(catalog: CatalogManager, stmt: ast.Admin,
+                     sync_clients=None) -> Output:
     """ADMIN SHOW TRACE handler: render one stored trace's reassembled
-    per-node waterfall from greptime_private.trace_spans (the reference
-    also syncs a distributed frontend's datanodes first, which comes with
-    the distributed plane)."""
+    per-node waterfall from greptime_private.trace_spans.
+
+    `sync_clients` (distributed) lets buffered datanode spans catch up
+    first: a cheap ping RPC per datanode carries the frontend's recent
+    verdicts piggybacked on its body, and any released spans ride the
+    response back — the same piggyback every RPC performs, just forced
+    now so the waterfall is complete at render time."""
     from ..common import trace_store
-    trace_id, rows = trace_store.sync_and_fetch(catalog,
-                                                stmt.trace_id or "")
+    trace_id, rows = trace_store.sync_and_fetch(
+        catalog, stmt.trace_id or "", clients=sync_clients)
     if trace_id is None:
         raise InvalidArgumentsError(
             "ADMIN SHOW TRACE 'last': no trace has been retained on "
@@ -224,15 +256,19 @@ def apply_show_trace(catalog: CatalogManager, stmt: ast.Admin) -> Output:
                         trace_store.waterfall_rows(rows))
 
 
-def apply_show_profile(catalog: CatalogManager,
-                       stmt: ast.Admin) -> Output:
+def apply_show_profile(catalog: CatalogManager, stmt: ast.Admin,
+                       sync_clients=None) -> Output:
     """ADMIN SHOW PROFILE handler: render one query's (or trace's) stored
     folded stacks as a per-node top-down self/total tree from
-    greptime_private.profile_samples (the reference also drains a
-    distributed frontend's datanode samplers first, which comes with the
-    distributed plane)."""
+    greptime_private.profile_samples.
+
+    `sync_clients` (distributed) drains every datanode's writer-less
+    sampler over the Flight `profile` action first, so remote samples
+    are stored before the read — the profile twin of the trace
+    handler's span-sync pings."""
     from ..common import profiler
-    ident, rows = profiler.sync_and_fetch(catalog, stmt.trace_id or "")
+    ident, rows = profiler.sync_and_fetch(
+        catalog, stmt.trace_id or "", clients=sync_clients)
     if ident is None:
         raise InvalidArgumentsError(
             "ADMIN SHOW PROFILE 'last': no query has been profiled on "
@@ -302,13 +338,8 @@ _CLIENT_COMPAT_VARS = frozenset({
 
 def apply_set_variable(stmt: ast.SetVariable, ctx: QueryContext) -> Output:
     """Shared SET handler: every knob here is session- or process-level
-    state. A knob of a module the port does not have yet raises
-    UnsupportedError naming that module."""
+    state."""
     name = stmt.name.lower()
-    missing = _KNOBS_NOT_PORTED.get(name)
-    if missing is not None:
-        raise UnsupportedError(
-            f"SET {stmt.name}: {missing} is not ported yet")
     if name in ("time_zone", "timezone"):
         ctx.time_zone = str(stmt.value)
     elif name == "slow_query_threshold_ms":
@@ -367,6 +398,11 @@ def apply_set_variable(stmt: ast.SetVariable, ctx: QueryContext) -> Output:
         # dispatch decision without a config reload
         from ..query.stream_exec import configure_streaming
         configure_streaming(threshold_rows=_int_setting(stmt))
+    elif name == "exact_distinct":
+        # 1 = refuse sketch partials for count(DISTINCT): the statement
+        # takes the raw-row path, exact at any cardinality
+        from ..query import sketches
+        sketches.configure(exact_distinct=bool(_int_setting(stmt)))
     elif name == "approx_error_target":
         # target relative error for the approx aggregates: drives the
         # HLL precision and the t-digest compression together
@@ -502,14 +538,6 @@ def apply_set_variable(stmt: ast.SetVariable, ctx: QueryContext) -> Output:
             f"SET {stmt.name}: unknown session variable (see README "
             f"'Session variables' for the supported knobs)")
     return Output.rows(0)
-
-
-#: the reference's session knobs whose modules the port does not have
-#: yet: knob names → what is missing
-_KNOBS_NOT_PORTED = {
-    "exact_distinct": "the count(DISTINCT) sketch partial of the "
-                      "distributed pushdown (ROADMAP Queue 1, h3b)",
-}
 
 
 class StatementExecutor:

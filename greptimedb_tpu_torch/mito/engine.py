@@ -11,16 +11,20 @@ DDL ordering follows the reference's manifest-first create
 (src/mito/src/engine/procedure/create.rs): persist the table manifest, then
 create regions, then register — recovery re-opens from the manifest.
 
-Ported from greptimedb_tpu/mito/engine.py for the standalone deployment:
-the layout and documents are the reference's, so either package opens the
-other's data home. Region adoption on failover (`adopt_regions`) is
-ported; the balancer's distributed methods (standby replicas, region
-release and split) are not yet (ROADMAP Queue 1, h4).
+Ported from greptimedb_tpu/mito/engine.py: the layout and documents are
+the reference's, so either package opens the other's data home. The
+elastic region operations that meta's balancer drives through the
+datanode's mailbox (adoption on failover or migration, standby replicas
+and their promotion, release, split) are the reference's too, each
+idempotent so that a re-delivered step resumes instead of corrupting.
 """
 
 from __future__ import annotations
 
 import json
+import logging
+import os
+import shutil
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -57,6 +61,8 @@ from ..table.requests import (
     OpenTableRequest,
 )
 from ..table.table import Table, TableEngine
+
+logger = logging.getLogger(__name__)
 
 MIN_USER_TABLE_ID = 1024
 
@@ -118,6 +124,26 @@ def region_rows_columns(region, seq_gt: Optional[int] = None):
             arr[~valid] = None
             cols[name] = list(arr)
     return cols, visible
+
+
+def _median_split_value(values):
+    """The region's median partition-column value, adjusted to be
+    STRICTLY above the minimum so both children are non-empty; None when
+    the region has no value spread (all rows share one value)."""
+    vals = sorted(v for v in values if v is not None)
+    if not vals or vals[0] == vals[-1]:
+        return None
+    v = vals[len(vals) // 2]
+    if v == vals[0]:
+        nxt = [x for x in vals if x > vals[0]]
+        if not nxt:
+            return None
+        v = nxt[0]
+    if hasattr(v, "item") and not isinstance(v, (str, bytes)):
+        v = v.item()               # numpy scalar → JSON-encodable builtin
+    return v
+
+
 
 
 def _serialize_rule(rule: Optional[PartitionRule]) -> Optional[dict]:
@@ -527,6 +553,11 @@ class MitoEngine(TableEngine):
             {}, "mito.engine.tables")
         self._lock = TrackedLock("mito.engine")
         self._registry = self._load_registry()
+        #: split-in-flight child regions, keyed (catalog, schema, table):
+        #: hosted on disk but invisible to reads until apply_split swaps
+        #: them into the table's served region set
+        self._pending_splits: Dict[tuple, Dict[int, Region]] = \
+            tracked_state({}, "mito.engine.pending_splits")
 
     # ---- engine registry (next id + table dirs) ----
     def _registry_key(self) -> str:
@@ -694,6 +725,338 @@ class MitoEngine(TableEngine):
                 self._manifest_key(*key[:2], tid),
                 json.dumps(table.info.to_dict()).encode())
             return table
+
+    # ---- elastic region operations (meta/balancer.py drives these via
+    # datanode mailbox handlers; each is idempotent so a re-delivered
+    # message after a crash resumes instead of corrupting) ----
+
+    def _hosted(self, catalog: str, schema: str, name: str,
+                region_number: int):
+        """(table, region) or typed errors the balancer handlers relay."""
+        table = self.open_table(OpenTableRequest(name, catalog, schema))
+        if table is None:
+            raise TableNotFoundError(
+                f"table {catalog}.{schema}.{name} not on this datanode")
+        region = table.regions.get(region_number)
+        if region is None:
+            from ..errors import StaleRouteError
+            raise StaleRouteError(
+                f"region {region_number} of table {name} is not hosted "
+                f"here")
+        return table, region
+
+    def adopt_region_with_tail(self, info_doc: dict, region_number: int,
+                               wal_tail: Optional[List[dict]]) -> MitoTable:
+        """Migration target side: open the region at its last-flushed
+        state from the shared object store, then replay the shipped WAL
+        tail at its original sequences (idempotent — replayed records at
+        or below the committed sequence are skipped)."""
+        table = self.adopt_regions(info_doc, [region_number])
+        if wal_tail:
+            table.regions[region_number].ingest_wal_tail(wal_tail)
+        return table
+
+    def adopt_standby(self, info_doc: dict, region_number: int,
+                      wal_tail: Optional[List[dict]]) -> MitoTable:
+        """Replica-attach target side: open the region at its
+        last-flushed shared state, durably mark it a standby (fenced for
+        writes, read-serving, never flushing — the shared manifest
+        belongs to the leader), then replay the bootstrap WAL tail at
+        its original sequences. Idempotent: a re-delivered attach finds
+        the standby already marked and the tail already applied."""
+        table = self.adopt_regions(info_doc, [region_number])
+        region = table.regions[region_number]
+        region.make_standby()
+        if wal_tail:
+            region.ingest_wal_tail(wal_tail)
+        return table
+
+    def refresh_standby(self, catalog: str, schema: str, name: str,
+                        region_number: int) -> Region:
+        """Close + reopen a standby from the CURRENT shared manifest —
+        the catch-up path when shipped records skipped ahead of the
+        replica (the shipper was down past a leader flush that obsoleted
+        the segments it would have shipped, or a WAL-less bulk ingest
+        landed) and the bounded-memory path (the reopen drops memtable
+        rows the leader has since flushed). Local WAL records the fresh
+        manifest already covers are trimmed."""
+        table, region = self._hosted(catalog, schema, name, region_number)
+        ropts = region_opts_from_table_options(table.info.meta.options)
+        reopened = self.storage.reopen_region(
+            region.name, table.info.meta.schema,
+            opts={**(ropts or {}), "sweep_orphans": False})
+        if reopened is None:
+            from ..errors import StaleRouteError
+            raise StaleRouteError(
+                f"standby region {region.name} vanished from shared "
+                f"storage during refresh")
+        reopened.wal.obsolete(
+            reopened.version_control.current.flushed_sequence)
+        table.regions[region_number] = reopened
+        return reopened
+
+    def promote_standby(self, catalog: str, schema: str, name: str,
+                        region_number: int,
+                        old_wal_dir: Optional[str]) -> dict:
+        """Failover promotion: fence the dead leader's WAL dir (a
+        resurrected old owner must reopen fenced, never dual-own),
+        refresh from the current shared manifest, salvage and replay
+        every surviving WAL record the old leader acked but never
+        flushed or shipped, then unfence into the leader role. Zero
+        acked loss: an acked row was fsynced in the old WAL, so it is
+        either in a flushed SST (the refresh covers it) or in a
+        surviving WAL segment (the salvage covers it — the WAL only ever
+        deletes segments at or below the flushed sequence)."""
+        from ..storage.region import fence_wal_dir, salvage_wal_entries
+        self._hosted(catalog, schema, name, region_number)
+        if old_wal_dir:
+            try:
+                fence_wal_dir(old_wal_dir)
+            except OSError:
+                logger.exception("promotion: could not fence old leader "
+                                 "wal dir %s", old_wal_dir)
+        region = self.refresh_standby(catalog, schema, name, region_number)
+        salvaged = replayed = 0
+        if old_wal_dir:
+            try:
+                entries = salvage_wal_entries(
+                    old_wal_dir,
+                    region.version_control.committed_sequence)
+                salvaged = len(entries)
+                replayed = region.ingest_wal_tail(entries)
+            except Exception:  # noqa: BLE001 — degrade, don't block the
+                logger.exception(          # takeover of a healthy replica
+                    "promotion: WAL salvage from %s failed; region %s "
+                    "serves from its last shipped/flushed state",
+                    old_wal_dir, region.name)
+        region.unfence()
+        logger.warning(
+            "region %s PROMOTED to leader (salvaged=%d replayed=%d "
+            "committed_seq=%d)", region.name, salvaged, replayed,
+            region.version_control.committed_sequence)
+        return {"salvaged": salvaged, "replayed": replayed,
+                "committed_seq":
+                    int(region.version_control.committed_sequence)}
+
+    def release_region(self, catalog: str, schema: str, name: str,
+                       region_number: int) -> bool:
+        """Migration source side, post-route-commit: forget the region
+        locally WITHOUT touching its shared data (the new owner serves
+        it). When the last hosted region leaves, the table itself is
+        forgotten on this node. Returns True when the table is now gone
+        from this node entirely (caller deregisters it from the
+        catalog)."""
+        key = (catalog, schema, name)
+        full = ".".join(key)
+        with self._lock:
+            table = self._open_locked(OpenTableRequest(name, catalog,
+                                                       schema))
+            if table is None:
+                return True
+            region = table.regions.pop(region_number, None)
+            table.info.meta.region_numbers = sorted(table.regions)
+            tid = table.info.ident.table_id
+            if table.regions:
+                self.store.write(
+                    self._manifest_key(catalog, schema, tid),
+                    json.dumps(table.info.to_dict()).encode())
+                gone = False
+            else:
+                self._tables.pop(key, None)
+                self._registry["tables"].pop(full, None)
+                self._save_registry()
+                # node-scoped manifest only — the region data and its own
+                # region manifest stay put for the new owner
+                self.store.delete(self._manifest_key(catalog, schema, tid))
+                gone = True
+        if region is not None:
+            self.storage.release_region(region.name)
+        return gone
+
+    def probe_split_value(self, catalog: str, schema: str, name: str,
+                          region_number: int):
+        """The region's observed median partition-column value — its own
+        balancer round-trip so the value is PINNED in the op doc before
+        any row copies: a re-delivered prepare after a lost ack must
+        copy across the SAME boundary (a re-probe under ingest could
+        move the median and leave the first run's copies in the wrong
+        child — duplicate rows after commit)."""
+        table, region = self._hosted(catalog, schema, name, region_number)
+        rule = table.partition_rule
+        if rule is None:
+            raise InvalidArgumentsError(
+                f"table {name} has no partition rule; single-region "
+                f"tables cannot split")
+        cols, _ = region_rows_columns(region)
+        pcol = rule.partition_columns()[0]
+        value = _median_split_value(cols.get(pcol, []))
+        if value is None:
+            raise InvalidArgumentsError(
+                f"region {region_number} of {name} has no splittable "
+                f"value spread on {pcol!r}")
+        return value
+
+    def prepare_split(self, catalog: str, schema: str, name: str,
+                      region_number: int, children: List[int],
+                      at_value):
+        """Split phase 1 (unfenced): create the child regions as PENDING
+        (hosted on disk, invisible to reads until apply) and bulk-copy
+        the parent's snapshot rows into them per the refined rule.
+        `at_value` is mandatory — probed values go through
+        probe_split_value first so re-deliveries are idempotent.
+        Returns (snapshot_seq, copied_rows)."""
+        from ..partition.rule import refine_range_rule
+        table, region = self._hosted(catalog, schema, name, region_number)
+        rule = table.partition_rule
+        if rule is None:
+            raise InvalidArgumentsError(
+                f"table {name} has no partition rule; single-region "
+                f"tables cannot split")
+        if at_value is None:
+            raise InvalidArgumentsError(
+                "prepare_split needs a pinned split value")
+        cols, visible = region_rows_columns(region)
+        refined = refine_range_rule(rule, region_number, at_value,
+                                    children)
+        kids = self._open_pending_children(table, children)
+        copied = self._copy_split_rows(refined, children, kids, cols)
+        return int(visible), copied
+
+    def split_catchup(self, catalog: str, schema: str, name: str,
+                      region_number: int, children: List[int], at_value,
+                      seq_gt: int) -> int:
+        """Split phase 2: fence the parent (no more writes), then copy
+        the delta — rows committed after the phase-1 snapshot — into the
+        children. After this the children hold everything."""
+        from ..partition.rule import refine_range_rule
+        table, region = self._hosted(catalog, schema, name, region_number)
+        region.fence()
+        refined = refine_range_rule(table.partition_rule, region_number,
+                                    at_value, children)
+        kids = self._open_pending_children(table, children)
+        cols, _ = region_rows_columns(region, seq_gt=seq_gt)
+        return self._copy_split_rows(refined, children, kids, cols)
+
+    def apply_split(self, catalog: str, schema: str, name: str,
+                    region_number: int, children: List[int],
+                    rule_doc: dict) -> None:
+        """Split commit, datanode side: atomically swap the parent for
+        its children in the served region set, adopt the refined rule,
+        persist the manifest, then drop the parent's storage (its rows
+        were fully copied). Idempotent: a re-delivered apply after a
+        crash re-persists the same state."""
+        key = (catalog, schema, name)
+        with self._lock:
+            table = self._open_locked(OpenTableRequest(name, catalog,
+                                                       schema))
+            if table is None:
+                raise TableNotFoundError(
+                    f"table {catalog}.{schema}.{name} not on this "
+                    f"datanode")
+            tid = table.info.ident.table_id
+            pend = self._pending_splits.get(key, {})
+            for rn in children:
+                child = pend.pop(rn, None)
+                if child is None and rn not in table.regions:
+                    ropts = region_opts_from_table_options(
+                        table.info.meta.options)
+                    child = self.storage.open_region(
+                        region_name(tid, rn), table.info.meta.schema,
+                        opts=ropts)
+                if child is not None:
+                    table.regions[rn] = child
+            parent = table.regions.pop(region_number, None)
+            table.partition_rule = _deserialize_rule(rule_doc)
+            table.info.meta.partition_rule = dict(rule_doc)
+            table.info.meta.region_numbers = sorted(table.regions)
+            self.store.write(
+                self._manifest_key(catalog, schema, tid),
+                json.dumps(table.info.to_dict()).encode())
+        pname = region_name(tid, region_number)
+        if parent is not None:
+            self.storage.drop_region(pname)
+        else:
+            # re-delivered apply after a crash between the manifest write
+            # and the drop: sweep any leftover parent files directly
+            self._purge_region_dir(pname)
+
+    def abort_split(self, catalog: str, schema: str, name: str,
+                    region_number: int, children: List[int]) -> None:
+        """Roll a failed split back: unfence the parent and drop the
+        pending children (their copied rows are disposable)."""
+        key = (catalog, schema, name)
+        with self._lock:
+            table = self._open_locked(OpenTableRequest(name, catalog,
+                                                       schema))
+            pend = self._pending_splits.get(key, {})
+            kids = [pend.pop(rn, None) for rn in children]
+            tid = table.info.ident.table_id if table is not None else None
+        if table is None:
+            return
+        region = table.regions.get(region_number)
+        if region is not None and region.fenced:
+            region.unfence()
+        for rn, child in zip(children, kids):
+            if child is not None:
+                self.storage.drop_region(child.name)
+            elif tid is not None:
+                self._purge_region_dir(region_name(tid, rn))
+
+    def _open_pending_children(self, table: MitoTable,
+                               children: List[int]) -> Dict[int, Region]:
+        """Open-or-create the child regions OUTSIDE table.regions: reads
+        must not see them until the route/rule commit swaps them in."""
+        key = (table.info.catalog_name, table.info.schema_name,
+               table.info.name)
+        with self._lock:
+            pend = self._pending_splits.setdefault(key, {})
+            tid = table.info.ident.table_id
+            ropts = region_opts_from_table_options(table.info.meta.options)
+            for rn in children:
+                if rn in pend:
+                    continue
+                rname = region_name(tid, rn)
+                region = self.storage.open_region(
+                    rname, table.info.meta.schema, opts=ropts)
+                if region is None:
+                    region = self.storage.create_region(
+                        rname, table.info.meta.schema, opts=ropts)
+                pend[rn] = region
+            return dict(pend)
+
+    @staticmethod
+    def _copy_split_rows(refined_rule, children: List[int],
+                         kids: Dict[int, Region],
+                         cols: Dict[str, list]) -> int:
+        if not cols:
+            return 0
+        n = len(next(iter(cols.values())))
+        if n == 0:
+            return 0
+        copied = 0
+        child_set = set(children)
+        for rn, idx in split_rows(refined_rule, cols, n).items():
+            if rn not in child_set:
+                continue               # rows of untouched sibling regions
+            part = cols if idx is None else \
+                {k: v[idx] if isinstance(v, np.ndarray)
+                 else [v[i] for i in idx] for k, v in cols.items()}
+            copied += kids[rn].bulk_ingest(part)
+        return copied
+
+    def _purge_region_dir(self, rname: str) -> None:
+        """Best-effort sweep of a region dir no manifest references
+        (a crash between the split's manifest commit and the parent drop
+        leaves files nothing will ever revisit)."""
+        for key in self.store.list(rname):
+            try:
+                self.store.delete(key)
+            except Exception:  # noqa: BLE001 — purge is best-effort
+                logger.warning(
+                    "split cleanup could not delete %s (will re-sweep "
+                    "on the next apply delivery)", key)
+        shutil.rmtree(os.path.join(self.storage.wal_home, rname),
+                      ignore_errors=True)
 
     def alter_table(self, request: AlterTableRequest) -> MitoTable:
         key = (request.catalog_name, request.schema_name, request.table_name)

@@ -31,7 +31,7 @@ snapshot reads the port's own registry (`telemetry.registry_snapshot`
 over `telemetry.registry()`, where every port metric registers; the
 default prometheus_client REGISTRY holds none of them). The standalone
 frontend passes no `meta`, so heat comes from `_local_heat_rows` over
-the port's regions; the meta branch waits for the distributed plane.
+the port's regions; a distributed frontend passes its meta client.
 """
 
 from __future__ import annotations

@@ -6,9 +6,10 @@ every pushdown the SQL optimizer knows. This module (the port of
 greptimedb_tpu/promql/lowering.py) is the equivalent seam:
 aggregate-over-selector shapes lower into the shared plan IR
 (query/ir.py) and execute through the one aggregate executor —
-resident / streamed-cold / indexed-point dispatch on the table's
-regions, on the engine's device — while every non-lowerable shape keeps
-the row path behind the same selector.
+cost-based scatter on DistTables, resident / streamed-cold /
+indexed-point dispatch on a local table's regions, on the engine's
+device — while every non-lowerable shape keeps the row path behind the
+same selector, fed over the wire by an IR `RawScan` on DistTables.
 
 This is also the only module under promql/ that touches region
 internals (`table.regions`, the scan cache, merged region reads), so
@@ -30,9 +31,16 @@ replicates ops/window.py exactly), then the engine's ordinary host
 grouping aggregates it — outer semantics are shared with the row path by
 construction.
 
-PromQL's distributed branches (a DistTable's plans through its aggregate
-pushdown, and the wire RawScan of remote datanodes) are not ported: a
-distributed table raises UnsupportedError naming them.
+A DistTable's lowered plans scatter through its aggregate pushdown (the
+datanodes reduce on their own devices); its row path reads the selector by
+an IR RawScan over the wire (`_wire_scan_selection`) and builds the
+SeriesMatrix here, for the frontend's device. Where the port differs from
+the reference: the wire scan's rows are labelled run by run
+(`_label_wire_batches`: a run is a stretch of rows with equal tags, about
+one a series since a region scans by series; matchers and labels are
+evaluated once a run, series ids assigned per label tuple in first-seen
+order), where the reference renders every row and field in a Python
+loop. The labels, series ids, row order and matrix are the same.
 """
 
 from __future__ import annotations
@@ -146,16 +154,18 @@ def try_lower(ev, e: Aggregate):
     metric, table = resolve_metric_table(ev.engine, sel, ev.ctx)
     if table is None or not hasattr(table, "schema"):
         return None, f"table {metric} not found"
-    if hasattr(table, "execute_tpu_plan"):
-        raise _distributed(metric)
-    if not hasattr(table, "regions"):
+    is_dist = hasattr(table, "execute_tpu_plan")
+    if not is_dist and not hasattr(table, "regions"):
         return None, f"{metric} is not a region-backed table"
-    # same floor SQL's try_execute applies: small local tables are
-    # faster (and float64-exact) on the existing row path
-    est = tpu_exec._estimated_table_rows(table)
-    if est is not None and est < tpu_exec.TPU_DISPATCH_MIN_ROWS:
-        return None, (f"est_rows={est} < dispatch_floor="
-                      f"{tpu_exec.TPU_DISPATCH_MIN_ROWS}")
+    if is_dist and not tpu_exec._PARTIAL_PUSHDOWN[0]:
+        return None, "SET dist_partial_agg = 0"
+    if not is_dist:
+        # same floor SQL's try_execute applies: small local tables are
+        # faster (and float64-exact) on the existing row path
+        est = tpu_exec._estimated_table_rows(table)
+        if est is not None and est < tpu_exec.TPU_DISPATCH_MIN_ROWS:
+            return None, (f"est_rows={est} < dispatch_floor="
+                          f"{tpu_exec.TPU_DISPATCH_MIN_ROWS}")
 
     schema = table.schema
     if schema.timestamp_column is None:
@@ -440,8 +450,14 @@ def explain_lines(ev, expr) -> List[str]:
                            if s is agg.expr or
                            s in list(getattr(agg.expr, "args", []) or []))
             lines.append("TpuAggregateExec: " + low.plan.describe())
-            lines.append("  Dispatch: " + tpu_exec.local_dispatch_decision(
-                low.table, plan=low.plan))
+            if hasattr(low.table, "execute_tpu_plan"):
+                lines.append("  Dispatch: " +
+                             tpu_exec.dispatch_decision_for_pushdown(
+                                 low.table, low.plan))
+            else:
+                lines.append("  Dispatch: " +
+                             tpu_exec.local_dispatch_decision(
+                                 low.table, plan=low.plan))
         elif low is EMPTY:
             lines.append("EmptyExec: matchers select no series")
         else:
@@ -516,8 +532,8 @@ def select_series(engine, sel: VectorSelector, lo_ms: int, hi_ms: int,
 
     regions = table.regions
     if not regions and hasattr(table, "execute_tpu_plan"):
-        # remote datanodes: the reference reads them by a wire RawScan
-        raise _distributed(metric)
+        return _wire_scan_selection(table, sel, metric, tag_names,
+                                    fields, multi_field, lo_ms, hi_ms)
 
     key_to_gid: Dict[tuple, int] = {}
     glabels: List[Dict[str, str]] = []
@@ -616,12 +632,141 @@ def select_series(engine, sel: VectorSelector, lo_ms: int, hi_ms: int,
     return _Selection(glabels, sm, int(ts.min()), int(ts.max()))
 
 
-def _distributed(metric: str) -> UnsupportedError:
-    return UnsupportedError(
-        f"PromQL over {metric}: a distributed table needs PromQL's "
-        "distributed branches (its plans through the aggregate pushdown "
-        "and the wire scan; ROADMAP Queue 1, h3b), which are not ported "
-        "yet")
+def _wire_scan_selection(table, sel: VectorSelector, metric: str,
+                         tag_names: List[str], fields: List[str],
+                         multi_field: bool, lo_ms: int, hi_ms: int):
+    """Row-path selection over remote datanodes: an IR RawScan through
+    DistTable.scan_batches — region pruning and equality-matcher wire
+    pushdown apply; the remaining matchers filter the rows here."""
+    from ..query import ir
+
+    schema = table.schema
+    tagset = set(tag_names)
+    preds = []
+    for m in sel.matchers:
+        if m.op == "=" and m.name in tagset and m.value and \
+                schema.column_schema(m.name).dtype.is_string:
+            preds.append(BinaryOp("=", Column(m.name), Literal(m.value)))
+    tc = schema.timestamp_column
+    scan = ir.RawScan(
+        projection=list(tag_names) + [tc.name] + list(fields),
+        time_range=(lo_ms, hi_ms + 1), filters=preds)
+    try:
+        batches = ir.execute_raw_scan(table, scan)
+    except NotImplementedError as e:
+        raise UnsupportedError(
+            f"PromQL over {metric}: its datanode client implements "
+            "neither in-process regions nor the wire scan path; the "
+            "lowered aggregate path (SET dist_partial_agg = 1) is the "
+            "only route to these datanodes") from e
+    return _label_wire_batches(batches, sel, metric, tag_names, tc.name,
+                               fields, multi_field, lo_ms, hi_ms)
+
+
+def _vector_arrays(rb, name: str):
+    """(values, validity or None) of one column of a scanned batch."""
+    col = rb.column(name)
+    return col.data, col.validity
+
+
+def _tag_runs(rb, tag_names: List[str]):
+    """(start row of each run, each run's rendered label tuple): a run is
+    a stretch of consecutive rows whose tag values are all equal. A
+    region's scan returns its rows by series, so a batch holds about one
+    run a series, and only one row of each run is rendered (a null reads
+    as "", as `_label_str` renders it)."""
+    from .engine import _label_str
+
+    n = rb.num_rows
+    change = np.zeros(max(n - 1, 0), dtype=bool)
+    cols = []
+    for t in tag_names:
+        data, valid = _vector_arrays(rb, t)
+        data = np.asarray(data, dtype=object)
+        if valid is not None:
+            data = data.copy()
+            data[~valid] = None
+        change |= data[1:] != data[:-1]
+        cols.append(data)
+    starts = np.concatenate([[0], np.nonzero(change)[0] + 1]).astype(
+        np.int64)
+    labels = [tuple(_label_str(col[r]) for col in cols) for r in starts]
+    return starts, labels
+
+
+def _label_wire_batches(batches, sel: VectorSelector, metric: str,
+                        tag_names: List[str], ts_name: str,
+                        fields: List[str], multi_field: bool, lo_ms: int,
+                        hi_ms: int):
+    """Label the wire scan's rows into a _Selection: the reference's
+    per-row loop, run by run. Series ids go to label tuples (plus the
+    field on a multi-field table) in the order the reference meets them
+    (batch, then field, then row), and the rows keep that order before
+    the stable (series, ts) sort, so the SeriesMatrix is the same."""
+    from ..ops.window import SeriesMatrix
+    from .engine import _matcher_keep, _matches_empty, _Selection
+
+    tagset = set(tag_names)
+    key_to_gid: Dict[tuple, int] = {}
+    glabels: List[Dict[str, str]] = []
+    gid_parts: List[np.ndarray] = []
+    ts_parts: List[np.ndarray] = []
+    val_parts: List[np.ndarray] = []
+    for rb in batches:
+        n = rb.num_rows
+        if n == 0:
+            continue
+        starts, labels = _tag_runs(rb, tag_names)
+        lengths = np.diff(np.append(starts, n))
+        run_keep = np.ones(len(starts), dtype=bool)
+        for m in sel.matchers:
+            if m.name in ("__name__", "__field__"):
+                continue
+            if m.name not in tagset:
+                if not _matches_empty(m):
+                    run_keep[:] = False
+                continue
+            k = tag_names.index(m.name)
+            run_keep &= _matcher_keep([lb[k] for lb in labels], m)
+        ts = np.asarray(_vector_arrays(rb, ts_name)[0], dtype=np.int64)
+        keep = np.repeat(run_keep, lengths) & (ts >= lo_ms) & (ts <= hi_ms)
+        if not keep.any():
+            continue
+        run_of = np.repeat(np.arange(len(starts)), lengths)
+        for fname in fields:
+            data, valid = _vector_arrays(rb, fname)
+            rows = np.nonzero(keep if valid is None else keep & valid)[0]
+            if len(rows) == 0:
+                continue
+            # runs in row order: each label tuple is first met in the run
+            # of its first kept row
+            gid_of_run = np.full(len(starts), -1, dtype=np.int64)
+            for r in np.unique(run_of[rows]):
+                gkey = labels[r] + ((fname,) if multi_field else ())
+                gid = key_to_gid.get(gkey)
+                if gid is None:
+                    gid = len(glabels)
+                    key_to_gid[gkey] = gid
+                    lbl = {"__name__": metric}
+                    for tn, tv in zip(tag_names, labels[r]):
+                        if tv != "":
+                            lbl[tn] = tv
+                    if multi_field:
+                        lbl["__field__"] = fname
+                    glabels.append(lbl)
+                gid_of_run[r] = gid
+            gid_parts.append(gid_of_run[run_of[rows]])
+            ts_parts.append(ts[rows])
+            val_parts.append(np.asarray(data[rows], dtype=np.float64))
+    if not gid_parts:
+        return _Selection([], None)
+    gids = np.concatenate(gid_parts).astype(np.int32)
+    tsa = np.concatenate(ts_parts)
+    vals = np.concatenate(val_parts)
+    order = np.lexsort((tsa, gids))            # stable: ties keep scan order
+    gids, tsa, vals = gids[order], tsa[order], vals[order]
+    sm = SeriesMatrix.build(gids, tsa, vals, len(glabels))
+    return _Selection(glabels, sm, int(tsa.min()), int(tsa.max()))
 
 
 def matcher_sids(region, tag_names, eq_matchers):

@@ -13,7 +13,8 @@ one DataFusion LogicalPlan. Here (as in greptimedb_tpu/query/ir.py):
   engine's device (tpu_exec.region_moment_frames); `_finalize` folds the
   moment frames either way.
 - `RawScan` — the scan leaf for statements that do not lower: a projected,
-  filtered, time-bounded `scan_batches`.
+  filtered, time-bounded `scan_batches` (`execute_raw_scan`) that still
+  rides region pruning and wire filter pushdown on distributed tables.
 
 query/plan_codec.py is the wire codec for the aggregate node (the
 frontend→datanode boundary).
@@ -48,7 +49,7 @@ from .tpu_exec import (
 
 __all__ = [
     "BucketGroup", "Moment", "RawScan", "TagGroup", "TpuPlan",
-    "execute_agg_plan", "group_key_columns",
+    "execute_agg_plan", "execute_raw_scan", "group_key_columns",
     "plan_from_specs",
 ]
 
@@ -70,7 +71,9 @@ def group_key_columns(plan: TpuPlan) -> List[str]:
 class RawScan:
     """The row-path scan leaf: what a non-lowerable statement still
     pushes down — a projection, conjunctive filters and a half-open
-    time range."""
+    time range. `DistTable.scan_batches` prunes regions and ships the
+    pushable filter subset over the wire; local tables serve it from
+    their region scans."""
 
     projection: Optional[List[str]] = None
     time_range: Optional[Tuple[Optional[int], Optional[int]]] = None
@@ -89,6 +92,15 @@ class RawScan:
         if self.limit is not None:
             parts.append(f"limit={self.limit}")
         return f"RawScan: {' '.join(parts)}"
+
+
+def execute_raw_scan(table, scan: RawScan) -> list:
+    """Run the scan leaf against any table shape (local mito table or
+    DistTable — both speak the scan_batches protocol)."""
+    return table.scan_batches(projection=scan.projection,
+                              time_range=scan.time_range,
+                              limit=scan.limit,
+                              filters=scan.filters or None)
 
 
 # ---------------------------------------------------------------------------
@@ -176,7 +188,8 @@ def execute_agg_plan(table, plan: TpuPlan, device) -> pd.DataFrame:
             return pd.DataFrame(columns=cols +
                                 [slot for slot, _, _ in plan.finals])
         # global aggregate over zero rows still yields one row
-        row = {slot: (0 if op in ("count", "approx_distinct") else np.nan)
+        row = {slot: (0 if op in ("count", "count_distinct",
+                                  "approx_distinct") else np.nan)
                for slot, op, _ in plan.finals}
         return pd.DataFrame([row])
     with exec_stats.stage("finalize", partial_frames=len(frames),

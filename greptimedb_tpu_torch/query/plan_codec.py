@@ -29,7 +29,7 @@ KNOWN_MOMENT_OPS = frozenset({
     "min_ts", "max_ts", "distinct", "tdigest", "reset_corr"})
 KNOWN_FINAL_OPS = frozenset({
     "sum", "avg", "count", "min", "max", "first", "last", "stddev",
-    "variance", "approx_distinct", "approx_percentile",
+    "variance", "count_distinct", "approx_distinct", "approx_percentile",
     "moment"})
 
 #: substring marker that survives a wire's string-flattened errors

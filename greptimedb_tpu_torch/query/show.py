@@ -4,9 +4,7 @@ Reference behavior: src/query/src/sql.rs:441 + sql/show.rs:337 — SHOW
 DATABASES/TABLES with LIKE/WHERE, SHOW CREATE TABLE, DESCRIBE with the
 Column/Type/Null/Key/Default/Semantic Type layout.
 
-Ported from greptimedb_tpu/query/show.py (less the distributed table's
-route refresh before SHOW CREATE TABLE: the port has no distributed
-tables yet).
+Ported from greptimedb_tpu/query/show.py.
 """
 
 from __future__ import annotations
@@ -103,6 +101,13 @@ def describe_table(engine, stmt, ctx: QueryContext) -> Output:
 
 def show_create_table(engine, stmt, ctx: QueryContext) -> Output:
     table = engine.resolve_table(stmt.table, ctx)
+    # elastic regions refine partition rules AFTER create (balancer
+    # split): a distributed table re-pulls its rule from meta so the
+    # rendered PARTITION clause matches the live layout — the data path
+    # refreshes on StaleRouteError, but SHOW CREATE never scans
+    refresh = getattr(table, "refresh_route", None)
+    if callable(refresh):
+        refresh()
     info = table.info
     lines = [f"CREATE TABLE IF NOT EXISTS {info.name} ("]
     defs = []

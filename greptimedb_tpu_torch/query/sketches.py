@@ -12,7 +12,9 @@ being DataFusion's ``approx_distinct`` (HyperLogLog) and
   partial IS the deduplicated value set, so small-cardinality
   ``count(DISTINCT)`` stays exact end to end), degrading to a dense
   HyperLogLog past the bound (documented standard error
-  ``1.04/sqrt(2^p)`` ≈ 0.8% at the default p=14).
+  ``1.04/sqrt(2^p)`` ≈ 0.8% at the default p=14). ``SET
+  exact_distinct = 1`` refuses the sketch path entirely and forces the
+  raw-row fallback.
 - :class:`TDigest` — Dunning's merging t-digest with the k1
   (arcsin) scale function; rank error ≈ ``1/delta`` near the median
   and tighter in the tails (default delta=200 → well under 1% on p95).
@@ -42,6 +44,7 @@ import numpy as np
 
 from ..common.failpoint import fail_point, register as _fp_register
 from ..errors import InvalidArgumentsError, SketchCodecError
+from ..utils import env_flag
 
 _fp_register("sketch_codec")
 
@@ -53,6 +56,10 @@ _fp_register("sketch_codec")
 #: an exact set; past it the partial degrades to HLL
 EXACT_SET_LIMIT = 4096
 
+#: SET exact_distinct = 1 — refuse sketch partials for count(DISTINCT)
+#: and take the raw-row path (exact at any cardinality, full wire cost)
+_EXACT_DISTINCT = [env_flag("GREPTIME_EXACT_DISTINCT", False)]
+
 #: SET approx_error_target — drives the HLL precision p
 #: (1.04/sqrt(2^p) <= target) and the t-digest compression
 #: (delta ~ 1/target); default 0.01
@@ -61,8 +68,11 @@ _HLL_P = [14]
 _TDIGEST_DELTA = [200.0]
 
 
-def configure(*, error_target: Optional[float] = None) -> None:
-    """SET approx_error_target."""
+def configure(*, exact_distinct: Optional[bool] = None,
+              error_target: Optional[float] = None) -> None:
+    """SET exact_distinct / approx_error_target."""
+    if exact_distinct is not None:
+        _EXACT_DISTINCT[0] = bool(exact_distinct)
     if error_target is not None:
         t = float(error_target)
         if not (0.001 <= t <= 0.25):
@@ -73,6 +83,10 @@ def configure(*, error_target: Optional[float] = None) -> None:
         p = int(np.ceil(2 * np.log2(1.04 / t)))
         _HLL_P[0] = min(16, max(6, p))
         _TDIGEST_DELTA[0] = min(1000.0, max(50.0, 2.0 / t))
+
+
+def exact_distinct_forced() -> bool:
+    return _EXACT_DISTINCT[0]
 
 
 def error_target() -> float:

@@ -19,9 +19,10 @@ A distributed table (frontend/distributed.py, `execute_tpu_plan`) takes
 the aggregate pushdown: the datanodes reduce their regions and the
 frontend folds their moment frames; it is never routed to the CPU by the
 dispatch floor, and `SET dist_partial_agg = 0` plans no pushdown at all
-(the raw-row scatter answers). A `count(DISTINCT)` is lowered on no table:
-its sketch partial is not ported, so over a distributed table it takes
-the raw-row scatter, whose answer is exact.
+(the raw-row scatter answers). A `count(DISTINCT)` lowers to a sketch
+partial (`count_distinct`, query/sketches.py) only in that pushdown and
+only while `SET exact_distinct` is 0; a local table keeps the exact
+raw-row path.
 `region_moment_frames` routes each region as the reference does: a point
 or IN tag query on an uncached region takes the SST index
 (`_indexed_point_frames`, reduced on the host), a region too big for the
@@ -875,7 +876,9 @@ def plan_for(table, a: Analysis, query: Query) -> Optional[TpuPlan]:
         return None
 
     # aggregates → moments
-    if hasattr(table, "execute_tpu_plan") and not _PARTIAL_PUSHDOWN[0]:
+    from .sketches import exact_distinct_forced
+    is_pushdown = hasattr(table, "execute_tpu_plan")
+    if is_pushdown and not _PARTIAL_PUSHDOWN[0]:
         # SET dist_partial_agg = 0: no pushdown plan at all, so EXPLAIN
         # (CpuAggregateExec) and execution (raw-row scatter + CPU
         # fallback) render the same decision
@@ -899,19 +902,20 @@ def plan_for(table, a: Analysis, query: Query) -> Optional[TpuPlan]:
         op = call.op
         if op not in TPU_AGGREGATES and op not in SKETCH_AGGREGATES:
             return None
-        if call.distinct:
-            # count(DISTINCT) would ride a sketch partial only in the
-            # distributed pushdown, whose sketch partial is not ported:
-            # every table keeps the exact raw-row path
+        if call.distinct and (op != "count" or not is_pushdown or
+                              exact_distinct_forced()):
+            # distinct rides the sketch partial only where it pays — the
+            # distributed pushdown (a standalone table keeps the exact
+            # fallback), and never under SET exact_distinct = 1
             return None
         if call.arg is None:
-            if op != "count":
+            if op != "count" or call.distinct:
                 return None
             finals.append((call.slot, "count", [moment("count", None)]))
             continue
         # distinct sketches take any value type (sets of strings are
         # sets); everything else needs numbers
-        sketchy = op == "approx_distinct"
+        sketchy = call.distinct or op == "approx_distinct"
         if isinstance(call.arg, Column):
             col = call.arg.name
             if col == (tc.name if tc else None):
@@ -930,6 +934,10 @@ def plan_for(table, a: Analysis, query: Query) -> Optional[TpuPlan]:
                 return None
             col = expr_name(call.arg)
             field_exprs[col] = call.arg
+        if call.distinct:                       # count(DISTINCT x)
+            finals.append((call.slot, "count_distinct",
+                           [moment("distinct", col)]))
+            continue
         if op == "approx_distinct":
             finals.append((call.slot, "approx_distinct",
                            [moment("distinct", col)]))
@@ -1202,7 +1210,8 @@ def try_execute(table, a: Analysis, query: Query,
 
 
 #: finals whose result comes out of a sketch partial, not a numeric fold
-_SKETCH_FINAL_OPS = frozenset({"approx_distinct", "approx_percentile"})
+_SKETCH_FINAL_OPS = frozenset({"count_distinct", "approx_distinct",
+                               "approx_percentile"})
 
 
 def _aggs_desc(plan: TpuPlan) -> str:
@@ -1884,7 +1893,7 @@ def _finalize(df: pd.DataFrame, plan: TpuPlan) -> pd.DataFrame:
             out[slot] = merged[mslots[0]]
         elif op == "count":
             out[slot] = merged[mslots[0]].astype(np.int64)
-        elif op == "approx_distinct":
+        elif op in ("count_distinct", "approx_distinct"):
             from .sketches import decode_sketch
             out[slot] = merged[mslots[0]].map(
                 lambda b: 0 if b is None

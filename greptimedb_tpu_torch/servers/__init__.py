@@ -11,6 +11,6 @@ OpenTSDB telnet listener included), the MySQL and Postgres wire servers
 (mysql.py, postgres.py), auth.py, tls.py, the ingest coalescer
 (coalesce.py), the query interceptor (interceptor.py), and the
 gRPC / Arrow Flight front door (flight.py's `FlightFrontendServer`,
-grpc.py's `GrpcServer`). The Flight datanode server, the distributed
-router↔worker plane, comes with the distributed frontend and datanode.
+grpc.py's `GrpcServer`), and the Flight datanode server
+(`FlightDatanodeServer`), the distributed router↔worker plane.
 """

@@ -21,10 +21,9 @@ Tickets, descriptors and action bodies are JSON; data rides Arrow IPC.
 
 Ported from greptimedb_tpu/servers/flight.py; its tickets, descriptors
 and action bodies are the reference's, so either package's client talks
-to either's server. The `repl_apply` action answers the datanode's
-UnsupportedError until read-replica shipping is ported (ROADMAP Queue 1,
-h4). Unlike the reference's, each server's `shutdown()` waits for the
-thread `serve_in_background` started.
+to either's server, the `repl_*` actions of read-replica shipping
+included. Unlike the reference's, each server's `shutdown()` waits for
+the thread `serve_in_background` started.
 """
 
 from __future__ import annotations

@@ -20,15 +20,13 @@ differs from the reference:
 - `/v1/admin/downsample` reduces on the frontend's device, and the
   coprocessors of `/v1/scripts` and `/v1/run-script` run on it
   (script/).
-- `/v1/trace/{trace_id}` and `/debug/prof/cpu` serve this process: the
-  reference's fan-out to a distributed frontend's datanodes (span-sync
-  pings, the Flight `profile` action) comes with the distributed plane.
 """
 
 from __future__ import annotations
 
 import asyncio
 import json
+import logging
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -43,6 +41,8 @@ from . import influxdb as influx_mod
 from . import opentsdb as tsdb_mod
 from . import prometheus as prom_mod
 from .auth import NoopUserProvider, UserProvider
+
+logger = logging.getLogger(__name__)
 
 
 def parse_db_param(db: Optional[str]) -> tuple:
@@ -497,8 +497,10 @@ class HttpServer:
 
         def work():
             from ..common import trace_store
+            clients = getattr(self.frontend, "clients", None)
             tid, rows = trace_store.sync_and_fetch(
-                self.frontend.catalog, trace_id)
+                self.frontend.catalog, trace_id,
+                clients=list(clients.values()) if clients else None)
             if not rows:
                 return tid, None
             return tid, {
@@ -522,9 +524,11 @@ class HttpServer:
     async def handle_cpu_prof(self, request):
         """GET /debug/prof/cpu?seconds=N&hz=H&format=folded|flamegraph|json
         — an on-demand high-rate CPU sampling burst (the reference's
-        pprof-shaped /debug/prof/cpu, src/common/pprof) of this process.
-        Works with `SET profiling` off — the burst has its own clock and
-        rate."""
+        pprof-shaped /debug/prof/cpu, src/common/pprof). On a
+        distributed frontend the burst fans out to every datanode over
+        the Flight `profile` action concurrently and the folded stacks
+        merge per node. Works with `SET profiling` off — the burst has
+        its own clock and rate."""
         self.user_provider.auth_http_basic(
             request.headers.get("Authorization"))
         fmt = request.query.get("format", "folded")
@@ -544,9 +548,28 @@ class HttpServer:
 
         def work():
             from ..common import profiler
+            from ..common.runtime import parallel_map
             s = profiler.sampler()
-            return [] if s is None else s.collect_burst(seconds,
-                                                        burst_hz=hz_f)
+            clients = list(getattr(self.frontend, "clients",
+                                   {}).values())
+
+            def one(target):
+                try:
+                    if target is None:
+                        if s is None:
+                            return []
+                        return s.collect_burst(seconds, burst_hz=hz_f)
+                    return target.profile(seconds=seconds, hz=hz_f)
+                except Exception as e:  # noqa: BLE001 — a dead node
+                    logger.warning(     # must not void the whole burst
+                        "profile burst fan-out failed: %s", e)
+                    return []
+
+            merged: list = []
+            for rows in parallel_map(one, [None] + clients,
+                                     max_workers=len(clients) + 1):
+                merged.extend(rows or [])
+            return merged
 
         loop = asyncio.get_running_loop()
         rows = await loop.run_in_executor(

@@ -72,12 +72,12 @@ WAITING: dict = {}
 #: the distributed golden cases, beside the standalone ones
 DIST_CASES_DIR = CASES_DIR.parent / "distributed"
 
-#: the distributed cases the port byte-matches. The others: explain/*
-#: are red on the JAX package itself, system/* read meta-backed views
-#: (ROADMAP Queue 1, h3b) and admin/migrate_region moves a region (h4)
+#: the distributed cases the port byte-matches; the others, explain/*,
+#: are red on the JAX package itself
 DIST_IN_SCOPE = (
-    "alter/alter", "common/basic", "common/groupby", "common/window",
-    "cte/cte", "show/show", "subquery/subquery",
+    "admin/migrate_region", "alter/alter", "common/basic",
+    "common/groupby", "common/window", "cte/cte", "show/show",
+    "subquery/subquery", "system/cluster_info", "system/region_peers",
 )
 
 
@@ -238,9 +238,10 @@ class DistEnv:
     """Two-datanode cluster frontend for the distributed cases: meta over
     a MemKv, both datanodes on one shared object store (their WAL and
     control state stay node-scoped), a DistInstance over
-    LocalDatanodeClients, all on `device`. The elastic-region ADMIN
-    statements raise in the port, so no balancer operation is ever
-    queued for a heartbeat to carry."""
+    LocalDatanodeClients, all on `device`. After each statement the
+    balancer operations it queued (ADMIN MIGRATE / SPLIT / REBALANCE /
+    ADD or REMOVE REPLICA) are pumped to completion, as the reference's
+    runner does, so placement in the goldens is settled."""
 
     def __init__(self, data_home: str, device: str):
         from ..client import LocalDatanodeClient
@@ -272,7 +273,21 @@ class DistEnv:
             raise
 
     def do_query(self, sql: str, ctx=None):
-        return self.fe.do_query(sql, ctx)
+        outs = self.fe.do_query(sql, ctx)
+        self._pump_balancer()
+        return outs
+
+    def _pump_balancer(self):
+        """Drive the queued balancer operations to completion: the
+        cooperative stand-in for the background tick and heartbeats."""
+        for _ in range(24):
+            if not self.srv.balancer.ops():
+                return
+            self.srv.balancer.tick()
+            for dn in self.datanodes:
+                resp = self.srv.handle_heartbeat(dn.opts.node_id)
+                for msg in resp.mailbox:
+                    dn._handle_mailbox(msg)
 
     def shutdown(self):
         if getattr(self, "fe", None) is not None:

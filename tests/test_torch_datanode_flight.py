@@ -27,9 +27,10 @@ the port's node 2 opens the data home the reference's nodes wrote and
 answers as the reference's node 2 did. The heartbeat: after the same
 writes the port's full DatanodeStat equals the reference's, and a
 flush_table mailed on a heartbeat response flushes. The port's
-repl_apply and balancer steps answer UnsupportedError naming ROADMAP
-item h4, a balancer step's failure is acked to meta, and an
-open_regions mail without table info is logged and skipped. Tables stay small (two JAX signatures on the
+repl_apply and balancer steps answer as the reference's on the same
+table (directly and over Flight), a balancer step's failure is acked to
+meta, and an open_regions mail without table info is logged and
+skipped. Tables stay small (two JAX signatures on the
 reference's side).
 """
 
@@ -538,13 +539,12 @@ def test_mailed_flush_table_flushes(plane, side):
 
 
 # ---------------------------------------------------------------------------
-# what waits for elastic regions (ROADMAP h4)
+# the elastic regions' datanode steps, against the reference's
 # ---------------------------------------------------------------------------
 
-@pytest.fixture()
-def port_node(tmp_path):
-    dn = open_node("port", str(tmp_path), 1)
-    m = SIDES["port"]
+def _node_with_table(side, home):
+    dn = open_node(side, home, 1)
+    m = SIDES[side]
     stmt = m.sql.parse_sql(DDL.format(t="t"))
     schema, pk = m.statement.build_schema_from_create(stmt)
     m.local.LocalDatanodeClient(dn).ddl_create_table(
@@ -552,31 +552,63 @@ def port_node(tmp_path):
             "t", schema, catalog_name=CAT, schema_name=SCH,
             primary_key_indices=pk, partitions=stmt.partitions,
             table_id=1024, assigned_region_numbers=[0, 1, 2, 3]))
+    dn.catalog.table(CAT, SCH, "t").insert(
+        {k: list(v) for k, v in PUT.items()})
+    return dn
+
+
+@pytest.fixture()
+def port_node(tmp_path):
+    dn = _node_with_table("port", str(tmp_path / "port"))
     yield dn
     dn.shutdown()
 
 
-def test_repl_apply_names_h4(port_node):
-    m = SIDES["port"]
-    with pytest.raises(m.errors.UnsupportedError, match="h4"):
-        m.local.LocalDatanodeClient(port_node).repl_apply(
-            CAT, SCH, "t", 0, [])
-    srv = m.server.FlightDatanodeServer(port_node)
-    srv.serve_in_background()
+@pytest.fixture()
+def ref_node(tmp_path):
+    dn = _node_with_table("ref", str(tmp_path / "ref"))
+    yield dn
+    dn.shutdown()
+
+
+def _outcome(fn):
+    """A step's answer, or its error's class name."""
     try:
-        client = m.client.FlightDatanodeClient(srv.address, 1)
-        with pytest.raises(m.errors.GreptimeError, match="h4"):
-            client.repl_apply(CAT, SCH, "t", 0, [], leader_flushed=3)
-        client.close()
-    finally:
-        srv.shutdown()
+        return ("ok", fn())
+    except Exception as e:  # noqa: BLE001 — each package's own class
+        return ("error", type(e).__name__)
+
+
+def test_repl_apply_names_h4(port_node, ref_node):
+    """repl_apply to a region that is no standby (a late ship from a
+    deposed leader) is ignored alike in both packages, in process and
+    over each package's Flight server."""
+    answers = {}
+    for side, dn in (("port", port_node), ("ref", ref_node)):
+        m = SIDES[side]
+        local = m.local.LocalDatanodeClient(dn).repl_apply(
+            CAT, SCH, "t", 0, [])
+        srv = m.server.FlightDatanodeServer(dn)
+        serving = srv.serve_in_background()
+        try:
+            client = m.client.FlightDatanodeClient(srv.address, 1)
+            wire = client.repl_apply(CAT, SCH, "t", 0, [], leader_flushed=3)
+            client.close()
+        finally:
+            srv.shutdown()
+            if serving is not None:
+                serving.join(60)
+        answers[side] = (local, wire)
+    assert answers["port"] == answers["ref"]
+    assert answers["port"][0]["standby"] is False
 
 
 def test_balancer_step_failure_is_acked_through_meta(port_node):
-    """A migrate's first step fails on the port's datanode with h4's
-    UnsupportedError; the ack reaches meta, whose next tick rolls the
-    operation back as for any failed step."""
+    """A migrate's first step fails on the port's datanode (the
+    `balancer_snapshot_upload` failpoint); the ack reaches meta, whose
+    next tick rolls the operation back as for any failed step."""
     m = SIDES["port"]
+    fp = importlib.import_module("greptimedb_tpu_torch.common.failpoint")
     srv = m.meta.MetaSrv(m.meta.MemKv())
     client = m.meta.MetaClient(srv)
     port_node.start_heartbeat(client, interval_s=3600)
@@ -584,23 +616,32 @@ def test_balancer_step_failure_is_acked_through_meta(port_node):
     route = srv.create_table_route("greptime.public.t", [0, 1, 2, 3])
     region = route.regions_on(1)[0]
     op = srv.admin_migrate_region("greptime.public.t", region, 2)
-    srv.balancer.tick()
-    port_node._heartbeat_task.fn()       # the step rides this response
+    fp.configure("balancer_snapshot_upload", "err")
+    try:
+        srv.balancer.tick()
+        port_node._heartbeat_task.fn()   # the step rides this response
+    finally:
+        fp.configure("balancer_snapshot_upload", None)
     srv.balancer.tick()
     done = srv.balancer.op(op["id"])
     assert done["state"] == "failed"
-    assert "UnsupportedError" in done["error"] and "h4" in done["error"]
+    assert "balancer_snapshot_upload" in done["error"]
     assert srv.balancer.ops() == []
 
 
 @pytest.mark.parametrize("kind", ["balancer_fence", "balancer_open",
                                   "balancer_split_prepare", "repl_attach",
                                   "repl_promote"])
-def test_balancer_steps_name_h4(port_node, kind):
-    m = SIDES["port"]
-    with pytest.raises(m.errors.UnsupportedError, match="h4"):
-        port_node._balancer_step({"type": kind, "catalog": CAT,
-                                  "schema": SCH, "table": "t", "region": 0})
+def test_balancer_steps_name_h4(port_node, ref_node, kind):
+    """Each step answers as the reference's on the same table: the
+    fence's WAL tail, the split probe's median, a promotion of a region
+    that already leads, and the same error where the message lacks what
+    the step needs (the table info of an open or attach)."""
+    msg = {"type": kind, "catalog": CAT, "schema": SCH, "table": "t",
+           "region": 0}
+    got = _outcome(lambda: port_node._balancer_step(dict(msg)))
+    want = _outcome(lambda: ref_node._balancer_step(dict(msg)))
+    assert got == want, (kind, got, want)
 
 
 def test_open_regions_is_logged(port_node, caplog):

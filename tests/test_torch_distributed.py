@@ -15,8 +15,9 @@ datanodes, and every step must answer alike:
   and after a bulk load (`handle_bulk_load`);
 - aggregates over both tables, cold then warm, grouped by tag and by tag
   and time bucket, with and without predicates that prune regions;
-- statements that do not lower (count(DISTINCT), a window function, a
-  non-pushable filter, ORDER BY ... LIMIT) on the raw-row scatter;
+- statements that do not lower (a window function, a non-pushable
+  filter, ORDER BY ... LIMIT) on the raw-row scatter, and count(DISTINCT),
+  which lowers to the sketch partial in both packages;
 - EXPLAIN's plan text and EXPLAIN ANALYZE's stage tree (every stage and
   node block by name, rows and dispatch; walls left out), byte-equal;
 - `SET dist_partial_agg = 0` and `SET dist_fanout = 1`, whose answers
@@ -518,6 +519,7 @@ STEPS = (
     [f"raw_{t}_{name}" for t in TABLES for name in RAW] +
     [f"{kind}_{t}_{name}" for t in TABLES for name in EXPLAINED
      for kind in ("explain", "analyze")] +
+    [f"explain_{t}_distinct" for t in TABLES] +
     ["nopush_by_host", "nopush_point", "nopush_by_bucket", "nopush_explain",
      "fanout1_by_host", "fanout1_global", "fanout1_limit",
      "set_read_replica", "replica_read", "set_read_replica_bad",
@@ -568,12 +570,10 @@ def test_script_covers_the_cases(answers):
         assert "Dispatch: aggregate-pushdown (regions pruned 0/" in plan
         point = port[f"explain_{t}_point"][1][1]["plan"][0]
         assert "fan-out=1" in point
-        # count(DISTINCT) is not lowered over a DistTable (its sketch
-        # partial is not ported): the raw-row scatter answers, exactly
-        assert port[f"explain_{t}_distinct"][1][1]["plan"][0].startswith(
-            "CpuAggregateExec")
-        assert answers["ref"][f"explain_{t}_distinct"][1][1]["plan"][0] \
-            .startswith("TpuAggregateExec")
+        # count(DISTINCT) over a DistTable lowers to the sketch partial
+        for side in ("port", "ref"):
+            assert answers[side][f"explain_{t}_distinct"][1][1]["plan"][0] \
+                .startswith("TpuAggregateExec"), side
         nodes = [s for s, *_ in port[f"analyze_{t}_by_host"]
                  if s.strip().startswith("dn")]
         assert len(nodes) >= 2, nodes
@@ -590,39 +590,63 @@ def test_script_covers_the_cases(answers):
 
 
 def test_elastic_admin_and_tql_name_what_is_missing(tmp_path):
-    """ADMIN MIGRATE / SPLIT / REBALANCE / ADD or REMOVE REPLICA raise
-    UnsupportedError naming h4 in the port (the reference enqueues a
-    balancer op); TQL over a DistTable raises naming h3b; SET
-    exact_distinct stays refused, naming h3b."""
-    port = SIDES["port"]
-    c = Cluster("port", "port", str(tmp_path), nodes=2)
-    try:
-        fe = c.fe
-        c.beat()
-        fe.do_query(RANGE_DDL)
-        fe.do_query(_insert_sql("cpu_r", range(8)))
-        for sql in ("ADMIN MIGRATE REGION cpu_r 0 TO 2",
-                    "ADMIN SPLIT REGION cpu_r 0 AT 'h1'",
-                    "ADMIN REBALANCE", "ADMIN ADD REPLICA cpu_r 0 TO 2",
-                    "ADMIN REMOVE REPLICA cpu_r 0 FROM 2"):
-            with pytest.raises(port.errors.UnsupportedError,
-                               match="ROADMAP Queue 1, h4"):
-                fe.do_query(sql)
-        with pytest.raises(port.errors.UnsupportedError, match="h3b"):
-            fe.do_query("TQL EVAL (0, 60, '15s') sum(cpu_r)")
-        with pytest.raises(port.errors.UnsupportedError, match="h3b"):
-            fe.do_query("SET exact_distinct = 1")
-        # ADMIN FLUSH TABLE scatters: every region's memtable drains
-        fe.do_query("ADMIN FLUSH TABLE cpu_r")
-        for dn in c.datanodes.values():
-            t = dn.catalog.table("greptime", "public", "cpu_r")
-            for region in t.regions.values():
-                v = region.version_control.current
-                assert all(m.num_rows == 0
-                           for m in v.memtables.all_memtables())
-    finally:
-        c.fe.shutdown()
-        c.close()
+    """Nothing is missing any more: ADMIN MIGRATE / SPLIT / REBALANCE /
+    ADD or REMOVE REPLICA enqueue the same balancer operations in both
+    packages (op ids aside), TQL over a DistTable and SET exact_distinct
+    answer as the reference's do, and ADMIN FLUSH TABLE scatters."""
+    answers = {}
+    for side in ("ref", "port"):
+        c = Cluster(side, side, str(tmp_path / side), nodes=2)
+        out = answers[side] = {}
+        try:
+            fe = c.fe
+            c.beat()
+            fe.do_query(RANGE_DDL)
+            fe.do_query(_insert_sql("cpu_r", range(8)))
+            for sql in ("ADMIN MIGRATE REGION cpu_r 0 TO 2",
+                        "ADMIN SPLIT REGION cpu_r 0 AT 'h1'",
+                        "ADMIN REBALANCE", "ADMIN ADD REPLICA cpu_r 1 TO 2",
+                        "ADMIN REMOVE REPLICA cpu_r 1 FROM 2"):
+                got = answer_of(fe, sql)
+                if got[0] == "ok":
+                    got = ("ok", got[1][0],
+                           got[1][1].drop(columns=["op_id"]))
+                out[sql] = got
+            out["tql"] = answer_of(
+                fe, f"TQL EVAL ({T0 // 1000}, {T0 // 1000 + 60}, '15s') "
+                    f"sum(cpu_r)")
+            out["set"] = answer_of(fe, "SET exact_distinct = 1")
+            out["distinct_exact"] = answer_of(
+                fe, "EXPLAIN SELECT count(DISTINCT host) FROM cpu_r")
+            answer_of(fe, "SET exact_distinct = 0")
+            # ADMIN FLUSH TABLE scatters: every region's memtable drains
+            fe.do_query("ADMIN FLUSH TABLE cpu_r")
+            for dn in c.datanodes.values():
+                t = dn.catalog.table("greptime", "public", "cpu_r")
+                for region in t.regions.values():
+                    v = region.version_control.current
+                    assert all(m.num_rows == 0
+                               for m in v.memtables.all_memtables())
+        finally:
+            if side == "port":
+                c.fe.shutdown()
+            c.close()
+    port, ref = answers["port"], answers["ref"]
+    for key, want in ref.items():
+        got = port[key]
+        if key in ("tql", "set"):
+            assert_same(got, want, P_ABS, key)
+        elif want[0] == "ok" and key.startswith("ADMIN"):
+            assert got[0] == "ok" and got[1] == want[1], (key, got, want)
+            pd.testing.assert_frame_equal(got[2], want[2])
+        elif want[0] == "ok":
+            assert got[0] == "ok" and got[1][0] == want[1][0], key
+            pd.testing.assert_frame_equal(got[1][1], want[1][1])
+        else:
+            assert got == want, key
+    assert port["tql"][0] == "ok" and len(port["tql"][1][1]) > 0
+    assert port["distinct_exact"][1][1]["plan"][0].startswith(
+        "CpuAggregateExec")
 
 
 def test_frontend_default_device_raises_without_cuda():

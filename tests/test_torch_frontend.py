@@ -447,7 +447,7 @@ def test_packages_open_each_others_data_home(run, label):
 _PORTED_SINCE = {"ADMIN SHOW TRACE 'last'", "ADMIN SHOW PROFILE 'last'",
                  "SET profiling = 1", "SET trace_sample_ratio = 1",
                  "SET self_monitor_retention_ms = 60000",
-                 "SET dist_fanout = 4"}
+                 "SET dist_fanout = 4", "SET exact_distinct = 1"}
 
 
 def _answer(fe, sql, ctx):
@@ -468,23 +468,27 @@ def _answer(fe, sql, ctx):
     "SET self_monitor_retention_ms = 60000",
 ])
 def test_port_raises_for_what_it_has_not_ported(tmp_path, sql):
-    """A statement of a module the port does not have (the count(DISTINCT)
-    sketch partial) raises UnsupportedError; one of a module ported since
-    answers what the reference answers on a fresh frontend with no
-    retained trace and no profiled query, and SET dist_fanout sets the
-    same fan-out in both packages."""
+    """A statement of a module the port does not have would raise
+    UnsupportedError; every one listed here belongs to a module ported
+    since and answers what the reference answers on a fresh frontend with
+    no retained trace and no profiled query, SET dist_fanout sets the
+    same fan-out and SET exact_distinct the same sketch knob in both
+    packages."""
     from greptimedb_tpu.common import profiler as ref_profiler
     from greptimedb_tpu.common import runtime as ref_runtime
     from greptimedb_tpu.common import trace_store as ref_trace
     from greptimedb_tpu.monitor import scraper as ref_scraper
+    from greptimedb_tpu.query import sketches as ref_sketches
     from greptimedb_tpu_torch.common import profiler, runtime, trace_store
     from greptimedb_tpu_torch.monitor import scraper
+    from greptimedb_tpu_torch.query import sketches
     ref_parse(sql)                        # the reference's grammar has it
     mods = (profiler, ref_profiler)
     saved = ([(m.enabled(), m.hz(), m.retention_ms()) for m in mods],
              [m.sample_ratio() for m in (trace_store, ref_trace)],
              [m.retention_ms() for m in (scraper, ref_scraper)],
-             [m.dist_fanout() for m in (runtime, ref_runtime)])
+             [m.dist_fanout() for m in (runtime, ref_runtime)],
+             [m.exact_distinct_forced() for m in (sketches, ref_sketches)])
     sides = {side: _open(side, tmp_path / side) for side in ("port", "ref")}
     try:
         for m in (trace_store, ref_trace):
@@ -498,6 +502,8 @@ def test_port_raises_for_what_it_has_not_ported(tmp_path, sql):
             got = _answer(sides["port"], sql, _ctx("port"))
             assert got == _answer(sides["ref"], sql, _ctx("ref"))
             assert runtime.dist_fanout() == ref_runtime.dist_fanout()
+            assert sketches.exact_distinct_forced() == \
+                ref_sketches.exact_distinct_forced()
         else:
             with pytest.raises(UnsupportedError, match="not ported|require"):
                 sides["port"].do_query(sql)
@@ -508,6 +514,8 @@ def test_port_raises_for_what_it_has_not_ported(tmp_path, sql):
             m.configure(enabled=on, hz=hz, retention_ms=keep)
         for m, r in zip((trace_store, ref_trace), saved[1]):
             m.configure(sample_ratio=r)
+        for m, on in zip((sketches, ref_sketches), saved[4]):
+            m.configure(exact_distinct=on)
         for m, keep in zip((scraper, ref_scraper), saved[2]):
             m.configure_retention(keep)
         for m, n in zip((runtime, ref_runtime), saved[3]):

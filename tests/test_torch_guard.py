@@ -74,6 +74,11 @@
   INSERT, a bulk load, an aggregate pushed down to the datanodes, a
   raw-row scan and EXPLAIN on the CPU without adding jax or
   greptimedb_tpu to sys.modules, through the port's own modules.
+- The rest of the distributed plane (PromQL over DistTables, the
+  count(DISTINCT) sketch partial, elastic regions and read replicas): no
+  port module still refuses a statement naming the roadmap items that
+  brought them, and a DistInstance drives them on the CPU without the
+  reference.
 """
 
 import ast
@@ -1523,4 +1528,107 @@ def test_distributed_frontend_imports_no_reference():
     assert not bad, bad
     for m in ("frontend.distributed", "common.runtime", "cmd.main",
               "client.flight", "servers.flight"):
+        assert f"greptimedb_tpu_torch.{m}" in new, m
+
+
+_ELASTIC_PROBE = r"""
+import json, sys, tempfile
+before = set(sys.modules)
+from greptimedb_tpu_torch.client import LocalDatanodeClient
+from greptimedb_tpu_torch.datanode import DatanodeInstance, DatanodeOptions
+from greptimedb_tpu_torch.frontend.distributed import DistInstance
+from greptimedb_tpu_torch.meta import MemKv, MetaClient, MetaSrv, Peer
+from greptimedb_tpu_torch.storage.object_store import FsObjectStore
+home = tempfile.mkdtemp()
+shared = FsObjectStore(f"{home}/shared")
+srv = MetaSrv(MemKv())
+meta = MetaClient(srv)
+nodes, clients = {}, {}
+for i in (1, 2):
+    nodes[i] = DatanodeInstance(DatanodeOptions(
+        data_home=f"{home}/home", node_id=i, device="cpu",
+        register_numbers_table=False), store=shared)
+    nodes[i].start()
+    nodes[i].attach_meta(meta)
+    clients[i] = LocalDatanodeClient(nodes[i])
+    srv.register_datanode(Peer(i, f"dn{i}"))
+    srv.handle_heartbeat(i)
+fe = DistInstance(meta, clients, device="cpu")
+
+def pump():
+    for _ in range(16):
+        srv.balancer.tick()
+        for i, dn in nodes.items():
+            for msg in srv.handle_heartbeat(i).mailbox:
+                dn._handle_mailbox(msg)
+        if not srv.balancer.ops():
+            return
+    raise AssertionError(srv.balancer.ops())
+
+fe.do_query("CREATE TABLE t (h STRING, ts TIMESTAMP TIME INDEX, v DOUBLE, "
+            "PRIMARY KEY(h)) PARTITION BY RANGE COLUMNS (h) (PARTITION a "
+            "VALUES LESS THAN ('m'), PARTITION b VALUES LESS THAN "
+            "(MAXVALUE))")
+fe.do_query("INSERT INTO t VALUES ('a', 1000, 1.0), ('c', 2000, 2.0), "
+            "('x', 3000, 3.0), ('z', 4000, 4.0)")
+fe.do_query("SET exact_distinct = 1")
+fe.do_query("SET exact_distinct = 0")
+fe.do_query("SELECT count(DISTINCT h) FROM t")
+fe.do_query("TQL EVAL (0, 10, '5s') sum(t)")
+fe.do_query("TQL EVAL (0, 10, '5s') t{h=~'a|z'}")
+def owner(region):
+    return next(rr.leader.id for rr in srv.table_route(
+        "greptime.public.t").region_routes if rr.region_number == region)
+
+for sql in (lambda: f"ADMIN MIGRATE REGION t 0 TO {3 - owner(0)}",
+            lambda: "ADMIN SPLIT REGION t 1 AT 'y'",
+            lambda: "ADMIN REBALANCE",
+            lambda: f"ADMIN ADD REPLICA t 0 TO {3 - owner(0)}",
+            lambda: f"ADMIN REMOVE REPLICA t 0 FROM {3 - owner(0)}"):
+    fe.do_query(sql())
+    pump()
+fe.do_query("SET read_replica = 'follower'")
+fe.do_query("SET read_replica = 'leader'")
+out = fe.do_query("SELECT count(*) FROM t")[-1]
+assert next(out.batches[0].rows())[0] == 4
+fe.do_query("SELECT * FROM information_schema.region_peers")
+fe.do_query("SELECT * FROM information_schema.cluster_info")
+fe.shutdown()
+for dn in nodes.values():
+    dn.shutdown()
+print(json.dumps(sorted(set(sys.modules) - before)))
+"""
+
+
+def test_nothing_waits_for_the_distributed_plane():
+    """No port module still refuses a statement for want of the
+    distributed plane: no source names the roadmap items h3b or h4 or
+    keeps the refusals that did (`_needs_h4`, `_ELASTIC_ADMIN`, the PromQL
+    `_distributed` error, `_KNOBS_NOT_PORTED`); on the CPU a DistInstance
+    answers SET exact_distinct, a count(DISTINCT), TQL over a DistTable,
+    ADMIN MIGRATE / SPLIT / REBALANCE / ADD and REMOVE REPLICA, SET
+    read_replica and the meta-backed views without adding jax or
+    greptimedb_tpu to sys.modules."""
+    gone = ("h3b", "Queue 1, h4", "_needs_h4", "_ELASTIC_ADMIN",
+            "_KNOBS_NOT_PORTED", "def _distributed(")
+    for root, _, files in os.walk(PORT):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(root, f)
+            with open(path) as fh:
+                text = fh.read()
+            for word in gone:
+                assert word not in text, f"{path}: {word}"
+    from greptimedb_tpu_torch.frontend import statement
+    assert not hasattr(statement, "_KNOBS_NOT_PORTED")
+    out = subprocess.run([sys.executable, "-c", _ELASTIC_PROBE], cwd=REPO,
+                         env=_ENV, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    new = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in new if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+    for m in ("datanode.replication", "promql.lowering", "query.sketches",
+              "meta.balancer"):
         assert f"greptimedb_tpu_torch.{m}" in new, m

@@ -99,6 +99,31 @@ def kv_of(node):
             else port_repl).ReplicatedKv(node)
 
 
+NOT_LEADER = (ref_repl.NotLeaderError, port_repl.NotLeaderError)
+UNCERTAIN = (ref_repl.ProposeUncertainError,
+             port_repl.ProposeUncertainError)
+
+
+def on_leader(nodes, op, idempotent=False, what="leader write"):
+    """op(kv) on whichever live node leads, and that node. A leader
+    starved of its process's GIL past the election timeout loses its
+    term to a follower; its proposal then raises NotLeaderError, which
+    means the entry never committed (it was not appended, or the new
+    leader overwrote it), so the op runs again on the new leader. A
+    ProposeUncertainError (no quorum ack in time: the entry may still
+    commit) is retried only for an `idempotent` op, a put of the same
+    value; on a CAS or an incr it propagates."""
+    retry = NOT_LEADER + (UNCERTAIN if idempotent else ())
+    deadline = time.monotonic() + DEADLINE_S
+    while True:
+        leader = leader_of(nodes)
+        try:
+            return op(kv_of(leader)), leader
+        except retry:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"timed out waiting for {what}")
+
+
 def crash(node):
     """Stop the node and cut its links (a process kill)."""
     node.stop()
@@ -213,22 +238,23 @@ class TestReplication:
     def test_writes_survive_leader_kill(self, tmp_path, comp):
         nodes = make_cluster(COMPOSITIONS[comp], tmp_path)
         try:
-            leader = leader_of(nodes)
-            kv = kv_of(leader)
             for i in range(5):
-                kv.put(f"key{i}", f"val{i}".encode())
-            assert kv.compare_and_put("locked", None, b"a")
+                on_leader(nodes, lambda kv: kv.put(f"key{i}",
+                                                   f"val{i}".encode()),
+                          idempotent=True)
+            took, leader = on_leader(
+                nodes, lambda kv: kv.compare_and_put("locked", None, b"a"))
+            assert took
             crash(leader)
             partition_away(nodes, leader)
             survivors = [nd for nd in nodes if nd is not leader]
-            new = wait_for(lambda: next((nd for nd in survivors
-                                         if nd.is_leader), None),
-                           what="re-election")
-            kv2 = kv_of(new)
             for i in range(5):
-                assert kv2.get(f"key{i}") == f"val{i}".encode()
-            assert not kv2.compare_and_put("locked", None, b"b")
-            assert kv2.compare_and_put("locked", b"a", b"b")
+                assert on_leader(survivors, lambda kv: kv.get(
+                    f"key{i}"))[0] == f"val{i}".encode()
+            assert not on_leader(survivors, lambda kv: kv.compare_and_put(
+                "locked", None, b"b"))[0]
+            assert on_leader(survivors, lambda kv: kv.compare_and_put(
+                "locked", b"a", b"b"))[0]
         finally:
             stop_all(nodes)
 
@@ -236,15 +262,15 @@ class TestReplication:
     def test_incr_monotonic_across_failover(self, tmp_path, comp):
         nodes = make_cluster(COMPOSITIONS[comp], tmp_path)
         try:
-            leader = leader_of(nodes)
-            seen = [kv_of(leader).incr("seq") for _ in range(3)]
+            seen = []
+            for _ in range(3):
+                v, leader = on_leader(nodes, lambda kv: kv.incr("seq"))
+                seen.append(v)
             crash(leader)
             partition_away(nodes, leader)
             survivors = [nd for nd in nodes if nd is not leader]
-            new = wait_for(lambda: next((nd for nd in survivors
-                                         if nd.is_leader), None),
-                           what="re-election")
-            seen += [kv_of(new).incr("seq") for _ in range(3)]
+            seen += [on_leader(survivors, lambda kv: kv.incr("seq"))[0]
+                     for _ in range(3)]
             assert seen == [1, 2, 3, 4, 5, 6]
         finally:
             stop_all(nodes)
@@ -288,10 +314,9 @@ class TestLogCompaction:
         nodes = make_cluster(COMPOSITIONS["port"], tmp_path,
                              compact_threshold=32)
         try:
-            leader = leader_of(nodes)
-            kv = ReplicatedKv(leader)
             for i in range(1000):
-                kv.put(f"k{i % 50}", f"v{i}".encode())
+                _, leader = on_leader(nodes, lambda kv: kv.put(
+                    f"k{i % 50}", f"v{i}".encode()), idempotent=True)
             assert len(leader.log) <= 32 + 4
             assert leader.base > 900
             log_bytes = sum(os.path.getsize(tmp_path / f"raft-{i}.json")
@@ -305,9 +330,9 @@ class TestLogCompaction:
             leader2 = leader_of(revived)
             wait_for(lambda: leader2.applied_idx >= committed,
                      what="revived apply")
-            kv2 = ReplicatedKv(leader2)
             for i in range(950, 1000):
-                assert kv2.get(f"k{i % 50}") == f"v{i}".encode()
+                assert on_leader(revived, lambda kv: kv.get(
+                    f"k{i % 50}"))[0] == f"v{i}".encode()
         finally:
             stop_all(nodes)
 
@@ -318,22 +343,26 @@ class TestLogCompaction:
                              compact_threshold=32)
         stale = tmp_path / "stale-log.json"
         try:
-            leader = leader_of(nodes)
-            kv = ReplicatedKv(leader)
+            def put(key, value):
+                on_leader(nodes, lambda kv: kv.put(key, value.encode()),
+                          idempotent=True)
             for i in range(100):
-                kv.put(f"k{i % 20}", f"v{i}".encode())
+                put(f"k{i % 20}", f"v{i}")
+            # the node whose log file goes stale: the leader of the first
+            # writes (it compacts as a follower too if its term ends)
+            leader = leader_of(nodes)
             wait_for(lambda: leader.base > 0, what="first compaction")
             lid = leader.node_id
             log_path = tmp_path / f"raft-{lid}.json"
             shutil.copy(log_path, stale)
             base_at_copy = leader.base
             for i in range(100, 200):
-                kv.put(f"k{i % 20}", f"v{i}".encode())
+                put(f"k{i % 20}", f"v{i}")
             with leader._lock:
                 last = leader._last_index()
             j = 0
             while leader.base < last and j < 300:
-                kv.put("filler", f"f{j}".encode())
+                put("filler", f"f{j}")
                 j += 1
             assert leader.base >= last
             expected = {f"k{j}": f"v{180 + j}" for j in range(20)}

@@ -17,9 +17,8 @@ the CPU.
   `SET approx_error_target`. Sketch results are equal, expression sums
   within 8 eps64 sum|x|, dispatch strings and EXPLAIN text byte-equal.
   `SET exact_distinct` acts only on the distributed pushdown's sketch
-  partial: the port (which has not ported that partial) refuses it, and
-  the reference's standalone answers under it equal the port's without
-  it.
+  partial, so both packages' standalone answers under it are their
+  exact raw-row ones, equal.
 - The `sketch_codec` failpoint degrades the statement to the raw-row
   answer and counts `sketch_degrade`.
 - Two concurrent statements that differ only in the expression, or only
@@ -47,7 +46,7 @@ from greptimedb_tpu.query import tpu_exec as ref_exec
 from greptimedb_tpu.session import QueryContext as RefCtx
 from greptimedb_tpu_torch.common import failpoint, telemetry
 from greptimedb_tpu_torch.datanode import DatanodeOptions
-from greptimedb_tpu_torch.errors import SketchCodecError, UnsupportedError
+from greptimedb_tpu_torch.errors import SketchCodecError
 from greptimedb_tpu_torch.frontend import build_standalone
 from greptimedb_tpu_torch.query import sketches as sk
 from greptimedb_tpu_torch.query import stream_exec, tpu_exec
@@ -335,10 +334,9 @@ def _restore_knobs(monkeypatch):
         monkeypatch.setattr(ex, "_observed_min_dt", [None])
         monkeypatch.setattr(st, "_STREAM_THRESHOLD_ROWS",
                             list(st._STREAM_THRESHOLD_ROWS))
-        for name in ("_ERROR_TARGET", "_HLL_P", "_TDIGEST_DELTA"):
+        for name in ("_ERROR_TARGET", "_HLL_P", "_TDIGEST_DELTA",
+                     "_EXACT_DISTINCT"):
             monkeypatch.setattr(s, name, list(getattr(s, name)))
-    monkeypatch.setattr(ref_sk, "_EXACT_DISTINCT",
-                        list(ref_sk._EXACT_DISTINCT))
     yield
 
 
@@ -502,27 +500,20 @@ def test_partitioned_matches_reference(sides, name):
 def test_sketch_knobs_match_reference(sides, knob):
     """SET approx_error_target reaches both packages' sketch modules and
     the answers and dispatch stay the reference's. SET exact_distinct acts
-    only on the distributed pushdown's count(DISTINCT) sketch partial,
-    which the port has not (ROADMAP item h3b), so the port refuses it,
-    naming that item; the reference's standalone answers under it (a
-    standalone count(DISTINCT) keeps its exact raw-row path) equal the
-    port's without it."""
+    only on the distributed pushdown's count(DISTINCT) sketch partial, so
+    both packages' standalone answers under it (a standalone
+    count(DISTINCT) keeps its exact raw-row path) are equal."""
     ref, port = sides
     exact = "exact_distinct" in knob
-    if exact:
-        with pytest.raises(UnsupportedError,
-                           match=r"sketch partial .*h3b\) is not ported"):
-            port.sql(knob)
     for name in ("by-region", "distinct", "global"):
         sql = SKETCH_Q[name].format(t="cpu")
         setup = (knob, "SET tpu_dispatch_min_rows = 0")
         want, ref_dispatch, ref_explain = ref.query(sql, setup)
-        got, dispatch, explain = port.query(sql, setup[1:] if exact
-                                            else setup)
+        got, dispatch, explain = port.query(sql, setup)
         assert (dispatch, explain) == (ref_dispatch, ref_explain)
         _same(got, want, sql)
     if exact:
-        assert ref_sk.exact_distinct_forced()
+        assert ref_sk.exact_distinct_forced() and sk.exact_distinct_forced()
     else:
         assert sk.hll_precision() == ref_sk.hll_precision() != 14
 

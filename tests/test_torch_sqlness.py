@@ -17,13 +17,14 @@ slice. Out of scope: explain/analyze and explain/index_prune, red on the
 JAX package itself (their partial_bytes differ from what it prints under
 the tests' settings); the port prints what the reference prints on them.
 
-The seven distributed cases that the distributed frontend answers
-(`sqlness.DIST_IN_SCOPE`: distributed/{alter/alter, common/basic,
-common/groupby, common/window, cte/cte, show/show, subquery/subquery})
-run the same way on the runner's `DistEnv`: two datanodes on one shared
-object store under an in-process meta, a DistInstance on "cpu". Out of
-scope there: explain/* (red on the JAX package itself), system/* (the
-meta-backed views, ROADMAP Queue 1 h3b) and admin/migrate_region (h4).
+The ten distributed cases that the distributed frontend answers
+(`sqlness.DIST_IN_SCOPE`: distributed/{admin/migrate_region, alter/alter,
+common/basic, common/groupby, common/window, cte/cte, show/show,
+subquery/subquery, system/cluster_info, system/region_peers}) run the
+same way on the runner's `DistEnv`: two datanodes on one shared object
+store under an in-process meta, a DistInstance on "cpu", the balancer
+pumped to completion after each statement as the reference's runner
+does. Out of scope there: explain/* (red on the JAX package itself).
 Without `--cases` the runner's command line runs both in-scope lists.
 
 The runner's statement splitter is held to the JAX package's on every
@@ -61,13 +62,12 @@ def test_distributed_in_scope_cases_exist():
     names = {str(p.relative_to(sqlness.DIST_CASES_DIR))[:-4]
              for p in sqlness.case_files([], sqlness.DIST_CASES_DIR)}
     assert set(sqlness.DIST_IN_SCOPE) <= names
-    assert len(sqlness.DIST_IN_SCOPE) == 7
+    assert len(sqlness.DIST_IN_SCOPE) == 10
     assert names - set(sqlness.DIST_IN_SCOPE) == {
-        "admin/migrate_region", "explain/dist_analyze",
-        "explain/dist_partial_agg", "explain/dist_scan",
-        "system/cluster_info", "system/region_peers"}
+        "explain/dist_analyze", "explain/dist_partial_agg",
+        "explain/dist_scan"}
     default = sqlness.in_scope_files([])
-    assert len(default) == len(IN_SCOPE) + 7
+    assert len(default) == len(IN_SCOPE) + 10
     assert [str(f) for f in sqlness.in_scope_files(["distributed/"])] == [
         str(sqlness.DIST_CASES_DIR / f"{c}.sql")
         for c in sqlness.DIST_IN_SCOPE]
