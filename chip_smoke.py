@@ -6,16 +6,16 @@
 Phases (none of them catches a failure; any failed check exits non-zero).
 With no `--phases` every phase runs; `--phases 12` (a comma-separated
 list) runs the phases named and those they stand on (phases 1 and 2
-always; 12 and 13 need 5, 6 and 7, and 12 runs 12b only with 9; 14 and
-15 need none; 16 needs 15, 17 needs 16, 18 needs 17), and names them
-in its last two lines:
+always; 12 and 13 need 5, 6 and 7, and 12 runs 12b only with 9; 14,
+15 and 19 need none; 16 needs 15, 17 needs 16, 18 needs 17), and names
+them in its last two lines:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions,
    and whether pandas, pyarrow, prometheus_client, aiohttp (phase 11's
    server) and cryptography import here;
-2. builds both kernels from greptimedb_tpu_torch/csrc, the window-bounds
-   kernel and the segment-moments kernel, one nvcc (sm_90a) each, started
-   together, into the package's git-ignored build directory, and prints
+2. builds the three kernels of greptimedb_tpu_torch/csrc, the
+   window-bounds kernel, the segment-moments kernel and the
+   grouped-moments kernel, one nvcc (sm_90a) each, started together, into the package's git-ignored build directory, and prints
    ptxas's registers, shared memory and spills;
 3. holds both entries of the kernel, counts_leq (buckets in) and
    counts_leq_grid (timestamps in, bucketed in its loads), against their
@@ -407,13 +407,41 @@ in its last two lines:
    with the same count (the child's too); SIGKILL of dn3 under
    acknowledged ingest: the times until the route names the promoted
    follower and until every acknowledged row reads back exactly once.
+19. the grouped-moments kernel and parallel/ on torch.distributed, with
+   its launch counts set to 0 before its main path and read after. 19a:
+   TSBS cpu-only, 4000 hosts x 12 h (17.28 M rows; the fields' random
+   walks made on the card from --seed) in the generator's time-major
+   order, group ids host x hour (48 000 groups), about 10 % of rows
+   masked; grouped_moments against grouped_moments_plain on the
+   card (counts, min, max, first, last exact; float sums within 1 ulp
+   plus 8 eps64 sum|x|; two launches) at edge cases (all rows masked,
+   empty groups, a wrapping int32 column, column masks, NaN and ts ties,
+   ids outside the groups, each side of the shared-memory threshold, one
+   group of 2 M rows, 48 000 groups, 33 moments, no rows) and at the
+   main path's inputs: grouped_aggregate of Q1's avg over the ten fields
+   plus max, min, stddev, first and last of usage_user, itself checked
+   against float64 numpy. 19b: init_process_group("nccl") in this
+   process (world size 1: NCCL takes one rank per GPU and this process
+   drives one): distributed_grouped_aggregate at 19a's shape against
+   grouped_aggregate; series_sharded_range_aggregate of rate and
+   avg_over_time at phase 4's shape (4000 series x 8640 samples, epoch
+   ms rebased) bit for bit against range_aggregate_cumsum (8 series
+   against float64 numpy), and max_over_time at phase 4's cut (one
+   region's hosts x 2 h) against range_aggregate_gather;
+   time_blocked_window_sum over [4000, 1440] at window 5 (sum, avg, min,
+   max) against numpy; tools.multichip.dryrun_multichip on "cuda" (its
+   distributed query's datanodes launch segment_moments); then
+   destroy_process_group. Then grouped_moments is timed at 19a's inputs
+   (CUDA events, median of 5 over 20 calls) beside its plain version,
+   one index_add_ / scatter_reduce_ per moment, and its byte bound.
 
 Before the last line come two JSON objects: the numbers of the bucket
 entry, which the main paths do not launch, then the kernel table of the
 main paths (PromQL's window bounds, SQL's, the flow folds', the HTTP
-front door's, the wires', phase 13's, 14's, 15's, 16's, 17's and 18's
-segment moments, phase 18's window bounds on the distributed frontend),
-each with its
+front door's, the wires', phase 13's, 14's, 15's, 16's, 17's, 18's and
+19's segment moments, phase 18's window bounds on the distributed
+frontend and phase 19's on each rank, phase 19's grouped moments), each
+with its
 launches by phase; the last line is {"ok": true, "device": {...}}. A run
 of chosen phases lists only the kernels it launched, and both lines
 carry "phases": the list of those that ran.
@@ -522,11 +550,11 @@ def median_ms(torch, fn, launches: int = 20, runs: int = 5) -> float:
 
 
 def phase_kernel_build():
-    """Both kernels' libraries, one nvcc each, started together."""
+    """Every kernel's library, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from greptimedb_tpu_torch.ops import cuda_build
-    names = ("counts_leq", "segment_moments")
+    names = ("counts_leq", "segment_moments", "grouped_moments")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as ex:
         paths = dict(zip(names, ex.map(cuda_build.build, names)))
@@ -6780,9 +6808,11 @@ class Child:
         self.label = label
         self.path = os.path.join(home, f"{label}.log")
         self.log = open(self.path, "w")
+        # a child that outstays its SIGTERM gets SIGABRT (term), on which
+        # faulthandler writes every thread's stack to its log
         self.proc = subprocess.Popen(
             CLI + args, cwd=HERE, stdout=self.log, stderr=subprocess.STDOUT,
-            env={**os.environ, **env} if env else None)
+            env={**os.environ, "PYTHONFAULTHANDLER": "1", **(env or {})})
 
     def text(self):
         """The whole log so far."""
@@ -6804,7 +6834,9 @@ class Child:
         self.proc.wait(30)
 
     def term(self):
-        """SIGTERM; (exit code, seconds to exit)."""
+        """SIGTERM; (exit code, seconds to exit). A child still running
+        after 10 s gets SIGABRT, so its log ends with its threads'
+        stacks."""
         import signal
         t0 = time.perf_counter()
         self.proc.send_signal(signal.SIGTERM)
@@ -6812,7 +6844,14 @@ class Child:
             rc = self.proc.wait(10)
         except subprocess.TimeoutExpired:
             rc = None
-        return rc, time.perf_counter() - t0
+        secs = time.perf_counter() - t0
+        if rc is None:
+            self.proc.send_signal(signal.SIGABRT)
+            try:
+                self.proc.wait(10)
+            except subprocess.TimeoutExpired:
+                pass
+        return rc, secs
 
     def close(self):
         if self.running():
@@ -7455,11 +7494,13 @@ def phase_procs(torch, seed, frontend=True, elastic=False):
         if frontend:
             my.close()
             db.close()
-        exits = {c.label: c.term()
-                 for c in [dns[1]] + ([fe] if frontend else []) +
-                 [m for m in metas if m.running()]}
+        ending = [dns[1]] + ([fe] if frontend else []) + \
+            [m for m in metas if m.running()]
+        exits = {c.label: c.term() for c in ending}
         check(all(rc == 0 and s < 10 for rc, s in exits.values()),
-              f"SIGTERM: {exits}")
+              f"SIGTERM: {exits}" + "".join(
+                  f"\n{c.label}'s log:\n{c.tail()}" for c in ending
+                  if exits[c.label][0] is None))
         walls["sigterm"] = max(s for _, s in exits.values())
         log("  SIGTERM: " + ", ".join(
             f"{k} exited {rc} in {s:.2f}s" for k, (rc, s) in exits.items()))
@@ -8358,9 +8399,525 @@ def phase_moments_time(torch, inputs, tool=True):
 
 
 # ---------------------------------------------------------------------------
+# phase 19: the grouped-moments kernel, then parallel/ over NCCL
+# ---------------------------------------------------------------------------
+
+#: 19a: Q1's avg of the ten fields, then max, min, stddev, first and last
+#: of usage_user, by host x hour over cpu-only's 12 h (48 000 groups)
+GROUPED_HOURS = 12
+GROUPED_OPS = ("avg",) * len(CPU_FIELDS) + ("max", "min", "stddev",
+                                            "first", "last")
+GROUPED_MASKED = 0.1
+#: 19b: the time-blocked grid (cpu-only's first 1440 samples, 4 h) and
+#: phase 4's cut of the gather path (one region's hosts over 2 h)
+BLOCKED_STEPS = 1440
+BLOCKED_WINDOW = 5
+GATHER_REGION = "us-east-1"
+GATHER_HOURS = 2
+EXACT_MOMENTS = ("count", "min", "max", "first", "last", "first_key",
+                 "last_key")
+
+
+def grouped_rows(torch, seed):
+    """19a's rows in TSBS's generation order (time-major: every host at
+    each 10 s tick), so consecutive rows fall in different groups: gid =
+    host * 12 + hour, ts the ms offset of the tick, about 10 % of rows
+    masked, the ten usage_* fields as float32. The fields are TSBS
+    cpu-only's random walks (tsbs_cpu_table's: start U(0, 100), steps
+    N(0, 1), clamped to [0, 100], in float64), walked on the device from
+    `seed` (a torch generator: other numbers than tsbs_cpu_table's).
+    Host numpy arrays."""
+    ticks = GROUPED_HOURS * 3600_000 // INTERVAL_MS
+    k = len(CPU_FIELDS)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 19)
+    x = torch.rand((k, HOSTS), generator=gen, device=DEVICE,
+                   dtype=torch.float64) * 100.0
+    steps = torch.randn((ticks, k, HOSTS), generator=gen, device=DEVICE,
+                        dtype=torch.float64)
+    walk = torch.empty((ticks, k, HOSTS), dtype=torch.float32,
+                       device=DEVICE)
+    for i in range(ticks):
+        x = (x + steps[i]).clamp_(0.0, 100.0)
+        walk[i] = x
+    cols = [walk[:, j].reshape(-1).cpu().numpy() for j in range(k)]
+    del steps, walk
+    tick = np.repeat(np.arange(ticks, dtype=np.int64), HOSTS)
+    host = np.tile(np.arange(HOSTS, dtype=np.int64), ticks)
+    gids = (host * GROUPED_HOURS + tick * INTERVAL_MS // 3600_000).astype(
+        np.int32)
+    mask = np.random.default_rng(seed + 19).random(gids.shape[0]) >= \
+        GROUPED_MASKED
+    return gids, mask, (tick * INTERVAL_MS).astype(np.int32), cols
+
+
+def grouped_agree(torch, name, args, G, quiet=False):
+    """The kernel against its plain version on the same CUDA inputs:
+    counts, min, max, first, last and the keys exact (NaN where NaN);
+    int32 sums exact; float sums within 1 ulp of float32 plus 8 eps64
+    times the sum of |x| (both accumulate in float64 and round once, in
+    different orders). Two launches agree the same way. Returns the max
+    |difference| of the float sums."""
+    from greptimedb_tpu_torch.ops import kernels as K
+    got, cnt = K.grouped_moments(*args, num_groups=G)
+    again, _ = K.grouped_moments(*args, num_groups=G)
+    want, want_cnt = K.grouped_moments_plain(*args, num_groups=G)
+    gids, mask, ts, vals, cms, ops = args
+    mags, _ = K.grouped_moments_plain(
+        gids, mask, ts, [v.abs() if v.dtype.is_floating_point else v
+                         for v in vals], cms,
+        ["sum_sq" if op == "sum_sq" else "sum" for op in ops],
+        num_groups=G, with_counts=False)
+    torch.cuda.synchronize()
+    check(torch.equal(cnt, want_cnt), f"grouped_moments {name}: row "
+          f"counts differ")
+    err = 0.0
+    for i, op in enumerate(ops):
+        for label, g in (("kernel", got[i]), ("second launch", again[i])):
+            w = want[i]
+            check(g.dtype == w.dtype and g.shape == w.shape,
+                  f"grouped_moments {name} {op}: {g.dtype} {tuple(g.shape)}"
+                  f" != {w.dtype} {tuple(w.shape)}")
+            if op in EXACT_MOMENTS or not w.dtype.is_floating_point:
+                same_ = (g == w) | (torch.isnan(g) & torch.isnan(w)) \
+                    if w.dtype.is_floating_point else g == w
+                check(bool(same_.all()), f"grouped_moments {name} {op}: "
+                      f"{label} != plain at {int((~same_).sum())} groups")
+                continue
+            both_nan = torch.isnan(g) & torch.isnan(w)
+            diff = torch.where(both_nan, 0.0, (g.double() - w.double()).abs())
+            lim = U32 * w.double().abs() + 8 * U64 * mags[i].double()
+            check(bool((both_nan | (diff <= lim)).all()),
+                  f"grouped_moments {name} {op}: {label} off the plain "
+                  f"version by {float(diff.max())}")
+            err = max(err, float(diff.max()) if diff.numel() else 0.0)
+    if not quiet:
+        log(f"  {name}: kernel == plain ({len(ops)} moments, {G} groups), "
+            f"two launches agree, max |err| {err:.3g}")
+    return err
+
+
+def grouped_edge_cases(torch, seed):
+    """(name, kernel arguments, groups) at small sizes: the edges of the
+    design (privatised state below the shared-memory threshold, global
+    atomics above it, one group under full contention, more moments than
+    one launch takes) and of the semantics (all rows masked, empty groups,
+    int32 columns that wrap, column masks, NaN, ts ties, ids outside the
+    groups, no rows)."""
+    from greptimedb_tpu_torch.ops import kernels as K
+    rng = np.random.default_rng(seed + 190)
+    lib = K._grouped_lib()
+    every = list(K.GROUPED_OPS)
+
+    def case(name, n, G, ops=every, gid_lo=0, gid_hi=None, masked=0.1,
+             ties=False, nan=False, ints=False, cmasks=0):
+        gid_hi = G if gid_hi is None else gid_hi
+        gids = rng.integers(gid_lo, max(gid_hi, gid_lo + 1), n)
+        mask = rng.random(n) >= masked
+        ts = rng.integers(0, 4 if ties else 1 << 30, n)
+        if ints:
+            x = rng.integers(2**30, 2**31 - 1, n).astype(np.int32)
+        else:
+            x = rng.normal(size=n).astype(np.float32) * 100
+            if nan:
+                x[rng.random(n) < 0.02] = np.nan
+        masks = [rng.random(n) >= 0.3 for _ in range(cmasks)]
+        t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a),
+                                          device=DEVICE).to(dt)
+        xv = t(x, torch.int32 if ints else torch.float32)
+        cm = [t(m, torch.bool) for m in masks]
+        args = (t(gids, torch.int32), t(mask, torch.bool), t(ts, torch.int32),
+                [xv] * len(ops),
+                [cm[i % len(cm)] if cm and i % 3 else None
+                 for i in range(len(ops))], list(ops))
+        return name, args, G
+
+    k = len(every)
+    edge = lib.grouped_moments_smem_groups(k)
+    cases = [
+        case("all rows masked", 5000, 100, masked=1.0),
+        case("empty groups", 20_000, 1000, gid_hi=500),
+        case("int32 column (sums wrap)", 20_000, 64,
+             ops=["count", "sum", "sum_sq", "min", "max", "first", "last"],
+             ints=True),
+        case("column masks", 30_000, 77, cmasks=3),
+        case("NaN values, ts ties", 30_000, 50, nan=True, ties=True),
+        case("ids outside [0, G)", 10_000, 40, gid_lo=-3, gid_hi=43),
+        case(f"{edge} groups (the shared-memory threshold)", 200_000, edge),
+        case(f"{edge + 1} groups (global atomics)", 200_000, edge + 1),
+        case("one group, 2 M rows", 2_000_000, 1),
+        case("48 000 groups", 1_000_000, 48_000),
+        case("33 moments (two launches)", 50_000, 300,
+             ops=(every * 4)[:33], cmasks=2),
+        case("no rows", 0, 10),
+    ]
+    return cases
+
+
+def grouped_library(torch, args, G):
+    """One torch call per moment, as the yardstick: index_add_ for counts
+    and sums, scatter_reduce_ (amin / amax) for min, max and the packed
+    first/last keys, each over its masked input made beforehand (not
+    timed). Returns the callable and the number of calls."""
+    from greptimedb_tpu_torch.ops import kernels as K
+    gids, mask, ts, vals, cms, ops = args
+    live = mask & (gids >= 0) & (gids < G)
+    idx = torch.where(live, gids, 0).long()
+    row = torch.arange(mask.shape[0], device=mask.device)
+    calls = []
+    for op, v, cm in zip(list(ops) + ["count"], list(vals) + [vals[0]],
+                         list(cms) + [None]):
+        m = live if cm is None else live & cm
+        if op == "count":
+            calls.append((torch.float32, "add", m.float(), 0.0))
+        elif op in ("sum", "sum_sq"):
+            x = v.float()
+            calls.append((torch.float32, "add",
+                          torch.where(m, x * x if op == "sum_sq" else x, 0.0),
+                          0.0))
+        elif op in ("min", "max"):
+            fill = float("inf") if op == "min" else float("-inf")
+            calls.append((torch.float32, "a" + op,
+                          torch.where(m, v.float(), fill), fill))
+        else:
+            key = K._packed_keys(op, ts, row)
+            big = torch.iinfo(torch.int64).max
+            calls.append((torch.int64, "amin", torch.where(m, key, big), big))
+
+    def run():
+        for dt, red, data, fill in calls:
+            out = torch.full((G,), fill, dtype=dt, device=mask.device)
+            if red == "add":
+                out.index_add_(0, idx, data)
+            else:
+                out.scatter_reduce_(0, idx, data, red, include_self=True)
+    return run, len(calls)
+
+
+def grouped_bound(args, G):
+    """Bytes the function must move: the row mask read once; at the rows
+    it lets through, the group ids, each distinct column mask, each value
+    column a sum, sum_sq, min or max reads and ts for first/last, read
+    once; each distinct output and the row counts written once, and
+    first/last's value at the chosen row of each group. Against one
+    operation per row and moment. Returns (ms, "bytes" or "operations",
+    bytes)."""
+    gids, mask, ts, vals, cms, ops = args
+    n = mask.shape[0]
+    live = float(mask.float().mean()) if n else 0.0
+    part, gathers = {gids.data_ptr(): 4 * n}, 0
+    outs = G * 4
+    for op, v, cm in zip(ops, vals, cms):
+        cols = [] if cm is None else [cm]
+        if op in ("first", "last", "first_key", "last_key"):
+            cols.append(ts)
+            gathers += G * v.element_size() if op in ("first", "last") else 0
+            outs += G * (8 if op.endswith("_key") else v.element_size())
+        else:
+            if op != "count":
+                cols.append(v)
+            outs += G * 4
+        for t in cols:
+            part[t.data_ptr()] = t.numel() * t.element_size()
+    nbytes = n + live * sum(part.values()) + outs + gathers
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n * max(len(ops), 1) / SCALAR_OPS_PER_S * 1e3
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    return max(bytes_ms, ops_ms), by, nbytes
+
+
+def grouped_brute(name, res, counts, rows, G):
+    """The aggregate over the 17.28 M rows against float64 numpy on the
+    host: counts, max, min, first and last exact; each avg within 3 units
+    of float32 roundoff of the exact mean (the sum and the division each
+    round once); stddev within 1e-4 relative plus the square root of the
+    float32 cancellation in its shifted moments, 4 u32 (sum d^2 +
+    (sum d)^2 / c) / (c - 1), d = x minus the global mean. The rows are
+    time-major, one a host a tick, so a group (host, hour) is a [360]
+    column of a [12, 360, hosts] view, in tick (= ts) order."""
+    gids, mask, ts, cols = rows
+    hours, per = GROUPED_HOURS, 3600_000 // INTERVAL_MS
+
+    def by_group(a):
+        # [ticks * hosts] -> [hosts * hours, per] in gid order
+        return a.reshape(hours, per, HOSTS).transpose(2, 0, 1).reshape(
+            HOSTS * hours, per)
+
+    m = by_group(mask)
+    n_g = m.sum(axis=1)
+    check(G == HOSTS * hours and np.array_equal(
+        by_group(gids)[:, 0], np.arange(G, dtype=np.int32)),
+        f"{name}: rows not in the time-major layout")
+    check(np.array_equal(counts.cpu().numpy(), n_g.astype(np.int32)),
+          f"{name}: counts differ from numpy")
+    got = [r.cpu().numpy() for r in res]
+    for j, f in enumerate(CPU_FIELDS):
+        want = np.where(m, by_group(cols[j]).astype(np.float64), 0.0).sum(
+            axis=1) / np.maximum(n_g, 1)
+        outside = np.abs(got[j] - want) > 3 * U32 * np.abs(want)
+        check(not outside.any(), f"{name}: avg({f}) off the float64 mean "
+              f"in {int(outside.sum())} groups")
+    u = by_group(cols[0]).astype(np.float64)
+    k = len(CPU_FIELDS)
+    check(np.array_equal(got[k], np.where(m, u, -np.inf).max(axis=1)),
+          f"{name}: max(usage_user) differs from numpy")
+    check(np.array_equal(got[k + 1], np.where(m, u, np.inf).min(axis=1)),
+          f"{name}: min(usage_user) differs from numpy")
+    rows_g = np.arange(G)
+    first = u[rows_g, m.argmax(axis=1)]
+    last = u[rows_g, per - 1 - m[:, ::-1].argmax(axis=1)]
+    check(np.array_equal(got[k + 3], first), f"{name}: first differs")
+    check(np.array_equal(got[k + 4], last), f"{name}: last differs")
+    mean = np.where(m, u, 0.0).sum(axis=1) / n_g
+    var = np.where(m, (u - mean[:, None]) ** 2, 0.0).sum(axis=1) / (n_g - 1)
+    std = np.sqrt(var)
+    d = np.where(m, u - u[m].mean(), 0.0)
+    s_d, sq = d.sum(axis=1), (d * d).sum(axis=1)
+    lim = 1e-4 * std + np.sqrt(4 * U32 * (sq + s_d * s_d / n_g) / (n_g - 1))
+    outside = np.abs(got[k + 2] - std) > lim
+    check(not outside.any(), f"{name}: stddev(usage_user) off numpy in "
+          f"{int(outside.sum())} groups")
+    log(f"  {name}: {G} groups against float64 numpy: counts, max, min, "
+        f"first, last exact, ten avgs within 3 u32, stddev within its "
+        f"cancellation bound (max |err| "
+        f"{float(np.abs(got[k + 2] - std).max()):.3g})")
+
+
+def same_bits(torch, name, got, want):
+    """Two window results bit for bit (NaN where NaN)."""
+    torch.cuda.synchronize()
+    for label, g, w in zip(("result", "ok"), got, want):
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"{name} {label}: {g.dtype} {tuple(g.shape)} != {w.dtype} "
+              f"{tuple(w.shape)}")
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        check(torch.equal(g, w), f"{name} {label}: differs at "
+              f"{int((g != w).sum())} of {g.numel()}")
+
+
+def phase_parallel(torch, seed):
+    """Phase 19 (see the module's docstring). Returns its launches by
+    kernel, the grouped_moments row of the kernel table, K1's row at
+    19b's series-sharded inputs and the walls."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from greptimedb_tpu_torch.ops import kernels as K
+    from greptimedb_tpu_torch.ops import pallas_window as pw
+    from greptimedb_tpu_torch.ops import window as win
+    from greptimedb_tpu_torch.parallel import (
+        distributed_grouped_aggregate, make_mesh,
+        series_sharded_range_aggregate, time_blocked_window_sum)
+    from greptimedb_tpu_torch.tools import multichip
+
+    walls = {}
+    t_phase = time.perf_counter()
+    G = HOSTS * GROUPED_HOURS
+    t0 = time.perf_counter()
+    rows = grouped_rows(torch, seed)
+    gids, mask, rts, cols = rows
+    values = cols + [cols[0]] * 5
+    walls["data"] = time.perf_counter() - t0
+    log(f"19a: TSBS cpu-only {HOSTS} hosts x {GROUPED_HOURS} h walked on "
+        f"the device, {gids.shape[0]} rows in generation order, {G} groups "
+        f"(host x hour), {int((~mask).sum())} rows masked, in "
+        f"{walls['data']:.1f}s")
+
+    # ---- 19a: the kernel against its plain version ----
+    err = 0.0
+    for name, args, g_n in grouped_edge_cases(torch, seed):
+        err = max(err, grouped_agree(torch, name, args, g_n))
+    args, _ = K.grouped_aggregate_plan(gids, mask, rts, values,
+                                       num_groups=G, ops=GROUPED_OPS,
+                                       device=DEVICE)
+    err = max(err, grouped_agree(torch, f"main-path shape ({gids.shape[0]} "
+                                 f"rows)", args, G))
+    launches0 = K.grouped_moments.launches
+
+    # ---- the main path, counted: 19a's aggregate and 19b ----
+    K.grouped_moments.launches = 0
+    pw.counts_leq_grid.launches = 0
+    K.segment_moments.launches = 0
+    t0 = time.perf_counter()
+    res, counts = K.grouped_aggregate(gids, mask, rts, values, num_groups=G,
+                                      ops=GROUPED_OPS, device=DEVICE)
+    torch.cuda.synchronize()
+    walls["19a aggregate"] = time.perf_counter() - t0
+    grouped_brute("grouped_aggregate", res, counts, rows, G)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    n_dev = torch.cuda.device_count()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh()
+        log(f"19b: init_process_group('nccl') in this process, world size "
+            f"1 ({n_dev} GPU{'s' if n_dev > 1 else ''}): {mesh}")
+        t0 = time.perf_counter()
+        d_res, d_counts = distributed_grouped_aggregate(
+            gids, mask, rts, values, num_groups=G, ops=GROUPED_OPS,
+            mesh=mesh)
+        torch.cuda.synchronize()
+        walls["19b aggregate"] = time.perf_counter() - t0
+        check(torch.equal(d_counts, counts), "distributed counts differ")
+        for op, g, w in zip(GROUPED_OPS, d_res, res):
+            check(g.dtype == w.dtype, f"distributed {op}: {g.dtype}")
+            if op in EXACT_MOMENTS:
+                ok = (g == w) | (torch.isnan(g) & torch.isnan(w))
+            else:
+                ok = torch.isclose(g, w, rtol=3e-4, atol=1e-4,
+                                   equal_nan=True)
+            check(bool(ok.all()), f"distributed {op} differs from "
+                  f"grouped_aggregate at {int((~ok).sum())} groups")
+        log(f"  distributed_grouped_aggregate == grouped_aggregate at "
+            f"{gids.shape[0]} rows x {G} groups ({len(GROUPED_OPS)} ops, "
+            f"sums within rtol 3e-4 / atol 1e-4) in "
+            f"{walls['19b aggregate']:.2f}s ({walls['19a aggregate']:.2f}s "
+            f"on one device)")
+        del d_res, res
+
+        # series-sharded windows at phase 4's shape, bit for bit
+        ts, labels, metrics = tsbs_cpu_only(seed)
+        S, n = metrics["cpu_usage_user"].shape
+        L = 1 << (n - 1).bit_length()
+        ts2d = np.full((S, L), win.TS_PAD, dtype=np.int64)
+        ts2d[:, :n] = ts
+        lengths = np.full(S, n, dtype=np.int32)
+        start = int(ts[0])
+        T = HOURS * 3600_000 // STEP_MS + 1
+        steps = start + np.arange(T, dtype=np.int64) * STEP_MS
+        for metric, op in (("cpu_seconds_total", "rate"),
+                           ("cpu_usage_user", "avg_over_time")):
+            val2d = np.zeros((S, L), dtype=np.float32)
+            val2d[:, :n] = metrics[metric]
+            t0 = time.perf_counter()
+            got = series_sharded_range_aggregate(
+                ts2d, val2d, lengths, start, STEP_MS, RANGE_MS, op=op,
+                nsteps=T, mesh=mesh)
+            torch.cuda.synchronize()
+            walls[f"19b {op}"] = time.perf_counter() - t0
+            want = win.range_aggregate_cumsum(
+                ts2d, torch.from_numpy(val2d).to(DEVICE),
+                torch.from_numpy(lengths).to(DEVICE), start, STEP_MS,
+                RANGE_MS, op=op, nsteps=T)
+            same_bits(torch, f"series-sharded {op}", got, want)
+            if op == "avg_over_time":
+                # 8 series against float64 numpy: windowed sums are
+                # differences of float32 prefixes (tests/test_torch_window)
+                M = brute_windows(ts, steps, RANGE_MS).astype(np.float64)
+                x = metrics[metric][:8].astype(np.float32).astype(np.float64)
+                c = M.sum(axis=1, keepdims=True)
+                ref = (M @ x.T) / c
+                g8 = got[0][:8].cpu().numpy().T
+                lim = 8 * 2 * U32 * np.abs(x).sum(axis=1)[None, :] / c + \
+                    1e-5 * np.abs(ref)
+                check(bool((np.abs(g8 - ref) <= lim).all()),
+                      "series-sharded avg_over_time off numpy")
+            log(f"  series_sharded_range_aggregate {op} at ({S}, {L}) T={T}"
+                f" == range_aggregate_cumsum bit for bit in "
+                f"{walls[f'19b {op}']:.2f}s")
+        rel, t0_rel = win._rebase_i64_host(ts2d, start, STEP_MS, T, RANGE_MS)
+        k1_args = (torch.from_numpy(rel).to(DEVICE), int(t0_rel), STEP_MS, T)
+        del val2d, got, want
+
+        # the gather route at phase 4's cut
+        hosts = np.array([i for i, lab in enumerate(labels)
+                          if lab["region"] == GATHER_REGION])
+        n_g = GATHER_HOURS * 3600_000 // INTERVAL_MS
+        Lg = 1 << (n_g - 1).bit_length()
+        gts = np.full((hosts.size, Lg), win.TS_PAD, dtype=np.int64)
+        gts[:, :n_g] = ts[:n_g]
+        gval = np.zeros((hosts.size, Lg), dtype=np.float32)
+        gval[:, :n_g] = metrics["cpu_usage_user"][hosts, :n_g]
+        Tg = GATHER_HOURS * 3600_000 // STEP_MS + 1
+        got = series_sharded_range_aggregate(
+            gts, gval, np.full(hosts.size, n_g, np.int32), start, STEP_MS,
+            RANGE_MS, op="max_over_time", nsteps=Tg, mesh=mesh)
+        want = win.range_aggregate_gather(
+            gts, torch.from_numpy(gval).to(DEVICE), start, STEP_MS,
+            RANGE_MS, op="max_over_time", nsteps=Tg, maxw=128,
+            series_block=min(128, hosts.size))
+        same_bits(torch, "series-sharded max_over_time", got, want)
+        log(f"  series_sharded_range_aggregate max_over_time at "
+            f"({hosts.size}, {Lg}) T={Tg} (phase 4's cut) == "
+            f"range_aggregate_gather bit for bit")
+
+        # time-blocked windows against numpy
+        grid = metrics["cpu_usage_user"][:, :BLOCKED_STEPS].astype(np.float32)
+        w = BLOCKED_WINDOW
+        padded = {op: np.concatenate([np.full((S, w - 1), fill), grid.astype(
+            np.float64)], axis=1) for op, fill in
+            (("sum", 0.0), ("min", np.inf), ("max", -np.inf))}
+        shifted = {op: np.stack([p[:, k:k + BLOCKED_STEPS] for k in
+                                 range(w)]) for op, p in padded.items()}
+        brute = {"sum": shifted["sum"].sum(0),
+                 "avg": shifted["sum"].sum(0) / w,
+                 "min": shifted["min"].min(0), "max": shifted["max"].max(0)}
+        # sums are differences of a float32 prefix over the block
+        prefix = np.abs(grid.astype(np.float64)).sum(axis=1, keepdims=True)
+        for op in ("sum", "avg", "min", "max"):
+            got = time_blocked_window_sum(grid, window=w, op=op,
+                                          mesh=mesh).cpu().numpy()
+            check(got.dtype == np.float32 and got.shape == grid.shape,
+                  f"time-blocked {op}: {got.dtype} {got.shape}")
+            if op in ("min", "max"):
+                check(np.array_equal(got, brute[op]), f"time-blocked {op} "
+                      f"differs from numpy")
+            else:
+                lim = 8 * 2 * U32 * prefix / (w if op == "avg" else 1) + \
+                    1e-5 * np.abs(brute[op])
+                check(bool((np.abs(got - brute[op]) <= lim).all()),
+                      f"time-blocked {op} off numpy")
+        log(f"  time_blocked_window_sum over ({S}, {BLOCKED_STEPS}) at "
+            f"window {w}: sum / avg within 8 eps32 of the row's prefix, "
+            f"min / max exact")
+        del grid, padded, shifted, brute, metrics
+
+        t0 = time.perf_counter()
+        info = multichip.dryrun_multichip(n_dev, "cuda")
+        walls["19b dryrun"] = time.perf_counter() - t0
+        log(f"  tools.multichip.dryrun_multichip({n_dev}, 'cuda'): {info} "
+            f"in {walls['19b dryrun']:.2f}s")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    grouped = K.grouped_moments.launches
+    k1 = pw.counts_leq_grid.launches
+    moments = K.segment_moments.launches
+    check(grouped > 0 and k1 > 0, f"phase 19 launched grouped_moments "
+          f"{grouped} and K1 {k1} times")
+    log(f"phase 19's main path: grouped_moments {grouped}, K1 {k1}, "
+        f"segment_moments {moments} launches")
+
+    # ---- 19a's row: the kernel timed at the main path's inputs ----
+    K.grouped_moments.launches = launches0
+    ms = median_ms(torch, lambda: K.grouped_moments(*args, num_groups=G))
+    K.grouped_moments.launches = launches0     # timing is off the path
+    plain = median_ms(torch, lambda: K.grouped_moments_plain(
+        *args, num_groups=G), launches=3, runs=3)
+    lib, nlib = grouped_library(torch, args, G)
+    lib_ms = median_ms(torch, lib, launches=3, runs=3)
+    b_ms, b_by, nbytes = grouped_bound(args, G)
+    log(f"grouped_moments at the main-path shape: {gids.shape[0]} rows, {G}"
+        f" groups, {len(args[5])} moments; kernel {ms:.4f} ms "
+        f"({b_ms / ms * 100:.1f}% of the bound), plain {plain:.4f} ms, "
+        f"index_add_ / scatter_reduce_ x {nlib} {lib_ms:.4f} ms; bound "
+        f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB)")
+    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    walls["phase"] = time.perf_counter() - t_phase
+    log("phase 19: " + ", ".join(f"{k} {v:.1f}s" for k, v in walls.items()))
+    return types.SimpleNamespace(grouped=grouped, k1=k1, moments=moments,
+                                 row=row, k1_args=k1_args, walls=walls)
+
+
+# ---------------------------------------------------------------------------
 
 #: the phases; `--phases` runs some of them with the phases they stand on
-PHASES = tuple(str(i) for i in range(1, 19))
+PHASES = tuple(str(i) for i in range(1, 20))
 #: what each phase needs run with it (phases 1 and 2 always run): 3 and 4
 #: are one call, as are 6 and 7; 5 launches segment_moments before the
 #: phases that fence its launches (a process's first launch loads the
@@ -8369,7 +8926,7 @@ PHASES = tuple(str(i) for i in range(1, 19))
 #: (12b only when 9 runs); 14 and 15 have data homes of their own and
 #: need none; 16 launches in its datanode processes, so phase 15 times the
 #: kernel at the region shape they launch at; 17 rides phase 16's cluster
-#: and 18 phase 17's frontend child
+#: and 18 phase 17's frontend child; 19 needs none
 NEEDS = {"3": ("4",), "4": ("3",), "6": ("5", "7"), "7": ("6",),
          "8": ("6",), "9": ("4", "5"), "10": ("6",), "11": ("9",),
          "12": ("6",), "13": ("6",), "16": ("15",), "17": ("16",),
@@ -8521,6 +9078,25 @@ def main() -> int:
                 k1_row = k1_row18
         walls["16"] = procs.walls["phase"]
         del procs
+    grouped_by, grouped_row = {}, None
+    if "19" in phases:
+        log("== phase 19: grouped_moments against its plain version, then "
+            "parallel/ over NCCL")
+        p19 = phase_parallel(torch, args.seed)
+        grouped_by["19"], grouped_row = p19.grouped, p19.row
+        k1_by["19"] = p19.k1
+        moments_by["19"] = p19.moments
+        walls["19"] = p19.walls["phase"]
+        if kern is None and k1_row is None:
+            log("== K1 at phase 19's series-sharded shape (phases 4, 13, 14 "
+                "and 18 did not run)")
+            k1_row = k1_row_at(torch, p19.k1_args, "phase 19's")
+        del p19
+    if moments_by and not shapes:
+        log("== segment_moments at the timing tool's Q1 inputs (no phase "
+            "that times it ran)")
+        shapes.update(phase_moments_time(
+            torch, {"Q1": smb.main_path_inputs("Q1", DEVICE)}, tool=False))
     if "12" in phases:
         log(f"phase 12 took {walls['12a']:.1f}s (12a) + "
             f"{walls.get('12b', 0.0):.1f}s (12b)")
@@ -8535,6 +9111,8 @@ def main() -> int:
             f"{' and 18' if '18' in phases else ''} took {walls['16']:.1f}s")
     if "18" in phases:
         log(f"phase 18 took {walls['18']:.1f}s")
+    if "19" in phases:
+        log(f"phase 19 took {walls['19']:.1f}s")
     kernels = []
     if k1_by:
         kernels.append({**(kern[0] if kern is not None else k1_row),
@@ -8552,6 +9130,13 @@ def main() -> int:
             "replaces": "greptimedb_tpu/ops/kernels.py:730", **row,
             "by_shape": shapes, "launches": sum(moments_by.values()),
             "launches_by_phase": moments_by})
+    if grouped_by:
+        kernels.append({
+            "name": "grouped_moments", "route": "cuda",
+            "source": "greptimedb_tpu_torch/csrc/grouped_moments.cu",
+            "replaces": "greptimedb_tpu/ops/kernels.py:90", **grouped_row,
+            "launches": sum(grouped_by.values()),
+            "launches_by_phase": grouped_by})
     new = set(sys.modules) - before
     bad = sorted(m for m in new if m.split(".")[0] in
                  ("jax", "jaxlib", "greptimedb_tpu"))

@@ -16,8 +16,20 @@ on the card. `sorted_grouped_aggregate` keeps the reference's API on top:
 avg, stddev and variance are built from kernel sums, as the reference
 builds them.
 
+`grouped_moments` is the same set of moments (and the packed first/last
+keys) over UNSORTED group ids: on a CUDA tensor it launches
+csrc/grouped_moments.cu (one pass of atomics, privatised per block when
+the groups fit shared memory) or raises; on a CPU tensor it computes
+`grouped_moments_plain`. `grouped_aggregate` keeps the reference's API
+(greptimedb_tpu/ops/kernels.py:77, `_grouped_aggregate` :90) on top of
+it, as `sorted_grouped_aggregate` does on `segment_moments`; the
+mesh-sharded twin in parallel/aggregate.py folds each shard with it.
+
 The merge/dedup helpers (`merge_dedup_numpy`) run on the host, in numpy,
-as the reference's do.
+as the reference's do. The reference's other XLA functions, which no
+path of either package runs but its graft entry and its tests
+(`time_bucket_ids`, `combine_group_ids`, `apply_cmp`,
+`sort_merge_dedup`), are torch ops here.
 """
 
 from __future__ import annotations
@@ -484,3 +496,477 @@ def sorted_grouped_aggregate(gids, mask, ts, values, col_masks=(), *,
             var = torch.where(c >= 2, var, float("nan"))
             results.append(var.sqrt() if op == "stddev" else var)
     return tuple(results), counts
+
+
+# ---------------------------------------------------------------------------
+# grouped moments (unsorted group ids): the kernel, its plain version, the
+# wrapper, and the reference's grouped_aggregate on top
+# ---------------------------------------------------------------------------
+
+#: moment ops of the grouped kernel, in the order of its op codes; the
+#: *_key moments are the packed int64 first/last keys (LLONG_MAX: none)
+GROUPED_OPS = MOMENT_OPS + ("first_key", "last_key")
+
+_I64_MAX = torch.iinfo(torch.int64).max
+
+
+def _packed_keys(op: str, ts: torch.Tensor, row: torch.Tensor
+                 ) -> torch.Tensor:
+    """first: (ts << 32) + row; last: (~ts << 32) + row (the largest ts,
+    then the smallest row, is the smallest key). row < 2^32."""
+    t = ts.to(torch.int64)
+    hi = t if op in ("first", "first_key") else ~t
+    return hi * 2**32 + row
+
+
+def grouped_moments_plain(gids: torch.Tensor, mask: torch.Tensor,
+                          ts: torch.Tensor, values: Sequence[torch.Tensor],
+                          col_masks: Sequence[Optional[torch.Tensor]],
+                          ops: Sequence[str], *, num_groups: int,
+                          row_base: int = 0, with_counts: bool = True
+                          ) -> Tuple[List[torch.Tensor],
+                                     Optional[torch.Tensor]]:
+    """Plain PyTorch version of the grouped kernel (same arguments and
+    results): one index_add_ or scatter_reduce_ per moment over the rows
+    whose mask is set and whose group id lies in [0, num_groups). Sums
+    accumulate in float64 and round once to float32 (int32 sums wrap mod
+    2^32); NaN propagates through min and max; first/last reduce the
+    packed (ts, row_base + row) key."""
+    G = int(num_groups)
+    dev = mask.device
+    n = mask.shape[0]
+    g64 = gids.to(torch.int64)
+    base = mask & (g64 >= 0) & (g64 < G)
+    gid = torch.where(base, g64, 0)
+    row = torch.arange(n, dtype=torch.int64, device=dev) + int(row_base)
+
+    def count(m):
+        return torch.zeros(G, dtype=torch.int64, device=dev).index_add_(
+            0, gid, m.to(torch.int64)).to(torch.int32)
+
+    results: List[torch.Tensor] = []
+    for op, x, cm in zip(ops, values, col_masks):
+        m = base if cm is None else base & cm
+        if op == "count":
+            results.append(count(m))
+        elif op in ("sum", "sum_sq"):
+            if op == "sum" and not x.dtype.is_floating_point:
+                s = torch.zeros(G, dtype=torch.int64, device=dev).index_add_(
+                    0, gid, torch.where(m, x.to(torch.int64), 0))
+                s = ((s + 2**31) % 2**32 - 2**31).to(torch.int32)
+            else:
+                xd = x.to(torch.float64)
+                if op == "sum_sq":
+                    xd = xd * xd
+                s = torch.zeros(G, dtype=torch.float64, device=dev) \
+                    .index_add_(0, gid, torch.where(m, xd, 0.0)) \
+                    .to(torch.float32)
+            results.append(s)
+        elif op in ("min", "max"):
+            red = "amin" if op == "min" else "amax"
+            ident = float("inf") if op == "min" else float("-inf")
+            xd = torch.where(m, x.to(torch.float64), ident)
+            r = torch.full((G,), ident, dtype=torch.float64, device=dev) \
+                .scatter_reduce_(0, gid, xd, red, include_self=True)
+            nan = torch.zeros(G, dtype=torch.int64, device=dev).index_add_(
+                0, gid, (m & torch.isnan(xd)).to(torch.int64))
+            r = torch.where(nan > 0, float("nan"), r)
+            if not x.dtype.is_floating_point:
+                r = torch.where(r == float("inf"), _I32.max, r)
+                r = torch.where(r == float("-inf"), _I32.min, r)
+            results.append(r.to(x.dtype))
+        elif op in ("first", "last", "first_key", "last_key"):
+            key = torch.where(m, _packed_keys(op, ts, row), _I64_MAX)
+            r = torch.full((G,), _I64_MAX, dtype=torch.int64, device=dev) \
+                .scatter_reduce_(0, gid, key, "amin", include_self=True)
+            if op.endswith("_key"):
+                results.append(r)
+                continue
+            found = r != _I64_MAX
+            at = torch.where(found, r % 2**32 - int(row_base), 0)
+            val = x[at] if n else torch.zeros(G, dtype=x.dtype, device=dev)
+            empty = float("nan") if x.dtype.is_floating_point else 0
+            results.append(torch.where(
+                found, val, torch.tensor(empty, dtype=x.dtype, device=dev)))
+        else:
+            raise ValueError(f"unsupported moment op: {op}")
+    counts = count(base) if with_counts else None
+    return results, counts
+
+
+def _grouped_lib():
+    lib = cuda_build.load("grouped_moments")
+    if lib.grouped_moments_launch.argtypes is None:
+        P = ctypes.c_void_p
+        lib.grouped_moments_launch.argtypes = [
+            P, ctypes.c_int, ctypes.c_int, P, P, ctypes.c_longlong, P,
+            ctypes.c_int, P, P, P, P, P, P, P]
+        lib.grouped_moments_launch.restype = ctypes.c_int
+        lib.grouped_moments_scratch_bytes.argtypes = [ctypes.c_int,
+                                                      ctypes.c_int]
+        lib.grouped_moments_scratch_bytes.restype = ctypes.c_longlong
+        lib.grouped_moments_smem_groups.argtypes = [ctypes.c_int]
+        lib.grouped_moments_smem_groups.restype = ctypes.c_int
+        lib.grouped_moments_max_moments.argtypes = []
+        lib.grouped_moments_max_moments.restype = ctypes.c_int
+        lib.grouped_moments_error_string.argtypes = [ctypes.c_int]
+        lib.grouped_moments_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _grouped_out_dtype(op: str, x: torch.Tensor) -> torch.dtype:
+    if op.endswith("_key"):
+        return torch.int64
+    return _out_dtype(op, x)
+
+
+def _grouped_launch(gids, mask, ts, values, col_masks, ops, G, row_base,
+                    with_counts):
+    lib = _grouped_lib()
+    n = mask.shape[0]
+    dev = mask.device
+    counts = torch.empty(G, dtype=torch.int32, device=dev) \
+        if with_counts else None
+    # identical moments are computed once and share their output
+    uniq, slot = {}, []
+    for op, x, cm in zip(ops, values, col_masks):
+        key = (op, None if op == "count" else (x.data_ptr(), x.dtype),
+               None if cm is None else cm.data_ptr())
+        slot.append(uniq.setdefault(key, len(uniq)))
+    first = {}
+    for i, u in enumerate(slot):
+        first.setdefault(u, i)
+    order = [first[u] for u in range(len(uniq))]
+    outs = [torch.empty(G, dtype=_grouped_out_dtype(ops[i], values[i]),
+                        device=dev) for i in order]
+    if G == 0:
+        return [outs[u] for u in slot], counts
+    per = lib.grouped_moments_max_moments()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        # more moments than one launch takes: one launch per chunk, the
+        # row counts in the first
+        for c0 in range(0, max(len(order), 1), per):
+            ch = order[c0:c0 + per]
+            k = len(ch)
+            scratch = torch.empty(
+                (lib.grouped_moments_scratch_bytes(G, k) + 7) // 8,
+                dtype=torch.int64, device=dev)
+            ptrs = (ctypes.c_void_p * max(k, 1))
+            ints = (ctypes.c_int * max(k, 1))
+            cm = [col_masks[i] for i in ch]
+            err = lib.grouped_moments_launch(
+                gids.data_ptr(), n, G, mask.data_ptr(), ts.data_ptr(),
+                int(row_base),
+                counts.data_ptr() if (counts is not None and c0 == 0)
+                else None, k,
+                ptrs(*[values[i].data_ptr() for i in ch]),
+                ptrs(*[c.data_ptr() if c is not None else None for c in cm]),
+                ptrs(*[o.data_ptr() for o in outs[c0:c0 + per]]),
+                ints(*[GROUPED_OPS.index(ops[i]) for i in ch]),
+                ints(*[0 if values[i].dtype == torch.float32 else 1
+                       for i in ch]),
+                scratch.data_ptr(), stream)
+            if err != 0:
+                msg = lib.grouped_moments_error_string(err).decode()
+                raise RuntimeError(f"grouped_moments kernel launch failed: "
+                                   f"{msg} (cuda error {err})")
+            grouped_moments.launches += 1
+            exec_stats.count_launch("grouped_moments")
+    return [outs[u] for u in slot], counts
+
+
+def grouped_moments(gids: torch.Tensor, mask: torch.Tensor,
+                    ts: torch.Tensor, values: Sequence[torch.Tensor],
+                    col_masks: Sequence[Optional[torch.Tensor]],
+                    ops: Sequence[str], *, num_groups: int,
+                    row_base: int = 0, with_counts: bool = True
+                    ) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
+    """Per-group moments over rows in any order.
+
+    gids: int32 [n] group per row (rows outside [0, num_groups) count
+    nowhere); mask: bool [n]; ts: int32 [n] (first/last order); values[i]:
+    float32 or int32 [n]; col_masks[i]: bool [n] or None (the row mask
+    alone); ops[i] in GROUPED_OPS. Rows are numbered row_base + i in the
+    first/last keys (a shard's offset in its table). Returns ([G] per
+    moment, the int32 row count per group, or None without
+    `with_counts`).
+
+    CPU tensors: the plain version. CUDA tensors: the Hopper kernel
+    (counted in `grouped_moments.launches` and on the active ExecStats),
+    or an exception."""
+    n = mask.shape[0]
+    if not (len(values) == len(col_masks) == len(ops)):
+        raise ValueError("grouped_moments: values, col_masks and ops "
+                         "differ in length")
+    for op in ops:
+        if op not in GROUPED_OPS:
+            raise ValueError(f"unsupported moment op: {op}")
+    if int(num_groups) < 0 or int(row_base) < 0 or \
+            int(row_base) + n >= 2**32 - 1:
+        raise ValueError(f"grouped_moments: num_groups {num_groups} and "
+                         f"rows {row_base}..{int(row_base) + n} out of range")
+    tensors = [("gids", gids, (torch.int32,)), ("mask", mask, (torch.bool,)),
+               ("ts", ts, (torch.int32,))]
+    tensors += [(f"values[{i}]", v, (torch.float32, torch.int32))
+                for i, v in enumerate(values)]
+    tensors += [(f"col_masks[{i}]", c, (torch.bool,))
+                for i, c in enumerate(col_masks) if c is not None]
+    dev = mask.device
+    for name, t, dts in tensors:
+        if t.dim() != 1 or t.dtype not in dts:
+            raise ValueError(f"grouped_moments: {name} must be 1-d "
+                             f"{'/'.join(map(str, dts))}, got {t.dtype} "
+                             f"shape {tuple(t.shape)}")
+        if t.shape[0] != n:
+            raise ValueError(f"grouped_moments: {name} has {t.shape[0]} "
+                             f"rows, mask {n}")
+        if t.device != dev:
+            raise ValueError(f"grouped_moments: {name} on {t.device}, "
+                             f"mask on {dev}")
+    if dev.type == "cpu":
+        return grouped_moments_plain(gids, mask, ts, values, col_masks, ops,
+                                     num_groups=num_groups,
+                                     row_base=row_base,
+                                     with_counts=with_counts)
+    if dev.type != "cuda":
+        raise ValueError(f"grouped_moments: no kernel for device {dev}")
+    if n >= 2**31 - 2**20:
+        raise ValueError(f"grouped_moments: {n} rows exceed the kernel's "
+                         f"int32 row index")
+    for name, t, _ in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"grouped_moments kernel takes contiguous "
+                             f"tensors; {name} is not")
+    return _grouped_launch(gids, mask, ts, list(values), list(col_masks),
+                           list(ops), int(num_groups), int(row_base),
+                           with_counts)
+
+
+#: kernel launches since the count was last reset (plain-version calls on
+#: CPU tensors do not count)
+grouped_moments.launches = 0
+
+
+def _device_for(device, *xs) -> torch.device:
+    """The device of the first tensor among xs, else `device`, else "cuda"
+    (the port's entry points run on the card unless asked for the CPU)."""
+    if device is not None:
+        return torch.device(device)
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            return x.device
+    return torch.device("cuda")
+
+
+def _narrow_dtype(dtype: torch.dtype) -> torch.dtype:
+    """A column's dtype with x64 off, as the reference's device arrays
+    have it: float64 → float32, int64 → int32."""
+    return {torch.float64: torch.float32,
+            torch.int64: torch.int32}.get(dtype, dtype)
+
+
+def _on(x, device: torch.device, dtype: Optional[torch.dtype] = None
+        ) -> torch.Tensor:
+    """x (numpy or tensor) on `device`, narrowed as the reference narrows
+    it (int64 range-checked by the callers), in `dtype` when given."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.ascontiguousarray(x))
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: the port's kernels run "
+                           "on the GPU; pass device='cpu' (or CPU tensors) "
+                           "for the plain version")
+    x = x.to(device=device, dtype=dtype or _narrow_dtype(x.dtype))
+    return x.contiguous()
+
+
+def _kernel_column(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's 32-bit view of a value column: floats as float32,
+    other integers (int8, int16, uint8, bool) widened to int32; results
+    go back to the column's dtype, which keeps a narrow type's wrap."""
+    if x.dtype.is_floating_point:
+        return x.to(torch.float32)
+    return x.to(torch.int32)
+
+
+def grouped_aggregate(gids, mask, ts, values, col_masks=(), *, num_groups,
+                      ops, has_col_masks=False, device=None):
+    """Fused masked group-by over unsorted group ids; the reference's API
+    and semantics (greptimedb_tpu/ops/kernels.py:77).
+
+    gids: int32 [N] (numpy or tensor); mask: bool [N] row filter; ts:
+    int32 [N] (int64 within int32's range is narrowed, outside it raises);
+    values: per-op columns; col_masks: per-op validity, read only with
+    has_col_masks. Numpy inputs go to `device` ("cuda" unless given;
+    without CUDA that raises); tensors stay where they are.
+
+    Returns (per-op results [num_groups], int32 row counts), as tensors.
+    Empty groups give 0 for sum/count, NaN for avg/stddev/variance, the
+    identity (+-inf, int max/min) for min/max and NaN (0 for ints) for
+    first/last; callers null them out via the counts. One kernel launch
+    computes every moment; avg, stddev and variance are built from its
+    sums here, as the reference builds them."""
+    args, finish = grouped_aggregate_plan(
+        gids, mask, ts, values, col_masks, num_groups=num_groups, ops=ops,
+        has_col_masks=has_col_masks, device=device)
+    res, counts = grouped_moments(*args, num_groups=int(num_groups))
+    return finish(res), counts
+
+
+def grouped_aggregate_plan(gids, mask, ts, values, col_masks=(), *,
+                           num_groups, ops, has_col_masks=False,
+                           device=None):
+    """grouped_aggregate up to its kernel call: returns the kernel's
+    arguments (gids, mask, ts, values, col_masks, ops: each moment once)
+    and the function that turns the kernel's moments into the ops'
+    results."""
+    check_i64_safe(ts, what="grouped_aggregate ts")
+    check_i64_safe(*values, what="grouped_aggregate values")
+    for op in ops:
+        if op not in AGG_OPS:
+            raise ValueError(f"unsupported agg op: {op}")
+    dev = _device_for(device, gids, mask, ts, *values)
+    gids = _on(gids, dev, torch.int32)
+    mask = _on(mask, dev, torch.bool)
+    ts = _on(ts, dev, torch.int32)
+    # a column passed for several ops moves to the device once
+    on = {}
+    cols = [on[id(v)] if id(v) in on else on.setdefault(id(v), _on(v, dev))
+            for v in values]
+    cmasks = [_on(c, dev, torch.bool) for c in col_masks] \
+        if has_col_masks else []
+    G = int(num_groups)
+    k_ops, k_vals, k_masks, seen = [], [], [], {}
+
+    def moment(op, i, col=None, key=None):
+        # without column masks every count is the row count: one moment
+        k = (op, -1 if op == "count" and not has_col_masks else i, key)
+        if k not in seen:
+            seen[k] = len(k_ops)
+            k_ops.append(op)
+            k_vals.append(_kernel_column(cols[i]) if col is None else col)
+            k_masks.append(cmasks[i] if has_col_masks else None)
+        return seen[k]
+
+    in_range = mask & (gids >= 0) & (gids < G)
+    plan = []
+    for i, op in enumerate(ops):
+        if op in ("count", "sum", "min", "max", "first", "last"):
+            plan.append((op, i, moment(op, i)))
+        elif op == "avg":
+            plan.append((op, i, moment("sum", i), moment("count", i)))
+        else:   # stddev, variance: shifted one-pass moments, as the
+            # reference: center on the column's mean over the counted rows
+            m = mask & cmasks[i] if has_col_masks else mask
+            colf = cols[i].to(torch.float32)
+            gc = (in_range & m).sum().clamp(min=1)
+            shift = (torch.where(m, colf.to(torch.float64), 0.0).sum() /
+                     gc).to(torch.float32)
+            d = torch.where(m, colf - shift, 0.0).contiguous()
+            plan.append((op, i, moment("sum", i, d, "d"),
+                         moment("sum_sq", i, d, "d"), moment("count", i)))
+
+    def finish(res):
+        results = []
+        for op, i, *idx in plan:
+            if len(idx) == 1:
+                r = res[idx[0]]
+                results.append(r if op == "count" else r.to(cols[i].dtype))
+            elif op == "avg":
+                results.append(_avg(res[idx[0]], res[idx[1]]))
+            else:
+                results.append(_variance(op, *(res[j] for j in idx)))
+        return tuple(results)
+
+    return (gids, mask, ts, k_vals, k_masks, k_ops), finish
+
+
+def _avg(s: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    return torch.where(
+        c > 0, s.to(torch.float32) / c.clamp(min=1).to(torch.float32),
+        float("nan"))
+
+
+def _variance(op: str, s: torch.Tensor, sq: torch.Tensor, c: torch.Tensor
+              ) -> torch.Tensor:
+    """Sample variance (ddof=1, DataFusion's convention) from shifted
+    sums, as the reference finalizes it; < 2 rows → NaN."""
+    cc = c.clamp(min=1).to(torch.float32)
+    var = (sq - (s / cc) * s).clamp(min=0.0) / \
+        (c - 1).clamp(min=1).to(torch.float32)
+    var = torch.where(c >= 2, var, float("nan"))
+    return var.sqrt() if op == "stddev" else var
+
+
+# ---------------------------------------------------------------------------
+# the reference's elementwise helpers and its device merge/dedup, as torch
+# ops (no path of either package runs them but the graft entry's)
+# ---------------------------------------------------------------------------
+
+def time_bucket_ids(ts, origin: int, stride: int, num_buckets: int
+                    ) -> torch.Tensor:
+    """Map timestamps onto [0, num_buckets) bucket ids (floor division,
+    clamped), in ts's integer dtype's arithmetic as the reference's."""
+    ts = ts if isinstance(ts, torch.Tensor) else \
+        _on(ts, torch.device("cpu"))
+    b = torch.div(ts - origin, stride, rounding_mode="floor")
+    return torch.clamp(b, 0, num_buckets - 1).to(torch.int32)
+
+
+def combine_group_ids(tag_gids, bucket_ids, num_buckets: int
+                      ) -> torch.Tensor:
+    tag = torch.as_tensor(tag_gids).to(torch.int32)
+    return tag * num_buckets + torch.as_tensor(bucket_ids).to(
+        device=tag.device, dtype=torch.int32)
+
+
+CMP_OPS = {"eq", "ne", "lt", "le", "gt", "ge", "isin", "between"}
+
+
+def apply_cmp(op: str, col: torch.Tensor, a, b=None) -> torch.Tensor:
+    if op == "eq":
+        return col == a
+    if op == "ne":
+        return col != a
+    if op == "lt":
+        return col < a
+    if op == "le":
+        return col <= a
+    if op == "gt":
+        return col > a
+    if op == "ge":
+        return col >= a
+    if op == "between":
+        return (col >= a) & (col <= b)
+    if op == "isin":
+        return torch.isin(col, torch.as_tensor(a, device=col.device))
+    raise ValueError(f"unknown cmp op {op}")
+
+
+def sort_merge_dedup(series_ids, ts, seq, op_types, valid
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge-sort rows of any number of concatenated runs and compute the
+    MVCC keep-mask (reference: greptimedb_tpu/ops/kernels.py:238).
+
+    Returns (order, keep): `order` (int32) sorts rows by (series, ts, seq)
+    with invalid rows last, ties in input order (three stable sorts, as
+    jnp.lexsort orders them); `keep[i]` marks, in sorted position i, the
+    highest sequence of each (series, ts) unless that winner is a
+    DELETE. Numpy inputs run on the CPU; int64 ts / seq outside int32's
+    range raise, as the reference's wrapper does."""
+    check_i64_safe(ts, what="sort_merge_dedup ts")
+    check_i64_safe(seq, what="sort_merge_dedup seq")
+    dev = series_ids.device if isinstance(series_ids, torch.Tensor) \
+        else torch.device("cpu")
+    s, t, q = (_on(x, dev) for x in (series_ids, ts, seq))
+    o, v = _on(op_types, dev), _on(valid, dev, torch.bool)
+    big = torch.where(v, s.to(torch.int32), _I32.max)
+    order = torch.arange(s.shape[0], device=dev)
+    for key in (q, t, big):
+        order = order[torch.sort(key[order], stable=True).indices]
+    s_sorted, t_sorted = big[order], t[order]
+    nxt_same = torch.cat([
+        (s_sorted[1:] == s_sorted[:-1]) & (t_sorted[1:] == t_sorted[:-1]),
+        torch.zeros(1, dtype=torch.bool, device=dev)])
+    keep = v[order] & ~nxt_same & (o[order] == OP_PUT)
+    return order.to(torch.int32), keep

@@ -79,6 +79,13 @@
   port module still refuses a statement naming the roadmap items that
   brought them, and a DistInstance drives them on the CPU without the
   reference.
+- The mesh-sharded execution (parallel/, tools/multichip.py, the
+  grouped-moments kernel's wrappers in ops/kernels.py): importing it and
+  running a gloo group on the CPU adds no jax, jaxlib or greptimedb_tpu
+  module, in the process or in a spawned rank; make_mesh, run_ranks,
+  grouped_aggregate and the multichip entry left on their default device
+  ("cuda") raise without CUDA; grouped_moments refuses a device it has
+  no kernel for.
 """
 
 import ast
@@ -1632,3 +1639,79 @@ def test_nothing_waits_for_the_distributed_plane():
     for m in ("datanode.replication", "promql.lowering", "query.sketches",
               "meta.balancer"):
         assert f"greptimedb_tpu_torch.{m}" in new, m
+
+
+_PARALLEL_PROBE = r"""
+import json, sys
+before = set(sys.modules)
+import numpy as np
+import greptimedb_tpu_torch.parallel as par
+from greptimedb_tpu_torch.ops import kernels
+from greptimedb_tpu_torch.parallel import launch
+from greptimedb_tpu_torch.tools import multichip
+rng = np.random.default_rng(0)
+gids = rng.integers(0, 4, 100).astype(np.int32)
+res, counts = kernels.grouped_aggregate(
+    gids, np.ones(100, bool), np.arange(100), (rng.random(100),),
+    num_groups=4, ops=("avg",), device="cpu")
+fn, args = multichip.entry("cpu")
+fn(*args)
+rank = launch.run_ranks(2, launch.mesh_layout, None, device="cpu")
+print(json.dumps({"new": sorted(set(sys.modules) - before),
+                  "rank": rank["packages"], "shape": rank["shape"]}))
+"""
+
+
+def test_parallel_imports_no_reference():
+    """parallel/ and tools/multichip.py import no jax, jaxlib or
+    greptimedb_tpu, in the process that imports them or in a rank that
+    run_ranks spawns (the rank's own view of sys.modules)."""
+    out = subprocess.run([sys.executable, "-c", _PARALLEL_PROBE], cwd=REPO,
+                         env=_ENV, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in got["new"] if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+    assert not set(got["rank"]) & set(FORBIDDEN), got["rank"]
+    assert "greptimedb_tpu_torch" in got["rank"]
+    assert got["shape"] == {"region": 1, "block": 2}
+    for m in ("parallel.mesh", "parallel.aggregate", "parallel.window",
+              "parallel.launch", "tools.multichip"):
+        assert f"greptimedb_tpu_torch.{m}" in got["new"], m
+
+
+def test_parallel_default_device_raises_without_cuda():
+    """The mesh, the rank launcher, the grouped aggregate and the
+    multichip entry run on "cuda" unless asked for the CPU, and raise on
+    a machine without it rather than answer on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available: the default device is usable")
+    import numpy as np
+    from greptimedb_tpu_torch.ops import kernels
+    from greptimedb_tpu_torch.parallel import launch, make_mesh
+    from greptimedb_tpu_torch.tools import multichip
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh(device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch.run_ranks(2, launch.mesh_layout)
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            kernels.grouped_aggregate(
+                np.zeros(4, np.int32), np.ones(4, bool),
+                np.arange(4, dtype=np.int32), (np.ones(4, np.float32),),
+                num_groups=1, ops=("sum",), device=device)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        multichip.entry()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        multichip.dryrun_multichip(1)
+
+
+def test_grouped_moments_refuses_devices_it_has_no_kernel_for():
+    from greptimedb_tpu_torch.ops import kernels
+    z = torch.zeros(3, dtype=torch.int32, device="meta")
+    m = torch.zeros(3, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        kernels.grouped_moments(z, m, z, [], [], [], num_groups=2)
