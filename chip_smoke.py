@@ -414,10 +414,16 @@ them in its last two lines:
    order, group ids host x hour (48 000 groups), about 10 % of rows
    masked; grouped_moments against grouped_moments_plain on the
    card (counts, min, max, first, last exact; float sums within 1 ulp
-   plus 8 eps64 sum|x|; two launches) at edge cases (all rows masked,
-   empty groups, a wrapping int32 column, column masks, NaN and ts ties,
-   ids outside the groups, each side of the shared-memory threshold, one
-   group of 2 M rows, 48 000 groups, 33 moments, no rows) and at the
+   plus 8 eps64 sum|x|; two launches) and its C entry's sizes against
+   the wrapper's plan, at the timing tool's edge cases
+   (greptimedb_tpu_torch/tools/grouped_moments_bench.py: all rows
+   masked, empty groups, a wrapping int32 column, column masks, NaN and
+   ts ties, ids outside the groups, each side of the small path's
+   threshold, Gp and Gp + 1 groups, partitions of one and of many work
+   items, empty partitions, 7.5 M groups (partitions counted in
+   windows), one group of 2 M rows, 48 000 groups, one group with 90 % of
+   2 M rows, 33 moments, no rows, 19a's shape sorted by group and in
+   random order) and at the
    main path's inputs: grouped_aggregate of Q1's avg over the ten fields
    plus max, min, stddev, first and last of usage_user, itself checked
    against float64 numpy. 19b: init_process_group("nccl") in this
@@ -432,8 +438,10 @@ them in its last two lines:
    max) against numpy; tools.multichip.dryrun_multichip on "cuda" (its
    distributed query's datanodes launch segment_moments); then
    destroy_process_group. Then grouped_moments is timed at 19a's inputs
-   (CUDA events, median of 5 over 20 calls) beside its plain version,
-   one index_add_ / scatter_reduce_ per moment, and its byte bound.
+   and at the same rows in random order (CUDA events, median of 5 over
+   20 calls behind a spin kernel) beside its plain version, one
+   index_add_ / scatter_reduce_ per moment, and its byte bound (the
+   timing tool's formulas).
 
 Before the last line come two JSON objects: the numbers of the bucket
 entry, which the main paths do not launch, then the kernel table of the
@@ -8414,8 +8422,6 @@ BLOCKED_STEPS = 1440
 BLOCKED_WINDOW = 5
 GATHER_REGION = "us-east-1"
 GATHER_HOURS = 2
-EXACT_MOMENTS = ("count", "min", "max", "first", "last", "first_key",
-                 "last_key")
 
 
 def grouped_rows(torch, seed):
@@ -8448,181 +8454,6 @@ def grouped_rows(torch, seed):
     mask = np.random.default_rng(seed + 19).random(gids.shape[0]) >= \
         GROUPED_MASKED
     return gids, mask, (tick * INTERVAL_MS).astype(np.int32), cols
-
-
-def grouped_agree(torch, name, args, G, quiet=False):
-    """The kernel against its plain version on the same CUDA inputs:
-    counts, min, max, first, last and the keys exact (NaN where NaN);
-    int32 sums exact; float sums within 1 ulp of float32 plus 8 eps64
-    times the sum of |x| (both accumulate in float64 and round once, in
-    different orders). Two launches agree the same way. Returns the max
-    |difference| of the float sums."""
-    from greptimedb_tpu_torch.ops import kernels as K
-    got, cnt = K.grouped_moments(*args, num_groups=G)
-    again, _ = K.grouped_moments(*args, num_groups=G)
-    want, want_cnt = K.grouped_moments_plain(*args, num_groups=G)
-    gids, mask, ts, vals, cms, ops = args
-    mags, _ = K.grouped_moments_plain(
-        gids, mask, ts, [v.abs() if v.dtype.is_floating_point else v
-                         for v in vals], cms,
-        ["sum_sq" if op == "sum_sq" else "sum" for op in ops],
-        num_groups=G, with_counts=False)
-    torch.cuda.synchronize()
-    check(torch.equal(cnt, want_cnt), f"grouped_moments {name}: row "
-          f"counts differ")
-    err = 0.0
-    for i, op in enumerate(ops):
-        for label, g in (("kernel", got[i]), ("second launch", again[i])):
-            w = want[i]
-            check(g.dtype == w.dtype and g.shape == w.shape,
-                  f"grouped_moments {name} {op}: {g.dtype} {tuple(g.shape)}"
-                  f" != {w.dtype} {tuple(w.shape)}")
-            if op in EXACT_MOMENTS or not w.dtype.is_floating_point:
-                same_ = (g == w) | (torch.isnan(g) & torch.isnan(w)) \
-                    if w.dtype.is_floating_point else g == w
-                check(bool(same_.all()), f"grouped_moments {name} {op}: "
-                      f"{label} != plain at {int((~same_).sum())} groups")
-                continue
-            both_nan = torch.isnan(g) & torch.isnan(w)
-            diff = torch.where(both_nan, 0.0, (g.double() - w.double()).abs())
-            lim = U32 * w.double().abs() + 8 * U64 * mags[i].double()
-            check(bool((both_nan | (diff <= lim)).all()),
-                  f"grouped_moments {name} {op}: {label} off the plain "
-                  f"version by {float(diff.max())}")
-            err = max(err, float(diff.max()) if diff.numel() else 0.0)
-    if not quiet:
-        log(f"  {name}: kernel == plain ({len(ops)} moments, {G} groups), "
-            f"two launches agree, max |err| {err:.3g}")
-    return err
-
-
-def grouped_edge_cases(torch, seed):
-    """(name, kernel arguments, groups) at small sizes: the edges of the
-    design (privatised state below the shared-memory threshold, global
-    atomics above it, one group under full contention, more moments than
-    one launch takes) and of the semantics (all rows masked, empty groups,
-    int32 columns that wrap, column masks, NaN, ts ties, ids outside the
-    groups, no rows)."""
-    from greptimedb_tpu_torch.ops import kernels as K
-    rng = np.random.default_rng(seed + 190)
-    lib = K._grouped_lib()
-    every = list(K.GROUPED_OPS)
-
-    def case(name, n, G, ops=every, gid_lo=0, gid_hi=None, masked=0.1,
-             ties=False, nan=False, ints=False, cmasks=0):
-        gid_hi = G if gid_hi is None else gid_hi
-        gids = rng.integers(gid_lo, max(gid_hi, gid_lo + 1), n)
-        mask = rng.random(n) >= masked
-        ts = rng.integers(0, 4 if ties else 1 << 30, n)
-        if ints:
-            x = rng.integers(2**30, 2**31 - 1, n).astype(np.int32)
-        else:
-            x = rng.normal(size=n).astype(np.float32) * 100
-            if nan:
-                x[rng.random(n) < 0.02] = np.nan
-        masks = [rng.random(n) >= 0.3 for _ in range(cmasks)]
-        t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a),
-                                          device=DEVICE).to(dt)
-        xv = t(x, torch.int32 if ints else torch.float32)
-        cm = [t(m, torch.bool) for m in masks]
-        args = (t(gids, torch.int32), t(mask, torch.bool), t(ts, torch.int32),
-                [xv] * len(ops),
-                [cm[i % len(cm)] if cm and i % 3 else None
-                 for i in range(len(ops))], list(ops))
-        return name, args, G
-
-    k = len(every)
-    edge = lib.grouped_moments_smem_groups(k)
-    cases = [
-        case("all rows masked", 5000, 100, masked=1.0),
-        case("empty groups", 20_000, 1000, gid_hi=500),
-        case("int32 column (sums wrap)", 20_000, 64,
-             ops=["count", "sum", "sum_sq", "min", "max", "first", "last"],
-             ints=True),
-        case("column masks", 30_000, 77, cmasks=3),
-        case("NaN values, ts ties", 30_000, 50, nan=True, ties=True),
-        case("ids outside [0, G)", 10_000, 40, gid_lo=-3, gid_hi=43),
-        case(f"{edge} groups (the shared-memory threshold)", 200_000, edge),
-        case(f"{edge + 1} groups (global atomics)", 200_000, edge + 1),
-        case("one group, 2 M rows", 2_000_000, 1),
-        case("48 000 groups", 1_000_000, 48_000),
-        case("33 moments (two launches)", 50_000, 300,
-             ops=(every * 4)[:33], cmasks=2),
-        case("no rows", 0, 10),
-    ]
-    return cases
-
-
-def grouped_library(torch, args, G):
-    """One torch call per moment, as the yardstick: index_add_ for counts
-    and sums, scatter_reduce_ (amin / amax) for min, max and the packed
-    first/last keys, each over its masked input made beforehand (not
-    timed). Returns the callable and the number of calls."""
-    from greptimedb_tpu_torch.ops import kernels as K
-    gids, mask, ts, vals, cms, ops = args
-    live = mask & (gids >= 0) & (gids < G)
-    idx = torch.where(live, gids, 0).long()
-    row = torch.arange(mask.shape[0], device=mask.device)
-    calls = []
-    for op, v, cm in zip(list(ops) + ["count"], list(vals) + [vals[0]],
-                         list(cms) + [None]):
-        m = live if cm is None else live & cm
-        if op == "count":
-            calls.append((torch.float32, "add", m.float(), 0.0))
-        elif op in ("sum", "sum_sq"):
-            x = v.float()
-            calls.append((torch.float32, "add",
-                          torch.where(m, x * x if op == "sum_sq" else x, 0.0),
-                          0.0))
-        elif op in ("min", "max"):
-            fill = float("inf") if op == "min" else float("-inf")
-            calls.append((torch.float32, "a" + op,
-                          torch.where(m, v.float(), fill), fill))
-        else:
-            key = K._packed_keys(op, ts, row)
-            big = torch.iinfo(torch.int64).max
-            calls.append((torch.int64, "amin", torch.where(m, key, big), big))
-
-    def run():
-        for dt, red, data, fill in calls:
-            out = torch.full((G,), fill, dtype=dt, device=mask.device)
-            if red == "add":
-                out.index_add_(0, idx, data)
-            else:
-                out.scatter_reduce_(0, idx, data, red, include_self=True)
-    return run, len(calls)
-
-
-def grouped_bound(args, G):
-    """Bytes the function must move: the row mask read once; at the rows
-    it lets through, the group ids, each distinct column mask, each value
-    column a sum, sum_sq, min or max reads and ts for first/last, read
-    once; each distinct output and the row counts written once, and
-    first/last's value at the chosen row of each group. Against one
-    operation per row and moment. Returns (ms, "bytes" or "operations",
-    bytes)."""
-    gids, mask, ts, vals, cms, ops = args
-    n = mask.shape[0]
-    live = float(mask.float().mean()) if n else 0.0
-    part, gathers = {gids.data_ptr(): 4 * n}, 0
-    outs = G * 4
-    for op, v, cm in zip(ops, vals, cms):
-        cols = [] if cm is None else [cm]
-        if op in ("first", "last", "first_key", "last_key"):
-            cols.append(ts)
-            gathers += G * v.element_size() if op in ("first", "last") else 0
-            outs += G * (8 if op.endswith("_key") else v.element_size())
-        else:
-            if op != "count":
-                cols.append(v)
-            outs += G * 4
-        for t in cols:
-            part[t.data_ptr()] = t.numel() * t.element_size()
-    nbytes = n + live * sum(part.values()) + outs + gathers
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n * max(len(ops), 1) / SCALAR_OPS_PER_S * 1e3
-    by = "bytes" if bytes_ms >= ops_ms else "operations"
-    return max(bytes_ms, ops_ms), by, nbytes
 
 
 def grouped_brute(name, res, counts, rows, G):
@@ -8710,7 +8541,9 @@ def phase_parallel(torch, seed):
     from greptimedb_tpu_torch.parallel import (
         distributed_grouped_aggregate, make_mesh,
         series_sharded_range_aggregate, time_blocked_window_sum)
+    from greptimedb_tpu_torch.tools import grouped_moments_bench as gmb
     from greptimedb_tpu_torch.tools import multichip
+    from greptimedb_tpu_torch.tools import segment_moments_bench as smb
 
     walls = {}
     t_phase = time.perf_counter()
@@ -8725,15 +8558,24 @@ def phase_parallel(torch, seed):
         f"(host x hour), {int((~mask).sum())} rows masked, in "
         f"{walls['data']:.1f}s")
 
-    # ---- 19a: the kernel against its plain version ----
+    # ---- 19a: the kernel against its plain version, the C entry's sizes
+    # against the wrapper's plan ----
     err = 0.0
-    for name, args, g_n in grouped_edge_cases(torch, seed):
-        err = max(err, grouped_agree(torch, name, args, g_n))
+    t0 = time.perf_counter()
+    for name, build in gmb.edge_cases(seed):
+        e_args, g_n = build(DEVICE)
+        gmb.check_sizing(e_args, g_n)
+        err = max(err, gmb.agree(name, e_args, g_n))
+        del e_args
+    walls["edge cases"] = time.perf_counter() - t0
     args, _ = K.grouped_aggregate_plan(gids, mask, rts, values,
                                        num_groups=G, ops=GROUPED_OPS,
                                        device=DEVICE)
-    err = max(err, grouped_agree(torch, f"main-path shape ({gids.shape[0]} "
-                                 f"rows)", args, G))
+    check(tuple(GROUPED_OPS) == gmb.GROUPED_OPS, "19a's ops differ from "
+          "the timing tool's")
+    gmb.check_sizing(args, G)
+    err = max(err, gmb.agree(f"main-path shape ({gids.shape[0]} rows)",
+                             args, G))
     launches0 = K.grouped_moments.launches
 
     # ---- the main path, counted: 19a's aggregate and 19b ----
@@ -8765,7 +8607,7 @@ def phase_parallel(torch, seed):
         check(torch.equal(d_counts, counts), "distributed counts differ")
         for op, g, w in zip(GROUPED_OPS, d_res, res):
             check(g.dtype == w.dtype, f"distributed {op}: {g.dtype}")
-            if op in EXACT_MOMENTS:
+            if op in gmb.EXACT:
                 ok = (g == w) | (torch.isnan(g) & torch.isnan(w))
             else:
                 ok = torch.isclose(g, w, rtol=3e-4, atol=1e-4,
@@ -8892,22 +8734,31 @@ def phase_parallel(torch, seed):
     log(f"phase 19's main path: grouped_moments {grouped}, K1 {k1}, "
         f"segment_moments {moments} launches")
 
-    # ---- 19a's row: the kernel timed at the main path's inputs ----
+    # ---- 19a's row: the kernel timed at the main path's inputs (CUDA
+    # events around 20 calls behind a spin kernel), then at the same rows
+    # in random order ----
     K.grouped_moments.launches = launches0
-    ms = median_ms(torch, lambda: K.grouped_moments(*args, num_groups=G))
+    ms = smb.median_fenced_ms(lambda: K.grouped_moments(*args, num_groups=G))
+    shuffled = gmb.reorder(args, "random", seed)
+    ms_random = smb.median_fenced_ms(
+        lambda: K.grouped_moments(*shuffled, num_groups=G))
+    del shuffled
     K.grouped_moments.launches = launches0     # timing is off the path
     plain = median_ms(torch, lambda: K.grouped_moments_plain(
         *args, num_groups=G), launches=3, runs=3)
-    lib, nlib = grouped_library(torch, args, G)
+    lib, nlib = gmb.grouped_library(args, G)
     lib_ms = median_ms(torch, lib, launches=3, runs=3)
-    b_ms, b_by, nbytes = grouped_bound(args, G)
+    b_ms, b_by, nbytes = gmb.grouped_bound(args, G)
     log(f"grouped_moments at the main-path shape: {gids.shape[0]} rows, {G}"
         f" groups, {len(args[5])} moments; kernel {ms:.4f} ms "
-        f"({b_ms / ms * 100:.1f}% of the bound), plain {plain:.4f} ms, "
-        f"index_add_ / scatter_reduce_ x {nlib} {lib_ms:.4f} ms; bound "
-        f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB)")
+        f"({b_ms / ms * 100:.1f}% of the bound), in random order "
+        f"{ms_random:.4f} ms ({b_ms / ms_random * 100:.1f}%), plain "
+        f"{plain:.4f} ms, index_add_ / scatter_reduce_ x {nlib} "
+        f"{lib_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by} "
+        f"({nbytes / 1e6:.1f} MB)")
     row = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+           "random_order_ms": ms_random}
     walls["phase"] = time.perf_counter() - t_phase
     log("phase 19: " + ", ".join(f"{k} {v:.1f}s" for k, v in walls.items()))
     return types.SimpleNamespace(grouped=grouped, k1=k1, moments=moments,

@@ -18,9 +18,11 @@ builds them.
 
 `grouped_moments` is the same set of moments (and the packed first/last
 keys) over UNSORTED group ids: on a CUDA tensor it launches
-csrc/grouped_moments.cu (one pass of atomics, privatised per block when
-the groups fit shared memory) or raises; on a CPU tensor it computes
-`grouped_moments_plain`. `grouped_aggregate` keeps the reference's API
+csrc/grouped_moments.cu (each group's state in shared memory: every
+block holds all groups when they fit, else rows are partitioned by group
+range and each partition's work items hold its groups;
+`grouped_moments_plan` sizes a launch) or raises; on a CPU tensor it
+computes `grouped_moments_plain`. `grouped_aggregate` keeps the reference's API
 (greptimedb_tpu/ops/kernels.py:77, `_grouped_aggregate` :90) on top of
 it, as `sorted_grouped_aggregate` does on `segment_moments`; the
 mesh-sharded twin in parallel/aggregate.py folds each shard with it.
@@ -35,6 +37,7 @@ path of either package runs but its graft entry and its tests
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -419,10 +422,20 @@ def sorted_grouped_aggregate(gids, mask, ts, values, col_masks=(), *,
     give 0 for sum/count, NaN for avg, the identity (+-inf, int32
     max/min) for min/max, NaN (or 0 for ints) for first/last; callers
     null them out via the counts. One kernel launch computes every
-    moment; avg, stddev and variance are built from its sums here."""
+    moment; avg, stddev and variance are built from its sums here.
+
+    Value columns are float32 or int32 tensors, as the scan path and the
+    flow folds hand them over. Other dtypes raise ValueError where the
+    reference answers (its sorted twin sums and divides in the column's
+    dtype); `grouped_aggregate` takes every dtype the reference does."""
     del seg_len_k
     check_i64_safe(ts, what="sorted_grouped_aggregate ts")
     check_i64_safe(*values, what="sorted_grouped_aggregate values")
+    other = sorted({str(v.dtype) for v in values
+                    if v.dtype not in (torch.float32, torch.int32)})
+    if other:
+        raise ValueError(f"sorted_grouped_aggregate takes float32 and "
+                         f"int32 value columns, not {', '.join(other)}")
     device = mask.device
     n = mask.shape[0]
     if ends is None:
@@ -594,22 +607,119 @@ def grouped_moments_plain(gids: torch.Tensor, mask: torch.Tensor,
     return results, counts
 
 
+#: csrc/grouped_moments.cu's sizes: the small path keeps all G groups'
+#: state in every block up to _GM_SMALL_BUDGET bytes; above it rows are
+#: partitioned by group range, a partition's state at most
+#: _GM_PART_BUDGET bytes (kSmallBudget, kPartBudget); passes 1-2 take
+#: segments of at least _GM_SEG_ROWS rows and keep their [partition,
+#: segment] counts within _GM_MAX_COUNTS; pass 3 has at most
+#: _GM_TARGET_ITEMS work items beyond one a partition (kTargetItems);
+#: scratch parts are _GM_ALIGN-byte aligned (kAlign)
+_GM_SMALL_BUDGET = 96 * 1024
+_GM_PART_BUDGET = 224 * 1024
+_GM_SEG_ROWS = 2048
+_GM_MAX_COUNTS = 1 << 22
+_GM_TARGET_ITEMS = 768
+_GM_ALIGN = 256
+GROUPED_MAX_MOMENTS = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupedPlan:
+    """How one grouped_moments launch is sized (its C entry checks it)."""
+    group_bytes: int    # one group's state: a slot per moment, row count
+    small_groups: int   # the most groups the small path takes
+    small: bool         # every block keeps all G groups (no partitions)
+    part_groups: int    # Gp: the most groups a partition takes
+    partitions: int     # P = ceil(G / Gp) (0 on the small path)
+    seg_rows: int       # rows of a pass-1/2 segment (a warp's)
+    segments: int
+    max_items: int      # pass 3's work items, at most
+    smem_bytes: int     # a block's state in shared memory
+    scratch_bytes: int
+
+
+def _grouped_slot_bytes(op: str, is_int: bool) -> int:
+    """8 for a double sum or a packed first/last key, else 4."""
+    wide = op == "sum_sq" or (op == "sum" and not is_int) or \
+        op in ("first", "last", "first_key", "last_key")
+    return 8 if wide else 4
+
+
+def grouped_moments_plan(n: int, G: int, ops: Sequence[str],
+                         is_int: Sequence[bool], word_cols: int = 0,
+                         byte_cols: int = 0) -> GroupedPlan:
+    """The sizes of one launch over n rows, G groups and these moments
+    (at most GROUPED_MAX_MOMENTS), which read word_cols distinct value
+    columns (ts counting as one for first/last) and byte_cols distinct
+    column masks (`_grouped_columns`): the path, Gp and P, the segments
+    and the scratch bytes (csrc/grouped_moments.cu's `layout`), room for
+    the row list and, where the rows' order scatters them, each input
+    column's copy in partition order included."""
+    if len(ops) > GROUPED_MAX_MOMENTS:
+        raise ValueError(f"{len(ops)} moments: one launch takes "
+                         f"{GROUPED_MAX_MOMENTS}")
+
+    def align(x):
+        return -(-x // _GM_ALIGN) * _GM_ALIGN
+
+    def within(budget):
+        # a state's groups: a multiple of 32 (the kernel swizzles aligned
+        # blocks of 32 groups)
+        return budget // gb // 32 * 32
+
+    gb = 4 + sum(_grouped_slot_bytes(op, i) for op, i in zip(ops, is_int))
+    state = align(G * gb)
+    small, gp = within(_GM_SMALL_BUDGET), within(_GM_PART_BUDGET)
+    if n == 0 or G <= small:
+        return GroupedPlan(gb, small, True, gp, 0, 0, 0, 0,
+                           -(-G // 32) * 32 * gb if n else 0, state)
+    P = -(-G // gp)
+    seg = max(_GM_SEG_ROWS,
+              -(-(-(-n // max(1, _GM_MAX_COUNTS // P))) // 32) * 32)
+    ns = -(-n // seg)
+    scratch = state + align(P * ns * 4) + 2 * align(P * 4) + \
+        align((P + 1) * 4) + _GM_ALIGN + (2 + word_cols) * align(n * 4) + \
+        byte_cols * align(n)
+    return GroupedPlan(gb, small, False, gp, P, seg, ns,
+                       P + _GM_TARGET_ITEMS, gp * gb, scratch)
+
+
+def _grouped_columns(ts: torch.Tensor, values, col_masks, ops
+                     ) -> Tuple[int, int]:
+    """(distinct 4-byte input columns, distinct column masks) a launch's
+    moments read, as the kernel counts them by address: each value column
+    a sum, sum_sq, min or max reads, ts for first/last."""
+    words, masks = set(), set()
+    for op, v, cm in zip(ops, values, col_masks):
+        if op in ("first", "last", "first_key", "last_key"):
+            words.add(ts.data_ptr())
+        elif op != "count":
+            words.add(v.data_ptr())
+        if cm is not None:
+            masks.add(cm.data_ptr())
+    return len(words), len(masks)
+
+
 def _grouped_lib():
     lib = cuda_build.load("grouped_moments")
     if lib.grouped_moments_launch.argtypes is None:
-        P = ctypes.c_void_p
+        P, I = ctypes.c_void_p, ctypes.c_int
         lib.grouped_moments_launch.argtypes = [
-            P, ctypes.c_int, ctypes.c_int, P, P, ctypes.c_longlong, P,
-            ctypes.c_int, P, P, P, P, P, P, P]
-        lib.grouped_moments_launch.restype = ctypes.c_int
-        lib.grouped_moments_scratch_bytes.argtypes = [ctypes.c_int,
-                                                      ctypes.c_int]
+            P, I, I, P, P, ctypes.c_longlong, P, I, P, P, P, P, P, I, I, P,
+            ctypes.c_longlong, P]
+        lib.grouped_moments_launch.restype = I
+        lib.grouped_moments_scratch_bytes.argtypes = [I, I, I, I, I, I, I,
+                                                      P, P]
         lib.grouped_moments_scratch_bytes.restype = ctypes.c_longlong
-        lib.grouped_moments_smem_groups.argtypes = [ctypes.c_int]
-        lib.grouped_moments_smem_groups.restype = ctypes.c_int
+        for fn in (lib.grouped_moments_group_bytes,
+                   lib.grouped_moments_smem_groups,
+                   lib.grouped_moments_partition_groups):
+            fn.argtypes = [I, P, P]
+            fn.restype = I
         lib.grouped_moments_max_moments.argtypes = []
-        lib.grouped_moments_max_moments.restype = ctypes.c_int
-        lib.grouped_moments_error_string.argtypes = [ctypes.c_int]
+        lib.grouped_moments_max_moments.restype = I
+        lib.grouped_moments_error_string.argtypes = [I]
         lib.grouped_moments_error_string.restype = ctypes.c_char_p
     return lib
 
@@ -641,7 +751,7 @@ def _grouped_launch(gids, mask, ts, values, col_masks, ops, G, row_base,
                         device=dev) for i in order]
     if G == 0:
         return [outs[u] for u in slot], counts
-    per = lib.grouped_moments_max_moments()
+    per = GROUPED_MAX_MOMENTS
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         # more moments than one launch takes: one launch per chunk, the
@@ -649,9 +759,13 @@ def _grouped_launch(gids, mask, ts, values, col_masks, ops, G, row_base,
         for c0 in range(0, max(len(order), 1), per):
             ch = order[c0:c0 + per]
             k = len(ch)
-            scratch = torch.empty(
-                (lib.grouped_moments_scratch_bytes(G, k) + 7) // 8,
-                dtype=torch.int64, device=dev)
+            is_int = [values[i].dtype != torch.float32 for i in ch]
+            plan = grouped_moments_plan(
+                n, G, [ops[i] for i in ch], is_int, *_grouped_columns(
+                    ts, [values[i] for i in ch], [col_masks[i] for i in ch],
+                    [ops[i] for i in ch]))
+            scratch = torch.empty((plan.scratch_bytes + 7) // 8,
+                                  dtype=torch.int64, device=dev)
             ptrs = (ctypes.c_void_p * max(k, 1))
             ints = (ctypes.c_int * max(k, 1))
             cm = [col_masks[i] for i in ch]
@@ -664,9 +778,9 @@ def _grouped_launch(gids, mask, ts, values, col_masks, ops, G, row_base,
                 ptrs(*[c.data_ptr() if c is not None else None for c in cm]),
                 ptrs(*[o.data_ptr() for o in outs[c0:c0 + per]]),
                 ints(*[GROUPED_OPS.index(ops[i]) for i in ch]),
-                ints(*[0 if values[i].dtype == torch.float32 else 1
-                       for i in ch]),
-                scratch.data_ptr(), stream)
+                ints(*[int(b) for b in is_int]), plan.part_groups,
+                plan.seg_rows, scratch.data_ptr(), plan.scratch_bytes,
+                stream)
             if err != 0:
                 msg = lib.grouped_moments_error_string(err).decode()
                 raise RuntimeError(f"grouped_moments kernel launch failed: "
@@ -780,13 +894,37 @@ def _on(x, device: torch.device, dtype: Optional[torch.dtype] = None
     return x.contiguous()
 
 
-def _kernel_column(x: torch.Tensor) -> torch.Tensor:
-    """The kernel's 32-bit view of a value column: floats as float32,
-    other integers (int8, int16, uint8, bool) widened to int32; results
-    go back to the column's dtype, which keeps a narrow type's wrap."""
+def _kernel_column(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+    """The kernel's 32-bit view of a value column for moment `op`: floats
+    as float32; int8, int16, uint8, uint16 and bool widened to int32;
+    uint32 as its bits in an int32 (a sum wraps mod 2^32 alike) or, for
+    min and max, as the key x ^ 0x80000000, whose signed order is the
+    values' unsigned order. `_from_kernel` maps the moments back."""
     if x.dtype.is_floating_point:
         return x.to(torch.float32)
+    if x.dtype == torch.uint32:
+        bits = x.view(torch.int32)
+        return bits ^ _I32.min if op in ("min", "max") else bits
     return x.to(torch.int32)
+
+
+def _from_kernel(op: str, r: torch.Tensor, dtype: torch.dtype
+                 ) -> torch.Tensor:
+    """A kernel moment (sum, min, max, first or last) of a column of
+    `dtype`, typed as the reference types it: an integer sum wraps to the
+    dtype (the reference sums in it), an empty group's min / max is the
+    dtype's own identity, a uint32 moment comes back from its bits or
+    key."""
+    if dtype.is_floating_point:
+        return r.to(dtype)
+    if dtype == torch.uint32:
+        return (r ^ _I32.min if op in ("min", "max") else r).view(dtype)
+    if op in ("min", "max") and dtype not in (torch.int32, torch.bool):
+        # the kernel's int32 identity: no narrower value reaches it
+        info = torch.iinfo(dtype)
+        r = torch.where(r == _I32.max, info.max, r) if op == "min" else \
+            torch.where(r == _I32.min, info.min, r)
+    return r.to(dtype)
 
 
 def grouped_aggregate(gids, mask, ts, values, col_masks=(), *, num_groups,
@@ -837,6 +975,16 @@ def grouped_aggregate_plan(gids, mask, ts, values, col_masks=(), *,
         if has_col_masks else []
     G = int(num_groups)
     k_ops, k_vals, k_masks, seen = [], [], [], {}
+    kcols = {}
+
+    def kernel_column(i, op):
+        # one 32-bit copy of a column for every moment that reads it
+        # (uint32's min / max read its keys)
+        k = (id(cols[i]), op in ("min", "max") and
+             cols[i].dtype == torch.uint32)
+        if k not in kcols:
+            kcols[k] = _kernel_column(cols[i], op)
+        return kcols[k]
 
     def moment(op, i, col=None, key=None):
         # without column masks every count is the row count: one moment
@@ -844,7 +992,7 @@ def grouped_aggregate_plan(gids, mask, ts, values, col_masks=(), *,
         if k not in seen:
             seen[k] = len(k_ops)
             k_ops.append(op)
-            k_vals.append(_kernel_column(cols[i]) if col is None else col)
+            k_vals.append(kernel_column(i, op) if col is None else col)
             k_masks.append(cmasks[i] if has_col_masks else None)
         return seen[k]
 
@@ -869,11 +1017,14 @@ def grouped_aggregate_plan(gids, mask, ts, values, col_masks=(), *,
     def finish(res):
         results = []
         for op, i, *idx in plan:
+            dt = cols[i].dtype
             if len(idx) == 1:
                 r = res[idx[0]]
-                results.append(r if op == "count" else r.to(cols[i].dtype))
+                results.append(r if op == "count" else
+                               _from_kernel(op, r, dt))
             elif op == "avg":
-                results.append(_avg(res[idx[0]], res[idx[1]]))
+                results.append(_avg(_from_kernel("sum", res[idx[0]], dt),
+                                    res[idx[1]]))
             else:
                 results.append(_variance(op, *(res[j] for j in idx)))
         return tuple(results)
@@ -882,9 +1033,12 @@ def grouped_aggregate_plan(gids, mask, ts, values, col_masks=(), *,
 
 
 def _avg(s: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    return torch.where(
-        c > 0, s.to(torch.float32) / c.clamp(min=1).to(torch.float32),
-        float("nan"))
+    """The mean as the reference divides it: the sum in the column's
+    dtype (wrapped, for integers) over the count, in the column's float
+    type (float16 stays float16) or in float32 for an integer column."""
+    dt = s.dtype if s.dtype.is_floating_point else torch.float32
+    return torch.where(c > 0, s.to(dt) / c.clamp(min=1).to(dt),
+                       float("nan"))
 
 
 def _variance(op: str, s: torch.Tensor, sq: torch.Tensor, c: torch.Tensor

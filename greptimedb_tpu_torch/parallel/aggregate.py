@@ -13,7 +13,8 @@ Decomposable moments per op (classic partial-aggregation algebra):
   stddev/variance      -> SUM of shifted sums and squares and count, the
                           shift from the globally reduced sum and count
   min/max              -> MIN / MAX (floats as order-preserving int32
-                          keys, so NaN propagates on every backend)
+                          keys, so NaN propagates on every backend;
+                          uint32 as x ^ 0x80000000, the kernel's keys)
   first/last           -> MIN of the packed (ts, global row index) key,
                           then the owner's value by a native-dtype SUM
 """
@@ -26,8 +27,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..ops.kernels import (AGG_OPS, _avg, _kernel_column, _narrow_dtype,
-                           _variance, check_i64_safe, grouped_moments)
+from ..ops.kernels import (AGG_OPS, _avg, _from_kernel, _kernel_column,
+                           _narrow_dtype, _variance, check_i64_safe,
+                           grouped_moments)
 from .mesh import Mesh, pad_rows_to_multiple
 
 _I32 = torch.iinfo(torch.int32)
@@ -152,7 +154,8 @@ def distributed_grouped_aggregate(
         if k not in seen:
             seen[k] = len(k_ops)
             k_ops.append(op)
-            k_vals.append(_kernel_column(cols[i]) if col is None else col)
+            k_vals.append(_kernel_column(cols[i], op) if col is None
+                          else col)
             k_masks.append(cmasks[i] if has_cm else None)
         return seen[k]
 
@@ -224,12 +227,13 @@ def distributed_grouped_aggregate(
             r = torch.where(key != _I64_MAX, owned[idx[0]],
                             torch.tensor(empty, dtype=owned[idx[0]].dtype,
                                          device=dev))
-            results.append(r.to(dt))
+            results.append(_from_kernel(op, r, dt))
         elif len(idx) == 1:
             r = moments[idx[0]]
-            results.append(r if op == "count" else r.to(dt))
+            results.append(r if op == "count" else _from_kernel(op, r, dt))
         elif op == "avg":
-            results.append(_avg(moments[idx[0]], moments[idx[1]]))
+            results.append(_avg(_from_kernel("sum", moments[idx[0]], dt),
+                                moments[idx[1]]))
         else:
             results.append(_variance(op, *(moments[j] for j in idx)))
     return tuple(results), counts

@@ -381,13 +381,13 @@ def moments_agree(name: str, args: Args, quiet: bool = False) -> float:
 # build, check, time
 # ---------------------------------------------------------------------------
 
-def _build_all(sources: List[str]) -> List[ctypes.CDLL]:
+def _build_all(sources: List[str], name: str = "segment_moments"
+               ) -> List[ctypes.CDLL]:
     """nvcc for every source at once; the loaded libraries in order."""
     os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
     procs = []
     for i, src in enumerate(sources):
-        so = os.path.join(cuda_build.BUILD_DIR,
-                          f"libsegment_moments_bench_{i}.so")
+        so = os.path.join(cuda_build.BUILD_DIR, f"lib{name}_bench_{i}.so")
         procs.append((src, so, subprocess.Popen(
             [cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-o", so, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -406,18 +406,18 @@ def _build_all(sources: List[str]) -> List[ctypes.CDLL]:
 
 
 @contextlib.contextmanager
-def _kernel_from(lib: ctypes.CDLL):
+def _kernel_from(lib: ctypes.CDLL, name: str = "segment_moments"):
     """The port's wrapper launching `lib` in place of the committed
     source's library."""
-    saved = cuda_build._libs.get("segment_moments")
-    cuda_build._libs["segment_moments"] = lib
+    saved = cuda_build._libs.get(name)
+    cuda_build._libs[name] = lib
     try:
         yield
     finally:
         if saved is None:
-            cuda_build._libs.pop("segment_moments", None)
+            cuda_build._libs.pop(name, None)
         else:
-            cuda_build._libs["segment_moments"] = saved
+            cuda_build._libs[name] = saved
 
 
 def fenced_ms(fn, launches: int = 20) -> float:

@@ -12,7 +12,10 @@ one program per op tuple and mesh.
 Tolerance: counts, min, max, first, last, ok masks, errors and every
 output dtype must be equal. Float sums (sum, avg, stddev, variance, the
 cumsum-path range functions, the windowed sums) agree within rtol 3e-4
-and atol 1e-4, the reference's own bound (__graft_entry__.py).
+and atol 1e-4, the reference's own bound (__graft_entry__.py). A float16
+column's sum and avg agree within tests/test_torch_grouped.py's
+`f16_bound` (the reference adds in float16, on each shard and across
+them); integer sums, wrapped to the column's dtype, exactly.
 """
 
 import threading
@@ -28,6 +31,7 @@ from greptimedb_tpu import parallel as jp
 from greptimedb_tpu_torch import parallel as tp
 from greptimedb_tpu_torch.parallel import launch
 from greptimedb_tpu_torch.tools import multichip
+from test_torch_grouped import ALL_OPS, dtype_rows, same_dtyped
 
 torch.set_num_threads(1)
 
@@ -43,7 +47,9 @@ CASES = ([f"agg_{g}" for g in AGG_GROUPS] +
           "series_avg_over_time", "series_rate", "series_max_over_time",
           "series_rebase_padding", "blocked_sum", "blocked_avg",
           "blocked_min", "blocked_max", "blocked_steps_not_divisible",
-          "blocked_window_too_wide"])
+          "blocked_window_too_wide"] +
+         [f"agg_dtype_{d}" for d in ("uint32", "int8", "int16", "uint8",
+                                     "uint16", "float16")])
 
 
 def _rows(rng, n, groups):
@@ -119,6 +125,13 @@ def _cases():
     out["blocked_window_too_wide"] = (
         "time_blocked_window_sum", (np.zeros((2, 64), np.float32),),
         {"window": 10})
+    # every op over each value dtype (tests/test_torch_grouped.py's rows)
+    for case in CASES:
+        if case.startswith("agg_dtype_"):
+            gids, mask, ts, col = dtype_rows(case[len("agg_dtype_"):])
+            out[case] = ("distributed_grouped_aggregate",
+                         (gids, mask, ts, (col,) * len(ALL_OPS)),
+                         {"num_groups": 7, "ops": ALL_OPS})
     assert list(out) == CASES
     return out
 
@@ -199,8 +212,14 @@ def test_matches_reference_mesh(ranks, cases, case, n):
         assert tuple(got) == want
         return
     assert not _is_error(got), got
-    name, _, kwargs = cases[case]
-    if name == "distributed_grouped_aggregate":
+    name, args, kwargs = cases[case]
+    if case.startswith("agg_dtype_"):
+        (g_res, g_counts), (w_res, w_counts) = got, want
+        _same_array("counts", g_counts, w_counts, True)
+        gids, mask, _, (col, *_) = args
+        same_dtyped(kwargs["ops"], g_res, w_res, col, gids, mask,
+                    kwargs["num_groups"], shards=n)
+    elif name == "distributed_grouped_aggregate":
         (g_res, g_counts), (w_res, w_counts) = got, want
         _same_array("counts", g_counts, w_counts, True)
         for op, g, w in zip(kwargs["ops"], g_res, w_res):
@@ -235,6 +254,23 @@ def test_single_process_mesh():
         np.arange(3, dtype=np.int32), (np.ones(3, np.float32),),
         num_groups=2, ops=("sum",), mesh=mesh)
     assert counts.tolist() == [1, 2] and got[0].tolist() == [1.0, 2.0]
+
+
+@pytest.mark.parametrize("dtype", ("uint32", "int8", "int16", "uint8",
+                                   "uint16", "float16"))
+def test_value_dtypes_single_process_mesh(dtype):
+    """A (1, 1) mesh without a process group answers every op over each
+    value dtype as the reference's one-device mesh does."""
+    gids, mask, ts, col = dtype_rows(dtype)
+    values = (col,) * len(ALL_OPS)
+    got, counts = tp.distributed_grouped_aggregate(
+        gids, mask, ts, values, num_groups=7, ops=ALL_OPS,
+        mesh=tp.make_mesh(device="cpu"))
+    want, want_counts = jp.distributed_grouped_aggregate(
+        gids, mask, ts, values, num_groups=7, ops=ALL_OPS,
+        mesh=jp.make_mesh(jax.devices()[:1]))
+    _same_array("counts", counts.numpy(), want_counts, True)
+    same_dtyped(ALL_OPS, [r.numpy() for r in got], want, col, gids, mask, 7)
 
 
 def test_dryrun_multichip_on_two_gloo_ranks():
