@@ -64,9 +64,9 @@
 //   them to [P][segments], and counts how many partitions its steps of
 //   32 rows meet. A scan kernel per partition and one planning kernel
 //   turn the counts into each (partition, segment) offset, each
-//   partition's rows and work items: chunks of about live /
-//   kTargetItems rows (at least kMinChunk), so a skewed partition splits
-//   over many blocks.
+//   partition's rows and work items: runs of about live / kTargetItems
+//   rows (at least kMinChunk, whole block tiles), so a skewed partition
+//   splits over many blocks.
 //   Pass 2, rows that lie together (a step meets at most kCopyAbove
 //   partitions on average, as in TSBS's time-major order, where a
 //   partition's Gp / 12 hosts are a run of rows at every tick): each
@@ -80,6 +80,12 @@
 //   column, the row index, the group within the partition and every
 //   input column into partition order: coalesced reads, and one
 //   contiguous write per partition and chunk.
+//   The copies take the rows in chunks whose row list, groups and copied
+//   columns fit kChunkBytes (512 MiB; 9.6 M rows at 19a's 17 moments),
+//   each chunk with a plan of its own from pass 1's counts and pass 3
+//   run over it; every partition then merges into the global state. So
+//   beyond the groups' state and the counts, a launch's scratch is 4
+//   bytes a row (the row list) or one chunk's copies, the larger.
 //   Pass 3: persistent blocks take work items from a shared queue (a
 //   block that finishes early takes more). A block sets its
 //   partition's Gp groups to the identities in shared memory and walks
@@ -96,11 +102,11 @@
 //   reduces across the warp: one atomic per moment instead of 32 on one
 //   address.
 // What remains, in TSBS's time-major order at 17.28 M rows and 48 000
-// groups (an H100, 1.04 ms in all): pass 3 about 0.85 ms, about half of
+// groups (an H100, 1.06 ms in all): pass 3 about 0.86 ms, about half of
 // it the moments' loads and a third the shared-memory atomics (a double
 // add is a compare-and-swap loop there; bank conflicts of 2-3 ways
-// remain), passes 1-2 about 0.15 ms. In random order the copies take
-// about 1.5 ms of 2.7.
+// remain), passes 1-2 about 0.15 ms. In random order (two chunks of
+// copies) the copies take about 1.7 ms of 3.1, pass 3 1.2.
 // Float sums depend on the order the atomics land in: the same inputs
 // may differ in the last bits between runs (the reference's scatter sum
 // is order-dependent too). Counts, min, max, first and last are exact.
@@ -133,6 +139,16 @@ constexpr int kWindow = 2048;            // partitions a warp counts at once
 constexpr int kScanThreads = 1024;
 constexpr int kTargetItems = 768;        // pass 3's work items, about
 constexpr int kMinChunk = 4096;          // rows of a work item, at least
+// rows of a segment: about a chunk's rows over kSegments, within
+// [kSegRowsMin, kSegRowsMax] (enough warps for passes 1-2 at any chunk)
+constexpr int kSegRowsMin = 512;
+constexpr int kSegRowsMax = 2048;
+constexpr int kSegments = 8192;
+constexpr long long kMaxCounts = 1 << 22;  // [partition][segment] counts
+// where passes 2-3 copy, they take the rows in chunks whose row list,
+// groups and copies fit kChunkBytes (at least kMinChunkRows rows)
+constexpr long long kChunkBytes = 512ll << 20;
+constexpr long long kMinChunkRows = 1 << 20;
 constexpr int kUnroll = 4;               // pass 3: rows a lane holds at once
 constexpr int kSegUnroll = 4;            // passes 1-2: rows a lane loads at once
 constexpr long long kAlign = 256;
@@ -182,23 +198,37 @@ struct Params {
   Column col[kMaxCols];
 };
 
-// The partition path's plan and its scratch (item_start == nullptr: the
-// small path, every group's state in global memory).
+// A plan of the partition path and its scratch (item_start == nullptr:
+// the small path, every group's state in global memory). The launch's
+// plan covers all rows; where the copies are taken in chunks, each
+// chunk has a plan of its own over its segments.
 struct Part {
   int Gp;
   int P;
   int S;            // rows of a segment
-  int NS;           // segments
-  int* rel;         // [P][NS] counts, then offsets within the partition
-  int* part_len;    // [P]
-  int* part_start;  // [P]
+  int NSall;        // the launch's segments (rel's row stride)
+  int seg0;         // this plan's first segment
+  int NS;           // and its segments
+  int target;       // its work items, about
+  int mode;         // pass 3 runs this plan: 0 when the launch gathers,
+                    // 1 when it copies, 2 either way
+  int merge_copies; // 1: the copies come in several chunks, and when
+                    // the launch copies, every partition merges into
+                    // the global state
+  int* rel;         // [P][NSall] counts, then offsets within the partition
+  int* glen;        // [P] each partition's live rows (the launch's)
+  int* part_len;    // [P] this plan's rows of each partition
+  int* part_start;  // [P] where they start in the list
+  int* origin;      // [P] part_start minus rel at seg0
   int* item_start;  // [P + 1]
-  int* meta;        // [0]: rows of a work item; [1], [2]: the partitions
-                    // a warp step's live rows fall in, summed, and the
-                    // steps; [3]: 1 when that average passes kCopyAbove
-                    // (passes 2-3 then copy and read the inputs in
-                    // partition order), else 0 (pass 3 gathers them);
-                    // [4]: pass 3's next work item
+  int* meta;        // [0]: rows of a work item; [1], [2] (the launch's
+                    // plan): the partitions a warp step's live rows fall
+                    // in, summed, and the steps; [3] (the launch's plan):
+                    // 1 when that average passes kCopyAbove (passes 2-3
+                    // then copy and read the inputs in partition order),
+                    // else 0 (pass 3 gathers them); [4]: pass 3's next
+                    // work item
+  int* gmeta;       // the launch's plan's meta
   int* list;        // [live rows] row indices, partition by partition
   int* grp;         // [live rows] their groups within the partition (a
                     // copied column)
@@ -534,12 +564,12 @@ __device__ __forceinline__ void add_tile(const Params& p, const State& s,
 // Every slot of a shared-memory state of s.stride groups to its identity.
 __device__ __forceinline__ void init_shared(const Params& p,
                                             const State& s) {
-  const int n8 = p.n8 * s.stride;
-  for (int j = threadIdx.x; j < n8; j += blockDim.x)
-    s.w8[j] = p.ident8[j / s.stride];
-  const int n4 = (p.n4 + 1) * s.stride;
-  for (int j = threadIdx.x; j < n4; j += blockDim.x)
-    s.w4[j] = p.ident4[j / s.stride];
+  for (int k = 0; k < p.n8; ++k)
+    for (int g = threadIdx.x; g < s.stride; g += blockDim.x)
+      s.w8[k * s.stride + g] = p.ident8[k];
+  for (int k = 0; k <= p.n4; ++k)
+    for (int g = threadIdx.x; g < s.stride; g += blockDim.x)
+      s.w4[k * s.stride + g] = p.ident4[k];
 }
 
 __device__ __forceinline__ float key_to_float(int k) {
@@ -617,10 +647,12 @@ __device__ void merge_group(const Params& p, const State& sm,
   }
 }
 
-// Whether group g's state lives in global memory: every group on the
-// small path, a partition's of several work items on the other.
+// Whether group g's state lives in global memory (q: the launch's plan):
+// every group on the small path and where the copies come in chunks,
+// else a partition's of several work items.
 __device__ __forceinline__ bool global_state(const Part& q, int g) {
-  if (q.item_start == nullptr) return true;
+  if (q.item_start == nullptr || (q.merge_copies && q.gmeta[3] != 0))
+    return true;
   const int pp = g / q.Gp;
   return q.item_start[pp + 1] - q.item_start[pp] > 1;
 }
@@ -680,9 +712,10 @@ rows_shared(const __grid_constant__ Params p, State gl) {
     merge_group(p, sm, gl, swizzle(g), g);
 }
 
-// Passes 1 (counts) and 2 (scatter): warp w of block b takes segment
-// s = b * kSegWarps + w, rows [s * S, (s + 1) * S). Its counters (pass
-// 1) or cursors (pass 2) are warp-private: no block barrier, no atomic.
+// Passes 1 (counts) and 2 (scatter), over all rows: warp w of block b
+// takes segment s = b * kSegWarps + w, rows [s * S, (s + 1) * S). Its
+// counters (pass 1) or cursors (pass 2) are warp-private: no block
+// barrier, no atomic.
 template <bool kScatter>
 __global__ void __launch_bounds__(kSegWarps * 32)
 segments(const __grid_constant__ Params p, Part q) {
@@ -696,13 +729,13 @@ segments(const __grid_constant__ Params p, Part q) {
   const long long r0 = static_cast<long long>(s) * q.S;
   const long long r1 = r0 + q.S < p.n ? r0 + q.S : p.n;
   const unsigned below = (1u << lane) - 1u;
-  if (kScatter && q.meta[3] != 0) return;  // scatter_copies' turn
+  if (kScatter && q.gmeta[3] != 0) return;  // scatter_copies' turn
   int runs = 0, steps = 0;  // pass 1: partitions met, steps with rows
   for (int p0 = 0; p0 < q.P; p0 += win) {
     const int pw = q.P - p0 < win ? q.P - p0 : win;
     for (int k = lane; k < pw; k += 32)
-      mine[k] = kScatter ? q.part_start[p0 + k] +
-                           q.rel[static_cast<long long>(p0 + k) * q.NS + s]
+      mine[k] = kScatter ? q.origin[p0 + k] +
+                           q.rel[static_cast<long long>(p0 + k) * q.NSall + s]
                          : 0;
     __syncwarp();
     for (long long base = r0; base < r1; base += 32 * kSegUnroll) {
@@ -746,7 +779,7 @@ segments(const __grid_constant__ Params p, Part q) {
     }
     if (!kScatter)
       for (int k = lane; k < pw; k += 32)
-        q.rel[static_cast<long long>(p0 + k) * q.NS + s] = mine[k];
+        q.rel[static_cast<long long>(p0 + k) * q.NSall + s] = mine[k];
     __syncwarp();
   }
   if (!kScatter && lane == 0 && steps > 0) {
@@ -755,8 +788,9 @@ segments(const __grid_constant__ Params p, Part q) {
   }
 }
 
-// Pass 2 where the rows' order scatters them (Part::meta[3]): block b
-// takes segments b * kSegWarps.. (one range of each partition's list),
+// Pass 2 where the rows' order scatters them (Part::meta[3]), over one
+// plan's segments (p: their rows): block b takes its segments
+// b * kSegWarps.. (one range of each partition's list),
 // kStage rows at a time. It counts the chunk's rows per partition in
 // shared memory and gives each row its place in the chunk's partition
 // order (within a partition the rows keep no particular order); then,
@@ -769,14 +803,15 @@ scatter_copies(const __grid_constant__ Params p, Part q) {
   constexpr int kPer = kStage / (kSegWarps * 32);  // rows a thread reads
   __shared__ int cur[kCopyParts], cnt[kCopyParts], off[kCopyParts];
   __shared__ unsigned buf[kStage];  // one column in partition order
-  if (q.meta[3] == 0) return;
+  if (q.gmeta[3] == 0) return;
   const int s0 = blockIdx.x * kSegWarps;
   const long long r0 = static_cast<long long>(s0) * q.S;
   const long long r1 = r0 + static_cast<long long>(kSegWarps) * q.S < p.n
                            ? r0 + static_cast<long long>(kSegWarps) * q.S
                            : p.n;
   for (int k = threadIdx.x; k < q.P; k += blockDim.x)
-    cur[k] = q.part_start[k] + q.rel[static_cast<long long>(k) * q.NS + s0];
+    cur[k] = q.origin[k] +
+             q.rel[static_cast<long long>(k) * q.NSall + q.seg0 + s0];
   for (long long c0 = r0; c0 < r1; c0 += kStage) {
     const int rows = r1 - c0 < kStage ? static_cast<int>(r1 - c0) : kStage;
     for (int k = threadIdx.x; k < q.P; k += blockDim.x) cnt[k] = 0;
@@ -895,37 +930,65 @@ __device__ int block_scan(int v, int* total) {
 }
 
 // One block a partition: its segments' counts to offsets within the
-// partition, and the partition's rows.
+// partition (each thread kScanPer consecutive counts at a time), and the
+// partition's rows.
 __global__ void __launch_bounds__(kScanThreads) scan_partitions(Part q) {
-  int* row = q.rel + static_cast<long long>(blockIdx.x) * q.NS;
+  constexpr int kScanPer = 8;
+  int* row = q.rel + static_cast<long long>(blockIdx.x) * q.NSall;
   int carry = 0;
-  for (int c0 = 0; c0 < q.NS; c0 += blockDim.x) {
-    const int s = c0 + threadIdx.x;
-    const int v = s < q.NS ? row[s] : 0;
+  for (int c0 = 0; c0 < q.NS; c0 += blockDim.x * kScanPer) {
+    const int s = c0 + threadIdx.x * kScanPer;
+    int v[kScanPer], sum = 0;
+#pragma unroll
+    for (int k = 0; k < kScanPer; ++k) {
+      v[k] = s + k < q.NS ? row[s + k] : 0;
+      sum += v[k];
+    }
     int total;
-    const int ex = block_scan(v, &total);
-    if (s < q.NS) row[s] = carry + ex;
+    int run = carry + block_scan(sum, &total);
+#pragma unroll
+    for (int k = 0; k < kScanPer; ++k) {
+      if (s + k < q.NS) row[s + k] = run;
+      run += v[k];
+    }
     carry += total;
   }
-  if (threadIdx.x == 0) q.part_len[blockIdx.x] = carry;
+  if (threadIdx.x == 0) q.glen[blockIdx.x] = carry;
 }
 
-// One block: each partition's first row in the list, the rows of a work
-// item (the live rows over kTargetItems, at least kMinChunk) and each
-// partition's first work item (an empty partition takes one, which
-// writes its groups' empty outputs).
-__global__ void __launch_bounds__(kScanThreads) plan_items(Part q) {
+// One block, one plan: each partition's rows in the plan's segments and
+// where they start in the list, the rows of a work item (the live rows
+// over q.target, at least kMinChunk, a whole number of pass 3's block
+// tiles: a tile's lanes idle past an item's end) and each partition's
+// first work item (an empty partition takes one, which writes its
+// groups' empty outputs). The launch's plan (decide) also decides
+// whether passes 2-3 copy; a chunk's plan is skipped when they gather.
+__global__ void __launch_bounds__(kScanThreads) plan_items(Part q,
+                                                           int decide) {
+  if (!decide && q.gmeta[3] == 0) return;
+  const int end = q.seg0 + q.NS;
   int carry = 0;
   for (int c0 = 0; c0 < q.P; c0 += blockDim.x) {
     const int pp = c0 + threadIdx.x;
-    const int v = pp < q.P ? q.part_len[pp] : 0;
+    int v = 0, at0 = 0;
+    if (pp < q.P) {
+      const int* row = q.rel + static_cast<long long>(pp) * q.NSall;
+      at0 = row[q.seg0];
+      v = (end < q.NSall ? row[end] : q.glen[pp]) - at0;
+    }
     int total;
     const int ex = block_scan(v, &total);
-    if (pp < q.P) q.part_start[pp] = carry + ex;
+    if (pp < q.P) {
+      q.part_len[pp] = v;
+      q.part_start[pp] = carry + ex;
+      q.origin[pp] = carry + ex - at0;
+    }
     carry += total;
   }
-  const int per = (carry + kTargetItems - 1) / kTargetItems;
-  const int chunk = per > kMinChunk ? per : kMinChunk;
+  constexpr int kTile = kAggThreads * kUnroll;
+  const int per = (carry + q.target - 1) / q.target;
+  const int chunk = ((per > kMinChunk ? per : kMinChunk) + kTile - 1) /
+                    kTile * kTile;
   int items = 0;
   for (int c0 = 0; c0 < q.P; c0 += blockDim.x) {
     const int pp = c0 + threadIdx.x;
@@ -942,13 +1005,15 @@ __global__ void __launch_bounds__(kScanThreads) plan_items(Part q) {
   if (threadIdx.x == 0) {
     q.item_start[q.P] = items;
     q.meta[0] = chunk;
-    q.meta[3] = q.P <= kCopyParts &&
-                static_cast<long long>(q.meta[1]) >
-                    static_cast<long long>(kCopyAbove) * q.meta[2];
+    q.meta[4] = 0;
+    if (decide)
+      q.meta[3] = q.P <= kCopyParts &&
+                  static_cast<long long>(q.meta[1]) >
+                      static_cast<long long>(kCopyAbove) * q.meta[2];
   }
 }
 
-// Pass 3: persistent blocks over the work items.
+// Pass 3: persistent blocks over one plan's work items (p: its rows).
 __global__ void __launch_bounds__(kAggThreads, kAggBlocksPerSm)
 aggregate(const __grid_constant__ Params p, Part q, State gl) {
   extern __shared__ unsigned long long smem[];
@@ -957,9 +1022,10 @@ aggregate(const __grid_constant__ Params p, Part q, State gl) {
                            smem + static_cast<long long>(p.n8) * q.Gp),
                  q.Gp};
   const int lane = threadIdx.x & 31;
+  const bool copied = q.gmeta[3] != 0;
+  if (q.mode != 2 && q.mode != static_cast<int>(copied)) return;
   const int total = q.item_start[q.P];
   const int chunk = q.meta[0];
-  const bool copied = q.meta[3] != 0;
   for (;;) {
     // the next work item from the shared queue (blocks that finish early
     // take more), and its partition
@@ -1011,7 +1077,7 @@ aggregate(const __grid_constant__ Params p, Part q, State gl) {
       add_tile(p, sm, tl, copied);
     }
     __syncthreads();
-    if (nitems == 1) {
+    if (nitems == 1 && !(copied && q.merge_copies)) {
       for (int lg = threadIdx.x; lg < gn; lg += blockDim.x)
         finish_group(p, sm, swizzle(lg), g0 + lg);
     } else {
@@ -1046,44 +1112,6 @@ bool small_path(int n, int G, int gb) {
   return n == 0 || G <= groups_within(kSmallBudget, gb);
 }
 
-// Byte offsets of the scratch's parts (Python's grouped_moments_plan
-// computes the same total). word_cols / byte_cols: the copied value
-// (and ts) columns and column masks.
-struct Layout {
-  long long state, rel, part_len, part_start, item_start, meta, list, grp,
-      copies, total;
-  int P, NS;
-};
-
-Layout layout(int n, int G, int gb, int Gp, int S, int word_cols,
-              int byte_cols) {
-  Layout l{};
-  long long off = align_up(static_cast<long long>(G) * gb);
-  if (!small_path(n, G, gb)) {
-    l.P = (G + Gp - 1) / Gp;
-    l.NS = static_cast<int>((static_cast<long long>(n) + S - 1) / S);
-    l.rel = off;
-    off += align_up(static_cast<long long>(l.P) * l.NS * 4);
-    l.part_len = off;
-    off += align_up(static_cast<long long>(l.P) * 4);
-    l.part_start = off;
-    off += align_up(static_cast<long long>(l.P) * 4);
-    l.item_start = off;
-    off += align_up((static_cast<long long>(l.P) + 1) * 4);
-    l.meta = off;
-    off += kAlign;
-    l.list = off;
-    off += align_up(static_cast<long long>(n) * 4);
-    l.grp = off;
-    off += align_up(static_cast<long long>(n) * 4);
-    l.copies = off;
-    off += word_cols * align_up(static_cast<long long>(n) * 4) +
-           byte_cols * align_up(static_cast<long long>(n));
-  }
-  l.total = off;
-  return l;
-}
-
 bool valid_ops(int nmom, const int* ops) {
   if (nmom < 0 || nmom > kMaxMoments) return false;
   for (int m = 0; m < nmom; ++m)
@@ -1091,14 +1119,128 @@ bool valid_ops(int nmom, const int* ops) {
   return true;
 }
 
-// Partition sizes the launch can take.
-bool valid_part(int n, int G, int gb, int Gp, int S) {
-  if (Gp < 32 || Gp % 32 != 0 || Gp > groups_within(kPartBudget, gb) ||
-      S < 32 || S % 32 != 0)
-    return false;
-  const long long P = (static_cast<long long>(G) + Gp - 1) / Gp;
-  const long long NS = (static_cast<long long>(n) + S - 1) / S;
-  return P * NS <= INT_MAX;
+// The moments of a launch into p (slots, identities, the input columns
+// pass 2 copies, each distinct column once by address: a value column
+// for sum, sum_sq, min and max, ts for first/last, a column mask).
+// outs may be null (sizing only).
+void describe(Params& p, int nmom, const void* const* vals,
+              const unsigned char* const* cmasks, void* const* outs,
+              const int* ops, const int* is_int, const int* ts) {
+  p.nmom = nmom;
+  auto column = [&](const void* src, int bytes) {
+    for (int c = 0; c < p.ncol; ++c)
+      if (p.col[c].src == src && p.col[c].bytes == bytes) return c;
+    p.col[p.ncol] = Column{src, nullptr, bytes};
+    return p.ncol++;
+  };
+  for (int m = 0; m < nmom; ++m) {
+    const int wide = is_wide(ops[m], is_int[m]) ? 1 : 0;
+    const int slot = wide ? p.n8++ : p.n4++;
+    const void* src = ops[m] >= kFirst ? static_cast<const void*>(ts)
+                      : ops[m] == kCount ? nullptr : vals[m];
+    p.mom[m] = Moment{vals[m], cmasks[m], outs ? outs[m] : nullptr, ops[m],
+                      is_int[m], wide, slot,
+                      src != nullptr ? column(src, 4) : -1,
+                      cmasks[m] != nullptr ? column(cmasks[m], 1) : -1};
+    if (wide)
+      p.ident8[slot] = ops[m] == kSum || ops[m] == kSumSq
+                           ? 0ull
+                           : static_cast<unsigned long long>(LLONG_MAX);
+    else
+      p.ident4[slot] = ops[m] == kMin   ? static_cast<unsigned>(INT_MAX)
+                       : ops[m] == kMax ? static_cast<unsigned>(INT_MIN)
+                                        : 0u;
+    if (ops[m] >= kFirst) p.need_ts = 1;
+  }
+  p.ident4[p.n4] = 0u;  // the row counts
+}
+
+// A launch's sizes and the byte offsets of its scratch's parts: the
+// global state, then (partition path) the counts, the launch's plan and
+// a chunk's, and one area that holds the row list of all rows where
+// passes 2-3 gather, or one chunk's row list, groups and copied columns
+// where they copy (the chunk's rows R: its part within kChunkBytes).
+struct Sizes {
+  bool small;
+  int gb, Gp, P, S, NSall, chunk_segs, chunks;
+  long long R;
+  long long rel, plans[2], area, grp, copies, total;
+};
+
+// A plan's arrays: part_len, part_start, origin [P], item_start [P + 1],
+// meta, each 256-byte aligned.
+long long plan_bytes(int P) {
+  return 3 * align_up(4ll * P) + align_up(4ll * (P + 1)) + kAlign;
+}
+
+Sizes sizes(const Params& p) {
+  Sizes z{};
+  z.gb = 4;
+  for (int m = 0; m < p.nmom; ++m) z.gb += p.mom[m].wide ? 8 : 4;
+  z.small = small_path(p.n, p.G, z.gb);
+  long long off = align_up(static_cast<long long>(p.G) * z.gb);
+  if (!z.small) {
+    int words = 0, bytes = 0;
+    for (int c = 0; c < p.ncol; ++c) (p.col[c].bytes == 4 ? words : bytes)++;
+    z.Gp = groups_within(kPartBudget, z.gb);
+    z.P = (p.G + z.Gp - 1) / z.Gp;
+    const long long per_row = 8 + 4ll * words + bytes;
+    long long R = kChunkBytes / per_row;
+    R = R > kMinChunkRows ? R : kMinChunkRows;
+    // copies only up to kCopyParts partitions; of all rows in one chunk
+    const bool may_copy = z.P <= kCopyParts;
+    const bool one = !may_copy || p.n <= R;
+    R = one ? p.n : R;
+    // segments: about a chunk's rows over kSegments, and few enough for
+    // the [partition][segment] counts
+    long long S = (R + kSegments - 1) / kSegments;
+    S = S < kSegRowsMin ? kSegRowsMin : S > kSegRowsMax ? kSegRowsMax : S;
+    const long long per_count = kMaxCounts / z.P > 1 ? kMaxCounts / z.P : 1;
+    const long long S_counts = (p.n + per_count - 1) / per_count;
+    S = ((S > S_counts ? S : S_counts) + 31) / 32 * 32;
+    z.S = static_cast<int>(S);
+    z.NSall = static_cast<int>((p.n + S - 1) / S);
+    z.chunk_segs = one ? z.NSall : static_cast<int>(R / S > 1 ? R / S : 1);
+    z.chunks = (z.NSall + z.chunk_segs - 1) / z.chunk_segs;
+    z.R = z.chunks > 1 ? static_cast<long long>(z.chunk_segs) * S : p.n;
+    z.rel = off;
+    off += align_up(static_cast<long long>(z.P) * z.NSall * 4);
+    z.plans[0] = off;
+    off += plan_bytes(z.P);
+    z.plans[1] = off;
+    off += plan_bytes(z.P);
+    z.area = off;
+    z.grp = z.area + align_up(z.R * 4);
+    z.copies = z.grp + align_up(z.R * 4);
+    const long long copy_end =
+        may_copy
+            ? z.copies + words * align_up(z.R * 4) + bytes * align_up(z.R)
+            : 0;
+    const long long gather_end = z.area + align_up(4ll * p.n);
+    off = copy_end > gather_end ? copy_end : gather_end;
+  }
+  z.total = off;
+  return z;
+}
+
+// p's rows [c0, c0 + rows) as a launch of their own: rows, ts, masks and
+// columns from c0 on, numbered row_base + c0 + i.
+Params chunk_of(const Params& p, long long c0, int rows) {
+  Params c = p;
+  c.gids += c0;
+  c.rmask += c0;
+  if (c.ts != nullptr) c.ts += c0;
+  c.row_base += c0;
+  c.n = rows;
+  for (int m = 0; m < c.nmom; ++m) {
+    if (c.mom[m].val != nullptr)
+      c.mom[m].val = static_cast<const char*>(c.mom[m].val) + 4 * c0;
+    if (c.mom[m].cmask != nullptr) c.mom[m].cmask += c0;
+  }
+  for (int k = 0; k < c.ncol; ++k)
+    c.col[k].src = static_cast<const char*>(c.col[k].src) +
+                   c.col[k].bytes * c0;
+  return c;
 }
 
 template <typename Kernel>
@@ -1119,12 +1261,6 @@ extern "C" {
 
 int grouped_moments_max_moments() { return kMaxMoments; }
 
-// Bytes of one group's state for these moments: its slots and row count.
-int grouped_moments_group_bytes(int nmom, const int* ops,
-                                const int* is_int) {
-  return valid_ops(nmom, ops) ? group_bytes(nmom, ops, is_int) : -1;
-}
-
 // The most groups the small path takes (every block holds them all).
 int grouped_moments_smem_groups(int nmom, const int* ops,
                                 const int* is_int) {
@@ -1141,22 +1277,22 @@ int grouped_moments_partition_groups(int nmom, const int* ops,
              : -1;
 }
 
-// Bytes of scratch a launch over n rows and G groups needs with
-// partitions of part_groups groups and segments of seg_rows rows, whose
-// moments read word_cols distinct value columns (ts counting as one for
-// first/last) and byte_cols distinct column masks (all read only above
-// the small path); -1 for sizes the launch refuses.
-long long grouped_moments_scratch_bytes(int n, int G, int part_groups,
-                                        int seg_rows, int word_cols,
-                                        int byte_cols, int nmom,
-                                        const int* ops, const int* is_int) {
-  if (n < 0 || G < 0 || word_cols < 0 || byte_cols < 0 ||
-      word_cols + byte_cols > kMaxCols || !valid_ops(nmom, ops))
-    return -1;
-  const int gb = group_bytes(nmom, ops, is_int);
-  if (!small_path(n, G, gb) && !valid_part(n, G, gb, part_groups, seg_rows))
-    return -1;
-  return layout(n, G, gb, part_groups, seg_rows, word_cols, byte_cols).total;
+// Bytes of scratch grouped_moments_launch needs for these arguments (the
+// same host arrays; device pointers are compared, not read): the groups'
+// state and, above the small path, the counts, two plans and the larger
+// of the row list (4 bytes a row) and one chunk's copies (within
+// kChunkBytes). -1 for arguments the launch refuses.
+long long grouped_moments_scratch_bytes(int n, int G, int nmom,
+                                        const int* ops, const int* is_int,
+                                        const void* const* vals,
+                                        const unsigned char* const* cmasks,
+                                        const int* ts) {
+  if (n < 0 || G < 0 || !valid_ops(nmom, ops)) return -1;
+  Params p{};
+  p.n = n;
+  p.G = G;
+  describe(p, nmom, vals, cmasks, nullptr, ops, is_int, ts);
+  return sizes(p).total;
 }
 
 // Launches the kernels of one call on `stream` (a cudaStream_t passed
@@ -1167,18 +1303,17 @@ long long grouped_moments_scratch_bytes(int n, int G, int part_groups,
 // outs[m] [G] of the moment's output type (int64 for the keys), scratch
 // of scratch_bytes (at least grouped_moments_scratch_bytes), 256-byte
 // aligned. The pointer arrays and ops / is_int live on the host.
-// part_groups and seg_rows size the partition path (above the small
-// path). Returns the CUDA error code (0 on success).
+// Returns the CUDA error code (0 on success).
 int grouped_moments_launch(const int* gids, int n, int G,
                            const unsigned char* row_mask, const int* ts,
                            long long row_base, int* counts, int nmom,
                            const void* const* vals,
                            const unsigned char* const* cmasks,
                            void* const* outs, const int* ops,
-                           const int* is_int, int part_groups, int seg_rows,
-                           void* scratch, long long scratch_bytes,
-                           void* stream) {
-  if (!valid_ops(nmom, ops)) return static_cast<int>(cudaErrorInvalidValue);
+                           const int* is_int, void* scratch,
+                           long long scratch_bytes, void* stream) {
+  if (n < 0 || G < 0 || !valid_ops(nmom, ops))
+    return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
   p.gids = gids;
   p.rmask = row_mask;
@@ -1187,43 +1322,14 @@ int grouped_moments_launch(const int* gids, int n, int G,
   p.row_base = row_base;
   p.n = n;
   p.G = G;
-  p.nmom = nmom;
-  // the input columns pass 2 copies where the rows' order scatters them
-  int word_cols = 0, byte_cols = 0;
-  auto column = [&](const void* src, int bytes) {
-    for (int c = 0; c < p.ncol; ++c)
-      if (p.col[c].src == src && p.col[c].bytes == bytes) return c;
-    (bytes == 4 ? word_cols : byte_cols) += 1;
-    p.col[p.ncol] = Column{src, nullptr, bytes};
-    return p.ncol++;
-  };
-  for (int m = 0; m < nmom; ++m) {
-    const int wide = is_wide(ops[m], is_int[m]) ? 1 : 0;
-    const int slot = wide ? p.n8++ : p.n4++;
-    const void* src = ops[m] >= kFirst ? static_cast<const void*>(ts)
-                      : ops[m] == kCount ? nullptr : vals[m];
-    p.mom[m] = Moment{vals[m], cmasks[m], outs[m], ops[m], is_int[m], wide,
-                      slot, src != nullptr ? column(src, 4) : -1,
-                      cmasks[m] != nullptr ? column(cmasks[m], 1) : -1};
-    if (wide)
-      p.ident8[slot] = ops[m] == kSum || ops[m] == kSumSq
-                           ? 0ull
-                           : static_cast<unsigned long long>(LLONG_MAX);
-    else
-      p.ident4[slot] = ops[m] == kMin   ? static_cast<unsigned>(INT_MAX)
-                       : ops[m] == kMax ? static_cast<unsigned>(INT_MIN)
-                                        : 0u;
-    if (ops[m] >= kFirst) p.need_ts = 1;
-  }
-  const long long need = grouped_moments_scratch_bytes(
-      n, G, part_groups, seg_rows, word_cols, byte_cols, nmom, ops, is_int);
-  if (need < 0 || scratch_bytes < need || row_base < 0 ||
+  describe(p, nmom, vals, cmasks, outs, ops, is_int, ts);
+  const Sizes z = sizes(p);
+  if (scratch_bytes < z.total || row_base < 0 ||
       row_base + n > 0xffffffffll ||
       reinterpret_cast<uintptr_t>(scratch) % kAlign != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (G == 0) return 0;
-  p.ident4[p.n4] = 0u;  // the row counts
-  const int gb = group_bytes(nmom, ops, is_int);
+  const int gb = z.gb;
   char* base = static_cast<char*>(scratch);
   State gl{reinterpret_cast<unsigned long long*>(base),
            reinterpret_cast<unsigned*>(reinterpret_cast<unsigned long long*>(
@@ -1235,7 +1341,7 @@ int grouped_moments_launch(const int* gids, int n, int G,
   const int g_blocks = blocks_for(G, kThreads);
   cudaError_t err;
 
-  if (small_path(n, G, gb)) {
+  if (z.small) {
     const Part all{};
     init_state<<<g_blocks, kThreads, 0, st>>>(p, gl, all);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -1259,54 +1365,47 @@ int grouped_moments_launch(const int* gids, int n, int G,
     return static_cast<int>(cudaGetLastError());
   }
 
-  const Layout l = layout(n, G, gb, part_groups, seg_rows, word_cols,
-                          byte_cols);
+  // the launch's plan (q) over all rows and a chunk's (c)
   Part q{};
-  q.Gp = part_groups;
-  q.P = l.P;
-  q.S = seg_rows;
-  q.NS = l.NS;
-  q.rel = reinterpret_cast<int*>(base + l.rel);
-  q.part_len = reinterpret_cast<int*>(base + l.part_len);
-  q.part_start = reinterpret_cast<int*>(base + l.part_start);
-  q.item_start = reinterpret_cast<int*>(base + l.item_start);
-  q.meta = reinterpret_cast<int*>(base + l.meta);
-  q.list = reinterpret_cast<int*>(base + l.list);
-  q.grp = reinterpret_cast<int*>(base + l.grp);
-  for (int c = 0, w = 0, b1 = 0; c < p.ncol; ++c)
-    p.col[c].dst = base + l.copies +
-                   (p.col[c].bytes == 4
-                        ? (w++) * align_up(static_cast<long long>(n) * 4)
-                        : word_cols * align_up(static_cast<long long>(n) * 4) +
-                              (b1++) * align_up(static_cast<long long>(n)));
+  q.Gp = z.Gp;
+  q.P = z.P;
+  q.S = z.S;
+  q.NSall = q.NS = z.NSall;
+  q.target = kTargetItems;
+  q.mode = z.chunks > 1 ? 0 : 2;
+  q.merge_copies = z.chunks > 1;
+  q.rel = reinterpret_cast<int*>(base + z.rel);
+  q.list = reinterpret_cast<int*>(base + z.area);
+  q.grp = reinterpret_cast<int*>(base + z.grp);
+  Part c = q;
+  Part* plans[2] = {&q, &c};
+  for (int k = 0; k < 2; ++k) {
+    const long long at = z.plans[k];
+    const long long b4 = align_up(4ll * z.P);
+    plans[k]->part_len = reinterpret_cast<int*>(base + at);
+    plans[k]->part_start = reinterpret_cast<int*>(base + at + b4);
+    plans[k]->origin = reinterpret_cast<int*>(base + at + 2 * b4);
+    plans[k]->item_start = reinterpret_cast<int*>(base + at + 3 * b4);
+    plans[k]->meta = reinterpret_cast<int*>(
+        base + at + 3 * b4 + align_up(4ll * (z.P + 1)));
+  }
+  q.glen = c.glen = q.part_len;
+  q.gmeta = c.gmeta = q.meta;
+  c.mode = 1;
+  int words = 0;
+  for (int k = 0; k < p.ncol; ++k) words += p.col[k].bytes == 4;
+  for (int k = 0, w = 0, b1 = 0; k < p.ncol; ++k)
+    p.col[k].dst = base + z.copies +
+                   (p.col[k].bytes == 4
+                        ? (w++) * align_up(z.R * 4)
+                        : words * align_up(z.R * 4) + (b1++) * align_up(z.R));
 
-  const int seg_blocks = blocks_for(q.NS, kSegWarps);
   const long long seg_smem = static_cast<long long>(kSegWarps) * 4 *
                              (q.P < kWindow ? q.P : kWindow);
+  const long long smem = static_cast<long long>(z.Gp) * gb;
   if ((err = set_smem(segments<false>, seg_smem)) != cudaSuccess ||
-      (err = set_smem(segments<true>, seg_smem)) != cudaSuccess)
-    return err;
-  if ((err = cudaMemsetAsync(q.meta, 0, 5 * sizeof(int), st)) !=
-      cudaSuccess)
-    return err;
-  segments<false><<<seg_blocks, kSegWarps * 32,
-                    static_cast<size_t>(seg_smem), st>>>(p, q);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  scan_partitions<<<q.P, kScanThreads, 0, st>>>(q);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  plan_items<<<1, kScanThreads, 0, st>>>(q);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  init_state<<<g_blocks, kThreads, 0, st>>>(p, gl, q);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  segments<true><<<seg_blocks, kSegWarps * 32,
-                   static_cast<size_t>(seg_smem), st>>>(p, q);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  scatter_copies<<<seg_blocks, kSegWarps * 32, 0, st>>>(p, q);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  const long long smem = static_cast<long long>(part_groups) * gb;
-  if ((err = set_smem(aggregate, smem)) !=
-      cudaSuccess)
+      (err = set_smem(segments<true>, seg_smem)) != cudaSuccess ||
+      (err = set_smem(aggregate, smem)) != cudaSuccess)
     return err;
   int per_sm = 0;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -1316,9 +1415,55 @@ int grouped_moments_launch(const int* gids, int n, int G,
   const long long items = static_cast<long long>(q.P) + kTargetItems;
   const long long cap = static_cast<long long>(sms) *
                         (per_sm > 0 ? per_sm : 1);
-  aggregate<<<static_cast<int>(items < cap ? items : cap), kAggThreads,
-              static_cast<size_t>(smem), st>>>(p, q, gl);
+  const int agg_blocks = static_cast<int>(items < cap ? items : cap);
+
+  // pass 1 and the launch's plan over all rows (it decides whether
+  // passes 2-3 gather or copy), the global state's init, pass 2's row
+  // list where they gather
+  const int seg_blocks = blocks_for(q.NSall, kSegWarps);
+  if ((err = cudaMemsetAsync(q.meta, 0, 5 * sizeof(int), st)) !=
+      cudaSuccess)
+    return err;
+  segments<false><<<seg_blocks, kSegWarps * 32,
+                    static_cast<size_t>(seg_smem), st>>>(p, q);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  scan_partitions<<<q.P, kScanThreads, 0, st>>>(q);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  plan_items<<<1, kScanThreads, 0, st>>>(q, 1);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  init_state<<<g_blocks, kThreads, 0, st>>>(p, gl, q);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  segments<true><<<seg_blocks, kSegWarps * 32,
+                   static_cast<size_t>(seg_smem), st>>>(p, q);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (z.chunks == 1) {  // copies of all rows, or none
+    scatter_copies<<<seg_blocks, kSegWarps * 32, 0, st>>>(p, q);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  // pass 3 where the launch gathers (or its copies came in one chunk)
+  aggregate<<<agg_blocks, kAggThreads, static_cast<size_t>(smem), st>>>(
+      p, q, gl);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // where it copies in chunks: each chunk's plan, copies and pass 3 (all
+  // three return at once where the launch gathers)
+  for (int k = 0; z.chunks > 1 && k < z.chunks; ++k) {
+    c.seg0 = k * z.chunk_segs;
+    c.NS = z.NSall - c.seg0 < z.chunk_segs ? z.NSall - c.seg0 : z.chunk_segs;
+    const long long c0 = static_cast<long long>(c.seg0) * z.S;
+    const long long c1 = c0 + static_cast<long long>(c.NS) * z.S;
+    const int rows = static_cast<int>((c1 < n ? c1 : n) - c0);
+    const long long t = static_cast<long long>(kTargetItems) * rows / n;
+    c.target = static_cast<int>(t > 2ll * agg_blocks ? t : 2ll * agg_blocks);
+    const Params pc = chunk_of(p, c0, rows);
+    plan_items<<<1, kScanThreads, 0, st>>>(c, 0);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    scatter_copies<<<blocks_for(c.NS, kSegWarps), kSegWarps * 32, 0, st>>>(
+        pc, c);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    aggregate<<<agg_blocks, kAggThreads, static_cast<size_t>(smem), st>>>(
+        pc, c, gl);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
   finalize<<<g_blocks, kThreads, 0, st>>>(p, gl, q);
   return static_cast<int>(cudaGetLastError());
 }

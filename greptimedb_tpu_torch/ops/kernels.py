@@ -20,9 +20,11 @@ builds them.
 keys) over UNSORTED group ids: on a CUDA tensor it launches
 csrc/grouped_moments.cu (each group's state in shared memory: every
 block holds all groups when they fit, else rows are partitioned by group
-range and each partition's work items hold its groups;
-`grouped_moments_plan` sizes a launch) or raises; on a CPU tensor it
-computes `grouped_moments_plain`. `grouped_aggregate` keeps the reference's API
+range and each partition's work items hold its groups; the C entry
+sizes a launch and bounds its scratch, copying scattered rows into
+partition order in chunks) or raises; on a CPU tensor it computes
+`grouped_moments_plain`.
+`grouped_aggregate` keeps the reference's API
 (greptimedb_tpu/ops/kernels.py:77, `_grouped_aggregate` :90) on top of
 it, as `sorted_grouped_aggregate` does on `segment_moments`; the
 mesh-sharded twin in parallel/aggregate.py folds each shard with it.
@@ -37,7 +39,6 @@ path of either package runs but its graft entry and its tests
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -607,113 +608,18 @@ def grouped_moments_plain(gids: torch.Tensor, mask: torch.Tensor,
     return results, counts
 
 
-#: csrc/grouped_moments.cu's sizes: the small path keeps all G groups'
-#: state in every block up to _GM_SMALL_BUDGET bytes; above it rows are
-#: partitioned by group range, a partition's state at most
-#: _GM_PART_BUDGET bytes (kSmallBudget, kPartBudget); passes 1-2 take
-#: segments of at least _GM_SEG_ROWS rows and keep their [partition,
-#: segment] counts within _GM_MAX_COUNTS; pass 3 has at most
-#: _GM_TARGET_ITEMS work items beyond one a partition (kTargetItems);
-#: scratch parts are _GM_ALIGN-byte aligned (kAlign)
-_GM_SMALL_BUDGET = 96 * 1024
-_GM_PART_BUDGET = 224 * 1024
-_GM_SEG_ROWS = 2048
-_GM_MAX_COUNTS = 1 << 22
-_GM_TARGET_ITEMS = 768
-_GM_ALIGN = 256
-GROUPED_MAX_MOMENTS = 32
-
-
-@dataclasses.dataclass(frozen=True)
-class GroupedPlan:
-    """How one grouped_moments launch is sized (its C entry checks it)."""
-    group_bytes: int    # one group's state: a slot per moment, row count
-    small_groups: int   # the most groups the small path takes
-    small: bool         # every block keeps all G groups (no partitions)
-    part_groups: int    # Gp: the most groups a partition takes
-    partitions: int     # P = ceil(G / Gp) (0 on the small path)
-    seg_rows: int       # rows of a pass-1/2 segment (a warp's)
-    segments: int
-    max_items: int      # pass 3's work items, at most
-    smem_bytes: int     # a block's state in shared memory
-    scratch_bytes: int
-
-
-def _grouped_slot_bytes(op: str, is_int: bool) -> int:
-    """8 for a double sum or a packed first/last key, else 4."""
-    wide = op == "sum_sq" or (op == "sum" and not is_int) or \
-        op in ("first", "last", "first_key", "last_key")
-    return 8 if wide else 4
-
-
-def grouped_moments_plan(n: int, G: int, ops: Sequence[str],
-                         is_int: Sequence[bool], word_cols: int = 0,
-                         byte_cols: int = 0) -> GroupedPlan:
-    """The sizes of one launch over n rows, G groups and these moments
-    (at most GROUPED_MAX_MOMENTS), which read word_cols distinct value
-    columns (ts counting as one for first/last) and byte_cols distinct
-    column masks (`_grouped_columns`): the path, Gp and P, the segments
-    and the scratch bytes (csrc/grouped_moments.cu's `layout`), room for
-    the row list and, where the rows' order scatters them, each input
-    column's copy in partition order included."""
-    if len(ops) > GROUPED_MAX_MOMENTS:
-        raise ValueError(f"{len(ops)} moments: one launch takes "
-                         f"{GROUPED_MAX_MOMENTS}")
-
-    def align(x):
-        return -(-x // _GM_ALIGN) * _GM_ALIGN
-
-    def within(budget):
-        # a state's groups: a multiple of 32 (the kernel swizzles aligned
-        # blocks of 32 groups)
-        return budget // gb // 32 * 32
-
-    gb = 4 + sum(_grouped_slot_bytes(op, i) for op, i in zip(ops, is_int))
-    state = align(G * gb)
-    small, gp = within(_GM_SMALL_BUDGET), within(_GM_PART_BUDGET)
-    if n == 0 or G <= small:
-        return GroupedPlan(gb, small, True, gp, 0, 0, 0, 0,
-                           -(-G // 32) * 32 * gb if n else 0, state)
-    P = -(-G // gp)
-    seg = max(_GM_SEG_ROWS,
-              -(-(-(-n // max(1, _GM_MAX_COUNTS // P))) // 32) * 32)
-    ns = -(-n // seg)
-    scratch = state + align(P * ns * 4) + 2 * align(P * 4) + \
-        align((P + 1) * 4) + _GM_ALIGN + (2 + word_cols) * align(n * 4) + \
-        byte_cols * align(n)
-    return GroupedPlan(gb, small, False, gp, P, seg, ns,
-                       P + _GM_TARGET_ITEMS, gp * gb, scratch)
-
-
-def _grouped_columns(ts: torch.Tensor, values, col_masks, ops
-                     ) -> Tuple[int, int]:
-    """(distinct 4-byte input columns, distinct column masks) a launch's
-    moments read, as the kernel counts them by address: each value column
-    a sum, sum_sq, min or max reads, ts for first/last."""
-    words, masks = set(), set()
-    for op, v, cm in zip(ops, values, col_masks):
-        if op in ("first", "last", "first_key", "last_key"):
-            words.add(ts.data_ptr())
-        elif op != "count":
-            words.add(v.data_ptr())
-        if cm is not None:
-            masks.add(cm.data_ptr())
-    return len(words), len(masks)
-
-
 def _grouped_lib():
     lib = cuda_build.load("grouped_moments")
     if lib.grouped_moments_launch.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.grouped_moments_launch.argtypes = [
-            P, I, I, P, P, ctypes.c_longlong, P, I, P, P, P, P, P, I, I, P,
+            P, I, I, P, P, ctypes.c_longlong, P, I, P, P, P, P, P, P,
             ctypes.c_longlong, P]
         lib.grouped_moments_launch.restype = I
-        lib.grouped_moments_scratch_bytes.argtypes = [I, I, I, I, I, I, I,
-                                                      P, P]
+        lib.grouped_moments_scratch_bytes.argtypes = [I, I, I, P, P, P, P,
+                                                      P]
         lib.grouped_moments_scratch_bytes.restype = ctypes.c_longlong
-        for fn in (lib.grouped_moments_group_bytes,
-                   lib.grouped_moments_smem_groups,
+        for fn in (lib.grouped_moments_smem_groups,
                    lib.grouped_moments_partition_groups):
             fn.argtypes = [I, P, P]
             fn.restype = I
@@ -751,7 +657,7 @@ def _grouped_launch(gids, mask, ts, values, col_masks, ops, G, row_base,
                         device=dev) for i in order]
     if G == 0:
         return [outs[u] for u in slot], counts
-    per = GROUPED_MAX_MOMENTS
+    per = lib.grouped_moments_max_moments()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         # more moments than one launch takes: one launch per chunk, the
@@ -759,28 +665,29 @@ def _grouped_launch(gids, mask, ts, values, col_masks, ops, G, row_base,
         for c0 in range(0, max(len(order), 1), per):
             ch = order[c0:c0 + per]
             k = len(ch)
-            is_int = [values[i].dtype != torch.float32 for i in ch]
-            plan = grouped_moments_plan(
-                n, G, [ops[i] for i in ch], is_int, *_grouped_columns(
-                    ts, [values[i] for i in ch], [col_masks[i] for i in ch],
-                    [ops[i] for i in ch]))
-            scratch = torch.empty((plan.scratch_bytes + 7) // 8,
-                                  dtype=torch.int64, device=dev)
             ptrs = (ctypes.c_void_p * max(k, 1))
             ints = (ctypes.c_int * max(k, 1))
-            cm = [col_masks[i] for i in ch]
+            vals = ptrs(*[values[i].data_ptr() for i in ch])
+            cms = ptrs(*[None if col_masks[i] is None else
+                         col_masks[i].data_ptr() for i in ch])
+            kops = ints(*[GROUPED_OPS.index(ops[i]) for i in ch])
+            is_int = ints(*[int(values[i].dtype != torch.float32)
+                            for i in ch])
+            # the C entry sizes the launch (its partitions and row chunks)
+            need = lib.grouped_moments_scratch_bytes(
+                n, G, k, kops, is_int, vals, cms, ts.data_ptr())
+            if need < 0:
+                raise ValueError(f"grouped_moments: the kernel refuses "
+                                 f"{n} rows, {G} groups, {k} moments")
+            scratch = torch.empty((need + 7) // 8, dtype=torch.int64,
+                                  device=dev)
             err = lib.grouped_moments_launch(
                 gids.data_ptr(), n, G, mask.data_ptr(), ts.data_ptr(),
                 int(row_base),
                 counts.data_ptr() if (counts is not None and c0 == 0)
-                else None, k,
-                ptrs(*[values[i].data_ptr() for i in ch]),
-                ptrs(*[c.data_ptr() if c is not None else None for c in cm]),
+                else None, k, vals, cms,
                 ptrs(*[o.data_ptr() for o in outs[c0:c0 + per]]),
-                ints(*[GROUPED_OPS.index(ops[i]) for i in ch]),
-                ints(*[int(b) for b in is_int]), plan.part_groups,
-                plan.seg_rows, scratch.data_ptr(), plan.scratch_bytes,
-                stream)
+                kops, is_int, scratch.data_ptr(), need, stream)
             if err != 0:
                 msg = lib.grouped_moments_error_string(err).decode()
                 raise RuntimeError(f"grouped_moments kernel launch failed: "

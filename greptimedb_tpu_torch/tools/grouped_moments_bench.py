@@ -1,17 +1,14 @@
 """Kernel-only A/B timing of csrc/grouped_moments.cu sources, on one GPU.
 
     python3 -m greptimedb_tpu_torch.tools.grouped_moments_bench \\
-        [--source a.cu --source b.cu ...]
+        [--source a.cu --source b.cu ...] [--profile]
 
 Builds each source (default: the committed one) with nvcc and
 `cuda_build.NVCC_FLAGS`, all at once, into `csrc/build/`, and prints
 ptxas's registers and spills for each. Each source runs through the
 port's own wrapper (`ops/kernels.py:grouped_moments`: moment merging,
-chunks of 32 moments, `grouped_moments_plan`); a source with the C
-interface of the grouped-moments kernel before the partition path (no
-`grouped_moments_partition_groups`: scratch by groups and moments, no
-partition sizes) runs through that interface's launch instead, so the
-earlier design can be timed beside the committed one.
+chunks of 32 moments, the C entry's scratch size), so a source must
+keep the committed C interface.
 
 For each source it holds the kernel against `grouped_moments_plain` at
 the design's edge cases (`edge_cases`, which `chip_smoke.py`'s phase 19
@@ -19,16 +16,18 @@ also runs: both sides of the small path's threshold, Gp and Gp + 1
 groups, partitions of one and of many work items, empty partitions,
 partitions counted in windows, skew, ids outside the groups, column
 masks, NaN, ties, 33 moments, no rows, 19a's rows sorted by group and in
-random order) and, for a source
-with the committed interface, checks that its C sizes equal the
-wrapper's plan (`check_sizing`). Then it times every source at the main
-path's inputs (`main_path_inputs`: 17.28 M rows, 48 000 groups, the 17
-moments of chip_smoke.py's 19a) in TSBS's time-major order, in a random
-order and sorted by group, in turns (5 rounds; each CUDA events around 20 calls
-queued behind a spin kernel), with the byte bound (`grouped_bound`) and
-18 `index_add_` / `scatter_reduce_` calls (`grouped_library`);
-`chip_smoke.py` takes both from here, so one formula gives every bound.
-The card's name and power limit come first; the last line is JSON.
+random order, in several row chunks). Then it times every source at the
+main path's inputs (`main_path_inputs`: 17.28 M rows, 48 000 groups, the
+17 moments of chip_smoke.py's 19a) in TSBS's time-major order, in a
+random order and sorted by group, in turns (5 rounds; each CUDA events
+around 20 calls queued behind a spin kernel), with the device memory one
+call allocates beyond its inputs (outputs and scratch), the byte bound
+(`grouped_bound`) and 18 `index_add_` / `scatter_reduce_` calls
+(`grouped_library`); `chip_smoke.py` takes both from here, so one
+formula gives every bound. With --profile it also prints each kernel's
+device time per call (`torch.profiler`, CUDA activity, 5 calls) for
+every source and order. The card's name and power limit come first; the
+last line is JSON.
 
 The inputs are made on the card from a fixed seed: TSBS cpu-only's
 4000 hosts x 12 h at 10 s, group id host x 12 + hour, about 10 % of rows
@@ -40,7 +39,6 @@ hands the kernel the same rows, groups, moments and storage sharing.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import ctypes
 import json
 import os
@@ -201,16 +199,26 @@ def grouped_library(args: Args, G: int) -> Tuple[Callable[[], None], int]:
 # edge cases of the design
 # ---------------------------------------------------------------------------
 
+def thresholds() -> Tuple[int, int]:
+    """(the most groups the small path takes, the most a partition takes)
+    for nine moment ops over one float32 column, from the C entry."""
+    lib = K._grouped_lib()
+    k = len(K.GROUPED_OPS)
+    ops, ints = (ctypes.c_int * k)(*range(k)), (ctypes.c_int * k)()
+    return (lib.grouped_moments_smem_groups(k, ops, ints),
+            lib.grouped_moments_partition_groups(k, ops, ints))
+
+
 def edge_cases(seed: int = 0
                ) -> List[Tuple[str, Callable[..., Tuple[Args, int]]]]:
     """(name, build(device) -> (args, G)) at the edges of the design and
-    of the semantics. Every case but the last four puts all nine moment
-    ops over one float32 column (the row counts, a count, sum, sum_sq,
-    min, max, first, last and both keys): the small path takes up to
-    `small` groups, a partition `gp` (grouped_moments_plan)."""
+    of the semantics. Every case but "33 moments", "int32 column" and
+    19a's puts all nine moment ops over one float32 column (the row
+    counts, a count, sum, sum_sq, min, max, first, last and both keys):
+    the small path takes up to `small` groups, a partition `gp`
+    (`thresholds`)."""
     every = list(K.GROUPED_OPS)
-    plan = K.grouped_moments_plan(10**6, 10**6, every, [False] * len(every))
-    small, gp = plan.small_groups, plan.part_groups
+    small, gp = thresholds()
 
     def case(i, n, G, ops=every, gid_lo=0, gid_hi=None, masked=0.1,
              ties=False, nan=False, ints=False, cmasks=0, hot=None):
@@ -279,6 +287,9 @@ def edge_cases(seed: int = 0
          _reordered("sorted", device, seed)),
         ("19a's rows in random order", lambda device:
          _reordered("random", device, seed)),
+        ("19a's rows in random order, NaN values, ts ties within each "
+         "group, column masks, 32 moments (copies in two chunks)",
+         lambda device: _chunked_nan_ties(device, seed)),
     ]
     return cases
 
@@ -286,6 +297,31 @@ def edge_cases(seed: int = 0
 def _reordered(order, device, seed):
     args, G = main_path_inputs("time-major", device, seed=seed)
     return reorder(args, order, seed), G
+
+
+def _chunked_nan_ties(device, seed):
+    """19a's rows in random order, each of the ten fields with 2 % NaN:
+    sum, min and max of every field, first and last of the first (32
+    moments, one launch), ts cut to the hour (all of a group's rows tie)
+    and two column masks: 54 bytes a row to copy, so the kernel copies
+    the rows in two chunks."""
+    (gids, mask, ts, vals, _, _), G = _reordered("random", device, seed)
+    n = gids.shape[0]
+    gen = torch.Generator(device=device).manual_seed(seed + 11)
+    distinct = {}
+    for v in vals:      # the ten fields first, then the shifted column
+        distinct.setdefault(v.data_ptr(), v)
+    fields = [torch.where(torch.rand(n, generator=gen, device=device)
+                          < 0.02, float("nan"), v)
+              for v in list(distinct.values())[:FIELDS]]
+    cm = [torch.rand(n, generator=gen, device=device) >= 0.3
+          for _ in range(2)]
+    ops = [op for _ in fields for op in ("sum", "min", "max")] + \
+        ["first", "last"]
+    xs = [f for f in fields for _ in range(3)] + [fields[0]] * 2
+    return (gids, mask, torch.div(ts, 3_600_000, rounding_mode="floor"),
+            xs, [cm[j % 2] if j % 3 else None for j in range(len(ops))],
+            ops), G
 
 
 def agree(name: str, args: Args, G: int, quiet: bool = False) -> float:
@@ -339,111 +375,48 @@ def agree(name: str, args: Args, G: int, quiet: bool = False) -> float:
     return err
 
 
-def check_sizing(args: Args, G: int) -> None:
-    """The C entry's sizes (the library the wrapper launches) equal the
-    wrapper's plan for each launch of this call: group bytes, the small
-    path's threshold, Gp, scratch."""
-    lib = K._grouped_lib()
-    gids, mask, ts, vals, cms, ops = args
-    n = mask.shape[0]
-    per = K.GROUPED_MAX_MOMENTS
-    if lib.grouped_moments_max_moments() != per:
-        raise AssertionError(f"grouped_moments takes "
-                             f"{lib.grouped_moments_max_moments()} moments "
-                             f"a launch, the wrapper chunks by {per}")
-    for c0 in range(0, max(len(ops), 1), per):
-        o = [K.GROUPED_OPS.index(op) for op in ops[c0:c0 + per]]
-        i = [int(v.dtype != torch.float32) for v in vals[c0:c0 + per]]
-        cols = K._grouped_columns(ts, vals[c0:c0 + per], cms[c0:c0 + per],
-                                  ops[c0:c0 + per])
-        plan = K.grouped_moments_plan(n, G, ops[c0:c0 + per],
-                                      [bool(x) for x in i], *cols)
-        k = len(o)
-        oa, ia = (ctypes.c_int * max(k, 1))(*o), (ctypes.c_int * max(k, 1))(*i)
-        got = (lib.grouped_moments_group_bytes(k, oa, ia),
-               lib.grouped_moments_smem_groups(k, oa, ia),
-               lib.grouped_moments_partition_groups(k, oa, ia),
-               lib.grouped_moments_scratch_bytes(
-                   n, G, plan.part_groups, plan.seg_rows, *cols, k, oa, ia))
-        want = (plan.group_bytes, plan.small_groups, plan.part_groups,
-                plan.scratch_bytes)
-        if got != want:
-            raise AssertionError(f"grouped_moments sizes at {n} rows, {G} "
-                                 f"groups: C {got} != plan {want}")
-
-
 # ---------------------------------------------------------------------------
 # build, check, time
 # ---------------------------------------------------------------------------
 
-def _launch_before_partitions(lib: ctypes.CDLL):
-    """ops/kernels.py's _grouped_launch for the C interface before the
-    partition path: scratch from (G, moments), no partition sizes, no
-    moment merging (each moment computed on its own)."""
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.grouped_moments_launch.argtypes = [
-        P, I, I, P, P, ctypes.c_longlong, P, I, P, P, P, P, P, P, P]
-    lib.grouped_moments_launch.restype = I
-    lib.grouped_moments_scratch_bytes.argtypes = [I, I]
-    lib.grouped_moments_scratch_bytes.restype = ctypes.c_longlong
-    lib.grouped_moments_error_string.argtypes = [I]
-    lib.grouped_moments_error_string.restype = ctypes.c_char_p
-
-    def launch(gids, mask, ts, values, col_masks, ops, G, row_base,
-               with_counts):
-        n, dev = mask.shape[0], mask.device
-        counts = torch.empty(G, dtype=torch.int32, device=dev) \
-            if with_counts else None
-        outs = [torch.empty(G, dtype=K._grouped_out_dtype(op, x),
-                            device=dev) for op, x in zip(ops, values)]
-        if G == 0:
-            return outs, counts
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        per = K.GROUPED_MAX_MOMENTS
-        for c0 in range(0, max(len(ops), 1), per):
-            ch = range(c0, min(c0 + per, len(ops)))
-            k = len(ch)
-            scratch = torch.empty(
-                (lib.grouped_moments_scratch_bytes(G, k) + 7) // 8,
-                dtype=torch.int64, device=dev)
-            ptrs, ints = ctypes.c_void_p * max(k, 1), ctypes.c_int * max(k, 1)
-            err = lib.grouped_moments_launch(
-                gids.data_ptr(), n, G, mask.data_ptr(), ts.data_ptr(),
-                int(row_base), counts.data_ptr()
-                if counts is not None and c0 == 0 else None, k,
-                ptrs(*[values[i].data_ptr() for i in ch]),
-                ptrs(*[None if col_masks[i] is None else
-                       col_masks[i].data_ptr() for i in ch]),
-                ptrs(*[outs[i].data_ptr() for i in ch]),
-                ints(*[K.GROUPED_OPS.index(ops[i]) for i in ch]),
-                ints(*[int(values[i].dtype != torch.float32) for i in ch]),
-                scratch.data_ptr(), stream)
-            if err != 0:
-                raise RuntimeError(
-                    f"grouped_moments kernel launch failed: "
-                    f"{lib.grouped_moments_error_string(err).decode()}")
-        return outs, counts
-    return launch
+def call_bytes(args: Args, G: int) -> int:
+    """Device memory one grouped_moments call allocates beyond its inputs
+    (its outputs and scratch), measured at the allocator's peak."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = K.grouped_moments(*args, num_groups=G)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    return peak - before
 
 
-def partitioned(lib: ctypes.CDLL) -> bool:
-    """Whether `lib` has the committed C interface."""
-    return hasattr(lib, "grouped_moments_partition_groups")
+def profile_ms(fn, calls: int = 5) -> dict:
+    """Each kernel's device ms per call of `fn` under torch.profiler (CUDA
+    activity), by kernel name, largest first."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None) or \
+            getattr(e, "cuda_time_total", 0)
+        if t:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.removeprefix("void ").split("(")[0]
+            per[name] = per.get(name, 0.0) + t / calls / 1e3
+    return dict(sorted(per.items(), key=lambda kv: -kv[1]))
 
 
-@contextlib.contextmanager
 def _kernel_from(lib: ctypes.CDLL):
     """The port's wrapper launching `lib` in place of the committed
-    source's library (through the earlier interface's launch where
-    `lib` has that one)."""
-    saved = K._grouped_launch
-    if not partitioned(lib):
-        K._grouped_launch = _launch_before_partitions(lib)
-    try:
-        with smb._kernel_from(lib, "grouped_moments"):
-            yield
-    finally:
-        K._grouped_launch = saved
+    source's library."""
+    return smb._kernel_from(lib, "grouped_moments")
 
 
 def main() -> int:
@@ -451,6 +424,8 @@ def main() -> int:
     ap.add_argument("--source", action="append", default=None,
                     help="a grouped_moments.cu to time (repeatable; "
                          "default: the committed source)")
+    ap.add_argument("--profile", action="store_true",
+                    help="also print each kernel's device time per call")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("grouped_moments_bench: CUDA is not available")
@@ -462,25 +437,24 @@ def main() -> int:
         check=True).stdout.strip(), flush=True)
     libs = smb._build_all(sources, "grouped_moments")
 
-    cases = edge_cases()
     for i, lib in enumerate(libs):
         with _kernel_from(lib):
+            cases = edge_cases()
             for name, build in cases:
                 args, G = build("cuda")
-                if partitioned(lib):
-                    check_sizing(args, G)
                 agree(f"source {i}: {name}", args, G, quiet=True)
                 del args
         print(f"source {i}: kernel == plain at {len(cases)} edge cases, two "
-              f"launches agree{', C sizes == plan' if partitioned(lib) else ''}",
-              flush=True)
+              f"launches agree", flush=True)
 
     results = {}
     for order in ORDERS:
         args, G = main_path_inputs(order)
+        mem = []
         for i, lib in enumerate(libs):
             with _kernel_from(lib):
                 agree(f"source {i} at 19a {order}", args, G, quiet=True)
+                mem.append(call_bytes(args, G))
         b_ms, b_by, nbytes = grouped_bound(args, G)
         lib_fn, nlib = grouped_library(args, G)
         lib_ms = smb.median_fenced_ms(lib_fn, launches=3, runs=3)
@@ -501,8 +475,17 @@ def main() -> int:
             med = statistics.median(ms)
             print(f"  source {i}: median {med:.4f} ms ({b_ms / med * 100:.1f}"
                   f"% of the bound; rounds "
-                  f"{' / '.join(f'{m:.4f}' for m in ms)})", flush=True)
-            results[order]["sources"][sources[i]] = {"ms": med, "rounds": ms}
+                  f"{' / '.join(f'{m:.4f}' for m in ms)}); a call "
+                  f"allocates {mem[i] / 2**20:.1f} MiB", flush=True)
+            row = {"ms": med, "rounds": ms, "call_bytes": mem[i]}
+            if opts.profile:
+                with _kernel_from(libs[i]):
+                    row["profile_ms"] = profile_ms(
+                        lambda: K.grouped_moments(*args, num_groups=G))
+                print("    per call: " + ", ".join(
+                    f"{k} {v:.4f} ms" for k, v in row["profile_ms"].items()),
+                      flush=True)
+            results[order]["sources"][sources[i]] = row
         del args, lib_fn
     print(json.dumps(results), flush=True)
     return 0

@@ -13,9 +13,11 @@ Tolerance: counts, min, max, first, last, ok masks, errors and every
 output dtype must be equal. Float sums (sum, avg, stddev, variance, the
 cumsum-path range functions, the windowed sums) agree within rtol 3e-4
 and atol 1e-4, the reference's own bound (__graft_entry__.py). A float16
-column's sum and avg agree within tests/test_torch_grouped.py's
-`f16_bound` (the reference adds in float16, on each shard and across
-them); integer sums, wrapped to the column's dtype, exactly.
+column's sum and avg are held within tests/test_torch_grouped.py's
+`f16_limits`: to the exact answer (the port's partials in float32, one
+float16 rounding), and to the reference by the reference's own measured
+error (it adds in float16, on each shard and across them); integer
+sums, wrapped to the column's dtype, exactly.
 """
 
 import threading
