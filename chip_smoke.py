@@ -319,10 +319,11 @@ them in its last two lines:
    processes that start at 0. 16a: three `python3 -m
    greptimedb_tpu_torch.cmd.main metasrv start --peers a,b,c` children on
    free ports, each with a raft store, `--failover-interval 1
-   --datanode-lease-secs 3`; FailoverFlightMetaClient reaches the leader
-   (cluster_info); then two `datanode start --node-id 1|2 --metasrv-addr
-   a,b,c --heartbeat-interval 0.5` children on one data home, on the card,
-   registered by their first beats, pinged through PeerClientRegistry's
+   --datanode-lease-secs 3`, and with them two `datanode start --node-id
+   1|2 --metasrv-addr a,b,c --heartbeat-interval 0.5` children on one
+   data home, on the card (each waits for a meta leader);
+   FailoverFlightMetaClient reaches the leader (cluster_info); the
+   datanodes registered by their first beats, pinged through PeerClientRegistry's
    lazily dialled FlightDatanodeClients. 16b: phase 15's table: meta
    places the four regions (two a node) and keeps the table info,
    ddl_create_table, write_region(op="bulk") of the 4.32 M rows to both
@@ -349,8 +350,9 @@ them in its last two lines:
    report (the datanodes' ExecStats, carried over Flight) and those of
    the distributed goldens in this process. 17a: a `frontend start
    --metasrv-addr a,b,c` child with HTTP, MySQL and Flight addresses on
-   the card, spawned with 16a's datanodes once a meta leader answers (a
-   frontend reads meta's KV when it is built), no self-monitor scrape;
+   the card, spawned with 16a's metasrv and datanodes (it waits for a
+   meta leader: a frontend reads meta's KV when it is built), no
+   self-monitor scrape;
    the time from its spawn to its first /v1/sql answer. 17b, between 16c
    and 16d: DESCRIBE TABLE cpu (the table hydrated from meta's route) and
    SHOW TABLES; Q1, Q5 and Q6 over /v1/sql and over Flight (Database),
@@ -389,8 +391,8 @@ them in its last two lines:
    5 m and an instant avg through the aggregate pushdown, TQL ANALYZE's
    node blocks with the datanodes' segment_moments launches; every
    answer against the same TQL on an in-process standalone instance over
-   the same rows (the row path bit-equal, the lowered ones within rtol
-   2e-5). 18b: count(DISTINCT hostname) exact (TpuAggregateExec; the
+   the same rows, loaded on a thread from the end of 16b (the row path
+   bit-equal, the lowered ones within rtol 2e-5). 18b: count(DISTINCT hostname) exact (TpuAggregateExec; the
    child's too) and count(DISTINCT usage_user) (past the 4096-value set)
    within four HLL standard errors of SET exact_distinct = 1's answer,
    which equals numpy's. 18c: `datanode start --node-id 3` (spawned at
@@ -442,14 +444,31 @@ them in its last two lines:
    20 calls behind a spin kernel) beside its plain version, one
    index_add_ / scatter_reduce_ per moment, and its byte bound (the
    timing tool's formulas).
+20. the race hammer on the card: `python3 -m
+   greptimedb_tpu_torch.tools.race_hammer --device cuda` as a child
+   process with GREPTIME_RACE_CHECK=1 (the port's race detector on, and
+   lock tracking with it). The child first plants a race of its own,
+   then runs for RACE_HAMMER_S seconds concurrent ingest, flush,
+   compaction, distributed scatter, balancer ticks, self-monitor
+   scrapes and PromQL range queries over an in-process cluster of two
+   datanodes on the card: aggregates on the device-resident route
+   (segment_moments, the scan cache, fused scans) and, while a thread
+   lowers the streaming threshold, on the streamed cold route with
+   cold_reduce = "device" (staged mirrors on a side stream); TQL EVAL of
+   rate() through K1. The phase fails on any unsuppressed race, on no
+   tracked access, on an unreported seeded race, or on a route the
+   child did not launch; the child's launches join the kernel table.
+   Phase 16 spawns its datanodes and frontend with the metasrv children
+   and phase 18a's standalone loads on a thread from 16b on: the time
+   this phase takes is taken back there.
 
 Before the last line come two JSON objects: the numbers of the bucket
 entry, which the main paths do not launch, then the kernel table of the
 main paths (PromQL's window bounds, SQL's, the flow folds', the HTTP
-front door's, the wires', phase 13's, 14's, 15's, 16's, 17's, 18's and
-19's segment moments, phase 18's window bounds on the distributed
-frontend and phase 19's on each rank, phase 19's grouped moments), each
-with its
+front door's, the wires', phase 13's, 14's, 15's, 16's, 17's, 18's,
+19's and 20's segment moments, phase 18's window bounds on the
+distributed frontend, phase 19's on each rank and phase 20's in the
+hammer's child, phase 19's grouped moments), each with its
 launches by phase; the last line is {"ok": true, "device": {...}}. A run
 of chosen phases lists only the kernels it launched, and both lines
 carry "phases": the list of those that ran.
@@ -7178,7 +7197,7 @@ def phase_procs(torch, seed, frontend=True, elastic=False):
     cat, sch, tname = CLUSTER_TABLE
     full = ".".join(CLUSTER_TABLE)
     metas, dns = [], {}
-    meta = registry = fe = db = my = None
+    meta = registry = fe = db = my = standalone = None
     launches = fe_launches = 0
     p18 = None
     # one launch a region a call on the card; none on the CPU, where the
@@ -7211,6 +7230,25 @@ def phase_procs(torch, seed, frontend=True, elastic=False):
                 "--store", os.path.join(home, f"meta{i}"),
                 "--failover-interval", str(PROCS_FAILOVER_S),
                 "--datanode-lease-secs", str(PROCS_LEASE_S)], home))
+        # the datanodes and the frontend start with the metasrv children:
+        # `datanode start` and `frontend start` wait for a meta leader
+        for i, port in zip(CLUSTER_NODES, ports[PROCS_METASRV:]):
+            dns[i] = Child(f"datanode{i}", [
+                "datanode", "start", "--node-id", str(i), "--rpc-addr",
+                f"127.0.0.1:{port}", "--metasrv-addr", peers,
+                "--data-home", os.path.join(home, "data"),
+                "--heartbeat-interval", str(PROCS_HEARTBEAT_S)], home)
+        if frontend:
+            # 17a: the frontend process starts with the datanodes (it waits
+            # for a meta leader: its flow recovery reads meta's KV at
+            # construction); no self-monitor scrape writes tables of its
+            # own into the cluster during the phase
+            fe = Child("frontend", [
+                "frontend", "start", "--metasrv-addr", peers,
+                "--http-addr", f"127.0.0.1:{fe_ports['http']}",
+                "--mysql-addr", f"127.0.0.1:{fe_ports['mysql']}",
+                "--grpc-addr", f"127.0.0.1:{fe_ports['grpc']}"], home,
+                env={"GREPTIME_SELF_MONITOR_INTERVAL_S": "0"})
         meta = FailoverFlightMetaClient([f"grpc://{a}" for a in addrs],
                                         retry_delay=0.1, max_rounds=300)
         quick = meta.advisory()
@@ -7223,24 +7261,6 @@ def phase_procs(torch, seed, frontend=True, elastic=False):
         log(f"  metasrv children (pids {[c.proc.pid for c in metas]}) on "
             f"{addrs}: the leader {meta.address} answered cluster_info "
             f"{walls['meta_leader']:.2f}s after the spawn")
-        t0 = time.perf_counter()
-        for i, port in zip(CLUSTER_NODES, ports[PROCS_METASRV:]):
-            dns[i] = Child(f"datanode{i}", [
-                "datanode", "start", "--node-id", str(i), "--rpc-addr",
-                f"127.0.0.1:{port}", "--metasrv-addr", peers,
-                "--data-home", os.path.join(home, "data"),
-                "--heartbeat-interval", str(PROCS_HEARTBEAT_S)], home)
-        if frontend:
-            # 17a: the frontend process starts with the datanodes, once a
-            # meta leader answers (its flow recovery reads meta's KV at
-            # construction); no self-monitor scrape writes tables of its
-            # own into the cluster during the phase
-            fe = Child("frontend", [
-                "frontend", "start", "--metasrv-addr", peers,
-                "--http-addr", f"127.0.0.1:{fe_ports['http']}",
-                "--mysql-addr", f"127.0.0.1:{fe_ports['mysql']}",
-                "--grpc-addr", f"127.0.0.1:{fe_ports['grpc']}"], home,
-                env={"GREPTIME_SELF_MONITOR_INTERVAL_S": "0"})
         wait_for("both datanodes registered",
                  lambda: [p.id for p in quick.list_datanodes()] ==
                  list(CLUSTER_NODES), children())
@@ -7252,8 +7272,9 @@ def phase_procs(torch, seed, frontend=True, elastic=False):
               f"pings {pings}")
         walls["datanodes_first_answer"] = time.perf_counter() - t0
         log(f"  datanode children (pids "
-            f"{[c.proc.pid for c in dns.values()]}) registered with meta "
-            f"{walls['datanodes_registered']:.2f}s after their spawn and "
+            f"{[c.proc.pid for c in dns.values()]}), spawned with the "
+            f"metasrv children, registered with meta "
+            f"{walls['datanodes_registered']:.2f}s after the spawn and "
             f"answered ping through PeerClientRegistry's lazily dialled "
             f"FlightDatanodeClients at {walls['datanodes_first_answer']:.2f}"
             f"s")
@@ -7265,7 +7286,7 @@ def phase_procs(torch, seed, frontend=True, elastic=False):
             db = Database(f"grpc://127.0.0.1:{fe_ports['grpc']}")
             my = WireMysql(fe_ports["mysql"])
             log(f"  17a: the frontend child (pid {fe.proc.pid}), spawned "
-                f"with the datanodes, answered SELECT 1 over /v1/sql "
+                f"with the metasrv children, answered SELECT 1 over /v1/sql "
                 f"{walls['frontend_first_answer']:.2f}s after its spawn")
         done("16a")
 
@@ -7336,6 +7357,8 @@ def phase_procs(torch, seed, frontend=True, elastic=False):
             f"two datanode processes at once {walls['load']:.2f}s "
             f"({N / walls['load'] / 1e6:.2f} Mrows/s); flush_table "
             f"{walls['flush']:.2f}s")
+        if elastic:
+            standalone = Preloaded(ts, tags, fields)
         done("16b")
 
         step("16c")
@@ -7493,7 +7516,7 @@ def phase_procs(torch, seed, frontend=True, elastic=False):
                 home=home, peers=peers, meta=meta, registry=registry,
                 dns=dns, http=http, children=children, ts=ts, tags=tags,
                 fields=fields, queries=queries, wants=wants, rule=rule,
-                numbers=numbers))
+                numbers=numbers, standalone=standalone))
 
         step("16f")
         held = {c.label: sorted(opens_card(c.proc.pid))
@@ -7514,6 +7537,8 @@ def phase_procs(torch, seed, frontend=True, elastic=False):
             f"{k} exited {rc} in {s:.2f}s" for k, (rc, s) in exits.items()))
         done("16f")
     finally:
+        if standalone is not None:
+            standalone.close()
         if registry is not None:
             for client in registry.values():
                 client.close()
@@ -7704,6 +7729,55 @@ def labelling_rowwise(batches, matchers, metric, tag_names, ts_name,
     return glabels, gids, tsa, vals
 
 
+class Preloaded:
+    """18a's in-process standalone instance over phase 16's rows, built
+    and bulk-loaded on a thread from the end of 16b, while 16c-16e wait
+    on the children. `take()` hands the instance over (its load's
+    seconds beside it); `close()` shuts down one never taken and removes
+    the data home."""
+
+    def __init__(self, ts, tags, fields):
+        import tempfile
+        from concurrent.futures import ThreadPoolExecutor
+        self.home = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+        self._pool = ThreadPoolExecutor(1, thread_name_prefix="preload")
+        self._future = self._pool.submit(self._load, ts, tags, fields)
+        self._taken = False
+
+    def _load(self, ts, tags, fields):
+        from greptimedb_tpu_torch.datanode import DatanodeOptions
+        from greptimedb_tpu_torch.frontend import build_standalone
+        t0 = time.perf_counter()
+        sa = build_standalone(DatanodeOptions(
+            data_home=self.home, device=DEVICE, flow_tick_interval_s=0,
+            self_monitor_interval_s=0))
+        try:
+            sa.do_query(sql_ddl(CLUSTER_TABLE[2],
+                                {f: "DOUBLE" for f in CPU_FIELDS}))
+            sa.handle_bulk_load(CLUSTER_TABLE[2],
+                                sql_columns(ts, tags, fields),
+                                tag_columns=list(TSBS_TAGS),
+                                timestamp_column="ts")
+        except BaseException:
+            sa.shutdown()
+            raise
+        return sa, time.perf_counter() - t0
+
+    def take(self):
+        self._taken = True
+        return self._future.result()
+
+    def close(self):
+        import shutil
+        if not self._taken:
+            try:
+                self._future.result()[0].shutdown()
+            except Exception as e:  # noqa: BLE001 — never masks the phase's
+                log(f"  18a's standalone preload failed: {e!r}")
+        self._pool.shutdown()
+        shutil.rmtree(self.home, ignore_errors=True)
+
+
 def phase_elastic(torch, c):
     """Phase 18 over phase 16's processes (after 16e: datanode 2 dead, its
     regions adopted by node 1; two metasrv of three alive), driven through
@@ -7724,13 +7798,9 @@ def phase_elastic(torch, c):
     promoted with every acknowledged row read back exactly once. Returns
     K1's launches, K1's row at this phase's shape, the datanodes'
     segment_moments launches (from node blocks) and the walls."""
-    import shutil
-    import tempfile
     import threading
 
     from greptimedb_tpu_torch.common import profiler, trace_store
-    from greptimedb_tpu_torch.datanode import DatanodeOptions
-    from greptimedb_tpu_torch.frontend import build_standalone
     from greptimedb_tpu_torch.frontend import distributed as dist
     from greptimedb_tpu_torch.ops import pallas_window as pw
     from greptimedb_tpu_torch.ops import window as win
@@ -7746,7 +7816,6 @@ def phase_elastic(torch, c):
     walls, steps = {}, {}
     moments = 0
     dfe = sa = None
-    sa_home = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
     grid = win.counts_leq_grid
     k1_calls = []
     saved = (trace_store.sample_ratio(), list(dist._READ_REPLICA),
@@ -7946,15 +8015,10 @@ def phase_elastic(torch, c):
                 "step": ELASTIC_STEP_S})), daemon=True)
         child_th.start()
         # the same TQL on an in-process standalone instance over the same
-        # rows
+        # rows, loaded on a thread since 16b
         t0 = time.perf_counter()
-        sa = build_standalone(DatanodeOptions(data_home=sa_home,
-                                              device=DEVICE))
-        sa.do_query(sql_ddl(tname, {f: "DOUBLE" for f in CPU_FIELDS}))
-        sa.handle_bulk_load(tname, sql_columns(c.ts, c.tags, c.fields),
-                            tag_columns=list(TSBS_TAGS),
-                            timestamp_column="ts")
-        walls["standalone_load"] = time.perf_counter() - t0
+        sa, walls["standalone_load"] = c.standalone.take()
+        walls["standalone_wait"] = time.perf_counter() - t0
         k_sa = pw.counts_leq_grid.launches
         sa_row = tql_series(frame(tql(ELASTIC_ROW), sa))
         same_series("18a row path against the standalone", row, sa_row,
@@ -7985,7 +8049,9 @@ def phase_elastic(torch, c):
         trace_store.install(dfe.trace_sink)
         profiler.install(dfe.profiler)
         log(f"  the standalone instance over the same {HOSTS} hosts x "
-            f"{CLUSTER_HOURS} h (loaded in {walls['standalone_load']:.1f}s): "
+            f"{CLUSTER_HOURS} h (loaded in {walls['standalone_load']:.1f}s "
+            f"on a thread since 16b; 18a waited "
+            f"{walls['standalone_wait']:.2f}s for it): "
             f"the row path bit-equal, the lowered shapes within rtol "
             f"{LOWERED_RTOL} (max |err|/bound {worst:.3g}); its own K1 "
             f"launches ({k_sa}) are off the count")
@@ -8303,7 +8369,6 @@ def phase_elastic(torch, c):
             sa.shutdown()
         if dfe is not None:
             dfe.shutdown()
-        shutil.rmtree(sa_home, ignore_errors=True)
     walls["phase"] = time.perf_counter() - t_phase
     log(f"phase 18: K1 {k1} launches on the frontend's device, "
         f"segment_moments {moments} in the datanode processes' node "
@@ -8765,7 +8830,64 @@ def phase_parallel(torch, seed):
 # ---------------------------------------------------------------------------
 
 #: the phases; `--phases` runs some of them with the phases they stand on
-PHASES = tuple(str(i) for i in range(1, 20))
+# ---------------------------------------------------------------------------
+# phase 20: the race hammer on the card
+# ---------------------------------------------------------------------------
+
+#: seconds of the hammer's workload (the child's start and its cluster's
+#: set-up come on top)
+RACE_HAMMER_S = 5.0
+
+
+def phase_race_hammer():
+    """Phase 20: tools/race_hammer.py on the card in a child process with
+    the port's race detector on. Returns its launches by kernel, its
+    wall (the child's start included) and its summary."""
+    log("== phase 20: the race hammer on the card (the port's race "
+        "detector over concurrent ingest, flush, compaction, scatter, "
+        "balancer, self-monitor and PromQL)")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "greptimedb_tpu_torch.tools.race_hammer",
+         "--device", DEVICE, "--seconds", str(RACE_HAMMER_S)], cwd=HERE,
+        env=dict(os.environ, GREPTIME_RACE_CHECK="1"), capture_output=True,
+        text=True, timeout=CHILD_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and lines,
+          f"race_hammer exited {proc.returncode}:\n{proc.stdout[-2000:]}"
+          f"\n{proc.stderr[-6000:]}")
+    out = json.loads(lines[-1])
+    check(out["seeded_reported"], "race_hammer: its seeded race went "
+          "unreported: the detector is dead")
+    check(out["unsuppressed"] == 0 and not out["errors"],
+          f"race_hammer: {out['unsuppressed']} unsuppressed races, errors "
+          f"{out['errors']}:\n{proc.stderr[-6000:]}")
+    check(out["accesses"] > 0, "race_hammer recorded no tracked access")
+    launches = out["launches"]
+    check(launches["segment_moments"] > 0 and
+          launches["counts_leq_grid"] > 0,
+          f"race_hammer launched {launches}: a route did not reach its "
+          f"kernel")
+    log(f"  race_hammer --device {DEVICE}: {out['races']} races "
+        f"({out['unsuppressed']} unsuppressed), the seeded race reported, "
+        f"{out['accesses']} tracked accesses over {len(out['states'])} "
+        f"structures in {out['seconds']:.1f}s of workload; launches "
+        f"{launches}; the child took {wall:.1f}s, its run "
+        f"{out['wall_s']:.1f}s")
+    return types.SimpleNamespace(launches=launches, wall=wall, out=out)
+
+
+def hammer_k1_args(torch):
+    """K1's inputs at the hammer's TQL shape (8 series, a sample a
+    second over 600 s, steps of 15 s), for a run where phase 20 alone
+    launches K1."""
+    S, L, step = 8, 600, 15_000
+    ts = (torch.arange(L, dtype=torch.int32, device=DEVICE) * 1000)[None]
+    return ts.expand(S, -1).contiguous(), 0, step, L * 1000 // step + 1
+
+
+PHASES = tuple(str(i) for i in range(1, 21))
 #: what each phase needs run with it (phases 1 and 2 always run): 3 and 4
 #: are one call, as are 6 and 7; 5 launches segment_moments before the
 #: phases that fence its launches (a process's first launch loads the
@@ -8774,7 +8896,7 @@ PHASES = tuple(str(i) for i in range(1, 20))
 #: (12b only when 9 runs); 14 and 15 have data homes of their own and
 #: need none; 16 launches in its datanode processes, so phase 15 times the
 #: kernel at the region shape they launch at; 17 rides phase 16's cluster
-#: and 18 phase 17's frontend child; 19 needs none
+#: and 18 phase 17's frontend child; 19 and 20 need none
 NEEDS = {"3": ("4",), "4": ("3",), "6": ("5", "7"), "7": ("6",),
          "8": ("6",), "9": ("4", "5"), "10": ("6",), "11": ("9",),
          "12": ("6",), "13": ("6",), "16": ("15",), "17": ("16",),
@@ -8940,6 +9062,14 @@ def main() -> int:
                 "and 18 did not run)")
             k1_row = k1_row_at(torch, p19.k1_args, "phase 19's")
         del p19
+    if "20" in phases:
+        p20 = phase_race_hammer()
+        k1_by["20"] = p20.launches["counts_leq_grid"]
+        moments_by["20"] = p20.launches["segment_moments"]
+        walls["20"] = p20.wall
+        if kern is None and k1_row is None:
+            log("== K1 at phase 20's TQL shape (no phase that times K1 ran)")
+            k1_row = k1_row_at(torch, hammer_k1_args(torch), "phase 20's")
     if moments_by and not shapes:
         log("== segment_moments at the timing tool's Q1 inputs (no phase "
             "that times it ran)")
@@ -8961,6 +9091,8 @@ def main() -> int:
         log(f"phase 18 took {walls['18']:.1f}s")
     if "19" in phases:
         log(f"phase 19 took {walls['19']:.1f}s")
+    if "20" in phases:
+        log(f"phase 20 took {walls['20']:.1f}s")
     kernels = []
     if k1_by:
         kernels.append({**(kern[0] if kern is not None else k1_row),

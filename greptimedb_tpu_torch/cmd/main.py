@@ -24,6 +24,7 @@ import logging
 import signal
 import sys
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -209,6 +210,30 @@ def _meta_client(addr_arg: str):
     return FailoverFlightMetaClient([f"grpc://{a}" for a in addrs])
 
 
+#: how long `datanode start` and `frontend start` wait for a meta leader
+META_LEADER_WAIT_S = 120.0
+
+
+def _wait_for_meta_leader(meta, timeout_s: float = META_LEADER_WAIT_S
+                          ) -> None:
+    """Block until a metasrv replica answers cluster_info as the leader,
+    so a datanode or frontend may start together with its metasrv
+    replicas instead of after their election (the reference's roles give
+    up after the failover client's retries). Raises the last error once
+    `timeout_s` has passed."""
+    quick = meta.advisory()
+    deadline = time.monotonic() + timeout_s
+    while True:
+        try:
+            quick.cluster_info()
+            return
+        except Exception as e:  # noqa: BLE001 — not up or no leader yet
+            if time.monotonic() > deadline:
+                raise
+            logging.debug("waiting for a meta leader: %s", e)
+            time.sleep(0.2)
+
+
 def metasrv_start(args) -> None:
     """Run the metadata server role (reference: greptime metasrv start;
     etcd is replaced by a file-backed KV snapshot, or with --peers by a
@@ -247,7 +272,7 @@ def metasrv_start(args) -> None:
         for pid, addr in peer_addrs.items():
             if pid != my_id:
                 raft_node.transports[pid] = FlightTransport(
-                    f"grpc://{addr}")
+                    f"grpc://{addr}", node=raft_node)
         kv = ReplicatedKv(raft_node)
     else:
         kv = FileKv(args.store) if args.store else MemKv()
@@ -337,6 +362,7 @@ def datanode_start(args) -> None:
     server = FlightDatanodeServer(dn, f"grpc://{args.rpc_addr}")
     server.serve_in_background()
     meta = _meta_client(args.metasrv_addr)
+    _wait_for_meta_leader(meta)
     meta.register(Peer(args.node_id, server.address))
     dn.start_heartbeat(meta, interval_s=args.heartbeat_interval)
     logging.info("datanode %d ready on %s (meta %s, device %s)",
@@ -358,15 +384,21 @@ def build_frontend(metasrv_addr: str, http_addr: str,
     """Compose the distributed frontend and its protocol servers (not yet
     started): a DistInstance on `device` over the meta replicas of
     `metasrv_addr` (comma-separated) and the datanodes they list, dialled
-    lazily. Returns (frontend, servers, meta client)."""
+    lazily, once a meta leader answers. Returns (frontend, servers, meta
+    client)."""
     from ..frontend.distributed import DistInstance
     from ..meta.flight import PeerClientRegistry
     from ..servers.auth import NoopUserProvider
     from ..servers.flight import FlightFrontendServer
     from ..servers.http import HttpServer
 
+    import torch
     meta = _meta_client(metasrv_addr)
     try:
+        if torch.device(device).type != "cuda" or torch.cuda.is_available():
+            # without its device the frontend raises at once (below),
+            # without waiting for meta
+            _wait_for_meta_leader(meta)
         fe = DistInstance(meta, PeerClientRegistry(meta), device=device)
     except Exception:
         meta.close()

@@ -1,4 +1,4 @@
-"""Runtime lock-order checker for the storage layer's locks.
+"""Runtime lock-order race detector (the dynamic half of greptlint).
 
 Reference behavior: the reference leans on the Rust compiler + clippy +
 loom for concurrency hygiene; a Python rebuild has none of those, so the
@@ -31,9 +31,14 @@ costs literally nothing per acquire.
 Enablement is decided at import: ``GREPTIME_LOCK_CHECK=1`` forces on,
 ``GREPTIME_LOCK_CHECK=0`` forces off, and otherwise the detector turns
 itself on when running under pytest (``pytest`` already imported).
+``GREPTIME_RACE_CHECK`` set to a true value forces it on as well: the
+port's race detector (devtools/greptsan) takes its lock edges from the
+acquire/release hooks below.
 
-Reference: greptimedb_tpu/common/locks.py; the port has no race
-detector to feed (common/tracking.py), so no acquire/release hooks.
+Reference: greptimedb_tpu/common/locks.py. One difference: a race
+detector that refuses to install (another one already patched
+``threading`` in this process) fails the import here, rather than
+leaving the process silently unwatched.
 """
 
 from __future__ import annotations
@@ -64,6 +69,15 @@ class IoUnderLockError(LockOrderError):
 
 
 def _env_enabled() -> bool:
+    # greptsan (devtools/greptsan) derives its happens-before edges from
+    # tracked acquire/release events, so forcing the race detector on
+    # forces lock tracking on too — even over an explicit
+    # GREPTIME_LOCK_CHECK=0 (raceless edges would report every
+    # lock-protected access as a data race)
+    r = os.environ.get("GREPTIME_RACE_CHECK")
+    if r is not None and r.strip().lower() not in ("", "0", "false",
+                                                   "off", "no"):
+        return True
     v = os.environ.get("GREPTIME_LOCK_CHECK")
     if v is not None:
         return v.strip().lower() not in ("", "0", "false", "off", "no")
@@ -71,6 +85,19 @@ def _env_enabled() -> bool:
 
 
 _ENABLED: bool = _env_enabled()
+
+#: (on_acquire, on_release) installed by greptsan when the race detector
+#: is enabled — every tracked acquisition/release (including the
+#: Condition wait release/reacquire cycle) reports here so vector clocks
+#: pick up the release->acquire happens-before edge. None otherwise:
+#: one is-None branch on the tracked (test-only) path.
+_RACE_HOOKS: Optional[Tuple] = None
+
+
+def set_race_hooks(on_acquire, on_release) -> None:
+    global _RACE_HOOKS
+    _RACE_HOOKS = (on_acquire, on_release) \
+        if on_acquire is not None else None
 
 #: failpoint sites that sit on blocking-I/O paths; reaching one while an
 #: ``io_ok=False`` lock is held is a bug even when no failpoint is armed
@@ -143,7 +170,7 @@ class _Tracked:
     """Active-mode wrapper. Never constructed when the detector is off —
     the TrackedLock/TrackedRLock factories return raw locks instead."""
 
-    __slots__ = ("_inner", "name", "io_ok", "_reentrant")
+    __slots__ = ("_inner", "name", "io_ok", "_reentrant", "_san_clock")
 
     def __init__(self, inner: Union[threading.Lock, threading.RLock],
                  name: str, io_ok: bool, reentrant: bool):
@@ -151,6 +178,10 @@ class _Tracked:
         self.name = name
         self.io_ok = io_ok
         self._reentrant = reentrant
+        #: greptsan's per-lock vector-clock snapshot (generation, clock);
+        #: read/written only while the lock is held, so the lock itself
+        #: is its synchronization
+        self._san_clock = None
 
     # -- ordering ----------------------------------------------------
     def _check_order(self, held: List["_Tracked"]) -> None:
@@ -198,6 +229,8 @@ class _Tracked:
         ok = self._inner.acquire(blocking, timeout)
         if ok:
             held.append(self)
+            if _RACE_HOOKS is not None:
+                _RACE_HOOKS[0](self)
         return ok
 
     def release(self) -> None:
@@ -206,7 +239,9 @@ class _Tracked:
             if held[i] is self:
                 del held[i]
                 break
-        self._inner.release()
+        if _RACE_HOOKS is not None:
+            _RACE_HOOKS[1](self)       # while still holding: the clock
+        self._inner.release()          # publish races with the release
 
     def __enter__(self) -> bool:
         return self.acquire()
@@ -235,6 +270,8 @@ class _Tracked:
             if held[i] is self:
                 del held[i]
                 count += 1
+        if _RACE_HOOKS is not None:
+            _RACE_HOOKS[1](self)       # cond.wait releases: a real edge
         if self._reentrant:
             return (self._inner._release_save(), count)
         self._inner.release()
@@ -247,6 +284,8 @@ class _Tracked:
         else:
             self._inner.acquire()
         _held().extend([self] * count)
+        if _RACE_HOOKS is not None:
+            _RACE_HOOKS[0](self)       # waiter reacquired: join the clock
 
     def __repr__(self) -> str:
         kind = "TrackedRLock" if self._reentrant else "TrackedLock"
@@ -301,3 +340,14 @@ def _install_io_hook() -> None:
 
 if _ENABLED:
     _install_io_hook()
+    # the race detector (devtools/greptsan) decides its own enablement
+    # (GREPTIME_RACE_CHECK); importing it here installs its
+    # lock/thread/pool happens-before hooks without requiring every
+    # entry point to know it exists. Guarded: a trimmed deployment that
+    # ships common/ without devtools/ must still lock-check. Only a
+    # missing module is tolerated: a detector that refuses to install
+    # over another one raises through this import.
+    try:
+        from ..devtools.greptsan import detector as _greptsan  # noqa: F401
+    except ImportError as e:
+        logger.debug("greptsan unavailable; lock-order checking only: %s", e)

@@ -140,6 +140,23 @@ class SchedulerStoppedError(StorageError, RuntimeError):
     machinery covers the data)."""
 
 
+class DeviceUnavailableError(GreptimeError, RuntimeError):
+    """An engine was asked to run on a device this machine lacks (CUDA
+    on a machine without it); there is no CPU fallback. Port-only.
+    Inherits RuntimeError, like SchedulerStoppedError, so callers that
+    catch RuntimeError keep holding."""
+
+    status_code = StatusCode.INTERNAL
+
+
+class KernelError(GreptimeError, RuntimeError):
+    """A hand-written CUDA kernel could not be built (no nvcc, a failed
+    compile) or its launch returned a CUDA error. Port-only; inherits
+    RuntimeError like DeviceUnavailableError."""
+
+    status_code = StatusCode.INTERNAL
+
+
 class RegionClosedError(StorageError):
     """The region is closed on this node (shutdown, or a crashed node's
     in-process twin). To a distributed frontend this is a stale-route

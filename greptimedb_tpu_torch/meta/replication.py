@@ -44,6 +44,8 @@ from ..common.telemetry import increment_counter
 from ..errors import GreptimeError
 
 FOLLOWER, CANDIDATE, LEADER = "follower", "candidate", "leader"
+#: a follower's election timeout, seconds: drawn uniformly from this range
+ELECTION_TIMEOUT = (1.5, 3.0)
 
 
 class NotLeaderError(GreptimeError):
@@ -66,7 +68,7 @@ class RaftNode:
 
     def __init__(self, node_id: int, peer_ids: List[int],
                  *, store_path: Optional[str] = None,
-                 election_timeout: Tuple[float, float] = (1.5, 3.0),
+                 election_timeout: Tuple[float, float] = ELECTION_TIMEOUT,
                  heartbeat_interval: float = 0.5,
                  compact_threshold: int = 256) -> None:
         self.node_id = node_id
@@ -631,22 +633,59 @@ def connect_local(nodes: List[RaftNode]) -> None:
 
 class FlightTransport:
     """Raft RPCs over the meta Flight plane (meta/flight.py actions
-    raft_request_vote / raft_append_entries) for multi-process meta."""
+    raft_request_vote / raft_append_entries) for multi-process meta.
 
-    def __init__(self, address: str) -> None:
+    Unlike the reference's transport, every call carries a deadline: half
+    the lower end of the owning node's election timeout
+    (`rpc_deadline`), and four times that for install_snapshot, which
+    ships the whole applied state. The leader replicates to its peers
+    one after another, so without one a call to a stuck peer holds the
+    whole round, the other followers hear no heartbeat, and a new
+    leader cannot commit its election no-op. A call that times out or
+    finds the peer unreachable drops the cached client (the next call
+    dials again) and raises: the round counts it in raft_rpc_errors and
+    goes on to the next peer, and the next tick retries. The RPC bodies
+    and answers are the reference's.
+
+    A follower's refusal (`"ok": false` beside its term: a log mismatch
+    with the `have` hint, or a stale term) is an answer, returned as
+    LocalTransport returns it, so the leader walks `next_idx` back or
+    steps down. The reference's transport raises on it, so over Flight
+    its leader can never bring a lagging follower up to date; only a
+    server error (its `error` key) raises here.
+
+    `node` is the RaftNode that owns the transport; without one the
+    deadline follows RaftNode's default election timeout."""
+
+    def __init__(self, address: str, node: Optional[RaftNode] = None) -> None:
         self.address = address
+        self.node = node
         self._client = None
 
-    def _action(self, kind: str, body: dict) -> dict:
+    @property
+    def rpc_deadline(self) -> float:
+        lo = self.node._el_lo if self.node is not None \
+            else ELECTION_TIMEOUT[0]
+        return lo / 2
+
+    def _action(self, kind: str, body: dict,
+                deadline: Optional[float] = None) -> dict:
         import json as _json
 
         import pyarrow.flight as flight
         if self._client is None:
             self._client = flight.FlightClient(self.address)
-        results = list(self._client.do_action(
-            flight.Action(kind, _json.dumps(body).encode())))
+        opts = flight.FlightCallOptions(
+            timeout=self.rpc_deadline if deadline is None else deadline)
+        try:
+            results = list(self._client.do_action(
+                flight.Action(kind, _json.dumps(body).encode()), opts))
+        except (flight.FlightTimedOutError, flight.FlightUnavailableError):
+            client, self._client = self._client, None
+            client.close()
+            raise
         resp = _json.loads(results[0].body.to_pybytes())
-        if not resp.get("ok", False):
+        if "error" in resp or "term" not in resp:
             raise GreptimeError(resp.get("error", "meta raft rpc failed"))
         return resp
 
@@ -657,7 +696,8 @@ class FlightTransport:
         return self._action("raft_append_entries", kw)
 
     def install_snapshot(self, **kw: object) -> dict:
-        return self._action("raft_install_snapshot", kw)
+        return self._action("raft_install_snapshot", kw,
+                            deadline=4 * self.rpc_deadline)
 
 
 class HaMetaClient:

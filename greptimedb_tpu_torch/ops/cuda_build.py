@@ -6,6 +6,10 @@ when a module is imported: the first launch of a kernel builds its
 library into `csrc/build/` (ignored by git), named by a hash of the
 source and flags so an edit rebuilds, and later processes reuse it.
 A missing nvcc or a failed compile raises; there is no fallback.
+
+`count_launch` is where every kernel wrapper counts a launch: the
+datanodes' pool threads launch concurrently, so the counts move under
+one lock, where the race detector (devtools/greptsan) watches them.
 """
 
 from __future__ import annotations
@@ -15,9 +19,13 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 import time
 from typing import Dict, List
+
+from ..common.locks import TrackedLock, TrackedRLock
+from ..common.tracking import tracked_state
+from ..errors import KernelError
+from ..utils import atomic_publish
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
@@ -26,12 +34,27 @@ BUILD_DIR = os.path.join(CSRC_DIR, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lock = threading.Lock()
+#: re-entrant: load() holds it across build(), which takes it again
+#: to record build_info
+_lock = TrackedRLock("ops.cuda_build")
 _libs: Dict[str, ctypes.CDLL] = {}
 #: per source: seconds the build took in this process (0.0 when an
 #: existing library was reused) and nvcc's output (ptxas register and
 #: shared-memory report)
-build_info: Dict[str, dict] = {}
+build_info: Dict[str, dict] = tracked_state({}, "ops.cuda_build.build_info")
+
+_launch_lock = TrackedLock("ops.launches")
+#: the launch counts as the race detector sees them: written with each
+#: wrapper's `launches` under _launch_lock, so a count that moved outside
+#: it would show as a race
+_launch_view: Dict[str, int] = tracked_state({}, "ops.launches")
+
+
+def count_launch(wrapper) -> None:
+    """One launch of `wrapper`'s kernel: `wrapper.launches += 1`."""
+    with _launch_lock:
+        wrapper.launches += 1
+        _launch_view[wrapper.__name__] = wrapper.launches
 
 
 def find_nvcc() -> str:
@@ -43,7 +66,7 @@ def find_nvcc() -> str:
                 return path
     path = shutil.which("nvcc")
     if path is None:
-        raise RuntimeError(
+        raise KernelError(
             "nvcc not found (set CUDA_HOME): the port's CUDA kernels are "
             "built from source at first use")
     return path
@@ -61,7 +84,9 @@ def build(name: str) -> str:
     src = os.path.join(CSRC_DIR, f"{name}.cu")
     out = _lib_path(name, src, NVCC_FLAGS)
     if os.path.exists(out):
-        build_info.setdefault(name, {"seconds": 0.0, "log": "", "path": out})
+        with _lock:
+            build_info.setdefault(name, {"seconds": 0.0, "log": "",
+                                         "path": out})
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
@@ -71,10 +96,11 @@ def build(name: str) -> str:
     secs = time.perf_counter() - t0
     log = (proc.stdout + proc.stderr).strip()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed building {src} "
-                           f"(exit {proc.returncode}):\n{log}")
-    os.replace(tmp, out)          # atomic: concurrent builds agree
-    build_info[name] = {"seconds": secs, "log": log, "path": out}
+        raise KernelError(f"nvcc failed building {src} "
+                          f"(exit {proc.returncode}):\n{log}")
+    atomic_publish(tmp, out, fsync=False)   # concurrent builds agree
+    with _lock:
+        build_info[name] = {"seconds": secs, "log": log, "path": out}
     return out
 
 

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ..common import exec_stats
+from ..errors import KernelError
 from . import cuda_build
 
 # op_type values in the storage engine (mirrors reference OpType:
@@ -323,9 +324,9 @@ def _launch(ends, mask, ts, values, col_masks, ops, with_counts):
                 scratch.data_ptr(), stream)
             if err != 0:
                 msg = lib.segment_moments_error_string(err).decode()
-                raise RuntimeError(f"segment_moments kernel launch failed: "
-                                   f"{msg} (cuda error {err})")
-            segment_moments.launches += 1
+                raise KernelError(f"segment_moments kernel launch failed: "
+                                  f"{msg} (cuda error {err})")
+            cuda_build.count_launch(segment_moments)
             exec_stats.count_launch("segment_moments")
     return [outs[u] for u in slot], counts
 
@@ -690,9 +691,9 @@ def _grouped_launch(gids, mask, ts, values, col_masks, ops, G, row_base,
                 kops, is_int, scratch.data_ptr(), need, stream)
             if err != 0:
                 msg = lib.grouped_moments_error_string(err).decode()
-                raise RuntimeError(f"grouped_moments kernel launch failed: "
-                                   f"{msg} (cuda error {err})")
-            grouped_moments.launches += 1
+                raise KernelError(f"grouped_moments kernel launch failed: "
+                                  f"{msg} (cuda error {err})")
+            cuda_build.count_launch(grouped_moments)
             exec_stats.count_launch("grouped_moments")
     return [outs[u] for u in slot], counts
 

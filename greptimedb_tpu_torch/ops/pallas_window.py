@@ -24,6 +24,7 @@ import ctypes
 
 import torch
 
+from ..errors import KernelError
 from . import cuda_build
 
 #: bound on |t0| and step that the grid entry takes (int64 bucketing
@@ -102,9 +103,9 @@ def _launch(entry, x: torch.Tensor, nsteps: int, *grid) -> torch.Tensor:
             x.data_ptr(), out.data_ptr(), S, L, nsteps, *grid, stream)
     if err != 0:
         msg = lib.counts_leq_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} "
-                           f"(cuda error {err})")
-    entry.launches += 1
+        raise KernelError(f"{name} kernel launch failed: {msg} "
+                          f"(cuda error {err})")
+    cuda_build.count_launch(entry)
     return out
 
 

@@ -55,7 +55,9 @@ def _rank_main(rank: int, world: int, tmp: str, device: str,
         finally:
             dist.destroy_process_group()
         results.put((rank, True, out))
-    except Exception:  # noqa: BLE001 - reported to the parent
+    # the traceback is the rank's answer: it reaches the parent through
+    # the results queue, which re-raises it there
+    except Exception:  # noqa: BLE001  # greptlint: disable=GL01
         results.put((rank, False, traceback.format_exc()))
 
 

@@ -31,7 +31,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..errors import GreptimeError, UnsupportedError
+from ..errors import (DeviceUnavailableError, GreptimeError,
+                      UnsupportedError)
 from ..ops.window import TS_PAD
 from ..session import QueryContext
 from .ast import (
@@ -485,7 +486,7 @@ class _Eval:
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         dev = self.engine.device
         if dev.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
+            raise DeviceUnavailableError(
                 "PromqlEngine runs on 'cuda' but CUDA is not available; "
                 "construct it with device='cpu' to run on the CPU")
         return torch.as_tensor(a, device=dev)

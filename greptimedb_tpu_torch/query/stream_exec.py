@@ -34,7 +34,6 @@ words, one copy into pinned memory, one synchronize.
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -43,9 +42,11 @@ import pandas as pd
 import torch
 
 from ..common import exec_stats, failpoint, process_list
+from ..common.locks import TrackedLock
 from ..common.runtime import transient_executor
 from ..common.telemetry import increment_counter, propagate, span
 from ..common.time import TimestampRange
+from ..common.tracking import tracked_state
 from ..errors import UnsupportedError
 from ..ops.kernels import OP_PUT, merge_dedup_numpy
 from ..storage.region import ScanProfile
@@ -55,33 +56,39 @@ from ..storage.region import ScanProfile
 failpoint.register("stream_slice")
 
 #: stream (instead of caching) any region estimated above this many rows
-_STREAM_THRESHOLD_ROWS = [64_000_000]
+_STREAM_THRESHOLD_ROWS = tracked_state([64_000_000],
+                                       "query.stream_exec.threshold_rows")
 #: target rows per streamed slice (soft: slices track row-group edges)
-_SLICE_ROWS = [16_000_000]
+_SLICE_ROWS = tracked_state([16_000_000], "query.stream_exec.slice_rows")
 #: the smallest slice worth its own reduction at a clean break
 _ROW_BUCKET_MIN = 1 << 20
 #: where a cold slice's reduction runs: "host" (a vectorized reduceat
 #: over the just-decoded columns, where the bytes already are) or
 #: "device" (one segment_moments launch per slice)
-_COLD_REDUCE = ["host"]
+_COLD_REDUCE = tracked_state(["host"], "query.stream_exec.cold_reduce")
+#: guards the knobs above (configure_streaming writes them while scans
+#: read them) and the pool of stagers (_STAGERS, below)
+_STAGERS_LOCK = TrackedLock("query.stream_exec.stagers")
 
 
 def configure_streaming(threshold_rows: Optional[int] = None,
                         slice_rows: Optional[int] = None,
                         cold_reduce: Optional[str] = None) -> None:
     """Tune the cold-scan streaming knobs (TOML [query] section)."""
-    if threshold_rows is not None:
-        _STREAM_THRESHOLD_ROWS[0] = int(threshold_rows)
-    if slice_rows is not None:
-        _SLICE_ROWS[0] = int(slice_rows)
-    if cold_reduce is not None:
-        if cold_reduce not in ("host", "device"):
-            raise ValueError(f"cold_reduce {cold_reduce!r}")
-        _COLD_REDUCE[0] = cold_reduce
+    if cold_reduce is not None and cold_reduce not in ("host", "device"):
+        raise ValueError(f"cold_reduce {cold_reduce!r}")
+    with _STAGERS_LOCK:
+        if threshold_rows is not None:
+            _STREAM_THRESHOLD_ROWS[0] = int(threshold_rows)
+        if slice_rows is not None:
+            _SLICE_ROWS[0] = int(slice_rows)
+        if cold_reduce is not None:
+            _COLD_REDUCE[0] = cold_reduce
 
 
 def stream_threshold_rows() -> int:
-    return _STREAM_THRESHOLD_ROWS[0]
+    with _STAGERS_LOCK:
+        return _STREAM_THRESHOLD_ROWS[0]
 
 
 def region_estimated_rows(region) -> int:
@@ -859,8 +866,7 @@ class _Stager:
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
                  np.dtype(np.int32): torch.int32,
                  np.dtype(np.bool_): torch.bool}
-_STAGERS: List[_Stager] = []
-_STAGERS_LOCK = threading.Lock()
+_STAGERS: List[_Stager] = tracked_state([], "query.stream_exec.stagers")
 
 
 def _stage_slice(scan, plan, schema) -> Tuple[torch.Tensor, object]:
@@ -1029,7 +1035,9 @@ def stream_region_moment_frames(region, plan,
     tc = schema.timestamp_column
     unit = tc.dtype.time_unit if tc is not None else None
     stats = _region_slice_stats(region, snap)
-    jobs = _plan_jobs(stats, _SLICE_ROWS[0], plan.time_lo, plan.time_hi,
+    with _STAGERS_LOCK:
+        slice_rows, cold_reduce = _SLICE_ROWS[0], _COLD_REDUCE[0]
+    jobs = _plan_jobs(stats, slice_rows, plan.time_lo, plan.time_hi,
                       unit) if stats else []
     prof.mark("slice_plan", time.perf_counter() - t_start)
     prof.bump("slices", len(jobs))
@@ -1058,7 +1066,7 @@ def stream_region_moment_frames(region, plan,
             if sid_set is not None and len(sid_set) == 0:
                 return done([])          # the predicate matches no series
 
-    mode = "host" if plan_needs_host(plan) else _COLD_REDUCE[0]
+    mode = "host" if plan_needs_host(plan) else cold_reduce
     sid_keys = mode == "host" and _sid_keyed(plan)
     launched = []
     frames: List[pd.DataFrame] = []

@@ -69,7 +69,7 @@ import torch
 
 from ..common import exec_stats, failpoint, process_list
 from ..common.telemetry import increment_counter, span
-from ..errors import UnsupportedError
+from ..errors import DeviceUnavailableError, UnsupportedError
 from ..ops.kernels import merge_dedup_numpy, sorted_grouped_aggregate
 from ..sql.ast import (
     Between, BinaryOp, Column, Expr, FunctionCall, Interval, Literal, Query,
@@ -136,7 +136,7 @@ class MergedScan:
     def to_device(self, a: np.ndarray) -> torch.Tensor:
         dev = self.torch_device
         if dev.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
+            raise DeviceUnavailableError(
                 "QueryEngine runs on 'cuda' but CUDA is not available; "
                 "construct it with device='cpu' to run on the CPU")
         return torch.as_tensor(np.ascontiguousarray(a), device=dev)

@@ -201,7 +201,6 @@ def run_case(sql_text: str, frontend, files_dir: Optional[str] = None
     """Execute a case file's statements; return the .result content.
     With `files_dir`, each statement runs with its `'/tmp/sqlness_`
     paths moved into that directory."""
-    from ..errors import GreptimeError
     from ..session import QueryContext
 
     ctx = QueryContext()
@@ -214,14 +213,20 @@ def run_case(sql_text: str, frontend, files_dir: Optional[str] = None
         if files_dir is not None:
             body = body.replace(
                 TMP_PREFIX, "'" + os.path.join(files_dir, "sqlness_"))
-        try:
-            outputs = frontend.do_query(body, ctx)
-            blocks.append(render_output(outputs[-1]))
-        except GreptimeError as e:
-            blocks.append(f"Error: {e}")
-        except Exception as e:  # noqa: BLE001 — parser/planner crashes
-            blocks.append(f"Error: {type(e).__name__}: {e}")
+        blocks.append(_answer(frontend, body, ctx))
     return "\n\n".join(blocks) + "\n"
+
+
+def _answer(frontend, body: str, ctx) -> str:
+    """One statement's rendered output, or its error as the golden
+    records it."""
+    from ..errors import GreptimeError
+    try:
+        return render_output(frontend.do_query(body, ctx)[-1])
+    except GreptimeError as e:
+        return f"Error: {e}"
+    except Exception as e:  # noqa: BLE001 — parser/planner crashes
+        return f"Error: {type(e).__name__}: {e}"
 
 
 def case_files(filters: List[str], cases_dir: Path = CASES_DIR

@@ -86,6 +86,9 @@
   grouped_aggregate and the multichip entry left on their default device
   ("cuda") raise without CUDA; grouped_moments refuses a device it has
   no kernel for.
+- The developer tools (devtools/: greptlint, greptsan and their
+  selftests) and tools/race_hammer.py are the port's own, with relative
+  imports, and import neither jax nor the JAX package.
 """
 
 import ast
@@ -538,7 +541,7 @@ def test_port_sources_import_nothing_forbidden():
                                      "datanode", "frontend", "flow",
                                      "servers", "file_table", "monitor",
                                      "script", "api", "client", "cmd",
-                                     "meta"])
+                                     "meta", "devtools", "tools"])
 def test_frontend_packages_are_the_ports_own(package):
     """Each package of the standalone frontend exists in the port, imports
     nothing forbidden and keeps its imports relative (the walk over every

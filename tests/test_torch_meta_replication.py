@@ -801,3 +801,129 @@ def test_rpc_handlers_answer_alike():
     conflicting suffix, a vote in a later term, a snapshot install and a
     guarded batch: the same answers and the same follower state."""
     assert _rpc_script(port_repl) == _rpc_script(ref_repl)
+
+
+# ---------------------------------------------------------------------------
+# the port's raft RPC deadline (the reference's transport has none)
+# ---------------------------------------------------------------------------
+
+class _StuckServer:
+    """A Flight server whose every action blocks until released: a peer
+    that accepted the connection and never answers."""
+
+    def __init__(self):
+        import pyarrow.flight as flight
+
+        release = self.release = threading.Event()
+
+        class Server(flight.FlightServerBase):
+            def do_action(self, context, action):
+                release.wait(DEADLINE_S)
+                return iter([])
+
+        self.server = Server("grpc://127.0.0.1:0")
+        self.address = f"grpc://127.0.0.1:{self.server.port}"
+        self.thread = threading.Thread(target=self.server.serve,
+                                       daemon=True)
+        self.thread.start()
+
+    def close(self):
+        self.release.set()
+        self.server.shutdown()
+        self.thread.join(DEADLINE_S)
+
+
+@pytest.fixture()
+def stuck_peer():
+    s = _StuckServer()
+    yield s
+    s.close()
+
+
+def test_flight_transport_raises_within_its_deadline(stuck_peer):
+    """A raft call to a peer that never answers raises within the
+    transport's deadline (half the owning node's lower election timeout)
+    plus 0.5 s, and the transport drops its client so the next call
+    dials again."""
+    nd = RaftNode(1, [1, 2])
+    tr = port_repl.FlightTransport(stuck_peer.address, node=nd)
+    assert tr.rpc_deadline == nd._el_lo / 2 <= nd._el_lo
+    for rpc in (tr.append_entries, tr.request_vote):
+        t0 = time.monotonic()
+        with pytest.raises(Exception):
+            rpc(term=1, leader=1, candidate=1, prev_idx=0, prev_term=0,
+                entries=[], commit_idx=0, last_idx=0, last_term=0)
+        took = time.monotonic() - t0
+        assert took < tr.rpc_deadline + 0.5, took
+        assert tr._client is None
+    # without an owning node the deadline follows RaftNode's default
+    assert port_repl.FlightTransport(stuck_peer.address).rpc_deadline == \
+        port_repl.ELECTION_TIMEOUT[0] / 2
+
+
+def test_replication_round_survives_a_stuck_peer(stuck_peer):
+    """With one stuck peer (asked first) and one live peer, the election
+    and the no-op's replication round each end in about one deadline,
+    reach a majority and advance commit_idx; the stuck calls count as
+    raft_rpc_errors."""
+    from greptimedb_tpu_torch.common.telemetry import registry_snapshot
+
+    def counter_value(name):
+        return sum(v for n, _labels, v, _kind in registry_snapshot()
+                   if n == f"greptime_{name}_total")
+
+    lead, live = RaftNode(1, [1, 2, 3]), RaftNode(3, [1, 2, 3])
+    lead.transports = {
+        2: port_repl.FlightTransport(stuck_peer.address, node=lead),
+        3: port_repl.LocalTransport(live)}
+    assert lead.peer_ids == [2, 3]
+    errors0 = counter_value("raft_rpc_errors")
+    t0 = time.monotonic()
+    lead._run_election()                    # votes, then one round
+    took = time.monotonic() - t0
+    assert lead.is_leader
+    assert lead.commit_idx == 1 and lead.applied_idx == 1
+    assert took < 2 * lead.transports[2].rpc_deadline + 1.0, took
+    assert counter_value("raft_rpc_errors") - errors0 == 2
+    t0 = time.monotonic()
+    assert lead._replicate()                # the next heartbeat round
+    assert time.monotonic() - t0 < lead.transports[2].rpc_deadline + 0.5
+    assert live.commit_idx == 1
+
+
+def test_flight_leader_brings_a_lagging_follower_up_to_date():
+    """A follower that missed a leader's entries refuses its first
+    AppendEntries over Flight (`ok: false` with its `have` hint). The
+    port's FlightTransport returns that refusal as LocalTransport does,
+    so the leader walks next_idx back and the follower takes the whole
+    log in one round. (The reference's transport raises on the refusal,
+    so its leader counts an RPC error and never catches the follower
+    up: after a leader's kill, a new leader whose only live follower
+    lagged cannot commit.)"""
+    follower = RaftNode(2, [1, 2])
+    server = port_flight.FlightMetaServer(
+        MetaSrv(ReplicatedKv(follower)), raft_node=follower)
+    serving = server.serve_in_background()
+    try:
+        lead = RaftNode(1, [1, 2])
+        with lead._lock:
+            lead.term, lead.role, lead.leader_id = 2, "leader", 1
+            lead.log = [{"term": 1, "op": {"kind": "noop"}},
+                        {"term": 1, "op": {"kind": "put", "key": "a",
+                                           "value": "1"}},
+                        {"term": 2, "op": {"kind": "noop"}}]
+            lead.next_idx = {2: 2}       # as if it had heard of entry 2
+        lead.transports[2] = port_repl.FlightTransport(server.address,
+                                                       node=lead)
+        assert lead._replicate()
+        assert lead.commit_idx == 3 and lead.state == {"a": b"1"}
+        assert [e["term"] for e in follower.log] == [1, 1, 2]
+        assert follower.term == 2 and follower.leader_id == 1
+        # a stale term's refusal is an answer too: the leader steps down
+        with follower._lock:
+            follower.term = 5
+        assert not lead._replicate()
+        assert lead.term == 5 and not lead.is_leader
+    finally:
+        server.shutdown()
+        serving.join(DEADLINE_S)
