@@ -8,7 +8,8 @@ Python twin:
 - `init_logging(level, dir)` — console + size-rotated file handlers.
 - `span(name, **attrs)` — nested tracing spans carried in a thread-local
   (trace_id/span_id/parent), logged on exit with duration; the active
-  trace context rides log records via a logging.Filter.
+  trace context rides log records via a logging.Filter;
+  `child_span(name)` opens one only inside a local span's trace.
 - `current_traceparent()` / `remote_context(header)` — W3C-traceparent
   wire propagation: every cross-process RPC (Flight scan/moments/write,
   SQL-over-Flight, meta actions, HTTP `traceparent` header) carries the
@@ -104,7 +105,10 @@ def current_span() -> Optional[Dict]:
 @contextlib.contextmanager
 def span(name: str, **attrs: object) -> Iterator[Dict]:
     """Nested span: inherits trace_id from the parent, logs duration on
-    exit at DEBUG, and (when configured) ships to an OTLP collector."""
+    exit at DEBUG, and (when configured) ships to an OTLP collector and
+    hands itself to the span sink. On exit the span's dict carries its
+    `elapsed_ms`; attributes set into its `attrs` before exit travel with
+    it. A span observes no histogram: `timer()` is the metric."""
     stack = getattr(_tls, "spans", None)
     if stack is None:
         stack = _tls.spans = []
@@ -135,10 +139,10 @@ def span(name: str, **attrs: object) -> Iterator[Dict]:
         raise
     finally:
         stack.pop()
-        elapsed_ms = (time.perf_counter() - s["start"]) * 1e3
+        elapsed_ms = s["elapsed_ms"] = \
+            (time.perf_counter() - s["start"]) * 1e3
         logger.debug("span %s finished in %.2fms attrs=%s", name,
                      elapsed_ms, attrs)
-        _observe(f"span_{name}", elapsed_ms / 1e3)
         if not metrics_suppressed():
             exporter = _OTLP[0]
             if exporter is not None:
@@ -150,6 +154,22 @@ def span(name: str, **attrs: object) -> Iterator[Dict]:
                 except Exception:  # noqa: BLE001 — the sink must never
                     logger.exception(    # break the traced path
                         "trace sink rejected span %s", name)
+
+
+@contextlib.contextmanager
+def child_span(name: str, **attrs: object) -> Iterator[Optional[Dict]]:
+    """A span that only joins a trace which a span of this process holds
+    open; elsewhere it yields None and records nothing. For work that
+    runs before or after the span that owns its trace (a statement's
+    parse, an answer's lazy encode): opened bare it would root a trace
+    of its own, and under a remote caller's context alone it would
+    complete that caller's trace early."""
+    parent = current_span()
+    if parent is None or (parent.get("attrs") or {}).get("remote"):
+        yield None
+        return
+    with span(name, **attrs) as s:
+        yield s
 
 
 def _exc_status(e: BaseException) -> str:

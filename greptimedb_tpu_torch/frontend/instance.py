@@ -112,18 +112,21 @@ class FrontendInstance:
     # ---- SqlQueryHandler ----
     def do_query(self, sql: str, ctx: Optional[QueryContext] = None
                  ) -> List[Output]:
+        from ..common import process_list
+        from ..common.admission import GATE as _admission
+        from ..common.telemetry import (
+            child_span, increment_counter, observe_latency,
+            slow_query_threshold_ms, span, timer)
         ctx = ctx or QueryContext()
         interceptor = self._interceptor()
         if interceptor is not None:
             sql = interceptor.pre_parsing(sql, ctx)
-        stmts = parse_statements(sql)
+        # the parse precedes every statement's own span: it is traced
+        # where the caller's span holds the trace (Flight's do_get)
+        with child_span("parse_sql"):
+            stmts = parse_statements(sql)
         if interceptor is not None:
             stmts = interceptor.post_parsing(stmts, ctx)
-        from ..common import process_list
-        from ..common.admission import GATE as _admission
-        from ..common.telemetry import (
-            increment_counter, observe_latency, slow_query_threshold_ms,
-            span, timer)
         outputs = []
         for s in stmts:
             # admission gate: reject-with-retry-after past the in-flight

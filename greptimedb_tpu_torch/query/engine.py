@@ -26,6 +26,7 @@ import torch
 
 from ..catalog import CatalogManager
 from ..common import exec_stats
+from ..common.telemetry import span
 from ..common.time import TimeUnit
 from ..datatypes import data_type as dt
 from ..datatypes.data_type import parse_type_name
@@ -262,10 +263,12 @@ class QueryEngine:
         if rw is not None:
             table, query, a, _ = rw
 
-        # device fast path
+        # device fast path; HAVING, the projection, ORDER BY, LIMIT and
+        # the answer's batch over its frame are the `project` span
         result = tpu_exec.try_execute(table, a, query, self.device)
         if result is not None:
-            return self._finish_aggregate_frame(result, a, query, table)
+            with span("project"):
+                return self._finish_aggregate_frame(result, a, query, table)
 
         # CPU fallback: the per-version cached frame when the table is
         # region-backed (repeat queries skip scan+convert entirely),

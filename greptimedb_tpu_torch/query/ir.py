@@ -11,7 +11,7 @@ one DataFusion LogicalPlan. Here (as in greptimedb_tpu/query/ir.py):
   `DistTable.execute_tpu_plan` (the datanodes reduce their surviving
   regions on their devices), a local table's regions reduce on the
   engine's device (tpu_exec.region_moment_frames); `_finalize` folds the
-  moment frames either way.
+  moment frames either way, inside a `finalize` span.
 - `RawScan` — the scan leaf for statements that do not lower: a projected,
   filtered, time-bounded `scan_batches` (`execute_raw_scan`) that still
   rides region pruning and wire filter pushdown on distributed tables.
@@ -192,9 +192,10 @@ def execute_agg_plan(table, plan: TpuPlan, device) -> pd.DataFrame:
                                   "approx_distinct") else np.nan)
                for slot, op, _ in plan.finals}
         return pd.DataFrame([row])
-    with exec_stats.stage("finalize", partial_frames=len(frames),
-                          partial_bytes=frames_nbytes(frames),
-                          aggs=_aggs_desc(plan)):
+    with span("finalize", partial_frames=len(frames)), \
+            exec_stats.stage("finalize", partial_frames=len(frames),
+                             partial_bytes=frames_nbytes(frames),
+                             aggs=_aggs_desc(plan)):
         merged = pd.concat(frames, ignore_index=True)
         try:
             out = _finalize(merged, plan)

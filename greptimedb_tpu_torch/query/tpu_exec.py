@@ -56,6 +56,7 @@ wrap to it, and uint32 values are un-biased on the host.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import threading
@@ -213,6 +214,13 @@ class MergedScan:
         return total
 
 
+def _stage(prof: Optional[ScanProfile], name: str,
+           span_name: Optional[str] = None):
+    """`prof.stage(...)`, or nothing where the caller keeps no profile."""
+    return prof.stage(name, span_name) if prof is not None \
+        else contextlib.nullcontext()
+
+
 @dataclass
 class _CacheEntry:
     scan: MergedScan
@@ -347,34 +355,44 @@ class _ScanCache:
     @staticmethod
     def _full(snap, device: torch.device,
               prof: Optional[ScanProfile] = None) -> MergedScan:
-        t0 = time.perf_counter()
-        data = snap.scan()
-        t1 = time.perf_counter()
-        if data.num_rows:
-            kept = merge_dedup_numpy(data.series_ids, data.ts, data.seq,
-                                     data.op_types)
-            sids = data.series_ids[kept]
-            ts = data.ts[kept]
-            seq = data.seq[kept]
-            fields = {n: (d[kept], vd[kept] if vd is not None else None)
-                      for n, (d, vd) in data.fields.items()}
-        else:
-            sids, ts, seq = data.series_ids, data.ts, data.seq
-            fields = data.fields
+        with _stage(prof, "region_scan", "scan_read"):
+            data = snap.scan()
+        with _stage(prof, "merge"):
+            if data.num_rows:
+                kept = merge_dedup_numpy(data.series_ids, data.ts, data.seq,
+                                         data.op_types)
+                sids = data.series_ids[kept]
+                ts = data.ts[kept]
+                seq = data.seq[kept]
+                fields = {n: (d[kept], vd[kept] if vd is not None else None)
+                          for n, (d, vd) in data.fields.items()}
+            else:
+                sids, ts, seq = data.series_ids, data.ts, data.seq
+                fields = data.fields
         base = int(ts.min()) if ts.size else 0
-        if prof is not None:
-            prof.mark("region_scan", t1 - t0)
-            prof.mark("merge", time.perf_counter() - t1)
         return MergedScan(sids.astype(np.int32), ts, fields,
                           data.series_dict, base, device, seq=seq)
 
     @staticmethod
     def _incremental(region, v, entry: _CacheEntry, visible: int,
                      prof: Optional[ScanProfile] = None) -> MergedScan:
+        field_names = [c.name for c in v.schema.field_columns()]
+        with _stage(prof, "region_scan", "scan_read"):
+            runs = _ScanCache._delta_runs(region, v, entry, visible,
+                                          field_names)
+        if not runs:
+            return entry.scan
+        with _stage(prof, "merge"):
+            return _ScanCache._splice(entry.scan, runs, field_names)
+
+    @staticmethod
+    def _delta_runs(region, v, entry: _CacheEntry, visible: int,
+                    field_names: List[str]) -> list:
+        """The rows with sequences in (entry.visible, visible]: one run
+        (sids, ts, seq, op types, fields) per memtable and SST that
+        holds any."""
         from ..datatypes.vector import null_column
-        t0 = time.perf_counter()
         schema = v.schema
-        field_names = [c.name for c in schema.field_columns()]
         lo = entry.visible
         runs = []
         # memtable rows beyond the cached watermark
@@ -413,13 +431,12 @@ class _ScanCache:
                       for n, (d, vd) in sst.fields.items()}
             runs.append((sst.series_ids[sel], sst.ts[sel], sst.seq[sel],
                          sst.op_types[sel], fields))
-        t1 = time.perf_counter()
-        if prof is not None:
-            prof.mark("region_scan", t1 - t0)
+        return runs
 
-        cached = entry.scan
-        if not runs:
-            return cached
+    @staticmethod
+    def _splice(cached: MergedScan, runs: list,
+                field_names: List[str]) -> MergedScan:
+        """`cached` with the delta `runs` merged in."""
         # sort + dedup the delta alone (small), then splice it into the
         # sorted cached arrays by searchsorted + np.insert: O(delta log +
         # n) copies, no sort over the region
@@ -488,8 +505,6 @@ class _ScanCache:
                 valid = splice(cv if cv is not None
                                else np.ones(n_cached, bool), dv)
             fields[name] = (splice(cd, dd), valid)
-        if prof is not None:
-            prof.mark("merge", time.perf_counter() - t1)
         base = int(ts.min()) if ts.size else 0
         return MergedScan(sids, ts, fields, cached.series_dict, base,
                           cached.torch_device, seq=seq)
@@ -572,10 +587,11 @@ class _ScanFlightMap:
         # follower: bounded park on the leader's shared pass
         t0 = time.perf_counter()
         deadline = time.monotonic() + _FUSION_WAIT_TIMEOUT_S
-        while not entry.done.wait(timeout=0.05):
-            process_list.check_cancelled()    # killed mid-wait: bail out
-            if time.monotonic() > deadline:
-                break
+        with span("scan_fusion_wait", region=region.name):
+            while not entry.done.wait(timeout=0.05):
+                process_list.check_cancelled()  # killed mid-wait: bail out
+                if time.monotonic() > deadline:
+                    break
         if not entry.done.is_set() or entry.failed:
             return _execute_region(region, table, plan, device)
         increment_counter("scan_fusion_follower")
@@ -1189,19 +1205,24 @@ def configure_partial_pushdown(*, enabled: Optional[bool] = None) -> None:
 
 def try_execute(table, a: Analysis, query: Query,
                 device) -> Optional[pd.DataFrame]:
-    plan = plan_for(table, a, query)
-    if plan is None:
-        return None
-    if not hasattr(table, "execute_tpu_plan"):
-        # distributed tables always push down (the fallback would pull
-        # raw rows over the wire); local tables route small scans to the
-        # CPU columnar path, which is faster and float64-exact
-        est = _estimated_table_rows(table)
-        if est is not None and est < _dispatch_min_rows():
-            exec_stats.set_dispatch(
-                f"cpu-small-scan (est_rows={est} < "
-                f"dispatch_floor={_dispatch_min_rows()})")
+    """The statement's aggregate on the device path, or None where it
+    does not lower or the dispatch floor keeps it on the CPU. The
+    planning and that decision are the `plan` span."""
+    with span("plan"):
+        plan = plan_for(table, a, query)
+        if plan is None:
             return None
+        if not hasattr(table, "execute_tpu_plan"):
+            # distributed tables always push down (the fallback would
+            # pull raw rows over the wire); local tables route small
+            # scans to the CPU columnar path, which is faster and
+            # float64-exact
+            est = _estimated_table_rows(table)
+            if est is not None and est < _dispatch_min_rows():
+                exec_stats.set_dispatch(
+                    f"cpu-small-scan (est_rows={est} < "
+                    f"dispatch_floor={_dispatch_min_rows()})")
+                return None
     from .ir import execute_agg_plan
     try:
         return execute_agg_plan(table, plan, device)
@@ -1436,14 +1457,14 @@ def _execute_region(region, table, plan: TpuPlan,
     prof = ScanProfile(path="resident")
     t0 = time.perf_counter()
     with span("region_scan", region=region.name, path="resident"):
-        scan = SCAN_CACHE.get(region, device, prof)
-        prep = time.perf_counter() - t0
-        prof.mark("scan_prep", prep)
-        outcome = SCAN_CACHE.last_outcome() or "full"
+        with prof.stage("scan_prep", "scan_cache") as sp:
+            scan = SCAN_CACHE.get(region, device, prof)
+            outcome = SCAN_CACHE.last_outcome() or "full"
+            sp["attrs"]["outcome"] = outcome
         prof.bump(f"cache_{outcome}")
         prof.rows = scan.num_rows
-        exec_stats.record("scan_prep", rows=scan.num_rows, elapsed_s=prep,
-                          cache=outcome)
+        exec_stats.record("scan_prep", rows=scan.num_rows,
+                          elapsed_s=prof.stages["scan_prep"], cache=outcome)
         out = None
         if scan.num_rows:
             t1 = time.perf_counter()
@@ -1479,19 +1500,20 @@ def _moment_frame_for_scan(scan: MergedScan, schema, plan: TpuPlan,
         # rows are already sorted and MVCC-deduped), so the partial
         # frame folds like any other
         from .stream_exec import _host_partial_frame
-        t0 = time.perf_counter()
-        out = _host_partial_frame(scan, None, plan, scan.series_dict)
-        prof.mark("host_reduce", time.perf_counter() - t0)
-        return out
+        with prof.stage("host_reduce"):
+            return _host_partial_frame(scan, None, plan, scan.series_dict)
     launched = _launch_scan_kernel(scan, schema, plan, prof)
     if launched is None:
         return None
-    t0 = time.perf_counter()
-    ((counts, res_np),) = _fetch_launched([launched], plan, pinned=False)
-    prof.mark("fetch", time.perf_counter() - t0)
-    t1 = time.perf_counter()
-    out = _collect_moment_frame(launched, plan, counts, res_np)
-    prof.mark("collect", time.perf_counter() - t1)
+    with prof.stage("fetch") as sp:
+        ((counts, res_np),) = _fetch_launched([launched], plan, pinned=False)
+        sp["attrs"]["bytes"] = 4 * (len(launched.results) + 1) * \
+            launched.nruns
+    # runs against live_runs: the launched runs the collect reads, and
+    # those that kept a row (the frame's length)
+    with prof.stage("collect", runs=launched.nruns) as sp:
+        out = _collect_moment_frame(launched, plan, counts, res_np)
+        sp["attrs"]["live_runs"] = 0 if out is None else len(out)
     return out
 
 
@@ -1572,19 +1594,45 @@ def _run_context(scan: MergedScan, plan: TpuPlan):
 
 def _launch_scan_kernel(scan: MergedScan, schema, plan: TpuPlan,
                         prof: ScanProfile) -> Optional[_Launched]:
-    n = scan.num_rows
-    if n == 0:
+    if scan.num_rows == 0:
         return None
-    tag_names = schema.tag_names()
     sids = scan.series_ids
 
-    # ---- host: runs over (series [, bucket]) ----
-    t0 = time.perf_counter()
-    nruns, run_starts, buckets, d_ends = _run_context(scan, plan)
-    prof.mark("runs", time.perf_counter() - t0)
+    # ---- host: runs over (series [, bucket]) and each run's keys ----
+    with prof.stage("runs"):
+        nruns, run_starts, buckets, d_ends = _run_context(scan, plan)
+        run_sids = sids[run_starts]
+        run_buckets = buckets[run_starts] if buckets is not None else None
 
     # ---- host: per-series tag predicate → row mask ----
-    t1 = time.perf_counter()
+    with prof.stage("masks"):
+        mask = _row_mask(scan, schema, plan)
+    if mask is False:
+        return None
+
+    # ---- device inputs: resident mirrors, this query's mask ----
+    with prof.stage("h2d"):
+        d_ts, d_mask, values, col_masks, ops, narrow = \
+            _device_inputs(scan, schema, plan, mask)
+
+    # ---- the kernel: every moment in one launch over the host run ends
+    # (no shape-bucket padding: the port compiles nothing per shape) ----
+    with prof.stage("launch"):
+        results, counts = sorted_grouped_aggregate(
+            None, d_mask, d_ts, tuple(values), tuple(col_masks),
+            num_groups=nruns, ops=tuple(ops), has_col_masks=True,
+            ends=d_ends)
+    return _Launched(tuple(results), counts, nruns, run_sids, run_buckets,
+                     scan.series_dict, scan.ts_base, narrow)
+
+
+def _row_mask(scan: MergedScan, schema, plan: TpuPlan):
+    """The plan's row mask over the scan (tag predicates by series, the
+    time range, field filters); None where every row counts (the launch
+    reuses the resident all-true mask), False where no row does."""
+    n = scan.num_rows
+    sids = scan.series_ids
+    tag_names = schema.tag_names()
     base_mask = None
     if plan.tag_predicates:
         sd = scan.series_dict
@@ -1601,7 +1649,7 @@ def _launch_scan_kernel(scan: MergedScan, schema, plan: TpuPlan,
                 if isinstance(m, pd.Series) else np.full(S, bool(m))
             smask &= m
         if not smask.any():
-            return None
+            return False
         base_mask = smask[sids]
 
     # ---- row mask (host; skipped for the unfiltered case, which reuses
@@ -1628,11 +1676,14 @@ def _launch_scan_kernel(scan: MergedScan, schema, plan: TpuPlan,
                 cmp &= valid
             mask &= cmp
         if not mask.any():
-            return None
-    prof.mark("masks", time.perf_counter() - t1)
+            return False
+    return mask
 
-    # ---- device inputs: resident mirrors, this query's mask ----
-    t2 = time.perf_counter()
+
+def _device_inputs(scan: MergedScan, schema, plan: TpuPlan,
+                   mask: Optional[np.ndarray]):
+    """(ts, row mask, values, column masks, ops, narrow) on the device
+    for one launch: the resident mirrors and this query's mask."""
     d_ts = scan.device_ts()
     d_mask = scan.device_valid_all() if mask is None \
         else scan.to_device(mask)
@@ -1681,18 +1732,7 @@ def _launch_scan_kernel(scan: MergedScan, schema, plan: TpuPlan,
             col_masks.append(scan.device_valid(m.column))
             ops.append("count")
         narrow[i] = (fix[0], count_at[m.column])
-    prof.mark("h2d", time.perf_counter() - t2)
-
-    # ---- the kernel: every moment in one launch over the host run ends
-    # (no shape-bucket padding: the port compiles nothing per shape) ----
-    t3 = time.perf_counter()
-    results, counts = sorted_grouped_aggregate(
-        None, d_mask, d_ts, tuple(values), tuple(col_masks),
-        num_groups=nruns, ops=tuple(ops), has_col_masks=True, ends=d_ends)
-    prof.mark("launch", time.perf_counter() - t3)
-    return _Launched(tuple(results), counts, nruns, sids[run_starts],
-                     buckets[run_starts] if buckets is not None else None,
-                     scan.series_dict, scan.ts_base, narrow)
+    return d_ts, d_mask, values, col_masks, ops, narrow
 
 
 def _narrow_results(res_np: List[np.ndarray], plan: TpuPlan,

@@ -23,7 +23,10 @@ Ported from greptimedb_tpu/servers/flight.py; its tickets, descriptors
 and action bodies are the reference's, so either package's client talks
 to either's server, the `repl_*` actions of read-replica shipping
 included. Unlike the reference's, each server's `shutdown()` waits for
-the thread `serve_in_background` started.
+the thread `serve_in_background` started, and the frontend's `do_get`
+opens a `flight_do_get` span in the client's trace, under which the
+parse, the statements and each batch's Arrow encode (`flight_encode`,
+as the stream pulls it) are traced.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ import pyarrow.flight as flight
 
 from ..common import exec_stats
 from ..common.telemetry import (
-    remote_context, slow_query_threshold_ms, span)
+    child_span, propagate, remote_context, slow_query_threshold_ms, span)
 from ..datatypes.schema import Schema
 from ..errors import GreptimeError
 from ..table.requests import create_request_from_dict
@@ -139,8 +142,15 @@ def _batches_stream(batches, fallback_schema: Optional[Schema] = None,
         return flight.GeneratorStream(_with_metadata(schema, metadata),
                                       iter(()))
     schema = _with_metadata(batches[0].schema.to_arrow(), metadata)
-    return flight.GeneratorStream(
-        schema, (b.to_arrow() for b in batches))
+    # the stream encodes each batch as the client pulls it, after the
+    # handler returned: the encode joins the trace open at this call
+    encode = propagate(_encode_batch)
+    return flight.GeneratorStream(schema, (encode(b) for b in batches))
+
+
+def _encode_batch(b) -> pa.RecordBatch:
+    with child_span("flight_encode", rows=b.num_rows):
+        return b.to_arrow()
 
 
 _AFFECTED_SCHEMA = pa.schema([("affected_rows", pa.int64())],
@@ -435,15 +445,18 @@ class FlightFrontendServer(flight.FlightServerBase):
             # GreptimeRequest protobuf into the ticket
             # (src/client/src/database.rs:209-231, decoded by the
             # server at src/servers/src/grpc/flight.rs:87-96)
-            return self._do_get_proto(raw)
+            with span("flight_do_get", plane="proto"):
+                return self._do_get_proto(raw)
         if cmd.get("type") != "sql":
             raise GreptimeError(f"unsupported ticket {cmd.get('type')!r}")
-        with remote_context(cmd.get("traceparent")):
+        # the request's span joins the client's trace and holds the
+        # parse, the statements and (by the stream) the answer's encode
+        with remote_context(cmd.get("traceparent")), span("flight_do_get"):
             outputs = self.frontend.do_query(cmd["sql"])
-        last = outputs[-1]
-        if last.is_batches:
-            return _batches_stream(last.batches)
-        return _affected_stream(last.affected_rows or 0)
+            last = outputs[-1]
+            if last.is_batches:
+                return _batches_stream(last.batches)
+            return _affected_stream(last.affected_rows or 0)
 
     def _do_get_proto(self, raw: bytes):
         from ..api import v1 as proto

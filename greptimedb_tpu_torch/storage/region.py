@@ -16,16 +16,18 @@ Deltas from the reference (as in greptimedb_tpu/storage/region.py):
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import threading
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..common import failpoint as _fp
 from ..common.locks import TrackedRLock
+from ..common.telemetry import span
 from ..common.time import TimestampRange
 from ..datatypes import RecordBatch, Schema, Vector
 from ..datatypes.vector import compat_column, null_column
@@ -106,10 +108,14 @@ class ScanProfile:
     stages (seconds) of the resident path (query/tpu_exec.py): scan_prep
     (cache lookup or merged scan build; on a miss or an incremental
     merge, its parts region_scan — memtables and SST decode — and
-    merge), runs (host run ids), masks (tag predicates and row mask),
-    h2d (device mirrors, mask and run ends), launch (the kernel call's
-    host time), fetch (the one device-to-host copy, which waits for the
-    kernel), collect (the per-run moment frame). The streamed path
+    merge), runs (host run ids and their keys), masks (tag predicates
+    and row mask), h2d (device mirrors, mask and run ends), launch (the
+    kernel call's host time), fetch (the one device-to-host copy, which
+    waits for the kernel), collect (the per-run moment frame),
+    host_reduce (sketch and expression moments); `stage()` times each of
+    them as a span of the statement's trace too (`scan_cache`,
+    `scan_read`, `scan_merge`, `scan_runs`, ... `scan_host_reduce`). The
+    streamed path
     marks slice_plan, decode_reduce, fold and device_fetch, the
     indexed-point path scan and reduce. `counters` carries path facts:
     `cache_hit` / `cache_incremental` / `cache_full` (scan cache),
@@ -123,6 +129,17 @@ class ScanProfile:
 
     def mark(self, stage: str, seconds: float) -> None:
         self.stages[stage] = self.stages.get(stage, 0.0) + seconds
+
+    @contextlib.contextmanager
+    def stage(self, name: str, span_name: Optional[str] = None,
+              **attrs: object) -> Iterator[Dict]:
+        """Time one stage as a span (`span_name`, by default
+        `scan_<name>`) and mark the span's own seconds as `name`, so the
+        span sink and this profile read one measurement. Yields the
+        span: attributes known only at the end go into its `attrs`."""
+        with span(span_name or f"scan_{name}", **attrs) as s:
+            yield s
+        self.mark(name, s["elapsed_ms"] / 1e3)
 
     def bump(self, counter: str, n: int = 1) -> None:
         self.counters[counter] = self.counters.get(counter, 0) + n

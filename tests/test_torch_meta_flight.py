@@ -345,10 +345,14 @@ def wire():
             mp.setattr(p.service, "time", clock)
             mp.setattr(p.balancer, "time", clock)
             # the background_jobs registries are process state: emptied
-            # for the script, restored after it
+            # for the script, restored after it. So is the node label a
+            # job records: the last frontend built in this process set it
+            # ("standalone", or "frontend" for a distributed one), so
+            # both packages' are pinned to one label meanwhile
             saved[p.jobs] = (dict(p.jobs._running),
                              {k: list(v) for k, v in p.jobs._completed.items()},
-                             p.jobs._next_id[0])
+                             p.jobs._next_id[0], p.jobs._node_label[0])
+            p.jobs.configure_node("standalone")
         out = {}
         for c, s in PAIRS:
             for _ in range(RUNS):
@@ -358,13 +362,14 @@ def wire():
             out[(c, s)] = got
         yield out
     finally:
-        for mod, (running, completed, next_id) in saved.items():
+        for mod, (running, completed, next_id, node) in saved.items():
             with mod._lock:
                 mod._running.clear()
                 mod._running.update(running)
                 mod._completed.clear()
                 mod._completed.update(completed)
                 mod._next_id[0] = next_id
+            mod.configure_node(node)
         mp.undo()
 
 

@@ -19,10 +19,17 @@ messages; the `/v1/trace` answers. Each package's trace store, sample
 ratio, retention, slow-query threshold and dispatch floor are process
 state: every test restores them.
 
+The port opens spans the reference has no twin of (`PORT_ONLY`: the
+region reduce's stages, the engine's plan, finalize and project, the
+Flight front door's). A port trace is compared with the reference's
+projected onto the reference's span names (`project_rows`): those spans
+are dropped and their children re-parented to the nearest span kept;
+the tests also pin where each port-only span sits.
+
 The first test pins the port's `tpu_execute` span and timer around a
 local device-path aggregate (`query/ir.py:execute_agg_plan`), which the
-reference opens and the port once dropped: the waterfall of a GROUP BY
-with `SET tpu_dispatch_min_rows = 0` must be the reference's
+reference opens and the port once dropped: the projected waterfall of a
+GROUP BY with `SET tpu_dispatch_min_rows = 0` must be the reference's
 (`execute_stmt` → `tpu_execute` → `region_scan`), and the port's registry
 must count `greptime_tpu_execute` observations. It is the one statement
 here the reference compiles (one avg signature).
@@ -54,6 +61,36 @@ from greptimedb_tpu_torch.servers.http import HttpServer
 T0 = 1_700_000_000_000
 HOSTS, SAMPLES = 30, 20
 TIMEOUT_S = 60
+#: the port's spans that the reference does not open
+PORT_ONLY = frozenset({
+    "parse_sql", "plan", "finalize", "project", "flight_do_get",
+    "flight_encode", "scan_cache", "scan_read", "scan_merge", "scan_runs",
+    "scan_masks", "scan_h2d", "scan_launch", "scan_fetch", "scan_collect",
+    "scan_host_reduce", "scan_fusion_wait"})
+
+
+def project_rows(rows):
+    """Stored span rows without the port-only spans, each kept span
+    parented to its nearest kept ancestor."""
+    by_id = {r["span_id"]: r for r in rows}
+
+    def kept(parent):
+        while parent in by_id and by_id[parent]["span_name"] in PORT_ONLY:
+            parent = by_id[parent]["parent_span_id"]
+        return parent
+    return [dict(r, parent_span_id=kept(r["parent_span_id"]))
+            for r in rows if r["span_name"] not in PORT_ONLY]
+
+
+def edges(rows):
+    """(span name, its parent's name) of every stored row."""
+    names = {r["span_id"]: r["span_name"] for r in rows}
+    return {(r["span_name"], names.get(r["parent_span_id"])) for r in rows}
+
+
+def shown_rows(waterfall):
+    return [(r["span"], r["node"], r["status"], r["detail"])
+            for r in waterfall]
 
 
 def _rows():
@@ -97,10 +134,17 @@ class Side:
             return out.affected_rows
         return [tuple(r) for b in out.batches for r in b.rows()]
 
+    def rows(self, trace_id):
+        """The stored span rows of one trace; the port's projected onto
+        the reference's span names."""
+        rows = self.trace.fetch_trace(self.fe.catalog, trace_id)
+        return project_rows(rows) if self.port else rows
+
     def structure(self, trace_id):
         """(name, depth, parent's name, node, status, attrs) of every stored
-        span of one trace, depth-first as the waterfall renders them."""
-        rows = self.trace.fetch_trace(self.fe.catalog, trace_id)
+        span of one trace (the port's projected), depth-first as the
+        waterfall renders them."""
+        rows = self.rows(trace_id)
         by_id = {r["span_id"]: r for r in rows}
         out = []
         for r in rows:
@@ -153,11 +197,14 @@ def _counter_total(name):
 
 def test_tpu_execute_span_and_timer_match_reference(sides):
     """A device-path GROUP BY through both frontends at ratio 1: ADMIN
-    SHOW TRACE 'last' renders the same tree (execute_stmt → tpu_execute →
-    region_scan, same nodes, statuses and attributes), and the port's
-    registry counts one more tpu_execute observation."""
+    SHOW TRACE 'last' renders the port's whole tree, which projected is
+    the reference's (execute_stmt → tpu_execute → region_scan, same
+    nodes, statuses and attributes); the port's own spans sit where they
+    belong (plan, finalize and project under execute_stmt, the stages
+    under region_scan, the reads and merge under a building scan_cache);
+    and the port's registry counts one more tpu_execute observation."""
     before = _counter_total("greptime_tpu_execute_seconds_count")
-    shown, stored = {}, {}
+    shown, stored, raw = {}, {}, {}
     for key, s in sides.items():
         s.do("SET trace_sample_ratio = 1")
         s.do("SET tpu_dispatch_min_rows = 0")
@@ -170,14 +217,29 @@ def test_tpu_execute_span_and_timer_match_reference(sides):
         d = out.batches[0].to_pydict()
         shown[key] = [(d["span"][i], d["node"][i], d["status"][i],
                        d["detail"][i]) for i in range(out.num_rows)]
+        raw[key] = s.trace.fetch_trace(s.fe.catalog, tid)
         stored[key] = s.structure(tid)
-    assert shown["port"] == shown["ref"]
-    assert [r[0] for r in shown["port"]] == [
+    assert shown["port"] == shown_rows(trace_store.waterfall_rows(
+        raw["port"]))
+    assert shown_rows(trace_store.waterfall_rows(project_rows(
+        raw["port"]))) == shown["ref"]
+    assert [r[0] for r in shown["ref"]] == [
         "execute_stmt", "  └─ tpu_execute", "    └─ region_scan"]
     assert stored["port"] == stored["ref"]
     assert {(n, depth, parent) for n, depth, parent, *_ in stored["port"]} \
         == {("execute_stmt", 0, None), ("tpu_execute", 1, "execute_stmt"),
             ("region_scan", 2, "tpu_execute")}
+    (cache,) = [r for r in raw["port"] if r["span_name"] == "scan_cache"]
+    built = json.loads(cache["attrs"])["outcome"] != "hit"
+    assert edges(raw["port"]) == {
+        ("execute_stmt", None), ("plan", "execute_stmt"),
+        ("tpu_execute", "execute_stmt"), ("finalize", "execute_stmt"),
+        ("project", "execute_stmt"), ("region_scan", "tpu_execute"),
+        *[(n, "region_scan") for n in (
+            "scan_cache", "scan_runs", "scan_masks", "scan_h2d",
+            "scan_launch", "scan_fetch", "scan_collect")],
+        *([("scan_read", "scan_cache"), ("scan_merge", "scan_cache")]
+          if built else [])}
     assert _counter_total("greptime_tpu_execute_seconds_count") == before + 1
 
 
@@ -209,7 +271,7 @@ TAIL_CASES = {
 def test_tail_verdict_matches_reference(sides, case):
     """Each statement is retained or sampled out as in the reference, and
     a retained one stores the same spans (names, depths, parents,
-    statuses, attributes)."""
+    statuses, attributes; the port's projected) and writes every one."""
     ratio, slow_ms, sql = TAIL_CASES[case]
     seen = {}
     for key, s in sides.items():
@@ -226,8 +288,12 @@ def test_tail_verdict_matches_reference(sides, case):
         retained = sink.last_retained if sink.last_retained != last \
             else None
         written = sink.flush()
+        if retained:
+            # every retained span is written; the port's include its own
+            assert written == len(s.trace.fetch_trace(s.fe.catalog,
+                                                      retained))
         seen[key] = (delta, answer if isinstance(answer, str) else None,
-                     written, retained and s.structure(retained))
+                     bool(written), retained and s.structure(retained))
     assert seen["port"] == seen["ref"]
     delta, _, written, structure = seen["port"]
     kept = case != "fast at ratio 0"
@@ -442,13 +508,18 @@ def test_http_trace_route_matches_reference(sides):
             s.do("SELECT host FROM cpu WHERE v > 99")
             status, doc = _get(srv.port, "/v1/trace/last")
             assert doc["trace_id"] == s.trace.sink().last_retained
+            assert doc["span_count"] == len(doc["spans"])
+            assert doc["waterfall"] == s.trace.waterfall_rows(doc["spans"])
+            if s.port:
+                assert edges(doc["spans"]) == {("execute_stmt", None),
+                                               ("plan", "execute_stmt")}
+            rows = project_rows(doc["spans"]) if s.port else doc["spans"]
             wf = [{k: r[k] for k in ("span", "node", "status", "detail")}
-                  for r in doc["waterfall"]]
+                  for r in s.trace.waterfall_rows(rows)]
             spans = sorted((r["span_name"], r["status"], r["attrs"])
-                           for r in doc["spans"])
+                           for r in rows)
             missing = _get(srv.port, "/v1/trace/" + "0" * 32)
-            got[key] = (status, sorted(doc), doc["span_count"], wf, spans,
-                        missing)
+            got[key] = (status, sorted(doc), len(rows), wf, spans, missing)
     finally:
         for srv in servers.values():
             srv.shutdown()
@@ -459,7 +530,9 @@ def test_http_trace_route_matches_reference(sides):
 def test_concurrent_traces_keep_their_spans(sides):
     """Statements traced on several threads at once: every retained trace
     stores its own execute_stmt root and nothing of another trace (the
-    sink's per-trace buffers under its lock)."""
+    sink's per-trace buffers under its lock): projected, one root and
+    every other span under a span of its own trace; each port-only `plan`
+    under its own trace's execute_stmt."""
     s = sides["port"]
     trace_store.configure(sample_ratio=1.0)
     sink = trace_store.sink()
@@ -482,11 +555,24 @@ def test_concurrent_traces_keep_their_spans(sides):
     assert not errors and not any(t.is_alive() for t in threads)
     assert sink.stats["traces_retained"] - retained0 == 40
     assert sink.flush() >= 40
-    rows = s.do("SELECT trace_id, span_name FROM "
+    rows = s.do("SELECT trace_id, span_id, parent_span_id, span_name FROM "
                 "information_schema.trace_spans")
-    d = rows.batches[0].to_pydict()
-    roots = {}
-    for tid, name in zip(d["trace_id"], d["span_name"]):
-        if name == "execute_stmt":
-            roots[tid] = roots.get(tid, 0) + 1
-    assert all(n == 1 for n in roots.values())
+    traces = {}
+    for b in rows.batches:
+        for r in b.to_pylist():
+            traces.setdefault(r["trace_id"], []).append(r)
+    roots, planned = {}, 0
+    for tid, rs in traces.items():
+        proj = project_rows(rs)
+        ids = {r["span_id"] for r in proj}
+        top = [r for r in proj if r["parent_span_id"] not in ids]
+        roots[tid] = sum(r["span_name"] == "execute_stmt" for r in rs)
+        if roots[tid]:
+            assert [r["span_name"] for r in top] == ["execute_stmt"], tid
+        (stmt,) = [r["span_id"] for r in rs
+                   if r["span_name"] == "execute_stmt"] or [None]
+        plans = [r for r in rs if r["span_name"] == "plan"]
+        assert all(r["parent_span_id"] == stmt for r in plans), tid
+        planned += bool(plans)
+    assert all(n == 1 for n in roots.values() if n)
+    assert planned >= 40

@@ -1,0 +1,18 @@
+"""scan_copy_ms (ms, query/tpu_exec region reduce layer, program spans):
+per statement, the seconds of the `scan_h2d`, `scan_launch` and
+`scan_fetch` spans inside the window, summed over threads: the region
+reduce's copies to the device (the mask, the run ends), the kernel's
+launch and the one fetch of its results, which waits for the kernel.
+Statements count as in queries_per_s. Nothing where the program opens
+none of these spans."""
+
+SPANS = ("scan_h2d", "scan_launch", "scan_fetch")
+
+
+def read(w):
+    n = w.prorated(w.records, "send", "recv")
+    if w.spans is None or n <= 0:
+        return None
+    if not any(s[0] in SPANS for s in w.spans):
+        return None
+    return sum(w.span_seconds(s) for s in SPANS) / n * 1e3
