@@ -1138,9 +1138,9 @@ def stream_region_moment_frames(region, plan,
     if not launched:
         return done(frames)
     t_fetch = time.perf_counter()
-    for ln, (counts, res_np) in zip(launched,
-                                    _fetch_launched(launched, plan)):
-        part = _collect_moment_frame(ln, plan, counts, res_np)
+    for ln, (counts, res_np, live) in zip(launched,
+                                          _fetch_launched(launched, plan)):
+        part = _collect_moment_frame(ln, plan, counts, res_np, live)
         if part is not None and len(part):
             frames.append(part)
     prof.mark("device_fetch", time.perf_counter() - t_fetch)

@@ -9,8 +9,9 @@ and/or time bucket → aggregate — as one kernel launch per region:
 2. groups are contiguous runs over (series [, bucket]), found on the host;
 3. the segment-moments kernel (ops/kernels.py, csrc/segment_moments.cu)
    computes every decomposable moment of the plan (sum/sum_sq/count/min/
-   max/first+ts/last+ts) per run in one launch; one device-to-host copy
-   brings them back, and runs fold into the final SQL groups on the host
+   max/first+ts/last+ts) per run in one launch; the runs that kept a row
+   are compacted on the device and one device-to-host copy brings them
+   back, and they fold into the final SQL groups on the host
    (`_finalize`), which also merges partials across regions.
 
 Anything outside this shape returns None and the engine falls back to the
@@ -1483,8 +1484,9 @@ class _Launched:
     #                                   then the extra column counts
     counts: torch.Tensor              # device int32 [nruns]
     nruns: int
-    run_sids: np.ndarray              # per-run series id [nruns]
-    run_buckets: Optional[np.ndarray]
+    run_starts: np.ndarray            # each run's first row [nruns]
+    series_ids: np.ndarray            # the scan's per-row series id
+    buckets: Optional[np.ndarray]     # the scan's per-row bucket, or None
     series_dict: object
     ts_base: int
     #: per plan moment: None, or (the column's narrow dtype, the index in
@@ -1506,28 +1508,42 @@ def _moment_frame_for_scan(scan: MergedScan, schema, plan: TpuPlan,
     if launched is None:
         return None
     with prof.stage("fetch") as sp:
-        ((counts, res_np),) = _fetch_launched([launched], plan, pinned=False)
-        sp["attrs"]["bytes"] = 4 * (len(launched.results) + 1) * \
-            launched.nruns
-    # runs against live_runs: the launched runs the collect reads, and
-    # those that kept a row (the frame's length)
+        ((counts, res_np, live),) = _fetch_launched([launched], plan,
+                                                    pinned=False)
+        # the words copied: each live run's moments, count and index
+        sp["attrs"]["bytes"] = 4 * (len(launched.results) + 2) * len(live)
+        sp["attrs"]["live_runs"] = len(live)
+    # runs against live_runs: the launched runs, and those that kept a
+    # row (the frame's length)
     with prof.stage("collect", runs=launched.nruns) as sp:
-        out = _collect_moment_frame(launched, plan, counts, res_np)
+        out = _collect_moment_frame(launched, plan, counts, res_np, live)
         sp["attrs"]["live_runs"] = 0 if out is None else len(out)
     return out
 
 
 def _fetch_launched(launched: List["_Launched"], plan: TpuPlan,
                     pinned: bool = True
-                    ) -> List[Tuple[np.ndarray, List[np.ndarray]]]:
-    """(counts, per-moment results in the reference's dtypes) of each
-    launch, in one device-to-host copy: every moment and count is a
-    4-byte value, so all of them are flattened as int32 words into one
-    device buffer, copied once (into pinned memory when `pinned`: the
-    streamed path's many small launches) and split on the host."""
-    words = torch.cat([w for ln in launched for w in
-                       [r.view(torch.int32) for r in ln.results] +
-                       [ln.counts]])
+                    ) -> List[Tuple[np.ndarray, List[np.ndarray],
+                                    np.ndarray]]:
+    """(counts, per-moment results in the reference's dtypes, run
+    indices) of each launch's live runs, those with a row (count > 0),
+    in ascending run order, in one device-to-host copy.
+
+    The runs are compacted on the device: one synchronisation learns
+    every launch's number of live runs, then each launch gathers only
+    its live columns. Every moment and count is a 4-byte value, so the
+    live columns are flattened as int32 words, with the live run indices
+    as one more row, into one device buffer, copied once (into pinned
+    memory when `pinned`: the streamed path's many small launches) and
+    split on the host."""
+    lives = [ln.counts > 0 for ln in launched]
+    sizes = _sizes_to_host(torch.stack([live.sum() for live in lives]))
+    blocks = []
+    for ln, live, m in zip(launched, lives, sizes):
+        idx = _live_index(live, m)
+        blocks += [r.view(torch.int32).index_select(0, idx)
+                   for r in ln.results] + [ln.counts.index_select(0, idx), idx]
+    words = torch.cat(blocks)
     if words.device.type != "cuda":
         host = words.numpy()
     elif pinned:
@@ -1538,14 +1554,30 @@ def _fetch_launched(launched: List["_Launched"], plan: TpuPlan,
     else:
         host = words.cpu().numpy()
     out, pos = [], 0
-    for ln in launched:
-        k = len(ln.results) + 1
-        w = host[pos:pos + k * ln.nruns].reshape(k, ln.nruns)
-        pos += k * ln.nruns
+    for ln, m in zip(launched, sizes):
+        k = len(ln.results) + 2
+        w = host[pos:pos + k * m].reshape(k, m)
+        pos += k * m
         res_np = [x.view(np.dtype(str(r.dtype).replace("torch.", "")))
-                  for x, r in zip(w[:-1], ln.results)]
-        out.append((w[-1], _narrow_results(res_np, plan, ln.narrow)))
+                  for x, r in zip(w[:-2], ln.results)]
+        out.append((w[-2], _narrow_results(res_np, plan, ln.narrow), w[-1]))
     return out
+
+
+def _sizes_to_host(sizes: torch.Tensor) -> List[int]:
+    """The fetch's one synchronisation: every launch's live run count."""
+    return sizes.tolist()
+
+
+def _live_index(live: torch.Tensor, m: int) -> torch.Tensor:
+    """The positions of the `m` set flags of `live`, ascending, as int32,
+    without a synchronisation: each live run scatters its index to its
+    rank among the live runs, each dead run to a spare slot past them."""
+    rank = torch.where(live, torch.cumsum(live, 0) - 1, m)
+    idx = torch.empty(m + 1, dtype=torch.int32, device=live.device)
+    idx.scatter_(0, rank, torch.arange(live.shape[0], dtype=torch.int32,
+                                       device=live.device))
+    return idx[:m]
 
 
 def _run_context(scan: MergedScan, plan: TpuPlan):
@@ -1596,13 +1628,11 @@ def _launch_scan_kernel(scan: MergedScan, schema, plan: TpuPlan,
                         prof: ScanProfile) -> Optional[_Launched]:
     if scan.num_rows == 0:
         return None
-    sids = scan.series_ids
 
-    # ---- host: runs over (series [, bucket]) and each run's keys ----
+    # ---- host: runs over (series [, bucket]); the collect reads the
+    # keys of the live runs alone ----
     with prof.stage("runs"):
         nruns, run_starts, buckets, d_ends = _run_context(scan, plan)
-        run_sids = sids[run_starts]
-        run_buckets = buckets[run_starts] if buckets is not None else None
 
     # ---- host: per-series tag predicate → row mask ----
     with prof.stage("masks"):
@@ -1622,8 +1652,9 @@ def _launch_scan_kernel(scan: MergedScan, schema, plan: TpuPlan,
             None, d_mask, d_ts, tuple(values), tuple(col_masks),
             num_groups=nruns, ops=tuple(ops), has_col_masks=True,
             ends=d_ends)
-    return _Launched(tuple(results), counts, nruns, run_sids, run_buckets,
-                     scan.series_dict, scan.ts_base, narrow)
+    return _Launched(tuple(results), counts, nruns, run_starts,
+                     scan.series_ids, buckets, scan.series_dict,
+                     scan.ts_base, narrow)
 
 
 def _row_mask(scan: MergedScan, schema, plan: TpuPlan):
@@ -1771,21 +1802,21 @@ def _narrow_results(res_np: List[np.ndarray], plan: TpuPlan,
 
 
 def _collect_moment_frame(launched: _Launched, plan: TpuPlan,
-                          counts: np.ndarray,
-                          res_np: List[np.ndarray]) -> Optional[pd.DataFrame]:
-    # ---- host: fold runs into final groups ----
-    live = counts > 0
-    if not live.any():
+                          counts: np.ndarray, res_np: List[np.ndarray],
+                          live: np.ndarray) -> Optional[pd.DataFrame]:
+    """The partial moment frame of a launch's live runs (`_fetch_launched`'s
+    counts, results and run indices): group keys, moments and row counts,
+    one row per live run in run order; None where no run kept a row."""
+    if not len(live):
         return None
     frame: Dict[str, Any] = {}
-    run_sids = launched.run_sids
-    sd = launched.series_dict
+    starts = launched.run_starts[live]
     for tg in plan.tag_groups:
-        frame[_group_slot(tg.name)] = sd.decode_tag_column(
-            run_sids, tg.tag_index)
+        frame[_group_slot(tg.name)] = _live_tag_column(
+            launched, tg.tag_index, starts, live)
     if plan.bucket is not None:
         frame[_group_slot(plan.bucket.expr_key)] = \
-            launched.run_buckets * plan.bucket.stride_ms + \
+            launched.buckets[starts] * plan.bucket.stride_ms + \
             plan.bucket.origin
     for m, r in zip(plan.moments, res_np):
         if m.op in ("min_ts", "max_ts"):
@@ -1795,7 +1826,22 @@ def _collect_moment_frame(launched: _Launched, plan: TpuPlan,
             r = r.astype(np.int64) + launched.ts_base
         frame[m.slot] = r
     frame["__rowcount"] = counts
-    return pd.DataFrame(frame)[live]
+    return pd.DataFrame(frame)
+
+
+def _live_tag_column(launched: _Launched, tag_index: int,
+                     starts: np.ndarray, live: np.ndarray):
+    """A tag's values for the live runs (run first rows `starts`, run
+    indices `live`), in the dtype pandas gives a column of every launched
+    run's value: the live values alone where any subset infers alike, else
+    the values of every run, inferred, then cut to the live runs."""
+    sd = launched.series_dict
+    sids = launched.series_ids
+    if sd.subset_infers_alike(tag_index):
+        return sd.decode_tag_column(sids[starts], tag_index)
+    every = pd.Series(sd.decode_tag_column(sids[launched.run_starts],
+                                           tag_index))
+    return every.take(live).reset_index(drop=True)
 
 
 def _nan_if_none(v):

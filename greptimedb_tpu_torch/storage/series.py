@@ -29,6 +29,8 @@ class SeriesDict:
         # num_values, values array) — rebuilt only when the dictionary grew
         self._decode_cache: Dict[int, Tuple[int, np.ndarray, int,
                                             np.ndarray]] = {}
+        # subset_infers_alike (per tag): (num_values, answer)
+        self._alike_cache: Dict[int, Tuple[int, bool]] = {}
 
     @property
     def num_series(self) -> int:
@@ -141,6 +143,25 @@ class SeriesDict:
             sids = np.asarray(series_ids, dtype=np.int64)
             return vals[col[sids]].tolist()
         return [d.value(rows[int(s)][tag_index]) for s in series_ids]
+
+    def subset_infers_alike(self, tag_index: int) -> bool:
+        """Whether pandas gives a column of any non-empty subset of the
+        tag's values the dtype it gives a column of all of them: the
+        values share one type, a numpy scalar type, str, bool, float, or
+        int with every value within int64. Python ints past int64 infer
+        uint64 or object only where such a value is among them."""
+        d = self.tag_dicts[tag_index]
+        cached = self._alike_cache.get(tag_index)
+        if cached is None or cached[0] != len(d):
+            types = {type(v) for v in d.values()}
+            (t,) = types if len(types) == 1 else (None,)
+            alike = t in (str, bool, float) or (
+                t is not None and issubclass(t, np.generic))
+            if t is int:
+                alike = all(-2**63 <= v < 2**63 for v in d.values())
+            cached = (len(d), alike)
+            self._alike_cache[tag_index] = cached
+        return cached[1]
 
     def tag_id_column(self, series_ids: np.ndarray, tag_index: int
                       ) -> Tuple[np.ndarray, list]:

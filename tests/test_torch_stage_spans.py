@@ -9,9 +9,11 @@ own seconds. No span observes a histogram (`greptime_span_*`), and
 `child_span` opens a span only inside a local span's trace.
 
 A standalone frontend on the CPU holds the table `cpu` (HOSTS hosts x
-SAMPLES samples); a dispatch floor of 0 rows sends its GROUP BYs down
-the device path. A capturing span sink stands in front of the
-frontend's trace sink while a test runs.
+SAMPLES samples) and the table `minutes` (MINUTE_HOSTS hosts, a sample
+every 10 s for MINUTES minutes); a dispatch floor of 0 rows sends their
+GROUP BYs down the device path. The reference's standalone frontend
+holds `minutes` too, for the answers it is held to. A capturing span
+sink stands in front of the frontend's trace sink while a test runs.
 """
 
 import itertools
@@ -20,12 +22,17 @@ import threading
 import numpy as np
 import pytest
 
+from greptimedb_tpu.datanode import DatanodeInstance as RefDatanode
+from greptimedb_tpu.datanode import DatanodeOptions as RefOptions
+from greptimedb_tpu.frontend import FrontendInstance as RefFrontend
+from greptimedb_tpu.query import tpu_exec as ref_exec
 from greptimedb_tpu_torch.client.flight import Database
 from greptimedb_tpu_torch.common import telemetry
 from greptimedb_tpu_torch.datanode import DatanodeOptions
 from greptimedb_tpu_torch.frontend import build_standalone
 from greptimedb_tpu_torch.query import tpu_exec
 from greptimedb_tpu_torch.servers.flight import FlightFrontendServer
+from greptimedb_tpu_torch.storage.series import SeriesDict
 
 T0 = 1_700_000_000_000
 HOSTS, SAMPLES = 12, 30
@@ -42,6 +49,19 @@ PROFILE_SPANS = {"scan_prep": "scan_cache", "region_scan": "scan_read",
                  "collect": "scan_collect"}
 
 
+#: `minutes`: a minute boundary, hosts m00.., a sample every 10 s; its
+#: values are eighths, exact in float32
+T0M = 1_699_999_980_000
+MINUTE_HOSTS, MINUTES = 40, 10
+CREATE_MINUTES = ("CREATE TABLE minutes (host STRING, ts TIMESTAMP TIME "
+                  "INDEX, v DOUBLE, PRIMARY KEY(host))")
+#: two hosts over three minutes: 6 of the 400 (host, minute) runs live
+MINUTE_SQL = (
+    "SELECT host, date_bin(INTERVAL '1 minute', ts) AS b, max(v), min(v), "
+    "count(v) FROM minutes WHERE host IN ('m03', 'm31') AND "
+    f"ts >= {T0M + 120_000} AND ts < {T0M + 300_000} "
+    "GROUP BY host, b ORDER BY host, b")
+
 #: rows written after the table's, one a second past them
 _LATE = itertools.count()
 
@@ -52,6 +72,13 @@ def _rows(seed):
         f"('h{h:02d}', {T0 + k * 1000}, "
         f"{float(np.round(rng.random() * 100, 3))})"
         for k in range(SAMPLES) for h in range(HOSTS))
+
+
+def _minute_rows():
+    rng = np.random.default_rng(5)
+    return ", ".join(
+        f"('m{h:02d}', {T0M + k * 10_000}, {int(rng.integers(0, 800)) / 8})"
+        for k in range(MINUTES * 6) for h in range(MINUTE_HOSTS))
 
 
 class Capture:
@@ -90,10 +117,31 @@ def fe(tmp_path_factory):
         f.do_query("CREATE TABLE cpu (host STRING, ts TIMESTAMP TIME INDEX, "
                    "v DOUBLE, PRIMARY KEY(host))")
         f.do_query("INSERT INTO cpu VALUES " + _rows(3))
+        f.do_query(CREATE_MINUTES)
+        f.do_query("INSERT INTO minutes VALUES " + _minute_rows())
         yield f
     finally:
         f.shutdown()
         tpu_exec.configure_scan_fusion(enabled=fusion)
+        mp.undo()
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory):
+    """The reference's standalone frontend holding `minutes`, its
+    dispatch floor at 0 rows as the port's."""
+    mp = pytest.MonkeyPatch()
+    mp.setattr(ref_exec, "TPU_DISPATCH_MIN_ROWS", 0)
+    mp.setattr(ref_exec, "_dispatch_min_rows", lambda: 0)
+    f = RefFrontend(RefDatanode(RefOptions(
+        data_home=str(tmp_path_factory.mktemp("stage_spans_ref")))))
+    f.start()
+    try:
+        f.do_query(CREATE_MINUTES)
+        f.do_query("INSERT INTO minutes VALUES " + _minute_rows())
+        yield f
+    finally:
+        f.shutdown()
         mp.undo()
 
 
@@ -174,22 +222,74 @@ def test_profile_stages_are_the_span_seconds(fe, cap):
         assert prof.stages[stage] == s["elapsed_ms"] / 1e3, stage
 
 
-@pytest.mark.parametrize("where, live", [
-    ("", HOSTS), ("WHERE host IN ('h01', 'h07')", 2),
-    (f"WHERE ts >= {T0 + 5000} AND host = 'h03'", 1)])
-def test_collect_counts_launched_and_live_runs(fe, cap, where, live):
+def _avg_case(where, live):
+    """An avg by host over `cpu` (its id: the WHERE clause and the live
+    runs)."""
+    return pytest.param(f"SELECT host, avg(v) FROM cpu {where} GROUP BY host",
+                        HOSTS, live, False, id=f"{where}-{live}")
+
+
+def _rows_of(out):
+    """A statement's answer as a list of row tuples."""
+    return [row for b in out[-1].batches for row in b.rows()]
+
+
+@pytest.mark.parametrize("sql, runs, live, against_ref", [
+    _avg_case("", HOSTS), _avg_case("WHERE host IN ('h01', 'h07')", 2),
+    _avg_case(f"WHERE ts >= {T0 + 5000} AND host = 'h03'", 1),
+    pytest.param(MINUTE_SQL, MINUTE_HOSTS * MINUTES, 6, True,
+                 id="per-minute-2-hosts-3-minutes")])
+def test_collect_counts_launched_and_live_runs(fe, ref, cap, monkeypatch,
+                                               sql, runs, live,
+                                               against_ref):
     """scan_collect carries the runs launched and those that kept a row;
-    scan_fetch the bytes of the one copy (a 4-byte word per moment and
-    count of every run)."""
+    scan_fetch the live runs and the bytes of the one copy, compacted to
+    the live runs on the device (a 4-byte word per moment, count and run
+    index of each). The collect decodes the tags of the live runs alone;
+    the per-minute case answers as the reference does."""
+    decoded, collecting = [], [False]
+    decode, collect = SeriesDict.decode_tag_column, \
+        tpu_exec._collect_moment_frame
+
+    def spy_decode(sd, series_ids, tag_index):
+        if collecting[0]:
+            decoded.append(np.asarray(series_ids))
+        return decode(sd, series_ids, tag_index)
+
+    def spy_collect(*args):
+        collecting[0] = True
+        try:
+            return collect(*args)
+        finally:
+            collecting[0] = False
+
+    # a whole-table statement first: the cached region takes the
+    # resident path (an uncached one answers a host IN list from the index)
+    table = "minutes" if "FROM minutes" in sql else "cpu"
+    fe.do_query(f"SELECT host, count(v) FROM {table} GROUP BY host")
+    monkeypatch.setattr(SeriesDict, "decode_tag_column", spy_decode)
+    monkeypatch.setattr(tpu_exec, "_collect_moment_frame", spy_collect)
     cap.spans.clear()
-    out = fe.do_query(f"SELECT host, avg(v) FROM cpu {where} GROUP BY host")
-    assert out[-1].num_rows == live
-    (collect,) = cap.named("scan_collect")
-    assert collect["attrs"] == {"runs": HOSTS, "live_runs": live}
-    assert collect["attrs"]["runs"] >= collect["attrs"]["live_runs"]
+    out = fe.do_query(sql)
+    monkeypatch.undo()
+    got = _rows_of(out)
+    assert len(got) == live
+    if against_ref:
+        assert got == _rows_of(ref.do_query(sql))
+    (collect_span,) = cap.named("scan_collect")
+    assert collect_span["attrs"] == {"runs": runs, "live_runs": live}
     (fetch,) = cap.named("scan_fetch")
-    # avg reads two moments (count, sum); one count word more per run
-    assert fetch["attrs"]["bytes"] == 4 * 3 * HOSTS
+    assert fetch["attrs"]["live_runs"] == live
+    # avg reads two moments (count, sum), the per-minute case three (max,
+    # min, count); then each live run's count and its index
+    words = 4 if "avg(v)" in sql else 5
+    assert fetch["attrs"]["bytes"] == 4 * words * live
+    # one decode of the host tag, over the live runs' series alone
+    (ids,) = decoded
+    (region,) = fe.catalog.table("greptime", "public",
+                                 table).regions.values()
+    assert sorted(region.series_dict.decode_tag_column(ids, 0)) == \
+        sorted(row[0] for row in got)
 
 
 def test_forced_fusion_yields_one_wait(fe, cap, monkeypatch):

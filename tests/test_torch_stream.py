@@ -22,6 +22,9 @@ each under its own package's mito table and QueryEngine. Then:
   the reference's merge), exactly, over memtable rows, a flush of
   covered sequences, new SST rows, deletes and the failpoint's fallback;
   TTL retraction and a schema change rebuild in full;
+- the streamed "device" mode over six time-disjoint SSTs and a filter
+  few rows pass: one synchronisation learns every launch's live runs,
+  the fetch copies them alone, and the answer is the reference's;
 - scan fusion under threads (one leader, equal frames) and the plan
   codec's output, byte-identical to the reference's;
 - a KILL during a slowed streamed scan stops it within one slice.
@@ -300,6 +303,67 @@ def test_streamed_device_matches_reference(worlds, monkeypatch, sql):
     assert prof.counters.get("device_slices", 0) > 0, prof.counters
     assert not prof.counters.get("lean_slices"), prof.counters
     _within_float32(got, want, sql, _abs_sums(port))
+
+
+#: a filter that few rows pass: the (host, 10 s) runs of the slices that
+#: keep a row are mostly dead
+SPARSE_SQL = ("SELECT host, date_bin(INTERVAL '10 seconds', ts) AS b, "
+              "count(*), max(cpu) FROM m WHERE cpu > 0.99 "
+              "GROUP BY host, b ORDER BY host, b")
+
+
+def test_streamed_device_fetches_live_runs_once(tmp_path, monkeypatch):
+    """Over the scan-cache budget, a region of six time-disjoint SSTs
+    streams in slices; in "device" mode they launch, and the fetch
+    compacts every launch to its live runs after one synchronisation
+    that learns all their sizes. The even SSTs hold no row the filter
+    passes: their slices launch nothing. The answer is the reference's."""
+    ref, port = World(False, tmp_path / "ref"), World(True, tmp_path / "port")
+    rng = np.random.default_rng(7)
+    for part in range(6):
+        ts = np.arange(part * 30_000, (part + 1) * 30_000, 250)
+        hosts = [f"h{h}" for h in range(7)]
+        cols = {"host": [h for _ in ts for h in hosts],
+                "ts": [int(t) for t in ts for _ in hosts]}
+        n = len(cols["ts"])
+        cols["cpu"] = (rng.random(n) * (1.0 if part % 2 else 0.5)).round(
+            4).tolist()
+        cols["mem"] = rng.random(n).round(4).tolist()
+        for w in (ref, port):
+            w.put(cols)
+            w.region.flush()
+    for w in (ref, port):
+        w.storage.scheduler.wait_idle(timeout=60)
+    for ex in (ref_exec, tpu_exec):
+        monkeypatch.setattr(ex.SCAN_CACHE, "budget_bytes", 1024)
+    want, _, _ = ref.query(SPARSE_SQL)
+    monkeypatch.setattr(stream_exec, "_COLD_REDUCE", ["device"])
+    syncs, fetches = [], []
+    to_host, fetch = tpu_exec._sizes_to_host, tpu_exec._fetch_launched
+
+    def spy_sizes(sizes):
+        syncs.append(sizes.tolist())
+        return to_host(sizes)
+
+    def spy_fetch(launched, plan, pinned=True):
+        fetches.append([ln.nruns for ln in launched])
+        return fetch(launched, plan, pinned)
+
+    monkeypatch.setattr(tpu_exec, "_sizes_to_host", spy_sizes)
+    monkeypatch.setattr(tpu_exec, "_fetch_launched", spy_fetch)
+    try:
+        got, dispatch, prof = port.query(SPARSE_SQL)
+        sums = _abs_sums(port)
+    finally:
+        ref.storage.close()
+        port.storage.close()
+    assert prof.path == "streamed" and dispatch.startswith("streamed-cold")
+    (nruns,), (live,) = fetches, syncs
+    assert len(nruns) == len(live) >= 3
+    assert prof.counters["device_slices"] > len(nruns), prof.counters
+    assert all(0 < m < n for m, n in zip(live, nruns)), (live, nruns)
+    assert sum(live) == len(got)
+    _within_float32(got, want, SPARSE_SQL, sums)
 
 
 @pytest.mark.parametrize("seed", range(6))
